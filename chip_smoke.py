@@ -1,0 +1,569 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``tpu_sgd_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of the repository.  Phases, each printing one JSON line:
+
+1. device  — exits non-zero without CUDA; prints the card's name and power
+   limit as ``nvidia-smi`` gives them.
+2. build   — compiles every CUDA source with ``nvcc`` (sm_90a), in parallel.
+3. kernels — each kernel wrapper against its plain PyTorch version on the
+   card: three loss families x {f32, bf16} x {mask, no mask}, ragged row
+   counts, d in {24, 1000, 47237}; the window kernels at random and
+   clamped starts; ``FusedGradient``'s tile-floored windows.
+4. full    — the main path at config 4's width: 10,000,000 x 1000 bf16
+   least squares made on the card from a seed, trained through
+   ``LinearRegressionWithSGD`` at ``mini_batch_fraction=0.1``: Bernoulli,
+   sliced, and sliced through ``FusedGradient(window_kernel="vpu")``.
+   Launch counts are set to 0 before and read after; each kernel must have
+   run once per iteration.  Then a profiler trace splits an iteration's
+   device time by kernel, and each kernel is timed at these shapes beside
+   its plain version, one PyTorch call of the same work and its bound.
+5. configs — configs 1-3 of BASELINE.md through the user API, each held to
+   its pass criterion against a numpy/scipy oracle.
+6. summary — the kernel table, then the card's name and power limit, then
+   the last line ``{"ok": true, "device": {...}}``.
+
+Any failed check raises, and the script exits non-zero.  It imports
+nothing of JAX or of the JAX package ``tpu_sgd``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+F32_FLOPS = 67e12           # H100 SXM, f32 outside the tensor cores
+FULL_ROWS, FULL_D, FRAC, ITERS = 10_000_000, 1000, 0.1, 20
+WINDOW_TILE = 2000          # divides both 10^7 and the 10^6-row window
+SOURCE = "tpu_sgd_torch/ops/csrc/fused_sums.cu"
+REPLACES = {
+    "fused_gradient_sums": "tpu_sgd/ops/pallas_kernels.py:265",
+    "fused_window_sums": "tpu_sgd/ops/pallas_kernels.py:342",
+    "fused_window_sums_vpu": "tpu_sgd/ops/pallas_kernels.py:425",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# -- phase 3 -----------------------------------------------------------------
+
+def _close(torch, got, ref, bf16: bool):
+    """Kernel vs plain on one output triple.  f32: the bounds of
+    tests/test_pallas.py (grad rtol 2e-4 / atol 2e-3, loss rtol 2e-4).
+    bf16: both sides round w and coeff to bf16 at the same points, but
+    their f32 margins are summed in other orders, so a row whose coeff
+    sits on a bf16 rounding boundary (or a hinge row on its margin) can
+    move by one bf16 ulp (2^-8) — bounded normwise: max |dg| <= 4e-3 *
+    max |g|, loss rtol 1e-3.  Count exact in both."""
+    g, l, c = (t.double().cpu() for t in got)
+    gr, lr, cr = (t.double().cpu() for t in ref)
+    err = float((g - gr).abs().max()) if g.numel() else 0.0
+    scale = float(gr.abs().max()) if gr.numel() else 0.0
+    if bf16:
+        ok_g = err <= 4e-3 * scale + 1e-6
+        ok_l = abs(float(l - lr)) <= 1e-3 * abs(float(lr)) + 1e-6
+    else:
+        ok_g = bool(torch.all((g - gr).abs() <= 2e-3 + 2e-4 * gr.abs()))
+        ok_l = abs(float(l - lr)) <= 2e-4 * abs(float(lr)) + 1e-9
+    return ok_g and ok_l and float(c) == float(cr), err, scale
+
+
+def _problem(torch, gen, n, d, family, dtype):
+    dev = "cuda"
+    X = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    w = torch.randn(d, generator=gen, device=dev) / math.sqrt(d)
+    if family == "least_squares":
+        y = torch.randn(n, generator=gen, device=dev)
+    else:
+        y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+    return X, y, w
+
+
+def phase_kernels(torch, ck, grads):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = 0
+    worst = {}
+    for d, n in ((24, 5003), (1000, 5003), (47237, 1003)):
+        for name, g in grads.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                X, y, w = _problem(torch, gen, n, d, name, dtype)
+                bf16 = dtype == torch.bfloat16
+                for use_mask in (False, True):
+                    mask = (torch.rand(n, generator=gen, device="cuda") < 0.3
+                            if use_mask else None)
+                    got = ck.fused_gradient_sums(g.pointwise, X, y, w, mask)
+                    ref = ck.fused_gradient_sums_plain(g.pointwise, X, y, w,
+                                                       mask)
+                    ok, err, scale = _close(torch, got, ref, bf16)
+                    check(ok, f"fused_gradient_sums {name} {dtype} d={d} "
+                          f"mask={use_mask}: max|dg|={err} of {scale}")
+                    key = "fused_gradient_sums"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    cases += 1
+                    # no float atomics: a second call is bitwise equal
+                    again = ck.fused_gradient_sums(g.pointwise, X, y, w, mask)
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"fused_gradient_sums {name} {dtype} d={d} is not "
+                          "deterministic")
+    # window kernels: random, negative and past-the-end starts (clamped)
+    tile = 256
+    n, d = 32 * tile, 1000
+    for name, g in grads.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            X, y, w = _problem(torch, gen, n, d, name, dtype)
+            for kernel in (ck.fused_window_sums, ck.fused_window_sums_vpu):
+                for start_tile in (5, 0, 24, -3, 1000):
+                    s = torch.tensor([start_tile], device="cuda")
+                    got = kernel(g.pointwise, X, y, w, s, 8, tile_m=tile)
+                    ref = ck.fused_window_sums_plain(g.pointwise, X, y, w,
+                                                     start_tile, 8, tile)
+                    ok, err, scale = _close(torch, got, ref,
+                                            dtype == torch.bfloat16)
+                    check(ok, f"{kernel.__name__} {name} {dtype} "
+                          f"start_tile={start_tile}: max|dg|={err}")
+                    worst[kernel.__name__] = max(
+                        worst.get(kernel.__name__, 0.0), err)
+                    cases += 1
+            # FusedGradient: a start that is not tile-aligned is floored
+            # to its tile; the sub-tile remainder goes through the base
+            for wk in ("mxu", "vpu"):
+                fg = ck.FusedGradient(g, tile_m=tile, window_kernel=wk)
+                m = 8 * tile + 100
+                got = fg.window_sums(X, y, w, torch.tensor([777],
+                                                           device="cuda"), m)
+                floor = (777 // tile) * tile
+                ref = ck.fused_gradient_sums_plain(
+                    g.pointwise, X[floor:floor + m], y[floor:floor + m], w)
+                ok, err, _ = _close(torch, got, ref, dtype == torch.bfloat16)
+                check(ok, f"FusedGradient({wk}) {name} {dtype}: {err}")
+                cases += 1
+    # a feature width past the shared-memory limit raises before launch
+    try:
+        ck._check_tile_smem(torch.empty(0, 60_000))
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("check failed: _check_tile_smem took d=60000")
+    torch.cuda.synchronize()
+    return cases, worst
+
+
+# -- phase 4 -----------------------------------------------------------------
+
+def make_full_data(torch, n, d, seed=4, chunk=1_000_000):
+    """bf16 X (n, d) and f32 y = X w + 0.1 eps, made on the card in
+    chunks from a seeded generator."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w_true = torch.rand(d, generator=gen, device="cuda") * 2 - 1
+    X = torch.empty((n, d), dtype=torch.bfloat16, device="cuda")
+    y = torch.empty((n,), dtype=torch.float32, device="cuda")
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        Xc = torch.randn(e - s, d, generator=gen, device="cuda")
+        X[s:e] = Xc.to(torch.bfloat16)
+        y[s:e] = X[s:e].float() @ w_true + 0.1 * torch.randn(
+            e - s, generator=gen, device="cuda")
+        del Xc
+    torch.cuda.synchronize()
+    return X, y, w_true
+
+
+class CountRecorder:
+    """Delegates to a Gradient and keeps each call's count (a device
+    tensor: recording never syncs)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.family = inner.family
+        self.counts = []
+
+    def pointwise(self, margin, label):
+        return self.inner.pointwise(margin, label)
+
+    def weight_dim(self, num_features):
+        return self.inner.weight_dim(num_features)
+
+    def batch_sums(self, *args, **kw):
+        out = self.inner.batch_sums(*args, **kw)
+        self.counts.append(out[2])
+        return out
+
+    def window_sums(self, *args, **kw):
+        out = self.inner.window_sums(*args, **kw)
+        self.counts.append(out[2])
+        return out
+
+
+def phase_full(torch, tst, ck):
+    t0 = time.perf_counter()
+    X, y, w_true = make_full_data(torch, FULL_ROWS, FULL_D)
+    gen_s = time.perf_counter() - t0
+    n = FULL_ROWS
+    m = round(FRAC * n)
+    runs = {}
+    ck.reset_launch_counts()
+    for mode in ("bernoulli", "sliced", "sliced_vpu"):
+        alg = tst.LinearRegressionWithSGD(0.5, ITERS, None, FRAC)
+        alg.optimizer.set_convergence_tol(0.0)
+        inner = tst.LeastSquaresGradient()
+        if mode == "sliced_vpu":
+            inner = tst.FusedGradient(inner, tile_m=WINDOW_TILE,
+                                      window_kernel="vpu")
+        rec = CountRecorder(inner)
+        alg.optimizer.set_gradient(rec)
+        alg.optimizer.set_sampling("bernoulli" if mode == "bernoulli"
+                                   else "sliced")
+        before = ck.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model = alg.run((X, y))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after = ck.launch_counts()
+        losses = alg.optimizer.loss_history
+        counts = torch.stack(rec.counts).cpu().numpy()
+        w_err = float(torch.linalg.vector_norm(model.weights - w_true))
+        runs[mode] = {
+            "first_run_ms_per_iteration": 1e3 * secs / ITERS,
+            "launches": {k: after[k] - before[k] for k in after},
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "w_err": w_err,
+            "count_min": float(counts.min()),
+            "count_max": float(counts.max()),
+        }
+        check(len(losses) == ITERS, f"{mode}: {len(losses)} losses")
+        check(bool(np.all(np.isfinite(losses))), f"{mode}: non-finite loss")
+        check(losses[-1] < losses[0], f"{mode}: loss did not fall")
+        if mode == "bernoulli":
+            sigma = math.sqrt(n * FRAC * (1 - FRAC))
+            check(bool(np.all(np.abs(counts - FRAC * n) <= 5 * sigma)),
+                  f"bernoulli counts {counts.min()}..{counts.max()}")
+        else:
+            check(bool(np.all(counts == m)), f"{mode} counts {counts}")
+    counts = ck.launch_counts()
+    expect = {"fused_gradient_sums": ITERS, "fused_window_sums": ITERS,
+              "fused_window_sums_vpu": ITERS}
+    check(counts == expect, f"main-path launches {counts} != {expect}")
+    emit({"phase": "full", "rows": n, "d": FULL_D, "dtype": "bfloat16",
+          "mini_batch_fraction": FRAC, "iterations": ITERS,
+          "data_seconds": gen_s, "launches": counts, "runs": runs})
+    return X, y, counts
+
+
+def phase_profile(torch, tst, X, y, iters=20):
+    """Where a warm training iteration's time goes, per sampling mode: the
+    host's wall clock over ``iters`` iterations without tracing, then
+    ``torch.profiler`` device time by kernel name over the same run traced.
+    Idle share = 1 - device time / untraced wall time; the traced run's
+    extra wall time is the tracing overhead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for mode in ("bernoulli", "sliced"):
+        alg = tst.LinearRegressionWithSGD(0.5, iters, None, FRAC)
+        alg.optimizer.set_convergence_tol(0.0).set_sampling(mode)
+        alg.run((X, y))  # warm: allocator and generator state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        alg.run((X, y))
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t) / iters
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            alg.run((X, y))
+            torch.cuda.synchronize()
+            traced = 1e3 * (time.perf_counter() - t) / iters
+        kernels = {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+            if dev_us > 0:
+                kernels[ev.key[:60]] = dev_us / 1e3 / iters
+        busy = sum(kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+        out[mode] = {"wall_ms_per_iteration": wall,
+                     "traced_wall_ms_per_iteration": traced,
+                     "device_ms_per_iteration": busy,
+                     "idle_share": max(0.0, 1 - busy / wall),
+                     "top_device_ms": dict(top)}
+    emit({"phase": "profile", "iterations": iters, **out})
+
+
+def _bound_ms(sel_rows, d, itemsize, extra_bytes):
+    bytes_ = sel_rows * (d * itemsize + 4) + extra_bytes + 8 * d + 8
+    flops = 4.0 * sel_rows * d
+    t_bytes = 1e3 * bytes_ / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_FLOPS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_timing(torch, tst, ck, X, y, launches):
+    """Each kernel at the main path's shapes: its time, the plain
+    version's, one PyTorch call of the same work (two matmuls, as a
+    yardstick only) and the bound; max |dg| against the plain version."""
+    n, d = X.shape
+    g = tst.LeastSquaresGradient()
+    pw = g.pointwise
+    w = torch.randn(d, generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda") / math.sqrt(d)
+    mask = torch.rand(n, generator=torch.Generator(device="cuda")
+                      .manual_seed(6), device="cuda") < FRAC
+    wb = w.to(torch.bfloat16)
+    coeff = torch.randn(n, device="cuda").to(torch.bfloat16)
+    rows = []
+
+    got = ck.fused_gradient_sums(pw, X, y, w, mask)
+    ref = ck.fused_gradient_sums_plain(pw, X, y, w, mask)
+    ok, err, scale = _close(torch, got, ref, True)
+    check(ok, f"full-width fused_gradient_sums: max|dg|={err} of {scale}")
+    sel = int(mask.sum())
+    bound, by = _bound_ms(sel, d, 2, n)  # + the mask's n bytes
+    rows.append({
+        "name": "fused_gradient_sums", "shape": [n, d], "selected_rows": sel,
+        "max_abs_err": err, "grad_scale": scale,
+        "ms": time_ms(torch, lambda: ck.fused_gradient_sums(pw, X, y, w,
+                                                            mask), 10),
+        "plain_ms": time_ms(torch, lambda: ck.fused_gradient_sums_plain(
+            pw, X, y, w, mask), 2),
+        "library_ms": time_ms(torch, lambda: (X @ wb, coeff @ X), 5),
+        "bound_ms": bound, "bound_by": by})
+
+    m = round(FRAC * n)
+    num_tiles = m // WINDOW_TILE
+    start_tile = torch.tensor([1234], device="cuda")
+    s0 = 1234 * WINDOW_TILE
+    Xw = X[s0:s0 + m]
+    bound, by = _bound_ms(m, d, 2, 0)
+    for kernel in (ck.fused_window_sums, ck.fused_window_sums_vpu):
+        def call(kernel=kernel):
+            return kernel(pw, X, y, w, start_tile, num_tiles,
+                          tile_m=WINDOW_TILE)
+        got = call()
+        ref = ck.fused_window_sums_plain(pw, X, y, w, 1234, num_tiles,
+                                         WINDOW_TILE)
+        ok, err, scale = _close(torch, got, ref, True)
+        check(ok, f"full-width {kernel.__name__}: max|dg|={err} of {scale}")
+        rows.append({
+            "name": kernel.__name__, "shape": [m, d], "selected_rows": m,
+            "max_abs_err": err, "grad_scale": scale,
+            "ms": time_ms(torch, call, 20),
+            "plain_ms": time_ms(torch, lambda: ck.fused_window_sums_plain(
+                pw, X, y, w, 1234, num_tiles, WINDOW_TILE), 3),
+            "library_ms": time_ms(torch, lambda: (Xw @ wb,
+                                                  coeff[:m] @ Xw), 10),
+            "bound_ms": bound, "bound_by": by})
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    emit({"phase": "timing", "kernels": rows})
+    return rows
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+def _logistic_l2_oracle(X, y, reg):
+    """Newton's method in f64 on mean log-loss + 0.5 reg |w|^2."""
+    X = X.astype(np.float64)
+    w = np.zeros(X.shape[1])
+    for _ in range(50):
+        p = 1.0 / (1.0 + np.exp(-(X @ w)))
+        g = X.T @ (p - y) / len(y) + reg * w
+        H = (X.T * (p * (1 - p))) @ X / len(y) + reg * np.eye(X.shape[1])
+        step = np.linalg.solve(H, g)
+        w -= step
+        if np.max(np.abs(step)) < 1e-12:
+            break
+    return w
+
+
+def _logistic_objective(X, y, w, reg):
+    m = X.astype(np.float64) @ w
+    return float(np.mean(np.logaddexp(0.0, -m) + (1 - y) * m)
+                 + 0.5 * reg * np.dot(w, w))
+
+
+def _hinge_l1_oracle(X, y, reg):
+    """Exact hinge + L1 minimizer as a linear program (HiGHS)."""
+    from scipy.optimize import linprog
+    from scipy.sparse import csr_matrix, hstack, identity
+
+    n, d = X.shape
+    A = -((2 * y.astype(np.float64) - 1)[:, None] * X.astype(np.float64))
+    A_ub = hstack([csr_matrix(A), csr_matrix(-A),
+                   -identity(n, format="csr")]).tocsr()
+    c = np.concatenate([np.full(2 * d, reg), np.full(n, 1.0 / n)])
+    res = linprog(c, A_ub=A_ub, b_ub=-np.ones(n), bounds=(0, None),
+                  method="highs")
+    check(res.status == 0, f"hinge LP oracle: {res.message}")
+    return res.x[:d] - res.x[d:2 * d]
+
+
+def _hinge_objective(X, y, w, reg):
+    m = X.astype(np.float64) @ w
+    return float(np.mean(np.maximum(0.0, 1 - (2 * y - 1) * m))
+                 + reg * np.abs(w).sum())
+
+
+def phase_configs(torch, tst):
+    out = {}
+    # config 1: least squares, 100k x 100, within 1% of the exact optimum
+    X, y, _ = tst.linear_data(100_000, 100, eps=0.1, seed=0)
+    model = tst.LinearRegressionWithSGD.train((X, y), 100, 1.0)
+    w = model.weights.double().cpu().numpy()
+    w_star = np.linalg.lstsq(X.astype(np.float64), y.astype(np.float64),
+                             rcond=None)[0]
+    L = 0.5 * float(np.mean((X @ w - y) ** 2))
+    L_star = 0.5 * float(np.mean((X @ w_star - y) ** 2))
+    out["config1"] = {"objective": L, "oracle": L_star,
+                      "gap": (L - L_star) / L_star}
+    check(out["config1"]["gap"] < 0.01, f"config 1: {out['config1']}")
+
+    # config 2: logistic + L2 on the a9a stand-in, within 1% of the optimum
+    X, y, _ = tst.a9a_like_data(20_000, seed=1)
+    reg = 0.01
+    alg = tst.LogisticRegressionWithSGD(2.0, 500, reg, 1.0)
+    alg.optimizer.set_convergence_tol(0.0)
+    model = alg.run((X, y))
+    w = model.weights.double().cpu().numpy()
+    L = _logistic_objective(X, y, w, reg)
+    L_star = _logistic_objective(X, y, _logistic_l2_oracle(X, y, reg), reg)
+    acc = float(np.mean(model.predict(X).cpu().numpy() == y))
+    out["config2"] = {"objective": L, "oracle": L_star,
+                      "gap": (L - L_star) / L_star, "accuracy": acc}
+    check(out["config2"]["gap"] < 0.01, f"config 2: {out['config2']}")
+
+    # config 3: hinge + L1 (subgradient descent, O(1/sqrt t)): within 20%
+    # of the exact optimum and accuracy within 1 point of it
+    X, y, _ = tst.svm_data(10_000, 50, seed=2)
+    reg = 0.01
+    alg = tst.SVMWithSGD(1.0, 500, reg, 1.0)
+    alg.optimizer.set_updater(tst.L1Updater()).set_convergence_tol(0.0)
+    model = alg.run((X, y))
+    w = model.weights.double().cpu().numpy()
+    w_star = _hinge_l1_oracle(X, y, reg)
+    L, L_star = _hinge_objective(X, y, w, reg), _hinge_objective(X, y,
+                                                                 w_star, reg)
+    acc = float(np.mean(model.predict(X).cpu().numpy() == y))
+    acc_star = float(np.mean((X @ w_star > 0) == (y > 0)))
+    out["config3"] = {"objective": L, "oracle": L_star,
+                      "gap": (L - L_star) / L_star, "accuracy": acc,
+                      "oracle_accuracy": acc_star}
+    check(out["config3"]["gap"] < 0.20 and acc > acc_star - 0.01,
+          f"config 3: {out['config3']}")
+    emit({"phase": "configs", **out})
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs an NVIDIA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import tpu_sgd_torch as tst
+        from tpu_sgd_torch.ops import _build
+        from tpu_sgd_torch.ops import cuda_kernels as ck
+    except ImportError as e:
+        print(f"chip_smoke: run from the repository root ({e})",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t = time.perf_counter()
+    report = _build.build_all()
+    log = "".join(r["log"] for r in report.values())
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
+    emit({"phase": "build", "seconds": time.perf_counter() - t,
+          "sources": {k: v["seconds"] for k, v in report.items()},
+          "max_registers": max(regs) if regs else None,
+          "max_spill_bytes": max(spills) if spills else None})
+
+    grads = {"least_squares": tst.LeastSquaresGradient(),
+             "logistic": tst.LogisticGradient(),
+             "hinge": tst.HingeGradient()}
+    t = time.perf_counter()
+    cases, worst = phase_kernels(torch, ck, grads)
+    emit({"phase": "kernels", "cases": cases, "max_abs_err": worst,
+          "seconds": time.perf_counter() - t})
+
+    X, y, launches = phase_full(torch, tst, ck)
+    phase_profile(torch, tst, X, y)
+    rows = phase_timing(torch, tst, ck, X, y, launches)
+    del X, y
+    torch.cuda.empty_cache()
+
+    phase_configs(torch, tst)
+
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "tpu_sgd"))
+    check(not leaked, f"imported {leaked}")
+
+    emit({"kernels": [{
+        "name": r["name"], "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES[r["name"]], "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    } for r in rows]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,101 @@
+"""Rules of the PyTorch port, checked on a machine without a card:
+``tpu_sgd_torch`` imports neither JAX nor the JAX package; entry points
+run on CUDA unless asked for the CPU, and raise without it; nothing is
+compiled at import; the CPU path launches no kernel; ``chip_smoke.py``
+fails without a card and outside the repository."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import tpu_sgd_torch as tst
+from tpu_sgd_torch.ops import cuda_kernels as ck
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _python(code, cwd=ROOT):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_import_pulls_in_no_jax_and_no_tpu_sgd():
+    """A fresh process: this one has already imported JAX."""
+    out = _python(
+        "import sys, tpu_sgd_torch, tpu_sgd_torch.ops.cuda_kernels, "
+        "tpu_sgd_torch.ops._build, tpu_sgd_torch.interop\n"
+        "bad = sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
+        "print(bad)")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_import_builds_nothing():
+    """Importing every module starts no compiler and loads no library."""
+    out = _python(
+        "import subprocess\n"
+        "def refuse(*a, **k): raise AssertionError('started %r' % (a,))\n"
+        "subprocess.Popen = refuse\n"
+        "import tpu_sgd_torch\n"
+        "from tpu_sgd_torch.ops import _build, cuda_kernels\n"
+        "print(len(_build._loaded))")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "0"
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the rule is for hosts "
+                    "without one")
+    X, y, _ = tst.linear_data(20, 3, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tst.resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tst.LinearRegressionWithSGD.train((X, y), 5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tst.GradientDescent().optimize((X, y), np.zeros(3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tst.glm_model_from_numpy(tst.LinearRegressionModel, np.zeros(3), 0.0)
+    assert tst.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_path_launches_no_kernel():
+    ck.reset_launch_counts()
+    X, y, _ = tst.linear_data(400, 4, seed=1)
+    for sampling in ("bernoulli", "sliced", "indexed"):
+        tst.LinearRegressionWithSGD.train((X, y), 5, 0.5, 0.2,
+                                          sampling=sampling, device="cpu")
+    opt = tst.GradientDescent(
+        ck.FusedGradient(tst.LeastSquaresGradient(), tile_m=40,
+                         window_kernel="vpu"), device="cpu")
+    opt.set_sampling("sliced").set_mini_batch_fraction(0.2)
+    opt.set_num_iterations(5).optimize((X, y), np.zeros(4))
+    assert ck.launch_counts() == {"fused_gradient_sums": 0,
+                                  "fused_window_sums": 0,
+                                  "fused_window_sums_vpu": 0}
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_outside_the_repository(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

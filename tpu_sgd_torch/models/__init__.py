@@ -1,0 +1,29 @@
+"""GLM harness and the SGD model families."""
+
+from tpu_sgd_torch.models.classification import (
+    LogisticRegressionModel,
+    LogisticRegressionWithSGD,
+    SVMModel,
+    SVMWithSGD,
+)
+from tpu_sgd_torch.models.glm import (
+    GeneralizedLinearAlgorithm,
+    GeneralizedLinearModel,
+)
+from tpu_sgd_torch.models.labeled_point import LabeledPoint, to_arrays
+from tpu_sgd_torch.models.regression import (
+    LassoModel,
+    LassoWithSGD,
+    LinearRegressionModel,
+    LinearRegressionWithSGD,
+    RidgeRegressionModel,
+    RidgeRegressionWithSGD,
+)
+
+__all__ = [
+    "LogisticRegressionModel", "LogisticRegressionWithSGD", "SVMModel",
+    "SVMWithSGD", "GeneralizedLinearAlgorithm", "GeneralizedLinearModel",
+    "LabeledPoint", "to_arrays", "LassoModel", "LassoWithSGD",
+    "LinearRegressionModel", "LinearRegressionWithSGD",
+    "RidgeRegressionModel", "RidgeRegressionWithSGD",
+]

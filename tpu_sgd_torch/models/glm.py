@@ -1,0 +1,179 @@
+"""Generalized linear model harness: the port of ``tpu_sgd/models/glm.py``.
+
+Owns what the reference's harness owns: input validation, feature-count
+discovery, the intercept (a bias column appended LAST, as
+``MLUtils.appendBias``), calling ``optimizer.optimize``, splitting the
+intercept back out, and ``create_model``.  There is no execution planner in
+the port yet (ROADMAP A11), so every run behaves as the JAX package's
+``set_schedule("off")``: the optimizer runs exactly as configured.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from tpu_sgd_torch.device import as_tensor, resolve_device
+from tpu_sgd_torch.models.labeled_point import LabeledPoint, to_arrays
+from tpu_sgd_torch.optimize.optimizer import Optimizer
+
+DatasetLike = Union[Tuple, Iterable[LabeledPoint]]
+
+
+def _as_arrays(data: DatasetLike):
+    """``(X, y)`` as given (tensors stay where they are, so a dataset
+    already on the card is never copied), or the columnar form of a
+    collection of LabeledPoints."""
+    if isinstance(data, tuple) and len(data) == 2:
+        X, y = data
+        if not isinstance(X, torch.Tensor):
+            X = np.asarray(X)
+        if not isinstance(y, torch.Tensor):
+            y = np.asarray(y)
+        return X, y
+    return to_arrays(data)
+
+
+class GeneralizedLinearModel:
+    """Weights + intercept + prediction rule (abstract ``predict_point``).
+    ``weights`` is a ``(d,)`` float32 tensor; a numpy array moves to
+    ``device`` (``None``: the card)."""
+
+    def __init__(self, weights, intercept: float = 0.0, device=None):
+        if isinstance(weights, torch.Tensor) and device is None:
+            self.weights = weights.to(torch.float32)
+        else:
+            self.weights = as_tensor(weights, resolve_device(device),
+                                     torch.float32)
+        self.intercept = float(intercept)
+
+    def predict_margin(self, X) -> torch.Tensor:
+        """Raw margin(s) ``x.w + b`` for one vector or a batch; always
+        batch-shaped (a single vector yields shape (1,)).  Plain
+        ``X @ w + b`` in f32; the bucketed serving matvec waits for the
+        serving slice (ROADMAP A10)."""
+        X = as_tensor(X, self.weights.device)
+        X = torch.atleast_2d(X)
+        if not X.dtype.is_floating_point or X.dtype == torch.float64:
+            X = X.to(torch.float32)
+        return X.to(torch.float32) @ self.weights + self.intercept
+
+    def predict_point(self, margin):
+        raise NotImplementedError
+
+    def predict(self, X):
+        """Predict for one feature vector or a batch."""
+        single = np.ndim(X) == 1
+        out = self.predict_point(self.predict_margin(X))
+        return out[0] if single else out
+
+    def __repr__(self):
+        return (
+            f"{type(self).__name__}(numFeatures={self.weights.shape[-1]}, "
+            f"intercept={self.intercept})"
+        )
+
+
+class GeneralizedLinearAlgorithm:
+    """Shared training harness; subclasses provide optimizer + create_model."""
+
+    #: subclasses set an Optimizer instance
+    optimizer: Optimizer = None
+
+    def __init__(self):
+        self.add_intercept = False
+        self.validate_data = True
+        self.num_features = -1
+
+    # -- fluent config, parity with the reference's setters ----------------
+    def set_intercept(self, flag: bool):
+        self.add_intercept = bool(flag)
+        return self
+
+    def set_validate_data(self, flag: bool):
+        self.validate_data = bool(flag)
+        return self
+
+    def set_feature_scaling(self, flag: bool):
+        if flag:
+            raise NotImplementedError(
+                "feature scaling needs tpu_sgd/feature.py, which is not "
+                "ported yet (ROADMAP A4)"
+            )
+        return self
+
+    def set_num_features(self, n: int):
+        self.num_features = int(n)
+        return self
+
+    def set_schedule(self, mode: str):
+        """Only ``"off"`` exists until the planner is ported (ROADMAP
+        A11): the optimizer always runs exactly as configured."""
+        if mode != "off":
+            raise NotImplementedError(
+                f"schedule {mode!r} needs the execution planner "
+                "(tpu_sgd/plan.py), not ported yet (ROADMAP A11); the port "
+                "runs as schedule='off'"
+            )
+        return self
+
+    # -- hooks -------------------------------------------------------------
+    def create_model(self, weights, intercept) -> GeneralizedLinearModel:
+        raise NotImplementedError
+
+    def validators(self, X, y) -> None:
+        """Input validation hook; classifier subclasses check label sets."""
+
+    # -- training ----------------------------------------------------------
+    def run(
+        self,
+        data: DatasetLike,
+        initial_weights=None,
+        initial_intercept: float = 0.0,
+    ) -> GeneralizedLinearModel:
+        X, y = _as_arrays(data)
+        if X.shape[0] == 0:
+            raise ValueError("empty input")
+        if self.num_features < 0:
+            self.num_features = X.shape[1]
+        if self.validate_data:
+            self.validators(X, y)
+        if initial_weights is None:
+            initial_weights = np.zeros((self._weight_dim(),), np.float32)
+        w0 = torch.as_tensor(np.asarray(
+            initial_weights.cpu() if isinstance(initial_weights, torch.Tensor)
+            else initial_weights, np.float32))
+        if self.add_intercept:
+            Xb = _append_bias(X)
+            w0 = torch.cat([w0, torch.tensor([initial_intercept],
+                                             dtype=torch.float32)])
+            weights = self.optimizer.optimize((Xb, y), w0)
+            intercept = float(weights[-1])
+            weights = weights[:-1]
+        else:
+            weights = self.optimizer.optimize((X, y), w0)
+            intercept = 0.0
+        return self.create_model(weights, intercept)
+
+    def _weight_dim(self) -> int:
+        return self.num_features
+
+    def run_warm(self, data: DatasetLike, model: Optional[GeneralizedLinearModel]):
+        """Warm-started run (the streaming mode's building block): re-run
+        seeded with the latest weights AND intercept."""
+        if model is None:
+            return self.run(data)
+        return self.run(data, model.weights, model.intercept)
+
+
+def _append_bias(X):
+    """``[X | 1]``, the bias as the last column, in X's dtype and place."""
+    if isinstance(X, torch.Tensor):
+        ones = torch.ones((X.shape[0], 1), dtype=X.dtype, device=X.device)
+        return torch.cat([X, ones], dim=1)
+    X = np.asarray(X)
+    dtype = X.dtype if np.issubdtype(X.dtype, np.floating) else np.float32
+    return np.concatenate([X.astype(dtype, copy=False),
+                           np.ones((X.shape[0], 1), dtype)], axis=1)

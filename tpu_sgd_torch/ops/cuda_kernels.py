@@ -1,0 +1,438 @@
+"""Fused gradient sums on the card: the port of ``tpu_sgd/ops/pallas_kernels.py``.
+
+The JAX package's three Pallas kernels compute ``(grad_sum, loss_sum,
+count)`` of a mini-batch in one pass over X.  Here one hand-written CUDA
+kernel (``csrc/fused_sums.cu``, sm_90a) serves all three wrappers:
+
+  * :func:`fused_gradient_sums` (Pallas ``_masked_kernel``) sums rows
+    ``[0, n)`` with an optional Bernoulli mask;
+  * :func:`fused_window_sums` (``_window_kernel``) and
+    :func:`fused_window_sums_vpu` (``_window_kernel_vpu``) sum
+    ``num_tiles * tile_m`` rows from row ``start_tile * tile_m``, read in
+    place from the full X.  The start stays a device tensor: the kernel
+    reads it through a pointer and clamps it on the device.
+
+On the TPU the two window kernels differed in how they used the matrix
+unit; on Hopper both are one dot product and one FMA per element, so they
+launch the same kernel and keep separate launch counts.
+
+Each wrapper takes its plain PyTorch version (``*_plain``, the same
+arithmetic: ``margins_of`` -> pointwise -> ``grad_sum_of``) when X lies on
+the CPU, and launches the kernel when X lies on a CUDA device.  There is no
+fallback from one to the other: a CUDA input the kernel does not take
+raises.  Each wrapper counts its launches in a plain int attribute
+``launches``; :func:`reset_launch_counts` sets them to 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from tpu_sgd_torch.ops import _build
+from tpu_sgd_torch.ops.gradients import (
+    Gradient,
+    _clamp_start,
+    acc_dtype,
+    grad_sum_of,
+    margins_of,
+    matmul_dtype,
+)
+
+Tensor = torch.Tensor
+
+#: the pointwise rules the kernel compiles in (csrc/fused_sums.cu Family)
+FAMILIES = {"least_squares": 0, "logistic": 1, "hinge": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: shared memory one Hopper block can use (227 KB, sm_90)
+SMEM_PER_BLOCK = 232_448
+#: shared memory of one SM, shared by the blocks resident on it
+SMEM_PER_SM = 233_472
+#: the kernel's static shared memory (the compacted row list, tile
+#: coefficients, warp partials) plus headroom
+_STATIC_SMEM = 6 * 1024
+#: threads of a kernel block, and most resident blocks on one SM (2048
+#: threads)
+_THREADS = 256
+_MAX_BLOCKS_PER_SM = 2048 // _THREADS
+#: the kernel's row tile: 8 warps x 4 rows
+KERNEL_TILE_ROWS = 32
+#: row chunk of the plain versions, so that upcasting a bf16 X to f32
+#: never materializes more than this many rows at once
+PLAIN_CHUNK_ROWS = 1 << 20
+
+
+def _check_tile_smem(X: Tensor) -> None:
+    """Reject feature widths whose ``(d,)`` f32 gradient accumulator does
+    not fit in a block's shared memory, with an actionable error instead
+    of a refused launch (the counterpart of ``_check_tile_vmem``).  The
+    kernel's row tile is fixed, so only ``d`` matters; ``w`` moves to
+    global memory (L2) when it does not fit beside the accumulator."""
+    d = X.shape[1]
+    need = 4 * d + _STATIC_SMEM
+    if need > SMEM_PER_BLOCK:
+        max_d = (SMEM_PER_BLOCK - _STATIC_SMEM) // 4
+        raise ValueError(
+            f"d={d} needs ~{need / 1024:.0f} KB of shared memory for the "
+            f"fused kernel's f32 gradient accumulator, over the "
+            f"{SMEM_PER_BLOCK / 1024:.0f} KB a Hopper block can use; the "
+            f"kernel takes d <= {max_d} — train wider data as sparse "
+            "features (ROADMAP A6) or on the CPU path (device='cpu')"
+        )
+
+
+def _w_in_smem(d: int) -> bool:
+    return 8 * d + _STATIC_SMEM <= SMEM_PER_BLOCK
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("fused_sums")
+    fn = lib.tsgd_fused_sums
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [i, i, i, p, p, p, p, p, ll, ll, ll, i, i, i,
+                       p, p, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+        lib.tsgd_error_string.argtypes = [ctypes.c_int]
+        lib.tsgd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _family_of(pointwise) -> int:
+    """The kernel's rule for a ``Gradient.pointwise`` bound method."""
+    owner = getattr(pointwise, "__self__", None)
+    family = getattr(owner, "family", None)
+    if family not in FAMILIES:
+        raise ValueError(
+            "the CUDA kernel compiles in the least-squares, logistic and "
+            f"hinge rules only; {pointwise!r} has none of them (a Gradient "
+            "with family=None takes the plain path through batch_sums)"
+        )
+    return FAMILIES[family]
+
+
+def _operands(X, y, w, mask):
+    """Validate and normalize the kernel's operands; raises on anything
+    it does not take (it never converts X)."""
+    if X.dim() != 2:
+        raise ValueError(f"X must be 2-D, got shape {tuple(X.shape)}")
+    if X.dtype not in _DTYPES:
+        raise TypeError(
+            f"the fused kernel takes float32 or bfloat16 X, got {X.dtype}")
+    if not X.is_contiguous():
+        raise ValueError("the fused kernel needs a row-major contiguous X")
+    n, d = X.shape
+    dev = X.device
+    if y.shape != (n,):
+        raise ValueError(f"y must have shape ({n},), got {tuple(y.shape)}")
+    if w.shape != (d,):
+        raise ValueError(f"w must have shape ({d},), got {tuple(w.shape)}")
+    for name, t in (("y", y), ("w", w), ("mask", mask)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, X on {dev}")
+    # y and w enter the kernel as f32, as the Pallas wrappers cast them
+    y = y.to(torch.float32).contiguous()
+    w = w.to(torch.float32).contiguous()
+    if mask is not None:
+        if mask.dtype != torch.bool or mask.shape != (n,):
+            raise TypeError(
+                f"mask must be a bool tensor of shape ({n},), got "
+                f"{mask.dtype} {tuple(mask.shape)}")
+        mask = mask.contiguous().view(torch.uint8)
+    return y, w, mask
+
+
+def _launch(pointwise, X, y, w, mask, start, start_scale, rows):
+    """Both kernel phases on the current stream; returns device tensors
+    ``(grad (d,), loss (), count ())``.  Does not synchronise."""
+    family = _family_of(pointwise)
+    y, w, mask = _operands(X, y, w, mask)
+    _check_tile_smem(X)
+    n, d = X.shape
+    dev = X.device
+    lib = _library()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    # scratch rows for the most blocks that can be resident at once; the
+    # launcher picks the grid (by occupancy) within this
+    dyn = 4 * d * (2 if _w_in_smem(d) else 1)
+    per_sm = max(1, min(_MAX_BLOCKS_PER_SM,
+                        SMEM_PER_SM // (dyn + _STATIC_SMEM)))
+    blocks = max(1, min(per_sm * _sm_count(index),
+                        -(-rows // KERNEL_TILE_ROWS)))
+    f32 = dict(dtype=torch.float32, device=dev)
+    part_grad = torch.empty((blocks, d), **f32)
+    part_loss = torch.empty((blocks,), dtype=torch.float64, device=dev)
+    part_cnt = torch.empty((blocks,), dtype=torch.float64, device=dev)
+    grad = torch.empty((d,), **f32)
+    loss = torch.empty((), **f32)
+    cnt = torch.empty((), **f32)
+    vec = _vector_width(d, X.element_size(), X.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tsgd_fused_sums(
+            family, _DTYPES[X.dtype], vec, X.data_ptr(), y.data_ptr(),
+            w.data_ptr(), None if mask is None else mask.data_ptr(),
+            None if start is None else start.data_ptr(), start_scale,
+            n, rows, d, int(_w_in_smem(d)), blocks,
+            part_grad.data_ptr(), part_loss.data_ptr(), part_cnt.data_ptr(),
+            grad.data_ptr(), loss.data_ptr(), cnt.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(
+            "fused_sums kernel launch failed: "
+            f"{lib.tsgd_error_string(rc).decode()} (cudaError {rc})")
+    return grad, loss, cnt
+
+
+def _vector_width(d: int, itemsize: int, ptr: int) -> int:
+    """Elements per load: 16 bytes' worth, or 8 when 16-byte chunks would
+    leave more than half of the block's 256 threads without a column chunk
+    in the kernel's column pass, or 1 when d (or the base address) does
+    not allow aligned vector loads."""
+    for nbytes in (16, 8):
+        vec = nbytes // itemsize
+        if d % vec == 0 and ptr % nbytes == 0 and (
+                nbytes == 8 or d // vec >= _THREADS // 2):
+            return vec
+    return 1
+
+
+def _start_tensor(start, dev) -> Tensor:
+    """The window start as a 1-element int64 tensor on ``dev``; a device
+    tensor stays on the device (no host read)."""
+    if isinstance(start, Tensor):
+        if start.numel() != 1:
+            raise ValueError("the window start must be a scalar")
+        return start.to(device=dev, dtype=torch.int64).reshape(1)
+    return torch.tensor([int(start)], dtype=torch.int64, device=dev)
+
+
+# -- plain versions ---------------------------------------------------------
+
+def fused_gradient_sums_plain(pointwise, X, y, w, mask=None):
+    """Plain PyTorch ``(grad_sum, loss_sum, count)``: ``margins_of`` ->
+    pointwise -> mask -> ``grad_sum_of``, in chunks of
+    ``PLAIN_CHUNK_ROWS`` rows (one chunk at test sizes)."""
+    n = X.shape[0]
+    acc = acc_dtype(matmul_dtype(X))
+    grad = torch.zeros(w.shape, dtype=acc, device=X.device)
+    loss = torch.zeros((), dtype=acc, device=X.device)
+    count = torch.zeros((), dtype=acc, device=X.device)
+    for s in range(0, max(n, 1), PLAIN_CHUNK_ROWS):
+        Xc, yc = X[s:s + PLAIN_CHUNK_ROWS], y[s:s + PLAIN_CHUNK_ROWS]
+        margins = margins_of(Xc, w)
+        coeff, losses = pointwise(margins, yc.to(margins.dtype))
+        if mask is not None:
+            m = mask[s:s + PLAIN_CHUNK_ROWS].to(margins.dtype)
+            coeff = coeff * m
+            losses = losses * m
+            count = count + torch.sum(m)
+        else:
+            count = count + Xc.shape[0]
+        grad = grad + grad_sum_of(coeff, Xc)
+        loss = loss + torch.sum(losses)
+    return grad, loss, count
+
+
+def fused_window_sums_plain(pointwise, X, y, w, start_tile, num_tiles,
+                            tile_m=2048, valid=None):
+    """Plain version of the window sums: rows ``[s, s + num_tiles *
+    tile_m)`` from ``s = start_tile * tile_m``, placed as
+    :func:`~tpu_sgd_torch.ops.gradients._clamp_start` places it (read on
+    the host)."""
+    m = num_tiles * tile_m
+    s = _clamp_start(int(start_tile) * tile_m, X.shape[0], m)
+    mask = None if valid is None else valid[s:s + m]
+    return fused_gradient_sums_plain(pointwise, X[s:s + m], y[s:s + m], w,
+                                     mask)
+
+
+# -- the wrappers -------------------------------------------------------------
+
+def fused_gradient_sums(
+    pointwise,
+    X: Tensor,
+    y: Tensor,
+    w: Tensor,
+    mask: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Fused ``(grad_sum, loss_sum, count)`` over all rows of ``X``.
+
+    ``pointwise`` is a built-in ``Gradient``'s bound ``pointwise``;
+    ``mask`` (bool, ``(n,)``) drops rows, and the kernel never reads a
+    dropped row.  The JAX function's ``tile_m`` and ``interpret`` have no
+    counterpart: the kernel's row tile is fixed, rows need no padding, and
+    there is no interpret mode (CPU tensors take the plain version).
+    """
+    if not X.is_cuda:
+        return fused_gradient_sums_plain(pointwise, X, y, w, mask)
+    out = _launch(pointwise, X, y, w, mask, None, 1, X.shape[0])
+    fused_gradient_sums.launches += 1
+    return out
+
+
+def _window(counter, pointwise, X, y, w, start_tile, num_tiles, tile_m,
+            valid):
+    if X.shape[0] % tile_m:
+        raise ValueError(
+            f"fused_window_sums needs rows ({X.shape[0]}) to be a multiple "
+            f"of the tile size ({tile_m}); pad the dataset or use a "
+            "smaller tile"
+        )
+    if num_tiles * tile_m > X.shape[0]:
+        raise ValueError(
+            f"a window of {num_tiles} x {tile_m} rows is longer than X "
+            f"({X.shape[0]} rows)")
+    if not X.is_cuda:
+        return fused_window_sums_plain(pointwise, X, y, w, start_tile,
+                                       num_tiles, tile_m, valid)
+    start = _start_tensor(start_tile, X.device)
+    out = _launch(pointwise, X, y, w, valid, start, tile_m,
+                  num_tiles * tile_m)
+    counter.launches += 1
+    return out
+
+
+def fused_window_sums(
+    pointwise,
+    X: Tensor,
+    y: Tensor,
+    w: Tensor,
+    start_tile,
+    num_tiles: int,
+    tile_m: int = 2048,
+    valid: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Fused sums over ``num_tiles`` consecutive tiles of ``tile_m`` rows
+    from tile ``start_tile`` (a device scalar tensor or an int), read in
+    place from the full X; ``count = num_tiles * tile_m`` without
+    ``valid``.  ``X.shape[0]`` must be a multiple of ``tile_m``.  The start
+    row is placed as ``lax.dynamic_slice`` places it (negative counts from
+    the end, then clamped so the window stays in bounds), so ``tile_m=1``
+    gives exactly ``Gradient.window_sums``.  ``valid`` (bool, ``(n,)``, indexed by
+    absolute row) masks rows inside the window."""
+    return _window(fused_window_sums, pointwise, X, y, w, start_tile,
+                   num_tiles, tile_m, valid)
+
+
+def fused_window_sums_vpu(
+    pointwise,
+    X: Tensor,
+    y: Tensor,
+    w: Tensor,
+    start_tile,
+    num_tiles: int,
+    tile_m: int = 2048,
+    valid: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The counterpart of the JAX package's VPU-reduction window kernel.
+    Same contract as :func:`fused_window_sums` and, on Hopper, the same
+    kernel (see the module docstring); it keeps its own launch count."""
+    return _window(fused_window_sums_vpu, pointwise, X, y, w, start_tile,
+                   num_tiles, tile_m, valid)
+
+
+fused_gradient_sums.launches = 0
+fused_window_sums.launches = 0
+fused_window_sums_vpu.launches = 0
+WRAPPERS = (fused_gradient_sums, fused_window_sums, fused_window_sums_vpu)
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+class FusedGradient(Gradient):
+    """Wrap a built-in Gradient with the fused kernels' tiled routing —
+    the counterpart of ``PallasGradient``.
+
+    ``batch_sums`` goes to :func:`fused_gradient_sums`; ``window_sums``
+    (``sampling="sliced"``) to :func:`fused_window_sums`, or to
+    :func:`fused_window_sums_vpu` with ``window_kernel="vpu"``, when X is
+    dense, ``valid is None``, ``m >= tile_m`` and ``n % tile_m == 0``;
+    otherwise to the base gradient's ``window_sums``.  On CPU tensors every
+    route computes with the plain versions.
+
+    Window-alignment caveat (kept from ``PallasGradient``): on the tiled
+    route ``window_sums`` floors ``start`` to a ``tile_m`` boundary and
+    clamps it to ``(n - m) // tile_m`` tiles, so for a start that is not
+    tile-aligned it sums a *different, equally sized* window than the base
+    ``Gradient.window_sums``.  Under ``sampling="sliced"`` the start is
+    uniform and rows are exchangeable, so the distribution of sampled
+    windows is unchanged, but the two routes agree row for row only for
+    tile-aligned starts.  Any sub-tile remainder ``m % tile_m`` is summed
+    through the base path right after the tiled bulk, so exactly ``m``
+    rows are processed.  The floor and clamp are device ops on the start
+    tensor: nothing syncs the host.
+    """
+
+    def __init__(self, base: Gradient, tile_m: int = 2048,
+                 window_kernel: str = "mxu"):
+        if window_kernel not in ("mxu", "vpu"):
+            raise ValueError(
+                f"window_kernel must be 'mxu' or 'vpu', got {window_kernel!r}"
+            )
+        if tile_m < 1:
+            raise ValueError(f"tile_m must be positive, got {tile_m}")
+        self.base = base
+        self.tile_m = int(tile_m)
+        self.window_kernel = window_kernel
+
+    @property
+    def family(self):
+        return self.base.family
+
+    def pointwise(self, margin, label):
+        return self.base.pointwise(margin, label)
+
+    def weight_dim(self, num_features: int) -> int:
+        return self.base.weight_dim(num_features)
+
+    def batch_sums(self, X, y, weights, mask=None, margin_axis_name=None):
+        if margin_axis_name is not None or X.is_sparse:
+            return self.base.batch_sums(
+                X, y, weights, mask, margin_axis_name=margin_axis_name)
+        return fused_gradient_sums(self.base.pointwise, X, y, weights, mask)
+
+    def window_sums(self, X, y, weights, start, m, valid=None,
+                    margin_axis_name=None):
+        n = X.shape[0]
+        usable = (
+            not X.is_sparse
+            and margin_axis_name is None
+            and valid is None
+            and m >= self.tile_m
+            and n % self.tile_m == 0
+        )
+        if not usable:
+            return self.base.window_sums(
+                X, y, weights, start, m, valid=valid,
+                margin_axis_name=margin_axis_name)
+        num_tiles = m // self.tile_m
+        rem = m - num_tiles * self.tile_m
+        start = _start_tensor(start, X.device)
+        start_tile = torch.clamp(
+            torch.div(start, self.tile_m, rounding_mode="floor"),
+            max=(n - m) // self.tile_m)
+        kernel = (fused_window_sums_vpu if self.window_kernel == "vpu"
+                  else fused_window_sums)
+        g, l, c = kernel(self.base.pointwise, X, y, weights, start_tile,
+                         num_tiles, tile_m=self.tile_m)
+        if rem:
+            tail = (start_tile + num_tiles) * self.tile_m
+            g2, l2, c2 = self.base.window_sums(X, y, weights, tail, rem)
+            g, l, c = g + g2, l + l2, c + c2
+        return g, l, c
