@@ -21,9 +21,17 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    device time by kernel, and each kernel is timed at these shapes beside
    its plain version, one PyTorch call of the same work and its bound.
 5. configs — configs 1-3 of BASELINE.md through the user API, each held to
-   its pass criterion against a numpy/scipy oracle.
-6. summary — the kernel table, then the card's name and power limit, then
-   the last line ``{"ok": true, "device": {...}}``.
+   its pass criterion against a numpy/scipy oracle: config 3 both on dense
+   ``svm_data`` and undensified on its RCV1 stand-in after a LIBSVM round
+   trip (against the LP oracle and against the dense path on the same
+   data); then config 5, streaming SGD over ten micro-batches.
+6. sparse  — config 3 at full RCV1 scale, 697,641 x 47,236 with 75
+   nonzeros a row, made on the card from a seed and trained undensified
+   (hinge + L1) at frac 1.0 and 0.1: loss, accuracy, peak memory, dense
+   kernel launches (must stay 0), warm ms per iteration, device time by
+   op, idle share, CSR bytes, the bandwidth bound and bitwise repeatability.
+7. summary — the kernel table, the sparse line, then the card's name and
+   power limit, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  It imports
 nothing of JAX or of the JAX package ``tpu_sgd``.
@@ -37,6 +45,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,6 +55,12 @@ F32_FLOPS = 67e12           # H100 SXM, f32 outside the tensor cores
 FULL_ROWS, FULL_D, FRAC, ITERS = 10_000_000, 1000, 0.1, 20
 WINDOW_TILE = 2000          # divides both 10^7 and the 10^6-row window
 SOURCE = "tpu_sgd_torch/ops/csrc/fused_sums.cu"
+RCV1_ROWS, RCV1_D, RCV1_NNZ = 697_641, 47_236, 75
+SPARSE_ITERS = 60
+SPARSE_MEMORY_LIMIT = 8e9   # bytes; densified f32 this data is 131.8 GB
+# rows of config 3's undensified leg, cut from the stand-in's 20,000 so
+# that its LP oracle (HiGHS) stays within about a minute
+CONFIG3_SPARSE_ROWS = 10_000
 REPLACES = {
     "fused_gradient_sums": "tpu_sgd/ops/pallas_kernels.py:265",
     "fused_window_sums": "tpu_sgd/ops/pallas_kernels.py:342",
@@ -290,6 +305,22 @@ def phase_full(torch, tst, ck):
     return X, y, counts
 
 
+def device_ms_by_kernel(torch, prof) -> dict:
+    """Device ms by kernel name from a ``torch.profiler`` run: device-side
+    events only, since an aten op's own self device time repeats that of
+    the kernels it launched."""
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            out[ev.key[:60]] = dev_us / 1e3
+    return out
+
+
 def phase_profile(torch, tst, X, y, iters=20):
     """Where a warm training iteration's time goes, per sampling mode: the
     host's wall clock over ``iters`` iterations without tracing, then
@@ -314,13 +345,8 @@ def phase_profile(torch, tst, X, y, iters=20):
             alg.run((X, y))
             torch.cuda.synchronize()
             traced = 1e3 * (time.perf_counter() - t) / iters
-        kernels = {}
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-            if dev_us > 0:
-                kernels[ev.key[:60]] = dev_us / 1e3 / iters
+        kernels = {k: v / iters
+                   for k, v in device_ms_by_kernel(torch, prof).items()}
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
         out[mode] = {"wall_ms_per_iteration": wall,
@@ -445,6 +471,114 @@ def _hinge_objective(X, y, w, reg):
                  + reg * np.abs(w).sum())
 
 
+def _scipy_csr(X):
+    from scipy.sparse import csr_matrix
+
+    X = X.cpu()
+    return csr_matrix((X.values().double().numpy(),
+                       X.col_indices().numpy(), X.crow_indices().numpy()),
+                      shape=tuple(X.shape))
+
+
+def _hinge_l1_oracle_sparse(Xs, y, reg):
+    """The exact hinge + L1 minimizer of scipy CSR ``Xs`` as a linear
+    program (HiGHS interior point)."""
+    from scipy.optimize import linprog
+    from scipy.sparse import csr_matrix, hstack, identity
+
+    n, d = Xs.shape
+    A = csr_matrix(Xs.multiply(-(2 * y.astype(np.float64) - 1)[:, None]))
+    A_ub = hstack([A, -A, -identity(n, format="csr")]).tocsr()
+    c = np.concatenate([np.full(2 * d, reg), np.full(n, 1.0 / n)])
+    res = linprog(c, A_ub=A_ub, b_ub=-np.ones(n), bounds=(0, None),
+                  method="highs-ipm")
+    check(res.status == 0, f"sparse hinge LP oracle: {res.message}")
+    return res.x[:d] - res.x[d:2 * d]
+
+
+def _hinge_objective_sparse(Xs, y, w, reg):
+    m = Xs @ np.asarray(w, np.float64)
+    return float(np.mean(np.maximum(0.0, 1 - (2 * y - 1) * m))
+                 + reg * np.abs(w).sum())
+
+
+def config3_sparse(torch, tst, rows):
+    """Config 3 undensified: its RCV1 stand-in (d = 2000) through
+    save_as_libsvm_file -> load_libsvm_file(dense=False), trained on the
+    sparse path, held to the LP oracle and to the dense path on the same
+    data densified (frac 1.0: neither run samples)."""
+    from tpu_sgd_torch.ops.sparse import csr_from_triple
+    from tpu_sgd_torch.utils.mlutils import (load_libsvm_file,
+                                             rcv1_like_data,
+                                             save_as_libsvm_file)
+
+    d, reg = 2000, 1e-4
+    X0, y0, _ = rcv1_like_data(rows, d=d, nnz_per_row=75, seed=2)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rcv1_standin.libsvm")
+        save_as_libsvm_file(path, X0, y0)
+        csr, y, d_read = load_libsvm_file(path, num_features=d, dense=False)
+    io_s = time.perf_counter() - t
+    X = csr_from_triple(csr, d_read)
+    check(np.array_equal(y, y0)
+          and torch.equal(X.col_indices(), X0.col_indices())
+          and torch.equal(X.values(), X0.values()),
+          "config 3: the LIBSVM round trip changed the data")
+    models = {}
+    for kind, data in (("sparse", X), ("dense", X.to_dense().numpy())):
+        alg = tst.SVMWithSGD(300.0, 3000, reg, 1.0)
+        alg.optimizer.set_updater(tst.L1Updater()).set_convergence_tol(0.0)
+        t = time.perf_counter()
+        models[kind] = alg.run((data, y))
+        torch.cuda.synchronize()
+        models[kind + "_s"] = time.perf_counter() - t
+    Xs = _scipy_csr(X)
+    t = time.perf_counter()
+    w_star = _hinge_l1_oracle_sparse(Xs, y, reg)
+    lp_s = time.perf_counter() - t
+    w = models["sparse"].weights.double().cpu().numpy()
+    w_dense = models["dense"].weights.double().cpu().numpy()
+    L = _hinge_objective_sparse(Xs, y, w, reg)
+    L_dense = _hinge_objective_sparse(Xs, y, w_dense, reg)
+    L_star = _hinge_objective_sparse(Xs, y, w_star, reg)
+    acc = float(np.mean(models["sparse"].predict(X).cpu().numpy() == y))
+    acc_star = float(np.mean((Xs @ w_star > 0) == (y > 0)))
+    out = {"rows": rows, "d": d, "nnz": int(X._nnz()),
+           "weights_device": str(models["sparse"].weights.device),
+           "objective": L, "dense_objective": L_dense, "oracle": L_star,
+           "gap": (L - L_star) / L_star, "vs_dense": L / L_dense,
+           "accuracy": acc, "oracle_accuracy": acc_star,
+           "libsvm_roundtrip_s": io_s, "lp_s": lp_s,
+           "train_s": models["sparse_s"], "dense_train_s": models["dense_s"]}
+    check(out["weights_device"].startswith("cuda")
+          and out["gap"] < 0.20 and acc > acc_star - 0.01
+          and out["vs_dense"] <= 1.01, f"config 3 sparse: {out}")
+    return out
+
+
+def config5(torch, tst):
+    """Streaming SGD (config 5): ten micro-batches of 2000 x 50 through
+    StreamingLinearRegressionWithSGD on the card; the weight error to the
+    truth must fall from the first batch to the last, and end under 0.05."""
+    d = 50
+    w_true = np.linspace(-1, 1, d).astype(np.float32)
+    alg = tst.StreamingLinearRegressionWithSGD(step_size=0.3,
+                                               num_iterations=25)
+    alg.set_initial_weights(np.zeros(d, np.float32))
+    errs = []
+    for i in range(10):
+        Xb, yb, _ = tst.linear_data(2_000, d, weights=w_true, eps=0.05,
+                                    seed=10 + i)
+        alg.train_on_batch(Xb, yb)
+        w = alg.latest_model().weights
+        check(w.is_cuda, f"config 5: weights on {w.device}")
+        errs.append(float(np.linalg.norm(w.cpu().numpy() - w_true)))
+    out = {"w_err": errs, "batches": alg._batch_count}
+    check(errs[-1] < errs[0] and errs[-1] < 0.05, f"config 5: {out}")
+    return out
+
+
 def phase_configs(torch, tst):
     out = {}
     # config 1: least squares, 100k x 100, within 1% of the exact optimum
@@ -491,7 +625,165 @@ def phase_configs(torch, tst):
                       "oracle_accuracy": acc_star}
     check(out["config3"]["gap"] < 0.20 and acc > acc_star - 0.01,
           f"config 3: {out['config3']}")
+    out["config3_sparse"] = config3_sparse(torch, tst, CONFIG3_SPARSE_ROWS)
+    out["config5"] = config5(torch, tst)
     emit({"phase": "configs", **out})
+
+
+# -- phase 6 -----------------------------------------------------------------
+
+def make_rcv1_data(torch, n, d, k, seed=7, chunk=4096):
+    """``rcv1_like_data``'s recipe made on the card from a torch
+    Generator (other bits than numpy's): Zipf(0.9) column popularity, k
+    distinct columns a row drawn by Gumbel top-k over row chunks, lognormal
+    (sigma 0.5) values normalised to unit rows, labels from a sparse w on
+    d/100 popular features thresholded at the median margin.  Returns
+    ``(X: CSR with int32 indices, y)`` on the card."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pop = 1.0 / torch.arange(1, d + 1, device=dev, dtype=torch.float64) ** 0.9
+    log_pop = torch.log(pop / pop.sum()).float()
+
+    def gumbel_top(rows, count):
+        e = torch.empty((rows, d), device=dev).exponential_(generator=gen)
+        return torch.topk(log_pop - torch.log(e), count, dim=1,
+                          sorted=False).indices
+
+    w = torch.zeros(d, device=dev)
+    active = gumbel_top(1, max(8, d // 100))[0]
+    w[active] = 1.5 * torch.randn(active.numel(), generator=gen, device=dev)
+    cols = torch.empty((n, k), dtype=torch.int32, device=dev)
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        cols[lo:hi] = torch.sort(gumbel_top(hi - lo, k), dim=1).values.to(
+            torch.int32)
+    vals = torch.empty((n, k), device=dev).log_normal_(0.0, 0.5,
+                                                       generator=gen)
+    vals /= torch.linalg.vector_norm(vals, dim=1, keepdim=True)
+    margins = (vals * w[cols.long()]).sum(dim=1)
+    noise = 0.05 * torch.randn(n, generator=gen, device=dev)
+    y = ((margins + noise) > torch.median(margins)).float()
+    crow = torch.arange(0, (n + 1) * k, k, dtype=torch.int32, device=dev)
+    X = torch.sparse_csr_tensor(crow, cols.reshape(-1), vals.reshape(-1),
+                                size=(n, d), check_invariants=False)
+    torch.cuda.synchronize()
+    return X, y
+
+
+def _sparse_alg(tst, iters, frac):
+    alg = tst.SVMWithSGD(100.0, iters, 1e-5, frac)
+    alg.optimizer.set_updater(tst.L1Updater()).set_convergence_tol(0.0)
+    return alg
+
+
+def _sparse_iteration_profile(torch, tst, X, Xt, y, frac, iters=20):
+    """Where a warm sparse iteration's time goes at ``frac``: ``make_run``
+    over ``iters`` iterations with the transposed copy built beforehand,
+    so the run's set-up drops out — the wall clock untraced, ending in
+    ``synchronize``, then device time by kernel from ``torch.profiler``
+    over the same run traced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_sgd_torch.optimize.gradient_descent import make_run
+
+    cfg = tst.SGDConfig(step_size=100.0, num_iterations=iters,
+                        reg_param=1e-5, mini_batch_fraction=frac,
+                        convergence_tol=0.0)
+    run = make_run(tst.HingeGradient(), tst.L1Updater(), cfg)
+    w0 = torch.zeros(X.shape[1], device=X.device)
+    run(w0, X, y, Xt=Xt)  # warm: allocator and generator state
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run(w0, X, y, Xt=Xt)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t) / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(w0, X, y, Xt=Xt)
+        torch.cuda.synchronize()
+    per_kernel = {k: v / iters
+                  for k, v in device_ms_by_kernel(torch, prof).items()}
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms_per_iteration": wall,
+            "device_ms_per_iteration": busy,
+            "idle_share": max(0.0, 1 - busy / wall),
+            "top_device_ms": dict(top)}
+
+
+def phase_sparse(torch, tst, ck):
+    """Config 3 at full RCV1 scale, undensified on the card."""
+    from tpu_sgd_torch.ops import sparse as sp
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    X, y = make_rcv1_data(torch, RCV1_ROWS, RCV1_D, RCV1_NNZ)
+    gen_s = time.perf_counter() - t
+    check(X.is_cuda and X.layout == torch.sparse_csr, "RCV1 X not CSR on cuda")
+    n, d = X.shape
+    nnz = X._nnz()
+    ck.reset_launch_counts()
+    runs, weights = {}, {}
+    for frac in (1.0, 0.1):
+        alg = _sparse_alg(tst, SPARSE_ITERS, frac)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model = alg.run((X, y))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        losses = alg.optimizer.loss_history
+        acc = float((model.predict(X) == y).float().mean())
+        weights[frac] = model.weights
+        runs[str(frac)] = {
+            "first_run_s": secs, "weights_device": str(model.weights.device),
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "accuracy": acc,
+            "nonzero_weights": int((model.weights != 0).sum())}
+        check(model.weights.is_cuda, f"frac {frac}: weights not on cuda")
+        check(len(losses) == SPARSE_ITERS
+              and bool(np.all(np.isfinite(losses))),
+              f"frac {frac}: loss history {losses}")
+        check(losses[-1] < losses[0], f"frac {frac}: loss did not fall")
+        check(acc > 0.8, f"frac {frac}: training accuracy {acc}")
+    launches = ck.launch_counts()
+    check(all(v == 0 for v in launches.values()),
+          f"the sparse path launched dense kernels: {launches}")
+    again = _sparse_alg(tst, SPARSE_ITERS, 1.0).run((X, y)).weights
+    bitwise = bool(torch.equal(again, weights[1.0]))
+    max_diff = float((again - weights[1.0]).abs().max())
+
+    Xt = sp.transpose_csr(X)
+    x_bytes, xt_bytes = sp.csr_bytes(X), sp.csr_bytes(Xt)
+    transpose_ms = time_ms(torch, lambda: sp.transpose_csr(X), 3)
+    for frac in (1.0, 0.1):
+        prof = _sparse_iteration_profile(torch, tst, X, Xt, y, frac)
+        # the least bytes an iteration must move: the entries of the rows
+        # it uses (all rows at frac 1.0, the expected 10% at 0.1) in both
+        # copies, their row pointers, y and w read and the gradient written
+        used = frac * (x_bytes + xt_bytes) + 4 * n * frac + 8 * d
+        flops = 4.0 * frac * nnz
+        t_bytes = 1e3 * used / HBM_BYTES_PER_S
+        t_ops = 1e3 * flops / F32_FLOPS
+        bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+        runs[str(frac)].update(prof)
+        runs[str(frac)].update({
+            "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / prof["wall_ms_per_iteration"]})
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < SPARSE_MEMORY_LIMIT, f"peak device memory {peak} bytes")
+    out = {"rows": n, "d": d, "nnz": nnz,
+           "index_dtype": str(X.col_indices().dtype),
+           "iterations": SPARSE_ITERS, "data_seconds": gen_s,
+           "csr_bytes": x_bytes, "transposed_csr_bytes": xt_bytes,
+           "transpose_ms": transpose_ms,
+           "densified_f32_bytes": 4 * n * d,
+           "peak_allocated_bytes": peak, "dense_kernel_launches": launches,
+           "bitwise_repeatable": bitwise, "repeat_max_abs_diff": max_diff,
+           "runs": runs}
+    emit({"phase": "sparse", **out})
+    return out
 
 
 def main() -> int:
@@ -518,7 +810,8 @@ def main() -> int:
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
+    emit({"phase": "device", "kind": kind,
+          "visible_count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
@@ -547,6 +840,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_configs(torch, tst)
+    sparse = phase_sparse(torch, tst, ck)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_sgd"))
@@ -559,9 +853,22 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     } for r in rows]})
+    emit({"sparse": {
+        "shape": [sparse["rows"], sparse["d"]], "nnz": sparse["nnz"],
+        "index_dtype": sparse["index_dtype"],
+        "csr_bytes": sparse["csr_bytes"],
+        "transposed_csr_bytes": sparse["transposed_csr_bytes"],
+        "peak_allocated_bytes": sparse["peak_allocated_bytes"],
+        "bitwise_repeatable": sparse["bitwise_repeatable"],
+        "runs": {f: {k: r[k] for k in (
+            "wall_ms_per_iteration", "device_ms_per_iteration",
+            "idle_share", "bound_ms", "bound_by", "share_of_bound",
+            "accuracy", "loss_first", "loss_last", "top_device_ms")}
+            for f, r in sparse["runs"].items()}}})
     print(smi, flush=True)
+    # one card drove the run, however many the host shows
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

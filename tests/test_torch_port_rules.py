@@ -29,7 +29,9 @@ def test_import_pulls_in_no_jax_and_no_tpu_sgd():
     """A fresh process: this one has already imported JAX."""
     out = _python(
         "import sys, tpu_sgd_torch, tpu_sgd_torch.ops.cuda_kernels, "
-        "tpu_sgd_torch.ops._build, tpu_sgd_torch.interop\n"
+        "tpu_sgd_torch.ops._build, tpu_sgd_torch.interop, "
+        "tpu_sgd_torch.ops.sparse, tpu_sgd_torch.linalg, "
+        "tpu_sgd_torch.models.streaming, tpu_sgd_torch.utils.mlutils\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
         "print(bad)")
@@ -44,7 +46,8 @@ def test_import_builds_nothing():
         "def refuse(*a, **k): raise AssertionError('started %r' % (a,))\n"
         "subprocess.Popen = refuse\n"
         "import tpu_sgd_torch\n"
-        "from tpu_sgd_torch.ops import _build, cuda_kernels\n"
+        "from tpu_sgd_torch.ops import _build, cuda_kernels, sparse\n"
+        "from tpu_sgd_torch.models import streaming\n"
         "print(len(_build._loaded))")
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "0"

@@ -6,6 +6,10 @@ values (this module imports nothing of ``tpu_sgd``).
                                  np.asarray(jax_model.weights),
                                  jax_model.intercept)
     cfg = sgd_config_from_dict(dataclasses.asdict(jax_optimizer.config))
+    # a streaming model: its latest weights and intercept, as numpy
+    m = jax_stream.latest_model()
+    stream = StreamingLinearRegressionWithSGD(...).set_initial_weights(
+        np.asarray(m.weights), m.intercept)
 """
 
 from __future__ import annotations

@@ -19,6 +19,11 @@ from tpu_sgd_torch.models.regression import (
     RidgeRegressionModel,
     RidgeRegressionWithSGD,
 )
+from tpu_sgd_torch.models.streaming import (
+    StreamingLinearAlgorithm,
+    StreamingLinearRegressionWithSGD,
+    StreamingLogisticRegressionWithSGD,
+)
 
 __all__ = [
     "LogisticRegressionModel", "LogisticRegressionWithSGD", "SVMModel",
@@ -26,4 +31,6 @@ __all__ = [
     "LabeledPoint", "to_arrays", "LassoModel", "LassoWithSGD",
     "LinearRegressionModel", "LinearRegressionWithSGD",
     "RidgeRegressionModel", "RidgeRegressionWithSGD",
+    "StreamingLinearAlgorithm", "StreamingLinearRegressionWithSGD",
+    "StreamingLogisticRegressionWithSGD",
 ]

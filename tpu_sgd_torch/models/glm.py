@@ -2,7 +2,8 @@
 
 Owns what the reference's harness owns: input validation, feature-count
 discovery, the intercept (a bias column appended LAST, as
-``MLUtils.appendBias``), calling ``optimizer.optimize``, splitting the
+``MLUtils.appendBias``, sparse for sparse features), calling
+``optimizer.optimize``, splitting the
 intercept back out, and ``create_model``.  There is no execution planner in
 the port yet (ROADMAP A11), so every run behaves as the JAX package's
 ``set_schedule("off")``: the optimizer runs exactly as configured.
@@ -16,16 +17,24 @@ import numpy as np
 import torch
 
 from tpu_sgd_torch.device import as_tensor, resolve_device
+from tpu_sgd_torch.linalg import SparseVector
 from tpu_sgd_torch.models.labeled_point import LabeledPoint, to_arrays
+from tpu_sgd_torch.ops.sparse import (
+    append_bias_auto,
+    csr_from_triple,
+    is_sparse,
+    row_matrix,
+    to_csr,
+)
 from tpu_sgd_torch.optimize.optimizer import Optimizer
 
 DatasetLike = Union[Tuple, Iterable[LabeledPoint]]
 
 
 def _as_arrays(data: DatasetLike):
-    """``(X, y)`` as given (tensors stay where they are, so a dataset
-    already on the card is never copied), or the columnar form of a
-    collection of LabeledPoints."""
+    """``(X, y)`` as given (tensors, sparse ones included, stay where they
+    are, so a dataset already on the card is never copied), or the
+    columnar form of a collection of LabeledPoints."""
     if isinstance(data, tuple) and len(data) == 2:
         X, y = data
         if not isinstance(X, torch.Tensor):
@@ -50,12 +59,20 @@ class GeneralizedLinearModel:
         self.intercept = float(intercept)
 
     def predict_margin(self, X) -> torch.Tensor:
-        """Raw margin(s) ``x.w + b`` for one vector or a batch; always
-        batch-shaped (a single vector yields shape (1,)).  Plain
+        """Raw margin(s) ``x.w + b`` for one vector or a batch, dense or
+        sparse (a sparse tensor of any layout, or one ``SparseVector``);
+        always batch-shaped (a single vector yields shape (1,)).  Plain
         ``X @ w + b`` in f32; the bucketed serving matvec waits for the
         serving slice (ROADMAP A10)."""
+        if isinstance(X, SparseVector):
+            X = csr_from_triple(
+                (X.values, X.indices, np.asarray([0, X.indices.size])),
+                X.size)
         X = as_tensor(X, self.weights.device)
-        X = torch.atleast_2d(X)
+        if is_sparse(X):
+            X = to_csr(row_matrix(X))
+        else:
+            X = torch.atleast_2d(X)
         if not X.dtype.is_floating_point or X.dtype == torch.float64:
             X = X.to(torch.float32)
         return X.to(torch.float32) @ self.weights + self.intercept
@@ -64,8 +81,9 @@ class GeneralizedLinearModel:
         raise NotImplementedError
 
     def predict(self, X):
-        """Predict for one feature vector or a batch."""
-        single = np.ndim(X) == 1
+        """Predict for one feature vector or a batch, dense or sparse."""
+        single = (isinstance(X, SparseVector)
+                  or (is_sparse(X) and X.dim() == 1) or np.ndim(X) == 1)
         out = self.predict_point(self.predict_margin(X))
         return out[0] if single else out
 
@@ -146,7 +164,7 @@ class GeneralizedLinearAlgorithm:
             initial_weights.cpu() if isinstance(initial_weights, torch.Tensor)
             else initial_weights, np.float32))
         if self.add_intercept:
-            Xb = _append_bias(X)
+            Xb = append_bias_auto(X)
             w0 = torch.cat([w0, torch.tensor([initial_intercept],
                                              dtype=torch.float32)])
             weights = self.optimizer.optimize((Xb, y), w0)
@@ -167,13 +185,3 @@ class GeneralizedLinearAlgorithm:
             return self.run(data)
         return self.run(data, model.weights, model.intercept)
 
-
-def _append_bias(X):
-    """``[X | 1]``, the bias as the last column, in X's dtype and place."""
-    if isinstance(X, torch.Tensor):
-        ones = torch.ones((X.shape[0], 1), dtype=X.dtype, device=X.device)
-        return torch.cat([X, ones], dim=1)
-    X = np.asarray(X)
-    dtype = X.dtype if np.issubdtype(X.dtype, np.floating) else np.float32
-    return np.concatenate([X.astype(dtype, copy=False),
-                           np.ones((X.shape[0], 1), dtype)], axis=1)

@@ -1,4 +1,5 @@
-"""Gradients, updaters and the fused CUDA kernels of the port."""
+"""Gradients, updaters, sparse features and the fused CUDA kernels of the
+port."""
 
 from tpu_sgd_torch.ops.cuda_kernels import (
     FusedGradient,
@@ -12,6 +13,16 @@ from tpu_sgd_torch.ops.gradients import (
     LeastSquaresGradient,
     LogisticGradient,
 )
+from tpu_sgd_torch.ops.sparse import (
+    append_bias_auto,
+    append_bias_sparse,
+    csr_from_triple,
+    is_sparse,
+    load_libsvm_file_csr,
+    row_matrix,
+    sparse_data,
+    take_rows,
+)
 from tpu_sgd_torch.ops.updaters import (
     L1Updater,
     SimpleUpdater,
@@ -22,6 +33,9 @@ from tpu_sgd_torch.ops.updaters import (
 __all__ = [
     "FusedGradient", "fused_gradient_sums", "fused_window_sums",
     "fused_window_sums_vpu", "Gradient", "HingeGradient",
-    "LeastSquaresGradient", "LogisticGradient", "L1Updater",
+    "LeastSquaresGradient", "LogisticGradient", "append_bias_auto",
+    "append_bias_sparse", "csr_from_triple", "is_sparse",
+    "load_libsvm_file_csr", "row_matrix", "sparse_data", "take_rows",
+    "L1Updater",
     "SimpleUpdater", "SquaredL2Updater", "Updater",
 ]

@@ -41,6 +41,7 @@ from tpu_sgd_torch.ops.gradients import (
     margins_of,
     matmul_dtype,
 )
+from tpu_sgd_torch.ops.sparse import is_sparse
 
 Tensor = torch.Tensor
 
@@ -81,7 +82,8 @@ def _check_tile_smem(X: Tensor) -> None:
             f"fused kernel's f32 gradient accumulator, over the "
             f"{SMEM_PER_BLOCK / 1024:.0f} KB a Hopper block can use; the "
             f"kernel takes d <= {max_d} — train wider data as sparse "
-            "features (ROADMAP A6) or on the CPU path (device='cpu')"
+            "features (a torch sparse CSR X) or on the CPU path "
+            "(device='cpu')"
         )
 
 
@@ -359,7 +361,9 @@ class FusedGradient(Gradient):
     """Wrap a built-in Gradient with the fused kernels' tiled routing —
     the counterpart of ``PallasGradient``.
 
-    ``batch_sums`` goes to :func:`fused_gradient_sums`; ``window_sums``
+    ``batch_sums`` goes to :func:`fused_gradient_sums` when X is dense and
+    to the base gradient's sparse path when it is not (as
+    ``PallasGradient`` sends BCOO to the XLA path); ``window_sums``
     (``sampling="sliced"``) to :func:`fused_window_sums`, or to
     :func:`fused_window_sums_vpu` with ``window_kernel="vpu"``, when X is
     dense, ``valid is None``, ``m >= tile_m`` and ``n % tile_m == 0``;
@@ -401,17 +405,19 @@ class FusedGradient(Gradient):
     def weight_dim(self, num_features: int) -> int:
         return self.base.weight_dim(num_features)
 
-    def batch_sums(self, X, y, weights, mask=None, margin_axis_name=None):
-        if margin_axis_name is not None or X.is_sparse:
+    def batch_sums(self, X, y, weights, mask=None, margin_axis_name=None,
+                   Xt=None):
+        if margin_axis_name is not None or is_sparse(X):
             return self.base.batch_sums(
-                X, y, weights, mask, margin_axis_name=margin_axis_name)
+                X, y, weights, mask, margin_axis_name=margin_axis_name,
+                Xt=Xt)
         return fused_gradient_sums(self.base.pointwise, X, y, weights, mask)
 
     def window_sums(self, X, y, weights, start, m, valid=None,
                     margin_axis_name=None):
         n = X.shape[0]
         usable = (
-            not X.is_sparse
+            not is_sparse(X)
             and margin_axis_name is None
             and valid is None
             and m >= self.tile_m

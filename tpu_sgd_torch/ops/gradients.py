@@ -10,12 +10,17 @@ Every linear-model gradient factors as
 
 so each subclass supplies only ``pointwise``.  For the three built-in
 families ``batch_sums`` and ``window_sums`` go to the hand-written CUDA
-kernel when the data lies on a CUDA device (``ops/cuda_kernels.py``), and
-to its plain PyTorch version when it lies on the CPU.  A subclass with a
-rule of its own (``family = None``) always takes the plain version.
+kernel when dense data lies on a CUDA device (``ops/cuda_kernels.py``),
+and to its plain PyTorch version when it lies on the CPU.  A subclass with
+a rule of its own (``family = None``) always takes the plain version.
+
+Sparse features (any non-strided layout, ``ops/sparse.py``) take neither:
+as in the JAX package, where BCOO products lower to gather and segment-sum
+and never reach a Pallas kernel, both products are torch CSR x vector
+products at the accumulation dtype, on the CPU or the card alike.
 
 Not ported yet: ``MultinomialLogisticGradient``, ``loss_sweep`` and
-``ChunkedGradient`` (ROADMAP A1), and sparse features (ROADMAP A6).
+``ChunkedGradient`` (ROADMAP A1).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from tpu_sgd_torch.ops.sparse import is_sparse, to_csr, transpose_csr
 
 Tensor = torch.Tensor
 
@@ -43,31 +50,57 @@ def margins_of(X: Tensor, weights: Tensor) -> Tensor:
     """``X @ w`` with ``w`` rounded to X's dtype and an f32 (or wider)
     result.  A torch bf16 matmul would return bf16, so the operands are
     upcast instead: a product of two bf16 values is exact in f32, so this
-    is the JAX package's ``preferred_element_type=f32`` contract."""
+    is the JAX package's ``preferred_element_type=f32`` contract.
+
+    Sparse ``X`` computes at the accumulation dtype, as the JAX package
+    does for BCOO: int one-hot values promote instead of truncating
+    ``w``."""
     mm = matmul_dtype(X)
     acc = acc_dtype(mm)
+    if is_sparse(X):
+        return to_csr(X).to(acc) @ weights.to(acc)
     return X.to(acc) @ weights.to(mm).to(acc)
 
 
-def grad_sum_of(coeff: Tensor, X: Tensor) -> Tensor:
+def grad_sum_of(coeff: Tensor, X: Tensor, Xt: Optional[Tensor] = None
+                ) -> Tensor:
     """``coeff @ X`` (== ``X.T @ coeff``) with ``coeff`` rounded to X's
-    dtype and f32 accumulation, as :func:`margins_of`."""
+    dtype and f32 accumulation, as :func:`margins_of`.  For sparse ``X``
+    it is ``Xt @ coeff`` at the accumulation dtype, ``Xt`` the transposed
+    CSR (:func:`~tpu_sgd_torch.ops.sparse.transpose_csr`, built here when
+    the caller holds none)."""
     mm = matmul_dtype(X)
     acc = acc_dtype(mm)
+    if is_sparse(X):
+        if Xt is None:
+            Xt = transpose_csr(to_csr(X))
+        return Xt.to(acc) @ coeff.to(acc)
     return coeff.to(mm).to(acc) @ X.to(acc)
 
 
-def _dense_only(X, margin_axis_name) -> None:
-    if X.is_sparse:
-        raise NotImplementedError(
-            "sparse features are not ported yet (ROADMAP A6); densify X "
-            "or use the JAX package's BCOO path"
-        )
+def _no_feature_sharding(margin_axis_name) -> None:
     if margin_axis_name is not None:
         raise NotImplementedError(
             "feature-axis sharding (margin_axis_name) is not ported yet "
             "(ROADMAP A5)"
         )
+
+
+def sparse_batch_sums(pointwise, X, y, weights, mask=None, Xt=None):
+    """``(grad_sum, loss_sum, count)`` of sparse ``X``: the JAX
+    ``Gradient.batch_sums`` arithmetic with CSR products; a ``mask`` zeroes
+    the coefficients and losses of the rows it drops."""
+    margins = margins_of(X, weights)
+    coeff, losses = pointwise(margins, y.to(margins.dtype))
+    if mask is not None:
+        m = mask.to(margins.dtype)
+        coeff = coeff * m
+        losses = losses * m
+        count = torch.sum(m)
+    else:
+        count = torch.tensor(float(X.shape[0]), dtype=margins.dtype,
+                             device=margins.device)
+    return grad_sum_of(coeff, X, Xt), torch.sum(losses), count
 
 
 class Gradient:
@@ -99,12 +132,17 @@ class Gradient:
         weights: Tensor,
         mask: Optional[Tensor] = None,
         margin_axis_name: Optional[str] = None,
+        Xt: Optional[Tensor] = None,
     ) -> Tuple[Tensor, Tensor, Tensor]:
         """Fused mini-batch ``(grad_sum, loss_sum, count)``, unnormalized;
-        ``mask`` (bool, one entry per row) is the Bernoulli sample."""
+        ``mask`` (bool, one entry per row) is the Bernoulli sample.
+        ``Xt``: for sparse ``X``, its transposed CSR when the caller
+        already holds it (the optimizer builds it once per dataset)."""
         from tpu_sgd_torch.ops import cuda_kernels
 
-        _dense_only(X, margin_axis_name)
+        _no_feature_sharding(margin_axis_name)
+        if is_sparse(X):
+            return sparse_batch_sums(self.pointwise, X, y, weights, mask, Xt)
         if self.family is None:
             return cuda_kernels.fused_gradient_sums_plain(
                 self.pointwise, X, y, weights, mask)
@@ -130,7 +168,12 @@ class Gradient:
         """
         from tpu_sgd_torch.ops import cuda_kernels
 
-        _dense_only(X, margin_axis_name)
+        if is_sparse(X):
+            raise NotImplementedError(
+                "sliced sampling needs a dense row layout; use bernoulli "
+                "sampling with sparse features"
+            )
+        _no_feature_sharding(margin_axis_name)
         if self.family is None:
             Xb, yb, mask = _slice_window(X, y, valid, start, m)
             return self.batch_sums(Xb, yb, weights, mask)

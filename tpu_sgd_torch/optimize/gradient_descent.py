@@ -17,6 +17,12 @@ window's start is drawn on the device and read by the kernel through a
 pointer; it never reaches the host.  Capturing the loop as a CUDA graph is
 later work (ROADMAP A3).
 
+Sparse features (any non-strided layout) train undensified, as the JAX
+package's BCOO branch does on one device: X becomes CSR with int32
+indices where they fit, ``make_run`` builds its transposed CSR once, and
+each iteration's two products are CSR x vector (``ops/sparse.py``).  Only
+Bernoulli sampling (or full batch) applies to them.
+
 Sampling draws from a ``torch.Generator`` on the data's device, seeded
 from ``(seed, iteration)``, so a sample depends on nothing else — the same
 contract as the JAX package's ``fold_in(key, i)``, with other bits: the two
@@ -37,6 +43,7 @@ import torch
 from tpu_sgd_torch.config import SGDConfig
 from tpu_sgd_torch.device import as_tensor, resolve_device
 from tpu_sgd_torch.ops.gradients import Gradient, LeastSquaresGradient
+from tpu_sgd_torch.ops.sparse import is_sparse, to_csr, transpose_csr
 from tpu_sgd_torch.ops.updaters import SimpleUpdater, Updater
 from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
 
@@ -95,7 +102,7 @@ def _make_local_sums(gradient, cfg):
     sliced = cfg.sampling == "sliced" and cfg.mini_batch_fraction < 1.0
     generators = {}
 
-    def local_sums(weights, X, y, i, valid):
+    def local_sums(weights, X, y, i, valid, Xt=None):
         dev = X.device
         gen = generators.get(dev)
         if gen is None:
@@ -118,20 +125,23 @@ def _make_local_sums(gradient, cfg):
         else:
             Xb, yb = X, y
             mask = _make_mask(cfg, gen, n, valid, dev)
+            if Xt is not None:
+                return gradient.batch_sums(Xb, yb, weights, mask, Xt=Xt)
         return gradient.batch_sums(Xb, yb, weights, mask)
 
     return local_sums
 
 
 def make_step(gradient: Gradient, updater: Updater, config: SGDConfig):
-    """One SGD iteration: ``step(weights, X, y, i, reg_val, valid) ->
+    """One SGD iteration: ``step(weights, X, y, i, reg_val, valid, Xt) ->
     (new_weights, loss_i, new_reg_val, count)``; ``loss_i`` already
-    includes the previous iteration's ``reg_val``."""
+    includes the previous iteration's ``reg_val``.  ``Xt`` is sparse X's
+    transposed CSR (None for dense X)."""
     cfg = config
     local_sums = _make_local_sums(gradient, cfg)
 
-    def step(weights, X, y, i, reg_val, valid=None):
-        g, l, c = local_sums(weights, X, y, i, valid)
+    def step(weights, X, y, i, reg_val, valid=None, Xt=None):
+        g, l, c = local_sums(weights, X, y, i, valid, Xt)
         has_batch = c > 0
         safe_c = torch.clamp(c, min=1.0)
         loss_i = l / safe_c + reg_val
@@ -147,15 +157,19 @@ def make_step(gradient: Gradient, updater: Updater, config: SGDConfig):
 
 
 def make_run(gradient: Gradient, updater: Updater, config: SGDConfig):
-    """The whole optimization loop: ``run(initial_weights, X, y, valid) ->
-    (weights, loss_history, n_recorded)``.  ``loss_history`` is a device
-    tensor of length ``num_iterations``, NaN beyond ``n_recorded`` (a
-    device int64 tensor of shape ``(1,)``)."""
+    """The whole optimization loop: ``run(initial_weights, X, y, valid,
+    Xt) -> (weights, loss_history, n_recorded)``.  ``loss_history`` is a
+    device tensor of length ``num_iterations``, NaN beyond ``n_recorded``
+    (a device int64 tensor of shape ``(1,)``).  Sparse ``X`` is CSR; its
+    transposed copy ``Xt`` is built here, once per run, unless the caller
+    passes the one it holds (``ops.sparse.transpose_csr``)."""
     cfg = config
     check_conv = cfg.convergence_tol > 0.0
     step = make_step(gradient, updater, cfg)
 
-    def run(initial_weights, X, y, valid=None):
+    def run(initial_weights, X, y, valid=None, Xt=None):
+        if Xt is None and is_sparse(X):
+            Xt = transpose_csr(X)
         w = initial_weights
         _, reg_val = updater.compute(
             w, torch.zeros_like(w), 0.0, 1, cfg.reg_param)
@@ -164,7 +178,7 @@ def make_run(gradient: Gradient, updater: Updater, config: SGDConfig):
                             dtype=torch.float32, device=dev)
         n_rec = torch.zeros((1,), dtype=torch.int64, device=dev)
         for i in range(1, cfg.num_iterations + 1):
-            new_w, loss_i, new_reg, c = step(w, X, y, i, reg_val, valid)
+            new_w, loss_i, new_reg, c = step(w, X, y, i, reg_val, valid, Xt)
             has_batch = c > 0
             kept = losses.index_select(0, n_rec)
             losses.index_copy_(0, n_rec, torch.where(
@@ -300,8 +314,15 @@ class GradientDescent(Optimizer):
         X, y = data
         dev = resolve_device(self.device)
         X = as_tensor(X, dev)
-        if X.is_sparse:
-            _not_ported("training on sparse features", "A6")
+        sparse_X = is_sparse(X)
+        if sparse_X:
+            if (self.config.sampling != "bernoulli"
+                    and self.config.mini_batch_fraction < 1.0):
+                raise NotImplementedError(
+                    "sparse features support bernoulli sampling only "
+                    f"(got sampling={self.config.sampling!r})"
+                )
+            X = to_csr(X)
         if not X.dtype.is_floating_point or X.dtype == torch.float64:
             # int/bool features (one-hot) and f64 arrays train in f32, as
             # the JAX package does with x64 off
@@ -318,7 +339,7 @@ class GradientDescent(Optimizer):
                 stacklevel=2,
             )
         run = make_run(self.gradient, self.updater, self.config)
-        w, losses, n_rec = run(w0, X.contiguous(), y)
+        w, losses, n_rec = run(w0, X if sparse_X else X.contiguous(), y)
         self._loss_history = losses[:int(n_rec)].cpu().numpy()
         if self.check_numerics:
             _raise_if_nonfinite(self._loss_history)
