@@ -30,8 +30,25 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    (hinge + L1) at frac 1.0 and 0.1: loss, accuracy, peak memory, dense
    kernel launches (must stay 0), warm ms per iteration, device time by
    op, idle share, CSR bytes, the bandwidth bound and bitwise repeatability.
-7. summary — the kernel table, the sparse line, then the card's name and
-   power limit, then the last line ``{"ok": true, "device": {...}}``.
+7. quasi_newton — the L-BFGS, OWL-QN and normal-equations paths:
+   (a) binary L-BFGS (``LogisticRegressionWithLBFGS``, 20 iterations) on
+   the 10M x 1000 bf16 matrix of phase 4 with labels from a planted
+   logistic model, every cost evaluation one unmasked launch of the fused
+   kernel (counted exactly), against 20 full-batch SGD iterations and a
+   numpy AUC of the same scores; the iteration split by the profiler and
+   the kernel timed at this full-batch shape; (b) exact least squares
+   (``LinearRegressionWithNormal``) on the same matrix against
+   ``LinearRegressionWithLBFGS`` and the planted weights, the Gram pass
+   timed against its bound; (c) multinomial L-BFGS at MNIST8M's shape
+   (8,100,000 x 784 bf16, 10 classes) against the planted softmax model's
+   accuracy; (d) sparse OWL-QN (hinge + L1) on phase 6's RCV1-scale CSR
+   against the SGD path's objective, with the dense kernels' launch
+   counts 0 and the peak memory bounded.  Configs 1 and 2 of phase
+   5 also run through ``LinearRegressionWithNormal`` and
+   ``LogisticRegressionWithLBFGS``.
+8. summary — the kernel table, the sparse line, the quasi_newton line,
+   then the card's name and power limit, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  It imports
 nothing of JAX or of the JAX package ``tpu_sgd``.
@@ -61,6 +78,14 @@ SPARSE_MEMORY_LIMIT = 8e9   # bytes; densified f32 this data is 131.8 GB
 # rows of config 3's undensified leg, cut from the stand-in's 20,000 so
 # that its LP oracle (HiGHS) stays within about a minute
 CONFIG3_SPARSE_ROWS = 10_000
+BF16_FLOPS = 989e12         # H100 SXM, dense bf16 tensor cores
+QN_ITERS = 20               # L-BFGS iterations of legs (a)-(c)
+MNIST8M_ROWS, MNIST8M_D, MNIST8M_K = 8_100_000, 784, 10
+OWLQN_ITERS = 50
+# "the history does not increase": the accepted point's objective is
+# re-evaluated by the cost pass after the sweep accepted it, with another
+# summation order, so a flat step may read higher by f32 rounding
+HISTORY_RTOL = 1e-6
 REPLACES = {
     "fused_gradient_sums": "tpu_sgd/ops/pallas_kernels.py:265",
     "fused_window_sums": "tpu_sgd/ops/pallas_kernels.py:342",
@@ -302,7 +327,7 @@ def phase_full(torch, tst, ck):
     emit({"phase": "full", "rows": n, "d": FULL_D, "dtype": "bfloat16",
           "mini_batch_fraction": FRAC, "iterations": ITERS,
           "data_seconds": gen_s, "launches": counts, "runs": runs})
-    return X, y, counts
+    return X, y, w_true, counts
 
 
 def device_ms_by_kernel(torch, prof) -> dict:
@@ -317,7 +342,10 @@ def device_ms_by_kernel(torch, prof) -> dict:
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         if dev_us > 0:
-            out[ev.key[:60]] = dev_us / 1e3
+            # kernels whose names share their first 60 characters (the
+            # many at::native elementwise instantiations) add up
+            key = ev.key[:60]
+            out[key] = out.get(key, 0.0) + dev_us / 1e3
     return out
 
 
@@ -589,9 +617,16 @@ def phase_configs(torch, tst):
                              rcond=None)[0]
     L = 0.5 * float(np.mean((X @ w - y) ** 2))
     L_star = 0.5 * float(np.mean((X @ w_star - y) ** 2))
+    w_ne = tst.LinearRegressionWithNormal.train((X, y)).weights
+    check(w_ne.is_cuda, f"config 1 normal: weights on {w_ne.device}")
+    L_ne = 0.5 * float(np.mean((X @ w_ne.double().cpu().numpy() - y) ** 2))
     out["config1"] = {"objective": L, "oracle": L_star,
-                      "gap": (L - L_star) / L_star}
-    check(out["config1"]["gap"] < 0.01, f"config 1: {out['config1']}")
+                      "gap": (L - L_star) / L_star,
+                      "normal_objective": L_ne,
+                      "normal_gap": (L_ne - L_star) / L_star}
+    check(out["config1"]["gap"] < 0.01
+          and out["config1"]["normal_gap"] < 1e-4,
+          f"config 1: {out['config1']}")
 
     # config 2: logistic + L2 on the a9a stand-in, within 1% of the optimum
     X, y, _ = tst.a9a_like_data(20_000, seed=1)
@@ -603,9 +638,18 @@ def phase_configs(torch, tst):
     L = _logistic_objective(X, y, w, reg)
     L_star = _logistic_objective(X, y, _logistic_l2_oracle(X, y, reg), reg)
     acc = float(np.mean(model.predict(X).cpu().numpy() == y))
+    lb_alg = tst.LogisticRegressionWithLBFGS(reg_param=reg)
+    w_lb = lb_alg.run((X, y)).weights.double().cpu().numpy()
+    L_lb = _logistic_objective(X, y, w_lb, reg)
     out["config2"] = {"objective": L, "oracle": L_star,
-                      "gap": (L - L_star) / L_star, "accuracy": acc}
-    check(out["config2"]["gap"] < 0.01, f"config 2: {out['config2']}")
+                      "gap": (L - L_star) / L_star, "accuracy": acc,
+                      "lbfgs_objective": L_lb,
+                      "lbfgs_gap": (L_lb - L_star) / L_star,
+                      "lbfgs_iterations":
+                          len(lb_alg.optimizer.loss_history) - 1}
+    check(out["config2"]["gap"] < 0.01
+          and out["config2"]["lbfgs_gap"] < 1e-3,
+          f"config 2: {out['config2']}")
 
     # config 3: hinge + L1 (subgradient descent, O(1/sqrt t)): within 20%
     # of the exact optimum and accuracy within 1 point of it
@@ -783,6 +827,282 @@ def phase_sparse(torch, tst, ck):
            "bitwise_repeatable": bitwise, "repeat_max_abs_diff": max_diff,
            "runs": runs}
     emit({"phase": "sparse", **out})
+    return out, X, y, weights[1.0]
+
+
+# -- phase 7 -----------------------------------------------------------------
+
+def _nonincreasing(hist) -> bool:
+    h = np.asarray(hist, np.float64)
+    return bool(np.all(np.diff(h) <= HISTORY_RTOL * np.abs(h[:-1])))
+
+
+def _numpy_auc(scores, labels) -> float:
+    """Mann-Whitney AUC in f64 with average ranks (a tie counts half)."""
+    from scipy.stats import rankdata
+
+    pos = labels > 0.5
+    n_pos = int(pos.sum())
+    n_neg = labels.size - n_pos
+    ranks = rankdata(scores.astype(np.float64))
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0)
+                 / (n_pos * n_neg))
+
+
+_PRODUCT_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+
+
+def _qn_iteration_profile(torch, tst, X, y, iters=10):
+    """Where a warm binary L-BFGS iteration's time goes at 10M x 1000:
+    the host's wall clock over ``iters`` iterations untraced (ending in
+    ``synchronize``), then ``torch.profiler`` device time by kernel over
+    the same run traced, split into the fused kernel (B1, the cost), the
+    library products (the sweep's ``X @ Wᵀ``, by kernel name) and the
+    rest.  Per iteration: the run's time over its iterations (the run
+    also makes the initial cost evaluation)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    opt = tst.LBFGS(tst.LogisticGradient(), tst.SquaredL2Updater(),
+                    reg_param=1e-4, max_num_iterations=iters,
+                    convergence_tol=0.0)
+    w0 = torch.zeros(X.shape[1], device="cuda")
+    opt.optimize_with_history((X, y), w0)  # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, hist = opt.optimize_with_history((X, y), w0)
+    torch.cuda.synchronize()
+    its = len(hist) - 1
+    wall = 1e3 * (time.perf_counter() - t) / its
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.optimize_with_history((X, y), w0)
+        torch.cuda.synchronize()
+    per = {k: v / its for k, v in device_ms_by_kernel(torch, prof).items()}
+    busy = sum(per.values())
+    b1 = sum(v for k, v in per.items() if "sums_phase" in k)
+    products = sum(v for k, v in per.items()
+                   if any(p in k.lower() for p in _PRODUCT_NAMES))
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    return {"iterations": its, "wall_ms_per_iteration": wall,
+            "device_ms_per_iteration": busy,
+            "idle_share": max(0.0, 1 - busy / wall),
+            "b1_ms": b1, "products_ms": products,
+            "rest_ms": busy - b1 - products, "top_device_ms": dict(top)}
+
+
+def leg_binary_lbfgs(torch, tst, ck, X, w_true):
+    """(a) Binary L-BFGS at config 4's shape; returns the leg's record and
+    B1's full-batch timing row."""
+    from tpu_sgd_torch.ops.gradients import f32_product
+    from tpu_sgd_torch.optimize.lbfgs import _build_loss_sweep, _reg_terms
+    from tpu_sgd_torch.optimize.oracle import full_objective
+
+    n, d = X.shape
+    reg = 1e-4
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    # a planted logistic model with margins of std ~2
+    w_plant = w_true * (2.0 / torch.linalg.vector_norm(w_true))
+    p = torch.sigmoid(f32_product(X, w_plant))
+    y = (torch.rand(n, generator=gen, device="cuda") < p).float()
+    del p
+    alg = tst.LogisticRegressionWithLBFGS(max_num_iterations=QN_ITERS,
+                                          reg_param=reg)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t = time.perf_counter()
+    model = alg.run((X, y))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = ck.launch_counts()
+    hist = alg.optimizer.loss_history
+    check(model.weights.is_cuda, "(a): weights not on the card")
+    check(_nonincreasing(hist), f"(a): the loss history rose: {hist}")
+    check(launches == {"fused_gradient_sums": len(hist),
+                       "fused_window_sums": 0, "fused_window_sums_vpu": 0},
+          f"(a): launches {launches} for {len(hist)} cost evaluations")
+    sgd = tst.LogisticRegressionWithSGD(1.0, QN_ITERS, reg, 1.0)
+    sgd.optimizer.set_convergence_tol(0.0)
+    w_sgd = sgd.run((X, y)).weights
+    g = tst.LogisticGradient()
+    L_lb = full_objective(g, X, y, model.weights, reg, "l2")
+    L_sgd = full_objective(g, X, y, w_sgd, reg, "l2")
+    check(L_lb < L_sgd, f"(a): L-BFGS objective {L_lb} >= SGD's {L_sgd}")
+    model.clear_threshold()
+    scores = model.predict(X)
+    t = time.perf_counter()
+    auc = tst.BinaryClassificationMetrics(scores, y).area_under_roc
+    torch.cuda.synchronize()
+    auc_s = time.perf_counter() - t
+    auc_np = _numpy_auc(scores.cpu().numpy(), y.cpu().numpy())
+    check(abs(auc - auc_np) <= 1e-6, f"(a): AUC {auc} vs numpy {auc_np}")
+    prof = _qn_iteration_profile(torch, tst, X, y)
+    # the sweep alone at this shape: the 25-trial ladder in one pass
+    reg_value = _reg_terms(tst.SquaredL2Updater(), reg)[0]
+    sweep = _build_loss_sweep(g, reg_value, X, y)
+    ladder = 0.5 ** torch.arange(25, device="cuda", dtype=torch.float32)
+    trials = model.weights[None, :] * (1.0 - ladder[:, None])
+    sweep_ms = time_ms(torch, lambda: sweep(trials), 3)
+    # B1 at the full-batch shape, beside its bound, plain version and two
+    # library matmuls of the same work
+    pw = g.pointwise
+    wv = model.weights
+    got = ck.fused_gradient_sums(pw, X, y, wv)
+    ref = ck.fused_gradient_sums_plain(pw, X, y, wv)
+    ok, err, scale = _close(torch, got, ref, True)
+    check(ok, f"full-batch fused_gradient_sums: max|dg|={err} of {scale}")
+    bound, by = _bound_ms(n, d, 2, 0)
+    wb = wv.to(torch.bfloat16)
+    coeff = torch.randn(n, device="cuda").to(torch.bfloat16)
+    row = {"name": "fused_gradient_sums", "path": "lbfgs_full_batch",
+           "shape": [n, d], "selected_rows": n, "max_abs_err": err,
+           "grad_scale": scale,
+           "ms": time_ms(torch, lambda: ck.fused_gradient_sums(pw, X, y, wv),
+                         10),
+           "plain_ms": time_ms(torch, lambda: ck.fused_gradient_sums_plain(
+               pw, X, y, wv), 2),
+           "library_ms": time_ms(torch, lambda: (X @ wb, coeff @ X), 5),
+           "bound_ms": bound, "bound_by": by,
+           "launches": launches["fused_gradient_sums"]}
+    out = {"rows": n, "d": d, "reg_param": reg,
+           "cost_evaluations": len(hist), "launches": launches,
+           "first_run_s": secs, "loss_first": float(hist[0]),
+           "loss_last": float(hist[-1]), "objective": L_lb,
+           "sgd_objective": L_sgd, "auc": auc, "numpy_auc": auc_np,
+           "auc_s": auc_s, "sweep_ms": sweep_ms, "profile": prof}
+    emit({"phase": "quasi_newton", "leg": "a_binary_lbfgs", **out,
+          "b1_full_batch": row})
+    return out, row
+
+
+def leg_normal_equations(torch, tst, X, y, w_true):
+    """(b) Exact least squares on the 10M x 1000 matrix, labels rounded to
+    bf16 (the Gram's Xᵀy rounds y to X's dtype, so these labels reach it
+    exactly and the solve is the optimum of the problem it is held to)."""
+    from tpu_sgd_torch.optimize import normal
+    from tpu_sgd_torch.optimize.oracle import full_objective
+
+    n, d = X.shape
+    y_ls = y.to(torch.bfloat16).to(torch.float32)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    w_ne = tst.LinearRegressionWithNormal().run((X, y_ls)).weights
+    torch.cuda.synchronize()
+    ne_s = time.perf_counter() - t
+    lb = tst.LinearRegressionWithLBFGS(max_num_iterations=QN_ITERS)
+    w_lb = lb.run((X, y_ls)).weights
+    g = tst.LeastSquaresGradient()
+    L_ne = full_objective(g, X, y_ls, w_ne)
+    L_lb = full_objective(g, X, y_ls, w_lb)
+    check(L_ne <= L_lb * (1 + 1e-5),
+          f"(b): normal objective {L_ne} > L-BFGS's {L_lb} x (1 + 1e-5)")
+    rel = float(torch.linalg.vector_norm(w_ne - w_true)
+                / torch.linalg.vector_norm(w_true))
+    # noise level: with X ~ N(0, I), |w - w_true| ~ sigma sqrt(d / n)
+    sigma = math.sqrt(2.0 * L_ne)
+    noise = sigma * math.sqrt(d / n) / float(torch.linalg.vector_norm(w_true))
+    check(rel <= 2.0 * noise, f"(b): |w - w_true| / |w_true| = {rel} "
+          f"above twice the noise level {noise}")
+    gram_ms = time_ms(torch, lambda: normal._gram_sums(X, y_ls), 2)
+    t_bytes = 1e3 * (n * (d * 2 + 4)) / HBM_BYTES_PER_S
+    t_ops = 1e3 * 2.0 * n * d * d / BF16_FLOPS
+    bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                 else (t_ops, "operations"))
+    out = {"normal_s": ne_s, "objective": L_ne, "lbfgs_objective": L_lb,
+           "lbfgs_iterations": len(lb.optimizer.loss_history) - 1,
+           "w_rel_err": rel, "noise_level": noise, "gram_ms": gram_ms,
+           "gram_bound_ms": bound, "gram_bound_by": by}
+    emit({"phase": "quasi_newton", "leg": "b_normal_equations", **out})
+    return out
+
+
+def make_multiclass_data(torch, n, d, k, seed=12, chunk=1_000_000):
+    """bf16 X (n, d) and labels drawn from a planted softmax model (logit
+    std ~2.5) by the Gumbel-max trick, made on the card in chunks; returns
+    ``(X, y, the planted model's own accuracy)``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    W = torch.randn(k, d, generator=gen, device="cuda") * (2.5 / math.sqrt(d))
+    X = torch.empty((n, d), dtype=torch.bfloat16, device="cuda")
+    y = torch.empty((n,), dtype=torch.float32, device="cuda")
+    hits = torch.zeros((), dtype=torch.int64, device="cuda")
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        X[s:e] = torch.randn(e - s, d, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+        logits = X[s:e].float() @ W.T
+        gumbel = -torch.log(torch.empty_like(logits).exponential_(
+            generator=gen))
+        y[s:e] = torch.argmax(logits + gumbel, dim=1).float()
+        hits += (torch.argmax(logits, dim=1).float() == y[s:e]).sum()
+    torch.cuda.synchronize()
+    return X, y, float(hits) / n
+
+
+def leg_multinomial(torch, tst):
+    """(c) Multinomial L-BFGS at MNIST8M's published shape."""
+    t = time.perf_counter()
+    X, y, planted_acc = make_multiclass_data(torch, MNIST8M_ROWS, MNIST8M_D,
+                                             MNIST8M_K)
+    gen_s = time.perf_counter() - t
+    alg = tst.LogisticRegressionWithLBFGS(max_num_iterations=QN_ITERS)
+    alg.set_num_classes(MNIST8M_K)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = alg.run((X, y))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    hist = alg.optimizer.loss_history
+    check(isinstance(model, tst.MultinomialLogisticRegressionModel)
+          and model.weights.is_cuda, "(c): not a multinomial model on cuda")
+    check(_nonincreasing(hist), f"(c): the loss history rose: {hist}")
+    acc = tst.MulticlassMetrics(model.predict(X), y,
+                                num_classes=MNIST8M_K).accuracy
+    check(abs(acc - planted_acc) <= 0.02,
+          f"(c): accuracy {acc} vs the planted model's {planted_acc}")
+    out = {"rows": MNIST8M_ROWS, "d": MNIST8M_D, "classes": MNIST8M_K,
+           "dtype": "bfloat16", "data_seconds": gen_s, "run_s": secs,
+           "iterations": len(hist) - 1,
+           "ms_per_iteration": 1e3 * secs / max(1, len(hist) - 1),
+           "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+           "accuracy": acc, "planted_accuracy": planted_acc}
+    emit({"phase": "quasi_newton", "leg": "c_multinomial", **out})
+    return out
+
+
+def leg_sparse_owlqn(torch, tst, ck, X, y, w_sgd):
+    """(d) Sparse OWL-QN (hinge + L1) at RCV1 scale, held against the SGD
+    path's frac-1.0 objective."""
+    from tpu_sgd_torch.optimize.oracle import full_objective
+
+    reg = 1e-5
+    g = tst.HingeGradient()
+    L_sgd = full_objective(g, X, y, w_sgd, reg, "l1")
+    opt = tst.OWLQN(g, reg_param=reg, max_num_iterations=OWLQN_ITERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t = time.perf_counter()
+    w, hist = opt.optimize_with_history((X, y), torch.zeros_like(w_sgd))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = ck.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = full_objective(g, X, y, w, reg, "l1")
+    check(w.is_cuda, "(d): weights not on cuda")
+    check(_nonincreasing(hist), f"(d): the loss history rose: {hist}")
+    check(all(v == 0 for v in launches.values()),
+          f"(d): the sparse path launched dense kernels: {launches}")
+    check(peak < SPARSE_MEMORY_LIMIT, f"(d): peak device memory {peak}")
+    check(L <= L_sgd, f"(d): OWL-QN objective {L} above the SGD path's "
+          f"{L_sgd}")
+    out = {"rows": X.shape[0], "d": X.shape[1], "reg_param": reg,
+           "iterations": len(hist) - 1, "run_s": secs,
+           "ms_per_iteration": 1e3 * secs / max(1, len(hist) - 1),
+           "objective": L, "sgd_objective": L_sgd,
+           "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+           "exact_zeros": int((w == 0).sum()),
+           "sgd_exact_zeros": int((w_sgd == 0).sum()),
+           "dense_kernel_launches": launches, "peak_allocated_bytes": peak}
+    emit({"phase": "quasi_newton", "leg": "d_sparse_owlqn", **out})
     return out
 
 
@@ -833,21 +1153,29 @@ def main() -> int:
     emit({"phase": "kernels", "cases": cases, "max_abs_err": worst,
           "seconds": time.perf_counter() - t})
 
-    X, y, launches = phase_full(torch, tst, ck)
+    X, y, w_true, launches = phase_full(torch, tst, ck)
     phase_profile(torch, tst, X, y)
     rows = phase_timing(torch, tst, ck, X, y, launches)
+    qn = {}
+    qn["a"], b1_row = leg_binary_lbfgs(torch, tst, ck, X, w_true)
+    rows.append(b1_row)
+    qn["b"] = leg_normal_equations(torch, tst, X, y, w_true)
     del X, y
+    torch.cuda.empty_cache()
+    qn["c"] = leg_multinomial(torch, tst)
     torch.cuda.empty_cache()
 
     phase_configs(torch, tst)
-    sparse = phase_sparse(torch, tst, ck)
+    sparse, X_sp, y_sp, w_sgd = phase_sparse(torch, tst, ck)
+    qn["d"] = leg_sparse_owlqn(torch, tst, ck, X_sp, y_sp, w_sgd)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_sgd"))
     check(not leaked, f"imported {leaked}")
 
     emit({"kernels": [{
-        "name": r["name"], "route": "cuda", "source": SOURCE,
+        "name": r["name"], "path": r.get("path", "sgd"), "route": "cuda",
+        "source": SOURCE,
         "replaces": REPLACES[r["name"]], "launches": r["launches"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -865,6 +1193,21 @@ def main() -> int:
             "idle_share", "bound_ms", "bound_by", "share_of_bound",
             "accuracy", "loss_first", "loss_last", "top_device_ms")}
             for f, r in sparse["runs"].items()}}})
+    emit({"quasi_newton": {
+        "binary_lbfgs": {k: qn["a"][k] for k in (
+            "cost_evaluations", "objective", "sgd_objective", "auc",
+            "numpy_auc", "sweep_ms")} | {k: qn["a"]["profile"][k] for k in (
+                "wall_ms_per_iteration", "device_ms_per_iteration",
+                "idle_share", "b1_ms", "products_ms", "rest_ms")},
+        "normal": {k: qn["b"][k] for k in (
+            "objective", "lbfgs_objective", "w_rel_err", "noise_level",
+            "gram_ms", "gram_bound_ms", "gram_bound_by")},
+        "multinomial": {k: qn["c"][k] for k in (
+            "rows", "iterations", "ms_per_iteration", "accuracy",
+            "planted_accuracy")},
+        "sparse_owlqn": {k: qn["d"][k] for k in (
+            "objective", "sgd_objective", "iterations", "ms_per_iteration",
+            "exact_zeros", "peak_allocated_bytes")}}})
     print(smi, flush=True)
     # one card drove the run, however many the host shows
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -174,8 +174,10 @@ def test_sgd_config_from_dict():
 def test_later_slice_options_raise():
     X, y, _ = linear_data(50, 3, seed=20)
     alg = tm.LinearRegressionWithSGD(device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        alg.set_feature_scaling(True)
+    # feature scaling arrived with feature.py; host streaming is later work
+    assert alg.set_feature_scaling(True) is alg
+    with pytest.raises(NotImplementedError, match="A9"):
+        alg.optimizer.set_host_streaming(True)
     with pytest.raises(NotImplementedError, match="A11"):
         alg.set_schedule("auto")
     with pytest.raises(NotImplementedError, match="A5"):

@@ -31,7 +31,11 @@ def test_import_pulls_in_no_jax_and_no_tpu_sgd():
         "import sys, tpu_sgd_torch, tpu_sgd_torch.ops.cuda_kernels, "
         "tpu_sgd_torch.ops._build, tpu_sgd_torch.interop, "
         "tpu_sgd_torch.ops.sparse, tpu_sgd_torch.linalg, "
-        "tpu_sgd_torch.models.streaming, tpu_sgd_torch.utils.mlutils\n"
+        "tpu_sgd_torch.models.streaming, tpu_sgd_torch.utils.mlutils, "
+        "tpu_sgd_torch.optimize.lbfgs, tpu_sgd_torch.optimize.owlqn, "
+        "tpu_sgd_torch.optimize.normal, tpu_sgd_torch.optimize.oracle, "
+        "tpu_sgd_torch.evaluation, tpu_sgd_torch.feature, "
+        "tpu_sgd_torch.stat, tpu_sgd_torch.utils.persistence\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
         "print(bad)")
@@ -48,6 +52,9 @@ def test_import_builds_nothing():
         "import tpu_sgd_torch\n"
         "from tpu_sgd_torch.ops import _build, cuda_kernels, sparse\n"
         "from tpu_sgd_torch.models import streaming\n"
+        "from tpu_sgd_torch.optimize import lbfgs, owlqn, normal, oracle\n"
+        "from tpu_sgd_torch import evaluation, feature, stat\n"
+        "from tpu_sgd_torch.utils import persistence\n"
         "print(len(_build._loaded))")
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "0"
@@ -67,6 +74,21 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tst.glm_model_from_numpy(tst.LinearRegressionModel, np.zeros(3), 0.0)
     assert tst.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("make", [
+    lambda: tst.LBFGS(), lambda: tst.OWLQN(), lambda: tst.NormalEquations()])
+def test_quasi_newton_and_normal_raise_without_cuda(make):
+    """The solvers' default device is the card, as every entry point's."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the rule is for hosts "
+                    "without one")
+    X, y, _ = tst.linear_data(20, 3, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make().optimize((X, y), np.zeros(3, np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tst.LogisticRegressionWithLBFGS.train((X, (y > 0).astype(
+            np.float32)))
 
 
 def test_cpu_path_launches_no_kernel():

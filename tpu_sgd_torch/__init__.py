@@ -1,5 +1,7 @@
-"""PyTorch/CUDA port of ``tpu_sgd``: mini-batch and streaming SGD for
-generalized linear models, on dense or sparse features, on one NVIDIA H100.
+"""PyTorch/CUDA port of ``tpu_sgd``: mini-batch and streaming SGD,
+L-BFGS, OWL-QN and the normal equations for generalized linear models, on
+dense or sparse features, on one NVIDIA H100, with evaluation metrics,
+feature scaling, column statistics and model persistence.
 
 The JAX package ``tpu_sgd`` stays the reference; this package imports
 nothing of it, nor JAX.  Its hot step, the fused ``(grad_sum, loss_sum,
@@ -10,17 +12,36 @@ points run on the card unless the caller passes ``device="cpu"``.
 
 from tpu_sgd_torch.config import SGDConfig
 from tpu_sgd_torch.device import resolve_device
-from tpu_sgd_torch.interop import glm_model_from_numpy, sgd_config_from_dict
+from tpu_sgd_torch.evaluation import (
+    BinaryClassificationMetrics,
+    MulticlassMetrics,
+    RegressionMetrics,
+)
+from tpu_sgd_torch.feature import (
+    Normalizer,
+    StandardScaler,
+    StandardScalerModel,
+)
+from tpu_sgd_torch.interop import (
+    glm_model_from_numpy,
+    multinomial_model_from_numpy,
+    sgd_config_from_dict,
+)
 from tpu_sgd_torch.linalg import BLAS, DenseVector, SparseVector, Vectors
 from tpu_sgd_torch.models import *  # noqa: F401,F403
 from tpu_sgd_torch.models import __all__ as _models_all
 from tpu_sgd_torch.ops import *  # noqa: F401,F403
 from tpu_sgd_torch.ops import __all__ as _ops_all
 from tpu_sgd_torch.optimize import (
+    LBFGS,
+    OWLQN,
     GradientDescent,
+    NormalEquations,
     Optimizer,
+    run_lbfgs,
     run_mini_batch_sgd,
 )
+from tpu_sgd_torch.stat import MultivariateStatisticalSummary, col_stats, corr
 from tpu_sgd_torch.utils.mlutils import (
     a9a_like_data,
     linear_data,
@@ -30,8 +51,13 @@ from tpu_sgd_torch.utils.mlutils import (
 
 __all__ = (
     ["SGDConfig", "resolve_device", "glm_model_from_numpy",
-     "sgd_config_from_dict", "Vectors", "DenseVector", "SparseVector",
-     "BLAS", "GradientDescent", "Optimizer", "run_mini_batch_sgd",
-     "a9a_like_data", "linear_data", "logistic_data", "svm_data"]
+     "multinomial_model_from_numpy", "sgd_config_from_dict", "Vectors",
+     "DenseVector", "SparseVector", "BLAS", "GradientDescent", "LBFGS",
+     "NormalEquations", "OWLQN", "Optimizer", "run_mini_batch_sgd",
+     "run_lbfgs", "Normalizer", "StandardScaler", "StandardScalerModel",
+     "RegressionMetrics", "BinaryClassificationMetrics",
+     "MulticlassMetrics", "col_stats", "corr",
+     "MultivariateStatisticalSummary", "a9a_like_data", "linear_data",
+     "logistic_data", "svm_data"]
     + list(_models_all) + list(_ops_all)
 )

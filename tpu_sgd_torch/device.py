@@ -7,6 +7,7 @@ that asked for the card never drops to the CPU silently.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import numpy as np
@@ -36,3 +37,20 @@ def as_tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
     if isinstance(x, np.ndarray) and not x.flags.writeable:
         x = x.copy()  # torch cannot wrap a read-only buffer
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+@contextlib.contextmanager
+def true_f32_matmul():
+    """Run the enclosed float32 matmuls in true f32 on a CUDA device: no
+    TF32, and no reduced-precision reduction in bf16 products.  The
+    settings are process-wide, so they are restored on exit.  (The normal
+    equations' loss is a difference of ``|y|^2``-sized terms, and a
+    correlation matrix must not carry TF32's ~1e-3 error.)"""
+    mm = torch.backends.cuda.matmul
+    prev = (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction)
+    mm.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = prev

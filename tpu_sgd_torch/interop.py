@@ -10,6 +10,13 @@ values (this module imports nothing of ``tpu_sgd``).
     m = jax_stream.latest_model()
     stream = StreamingLinearRegressionWithSGD(...).set_initial_weights(
         np.asarray(m.weights), m.intercept)
+    # a multinomial model: its flat weights and class layout
+    model = multinomial_model_from_numpy(
+        np.asarray(jax_model.weights), jax_model.num_classes,
+        jax_model.has_intercept_column)
+
+Models also cross in either direction through ``model.save(path)`` and
+``Model.load(path)``: both packages write the same format.
 """
 
 from __future__ import annotations
@@ -37,3 +44,17 @@ def sgd_config_from_dict(values: dict) -> SGDConfig:
     if unknown:
         raise ValueError(f"SGDConfig has no field(s) {unknown}")
     return SGDConfig(**values)
+
+
+def multinomial_model_from_numpy(weights: np.ndarray, num_classes: int,
+                                 has_intercept_column: bool = False,
+                                 num_features: int = None, device=None):
+    """A port ``MultinomialLogisticRegressionModel`` from a JAX one's flat
+    ``(K-1)*D`` weights, class count and intercept-column flag."""
+    from tpu_sgd_torch.models.classification import (
+        MultinomialLogisticRegressionModel,
+    )
+
+    return MultinomialLogisticRegressionModel(
+        np.asarray(weights, np.float32), 0.0, int(num_classes),
+        num_features, bool(has_intercept_column), device=device)

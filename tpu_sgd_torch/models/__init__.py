@@ -1,8 +1,10 @@
-"""GLM harness and the SGD model families."""
+"""GLM harness and the model families."""
 
 from tpu_sgd_torch.models.classification import (
     LogisticRegressionModel,
+    LogisticRegressionWithLBFGS,
     LogisticRegressionWithSGD,
+    MultinomialLogisticRegressionModel,
     SVMModel,
     SVMWithSGD,
 )
@@ -13,8 +15,11 @@ from tpu_sgd_torch.models.glm import (
 from tpu_sgd_torch.models.labeled_point import LabeledPoint, to_arrays
 from tpu_sgd_torch.models.regression import (
     LassoModel,
+    LassoWithOWLQN,
     LassoWithSGD,
     LinearRegressionModel,
+    LinearRegressionWithLBFGS,
+    LinearRegressionWithNormal,
     LinearRegressionWithSGD,
     RidgeRegressionModel,
     RidgeRegressionWithSGD,
@@ -28,8 +33,10 @@ from tpu_sgd_torch.models.streaming import (
 __all__ = [
     "LogisticRegressionModel", "LogisticRegressionWithSGD", "SVMModel",
     "SVMWithSGD", "GeneralizedLinearAlgorithm", "GeneralizedLinearModel",
-    "LabeledPoint", "to_arrays", "LassoModel", "LassoWithSGD",
-    "LinearRegressionModel", "LinearRegressionWithSGD",
+    "LabeledPoint", "to_arrays", "LassoModel", "LassoWithOWLQN",
+    "LassoWithSGD", "LinearRegressionModel", "LinearRegressionWithLBFGS",
+    "LinearRegressionWithNormal", "LinearRegressionWithSGD",
+    "LogisticRegressionWithLBFGS", "MultinomialLogisticRegressionModel",
     "RidgeRegressionModel", "RidgeRegressionWithSGD",
     "StreamingLinearAlgorithm", "StreamingLinearRegressionWithSGD",
     "StreamingLogisticRegressionWithSGD",

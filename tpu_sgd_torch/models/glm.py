@@ -4,9 +4,10 @@ Owns what the reference's harness owns: input validation, feature-count
 discovery, the intercept (a bias column appended LAST, as
 ``MLUtils.appendBias``, sparse for sparse features), calling
 ``optimizer.optimize``, splitting the
-intercept back out, and ``create_model``.  There is no execution planner in
-the port yet (ROADMAP A11), so every run behaves as the JAX package's
-``set_schedule("off")``: the optimizer runs exactly as configured.
+intercept back out, the opt-in feature-scaling pass, and ``create_model``.
+There is no execution planner in the port yet (ROADMAP A11), so every run
+behaves as the JAX package's ``set_schedule("off")``: the optimizer runs
+exactly as configured.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from tpu_sgd_torch.device import as_tensor, resolve_device
 from tpu_sgd_torch.linalg import SparseVector
 from tpu_sgd_torch.models.labeled_point import LabeledPoint, to_arrays
+from tpu_sgd_torch.ops.gradients import f32_product
 from tpu_sgd_torch.ops.sparse import (
     append_bias_auto,
     csr_from_triple,
@@ -45,6 +47,12 @@ def _as_arrays(data: DatasetLike):
     return to_arrays(data)
 
 
+def _single(X) -> bool:
+    """Whether ``X`` is one feature vector (predict returns a scalar)."""
+    return (isinstance(X, SparseVector)
+            or (is_sparse(X) and X.dim() == 1) or np.ndim(X) == 1)
+
+
 class GeneralizedLinearModel:
     """Weights + intercept + prediction rule (abstract ``predict_point``).
     ``weights`` is a ``(d,)`` float32 tensor; a numpy array moves to
@@ -58,34 +66,33 @@ class GeneralizedLinearModel:
                                      torch.float32)
         self.intercept = float(intercept)
 
-    def predict_margin(self, X) -> torch.Tensor:
-        """Raw margin(s) ``x.w + b`` for one vector or a batch, dense or
-        sparse (a sparse tensor of any layout, or one ``SparseVector``);
-        always batch-shaped (a single vector yields shape (1,)).  Plain
-        ``X @ w + b`` in f32; the bucketed serving matvec waits for the
-        serving slice (ROADMAP A10)."""
+    def _batch(self, X) -> torch.Tensor:
+        """One vector or a batch, dense or sparse (a sparse tensor of any
+        layout, or one ``SparseVector``), as a 2-D dense tensor or a CSR
+        matrix on the weights' device."""
         if isinstance(X, SparseVector):
             X = csr_from_triple(
                 (X.values, X.indices, np.asarray([0, X.indices.size])),
                 X.size)
         X = as_tensor(X, self.weights.device)
         if is_sparse(X):
-            X = to_csr(row_matrix(X))
-        else:
-            X = torch.atleast_2d(X)
-        if not X.dtype.is_floating_point or X.dtype == torch.float64:
-            X = X.to(torch.float32)
-        return X.to(torch.float32) @ self.weights + self.intercept
+            return to_csr(row_matrix(X))
+        return torch.atleast_2d(X)
+
+    def predict_margin(self, X) -> torch.Tensor:
+        """Raw margin(s) ``x.w + b``, always batch-shaped (a single vector
+        yields shape (1,)).  Plain ``X @ w + b`` in f32 (by row chunks of
+        a dense X); the bucketed serving matvec waits for the serving
+        slice (ROADMAP A10)."""
+        return f32_product(self._batch(X), self.weights) + self.intercept
 
     def predict_point(self, margin):
         raise NotImplementedError
 
     def predict(self, X):
         """Predict for one feature vector or a batch, dense or sparse."""
-        single = (isinstance(X, SparseVector)
-                  or (is_sparse(X) and X.dim() == 1) or np.ndim(X) == 1)
         out = self.predict_point(self.predict_margin(X))
-        return out[0] if single else out
+        return out[0] if _single(X) else out
 
     def __repr__(self):
         return (
@@ -104,6 +111,7 @@ class GeneralizedLinearAlgorithm:
         self.add_intercept = False
         self.validate_data = True
         self.num_features = -1
+        self.use_feature_scaling = False
 
     # -- fluent config, parity with the reference's setters ----------------
     def set_intercept(self, flag: bool):
@@ -115,11 +123,11 @@ class GeneralizedLinearAlgorithm:
         return self
 
     def set_feature_scaling(self, flag: bool):
-        if flag:
-            raise NotImplementedError(
-                "feature scaling needs tpu_sgd/feature.py, which is not "
-                "ported yet (ROADMAP A4)"
-            )
+        """Scale features to unit column std before optimizing, then map
+        the weights back to original space (the reference harness's
+        ``useFeatureScaling`` pass), opt-in on every family as in the JAX
+        package.  ``transform`` promotes a bf16 X to an f32 copy."""
+        self.use_feature_scaling = bool(flag)
         return self
 
     def set_num_features(self, n: int):
@@ -163,6 +171,18 @@ class GeneralizedLinearAlgorithm:
         w0 = torch.as_tensor(np.asarray(
             initial_weights.cpu() if isinstance(initial_weights, torch.Tensor)
             else initial_weights, np.float32))
+        scaler = None
+        if self.use_feature_scaling:
+            # Fit BEFORE the bias column exists; initial weights arrive in
+            # ORIGINAL space and move into scaled space by w * std, per
+            # d-sized block of flat stacked (multinomial) weights
+            from tpu_sgd_torch.feature import StandardScaler
+
+            scaler = StandardScaler(with_mean=False, with_std=True).fit(X)
+            X = scaler.transform(X)
+            std = scaler.std.cpu()
+            w0 = (w0.reshape(-1, std.shape[0]) * std[None, :]).reshape(
+                w0.shape)
         if self.add_intercept:
             Xb = append_bias_auto(X)
             w0 = torch.cat([w0, torch.tensor([initial_intercept],
@@ -173,6 +193,12 @@ class GeneralizedLinearAlgorithm:
         else:
             weights = self.optimizer.optimize((X, y), w0)
             intercept = 0.0
+        if scaler is not None:
+            # margin w'.(x * factor) == (w' * factor).x: transform maps the
+            # trained weights back to original space, block-wise
+            d = scaler.std.shape[0]
+            weights = scaler.transform(weights.reshape(-1, d)).reshape(
+                weights.shape)
         return self.create_model(weights, intercept)
 
     def _weight_dim(self) -> int:
@@ -185,3 +211,19 @@ class GeneralizedLinearAlgorithm:
             return self.run(data)
         return self.run(data, model.weights, model.intercept)
 
+
+
+def save_model(model, path: str) -> None:
+    """``model.save(path)``: the JAX package's directory format
+    (``utils/persistence.py``)."""
+    from tpu_sgd_torch.utils.persistence import save_glm_model
+
+    save_glm_model(path, model)
+
+
+def load_model(cls, path: str, device=None):
+    """``Model.load(path, device=None)``: a model of ``cls`` with its
+    weights on ``device`` (``None``: the card)."""
+    from tpu_sgd_torch.utils.persistence import load_glm_model
+
+    return load_glm_model(path, cls, device=device)

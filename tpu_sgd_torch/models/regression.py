@@ -1,10 +1,11 @@
-"""Regression model families, SGD-trained: the port of the ``*WithSGD``
-families of ``tpu_sgd/models/regression.py``.
+"""Regression model families: the port of ``tpu_sgd/models/regression.py``.
 
-Each family is the GLM harness plus a (Gradient, Updater) pair and the
-reference's defaults: step=1.0, iters=100, frac=1.0; reg=0.0 for plain
-linear, 0.01 for Lasso/Ridge.  The quasi-Newton and normal-equations
-families wait for ROADMAP A7/A8, model persistence for A4.
+The ``*WithSGD`` families are the GLM harness plus a (Gradient, Updater)
+pair and the reference's defaults: step=1.0, iters=100, frac=1.0; reg=0.0
+for plain linear, 0.01 for Lasso/Ridge.  ``LassoWithOWLQN``,
+``LinearRegressionWithLBFGS`` and ``LinearRegressionWithNormal`` put the
+quasi-Newton and exact solvers behind the same harness.  Models save and
+load in the JAX package's format (``utils/persistence.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from tpu_sgd_torch.models.glm import (
     GeneralizedLinearAlgorithm,
     GeneralizedLinearModel,
+    load_model,
+    save_model,
 )
 from tpu_sgd_torch.ops.gradients import LeastSquaresGradient
 from tpu_sgd_torch.ops.updaters import (
@@ -20,6 +23,9 @@ from tpu_sgd_torch.ops.updaters import (
     SquaredL2Updater,
 )
 from tpu_sgd_torch.optimize.gradient_descent import GradientDescent
+from tpu_sgd_torch.optimize.lbfgs import LBFGS
+from tpu_sgd_torch.optimize.normal import NormalEquations
+from tpu_sgd_torch.optimize.owlqn import OWLQN
 
 
 class LinearRegressionModel(GeneralizedLinearModel):
@@ -27,6 +33,9 @@ class LinearRegressionModel(GeneralizedLinearModel):
 
     def predict_point(self, margin):
         return margin
+
+    save = save_model
+    load = classmethod(load_model)
 
 
 class LassoModel(LinearRegressionModel):
@@ -142,3 +151,103 @@ class RidgeRegressionWithSGD(_RegressionWithSGD):
     _updater_cls = SquaredL2Updater
     _model_cls = RidgeRegressionModel
     _default_reg = 0.01
+
+
+class LassoWithOWLQN(GeneralizedLinearAlgorithm):
+    """Lasso via OWL-QN (upstream Spark's Breeze ``OWLQN``): exact zeros on
+    null coordinates and quasi-Newton convergence, with the harness and
+    model class of ``LassoWithSGD``."""
+
+    _model_cls = LassoModel
+
+    def __init__(self, reg_param: float = 0.01,
+                 max_num_iterations: int = 100, device=None):
+        super().__init__()
+        self.optimizer = OWLQN(
+            LeastSquaresGradient(),
+            reg_param=reg_param,
+            max_num_iterations=max_num_iterations,
+            device=device,
+        )
+
+    def set_intercept(self, flag: bool):
+        # the bias is the appended LAST column; upstream gives it zero L1
+        # strength, so it is never shrunk to 0
+        self.optimizer.set_penalize_intercept(not flag)
+        return super().set_intercept(flag)
+
+    def create_model(self, weights, intercept):
+        return self._model_cls(weights, intercept)
+
+    @classmethod
+    def train(cls, data, reg_param: float = 0.01,
+              max_num_iterations: int = 100, intercept: bool = False,
+              sufficient_stats: bool = False, device=None):
+        alg = cls(reg_param, max_num_iterations, device=device)
+        alg.set_intercept(intercept)
+        if sufficient_stats:
+            alg.optimizer.set_sufficient_stats(True)
+        return alg.run(data)
+
+
+class LinearRegressionWithLBFGS(GeneralizedLinearAlgorithm):
+    """Least squares via L-BFGS behind the same harness; the natural pairing
+    for ``set_feature_scaling`` (unit-variance columns condition the
+    inverse-Hessian pairs)."""
+
+    _model_cls = LinearRegressionModel
+
+    def __init__(self, reg_param: float = 0.0,
+                 max_num_iterations: int = 100,
+                 convergence_tol: float = 1e-6, device=None):
+        super().__init__()
+        self.optimizer = LBFGS(
+            LeastSquaresGradient(),
+            SquaredL2Updater(),
+            reg_param=reg_param,
+            max_num_iterations=max_num_iterations,
+            convergence_tol=convergence_tol,
+            device=device,
+        )
+
+    def create_model(self, weights, intercept):
+        return self._model_cls(weights, intercept)
+
+    @classmethod
+    def train(cls, data, reg_param: float = 0.0,
+              max_num_iterations: int = 100, intercept: bool = False,
+              feature_scaling: bool = False, mesh=None,
+              sufficient_stats: bool = False, device=None):
+        alg = cls(reg_param, max_num_iterations, device=device)
+        alg.set_intercept(intercept)
+        alg.set_feature_scaling(feature_scaling)
+        if mesh is not None:
+            alg.optimizer.set_mesh(mesh)
+        if sufficient_stats:
+            alg.optimizer.set_sufficient_stats(True)
+        return alg.run(data)
+
+
+class LinearRegressionWithNormal(GeneralizedLinearAlgorithm):
+    """Exact least squares via the one-pass normal-equations solver
+    (upstream ``spark.ml``'s WeightedLeastSquares "normal" solver), with
+    the harness, intercept handling and model class of the SGD family;
+    ``reg_param > 0`` gives exact ridge regression."""
+
+    _model_cls = LinearRegressionModel
+
+    def __init__(self, reg_param: float = 0.0, device=None):
+        super().__init__()
+        self.optimizer = NormalEquations(reg_param, device=device)
+
+    def create_model(self, weights, intercept):
+        return self._model_cls(weights, intercept)
+
+    @classmethod
+    def train(cls, data, reg_param: float = 0.0, intercept: bool = False,
+              mesh=None, device=None):
+        alg = cls(reg_param, device=device)
+        alg.set_intercept(intercept)
+        if mesh is not None:
+            alg.optimizer.set_mesh(mesh)
+        return alg.run(data)

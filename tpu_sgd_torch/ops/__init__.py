@@ -12,6 +12,7 @@ from tpu_sgd_torch.ops.gradients import (
     HingeGradient,
     LeastSquaresGradient,
     LogisticGradient,
+    MultinomialLogisticGradient,
 )
 from tpu_sgd_torch.ops.sparse import (
     append_bias_auto,
@@ -33,7 +34,8 @@ from tpu_sgd_torch.ops.updaters import (
 __all__ = [
     "FusedGradient", "fused_gradient_sums", "fused_window_sums",
     "fused_window_sums_vpu", "Gradient", "HingeGradient",
-    "LeastSquaresGradient", "LogisticGradient", "append_bias_auto",
+    "LeastSquaresGradient", "LogisticGradient",
+    "MultinomialLogisticGradient", "append_bias_auto",
     "append_bias_sparse", "csr_from_triple", "is_sparse",
     "load_libsvm_file_csr", "row_matrix", "sparse_data", "take_rows",
     "L1Updater",

@@ -1,5 +1,5 @@
 """Loss gradients for generalized linear models: the port of
-``tpu_sgd/ops/gradients.py`` (dense, vector-weight part).
+``tpu_sgd/ops/gradients.py``.
 
 Every linear-model gradient factors as
 
@@ -19,19 +19,31 @@ as in the JAX package, where BCOO products lower to gather and segment-sum
 and never reach a Pallas kernel, both products are torch CSR x vector
 products at the accumulation dtype, on the CPU or the card alike.
 
-Not ported yet: ``MultinomialLogisticGradient``, ``loss_sweep`` and
-``ChunkedGradient`` (ROADMAP A1).
+Matrix weights (the line search's ``(T, d)`` stack of trial points, the
+multinomial ``(K-1, d)`` class rows) take ``torch.matmul``, as the JAX
+package left them to XLA, and dense passes over X go by row chunks
+(:func:`row_chunks`): a bf16 X is never copied whole to f32, and the
+per-row intermediates stay within ``SWEEP_BUDGET_ELEMS``.  On a CUDA
+device a bf16 product runs with an f32 output (:func:`mm_acc`).
+
+Not ported yet: ``ChunkedGradient`` (ROADMAP A1).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpu_sgd_torch.ops.sparse import is_sparse, to_csr, transpose_csr
 
 Tensor = torch.Tensor
+
+#: element budget of one dense row chunk: the f32 per-row intermediates of
+#: a sweep or a multinomial pass (``(rows, T, K)`` logits), plus the f32
+#: copy of the chunk where X is upcast (~256 MB f32)
+SWEEP_BUDGET_ELEMS = 64_000_000
 
 
 def matmul_dtype(X: Tensor) -> torch.dtype:
@@ -46,11 +58,55 @@ def acc_dtype(mm_dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(mm_dtype, torch.float32)
 
 
+def _upcasts(X: Tensor) -> bool:
+    """Whether a dense product over ``X`` copies it to the accumulation
+    dtype first (every narrow X but a bf16/f16 one on a CUDA device)."""
+    mm = matmul_dtype(X)
+    return mm != acc_dtype(mm) and not (X.is_cuda and mm in _F32_OUT)
+
+
+_F32_OUT = (torch.bfloat16, torch.float16)
+
+
+def mm_acc(A: Tensor, B: Tensor) -> Tensor:
+    """``A @ B`` of two 2-D (or two batched 3-D) operands in the matmul
+    dtype, with an accumulation-dtype result.  On a CUDA device a bf16 (or f16) pair goes
+    to the library product with an f32 output (``torch.mm(...,
+    out_dtype=)``), elsewhere both operands are upcast first; a product of
+    two bf16 values is exact in f32, so both keep the JAX package's
+    ``preferred_element_type=f32`` contract.  A bf16-output product never
+    would."""
+    acc = acc_dtype(A.dtype)
+    if A.dtype == acc:
+        return A @ B
+    if A.is_cuda and A.dtype in _F32_OUT:
+        product = torch.bmm if A.dim() == 3 else torch.mm
+        return product(A, B, out_dtype=acc)
+    return A.to(acc) @ B.to(acc)
+
+
+def row_chunks(X: Tensor, per_row: int):
+    """``(start, stop)`` row ranges of a dense ``X`` whose f32 work, at
+    ``per_row`` intermediate elements a row plus the upcast copy of the
+    chunk where there is one, stays within ``SWEEP_BUDGET_ELEMS`` (one
+    range at test sizes, and for sparse X, whose products need no
+    chunks)."""
+    n = X.shape[0]
+    if is_sparse(X):
+        return [(0, n)]
+    width = per_row + (X.shape[1] if _upcasts(X) else 0)
+    rows = max(1, SWEEP_BUDGET_ELEMS // max(width, 1))
+    return [(s, min(n, s + rows)) for s in range(0, max(n, 1), rows)]
+
+
 def margins_of(X: Tensor, weights: Tensor) -> Tensor:
-    """``X @ w`` with ``w`` rounded to X's dtype and an f32 (or wider)
-    result.  A torch bf16 matmul would return bf16, so the operands are
-    upcast instead: a product of two bf16 values is exact in f32, so this
-    is the JAX package's ``preferred_element_type=f32`` contract.
+    """``X @ w`` (or ``X @ Wᵀ`` for matrix trial or class weights) with
+    the weights rounded to X's dtype and an f32 (or wider) result.  A
+    vector ``w`` upcasts both operands (a torch bf16 matmul would return
+    bf16; a product of two bf16 values is exact in f32, so this is the
+    JAX package's ``preferred_element_type=f32`` contract); matrix
+    weights go through :func:`mm_acc`.  Callers pass row chunks of a
+    large dense X.
 
     Sparse ``X`` computes at the accumulation dtype, as the JAX package
     does for BCOO: int one-hot values promote instead of truncating
@@ -58,23 +114,34 @@ def margins_of(X: Tensor, weights: Tensor) -> Tensor:
     mm = matmul_dtype(X)
     acc = acc_dtype(mm)
     if is_sparse(X):
-        return to_csr(X).to(acc) @ weights.to(acc)
+        rhs = weights.T.contiguous() if weights.dim() == 2 else weights
+        return to_csr(X).to(acc) @ rhs.to(acc)
+    if weights.dim() == 2:
+        # computed as W @ Xᵀ and returned transposed: the (T, rows) product
+        # has aligned rows whatever T is; X @ Wᵀ with T = 25 or 225 ran
+        # 2.3x and 4.3x slower for its misaligned rows
+        # (scripts/probe_f32_products.py, H100 80GB HBM3 at 700 W)
+        return mm_acc(weights.to(mm), X.to(mm).T).T
     return X.to(acc) @ weights.to(mm).to(acc)
 
 
 def grad_sum_of(coeff: Tensor, X: Tensor, Xt: Optional[Tensor] = None
                 ) -> Tensor:
-    """``coeff @ X`` (== ``X.T @ coeff``) with ``coeff`` rounded to X's
-    dtype and f32 accumulation, as :func:`margins_of`.  For sparse ``X``
-    it is ``Xt @ coeff`` at the accumulation dtype, ``Xt`` the transposed
-    CSR (:func:`~tpu_sgd_torch.ops.sparse.transpose_csr`, built here when
-    the caller holds none)."""
+    """``coeff @ X`` (== ``X.T @ coeff``; ``coeffᵀ @ X``, shape ``(K-1,
+    d)``, for a 2-D ``coeff``) with ``coeff`` rounded to X's dtype and f32
+    accumulation, as :func:`margins_of`.  For sparse ``X`` it is ``Xt @
+    coeff`` at the accumulation dtype, ``Xt`` the transposed CSR
+    (:func:`~tpu_sgd_torch.ops.sparse.transpose_csr`, built here when the
+    caller holds none)."""
     mm = matmul_dtype(X)
     acc = acc_dtype(mm)
     if is_sparse(X):
         if Xt is None:
             Xt = transpose_csr(to_csr(X))
-        return Xt.to(acc) @ coeff.to(acc)
+        out = Xt.to(acc) @ coeff.to(acc)
+        return out.T if coeff.dim() == 2 else out
+    if coeff.dim() == 2:
+        return mm_acc(coeff.T.to(mm), X.to(mm))
     return coeff.to(mm).to(acc) @ X.to(acc)
 
 
@@ -149,6 +216,29 @@ class Gradient:
         return cuda_kernels.fused_gradient_sums(
             self.pointwise, X, y, weights, mask)
 
+    def loss_sweep(
+        self,
+        X: Tensor,
+        y: Tensor,
+        W: Tensor,
+        mask: Optional[Tensor] = None,
+    ) -> Tuple[Tensor, Tensor]:
+        """Unnormalized ``(loss_sums (T,), count)`` of ``T`` stacked flat
+        trial weight vectors ``W``: the whole line-search ladder in one
+        pass over X (``margins = X @ Wᵀ``, one matmul per row chunk)
+        instead of ``T`` matvecs and ``T`` host syncs.  No host sync."""
+        acc = acc_dtype(matmul_dtype(X))
+        sums = torch.zeros((W.shape[0],), dtype=acc, device=W.device)
+        for s, e in row_chunks(X, W.shape[0]):
+            Xc = X if is_sparse(X) else X[s:e]
+            margins = margins_of(Xc, W)  # (rows, T)
+            _, losses = self.pointwise(margins,
+                                       y[s:e].to(margins.dtype)[:, None])
+            if mask is not None:
+                losses = losses * mask[s:e].to(losses.dtype)[:, None]
+            sums = sums + torch.sum(losses, dim=0)
+        return sums, _count(X, mask, acc)
+
     def window_sums(
         self,
         X: Tensor,
@@ -181,6 +271,13 @@ class Gradient:
         # exactly this method's semantics (no tile flooring)
         return cuda_kernels.fused_window_sums(
             self.pointwise, X, y, weights, start, m, tile_m=1, valid=valid)
+
+
+def _count(X, mask, dtype) -> Tensor:
+    """The row count of a batch: the mask's sum, or all rows."""
+    if mask is not None:
+        return torch.sum(mask.to(dtype))
+    return torch.tensor(float(X.shape[0]), dtype=dtype, device=X.device)
 
 
 def _clamp_start(start: int, n: int, m: int) -> int:
@@ -239,3 +336,146 @@ class HingeGradient(Gradient):
         coeff = torch.where(active, -scaled, zero)
         loss = torch.where(active, slack, zero)
         return coeff, loss
+
+
+class MultinomialLogisticGradient:
+    """K-class logistic gradient over flat ``(K-1)*D`` weights: class 0
+    is the pivot with an implicit zero logit, and the loss is the softmax
+    negative log-likelihood (the reference's multinomial branch of
+    ``LogisticGradient``).  It has no CUDA kernel (``family = None``):
+    both products are matmuls (:func:`mm_acc`) over row chunks of a dense
+    X, or CSR products, as the JAX package leaves them to XLA.  It works
+    under ``GradientDescent`` and the quasi-Newton optimizers alike."""
+
+    family = None
+
+    def __init__(self, num_classes: int):
+        if num_classes < 2:
+            raise ValueError("num_classes must be >= 2")
+        self.num_classes = num_classes
+
+    def weight_dim(self, num_features: int) -> int:
+        return (self.num_classes - 1) * num_features
+
+    def _log_probs(self, margins_t):
+        """Class-major ``(..., K, rows)`` log-softmax of the ``(..., K-1,
+        rows)`` margins with the pivot's zero logit in front."""
+        zeros = torch.zeros(margins_t.shape[:-2] + (1, margins_t.shape[-1]),
+                            dtype=margins_t.dtype, device=margins_t.device)
+        return torch.log_softmax(torch.cat([zeros, margins_t], dim=-2),
+                                 dim=-2)
+
+    def batch_sums(
+        self,
+        X: Tensor,
+        y: Tensor,
+        weights: Tensor,
+        mask: Optional[Tensor] = None,
+        margin_axis_name: Optional[str] = None,
+        Xt: Optional[Tensor] = None,
+    ) -> Tuple[Tensor, Tensor, Tensor]:
+        """``(grad_sum (K-1)*D, loss_sum, count)``, computed class-major:
+        ``(K-1, rows)`` margins and coefficients (aligned products on the
+        card, see :func:`margins_of`)."""
+        _no_feature_sharding(margin_axis_name)
+        K = self.num_classes
+        D = X.shape[-1]
+        W = weights.reshape(K - 1, D)
+        acc = acc_dtype(matmul_dtype(X))
+        classes = torch.arange(1, K, device=weights.device)
+        grad = torch.zeros((K - 1, D), dtype=acc, device=weights.device)
+        loss = torch.zeros((), dtype=acc, device=weights.device)
+        sparse = is_sparse(X)
+        for s, e in row_chunks(X, K):
+            Xc = X if sparse else X[s:e]
+            log_probs = self._log_probs(margins_of(Xc, W).T)  # (K, rows)
+            y_int = y[s:e].to(torch.int64)
+            losses = -torch.gather(log_probs, 0, y_int[None, :])[0]
+            # one_hot(y - 1, K - 1): the pivot's column is all zeros
+            onehot = (classes[:, None] == y_int[None, :]).to(log_probs.dtype)
+            coeff = torch.exp(log_probs[1:]) - onehot  # (K-1, rows)
+            if mask is not None:
+                m = mask[s:e].to(log_probs.dtype)
+                coeff = coeff * m[None, :]
+                losses = losses * m
+            grad = grad + grad_sum_of(coeff.T, Xc, Xt if sparse else None)
+            loss = loss + torch.sum(losses)
+        return grad.reshape(-1), loss, _count(X, mask, acc)
+
+    def loss_sweep(
+        self,
+        X: Tensor,
+        y: Tensor,
+        W: Tensor,
+        mask: Optional[Tensor] = None,
+    ) -> Tuple[Tensor, Tensor]:
+        """Line-search sweep over stacked flat ``(K-1)*D`` trial weights:
+        one ``(T·(K-1), D) @ Xᵀ`` matmul per row chunk, so X is read once
+        for the whole ladder.  The JAX package chunks over trials instead
+        (one read of X per trial chunk); both bound the ``(T, K, rows)``
+        logits by ``SWEEP_BUDGET_ELEMS`` and agree up to summation
+        order."""
+        T = W.shape[0]
+        K = self.num_classes
+        D = X.shape[-1]
+        acc = acc_dtype(matmul_dtype(X))
+        Wf = W.reshape(T * (K - 1), D)
+        sums = torch.zeros((T,), dtype=acc, device=W.device)
+        sparse = is_sparse(X)
+        for s, e in row_chunks(X, T * K):
+            Xc = X if sparse else X[s:e]
+            margins = margins_of(Xc, Wf).T.reshape(T, K - 1, e - s)
+            log_probs = self._log_probs(margins)  # (T, K, rows)
+            y_int = y[s:e].to(torch.int64)
+            losses = -torch.gather(
+                log_probs, 1, y_int[None, None, :].expand(T, 1, e - s))[:, 0]
+            if mask is not None:
+                losses = losses * mask[s:e].to(losses.dtype)[None, :]
+            sums = sums + torch.sum(losses, dim=1)
+        return sums, _count(X, mask, acc)
+
+    # the same window contract as the vector-weight gradients
+    window_sums = Gradient.window_sums
+
+    def predict_class(self, X: Tensor, weights: Tensor) -> Tensor:
+        K = self.num_classes
+        W = weights.reshape(K - 1, X.shape[-1])
+        return pivot_class_traced(f32_product(X, W.T))
+
+
+def f32_product(X, rhs: Tensor) -> Tensor:
+    """``X @ rhs`` in float32 with X promoted, as ``jnp`` promotes a bf16
+    or int X against f32 weights (the weights are not rounded): the
+    prediction product.  A dense X goes by row chunks, so a bf16 X is
+    never copied whole to f32."""
+    if is_sparse(X):
+        return to_csr(X).to(torch.float32) @ rhs
+    n = X.shape[0]
+    out = torch.empty((n,) + tuple(rhs.shape[1:]), dtype=torch.float32,
+                      device=rhs.device)
+    width = rhs.shape[1] if rhs.dim() == 2 else 1
+    rows = max(1, SWEEP_BUDGET_ELEMS // (X.shape[1] + width))
+    for s in range(0, n, rows):
+        out[s:s + rows] = X[s:s + rows].to(torch.float32) @ rhs
+    return out
+
+
+def pivot_class_traced(margins: Tensor) -> Tensor:
+    """Multinomial decision rule (pivot class 0 with an implicit zero
+    logit): per-class margins -> predicted class as float32, on the
+    margins' device.  ``torch.argmax`` returns the first maximum, as
+    ``jnp.argmax`` and ``np.argmax`` do."""
+    zeros = torch.zeros((margins.shape[0], 1), dtype=margins.dtype,
+                        device=margins.device)
+    return torch.argmax(torch.cat([zeros, margins], dim=-1),
+                        dim=-1).to(torch.float32)
+
+
+def pivot_class_host(margins) -> np.ndarray:
+    """Host-numpy twin of :func:`pivot_class_traced`; the two agree
+    exactly (first-max tie-breaking in both)."""
+    margins = np.asarray(margins)
+    logits = np.concatenate(
+        [np.zeros((margins.shape[0], 1), margins.dtype), margins], axis=-1
+    )
+    return np.argmax(logits, axis=-1).astype(np.float32)

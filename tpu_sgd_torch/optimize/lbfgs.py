@@ -1,0 +1,386 @@
+"""L-BFGS: the port of ``tpu_sgd/optimize/lbfgs.py`` (device-resident data,
+one device).
+
+The reference's ``LBFGS(gradient, updater)``: the full-batch cost
+``loss_sum / n + regVal(w)`` with the regularization term and its gradient
+taken from the updater family, the ``num_corrections`` two-loop
+recursion, a backtracking Armijo line search, and a stop on relative loss
+improvement; the loss history comes back with the weights.
+
+The cost is one ``Gradient.batch_sums`` call: for the built-in binary
+families on dense X, one launch of the fused CUDA kernel
+(``ops/cuda_kernels.py``) per evaluation.  The whole backtracking ladder
+is one ``Gradient.loss_sweep`` pass (X read once for all trial points).
+The evaluators are plain closures over tensors: nothing is compiled, so
+the JAX package's evaluator cache has no counterpart.  Sparse X is CSR,
+and its transposed copy is built once per ``optimize`` and handed to every
+cost evaluation.
+
+Host syncs per iteration, as in the JAX loop: ``g . d``, the sweep's trial
+objectives, ``s . y`` and the accepted ``f``; the cost and the sweep read
+nothing back.  The mesh, sufficient-statistics and host-streaming
+schedules are later slices (ROADMAP A5, A7, A9): their setters raise.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import List
+
+import numpy as np
+import torch
+
+from tpu_sgd_torch.device import as_tensor, resolve_device
+from tpu_sgd_torch.ops.gradients import Gradient, LeastSquaresGradient
+from tpu_sgd_torch.ops.sparse import is_sparse, to_csr, transpose_csr
+from tpu_sgd_torch.ops.updaters import (
+    L1Updater,
+    SimpleUpdater,
+    SquaredL2Updater,
+    Updater,
+)
+from tpu_sgd_torch.optimize.gradient_descent import _not_ported
+from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
+
+Tensor = torch.Tensor
+
+
+def _reg_terms(updater: Updater, reg_param: float):
+    """``(reg_value(w), reg_grad(w))`` as the reference's CostFun takes them
+    from each updater family; ``reg_value`` of a ``(T, d)`` stack gives the
+    ``(T,)`` values of its rows."""
+    if isinstance(updater, SquaredL2Updater):
+        return (
+            lambda w: 0.5 * reg_param * torch.sum(w * w, dim=-1),
+            lambda w: reg_param * w,
+        )
+    if isinstance(updater, L1Updater):
+        # Subgradient; the reference steers L1 users to OWL-QN, but accepts
+        # this for parity testing at small reg.
+        return (
+            lambda w: reg_param * torch.sum(torch.abs(w), dim=-1),
+            lambda w: reg_param * torch.sign(w),
+        )
+    return (
+        lambda w: torch.zeros(w.shape[:-1], dtype=w.dtype, device=w.device),
+        torch.zeros_like,
+    )
+
+
+def _warn_sequential_line_search(gradient, n_trials):
+    """Tell the user their gradient lacks the ``loss_sweep`` protocol, so
+    the Armijo backtracking runs one evaluation and one host sync PER
+    TRIAL (up to ``n_trials`` per iteration) instead of one pass with a
+    single sync."""
+    warnings.warn(
+        f"{type(gradient).__name__} has no loss_sweep(X, y, W, mask) "
+        "method, so the line search falls back to SEQUENTIAL trials — up "
+        f"to {n_trials} device calls + host syncs per iteration instead "
+        "of one batched sweep.  Implement loss_sweep (losses of a (T, d) "
+        "stack of trial weights in one pass — see "
+        "tpu_sgd_torch.ops.gradients.Gradient.loss_sweep) to fuse "
+        "the ladder.",
+        RuntimeWarning,
+        stacklevel=3,
+    )
+
+
+def _coerce_inputs(X, y, w, device):
+    """``(X, y, w)`` on ``device`` for the quasi-Newton optimizers: sparse
+    X as CSR, int and f64 features as f32 (as the JAX package computes
+    with x64 off), f32 labels and weights."""
+    X = as_tensor(X, device)
+    if is_sparse(X):
+        X = to_csr(X)
+    if not X.dtype.is_floating_point or X.dtype == torch.float64:
+        X = X.to(torch.float32)
+    if not is_sparse(X):
+        X = X.contiguous()
+    return (X, as_tensor(y, device, torch.float32),
+            as_tensor(w, device, torch.float32))
+
+
+def _sums_kw(Xt):
+    """The transposed CSR for ``batch_sums`` when there is one (a user's
+    gradient for dense data need not take the keyword)."""
+    return {} if Xt is None else {"Xt": Xt}
+
+
+def _build_cost(gradient, reg_value, reg_grad, X, y, Xt=None):
+    """``cost(w) -> (f, g)``: full objective and gradient, one
+    ``batch_sums`` pass."""
+    kw = _sums_kw(Xt)
+
+    def cost(w):
+        g_sum, l_sum, c = gradient.batch_sums(X, y, w, **kw)
+        return l_sum / c + reg_value(w), g_sum / c + reg_grad(w)
+
+    return cost
+
+
+def _build_loss_only(gradient, reg_value, X, y, Xt=None):
+    """``loss(w) -> f``: the objective alone, for the sequential line
+    search of a gradient without ``loss_sweep``."""
+    kw = _sums_kw(Xt)
+
+    def loss(w):
+        _, l_sum, c = gradient.batch_sums(X, y, w, **kw)
+        return l_sum / c + reg_value(w)
+
+    return loss
+
+
+def _build_loss_sweep(gradient, reg_value, X, y):
+    """``sweep(W) -> (T,)`` objectives of ``T`` trial weight vectors in
+    one ``loss_sweep`` pass (vector weights and the multinomial matrix
+    weights alike)."""
+
+    def sweep(W):
+        l_sum, c = gradient.loss_sweep(X, y, W)
+        return l_sum / c + reg_value(W)
+
+    return sweep
+
+
+def _push_correction(s_stack, y_stack, rho, k, m, s, yv, sy):
+    """Append a curvature pair to the fixed-size history, shifting the
+    ring once it is full (the JAX order, so the two-loop's γ and
+    directions match); shared by LBFGS and OWLQN.  Returns the updated
+    ``(s_stack, y_stack, rho, k)``."""
+    if k < m:
+        s_stack[k] = s
+        y_stack[k] = yv
+        rho[k] = 1.0 / sy
+        return s_stack, y_stack, rho, k + 1
+    s_stack = torch.roll(s_stack, -1, dims=0)
+    y_stack = torch.roll(y_stack, -1, dims=0)
+    rho = torch.roll(rho, -1)
+    s_stack[m - 1] = s
+    y_stack[m - 1] = yv
+    rho[m - 1] = 1.0 / sy
+    return s_stack, y_stack, rho, k
+
+
+def _two_loop(g, s_stack, y_stack, rho, k: int):
+    """The L-BFGS two-loop recursion over the ``k`` valid corrections
+    (rows ``[0, k)``).  ``k`` is a host int, so only valid rows are
+    visited: the JAX scan adds exact zeros for the others.  No sync."""
+    q = g
+    alphas = {}
+    for idx in range(k - 1, -1, -1):
+        alpha = rho[idx] * torch.dot(s_stack[idx], q)
+        q = q - alpha * y_stack[idx]
+        alphas[idx] = alpha
+    if k > 0:
+        # initial Hessian scaling gamma = s.y / y.y of the newest pair
+        newest = k - 1
+        gamma = torch.dot(s_stack[newest], y_stack[newest]) / torch.clamp(
+            torch.dot(y_stack[newest], y_stack[newest]), min=1e-10)
+        r = gamma * q
+    else:
+        r = q
+    for idx in range(k):
+        beta = rho[idx] * torch.dot(y_stack[idx], r)
+        r = r + (alphas[idx] - beta) * s_stack[idx]
+    return r
+
+
+class LBFGS(Optimizer):
+    """Limited-memory BFGS with backtracking Armijo line search.
+    ``device=None`` runs on the card and raises without one; pass
+    ``device="cpu"`` for the plain PyTorch path."""
+
+    #: backtracking ladder length (t = 1, 1/2, ..., 2^-(N-1))
+    _LS_TRIALS = 25
+
+    def __init__(
+        self,
+        gradient: Gradient = None,
+        updater: Updater = None,
+        num_corrections: int = 10,
+        convergence_tol: float = 1e-6,
+        max_num_iterations: int = 100,
+        reg_param: float = 0.0,
+        device=None,
+    ):
+        self.gradient = (gradient if gradient is not None
+                         else LeastSquaresGradient())
+        self.updater = updater if updater is not None else SimpleUpdater()
+        self.num_corrections = num_corrections
+        self.convergence_tol = convergence_tol
+        self.max_num_iterations = max_num_iterations
+        self.reg_param = reg_param
+        self.device = device
+        self._loss_history = None
+
+    # fluent setters, reference parity
+    def set_gradient(self, g):
+        self.gradient = g
+        return self
+
+    def set_updater(self, u):
+        self.updater = u
+        return self
+
+    def set_num_corrections(self, m: int):
+        self.num_corrections = int(m)
+        return self
+
+    def set_convergence_tol(self, t: float):
+        self.convergence_tol = float(t)
+        return self
+
+    def set_max_num_iterations(self, n: int):
+        self.max_num_iterations = int(n)
+        return self
+
+    def set_reg_param(self, r: float):
+        self.reg_param = float(r)
+        return self
+
+    # -- schedules of later slices ------------------------------------------
+    def set_mesh(self, mesh):
+        _not_ported("set_mesh (data parallelism)", "A5")
+
+    def set_sufficient_stats(self, flag: bool = True):
+        _not_ported("set_sufficient_stats", "A7")
+
+    def set_streamed_stats(self, flag: bool = True, block_rows: int = None):
+        _not_ported("set_streamed_stats", "A7")
+
+    def set_host_streaming(self, flag: bool = True, batch_rows: int = None):
+        _not_ported("set_host_streaming (the streamed CostFun)", "A9")
+
+    @property
+    def loss_history(self):
+        return self._loss_history
+
+    def optimize(self, data: Dataset, initial_weights) -> Tensor:
+        w, _ = self.optimize_with_history(data, initial_weights)
+        return w
+
+    def _resident(self, data, initial_weights):
+        """``(X, y, w, Xt)`` on the run's device, or None for empty input
+        (the history is then empty)."""
+        X, y = data
+        X, y, w = _coerce_inputs(X, y, initial_weights,
+                                 resolve_device(self.device))
+        if X.shape[0] == 0:
+            self._loss_history = np.zeros((0,), np.float32)
+            return None, w
+        Xt = transpose_csr(X) if is_sparse(X) else None
+        return (X, y, Xt), w
+
+    def optimize_with_history(self, data: Dataset, initial_weights):
+        """``(weights, loss_history)``: weights a float32 tensor on the
+        run's device, the history a numpy array (one entry per cost
+        evaluation)."""
+        arrays, w = self._resident(data, initial_weights)
+        if arrays is None:
+            return w, self._loss_history
+        X, y, Xt = arrays
+        gradient = self.gradient
+        reg_value, reg_grad = _reg_terms(self.updater, self.reg_param)
+        cost1 = _build_cost(gradient, reg_value, reg_grad, X, y, Xt)
+        if hasattr(gradient, "loss_sweep"):
+            sweep1 = _build_loss_sweep(gradient, reg_value, X, y)
+            return self._qn_loop(w, cost1, sweep1, None)
+        # exotic gradients without a sweep rule: sequential trials
+        _warn_sequential_line_search(gradient, self._LS_TRIALS)
+        loss1 = _build_loss_only(gradient, reg_value, X, y, Xt)
+        return self._qn_loop(w, cost1, None, loss1)
+
+    def _qn_loop(self, w, cost1, sweep1, loss1):
+        """The L-BFGS iteration loop over full-batch evaluators:
+        ``cost1(w) -> (f, g)``, ``sweep1(W_trials) -> (T,)`` trial
+        objectives (None for gradients without a sweep rule), ``loss1(w)
+        -> f`` (the sequential fallback)."""
+        n_ls = self._LS_TRIALS
+        # trial step sizes, largest first
+        ladder_h = (0.5 ** np.arange(n_ls)).astype(np.float32)
+        ladder = torch.as_tensor(ladder_h, device=w.device)
+        swept = sweep1 is not None
+
+        m = self.num_corrections
+        d = w.shape[0]
+        s_stack = torch.zeros((m, d), dtype=w.dtype, device=w.device)
+        y_stack = torch.zeros((m, d), dtype=w.dtype, device=w.device)
+        rho = torch.zeros((m,), dtype=w.dtype, device=w.device)
+        k = 0  # valid corrections
+
+        f, g = cost1(w)
+        losses: List[float] = [float(f)]
+        for _ in range(self.max_num_iterations):
+            direction = -_two_loop(g, s_stack, y_stack, rho, k)
+            # Armijo backtracking; only the accept decision is host-side
+            g_dot_d = float(torch.dot(g, direction))
+            if g_dot_d >= 0:  # not a descent direction: reset to -g
+                direction = -g
+                g_dot_d = float(torch.dot(g, direction))
+            f0 = losses[-1]  # float(f), read when it was recorded
+            if swept:
+                # whole ladder in one device pass + ONE host sync
+                trials = w[None, :] + ladder[:, None] * direction[None, :]
+                f_trials = sweep1(trials).cpu().numpy()
+                ok = f_trials <= f0 + 1e-4 * ladder_h * g_dot_d
+                j = int(np.argmax(ok)) if ok.any() else -1
+                accepted = j >= 0
+                if accepted:
+                    w_new = w + float(ladder_h[j]) * direction
+            else:
+                t = 1.0
+                accepted = False
+                for _ls in range(n_ls):
+                    w_new = w + t * direction
+                    if float(loss1(w_new)) <= f0 + 1e-4 * t * g_dot_d:
+                        accepted = True
+                        break
+                    t *= 0.5
+            if not accepted:
+                break  # cannot make progress
+            f_new, g_new = cost1(w_new)  # gradient at the accepted point
+            s = w_new - w
+            yv = g_new - g
+            sy = float(torch.dot(s, yv))
+            if sy > 1e-10:  # curvature condition: keep the correction
+                s_stack, y_stack, rho, k = _push_correction(
+                    s_stack, y_stack, rho, k, m, s, yv, sy)
+            w, f, g = w_new, f_new, g_new
+            losses.append(float(f))
+            rel = abs(losses[-2] - losses[-1]) / max(
+                abs(losses[-2]), abs(losses[-1]), 1.0
+            )
+            if rel < self.convergence_tol:
+                break
+
+        self._loss_history = np.asarray(losses, np.float32)
+        return w, self._loss_history
+
+
+def run_lbfgs(
+    data: Dataset,
+    gradient: Gradient,
+    updater: Updater,
+    num_corrections: int,
+    convergence_tol: float,
+    max_num_iterations: int,
+    reg_param: float,
+    initial_weights,
+    mesh=None,
+    device=None,
+):
+    """Functional entry point, signature parity with the reference's
+    ``object LBFGS.runLBFGS``: same argument order, returns ``(weights,
+    loss_history)``.  ``mesh`` raises (ROADMAP A5)."""
+    opt = LBFGS(
+        gradient,
+        updater,
+        num_corrections=num_corrections,
+        convergence_tol=convergence_tol,
+        max_num_iterations=max_num_iterations,
+        reg_param=reg_param,
+        device=device,
+    )
+    if mesh is not None:
+        opt.set_mesh(mesh)
+    return opt.optimize_with_history(data, initial_weights)

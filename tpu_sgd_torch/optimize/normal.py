@@ -1,0 +1,177 @@
+"""Exact least squares via the normal equations: the port of
+``tpu_sgd/optimize/normal.py`` (device-resident data, one device).
+
+One pass over X accumulates ``(XᵀX, Xᵀy, yᵀy, n)``, then the small
+``(d, d)`` system
+
+    (XᵀX / n + reg·I) w = Xᵀy / n
+
+is solved by Cholesky.  It sits behind the same ``Optimizer`` boundary as
+``GradientDescent``, so the GLM harness, intercept handling and
+persistence compose with it unchanged.
+
+Precision.  The loss is a difference of ``‖y‖²``-sized terms, so the
+statistics are kept in true f32 or better: no TF32
+(:func:`~tpu_sgd_torch.device.true_f32_matmul`), bf16 products with an f32
+output (never a bf16 one), and the long sum over rows split into
+``GRAM_BLOCK_ROWS``-row blocks whose f32 products are added in f64.  Over
+300,000 rows one bf16 product with an f32 output was off by 3.6e-4 of the
+Gram's largest entry, an f32 product of the upcast rows by 2.3e-5, and
+4,096-row blocks added in f64 by 1.0e-5 (``scripts/probe_f32_products.py``
+on an H100 80GB HBM3 at 700 W).
+
+Not ported yet: the mesh (ROADMAP A5) and the host-streamed totals with
+their AUTO placement (A9).  Data too large for the card fails where it is
+moved there; it never moves to the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_sgd_torch.device import as_tensor, resolve_device, true_f32_matmul
+from tpu_sgd_torch.ops.gradients import acc_dtype, matmul_dtype, mm_acc
+from tpu_sgd_torch.ops.sparse import is_sparse
+from tpu_sgd_torch.optimize.gradient_descent import _not_ported
+from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
+
+Tensor = torch.Tensor
+
+#: rows of one block of the Gram's sum (see the module docstring)
+GRAM_BLOCK_ROWS = 4096
+#: blocks per batched product, which bounds its ``(blocks, d, d)`` f32
+#: output
+_BLOCKS_PER_CALL = 32
+
+
+def _gram_sums(X: Tensor, y: Tensor):
+    """One pass: ``(XᵀX, Xᵀy, yᵀy, n)`` at the accumulation dtype (f32 for
+    bf16 X, whose products run in bf16 with f32 outputs), each block's
+    products added in f64."""
+    mm = matmul_dtype(X)
+    acc = acc_dtype(mm)
+    n, d = X.shape
+    wide = torch.float64
+    A = torch.zeros((d, d), dtype=wide, device=X.device)
+    b = torch.zeros((d,), dtype=wide, device=X.device)
+    Xc = X.to(mm)
+    yc = y.to(mm)
+    B = GRAM_BLOCK_ROWS
+    step = B * _BLOCKS_PER_CALL
+    with true_f32_matmul():
+        for s in range(0, n, step):
+            e = min(n, s + step)
+            nb = (e - s) // B
+            if nb:
+                Xb = Xc[s:s + nb * B].reshape(nb, B, d)
+                yb = yc[s:s + nb * B].reshape(nb, B, 1)
+                Xbt = Xb.transpose(1, 2)
+                A += mm_acc(Xbt, Xb).sum(0, dtype=wide)
+                b += mm_acc(Xbt, yb).sum(0, dtype=wide)[:, 0]
+            if s + nb * B < e:  # the ragged last block
+                Xr = Xc[s + nb * B:e]
+                A += mm_acc(Xr.T, Xr).to(wide)
+                b += mm_acc(Xr.T, yc[s + nb * B:e, None])[:, 0].to(wide)
+    yy = y.to(wide)
+    yty = torch.dot(yy, yy)
+    return (A.to(acc), b.to(acc), yty.to(acc),
+            torch.tensor(float(n), dtype=torch.float32, device=X.device))
+
+
+def _dot_hi(a: Tensor, b: Tensor, dtype) -> Tensor:
+    """Cancellation-safe product: both operands at the statistics dtype,
+    true f32 (the counterpart of ``tpu_sgd/ops/gram.py``'s ``_dot_hi``,
+    which runs at ``Precision.HIGHEST``)."""
+    with true_f32_matmul():
+        return a.to(dtype) @ b.to(dtype)
+
+
+def _solve(A, b, yty, n, reg_param: float):
+    """Solve the regularized normal equations and return ``(w, loss)``.
+
+    Objective matched to the SGD path's SquaredL2Updater semantics:
+    ``(1/n)·Σ ½(x.w − y)² + (reg/2)·‖w‖²``.  A Gram that is not positive
+    definite gives NaN weights, as the JAX package's Cholesky does, and
+    ``optimize`` raises."""
+    d = A.shape[0]
+    An = A / n + reg_param * torch.eye(d, dtype=A.dtype, device=A.device)
+    bn = b / n
+    L, info = torch.linalg.cholesky_ex(An)
+    z = torch.linalg.solve_triangular(L, bn[:, None], upper=False)
+    w = torch.linalg.solve_triangular(L.T, z, upper=True)[:, 0]
+    w = torch.where(info == 0, w, float("nan"))
+    sd = A.dtype
+    loss = (
+        0.5 * (_dot_hi(w, _dot_hi(A, w, sd), sd) - 2.0 * _dot_hi(w, b, sd)
+               + yty) / n
+        + 0.5 * reg_param * _dot_hi(w, w, sd)
+    )
+    return w, loss
+
+
+class NormalEquations(Optimizer):
+    """Exact least-squares solver behind the Optimizer boundary: the
+    least-squares family's drop-in alternative to ``GradientDescent``.
+    ``reg_param`` is the L2 coefficient (0 = plain OLS).  ``device=None``
+    runs on the card and raises without one."""
+
+    def __init__(self, reg_param: float = 0.0, device=None):
+        self.reg_param = float(reg_param)
+        self.device = device
+        self._loss = None
+
+    def set_reg_param(self, r: float):
+        self.reg_param = float(r)
+        return self
+
+    def set_host_streaming(self, flag: bool = True, batch_rows: int = None,
+                           resume_dir: str = None):
+        _not_ported("set_host_streaming (the host-streamed Gram totals)",
+                    "A9")
+
+    def set_mesh(self, mesh):
+        _not_ported("set_mesh (data parallelism)", "A5")
+
+    @property
+    def loss_history(self):
+        """Length-1 loss history (the final objective)."""
+        return self._loss
+
+    def optimize(self, data: Dataset, initial_weights) -> Tensor:
+        X, y = data
+        if is_sparse(X):
+            raise NotImplementedError(
+                "NormalEquations needs dense features: the d x d Gram "
+                "matrix is dense regardless of input sparsity (47k "
+                "features -> 8.8 GB), so wide sparse problems should use "
+                "GradientDescent/LBFGS/OWLQN instead"
+            )
+        dev = resolve_device(self.device)
+        X = as_tensor(X, dev)
+        if not X.dtype.is_floating_point or X.dtype == torch.float64:
+            X = X.to(torch.float32)
+        y = as_tensor(y, dev, torch.float32)
+        width = (initial_weights.shape[-1]
+                 if isinstance(initial_weights, torch.Tensor)
+                 else np.shape(initial_weights)[-1])
+        if width != X.shape[1]:
+            raise ValueError(
+                f"initial_weights has length {width} but the data has "
+                f"{X.shape[1]} features"
+            )
+        w, loss = _solve(*_gram_sums(X.contiguous(), y), self.reg_param)
+        return self._finish(w, loss)
+
+    def _finish(self, w, loss):
+        """Rank deficiency surfaces here, and the loss history."""
+        if not bool(torch.all(torch.isfinite(w))):
+            raise FloatingPointError(
+                "normal-equations solve produced non-finite weights: the "
+                "Gram matrix is rank-deficient (collinear or constant "
+                "features) and reg_param="
+                f"{self.reg_param} does not regularize it; set a positive "
+                "reg_param or drop redundant features"
+            )
+        self._loss = np.asarray([float(loss)], np.float32)
+        return w
