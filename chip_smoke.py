@@ -45,10 +45,25 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    against the SGD path's objective, with the dense kernels' launch
    counts 0 and the peak memory bounded.  Configs 1 and 2 of phase
    5 also run through ``LinearRegressionWithNormal`` and
-   ``LogisticRegressionWithLBFGS``.
-8. summary — the kernel table, the sparse line, the quasi_newton line,
-   then the card's name and power limit, then the last line
-   ``{"ok": true, "device": {...}}``.
+   ``LogisticRegressionWithLBFGS``, and config 1 from sufficient
+   statistics with sliced windows.
+8. gram — least squares from block-prefix Gram statistics on phase 4's
+   matrix (runs right after leg (b)): (a) the build (time against its
+   bound, stack and peak bytes); (b) exact-mode windows against B2 at a
+   random, a block-boundary and a clamped 1M-row start; (c) SGD from the
+   statistics on phase 4's sliced windows (history against the exact f32
+   sums of the same windows, objective against the stock run, no fused
+   launch); (d) aligned windows, per iteration and through the chunked
+   driver (which must equal them); (e) L-BFGS from the statistics against
+   leg (b)'s; (f) ``ChunkedGradient``, one B2 launch per 65,536-row block
+   (counted exactly) against phase 4's sliced run; (g) ``GramData.save`` /
+   ``load`` at config 1's size; (h) the exact window loss near convergence
+   against f64 sums, with the statistics' sums in f64 (as built) and in
+   f32 (the JAX package's choice).  Each run's warm wall and device ms
+   per iteration, idle share, and host operator calls per iteration.
+9. summary — the kernel table, the sparse line, the quasi_newton line,
+   the gram line, then the card's name and power limit, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  It imports
 nothing of JAX or of the JAX package ``tpu_sgd``.
@@ -69,6 +84,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM, f32 outside the tensor cores
+F64_FLOPS = 67e12           # H100 SXM data sheet, f64 on the tensor cores
 FULL_ROWS, FULL_D, FRAC, ITERS = 10_000_000, 1000, 0.1, 20
 WINDOW_TILE = 2000          # divides both 10^7 and the 10^6-row window
 SOURCE = "tpu_sgd_torch/ops/csrc/fused_sums.cu"
@@ -86,6 +102,11 @@ OWLQN_ITERS = 50
 # re-evaluated by the cost pass after the sweep accepted it, with another
 # summation order, so a flat step may read higher by f32 rounding
 HISTORY_RTOL = 1e-6
+GRAM_BLOCK = 8192           # the statistics' prefix block (the default)
+GRAM_CHUNK_ITERS = 8        # the chunked gram driver's K of leg (d)
+CHUNK_ROWS = 65536          # ChunkedGradient's block of leg (f)
+CONFIG1_GRAM_FRAC = 0.5     # config 1's sliced fraction from statistics
+GRAM_CONFIG1_BLOCK = 1024   # leg (g)'s block at config 1's 100k rows
 REPLACES = {
     "fused_gradient_sums": "tpu_sgd/ops/pallas_kernels.py:265",
     "fused_window_sums": "tpu_sgd/ops/pallas_kernels.py:342",
@@ -311,6 +332,8 @@ def phase_full(torch, tst, ck):
             "count_min": float(counts.min()),
             "count_max": float(counts.max()),
         }
+        if mode == "sliced":
+            sliced_ref = (np.asarray(losses), model.weights)
         check(len(losses) == ITERS, f"{mode}: {len(losses)} losses")
         check(bool(np.all(np.isfinite(losses))), f"{mode}: non-finite loss")
         check(losses[-1] < losses[0], f"{mode}: loss did not fall")
@@ -327,7 +350,7 @@ def phase_full(torch, tst, ck):
     emit({"phase": "full", "rows": n, "d": FULL_D, "dtype": "bfloat16",
           "mini_batch_fraction": FRAC, "iterations": ITERS,
           "data_seconds": gen_s, "launches": counts, "runs": runs})
-    return X, y, w_true, counts
+    return X, y, w_true, counts, sliced_ref
 
 
 def device_ms_by_kernel(torch, prof) -> dict:
@@ -620,12 +643,21 @@ def phase_configs(torch, tst):
     w_ne = tst.LinearRegressionWithNormal.train((X, y)).weights
     check(w_ne.is_cuda, f"config 1 normal: weights on {w_ne.device}")
     L_ne = 0.5 * float(np.mean((X @ w_ne.double().cpu().numpy() - y) ** 2))
+    # ... and from sufficient statistics, sliced windows at frac 0.5
+    gs = tst.LinearRegressionWithSGD(1.0, 100, None, CONFIG1_GRAM_FRAC)
+    gs.optimizer.set_sampling("sliced").set_sufficient_stats(True)
+    w_gs = gs.run((X, y)).weights
+    check(w_gs.is_cuda, f"config 1 statistics: weights on {w_gs.device}")
+    L_gs = 0.5 * float(np.mean((X @ w_gs.double().cpu().numpy() - y) ** 2))
     out["config1"] = {"objective": L, "oracle": L_star,
                       "gap": (L - L_star) / L_star,
                       "normal_objective": L_ne,
-                      "normal_gap": (L_ne - L_star) / L_star}
+                      "normal_gap": (L_ne - L_star) / L_star,
+                      "gram_sliced_objective": L_gs,
+                      "gram_sliced_gap": (L_gs - L_star) / L_star}
     check(out["config1"]["gap"] < 0.01
-          and out["config1"]["normal_gap"] < 1e-4,
+          and out["config1"]["normal_gap"] < 1e-4
+          and out["config1"]["gram_sliced_gap"] < 0.01,
           f"config 1: {out['config1']}")
 
     # config 2: logistic + L2 on the a9a stand-in, within 1% of the optimum
@@ -989,7 +1021,10 @@ def leg_normal_equations(torch, tst, X, y, w_true):
     torch.cuda.synchronize()
     ne_s = time.perf_counter() - t
     lb = tst.LinearRegressionWithLBFGS(max_num_iterations=QN_ITERS)
+    t = time.perf_counter()
     w_lb = lb.run((X, y_ls)).weights
+    torch.cuda.synchronize()
+    lb_s = time.perf_counter() - t
     g = tst.LeastSquaresGradient()
     L_ne = full_objective(g, X, y_ls, w_ne)
     L_lb = full_objective(g, X, y_ls, w_lb)
@@ -1009,6 +1044,9 @@ def leg_normal_equations(torch, tst, X, y, w_true):
                  else (t_ops, "operations"))
     out = {"normal_s": ne_s, "objective": L_ne, "lbfgs_objective": L_lb,
            "lbfgs_iterations": len(lb.optimizer.loss_history) - 1,
+           "lbfgs_s": lb_s,
+           "lbfgs_ms_per_iteration": 1e3 * lb_s / max(
+               1, len(lb.optimizer.loss_history) - 1),
            "w_rel_err": rel, "noise_level": noise, "gram_ms": gram_ms,
            "gram_bound_ms": bound, "gram_bound_by": by}
     emit({"phase": "quasi_newton", "leg": "b_normal_equations", **out})
@@ -1106,6 +1144,415 @@ def leg_sparse_owlqn(torch, tst, ck, X, y, w_sgd):
     return out
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+def _run_profile(torch, run, iters):
+    """A warm run's wall ms per iteration (untraced, ending in
+    ``synchronize``), then over the same run traced: device ms per
+    iteration by kernel, and the host's operator calls and self ms by
+    operator per iteration; idle share = 1 - device / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t) / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    per = {k: v / iters for k, v in device_ms_by_kernel(torch, prof).items()}
+    busy = sum(per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    host, calls = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CPU and (
+                ev.key.startswith("aten::") or ev.key.startswith("cuda")):
+            host[ev.key] = ev.self_cpu_time_total / 1e3 / iters
+            calls += ev.count if ev.key.startswith("aten::") else 0
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms_per_iteration": wall, "device_ms_per_iteration": busy,
+            "idle_share": max(0.0, 1 - busy / wall),
+            "top_device_ms": dict(top),
+            "aten_calls_per_iteration": calls / iters,
+            "top_host_self_ms": dict(top_host)}
+
+
+def _sgd_alg(tst, gradient=None, sufficient_stats=False):
+    """Phase ``full``'s sliced run (seed, step, fraction, iterations), so
+    every run below samples the same windows."""
+    alg = tst.LinearRegressionWithSGD(0.5, ITERS, None, FRAC)
+    alg.optimizer.set_convergence_tol(0.0).set_sampling("sliced")
+    if gradient is not None:
+        alg.optimizer.set_gradient(gradient)
+    if sufficient_stats:
+        alg.optimizer.set_sufficient_stats(True)
+    return alg
+
+
+def _exact_window_gradient(torch, tst):
+    """The exact f32 sums of a sliced window (rows upcast, weights not
+    rounded), the reference of the statistics' loss history: the fused
+    kernel computes margins with the weights rounded to bf16, the JAX
+    package's bf16 contract, which the statistics do not follow."""
+
+    class ExactWindow(tst.LeastSquaresGradient):
+        family = None
+
+        def window_sums(self, X, y, weights, start, m, valid=None,
+                        margin_axis_name=None):
+            s = min(max(int(start), 0), X.shape[0] - m)  # a reference
+            Xw = X[s:s + m].float()
+            r = Xw @ weights - y[s:s + m]
+            return (r @ Xw, 0.5 * torch.dot(r, r),
+                    torch.full((), float(m), device=X.device))
+
+    return ExactWindow()
+
+
+def _max_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def gram_build(torch, tst, X, y):
+    """(a) The statistics of the 10M x 1000 matrix: time, stack and peak
+    bytes against the bound."""
+    n, d = X.shape
+    B = GRAM_BLOCK
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    gram = tst.GramLeastSquaresGradient.build(X, y, block_rows=B)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    PG = gram.data.PG
+    stack_bytes = PG.numel() * PG.element_size()
+    expect = (n // B + 1) * d * d * 4
+    check(stack_bytes == expect, f"(a): stack {stack_bytes} != {expect}")
+    # one f32 block, its Gram and the f64 carry beside the stack, never a
+    # second stack
+    check(peak < stack_bytes + 1e9, f"(a): build peak {peak} bytes")
+    del gram, PG
+    t = time.perf_counter()
+    gram = tst.GramLeastSquaresGradient.build(X, y, block_rows=B)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    moved = (n * d * X.element_size() + 4 * n + stack_bytes
+             + (n // B + 1) * (4 * d + 8) + 4 * d * d + 4 * d + 8)
+    # the block products run in f64 (tpu_sgd_torch/ops/gram.py)
+    t_ops = 2.0 * n * d * d / F64_FLOPS
+    t_bytes = moved / HBM_BYTES_PER_S
+    bound = max(t_ops, t_bytes)
+    out = {"block_rows": B, "prefix_entries": n // B + 1,
+           "first_s": first_s, "warm_s": warm_s, "stack_bytes": stack_bytes,
+           "peak_allocated_bytes": peak, "bound_s": bound,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "share_of_bound": bound / warm_s}
+    return gram, out
+
+
+def gram_windows(torch, tst, ck, gram, X, y, w_true):
+    """(b) Exact-mode windows against B2 at three 1M-row starts, with
+    weights on a bf16 grid at |w_true|'s scale (so that B2's rounding of
+    the weights to bf16 is exact and both compute one function)."""
+    n, d = X.shape
+    m = round(FRAC * n)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    w = torch.randn(d, generator=gen, device="cuda")
+    w = (w * (torch.linalg.vector_norm(w_true) / torch.linalg.vector_norm(w))
+         ).to(torch.bfloat16).float()
+    exact = _exact_window_gradient(torch, tst)
+    starts = {
+        "random": int(torch.randint(0, n - m + 1, (1,), generator=gen,
+                                    device="cuda")),
+        "block_boundary": 300 * GRAM_BLOCK,
+        "clamped": n - 1000,
+    }
+    out = {}
+    for name, s0 in starts.items():
+        s = torch.tensor([s0], device="cuda")
+        g, l, c = gram.window_sums(gram.data, y, w, s, m)
+        gk, lk, ck_ = ck.fused_window_sums(gram.pointwise, X, y, w, s, m,
+                                           tile_m=1)
+        ge, le, _ = exact.window_sums(X, y, w, s, m)
+        scale = float(gk.abs().max())
+        err = float((g - gk).abs().max())
+        rel_l = abs(float(l) - float(lk)) / abs(float(lk))
+        out[name] = {
+            "start": s0, "grad_scale": scale, "max_abs_err": err,
+            "max_abs_err_over_scale": err / scale, "loss_rel_err": rel_l,
+            "exact_max_abs_err": float((g - ge).abs().max()),
+            "exact_loss_rel_err": abs(float(l) - float(le)) / float(le),
+            "kernel_exact_max_abs_err": float((gk - ge).abs().max())}
+        check(err <= 1e-3 * scale and rel_l <= 1e-3
+              and float(c) == float(ck_) == m,
+              f"(b) {name}: statistics vs B2 {out[name]}")
+    return out
+
+
+def gram_sgd(torch, tst, ck, X, y, sliced_ref):
+    """(c) SGD from the statistics in exact mode, phase ``full``'s windows;
+    (d) aligned and chunked."""
+    from tpu_sgd_torch.optimize.oracle import full_objective
+
+    n, d = X.shape
+    m = round(FRAC * n)
+    ls = tst.LeastSquaresGradient()
+    ref_alg = _sgd_alg(tst, _exact_window_gradient(torch, tst))
+    ref_alg.run((X, y))
+    ref_hist = np.asarray(ref_alg.optimizer.loss_history)
+
+    alg = _sgd_alg(tst, sufficient_stats=True)
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = alg.run((X, y))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = ck.launch_counts()
+    hist = np.asarray(alg.optimizer.loss_history)
+    check(all(v == 0 for v in launches.values()),
+          f"(c): the statistics launched fused kernels: {launches}")
+    check(len(hist) == ITERS and bool(np.all(np.isfinite(hist))),
+          f"(c): history {hist}")
+    rel_exact = _max_rel(hist, ref_hist)
+    check(rel_exact <= 1e-3, f"(c): history vs the exact windows' "
+          f"{rel_exact} > 1e-3")
+    L = full_objective(ls, X, y, model.weights)
+    L_stock = full_objective(ls, X, y, sliced_ref[1])
+    check(L <= 1.01 * L_stock, f"(c): objective {L} > 1.01 x {L_stock}")
+    prof = _run_profile(torch, lambda: alg.run((X, y)), ITERS)
+    # bytes one exact iteration must move: two prefix rows (G, b, yy) and
+    # two B-row edge slices of X and y
+    moved = 2 * (4 * d * d + 4 * d + 8) + 2 * GRAM_BLOCK * (2 * d + 4)
+    bound = 1e3 * moved / HBM_BYTES_PER_S
+    exact = {"first_run_s": first_s, "launches": launches,
+             "history_max_rel_vs_exact_windows": rel_exact,
+             "history_max_rel_vs_bf16_kernel_run": _max_rel(
+                 hist, sliced_ref[0]),
+             "history_first_rel_vs_bf16_kernel_run": _max_rel(
+                 hist[:1], sliced_ref[0][:1]),
+             "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+             "objective": L, "stock_objective": L_stock,
+             "bound_ms": bound, "bound_bytes": moved,
+             "share_of_bound": bound / prof["wall_ms_per_iteration"],
+             **prof}
+    exact["weights"] = model.weights
+    alg.optimizer.release_sufficient_stats()
+    del alg, model
+
+    runs = {}
+    opt = _sgd_alg(tst, sufficient_stats=True).optimizer
+    opt.set_gram_options(block_rows=GRAM_BLOCK, aligned=True)
+    for name, chunk in (("aligned", None), ("chunked", GRAM_CHUNK_ITERS)):
+        if chunk:
+            opt.set_gram_options(chunk_iters=chunk)
+        ck.reset_launch_counts()
+        w, h = opt.optimize_with_history((X, y), torch.zeros(d,
+                                                             device="cuda"))
+        launches = ck.launch_counts()
+        check(all(v == 0 for v in launches.values()),
+              f"(d) {name}: fused launches {launches}")
+        runs[name] = (w, np.asarray(h), _run_profile(
+            torch, lambda: opt.optimize_with_history(
+                (X, y), torch.zeros(d, device="cuda")), ITERS))
+    (wa, ha, pa), (wc, hc, pc) = runs["aligned"], runs["chunked"]
+    bitwise = bool(torch.equal(wa, wc) and np.array_equal(ha, hc))
+    check(bitwise or (np.allclose(hc, ha, rtol=1e-6, atol=0)
+                      and bool(torch.allclose(wc, wa, rtol=1e-6, atol=0))),
+          "(d): the chunked run differs from the per-iteration aligned run "
+          f"(history {_max_rel(hc, ha)}, weights "
+          f"{float(((wc - wa).abs() / wa.abs()).max())})")
+    opt.release_sufficient_stats()
+    aligned = {"aligned": pa, "chunked": pc, "chunk_iters": GRAM_CHUNK_ITERS,
+               "chunked_equals_aligned_bitwise": bitwise,
+               "aligned_loss_last": float(ha[-1]),
+               "aligned_history_max_rel_vs_exact_mode": _max_rel(ha, hist)}
+    return exact, aligned
+
+
+def gram_lbfgs(torch, tst, ck, X, y, qn_b):
+    """(e) Least-squares L-BFGS from the statistics on leg (b)'s labels."""
+    from tpu_sgd_torch.optimize.oracle import full_objective
+
+    y_ls = y.to(torch.bfloat16).to(torch.float32)
+    alg = tst.LinearRegressionWithLBFGS(max_num_iterations=QN_ITERS)
+    alg.optimizer.set_convergence_tol(0.0).set_sufficient_stats(True)
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = alg.run((X, y_ls))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = ck.launch_counts()
+    hist = alg.optimizer.loss_history
+    its = len(hist) - 1
+    check(all(v == 0 for v in launches.values()),
+          f"(e): the statistics launched fused kernels: {launches}")
+    check(_nonincreasing(hist), f"(e): the loss history rose: {hist}")
+    L = full_objective(tst.LeastSquaresGradient(), X, y_ls, model.weights)
+    check(L <= qn_b["lbfgs_objective"] * (1 + 1e-4),
+          f"(e): objective {L} > leg (b)'s L-BFGS "
+          f"{qn_b['lbfgs_objective']} x (1 + 1e-4)")
+    prof = _run_profile(torch, lambda: alg.run((X, y_ls)), max(1, its))
+    out = {"iterations": its, "first_run_s": first_s, "launches": launches,
+           "objective": L, "stock_lbfgs_objective": qn_b["lbfgs_objective"],
+           "normal_objective": qn_b["objective"],
+           "stock_lbfgs_ms_per_iteration": qn_b["lbfgs_ms_per_iteration"],
+           "stock_lbfgs_iterations": qn_b["lbfgs_iterations"], **prof}
+    alg.optimizer.release_sufficient_stats()
+    return out
+
+
+def gram_chunked_gradient(torch, tst, ck, X, y, sliced_ref):
+    """(f) ``ChunkedGradient`` at 65,536-row blocks: one B2 launch per
+    block, against phase ``full``'s sliced run; and B2's row at the block
+    shape."""
+    n, d = X.shape
+    m = round(FRAC * n)
+    blocks = -(-m // CHUNK_ROWS)
+    chunked = tst.ChunkedGradient(tst.LeastSquaresGradient(), CHUNK_ROWS)
+    alg = _sgd_alg(tst, chunked)
+    ck.reset_launch_counts()
+    alg.run((X, y))
+    torch.cuda.synchronize()
+    launches = ck.launch_counts()
+    hist = np.asarray(alg.optimizer.loss_history)
+    expect = {"fused_gradient_sums": 0, "fused_window_sums": ITERS * blocks,
+              "fused_window_sums_vpu": 0}
+    check(launches == expect, f"(f): launches {launches} != {expect}")
+    rel = _max_rel(hist, sliced_ref[0])
+    check(rel <= 2e-4, f"(f): history vs the stock sliced run {rel}")
+    prof = _run_profile(torch, lambda: alg.run((X, y)), ITERS)
+    # B2 at the block shape
+    pw = chunked.pointwise
+    w = sliced_ref[1]
+    s0 = (n - CHUNK_ROWS) // 2
+    start = torch.tensor([s0], device="cuda")
+    got = ck.fused_window_sums(pw, X, y, w, start, CHUNK_ROWS, tile_m=1)
+    ref = ck.fused_window_sums_plain(pw, X, y, w, s0, CHUNK_ROWS, 1)
+    ok, err, scale = _close(torch, got, ref, True)
+    check(ok, f"(f): B2 at {CHUNK_ROWS} rows: max|dg|={err} of {scale}")
+    Xc = X[s0:s0 + CHUNK_ROWS]
+    wb = w.to(torch.bfloat16)
+    coeff = torch.randn(CHUNK_ROWS, device="cuda").to(torch.bfloat16)
+    bound, by = _bound_ms(CHUNK_ROWS, d, 2, 0)
+    row = {"name": "fused_window_sums", "path": "chunked",
+           "shape": [CHUNK_ROWS, d], "selected_rows": CHUNK_ROWS,
+           "max_abs_err": err, "grad_scale": scale,
+           "ms": time_ms(torch, lambda: ck.fused_window_sums(
+               pw, X, y, w, start, CHUNK_ROWS, tile_m=1), 50),
+           "plain_ms": time_ms(torch, lambda: ck.fused_window_sums_plain(
+               pw, X, y, w, s0, CHUNK_ROWS, 1), 10),
+           "library_ms": time_ms(torch, lambda: (Xc @ wb, coeff @ Xc), 50),
+           "bound_ms": bound, "bound_by": by,
+           "launches": launches["fused_window_sums"]}
+    out = {"chunk_rows": CHUNK_ROWS, "blocks_per_window": blocks,
+           "launches": launches, "history_max_rel_vs_stock": rel, **prof}
+    return out, row
+
+
+def gram_precision(torch, tst, X, y, w):
+    """(h) The exact window loss at the weights ``w`` (leg (c)'s last,
+    near convergence) against f64 sums of the same rows, with the build's
+    products, prefix carries, small stacks and loss terms in f64 (the
+    module as it is) and all in f32 (the JAX package's choice)."""
+    from tpu_sgd_torch.ops import gram
+
+    n = X.shape[0]
+    m = round(FRAC * n)
+    starts = (0, n // 3, n - m)
+    exact = []
+    for s in starts:
+        r = X[s:s + m].double() @ w.double() - y[s:s + m].double()
+        exact.append(0.5 * float(r @ r))
+        del r
+    out = {"starts": list(starts), "loss_per_row": exact[0] / m}
+    try:
+        for name, dtype in (("f64_sums", torch.float64),
+                            ("f32_sums", torch.float32)):
+            gram.SUM_DTYPE = dtype
+            g = tst.GramLeastSquaresGradient.build(X, y,
+                                                   block_rows=GRAM_BLOCK)
+            out[name] = max(
+                abs(float(g.window_sums(g.data, y, w, s, m)[1]) - ref) / ref
+                for s, ref in zip(starts, exact))
+            del g
+            torch.cuda.empty_cache()
+    finally:
+        gram.SUM_DTYPE = torch.float64
+    check(out["f64_sums"] <= 1e-3, f"(h): {out}")
+    return out
+
+
+def gram_persistence(torch, tst):
+    """(g) ``GramData.save`` / ``load`` at config 1's size: the loaded
+    virtual bundle drives an aligned sliced run equal to the resident
+    one."""
+    X, y, _ = tst.linear_data(100_000, 100, eps=0.1, seed=0)
+    Xg = torch.as_tensor(X, device="cuda")
+    yg = torch.as_tensor(y, device="cuda")
+    resident = tst.GramLeastSquaresGradient.build(
+        Xg, yg, block_rows=GRAM_CONFIG1_BLOCK, aligned=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        resident.data.save(tmp)
+        data = tst.GramData.load(tmp)
+    check(data.X is None and data.PG.is_cuda, "(g): the loaded bundle")
+
+    def run(gradient, Xarg):
+        opt = (tst.GradientDescent(gradient, tst.SimpleUpdater())
+               .set_step_size(1.0).set_num_iterations(100)
+               .set_mini_batch_fraction(0.1).set_sampling("sliced")
+               .set_convergence_tol(0.0))
+        w, h = opt.optimize_with_history(
+            (Xarg, yg), torch.zeros(100, device="cuda"))
+        return w, np.asarray(h)
+
+    w_r, h_r = run(resident, Xg)
+    w_v, h_v = run(tst.GramLeastSquaresGradient(data), data)
+    bitwise = bool(torch.equal(w_r, w_v) and np.array_equal(h_r, h_v))
+    check(bitwise or (np.allclose(h_v, h_r, rtol=1e-6, atol=0)
+                      and bool(torch.allclose(w_v, w_r, rtol=1e-6, atol=0))),
+          "(g): the loaded bundle's run differs from the resident one")
+    return {"rows": X.shape[0], "d": X.shape[1],
+            "block_rows": GRAM_CONFIG1_BLOCK,
+            "loaded_equals_resident_bitwise": bitwise,
+            "loss_last": float(h_v[-1])}
+
+
+def phase_gram(torch, tst, ck, X, y, w_true, sliced_ref, qn_b):
+    """Phase ``gram``: legs (a)-(g) on the 10M x 1000 matrix of phase
+    ``full`` (config 1's size for (g))."""
+    out = {}
+
+    def leg(name, record):
+        out[name] = record
+        emit({"phase": "gram", "leg": name, **record})
+
+    gram, record = gram_build(torch, tst, X, y)
+    leg("a_build", record)
+    leg("b_windows", gram_windows(torch, tst, ck, gram, X, y, w_true))
+    del gram
+    torch.cuda.empty_cache()
+    exact, aligned = gram_sgd(torch, tst, ck, X, y, sliced_ref)
+    w_c = exact.pop("weights")
+    leg("c_sgd_exact", exact)
+    leg("d_sgd_aligned", aligned)
+    torch.cuda.empty_cache()
+    leg("e_lbfgs", gram_lbfgs(torch, tst, ck, X, y, qn_b))
+    torch.cuda.empty_cache()
+    record, row = gram_chunked_gradient(torch, tst, ck, X, y, sliced_ref)
+    leg("f_chunked_gradient", record)
+    leg("g_persistence", gram_persistence(torch, tst))
+    leg("h_precision", gram_precision(torch, tst, X, y, w_c))
+    return out, row
+
+
 def main() -> int:
     try:
         import torch
@@ -1153,14 +1600,17 @@ def main() -> int:
     emit({"phase": "kernels", "cases": cases, "max_abs_err": worst,
           "seconds": time.perf_counter() - t})
 
-    X, y, w_true, launches = phase_full(torch, tst, ck)
+    X, y, w_true, launches, sliced_ref = phase_full(torch, tst, ck)
     phase_profile(torch, tst, X, y)
     rows = phase_timing(torch, tst, ck, X, y, launches)
     qn = {}
     qn["a"], b1_row = leg_binary_lbfgs(torch, tst, ck, X, w_true)
     rows.append(b1_row)
     qn["b"] = leg_normal_equations(torch, tst, X, y, w_true)
-    del X, y
+    gram, chunked_row = phase_gram(torch, tst, ck, X, y, w_true, sliced_ref,
+                                   qn["b"])
+    rows.append(chunked_row)
+    del X, y, sliced_ref
     torch.cuda.empty_cache()
     qn["c"] = leg_multinomial(torch, tst)
     torch.cuda.empty_cache()
@@ -1208,6 +1658,34 @@ def main() -> int:
         "sparse_owlqn": {k: qn["d"][k] for k in (
             "objective", "sgd_objective", "iterations", "ms_per_iteration",
             "exact_zeros", "peak_allocated_bytes")}}})
+    prof_keys = ("wall_ms_per_iteration", "device_ms_per_iteration",
+                 "idle_share")
+    emit({"gram": {
+        "build": {k: gram["a_build"][k] for k in (
+            "first_s", "warm_s", "stack_bytes", "peak_allocated_bytes",
+            "bound_s", "share_of_bound")},
+        "windows_max_abs_err_over_scale": {
+            k: v["max_abs_err_over_scale"]
+            for k, v in gram["b_windows"].items()},
+        "sgd_exact": {k: gram["c_sgd_exact"][k] for k in prof_keys + (
+            "history_max_rel_vs_exact_windows",
+            "history_max_rel_vs_bf16_kernel_run", "objective",
+            "stock_objective", "bound_ms", "share_of_bound")},
+        "sgd_aligned": {k: gram["d_sgd_aligned"]["aligned"][k]
+                        for k in prof_keys},
+        "sgd_chunked": {k: gram["d_sgd_aligned"]["chunked"][k]
+                        for k in prof_keys} | {
+            "equals_aligned_bitwise":
+                gram["d_sgd_aligned"]["chunked_equals_aligned_bitwise"]},
+        "lbfgs": {k: gram["e_lbfgs"][k] for k in prof_keys + (
+            "iterations", "objective", "stock_lbfgs_objective",
+            "stock_lbfgs_ms_per_iteration")},
+        "chunked_gradient": {k: gram["f_chunked_gradient"][k]
+                             for k in prof_keys + ("launches",)},
+        "persistence_bitwise":
+            gram["g_persistence"]["loaded_equals_resident_bitwise"],
+        "window_loss_rel_err": {k: gram["h_precision"][k]
+                                for k in ("f64_sums", "f32_sums")}}})
     print(smi, flush=True)
     # one card drove the run, however many the host shows
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -35,7 +35,8 @@ def test_import_pulls_in_no_jax_and_no_tpu_sgd():
         "tpu_sgd_torch.optimize.lbfgs, tpu_sgd_torch.optimize.owlqn, "
         "tpu_sgd_torch.optimize.normal, tpu_sgd_torch.optimize.oracle, "
         "tpu_sgd_torch.evaluation, tpu_sgd_torch.feature, "
-        "tpu_sgd_torch.stat, tpu_sgd_torch.utils.persistence\n"
+        "tpu_sgd_torch.stat, tpu_sgd_torch.utils.persistence, "
+        "tpu_sgd_torch.ops.gram, tpu_sgd_torch.optimize.gram_driver\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
         "print(bad)")
@@ -53,6 +54,8 @@ def test_import_builds_nothing():
         "from tpu_sgd_torch.ops import _build, cuda_kernels, sparse\n"
         "from tpu_sgd_torch.models import streaming\n"
         "from tpu_sgd_torch.optimize import lbfgs, owlqn, normal, oracle\n"
+        "from tpu_sgd_torch.optimize import gram_driver\n"
+        "from tpu_sgd_torch.ops import gram\n"
         "from tpu_sgd_torch import evaluation, feature, stat\n"
         "from tpu_sgd_torch.utils import persistence\n"
         "print(len(_build._loaded))")
@@ -102,6 +105,12 @@ def test_cpu_path_launches_no_kernel():
                          window_kernel="vpu"), device="cpu")
     opt.set_sampling("sliced").set_mini_batch_fraction(0.2)
     opt.set_num_iterations(5).optimize((X, y), np.zeros(4))
+    tst.LinearRegressionWithSGD.train((X, y), 5, 0.5, 0.2, sampling="sliced",
+                                      sufficient_stats=True, device="cpu")
+    tst.GradientDescent(tst.ChunkedGradient(tst.LeastSquaresGradient(), 16),
+                        device="cpu").set_sampling("sliced") \
+        .set_mini_batch_fraction(0.2).set_num_iterations(3) \
+        .optimize((X, y), np.zeros(4))
     assert ck.launch_counts() == {"fused_gradient_sums": 0,
                                   "fused_window_sums": 0,
                                   "fused_window_sums_vpu": 0}

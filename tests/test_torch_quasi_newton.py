@@ -491,8 +491,8 @@ def test_oracle_objective_helper_closed_form():
 # ---- later slices raise ----------------------------------------------------
 
 @pytest.mark.parametrize("setter,item", [
-    ("set_mesh", "A5"), ("set_sufficient_stats", "A7"),
-    ("set_streamed_stats", "A7"), ("set_host_streaming", "A9")])
+    ("set_mesh", "A5"), ("set_streamed_stats", "A9"),
+    ("set_host_streaming", "A9")])
 @pytest.mark.parametrize("cls", [tl.LBFGS, to.OWLQN])
 def test_schedules_of_later_slices_raise(cls, setter, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -179,7 +179,7 @@ def test_config_validation_matches_jax():
 @pytest.mark.parametrize("setter,args", [
     ("set_mesh", (object(),)),
     ("set_host_streaming", (True,)),
-    ("set_sufficient_stats", (True,)),
+    ("set_gram_options", (None, None, 64)),  # batch_rows: streamed build
     ("set_streamed_stats", (True,)),
     ("set_superstep", (4,)),
     ("set_residency", (8,)),

@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of ``tpu_sgd``: mini-batch and streaming SGD,
 L-BFGS, OWL-QN and the normal equations for generalized linear models, on
-dense or sparse features, on one NVIDIA H100, with evaluation metrics,
+dense or sparse features, least squares also from block-prefix Gram
+statistics, on one NVIDIA H100, with evaluation metrics,
 feature scaling, column statistics and model persistence.
 
 The JAX package ``tpu_sgd`` stays the reference; this package imports
@@ -24,6 +25,7 @@ from tpu_sgd_torch.feature import (
 )
 from tpu_sgd_torch.interop import (
     glm_model_from_numpy,
+    gram_data_from_numpy,
     multinomial_model_from_numpy,
     sgd_config_from_dict,
 )
@@ -51,6 +53,7 @@ from tpu_sgd_torch.utils.mlutils import (
 
 __all__ = (
     ["SGDConfig", "resolve_device", "glm_model_from_numpy",
+     "gram_data_from_numpy",
      "multinomial_model_from_numpy", "sgd_config_from_dict", "Vectors",
      "DenseVector", "SparseVector", "BLAS", "GradientDescent", "LBFGS",
      "NormalEquations", "OWLQN", "Optimizer", "run_mini_batch_sgd",

@@ -1,5 +1,5 @@
-"""Gradients, updaters, sparse features and the fused CUDA kernels of the
-port."""
+"""Gradients, updaters, sparse features, the sufficient statistics of least
+squares and the fused CUDA kernels of the port."""
 
 from tpu_sgd_torch.ops.cuda_kernels import (
     FusedGradient,
@@ -8,12 +8,14 @@ from tpu_sgd_torch.ops.cuda_kernels import (
     fused_window_sums_vpu,
 )
 from tpu_sgd_torch.ops.gradients import (
+    ChunkedGradient,
     Gradient,
     HingeGradient,
     LeastSquaresGradient,
     LogisticGradient,
     MultinomialLogisticGradient,
 )
+from tpu_sgd_torch.ops.gram import GramData, GramLeastSquaresGradient
 from tpu_sgd_torch.ops.sparse import (
     append_bias_auto,
     append_bias_sparse,
@@ -33,7 +35,8 @@ from tpu_sgd_torch.ops.updaters import (
 
 __all__ = [
     "FusedGradient", "fused_gradient_sums", "fused_window_sums",
-    "fused_window_sums_vpu", "Gradient", "HingeGradient",
+    "fused_window_sums_vpu", "ChunkedGradient", "Gradient",
+    "GramData", "GramLeastSquaresGradient", "HingeGradient",
     "LeastSquaresGradient", "LogisticGradient",
     "MultinomialLogisticGradient", "append_bias_auto",
     "append_bias_sparse", "csr_from_triple", "is_sparse",

@@ -26,7 +26,8 @@ package left them to XLA, and dense passes over X go by row chunks
 per-row intermediates stay within ``SWEEP_BUDGET_ELEMS``.  On a CUDA
 device a bf16 product runs with an f32 output (:func:`mm_acc`).
 
-Not ported yet: ``ChunkedGradient`` (ROADMAP A1).
+:class:`ChunkedGradient` walks a sliced window in fixed-size row blocks,
+one window-kernel launch per block on the card.
 """
 
 from __future__ import annotations
@@ -295,6 +296,77 @@ def _slice_window(X, y, valid, start, m):
     s = _clamp_start(int(start), X.shape[0], m)
     mask = None if valid is None else valid[s:s + m]
     return X[s:s + m], y[s:s + m], mask
+
+
+class ChunkedGradient(Gradient):
+    """The window of ``sampling="sliced"`` as consecutive ``chunk_rows``-row
+    blocks plus a remainder, behind the same ``Gradient`` contract: the
+    port of the JAX package's one-read window schedule.
+
+    On the card each block is one launch of the window kernel at a
+    device-resident start (``base.window_sums``, ``tile_m=1``): the start
+    is clamped once, on the device, and each block starts ``chunk_rows``
+    rows after the previous one, so nothing syncs the host.  On the CPU the
+    blocks take the plain path.  The sums accumulate at the accumulation
+    dtype.  Wraps the built-in families; delegates everything but the
+    window schedule."""
+
+    def __init__(self, base: Gradient, chunk_rows: int = 65536):
+        if chunk_rows <= 0:
+            raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+        self.base = base
+        self.chunk_rows = int(chunk_rows)
+
+    @property
+    def family(self):
+        return self.base.family
+
+    def pointwise(self, margin, label):
+        return self.base.pointwise(margin, label)
+
+    def weight_dim(self, num_features: int) -> int:
+        return self.base.weight_dim(num_features)
+
+    def compute(self, data, label, weights):
+        return self.base.compute(data, label, weights)
+
+    def batch_sums(self, X, y, weights, mask=None, margin_axis_name=None,
+                   Xt=None):
+        return self.base.batch_sums(X, y, weights, mask,
+                                    margin_axis_name=margin_axis_name, Xt=Xt)
+
+    def loss_sweep(self, X, y, W, mask=None):
+        return self.base.loss_sweep(X, y, W, mask)
+
+    def window_sums(self, X, y, weights, start, m, valid=None,
+                    margin_axis_name=None):
+        from tpu_sgd_torch.ops.cuda_kernels import _start_tensor
+
+        if is_sparse(X):
+            raise NotImplementedError(
+                "sliced sampling needs a dense row layout; use bernoulli "
+                "sampling with sparse features"
+            )
+        _no_feature_sharding(margin_axis_name)
+        c = min(self.chunk_rows, m)
+        nblk, rem = divmod(m, c)
+        # clamp ONCE, like the stock path's whole window: per-block
+        # clamping would re-read overlapping tail rows for an out-of-range
+        # start and diverge from the base implementation
+        start = torch.clamp(_start_tensor(start, X.device), 0,
+                            max(X.shape[0] - m, 0))
+        cd = acc_dtype(matmul_dtype(X))
+        g = torch.zeros(weights.shape, dtype=cd, device=weights.device)
+        ls = torch.zeros((), dtype=cd, device=weights.device)
+        cnt = torch.zeros((), dtype=cd, device=weights.device)
+        blocks = [(i * c, c) for i in range(nblk)]
+        if rem:
+            blocks.append((nblk * c, rem))
+        for offset, rows in blocks:
+            gb, lb, cb = self.base.window_sums(X, y, weights, start + offset,
+                                               rows, valid=valid)
+            g, ls, cnt = g + gb.to(cd), ls + lb.to(cd), cnt + cb.to(cd)
+        return g, ls, cnt
 
 
 class LeastSquaresGradient(Gradient):

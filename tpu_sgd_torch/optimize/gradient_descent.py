@@ -17,6 +17,14 @@ window's start is drawn on the device and read by the kernel through a
 pointer; it never reaches the host.  Capturing the loop as a CUDA graph is
 later work (ROADMAP A3).
 
+Least squares on dense data can run from block-prefix Gram statistics
+(``set_sufficient_stats``, ``ops/gram.py``): the gradient is rebound to a
+``GramLeastSquaresGradient`` and its ``GramData`` bundle rides where X
+goes, so each sliced window or full batch costs a ``(d, d)`` matvec
+instead of a pass over the rows.  ``set_gram_options(chunk_iters=K)``
+sends block-aligned windows through the chunked-gather driver
+(``optimize/gram_driver.py``).
+
 Sparse features (any non-strided layout) train undensified, as the JAX
 package's BCOO branch does on one device: X becomes CSR with int32
 indices where they fit, ``make_run`` builds its transposed CSR once, and
@@ -43,6 +51,11 @@ import torch
 from tpu_sgd_torch.config import SGDConfig
 from tpu_sgd_torch.device import as_tensor, resolve_device
 from tpu_sgd_torch.ops.gradients import Gradient, LeastSquaresGradient
+from tpu_sgd_torch.ops.gram import (
+    DEFAULT_BLOCK_ROWS,
+    GramData,
+    GramLeastSquaresGradient,
+)
 from tpu_sgd_torch.ops.sparse import is_sparse, to_csr, transpose_csr
 from tpu_sgd_torch.ops.updaters import SimpleUpdater, Updater
 from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
@@ -85,6 +98,14 @@ def _seed_for(seed: int, i: int) -> int:
     return z ^ (z >> 31)
 
 
+def _window_start(gen, n: int, m: int, device) -> Tensor:
+    """The sliced window's start, a ``(1,)`` device tensor drawn from
+    ``gen`` (seeded by the caller with ``_seed_for(seed, i)``): the one
+    window stream of ``make_run`` and the chunked gram driver."""
+    return torch.randint(0, max(1, n - m + 1), (1,), generator=gen,
+                         device=device)
+
+
 def _make_mask(cfg: SGDConfig, gen, n_local, valid, device):
     """Per-iteration Bernoulli mini-batch mask (``valid`` at full batch:
     no mask is drawn, so the kernel takes its unmasked variant)."""
@@ -115,8 +136,7 @@ def _make_local_sums(gradient, cfg):
             # a contiguous window at a random start, drawn on the device;
             # the window kernel reads it in place (assumes exchangeable
             # row order, see SGDConfig.sampling)
-            start = torch.randint(0, max(1, n - m + 1), (1,), generator=gen,
-                                  device=dev)
+            start = _window_start(gen, n, m, dev)
             return gradient.window_sums(X, y, weights, start, m, valid=valid)
         if indexed:
             idx = torch.randint(0, n, (m,), generator=gen, device=dev)
@@ -205,6 +225,39 @@ def _not_ported(what: str, item: str):
     )
 
 
+#: the gram knobs of ``set_gram_options``: name -> (optimizer attribute,
+#: requires a positive int)
+_GRAM_KNOBS = {
+    "block_rows": ("gram_block_rows", True),
+    "aligned": ("gram_aligned", False),
+    "chunk_iters": ("gram_chunk_iters", True),
+}
+
+
+def _apply_gram_knobs(optimizer, batch_rows=None, **knobs) -> None:
+    """Validate every knob, then apply them all, so a bad later argument
+    leaves the earlier ones untouched (the JAX package's
+    ``apply_user_gram_knobs``, without the planner's bookkeeping).
+    ``batch_rows`` sizes the streamed build's chunk, which is not ported."""
+    if batch_rows is not None:
+        _not_ported("set_gram_options(batch_rows=...), the streamed "
+                    "build's chunk cap,", "A9")
+    provided = {}
+    for name, val in knobs.items():
+        if val is None:
+            continue
+        attr, positive = _GRAM_KNOBS[name]
+        if positive:
+            if int(val) < 1:
+                raise ValueError(f"{name} must be positive, got {val}")
+            val = int(val)
+        else:
+            val = bool(val)
+        provided[name] = (attr, val)
+    for attr, val in provided.values():
+        setattr(optimizer, attr, val)
+
+
 class GradientDescent(Optimizer):
     """Drop-in mini-batch SGD optimizer with the reference's fluent
     setters.  ``device=None`` runs on the card (``"cuda"``) and raises
@@ -223,6 +276,14 @@ class GradientDescent(Optimizer):
         self.device = device
         self.check_numerics = False
         self._loss_history = None
+        self.sufficient_stats = False
+        self.gram_block_rows = DEFAULT_BLOCK_ROWS
+        self.gram_aligned = False
+        self.gram_chunk_iters = None
+        #: the last statistics build, ``(X, y, gradient, block_rows,
+        #: aligned)``, kept by identity so repeated calls on the same
+        #: tensors never rebuild
+        self._gram_entry = None
 
     # -- fluent config (returns self, like the reference's setters) --------
     def set_gradient(self, g: Gradient):
@@ -281,10 +342,46 @@ class GradientDescent(Optimizer):
         _not_ported("set_host_streaming", "A9")
 
     def set_sufficient_stats(self, flag: bool = True):
-        _not_ported("set_sufficient_stats", "A7")
+        """Run least squares from precomputed block-prefix Gram statistics
+        (``ops/gram.py``): each sliced window or full batch becomes a
+        difference of ``(d, d)`` prefix rows, one matvec and masked edge
+        blocks instead of two passes over the sampled rows, with the same
+        result up to summation order.
+
+        Applies when the gradient is exactly ``LeastSquaresGradient``, the
+        data dense, and the sampling ``sliced`` or full batch; any other
+        combination runs unchanged.  The build is cached per ``(X, y)``
+        tensor identity and RETAINED after ``optimize`` returns, which
+        keeps the dataset and the prefix stack on the device until another
+        dataset is passed, the optimizer is dropped, or
+        :meth:`release_sufficient_stats` is called."""
+        self.sufficient_stats = bool(flag)
+        return self
+
+    def set_gram_options(self, block_rows: int = None, aligned: bool = None,
+                         batch_rows: int = None, chunk_iters: int = None):
+        """Knobs of the sufficient-statistics schedule.  ``block_rows``
+        trades prefix-stack memory (``n/B · d²`` entries) against
+        per-iteration edge traffic; ``aligned=True`` floors window starts
+        to block boundaries and skips the edge corrections (the floored
+        windows of the tiled kernel: fine on shuffled rows, not on sorted
+        data); ``chunk_iters=K`` sends block-aligned sliced runs through
+        the chunked-gather driver (``optimize/gram_driver.py``), K windows
+        gathered per outer step, with the same per-iteration contract.
+        ``batch_rows`` (the streamed build's chunk) raises (ROADMAP A9)."""
+        _apply_gram_knobs(self, batch_rows=batch_rows, block_rows=block_rows,
+                          aligned=aligned, chunk_iters=chunk_iters)
+        return self
+
+    def release_sufficient_stats(self):
+        """Drop the cached statistics bundle, so the bound dataset and its
+        prefix stack can be freed; the next run rebuilds."""
+        self._gram_entry = None
+        return self
 
     def set_streamed_stats(self, flag: bool = True, block_rows: int = None):
-        _not_ported("set_streamed_stats", "A7")
+        _not_ported("set_streamed_stats (statistics streamed from the "
+                    "host)", "A9")
 
     def set_superstep(self, k: int):
         _not_ported("set_superstep", "A9")
@@ -310,9 +407,12 @@ class GradientDescent(Optimizer):
 
     def optimize_with_history(self, data: Dataset, initial_weights):
         """``(weights, loss_history)``: weights a float32 tensor on the
-        run's device, the history a numpy array."""
+        run's device, the history a numpy array.  ``X`` may be a
+        ``GramData`` bundle (with a ``GramLeastSquaresGradient``)."""
         X, y = data
         dev = resolve_device(self.device)
+        if isinstance(X, GramData):
+            return self._optimize_gram_data(X, y, initial_weights, dev)
         X = as_tensor(X, dev)
         sparse_X = is_sparse(X)
         if sparse_X:
@@ -327,6 +427,8 @@ class GradientDescent(Optimizer):
             # int/bool features (one-hot) and f64 arrays train in f32, as
             # the JAX package does with x64 off
             X = X.to(torch.float32)
+        if not sparse_X:
+            X = X.contiguous()
         y = as_tensor(y, dev, torch.float32)
         w0 = _coerce_w0(self.gradient, initial_weights, X.shape[1], dev)
         n = X.shape[0]
@@ -338,12 +440,103 @@ class GradientDescent(Optimizer):
                 "The miniBatchFraction is too small", RuntimeWarning,
                 stacklevel=2,
             )
-        run = make_run(self.gradient, self.updater, self.config)
-        w, losses, n_rec = run(w0, X if sparse_X else X.contiguous(), y)
+        gram = self._maybe_gram(X, y, sparse_X)
+        if gram is not None:
+            # the statistics ride where X goes (GramData)
+            return self._run(gram, gram.data, y, w0)
+        return self._run(self.gradient, X, y, w0)
+
+    def _optimize_gram_data(self, X: GramData, y, initial_weights, dev):
+        """Statistics-first input (``GramLeastSquaresGradient.build`` or
+        ``GramData.load``): the rows may be virtual, so only y and the
+        weights are coerced."""
+        if not isinstance(self.gradient, GramLeastSquaresGradient):
+            raise ValueError(
+                "GramData input needs a GramLeastSquaresGradient (use "
+                "GramLeastSquaresGradient.build and pass it as the "
+                "gradient)")
+        cfg = self.config
+        if cfg.mini_batch_fraction < 1.0 and cfg.sampling != "sliced":
+            raise NotImplementedError(
+                "GramData input supports sliced sampling or full batch "
+                f"(got sampling={cfg.sampling!r})")
+        if (cfg.mini_batch_fraction < 1.0 and X.X is None
+                and X.PG.shape[0] <= 2):
+            # a single-block virtual stack (a totals-only bundle) cannot
+            # express sub-batch windows: every window IS the full batch
+            warnings.warn(
+                "these virtual statistics hold a single block, so sliced "
+                f"windows at frac={cfg.mini_batch_fraction} degenerate to "
+                "FULL-BATCH iterations; rebuild with a smaller block_rows "
+                "for true mini-batch sampling",
+                RuntimeWarning, stacklevel=3,
+            )
+        if X.device.type != dev.type:
+            raise ValueError(
+                f"the GramData lies on {X.device}, and this optimizer runs "
+                f"on {dev}")
+        y = as_tensor(y, X.device, torch.float32)
+        w0 = _coerce_w0(self.gradient, initial_weights, X.shape[1],
+                        X.device)
+        return self._run(self.gradient, X, y, w0)
+
+    def _run(self, gradient, X, y, w0):
+        """One run of the loop (the chunked gram driver where it applies),
+        then the history read back once."""
+        run = (self._maybe_chunked_gram_run(gradient, X)
+               or make_run(gradient, self.updater, self.config))
+        w, losses, n_rec = run(w0, X, y)
         self._loss_history = losses[:int(n_rec)].cpu().numpy()
         if self.check_numerics:
             _raise_if_nonfinite(self._loss_history)
         return w, self._loss_history
+
+    def _maybe_gram(self, X, y, sparse_X):
+        """The sufficient-statistics gradient when it applies (see
+        ``set_sufficient_stats``), cached by ``(X, y)`` identity; None
+        otherwise."""
+        cfg = self.config
+        if sparse_X or (cfg.mini_batch_fraction < 1.0
+                        and cfg.sampling != "sliced"):
+            return None
+        g = self.gradient
+        if (isinstance(g, GramLeastSquaresGradient) and g.data is not None
+                and g.data.X is X):
+            # a user-built gram gradient on exactly this matrix
+            return g
+        if not self.sufficient_stats or type(g) is not LeastSquaresGradient:
+            return None
+        opts = (self.gram_block_rows, self.gram_aligned)
+        entry = self._gram_entry
+        if (entry is not None and entry[0] is X and entry[1] is y
+                and entry[3:] == opts):
+            return entry[2]
+        self._gram_entry = None  # free the superseded stack first
+        g = GramLeastSquaresGradient.build(
+            X, y, block_rows=self.gram_block_rows, aligned=self.gram_aligned,
+            device=X.device)
+        self._gram_entry = (X, y, g) + opts
+        return g
+
+    def _maybe_chunked_gram_run(self, gradient, X):
+        """The chunked-gather driver when ``chunk_iters`` is set and this
+        run has block-ALIGNED statistics windows: virtual statistics, or a
+        gradient in aligned mode (the gradient's own mode, not the
+        optimizer's knob, so a prebuilt exact gradient keeps its exact
+        windows).  None otherwise."""
+        from tpu_sgd_torch.optimize import gram_driver
+
+        cfg = self.config
+        if (not self.gram_chunk_iters
+                or not isinstance(X, GramData)
+                or not isinstance(gradient, GramLeastSquaresGradient)
+                or not (X.X is None or gradient.aligned)
+                or cfg.sampling != "sliced"
+                or cfg.mini_batch_fraction >= 1.0):
+            return None
+        return gram_driver.make_chunked_gram_run(
+            self.updater, cfg, n=X.shape[0], block_rows=X.block_rows,
+            chunk_iters=self.gram_chunk_iters)
 
 
 def run_mini_batch_sgd(

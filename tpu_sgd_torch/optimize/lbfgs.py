@@ -18,8 +18,13 @@ cost evaluation.
 
 Host syncs per iteration, as in the JAX loop: ``g . d``, the sweep's trial
 objectives, ``s . y`` and the accepted ``f``; the cost and the sweep read
-nothing back.  The mesh, sufficient-statistics and host-streaming
-schedules are later slices (ROADMAP A5, A7, A9): their setters raise.
+nothing back.
+
+Least squares on dense data can run from sufficient statistics
+(``set_sufficient_stats``, ``ops/gram.py``): the cost then reads the
+``(d, d)`` total Gram instead of X, and the sweep is its quadratic form.
+The mesh, streamed-statistics and host-streaming schedules are later
+slices (ROADMAP A5, A9): their setters raise.
 """
 
 from __future__ import annotations
@@ -32,6 +37,11 @@ import torch
 
 from tpu_sgd_torch.device import as_tensor, resolve_device
 from tpu_sgd_torch.ops.gradients import Gradient, LeastSquaresGradient
+from tpu_sgd_torch.ops.gram import (
+    DEFAULT_BLOCK_ROWS,
+    GramData,
+    GramLeastSquaresGradient,
+)
 from tpu_sgd_torch.ops.sparse import is_sparse, to_csr, transpose_csr
 from tpu_sgd_torch.ops.updaters import (
     L1Updater,
@@ -39,7 +49,10 @@ from tpu_sgd_torch.ops.updaters import (
     SquaredL2Updater,
     Updater,
 )
-from tpu_sgd_torch.optimize.gradient_descent import _not_ported
+from tpu_sgd_torch.optimize.gradient_descent import (
+    _apply_gram_knobs,
+    _not_ported,
+)
 from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
 
 Tensor = torch.Tensor
@@ -88,7 +101,11 @@ def _warn_sequential_line_search(gradient, n_trials):
 def _coerce_inputs(X, y, w, device):
     """``(X, y, w)`` on ``device`` for the quasi-Newton optimizers: sparse
     X as CSR, int and f64 features as f32 (as the JAX package computes
-    with x64 off), f32 labels and weights."""
+    with x64 off), f32 labels and weights.  A ``GramData`` bundle passes
+    through untouched (the cost reads its statistics)."""
+    if isinstance(X, GramData):
+        return (X, as_tensor(y, X.device, torch.float32),
+                as_tensor(w, X.device, torch.float32))
     X = as_tensor(X, device)
     if is_sparse(X):
         X = to_csr(X)
@@ -212,6 +229,10 @@ class LBFGS(Optimizer):
         self.reg_param = reg_param
         self.device = device
         self._loss_history = None
+        self.sufficient_stats = False
+        self.gram_block_rows = DEFAULT_BLOCK_ROWS
+        #: the last statistics build, ``(X, y, gradient, block_rows)``
+        self._gram_entry = None
 
     # fluent setters, reference parity
     def set_gradient(self, g):
@@ -243,10 +264,32 @@ class LBFGS(Optimizer):
         _not_ported("set_mesh (data parallelism)", "A5")
 
     def set_sufficient_stats(self, flag: bool = True):
-        _not_ported("set_sufficient_stats", "A7")
+        """Run the least-squares cost and line-search sweep from
+        precomputed block-prefix Gram statistics (``ops/gram.py``): each
+        full-batch objective and gradient becomes an O(d²) matvec instead
+        of a pass over X.  Applies when the gradient is exactly
+        ``LeastSquaresGradient`` on dense data; otherwise a no-op.  The
+        last build is retained by ``(X, y)`` identity; call
+        :meth:`release_sufficient_stats` to free it."""
+        self.sufficient_stats = bool(flag)
+        return self
+
+    def release_sufficient_stats(self):
+        """Drop the cached statistics bundle so the bound dataset and its
+        prefix stack can be freed."""
+        self._gram_entry = None
+        return self
+
+    def set_gram_options(self, block_rows: int = None,
+                         batch_rows: int = None):
+        """``block_rows`` sizes the statistics' prefix stack;
+        ``batch_rows`` (the streamed build's chunk) raises (ROADMAP A9)."""
+        _apply_gram_knobs(self, batch_rows=batch_rows, block_rows=block_rows)
+        return self
 
     def set_streamed_stats(self, flag: bool = True, block_rows: int = None):
-        _not_ported("set_streamed_stats", "A7")
+        _not_ported("set_streamed_stats (statistics streamed from the "
+                    "host)", "A9")
 
     def set_host_streaming(self, flag: bool = True, batch_rows: int = None):
         _not_ported("set_host_streaming (the streamed CostFun)", "A9")
@@ -271,6 +314,36 @@ class LBFGS(Optimizer):
         Xt = transpose_csr(X) if is_sparse(X) else None
         return (X, y, Xt), w
 
+    def _substitute_gram(self, gradient, X, y):
+        """``set_sufficient_stats`` where it fits (exactly
+        ``LeastSquaresGradient`` on dense X), cached by ``(X, y)``
+        identity; shared with OWL-QN (Lasso least squares).  Returns
+        ``(gradient, X)``: on substitution X becomes the ``GramData``
+        bundle."""
+        if isinstance(X, GramData) and not isinstance(
+                gradient, GramLeastSquaresGradient):
+            raise ValueError(
+                "GramData input needs a GramLeastSquaresGradient (use "
+                "GramLeastSquaresGradient.build and pass it as the "
+                "gradient)")
+        if (isinstance(gradient, GramLeastSquaresGradient)
+                and gradient.data is not None and gradient.data.X is X):
+            # a user-built gram gradient on exactly this matrix
+            return gradient, gradient.data
+        if not (self.sufficient_stats and type(gradient) is
+                LeastSquaresGradient and not is_sparse(X)
+                and not isinstance(X, GramData)):
+            return gradient, X
+        entry = self._gram_entry
+        if (entry is not None and entry[0] is X and entry[1] is y
+                and entry[3] == self.gram_block_rows):
+            return entry[2], entry[2].data
+        self._gram_entry = None  # free the superseded stack first
+        g = GramLeastSquaresGradient.build(
+            X, y, block_rows=self.gram_block_rows, device=X.device)
+        self._gram_entry = (X, y, g, self.gram_block_rows)
+        return g, g.data
+
     def optimize_with_history(self, data: Dataset, initial_weights):
         """``(weights, loss_history)``: weights a float32 tensor on the
         run's device, the history a numpy array (one entry per cost
@@ -279,7 +352,7 @@ class LBFGS(Optimizer):
         if arrays is None:
             return w, self._loss_history
         X, y, Xt = arrays
-        gradient = self.gradient
+        gradient, X = self._substitute_gram(self.gradient, X, y)
         reg_value, reg_grad = _reg_terms(self.updater, self.reg_param)
         cost1 = _build_cost(gradient, reg_value, reg_grad, X, y, Xt)
         if hasattr(gradient, "loss_sweep"):

@@ -12,7 +12,8 @@ Objective: ``F(w) = (1/n)·Σ loss(w; x, y) + reg_param·‖w‖₁``, the
   4. curvature pairs (s, y) from the smooth gradient only.
 
 The smooth cost is the same ``Gradient.batch_sums`` call as L-BFGS's (one
-fused-kernel launch for the binary families on dense X).  Host syncs per
+fused-kernel launch for the binary families on dense X, or the total
+statistics for Lasso least squares under ``set_sufficient_stats``).  Host syncs per
 iteration: the directional derivative, the sweep (its objectives and
 predicted decreases in one read) and ``s . y``.
 """
@@ -122,7 +123,7 @@ class OWLQN(LBFGS):
         if arrays is None:
             return w, self._loss_history
         X, y, Xt = arrays
-        gradient = self.gradient
+        gradient, X = self._substitute_gram(self.gradient, X, y)
         reg = self._reg_vector(w)  # per-coordinate, broadcast through
 
         def l1_value(wv):
