@@ -11,15 +11,25 @@ Run from the root of the repository.  Phases, each printing one JSON line:
 3. kernels — each kernel wrapper against its plain PyTorch version on the
    card: three loss families x {f32, bf16} x {mask, no mask}, ragged row
    counts, d in {24, 1000, 47237}; the window kernels at random and
-   clamped starts; ``FusedGradient``'s tile-floored windows.
+   clamped starts; ``FusedGradient``'s tile-floored windows.  Then the
+   window route by shape: d in {24, 1000, 2048, 4096} and 7,216 bf16
+   (``window_sums.cu``), 7,216 f32 and 47,237 (``fused_sums.cu``, counted
+   by source) x f32/bf16 x the three families, windows of 1, R - 1, R,
+   R + 1 rows (R the planner's stage rows), fewer rows than the grid and
+   65,536 rows, starts random, negative and past the end, ``valid`` on
+   and off, each call repeated bitwise.
 4. full    — the main path at config 4's width: 10,000,000 x 1000 bf16
    least squares made on the card from a seed, trained through
    ``LinearRegressionWithSGD`` at ``mini_batch_fraction=0.1``: Bernoulli,
    sliced, and sliced through ``FusedGradient(window_kernel="vpu")``.
-   Launch counts are set to 0 before and read after; each kernel must have
-   run once per iteration.  Then a profiler trace splits an iteration's
-   device time by kernel, and each kernel is timed at these shapes beside
-   its plain version, one PyTorch call of the same work and its bound.
+   Launch counts (by wrapper and by CUDA source) are set to 0 before and
+   read after; each kernel must have run once per iteration.  Then a
+   profiler trace splits an iteration's device time by kernel, and each
+   kernel is timed at these shapes beside its plain version, one PyTorch
+   call of the same work and its bound.  The window kernel is timed beside
+   the old window path (``fused_sums.cu``) in turns (old, new, new, old),
+   each as device time (launches captured in a CUDA graph, the replay
+   timed with events) and as back-to-back calls paced by the host.
 5. configs — configs 1-3 of BASELINE.md through the user API, each held to
    its pass criterion against a numpy/scipy oracle: config 3 both on dense
    ``svm_data`` and undensified on its RCV1 stand-in after a LIBSVM round
@@ -88,6 +98,7 @@ F64_FLOPS = 67e12           # H100 SXM data sheet, f64 on the tensor cores
 FULL_ROWS, FULL_D, FRAC, ITERS = 10_000_000, 1000, 0.1, 20
 WINDOW_TILE = 2000          # divides both 10^7 and the 10^6-row window
 SOURCE = "tpu_sgd_torch/ops/csrc/fused_sums.cu"
+WINDOW_SOURCE = "tpu_sgd_torch/ops/csrc/window_sums.cu"
 RCV1_ROWS, RCV1_D, RCV1_NNZ = 697_641, 47_236, 75
 SPARSE_ITERS = 60
 SPARSE_MEMORY_LIMIT = 8e9   # bytes; densified f32 this data is 131.8 GB
@@ -144,6 +155,44 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, launches: int = 20, replays: int = 10) -> float:
+    """Device time of one ``fn`` call that the host cannot pace: ``launches``
+    calls captured in a CUDA graph (after a warm-up call on the capture
+    side stream), the graph replayed ``replays`` times between two
+    events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (launches * replays)
+    del graph
+    return ms
+
+
+def ptxas_report(log: str) -> dict:
+    """Most registers and spill bytes of any kernel in one ``-Xptxas -v``
+    log."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
+    return {"max_registers": max(regs) if regs else None,
+            "max_spill_bytes": max(spills) if spills else None}
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -245,8 +294,76 @@ def phase_kernels(torch, ck, grads):
         pass
     else:
         raise RuntimeError("check failed: _check_tile_smem took d=60000")
+    routed = window_route_cases(torch, ck, grads, gen, worst)
     torch.cuda.synchronize()
-    return cases, worst
+    return cases + routed, worst
+
+
+def window_route_cases(torch, ck, grads, gen, worst):
+    """Windows routed by shape: d in {24, 1000, 2048, 4096} and 7,216 bf16
+    to ``window_sums.cu`` (1, 2, 4 and 8 column chunks a thread), 7,216 f32
+    and 47,237 to ``fused_sums.cu`` (the launches counted by source), at
+    the stage-boundary lengths, fewer rows than the grid and 65,536 rows,
+    random / negative / past-the-end starts, with and without ``valid``;
+    each call repeated and held bitwise equal."""
+    cases = 0
+    both = (torch.float32, torch.bfloat16)
+    # width -> the element types whose windows go to window_sums.cu
+    routes = {24: both, 1000: both, 2048: both, 4096: both,
+              7216: (torch.bfloat16,), 47237: ()}
+    for d, new_dtypes in routes.items():
+        wide = d == 47237
+        n = 3_000 if wide else CHUNK_ROWS + 1_000
+        for dtype in both:
+            X = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+            w = torch.randn(d, generator=gen, device="cuda") / math.sqrt(d)
+            y_ls = torch.randn(n, generator=gen, device="cuda")
+            y_01 = (torch.rand(n, generator=gen, device="cuda") < 0.5).float()
+            valid = torch.rand(n, generator=gen, device="cuda") < 0.5
+            plan = ck.window_plan_for(X)
+            check((plan is not None) == (dtype in new_dtypes),
+                  f"route of d={d} {dtype}: plan {plan}")
+            R = plan.stage_rows if plan else 16
+            lengths = [1, R - 1, R, R + 1, 100, 2_048 if wide else CHUNK_ROWS]
+            ck.reset_launch_counts()
+            calls = 0
+            bf16 = dtype == torch.bfloat16
+            for name, g in grads.items():
+                y = y_ls if name == "least_squares" else y_01
+                for i, m in enumerate(lengths):
+                    kernel = (ck.fused_window_sums_vpu if i % 2
+                              else ck.fused_window_sums)
+                    s_rand = int(torch.randint(0, n - m + 1, (1,),
+                                               generator=gen, device="cuda"))
+                    for s0 in (s_rand, -(n // 3), n + 123):
+                        for v in (None, valid):
+                            s = torch.tensor([s0], device="cuda")
+                            got = kernel(g.pointwise, X, y, w, s, m, tile_m=1,
+                                         valid=v)
+                            again = kernel(g.pointwise, X, y, w, s, m,
+                                           tile_m=1, valid=v)
+                            calls += 2
+                            ref = ck.fused_window_sums_plain(
+                                g.pointwise, X, y, w, s0, m, 1, v)
+                            ok, err, scale = _close(torch, got, ref, bf16)
+                            what = (f"{kernel.__name__} {name} {dtype} d={d} "
+                                    f"m={m} start={s0} "
+                                    f"valid={v is not None}")
+                            check(ok, f"{what}: max|dg|={err} of {scale}")
+                            check(all(torch.equal(a, b)
+                                      for a, b in zip(got, again)),
+                                  f"{what}: a second call differs")
+                            key = "window_sums" if plan else "fused_sums"
+                            worst[f"window_route_{key}"] = max(
+                                worst.get(f"window_route_{key}", 0.0), err)
+                            cases += 1
+            counts = ck.kernel_launch_counts()
+            expect = ({"fused_sums": 0, "window_sums": calls} if plan
+                      else {"fused_sums": calls, "window_sums": 0})
+            check(counts == expect,
+                  f"d={d} {dtype}: launches by source {counts} != {expect}")
+            del X
+    return cases
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -315,18 +432,22 @@ def phase_full(torch, tst, ck):
         alg.optimizer.set_sampling("bernoulli" if mode == "bernoulli"
                                    else "sliced")
         before = ck.launch_counts()
+        before_src = ck.kernel_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         model = alg.run((X, y))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         after = ck.launch_counts()
+        after_src = ck.kernel_launch_counts()
         losses = alg.optimizer.loss_history
         counts = torch.stack(rec.counts).cpu().numpy()
         w_err = float(torch.linalg.vector_norm(model.weights - w_true))
         runs[mode] = {
             "first_run_ms_per_iteration": 1e3 * secs / ITERS,
             "launches": {k: after[k] - before[k] for k in after},
+            "launches_by_source": {k: after_src[k] - before_src[k]
+                                   for k in after_src},
             "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
             "w_err": w_err,
             "count_min": float(counts.min()),
@@ -343,13 +464,22 @@ def phase_full(torch, tst, ck):
                   f"bernoulli counts {counts.min()}..{counts.max()}")
         else:
             check(bool(np.all(counts == m)), f"{mode} counts {counts}")
+        # B1 through fused_sums.cu; each sliced window through window_sums.cu
+        src = ("fused_sums" if mode == "bernoulli" else "window_sums")
+        check(runs[mode]["launches_by_source"]
+              == {"fused_sums": 0, "window_sums": 0} | {src: ITERS},
+              f"{mode}: launches by source {runs[mode]['launches_by_source']}")
     counts = ck.launch_counts()
     expect = {"fused_gradient_sums": ITERS, "fused_window_sums": ITERS,
               "fused_window_sums_vpu": ITERS}
     check(counts == expect, f"main-path launches {counts} != {expect}")
+    by_source = ck.kernel_launch_counts()
+    check(by_source == {"fused_sums": ITERS, "window_sums": 2 * ITERS},
+          f"main-path launches by source {by_source}")
     emit({"phase": "full", "rows": n, "d": FULL_D, "dtype": "bfloat16",
           "mini_batch_fraction": FRAC, "iterations": ITERS,
-          "data_seconds": gen_s, "launches": counts, "runs": runs})
+          "data_seconds": gen_s, "launches": counts,
+          "launches_by_source": by_source, "runs": runs})
     return X, y, w_true, counts, sliced_ref
 
 
@@ -416,6 +546,59 @@ def _bound_ms(sel_rows, d, itemsize, extra_bytes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def window_row(torch, ck, kernel, pw, X, y, w, s0, rows, path):
+    """A window kernel's row at ``rows`` rows from ``s0``: max |dg| against
+    the plain version; the kernel (``window_sums.cu``) and the old window
+    path (``fused_sums.cu``'s, called directly) timed in turns (old, new,
+    new, old), each as graph-replayed device time and as host-paced
+    back-to-back calls; the plain version, two library matmuls of the same
+    work, and the bound."""
+    n, d = X.shape
+    start = torch.tensor([s0], device="cuda")
+    check(ck.window_plan_for(X) is not None,
+          f"the window of d={d} does not route to window_sums.cu")
+
+    def new():
+        return kernel(pw, X, y, w, start, rows, tile_m=1)
+
+    def old():
+        return ck._launch(pw, X, y, w, None, start, 1, rows)
+
+    ref = ck.fused_window_sums_plain(pw, X, y, w, s0, rows, 1)
+    ok, err, scale = _close(torch, new(), ref, True)
+    check(ok, f"{kernel.__name__} at {rows} rows: max|dg|={err} of {scale}")
+    ok, old_err, _ = _close(torch, old(), ref, True)
+    check(ok, f"old window path at {rows} rows: max|dg|={old_err}")
+    reps = 50 if rows <= CHUNK_ROWS else 20
+    turns = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        fn = old if which == "old" else new
+        turns[which].append({"device_ms": graph_ms(torch, fn),
+                             "host_paced_ms": time_ms(torch, fn, reps)})
+
+    def mean(which, key):
+        return sum(t[key] for t in turns[which]) / len(turns[which])
+
+    Xw = X[s0:s0 + rows]
+    wb = w.to(torch.bfloat16)
+    coeff = torch.randn(rows, device="cuda").to(torch.bfloat16)
+    bound, by = _bound_ms(rows, d, 2, 0)
+    return {
+        "name": kernel.__name__, "path": path, "source": WINDOW_SOURCE,
+        "shape": [rows, d], "selected_rows": rows,
+        "max_abs_err": err, "old_path_max_abs_err": old_err,
+        "grad_scale": scale,
+        "ms": mean("new", "device_ms"),
+        "host_paced_ms": mean("new", "host_paced_ms"),
+        "old_path_ms": mean("old", "device_ms"),
+        "old_path_host_paced_ms": mean("old", "host_paced_ms"),
+        "turns": turns,
+        "plain_ms": time_ms(torch, lambda: ck.fused_window_sums_plain(
+            pw, X, y, w, s0, rows, 1), 3),
+        "library_ms": time_ms(torch, lambda: (Xw @ wb, coeff @ Xw), reps),
+        "bound_ms": bound, "bound_by": by}
+
+
 def phase_timing(torch, tst, ck, X, y, launches):
     """Each kernel at the main path's shapes: its time, the plain
     version's, one PyTorch call of the same work (two matmuls, as a
@@ -448,29 +631,9 @@ def phase_timing(torch, tst, ck, X, y, launches):
         "bound_ms": bound, "bound_by": by})
 
     m = round(FRAC * n)
-    num_tiles = m // WINDOW_TILE
-    start_tile = torch.tensor([1234], device="cuda")
-    s0 = 1234 * WINDOW_TILE
-    Xw = X[s0:s0 + m]
-    bound, by = _bound_ms(m, d, 2, 0)
     for kernel in (ck.fused_window_sums, ck.fused_window_sums_vpu):
-        def call(kernel=kernel):
-            return kernel(pw, X, y, w, start_tile, num_tiles,
-                          tile_m=WINDOW_TILE)
-        got = call()
-        ref = ck.fused_window_sums_plain(pw, X, y, w, 1234, num_tiles,
-                                         WINDOW_TILE)
-        ok, err, scale = _close(torch, got, ref, True)
-        check(ok, f"full-width {kernel.__name__}: max|dg|={err} of {scale}")
-        rows.append({
-            "name": kernel.__name__, "shape": [m, d], "selected_rows": m,
-            "max_abs_err": err, "grad_scale": scale,
-            "ms": time_ms(torch, call, 20),
-            "plain_ms": time_ms(torch, lambda: ck.fused_window_sums_plain(
-                pw, X, y, w, 1234, num_tiles, WINDOW_TILE), 3),
-            "library_ms": time_ms(torch, lambda: (Xw @ wb,
-                                                  coeff[:m] @ Xw), 10),
-            "bound_ms": bound, "bound_by": by})
+        rows.append(window_row(torch, ck, kernel, pw, X, y, w,
+                               1234 * WINDOW_TILE, m, "sgd"))
     for r in rows:
         r["launches"] = launches[r["name"]]
     emit({"phase": "timing", "kernels": rows})
@@ -946,8 +1109,11 @@ def leg_binary_lbfgs(torch, tst, ck, X, w_true):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches = ck.launch_counts()
+    by_source = ck.kernel_launch_counts()
     hist = alg.optimizer.loss_history
     check(model.weights.is_cuda, "(a): weights not on the card")
+    check(by_source == {"fused_sums": len(hist), "window_sums": 0},
+          f"(a): launches by source {by_source}")
     check(_nonincreasing(hist), f"(a): the loss history rose: {hist}")
     check(launches == {"fused_gradient_sums": len(hist),
                        "fused_window_sums": 0, "fused_window_sums_vpu": 0},
@@ -1413,7 +1579,7 @@ def gram_chunked_gradient(torch, tst, ck, X, y, sliced_ref):
     """(f) ``ChunkedGradient`` at 65,536-row blocks: one B2 launch per
     block, against phase ``full``'s sliced run; and B2's row at the block
     shape."""
-    n, d = X.shape
+    n = X.shape[0]
     m = round(FRAC * n)
     blocks = -(-m // CHUNK_ROWS)
     chunked = tst.ChunkedGradient(tst.LeastSquaresGradient(), CHUNK_ROWS)
@@ -1422,38 +1588,24 @@ def gram_chunked_gradient(torch, tst, ck, X, y, sliced_ref):
     alg.run((X, y))
     torch.cuda.synchronize()
     launches = ck.launch_counts()
+    by_source = ck.kernel_launch_counts()
     hist = np.asarray(alg.optimizer.loss_history)
     expect = {"fused_gradient_sums": 0, "fused_window_sums": ITERS * blocks,
               "fused_window_sums_vpu": 0}
     check(launches == expect, f"(f): launches {launches} != {expect}")
+    check(by_source == {"fused_sums": 0, "window_sums": ITERS * blocks},
+          f"(f): launches by source {by_source}")
     rel = _max_rel(hist, sliced_ref[0])
     check(rel <= 2e-4, f"(f): history vs the stock sliced run {rel}")
     prof = _run_profile(torch, lambda: alg.run((X, y)), ITERS)
     # B2 at the block shape
-    pw = chunked.pointwise
-    w = sliced_ref[1]
-    s0 = (n - CHUNK_ROWS) // 2
-    start = torch.tensor([s0], device="cuda")
-    got = ck.fused_window_sums(pw, X, y, w, start, CHUNK_ROWS, tile_m=1)
-    ref = ck.fused_window_sums_plain(pw, X, y, w, s0, CHUNK_ROWS, 1)
-    ok, err, scale = _close(torch, got, ref, True)
-    check(ok, f"(f): B2 at {CHUNK_ROWS} rows: max|dg|={err} of {scale}")
-    Xc = X[s0:s0 + CHUNK_ROWS]
-    wb = w.to(torch.bfloat16)
-    coeff = torch.randn(CHUNK_ROWS, device="cuda").to(torch.bfloat16)
-    bound, by = _bound_ms(CHUNK_ROWS, d, 2, 0)
-    row = {"name": "fused_window_sums", "path": "chunked",
-           "shape": [CHUNK_ROWS, d], "selected_rows": CHUNK_ROWS,
-           "max_abs_err": err, "grad_scale": scale,
-           "ms": time_ms(torch, lambda: ck.fused_window_sums(
-               pw, X, y, w, start, CHUNK_ROWS, tile_m=1), 50),
-           "plain_ms": time_ms(torch, lambda: ck.fused_window_sums_plain(
-               pw, X, y, w, s0, CHUNK_ROWS, 1), 10),
-           "library_ms": time_ms(torch, lambda: (Xc @ wb, coeff @ Xc), 50),
-           "bound_ms": bound, "bound_by": by,
-           "launches": launches["fused_window_sums"]}
+    row = window_row(torch, ck, ck.fused_window_sums, chunked.pointwise, X,
+                     y, sliced_ref[1], (n - CHUNK_ROWS) // 2, CHUNK_ROWS,
+                     "chunked")
+    row["launches"] = launches["fused_window_sums"]
     out = {"chunk_rows": CHUNK_ROWS, "blocks_per_window": blocks,
-           "launches": launches, "history_max_rel_vs_stock": rel, **prof}
+           "launches": launches, "launches_by_source": by_source,
+           "history_max_rel_vs_stock": rel, **prof}
     return out, row
 
 
@@ -1584,13 +1736,12 @@ def main() -> int:
 
     t = time.perf_counter()
     report = _build.build_all()
-    log = "".join(r["log"] for r in report.values())
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
+    sources = {k: {"seconds": v["seconds"], **ptxas_report(v["log"])}
+               for k, v in report.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t,
-          "sources": {k: v["seconds"] for k, v in report.items()},
-          "max_registers": max(regs) if regs else None,
-          "max_spill_bytes": max(spills) if spills else None})
+          "sources": sources})
+    check(sources["window_sums"]["max_spill_bytes"] in (None, 0),
+          f"window_sums.cu spills: {sources['window_sums']}")
 
     grads = {"least_squares": tst.LeastSquaresGradient(),
              "logistic": tst.LogisticGradient(),
@@ -1625,12 +1776,14 @@ def main() -> int:
 
     emit({"kernels": [{
         "name": r["name"], "path": r.get("path", "sgd"), "route": "cuda",
-        "source": SOURCE,
+        "source": r.get("source", SOURCE),
         "replaces": REPLACES[r["name"]], "launches": r["launches"],
-        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "max_abs_err": r["max_abs_err"], "grad_scale": r["grad_scale"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-    } for r in rows]})
+    } | {k: r[k] for k in ("host_paced_ms", "old_path_ms",
+                           "old_path_host_paced_ms") if k in r}
+        for r in rows]})
     emit({"sparse": {
         "shape": [sparse["rows"], sparse["d"]], "nnz": sparse["nnz"],
         "index_dtype": sparse["index_dtype"],

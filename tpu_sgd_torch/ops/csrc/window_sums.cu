@@ -1,0 +1,732 @@
+// Fused window gradient sums for generalized linear models, for Hopper
+// (sm_90a).  Built by tpu_sgd_torch/ops/_build.py with nvcc into a shared
+// library with a plain C interface; tpu_sgd_torch/ops/cuda_kernels.py loads
+// it with ctypes and routes a window to it by shape (window_stage_plan).
+//
+// Replaces the Pallas TPU window kernels of tpu_sgd/ops/pallas_kernels.py:
+//   fused_window_sums     :342 (pallas_call :407, _window_kernel)
+//   fused_window_sums_vpu :425 (pallas_call :407, _window_kernel_vpu)
+// Both sum rows [start, start + rows) of a row-major X:
+//   margin = x . round_T(w)                f32 accumulation
+//   (coeff, loss) = pointwise(margin, y)   in f32, zero where valid is 0
+//   grad  += round_T(coeff) * x            f32 accumulation
+// with loss and count summed in f64, under the JAX package's
+// mixed-precision contract (tpu_sgd/ops/gradients.py margins_of /
+// grad_sum_of); round_T rounds to X's element type (bf16 or f32).  The
+// start is a device scalar times start_scale, placed as lax.dynamic_slice
+// places it.  csrc/fused_sums.cu computes the same function; this kernel
+// takes the widths whose rows are whole 16-byte units and whose stage ring
+// fits in shared memory, fused_sums.cu the rest.
+//
+// What bounds it: the bytes of the window.  Its rows are one contiguous
+// range of device memory, read once (3.35 TB/s on an H100 SXM); the two
+// dot products are 4 flops an element.  The design keeps HBM busy and the
+// fixed costs small:
+//   * a persistent grid, two blocks an SM for rows of up to 2,048
+//     columns (so one block's margins overlap the other's column pass)
+//     and one for wider rows, each walking a contiguous share of the
+//     window in tiles of R rows;
+//   * a ring of S tiles in shared memory, each filled by bulk copies
+//     (cp.async.bulk, the Tensor Memory Accelerator) of the tile's rows and
+//     of 16-byte aligned supersets of their labels and valid flags, all
+//     completing on the tile's "full" mbarrier; one producer thread keeps
+//     the ring in flight and refills a tile once all 8 consumer warps have
+//     arrived on its "empty" mbarrier, so the next tiles load while this
+//     one is summed (plain loads of the labels, even a tile ahead, put a
+//     device-memory latency on every tile's path);
+//   * consumer warps that read X from shared memory only: margins (two
+//     rows a warp, one 16-byte load a lane a row), the pointwise rule,
+//     then the column pass with each thread's columns held in registers
+//     for the whole share; every row crosses HBM once and never L1/L2
+//     again;
+//   * a deterministic reduction that uses the card: blocks in clusters of
+//     2 add their (d,) sums through distributed shared memory in rank
+//     order, each rank a slice of the columns, leaving one partial a
+//     cluster; a second kernel spreads the partials of 32 columns over 8
+//     warps a block (ceil(d/32) blocks) and adds them in a fixed order in
+//     f64.  There are no float atomics, so two calls are bitwise equal.
+// Launch state (the shared-memory attribute, the clusters that fit) is
+// computed once per kernel instance, device and ring size, and cached.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <mutex>
+#include <vector>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumers = kConsumerWarps * 32;
+constexpr int kThreads = kConsumers + 32;  // + one producer warp
+// rows whose margins one warp computes together (sharing its w loads)
+constexpr int kRowsPerWarp = 2;
+constexpr int kMaxStages = 8;
+constexpr int kMaxStageRows = 16;
+// a stage's labels (the aligned superset of up to 16 f32 values starts up
+// to 3 values early) and valid flags (up to 15 bytes early) after its rows
+constexpr int kLabelYBytes = 80;
+constexpr int kLabelBytes = kLabelYBytes + 32;
+// columns a thread's chunk covers in the column pass
+constexpr int kColVec = 4;
+constexpr int kMaxChunksPerThread = 8;
+// shared memory a block may use (sm_90 opt-in), less a reserve for the
+// kernel's static shared memory (barriers, coefficients, partials)
+constexpr int kSmemPerBlock = 232448;
+constexpr int kStaticReserve = 1024;
+constexpr int kMaxDynamicSmem = kSmemPerBlock - kStaticReserve;
+constexpr int kReduceThreads = 256;
+constexpr int kReduceWarps = kReduceThreads / 32;
+
+enum Family { kLeastSquares = 0, kLogistic = 1, kHinge = 2 };
+enum DType { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  // round to nearest even, as jnp's astype(bfloat16)
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The pointwise rules of tpu_sgd/ops/gradients.py:307-342 (as in
+// fused_sums.cu).
+template <int F>
+__device__ __forceinline__ void pointwise(float m, float y, float& coeff,
+                                          float& loss) {
+  if constexpr (F == kLeastSquares) {
+    const float diff = m - y;
+    coeff = diff;
+    loss = 0.5f * diff * diff;
+  } else if constexpr (F == kLogistic) {
+    const float neg = -m;
+    coeff = 1.0f / (1.0f + expf(-m)) - y;
+    const float sp = fmaxf(neg, 0.0f) + log1pf(expf(-fabsf(neg)));
+    loss = y > 0.0f ? sp : sp - neg;
+  } else {
+    const float s = 2.0f * y - 1.0f;
+    const float slack = 1.0f - s * m;
+    const bool active = slack > 0.0f;
+    coeff = active ? -s : 0.0f;
+    loss = active ? slack : 0.0f;
+  }
+}
+
+// 16 bytes of shared memory as f32 (4 f32 or 8 bf16 values).
+template <typename T>
+__device__ __forceinline__ void load16(const T* p,
+                                       float (&out)[16 / sizeof(T)]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < 16 / static_cast<int>(sizeof(T)); ++k) out[k] = to_f(e[k]);
+}
+
+// kColVec consecutive values of shared memory as f32 (8 or 16 bytes).
+template <typename T>
+__device__ __forceinline__ void load_cols(const T* p, float (&out)[kColVec]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  } else {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < kColVec; ++k) out[k] = to_f(e[k]);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Spins until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into this block's shared memory; completes
+// on `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The consumer warps only (named barrier 1; the producer warp is busy).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+}
+
+// Every thread of every block of the cluster; orders shared-memory writes
+// before it with the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n\t"
+      "barrier.cluster.wait.acquire;" ::
+          : "memory");
+}
+
+static_assert(kMaxStageRows <= kConsumerWarps * kRowsPerWarp &&
+                  4 * (kMaxStageRows + 3) <= kLabelYBytes &&
+                  kMaxStageRows + 15 <= kLabelBytes - kLabelYBytes,
+              "a warp's margins cover its share of a tile, and a stage's "
+              "label area holds its labels' aligned supersets");
+
+// A 16-byte aligned superset of `count` elements of `elem` bytes from
+// `src`: its first address, the elements before `src` in it, and its bytes
+// (whole 16-byte units, which never cross a page, so the few bytes it reads
+// around the range are always mapped).
+struct Span {
+  const unsigned char* base;
+  int lead;
+  uint32_t bytes;
+};
+
+__device__ __forceinline__ Span aligned_span(const void* src, int count,
+                                             int elem) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t lo = a & ~static_cast<uintptr_t>(15);
+  const int lead = static_cast<int>(a - lo) / elem;
+  const uint32_t bytes = static_cast<uint32_t>(((lead + count) * elem + 15) &
+                                               ~15);
+  return Span{reinterpret_cast<const unsigned char*>(lo), lead, bytes};
+}
+
+template <int F, typename T, int CPT>
+__global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
+    window_main(const T* __restrict__ X, const float* __restrict__ y,
+                const float* __restrict__ w,
+                const uint8_t* __restrict__ valid,
+                const long long* __restrict__ start, long long start_scale,
+                long long n_total, long long rows, int d, int stage_rows,
+                int stages, float* __restrict__ part_grad,
+                double* __restrict__ part_loss,
+                double* __restrict__ part_cnt) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ __align__(8) uint64_t empty[kMaxStages];
+  __shared__ float s_coeff[2][kMaxStageRows];
+  __shared__ double s_wloss[kConsumerWarps];
+  __shared__ double s_wcnt[kConsumerWarps];
+  __shared__ double s_bloss;
+  __shared__ double s_bcnt;
+
+  constexpr int kVec16 = 16 / static_cast<int>(sizeof(T));
+  const int row_bytes = d * static_cast<int>(sizeof(T));
+  const int x_bytes = stage_rows * row_bytes;
+  const int stage_bytes = x_bytes + kLabelBytes;
+  unsigned char* ring = smem;
+  float* s_w = reinterpret_cast<float*>(smem + stages * stage_bytes);
+  float* s_acc = s_w + d;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // As lax.dynamic_slice does, a negative start counts from the end, then
+  // clamps into [0, n - rows].
+  long long row0 = 0;
+  if (start != nullptr) {
+    long long s = start[0] * start_scale;
+    if (s < 0) s += n_total;
+    const long long hi = n_total - rows > 0 ? n_total - rows : 0;
+    row0 = s < 0 ? 0 : (s > hi ? hi : s);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // this block's contiguous share of the window, in tiles of stage_rows
+  const long long b_begin = rows * blockIdx.x / gridDim.x;
+  const long long b_end = rows * (blockIdx.x + 1) / gridDim.x;
+  const int ntiles =
+      static_cast<int>((b_end - b_begin + stage_rows - 1) / stage_rows);
+  const unsigned char* xbytes = reinterpret_cast<const unsigned char*>(X);
+
+  if (warp == kConsumerWarps) {
+    // producer: one thread keeps the ring full
+    if (lane == 0) {
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % stages;
+        const long long r0 = b_begin + static_cast<long long>(t) * stage_rows;
+        const long long left = b_end - r0;
+        const int nr = static_cast<int>(left < stage_rows ? left : stage_rows);
+        // the first round passes at once (the ring starts empty)
+        mbar_wait(&empty[s], ((t / stages) & 1) ^ 1);
+        // the tile's rows of X, and aligned supersets of their labels and
+        // valid flags, all on the stage's full barrier
+        unsigned char* st = ring + s * stage_bytes;
+        const uint32_t bytes = static_cast<uint32_t>(nr * row_bytes);
+        const Span ys = aligned_span(y + row0 + r0, nr, 4);
+        Span vs{nullptr, 0, 0};
+        if (valid != nullptr) vs = aligned_span(valid + row0 + r0, nr, 1);
+        mbar_arrive_expect_tx(&full[s], bytes + ys.bytes + vs.bytes);
+        bulk_load(st,
+                  xbytes + (row0 + r0) * static_cast<long long>(row_bytes),
+                  bytes, &full[s]);
+        bulk_load(st + x_bytes, ys.base, ys.bytes, &full[s]);
+        if (valid != nullptr)
+          bulk_load(st + x_bytes + kLabelYBytes, vs.base, vs.bytes, &full[s]);
+      }
+    }
+    __syncwarp();
+  } else {
+    float acc[CPT][kColVec];
+#pragma unroll
+    for (int k = 0; k < CPT; ++k)
+#pragma unroll
+      for (int e = 0; e < kColVec; ++e) acc[k][e] = 0.0f;
+    double loss_acc = 0.0;
+    double cnt_acc = 0.0;
+    const int nvec = row_bytes / 16;
+    // round_T(w) while the producer's first copies are in flight
+    for (int j = tid; j < d; j += kConsumers) s_w[j] = round_to<T>(w[j]);
+    consumer_sync();
+    const int nchunk = d / kColVec;
+
+    const int rb = warp * kRowsPerWarp;  // this warp's rows of a tile
+
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % stages;
+      const long long r0 = b_begin + static_cast<long long>(t) * stage_rows;
+      const long long left = b_end - r0;
+      const int nr = static_cast<int>(left < stage_rows ? left : stage_rows);
+      float* coeff = s_coeff[t & 1];
+      mbar_wait(&full[s], (t / stages) & 1);
+      const unsigned char* st = ring + s * stage_bytes;
+      const float* s_y = reinterpret_cast<const float*>(st + x_bytes) +
+                         aligned_span(y + row0 + r0, nr, 4).lead;
+      const uint8_t* s_v =
+          valid == nullptr
+              ? nullptr
+              : st + x_bytes + kLabelYBytes +
+                    aligned_span(valid + row0 + r0, nr, 1).lead;
+
+      // (a) margins, pointwise rule, rounded coefficients: rows rb, rb + 1
+      if (rb < nr) {
+        bool in[kRowsPerWarp];
+        const T* xr[kRowsPerWarp];
+        float dot[kRowsPerWarp];
+#pragma unroll
+        for (int k = 0; k < kRowsPerWarp; ++k) {
+          in[k] = rb + k < nr;
+          xr[k] = reinterpret_cast<const T*>(st + (in[k] ? rb + k : rb) *
+                                                      row_bytes);
+          dot[k] = 0.0f;
+        }
+        for (int c = lane; c < nvec; c += 32) {
+          float wv[kVec16];
+#pragma unroll
+          for (int q = 0; q < kVec16; q += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                s_w + c * kVec16 + q);
+            wv[q] = v.x;
+            wv[q + 1] = v.y;
+            wv[q + 2] = v.z;
+            wv[q + 3] = v.w;
+          }
+#pragma unroll
+          for (int k = 0; k < kRowsPerWarp; ++k) {
+            if (in[k]) {
+              float xv[kVec16];
+              load16<T>(xr[k] + c * kVec16, xv);
+#pragma unroll
+              for (int e = 0; e < kVec16; ++e)
+                dot[k] = fmaf(xv[e], wv[e], dot[k]);
+            }
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+          for (int k = 0; k < kRowsPerWarp; ++k)
+            dot[k] += __shfl_xor_sync(0xffffffffu, dot[k], o);
+#pragma unroll
+        for (int k = 0; k < kRowsPerWarp; ++k) {
+          if (in[k]) {
+            float cf, l;
+            pointwise<F>(dot[k], s_y[rb + k], cf, l);
+            const bool live = s_v == nullptr || s_v[rb + k] != 0;
+            if (lane == 0) {
+              coeff[rb + k] = live ? round_to<T>(cf) : 0.0f;
+              if (live) {
+                loss_acc += static_cast<double>(l);
+                cnt_acc += 1.0;
+              }
+            }
+          }
+        }
+      }
+      consumer_sync();
+
+      // (b) grad += coeff * x, each thread on its own columns, in row
+      // order, from shared memory
+#pragma unroll 4
+      for (int r = 0; r < nr; ++r) {
+        const float cf = coeff[r];
+        const T* xr = reinterpret_cast<const T*>(st + r * row_bytes);
+#pragma unroll
+        for (int k = 0; k < CPT; ++k) {
+          const int j = tid + k * kConsumers;
+          if (j < nchunk) {
+            float xv[kColVec];
+            load_cols<T>(xr + j * kColVec, xv);
+#pragma unroll
+            for (int e = 0; e < kColVec; ++e)
+              acc[k][e] = fmaf(cf, xv[e], acc[k][e]);
+          }
+        }
+      }
+      // this warp is done with the tile: let the producer refill it
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int j = tid + k * kConsumers;
+      if (j < nchunk)
+#pragma unroll
+        for (int e = 0; e < kColVec; ++e) s_acc[j * kColVec + e] = acc[k][e];
+    }
+    if (lane == 0) {
+      s_wloss[warp] = loss_acc;
+      s_wcnt[warp] = cnt_acc;
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    double l = 0.0, c = 0.0;
+    for (int k = 0; k < kConsumerWarps; ++k) {
+      l += s_wloss[k];
+      c += s_wcnt[k];
+    }
+    s_bloss = l;
+    s_bcnt = c;
+  }
+  cluster_sync();
+
+  // The cluster's blocks add their sums in rank order through distributed
+  // shared memory; rank q writes columns [d q / C, d (q + 1) / C).
+  cg::cluster_group cluster = cg::this_cluster();
+  uint32_t csize_u, rank_u;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(csize_u));
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank_u));
+  const int csize = static_cast<int>(csize_u);
+  const int rank = static_cast<int>(rank_u);
+  const long long cid = blockIdx.x / csize;
+  const int lo = static_cast<int>(static_cast<long long>(d) * rank / csize);
+  const int hi =
+      static_cast<int>(static_cast<long long>(d) * (rank + 1) / csize);
+  for (int j = lo + tid; j < hi; j += kThreads) {
+    float sum = 0.0f;
+    for (int q = 0; q < csize; ++q) sum += cluster.map_shared_rank(s_acc, q)[j];
+    part_grad[cid * d + j] = sum;
+  }
+  if (rank == 0 && tid == 0) {
+    double l = 0.0, c = 0.0;
+    for (int q = 0; q < csize; ++q) {
+      l += *cluster.map_shared_rank(&s_bloss, q);
+      c += *cluster.map_shared_rank(&s_bcnt, q);
+    }
+    part_loss[cid] = l;
+    part_cnt[cid] = c;
+  }
+  // no block leaves while another still reads its shared memory
+  cluster_sync();
+}
+
+// Sums the clusters' partials: block b takes columns [32 b, 32 b + 32),
+// warp k the partials k, k + 8, ..., then warp 0 adds the 8 warps' sums in
+// order; block 0's warp 1 sums loss and count.  Deterministic, in f64.
+__global__ void __launch_bounds__(kReduceThreads)
+    window_reduce(const float* __restrict__ part_grad,
+                  const double* __restrict__ part_loss,
+                  const double* __restrict__ part_cnt, int parts, int d,
+                  float* __restrict__ grad, float* __restrict__ loss,
+                  float* __restrict__ cnt) {
+  __shared__ double s[kReduceWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + lane;
+  double v = 0.0;
+  if (j < d)
+    for (int p = warp; p < parts; p += kReduceWarps)
+      v += static_cast<double>(part_grad[static_cast<long long>(p) * d + j]);
+  s[warp][lane] = v;
+  __syncthreads();
+  if (warp == 0 && j < d) {
+    double t = 0.0;
+#pragma unroll
+    for (int k = 0; k < kReduceWarps; ++k) t += s[k][lane];
+    grad[j] = static_cast<float>(t);
+  }
+  if (blockIdx.x == 0 && warp == 1) {
+    double l = 0.0, c = 0.0;
+    for (int p = lane; p < parts; p += 32) {
+      l += part_loss[p];
+      c += part_cnt[p];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      l += __shfl_xor_sync(0xffffffffu, l, o);
+      c += __shfl_xor_sync(0xffffffffu, c, o);
+    }
+    if (lane == 0) {
+      *loss = static_cast<float>(l);
+      *cnt = static_cast<float>(c);
+    }
+  }
+}
+
+struct Args {
+  int device;
+  const void* X;
+  const float* y;
+  const float* w;
+  const uint8_t* valid;     // null: every row counts
+  const long long* start;   // null: rows start at 0; else device scalar
+  long long start_scale;    // first row = clamp(start[0] * start_scale)
+  long long n_total;        // rows of X
+  long long rows;           // rows summed
+  int d;
+  int stage_rows;           // R: rows a ring stage holds
+  int stages;               // S: stages of the ring
+  int cluster;              // blocks a cluster
+  int max_parts;            // scratch rows: most clusters
+  float* part_grad;         // (max_parts, d)
+  double* part_loss;        // (max_parts,)
+  double* part_cnt;         // (max_parts,)
+  float* grad;              // (d,)
+  float* loss;              // (1,)
+  float* cnt;               // (1,)
+  cudaStream_t stream;
+};
+
+// What a launch needs to know of a kernel instance on a device, computed
+// on its first launch there and kept.
+struct LaunchState {
+  const void* kernel;
+  int device;
+  int smem;
+  int cluster;
+  int max_clusters;
+};
+
+std::mutex g_mutex;
+std::vector<LaunchState> g_states;
+
+template <typename K>
+cudaError_t launch_state(K kern, const Args& a, int smem, LaunchState* out) {
+  std::lock_guard<std::mutex> lock(g_mutex);
+  const void* key = reinterpret_cast<const void*>(kern);
+  bool attribute_set = false;
+  for (const LaunchState& s : g_states) {
+    if (s.kernel != key || s.device != a.device) continue;
+    attribute_set = true;
+    if (s.smem == smem && s.cluster == a.cluster) {
+      *out = s;
+      return cudaSuccess;
+    }
+  }
+  cudaError_t e;
+  if (!attribute_set) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxDynamicSmem);
+    if (e != cudaSuccess) return e;
+  }
+  int sms = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, a.device);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((sms / a.cluster) * a.cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  LaunchState s{key, a.device, smem, a.cluster, clusters};
+  g_states.push_back(s);
+  *out = s;
+  return cudaSuccess;
+}
+
+template <int F, typename T, int CPT>
+cudaError_t launch(const Args& a) {
+  auto kern = window_main<F, T, CPT>;
+  const int row_bytes = a.d * static_cast<int>(sizeof(T));
+  const int smem =
+      a.stages * (a.stage_rows * row_bytes + kLabelBytes) + 8 * a.d;
+  if (smem > kMaxDynamicSmem) return cudaErrorInvalidValue;
+  LaunchState st;
+  cudaError_t e = launch_state(kern, a, smem, &st);
+  if (e != cudaSuccess) return e;
+  // persistent: as many clusters as fit on the card at once, at most one a
+  // scratch row (the wrapper sizes the scratch for the blocks an SM its
+  // plan aims at), and no more clusters than the window has tiles
+  const long long tiles = (a.rows + a.stage_rows - 1) / a.stage_rows;
+  long long clusters = st.max_clusters;
+  if (clusters > a.max_parts) clusters = a.max_parts;
+  const long long need = (tiles + a.cluster - 1) / a.cluster;
+  if (clusters > need) clusters = need;
+  if (clusters < 1) clusters = 1;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * a.cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(a.X), a.y, a.w,
+                         a.valid, a.start, a.start_scale, a.n_total, a.rows,
+                         a.d, a.stage_rows, a.stages, a.part_grad,
+                         a.part_loss, a.part_cnt);
+  if (e != cudaSuccess) return e;
+  const int parts = static_cast<int>(clusters);
+  window_reduce<<<(a.d + 31) / 32, kReduceThreads, 0, a.stream>>>(
+      a.part_grad, a.part_loss, a.part_cnt, parts, a.d, a.grad, a.loss,
+      a.cnt);
+  return cudaGetLastError();
+}
+
+// chunks: column chunks a consumer thread holds (a power of two)
+template <int F, typename T>
+cudaError_t by_chunks(const Args& a) {
+  const int per = (a.d / kColVec + kConsumers - 1) / kConsumers;
+  if (per <= 1) return launch<F, T, 1>(a);
+  if (per <= 2) return launch<F, T, 2>(a);
+  if (per <= 4) return launch<F, T, 4>(a);
+  if (per <= kMaxChunksPerThread) return launch<F, T, 8>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <int F>
+cudaError_t by_dtype(int dtype, const Args& a) {
+  if (dtype == kF32) return by_chunks<F, float>(a);
+  if (dtype == kBF16) return by_chunks<F, __nv_bfloat16>(a);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the window kernel and its reduction on `stream`; returns the
+// cudaError_t of the launches (0 on success).  Does not synchronise.
+int tsgd_window_sums(int family, int dtype, int device, const void* X,
+                     const void* y, const void* w, const void* valid,
+                     const void* start, long long start_scale,
+                     long long n_total, long long rows, int d,
+                     int stage_rows, int stages, int cluster, int max_parts,
+                     void* part_grad, void* part_loss, void* part_cnt,
+                     void* grad, void* loss, void* cnt, void* stream) {
+  const int itemsize = dtype == kBF16 ? 2 : 4;
+  if (d <= 0 || (d * itemsize) % 16 != 0 || rows < 0 || rows > n_total ||
+      stage_rows < 1 || stage_rows > kMaxStageRows || stages < 1 ||
+      stages > kMaxStages || cluster < 1 || cluster > 8 || max_parts < 1 ||
+      reinterpret_cast<uintptr_t>(X) % 16 != 0)
+    return cudaErrorInvalidValue;
+  Args a{device,
+         X,
+         static_cast<const float*>(y),
+         static_cast<const float*>(w),
+         static_cast<const uint8_t*>(valid),
+         static_cast<const long long*>(start),
+         start_scale,
+         n_total,
+         rows,
+         d,
+         stage_rows,
+         stages,
+         cluster,
+         max_parts,
+         static_cast<float*>(part_grad),
+         static_cast<double*>(part_loss),
+         static_cast<double*>(part_cnt),
+         static_cast<float*>(grad),
+         static_cast<float*>(loss),
+         static_cast<float*>(cnt),
+         static_cast<cudaStream_t>(stream)};
+  switch (family) {
+    case kLeastSquares: return by_dtype<kLeastSquares>(dtype, a);
+    case kLogistic: return by_dtype<kLogistic>(dtype, a);
+    case kHinge: return by_dtype<kHinge>(dtype, a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+const char* tsgd_window_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

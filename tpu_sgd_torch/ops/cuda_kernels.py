@@ -1,33 +1,39 @@
 """Fused gradient sums on the card: the port of ``tpu_sgd/ops/pallas_kernels.py``.
 
 The JAX package's three Pallas kernels compute ``(grad_sum, loss_sum,
-count)`` of a mini-batch in one pass over X.  Here one hand-written CUDA
-kernel (``csrc/fused_sums.cu``, sm_90a) serves all three wrappers:
+count)`` of a mini-batch in one pass over X.  Here two hand-written CUDA
+kernels (sm_90a) serve the three wrappers:
 
   * :func:`fused_gradient_sums` (Pallas ``_masked_kernel``) sums rows
-    ``[0, n)`` with an optional Bernoulli mask;
+    ``[0, n)`` with an optional Bernoulli mask, in ``csrc/fused_sums.cu``;
   * :func:`fused_window_sums` (``_window_kernel``) and
     :func:`fused_window_sums_vpu` (``_window_kernel_vpu``) sum
     ``num_tiles * tile_m`` rows from row ``start_tile * tile_m``, read in
     place from the full X.  The start stays a device tensor: the kernel
     reads it through a pointer and clamps it on the device.
 
-On the TPU the two window kernels differed in how they used the matrix
-unit; on Hopper both are one dot product and one FMA per element, so they
-launch the same kernel and keep separate launch counts.
+A window goes by shape to one of two kernels: ``csrc/window_sums.cu``
+(bulk copies into a shared-memory ring, a cluster reduction) when
+:func:`window_stage_plan` gives X's width a plan and X's base address is
+16-byte aligned, else the window route of ``csrc/fused_sums.cu``.  On the
+TPU the two window kernels differed in how they used the matrix unit; on
+Hopper both are one dot product and one FMA per element, so they launch
+the same kernel and keep separate launch counts.
 
 Each wrapper takes its plain PyTorch version (``*_plain``, the same
 arithmetic: ``margins_of`` -> pointwise -> ``grad_sum_of``) when X lies on
-the CPU, and launches the kernel when X lies on a CUDA device.  There is no
-fallback from one to the other: a CUDA input the kernel does not take
+the CPU, and launches a kernel when X lies on a CUDA device.  There is no
+fallback from one to the other: a CUDA input that neither kernel takes
 raises.  Each wrapper counts its launches in a plain int attribute
-``launches``; :func:`reset_launch_counts` sets them to 0.
+``launches``, and :func:`kernel_launch_counts` counts them by CUDA source;
+:func:`reset_launch_counts` sets all of them to 0.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -96,6 +102,73 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# -- the window kernel's stage planner (csrc/window_sums.cu) ----------------
+
+#: rows a ring stage may hold, in the order the planner tries them
+WINDOW_STAGE_ROWS = (16, 8, 4)
+#: the fewest and the most stages of the ring
+WINDOW_MIN_STAGES = 3
+WINDOW_MAX_STAGES = 8
+#: blocks a cluster: they add their sums through distributed shared memory
+WINDOW_CLUSTER = 2
+#: shared memory the kernel keeps for its static arrays (barriers,
+#: coefficients, partials)
+_WINDOW_STATIC_SMEM = 1024
+#: bytes after a stage's rows for the aligned supersets of its labels and
+#: valid flags (kLabelBytes in the source)
+WINDOW_LABEL_BYTES = 112
+#: widest row: 8 chunks of 4 columns for each of the 256 consumer threads
+WINDOW_MAX_D = 8 * 4 * 256
+#: widest row that two blocks an SM take (2 chunks of 4 columns a
+#: consumer thread: the register budget of two resident blocks)
+WINDOW_TWO_BLOCK_MAX_D = 2 * 4 * 256
+#: shared memory the hardware reserves for each resident block
+_SMEM_RESERVED_PER_BLOCK = 1024
+
+
+@dataclass(frozen=True)
+class StagePlan:
+    """How ``csrc/window_sums.cu`` runs a width: ``stage_rows`` rows of X a
+    ring stage (one bulk copy of ``stage_bytes``, then the rows' labels and
+    valid flags in ``WINDOW_LABEL_BYTES``), ``stages`` stages, ``cluster``
+    blocks a cluster, ``blocks_per_sm`` resident blocks an SM the ring is
+    sized for, and the dynamic shared memory a block uses (the ring, then
+    ``round_T(w)`` and the ``(d,)`` f32 sums)."""
+
+    stage_rows: int
+    stages: int
+    cluster: int
+    blocks_per_sm: int
+    stage_bytes: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def window_stage_plan(d: int, itemsize: int) -> Optional[StagePlan]:
+    """The window kernel's plan for rows of ``d`` elements of ``itemsize``
+    bytes, or ``None`` when the kernel does not take the width: a row must
+    be whole 16-byte units (the bulk copy's unit) and at least
+    ``WINDOW_MIN_STAGES`` stages of at least 4 rows must fit beside ``w``
+    and the sums in one block's shared memory.  Rows of up to
+    ``WINDOW_TWO_BLOCK_MAX_D`` columns get two blocks an SM when their
+    ring fits in half of it; then the planner takes the most rows a stage
+    (16, 8 or 4) that leave 3 stages, and as many stages as fit, up to 8."""
+    row = d * itemsize
+    if d <= 0 or row % 16 or d > WINDOW_MAX_D:
+        return None
+    for blocks in ((2, 1) if d <= WINDOW_TWO_BLOCK_MAX_D else (1,)):
+        block_smem = (SMEM_PER_BLOCK if blocks == 1
+                      else SMEM_PER_SM // 2 - _SMEM_RESERVED_PER_BLOCK)
+        budget = block_smem - _WINDOW_STATIC_SMEM - 8 * d
+        for rows in WINDOW_STAGE_ROWS:
+            stage = rows * row + WINDOW_LABEL_BYTES
+            stages = min(WINDOW_MAX_STAGES, budget // stage)
+            if stages >= WINDOW_MIN_STAGES:
+                return StagePlan(rows, stages, WINDOW_CLUSTER, blocks,
+                                 rows * row, stages * stage + 8 * d)
+    return None
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_sums")
     fn = lib.tsgd_fused_sums
@@ -106,6 +179,19 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.tsgd_error_string.argtypes = [ctypes.c_int]
         lib.tsgd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _window_library() -> ctypes.CDLL:
+    lib = _build.load("window_sums")
+    fn = lib.tsgd_window_sums
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [i, i, i, p, p, p, p, p, ll, ll, ll, i, i, i, i, i,
+                       p, p, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+        lib.tsgd_window_error_string.argtypes = [ctypes.c_int]
+        lib.tsgd_window_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -191,6 +277,63 @@ def _launch(pointwise, X, y, w, mask, start, start_scale, rows):
         raise RuntimeError(
             "fused_sums kernel launch failed: "
             f"{lib.tsgd_error_string(rc).decode()} (cudaError {rc})")
+    KERNEL_LAUNCHES["fused_sums"] += 1
+    return grad, loss, cnt
+
+
+#: (device index, d, stream) -> the window kernel's partials; each call's
+#: kernels finish with them before the next call on the stream starts
+_WINDOW_SCRATCH: dict = {}
+
+
+def _window_scratch(index: int, d: int, parts: int, stream: int):
+    """At least ``parts`` rows of partials (plans of one width differ in
+    blocks an SM by element type, so a cached scratch may be too short)."""
+    key = (index, d, stream)
+    scratch = _WINDOW_SCRATCH.get(key)
+    if scratch is None or scratch[0].shape[0] < parts:
+        dev = torch.device("cuda", index)
+        scratch = (torch.empty((parts, d), dtype=torch.float32, device=dev),
+                   torch.empty((parts,), dtype=torch.float64, device=dev),
+                   torch.empty((parts,), dtype=torch.float64, device=dev))
+        _WINDOW_SCRATCH[key] = scratch
+    return scratch
+
+
+def _launch_window(pointwise, X, y, w, valid, start, start_scale, rows,
+                   plan: StagePlan):
+    """``csrc/window_sums.cu`` on the current stream: rows ``[s, s +
+    rows)`` from ``s = clamp(start * start_scale)``; returns device tensors
+    ``(grad (d,), loss (), count ())``.  Does not synchronise."""
+    family = _family_of(pointwise)
+    y, w, valid = _operands(X, y, w, valid)
+    n, d = X.shape
+    dev = X.device
+    lib = _window_library()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    parts = max(1, _sm_count(index) * plan.blocks_per_sm // plan.cluster)
+    # one fresh buffer a call for the outputs: grad, then loss and count
+    out = torch.empty((d + 2,), dtype=torch.float32, device=dev)
+    grad, loss, cnt = out[:d], out[d], out[d + 1]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part_grad, part_loss, part_cnt = _window_scratch(index, d, parts, stream)
+    args = (family, _DTYPES[X.dtype], index, X.data_ptr(), y.data_ptr(),
+            w.data_ptr(), None if valid is None else valid.data_ptr(),
+            start.data_ptr(), start_scale, n, rows, d, plan.stage_rows,
+            plan.stages, plan.cluster, parts, part_grad.data_ptr(),
+            part_loss.data_ptr(), part_cnt.data_ptr(), out.data_ptr(),
+            out.data_ptr() + 4 * d, out.data_ptr() + 4 * d + 4, stream)
+    # the kernels launch on the current device: make it X's
+    if torch.cuda.current_device() == index:
+        rc = lib.tsgd_window_sums(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.tsgd_window_sums(*args)
+    if rc != 0:
+        raise RuntimeError(
+            "window_sums kernel launch failed: "
+            f"{lib.tsgd_window_error_string(rc).decode()} (cudaError {rc})")
+    KERNEL_LAUNCHES["window_sums"] += 1
     return grad, loss, cnt
 
 
@@ -297,10 +440,24 @@ def _window(counter, pointwise, X, y, w, start_tile, num_tiles, tile_m,
         return fused_window_sums_plain(pointwise, X, y, w, start_tile,
                                        num_tiles, tile_m, valid)
     start = _start_tensor(start_tile, X.device)
-    out = _launch(pointwise, X, y, w, valid, start, tile_m,
-                  num_tiles * tile_m)
+    rows = num_tiles * tile_m
+    plan = window_plan_for(X)
+    if plan is not None:
+        out = _launch_window(pointwise, X, y, w, valid, start, tile_m, rows,
+                             plan)
+    else:
+        out = _launch(pointwise, X, y, w, valid, start, tile_m, rows)
     counter.launches += 1
     return out
+
+
+def window_plan_for(X: Tensor) -> Optional[StagePlan]:
+    """The window kernel's plan for X, or ``None`` when X's windows go to
+    ``csrc/fused_sums.cu``: X's width has no plan, or its base address is
+    not 16-byte aligned (the bulk copies' alignment)."""
+    if X.dim() != 2 or X.dtype not in _DTYPES or X.data_ptr() % 16:
+        return None
+    return window_stage_plan(X.shape[1], X.element_size())
 
 
 def fused_window_sums(
@@ -346,15 +503,24 @@ fused_gradient_sums.launches = 0
 fused_window_sums.launches = 0
 fused_window_sums_vpu.launches = 0
 WRAPPERS = (fused_gradient_sums, fused_window_sums, fused_window_sums_vpu)
+#: launches by CUDA source (csrc/<name>.cu), counted where each launches
+KERNEL_LAUNCHES = {"fused_sums": 0, "window_sums": 0}
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for name in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def kernel_launch_counts() -> dict:
+    """Launches by CUDA source since the last reset: which kernel ran."""
+    return dict(KERNEL_LAUNCHES)
 
 
 class FusedGradient(Gradient):
