@@ -71,9 +71,32 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    against f64 sums, with the statistics' sums in f64 (as built) and in
    f32 (the JAX package's choice).  Each run's warm wall and device ms
    per iteration, idle share, and host operator calls per iteration.
-9. summary — the kernel table, the sparse line, the quasi_newton line,
-   the gram line, then the card's name and power limit, then the last
-   line ``{"ok": true, "device": {...}}``.
+9. observed — on phase 4's matrix, right after phase 8: each row
+   (Bernoulli, indexed, sliced, sliced-vpu, statistics exact, aligned and
+   chunked, ``ChunkedGradient``) run 20 iterations with every K-iteration
+   block eager (``gradient_descent.CUDA_GRAPHS = False``) and with full
+   blocks replayed from their CUDA graph, in turns (eager, captured,
+   captured, eager), after one first run in each mode (a first run of 20
+   iterations must not capture: its one replay cannot repay a capture;
+   the next run on the same tensors warms up its first block and
+   captures the second, and every later run replays both): weights and
+   history
+   bitwise equal, launches exact by wrapper and by source in both modes
+   (one per iteration the card runs: a replay counts the launches its
+   capture recorded), the capture's one-off ms, graph replays and host
+   syncs per run (torch's sync detector), peak and reserved memory of the
+   eager first run and of the run that captures, and each mode's wall and
+   device ms per iteration, idle share and host operator calls.  Then the
+   observed driver on the sliced run (72 iterations): a listener and
+   checkpoints every 5 iterations at K = 1, K = 8 and K = 8 with C = 4
+   must give the same history, events and checkpoint contents; a stop
+   raised at iteration 13 and a resume must equal the uninterrupted run,
+   also under ``TrainingSupervisor``.  The updater's device step for
+   i = 1 .. 10^6 must equal the host's rounding; each sampler's draw is
+   timed.
+10. summary — the kernel table, the sparse line, the quasi_newton line,
+   the gram line, the observed line, then the card's name and power
+   limit, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  It imports
 nothing of JAX or of the JAX package ``tpu_sgd``.
@@ -116,6 +139,11 @@ HISTORY_RTOL = 1e-6
 GRAM_BLOCK = 8192           # the statistics' prefix block (the default)
 GRAM_CHUNK_ITERS = 8        # the chunked gram driver's K of leg (d)
 CHUNK_ROWS = 65536          # ChunkedGradient's block of leg (f)
+#: leg (f): ChunkedGradient against the stock window at equal weights,
+#: per step, relative (loss; gradient of max |g|).  Sound runs read
+#: 1.97e-7 / 2.23e-7 (PERF.md); a window one row short at each
+#: of its 16 block seams reads 3.8e-5 / 3.5e-4.
+CHUNKED_STEP_RTOL = 2e-6
 CONFIG1_GRAM_FRAC = 0.5     # config 1's sliced fraction from statistics
 GRAM_CONFIG1_BLOCK = 1024   # leg (g)'s block at config 1's 100k rows
 REPLACES = {
@@ -514,7 +542,8 @@ def phase_profile(torch, tst, X, y, iters=20):
     for mode in ("bernoulli", "sliced"):
         alg = tst.LinearRegressionWithSGD(0.5, iters, None, FRAC)
         alg.optimizer.set_convergence_tol(0.0).set_sampling(mode)
-        alg.run((X, y))  # warm: allocator and generator state
+        for _ in range(2):  # warm: allocator, generator and the capture
+            alg.run((X, y))  # (a repeated run captures its block)
         torch.cuda.synchronize()
         t = time.perf_counter()
         alg.run((X, y))
@@ -930,7 +959,8 @@ def _sparse_iteration_profile(torch, tst, X, Xt, y, frac, iters=20):
                         convergence_tol=0.0)
     run = make_run(tst.HingeGradient(), tst.L1Updater(), cfg)
     w0 = torch.zeros(X.shape[1], device=X.device)
-    run(w0, X, y, Xt=Xt)  # warm: allocator and generator state
+    for _ in range(2):  # warm: allocator, generator and the capture
+        run(w0, X, y, Xt=Xt)  # (a repeated run captures its block)
     torch.cuda.synchronize()
     t = time.perf_counter()
     run(w0, X, y, Xt=Xt)
@@ -1316,9 +1346,13 @@ def _run_profile(torch, run, iters):
     """A warm run's wall ms per iteration (untraced, ending in
     ``synchronize``), then over the same run traced: device ms per
     iteration by kernel, and the host's operator calls and self ms by
-    operator per iteration; idle share = 1 - device / wall."""
+    operator per iteration; idle share = 1 - device / wall.  Two more
+    runs go first, so that the timed run never holds a capture (a
+    repeated run warms up and captures its block)."""
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(2):
+        run()
     torch.cuda.synchronize()
     t = time.perf_counter()
     run()
@@ -1577,15 +1611,16 @@ def gram_lbfgs(torch, tst, ck, X, y, qn_b):
 
 def gram_chunked_gradient(torch, tst, ck, X, y, sliced_ref):
     """(f) ``ChunkedGradient`` at 65,536-row blocks: one B2 launch per
-    block, against phase ``full``'s sliced run; and B2's row at the block
-    shape."""
+    block; against the stock window at each step of phase ``full``'s
+    sliced run (loss and gradient rtol 2e-4), and its whole run against
+    that run's objective (<= 1.01x); and B2's row at the block shape."""
     n = X.shape[0]
     m = round(FRAC * n)
     blocks = -(-m // CHUNK_ROWS)
     chunked = tst.ChunkedGradient(tst.LeastSquaresGradient(), CHUNK_ROWS)
     alg = _sgd_alg(tst, chunked)
     ck.reset_launch_counts()
-    alg.run((X, y))
+    model = alg.run((X, y))
     torch.cuda.synchronize()
     launches = ck.launch_counts()
     by_source = ck.kernel_launch_counts()
@@ -1596,7 +1631,18 @@ def gram_chunked_gradient(torch, tst, ck, X, y, sliced_ref):
     check(by_source == {"fused_sums": 0, "window_sums": ITERS * blocks},
           f"(f): launches by source {by_source}")
     rel = _max_rel(hist, sliced_ref[0])
-    check(rel <= 2e-4, f"(f): history vs the stock sliced run {rel}")
+    step_loss, step_grad, seams = _chunked_along_stock(
+        torch, tst, chunked, alg, X, y, sliced_ref, blocks)
+    check(step_loss <= CHUNKED_STEP_RTOL and step_grad <= CHUNKED_STEP_RTOL,
+          f"(f): against the stock window at each step's weights: loss "
+          f"{step_loss}, grad {step_grad} (of max |g|), limit "
+          f"{CHUNKED_STEP_RTOL}")
+    from tpu_sgd_torch.optimize.oracle import full_objective
+
+    ls = tst.LeastSquaresGradient()
+    L = full_objective(ls, X, y, model.weights)
+    L_stock = full_objective(ls, X, y, sliced_ref[1])
+    check(L <= 1.01 * L_stock, f"(f): objective {L} > 1.01 x {L_stock}")
     prof = _run_profile(torch, lambda: alg.run((X, y)), ITERS)
     # B2 at the block shape
     row = window_row(torch, ck, ck.fused_window_sums, chunked.pointwise, X,
@@ -1605,8 +1651,61 @@ def gram_chunked_gradient(torch, tst, ck, X, y, sliced_ref):
     row["launches"] = launches["fused_window_sums"]
     out = {"chunk_rows": CHUNK_ROWS, "blocks_per_window": blocks,
            "launches": launches, "launches_by_source": by_source,
-           "history_max_rel_vs_stock": rel, **prof}
+           "history_max_rel_vs_stock": rel,
+           "step_loss_max_rel_vs_stock": step_loss,
+           "step_grad_max_err_over_scale_vs_stock": step_grad,
+           "step_limit": CHUNKED_STEP_RTOL,
+           "seam_rows_short_vs_stock": seams,
+           "objective": L, "stock_objective": L_stock, **prof}
     return out, row
+
+
+def _chunked_along_stock(torch, tst, chunked, alg, X, y, sliced_ref,
+                         blocks):
+    """``ChunkedGradient`` against the stock window path at each iteration
+    of phase ``full``'s sliced run, at that iteration's weights and window:
+    the stock run replayed step by step (its history must come out
+    bitwise), the largest loss difference relative to the loss and the
+    largest gradient difference relative to the largest gradient entry;
+    and, at the first step, the same two differences for a window one row
+    short at each of its ``blocks`` block seams (the scale of a wrong
+    block sum, which the limit must stay under).
+    (The two runs' own trajectories part by the f32 rounding of their sums:
+    a difference of 1e-7 in the weights can flip one entry's bf16
+    rounding, which moves that step's loss by 1e-3.)"""
+    from tpu_sgd_torch.optimize import gradient_descent as gd
+
+    opt = alg.optimizer
+    cfg, upd = opt.config, opt.updater
+    stock = tst.LeastSquaresGradient()
+    step = gd.make_step(stock, upd, cfg)
+    sampler = gd._make_sampler(cfg, X)
+    m = round(cfg.mini_batch_fraction * X.shape[0])
+    w = torch.zeros(X.shape[1], device="cuda")
+    _, reg = upd.compute(w, torch.zeros_like(w), 0.0, 1, cfg.reg_param)
+    worst_l = worst_g = 0.0
+    seams = None
+    replay = []
+    for i in range(1, cfg.num_iterations + 1):
+        sampler.seek(i)
+        start = sampler.draw()
+        gs, lsum, c = stock.window_sums(X, y, w, start, m)
+        gc, lc, cc = chunked.window_sums(X, y, w, start, m)
+        if seams is None:
+            gb, lb, _ = stock.window_sums(X, y, w, start, m - blocks)
+            seams = {"loss": abs(float(lb) - float(lsum)) / abs(float(lsum)),
+                     "grad": float((gb - gs).abs().max())
+                     / float(gs.abs().max())}
+        check(float(cc) == float(c), f"(f): count {float(cc)} at {i}")
+        worst_l = max(worst_l, abs(float(lc) - float(lsum))
+                      / abs(float(lsum)))
+        worst_g = max(worst_g, float((gc - gs).abs().max())
+                      / float(gs.abs().max()))
+        w, loss_i, reg, _ = step(w, X, y, i, reg)
+        replay.append(float(loss_i))
+    check(np.array_equal(np.asarray(replay, np.float32), sliced_ref[0]),
+          "(f): the step-by-step replay is not phase full's sliced run")
+    return worst_l, worst_g, seams
 
 
 def gram_precision(torch, tst, X, y, w):
@@ -1705,6 +1804,424 @@ def phase_gram(torch, tst, ck, X, y, w_true, sliced_ref, qn_b):
     return out, row
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+OBS_ITERS = 72              # the observed driver's run: two full windows
+OBS_K, OBS_C = 8, 4         # of C = 4 blocks of K = 8, then one block
+OBS_CKPT_EVERY = 5
+OBS_STOP_AT = 13            # the iteration whose event raises the stop flag
+#: rows of phase ``observed``: the sampling and the gradient of each run
+OBS_ROWS = ("bernoulli", "indexed", "sliced", "sliced_vpu", "stats_exact",
+            "stats_aligned", "stats_chunked", "chunked_gradient")
+
+
+class _SyncCounter:
+    """Host syncs of a region, counted by torch's own sync detector
+    (``torch.cuda.set_sync_debug_mode("warn")`` warns on each operation
+    that waits for the card: ``bool``/``int`` of a card tensor, ``.cpu()``,
+    ``.item()``)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.n = 0
+
+    def __enter__(self):
+        import warnings
+        self._cm = warnings.catch_warnings(record=True)
+        self._log = self._cm.__enter__()
+        warnings.simplefilter("always")
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        self.n = sum(1 for w in self._log
+                     if "synchroniz" in str(w.message).lower())
+        self._cm.__exit__(*exc)
+        return False
+
+
+def _obs_optimizer(torch, tst, row, grams):
+    """A fresh optimizer of one row: phase ``full``'s seed, step and
+    fraction, ``convergence_tol=0`` (as phase ``profile``), 20
+    iterations."""
+    ls = tst.LeastSquaresGradient()
+    sampling, gradient = "sliced", ls
+    if row in ("bernoulli", "indexed"):
+        sampling = row
+    elif row == "sliced_vpu":
+        gradient = tst.FusedGradient(ls, tile_m=WINDOW_TILE,
+                                     window_kernel="vpu")
+    elif row == "stats_exact":
+        gradient = grams["exact"]
+    elif row in ("stats_aligned", "stats_chunked"):
+        gradient = grams["aligned"]
+    elif row == "chunked_gradient":
+        gradient = tst.ChunkedGradient(ls, CHUNK_ROWS)
+    opt = tst.GradientDescent(gradient, tst.SimpleUpdater(), device="cuda")
+    opt.set_step_size(0.5).set_num_iterations(ITERS)
+    opt.set_mini_batch_fraction(FRAC).set_convergence_tol(0.0)
+    opt.set_sampling(sampling)
+    if row == "stats_chunked":
+        opt.set_gram_options(chunk_iters=GRAM_CHUNK_ITERS)
+    return opt
+
+
+def _expected_launches(row):
+    """Launches of one 20-iteration run, by wrapper and by source: one per
+    iteration the card executes (a replayed block counts its captured
+    launches), 16 a ``ChunkedGradient`` iteration, none from the
+    statistics."""
+    blocks = -(-round(FRAC * FULL_ROWS) // CHUNK_ROWS)
+    n = {"bernoulli": ("fused_gradient_sums", "fused_sums", ITERS),
+         "indexed": ("fused_gradient_sums", "fused_sums", ITERS),
+         "sliced": ("fused_window_sums", "window_sums", ITERS),
+         "sliced_vpu": ("fused_window_sums_vpu", "window_sums", ITERS),
+         "chunked_gradient": ("fused_window_sums", "window_sums",
+                              ITERS * blocks)}.get(row)
+    wrappers = {"fused_gradient_sums": 0, "fused_window_sums": 0,
+                "fused_window_sums_vpu": 0}
+    sources = {"fused_sums": 0, "window_sums": 0}
+    if n is not None:
+        wrappers[n[0]] = n[2]
+        sources[n[1]] = n[2]
+    return wrappers, sources
+
+
+def _obs_run(torch, ck, opt, X, y, d):
+    """One warm run of ``opt``: weights, history, launches by wrapper and
+    by source, host syncs, graph replays, and the peak of allocated and
+    reserved bytes above what the run started with."""
+    runner = lambda: (opt._run_cache[1].cache.get("runner")  # noqa: E731
+                      if opt._run_cache else None)
+    r0 = runner()
+    replays0 = r0.replays if r0 is not None else 0
+    torch.cuda.synchronize()
+    base_alloc = torch.cuda.memory_allocated()
+    base_res = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    with _SyncCounter(torch) as syncs:
+        w, h = opt.optimize_with_history((X, y), torch.zeros(d,
+                                                             device="cuda"))
+    torch.cuda.synchronize()
+    r1 = runner()
+    return {"w": w, "h": np.asarray(h),
+            "launches": ck.launch_counts(),
+            "launches_by_source": ck.kernel_launch_counts(),
+            "host_syncs": syncs.n,
+            "graph_replays": (r1.replays - (replays0 if r1 is r0 else 0)
+                              if r1 is not None else 0),
+            "capture_ms": r1.capture_ms if r1 is not None else None,
+            "peak_extra_allocated_bytes":
+                torch.cuda.max_memory_allocated() - base_alloc,
+            "extra_reserved_bytes":
+                torch.cuda.memory_reserved() - base_res}
+
+
+def observed_rows(torch, tst, ck, X, y):
+    """Captured against eager per row, in turns (eager, captured,
+    captured, eager), 20 warm iterations each: bitwise weights and
+    history, exact launch counts, the profile of each mode."""
+    from tpu_sgd_torch.optimize import gradient_descent as gd
+
+    d = X.shape[1]
+    out = {}
+    grams = {}
+    for row in OBS_ROWS:
+        if row == "stats_exact":
+            grams = {"exact": tst.GramLeastSquaresGradient.build(
+                X, y, block_rows=GRAM_BLOCK, device="cuda")}
+        elif row == "stats_aligned":
+            grams = {"aligned": tst.GramLeastSquaresGradient.build(
+                X, y, block_rows=GRAM_BLOCK, aligned=True, device="cuda")}
+        elif row == "chunked_gradient":
+            grams = {}
+        opts = {}
+        for mode, graphs in (("eager", False), ("captured", True)):
+            gd.CUDA_GRAPHS = graphs
+            try:
+                opts[mode] = _obs_optimizer(torch, tst, row, grams)
+                first = _obs_run(torch, ck, opts[mode], X, y, d)  # warm-up
+            finally:
+                gd.CUDA_GRAPHS = True
+            opts[mode].first = first
+        check(opts["captured"].first["graph_replays"] == 0,
+              f"observed {row}: a first run of {ITERS} iterations captured")
+        runs = {"eager": [], "captured": []}
+        for mode in ("eager", "captured", "captured", "eager"):
+            runs[mode].append(_obs_run(torch, ck, opts[mode], X, y, d))
+        ref = runs["eager"][0]
+        exp_w, exp_s = _expected_launches(row)
+        bitwise = True
+        for mode in ("eager", "captured"):
+            for r in runs[mode]:
+                bitwise &= bool(torch.equal(r["w"], ref["w"])
+                                and np.array_equal(r["h"], ref["h"]))
+                check(r["launches"] == exp_w and
+                      r["launches_by_source"] == exp_s,
+                      f"observed {row} {mode}: launches {r['launches']} / "
+                      f"{r['launches_by_source']}, expected {exp_w} / "
+                      f"{exp_s}")
+        check(bitwise, f"observed {row}: a captured run differs from the "
+              "eager loop")
+        check(len(ref["h"]) == ITERS and bool(np.all(np.isfinite(ref["h"]))),
+              f"observed {row}: history {ref['h']}")
+        # the second run on the same tensors warms up its first block and
+        # captures the second; every later run replays both
+        cap = runs["captured"][0]
+        blocks = ITERS // (GRAM_CHUNK_ITERS if row == "stats_chunked"
+                           else gd.RUN_BLOCK_ITERS)
+        replays = [r["graph_replays"] for r in runs["captured"]]
+        check(cap["capture_ms"] is not None
+              and replays == [blocks - 1, blocks],
+              f"observed {row}: graph replays {replays}")
+        prof = {}
+        for mode in ("eager", "captured", "captured", "eager"):
+            opt = opts[mode]
+            p = _run_profile(torch, lambda: opt.optimize_with_history(
+                (X, y), torch.zeros(d, device="cuda")), ITERS)
+            prof.setdefault(mode, []).append(p)
+
+        def mean(mode, key):
+            return sum(p[key] for p in prof[mode]) / len(prof[mode])
+
+        keys = ("wall_ms_per_iteration", "device_ms_per_iteration",
+                "idle_share", "aten_calls_per_iteration")
+        out[row] = {
+            "bitwise_equal": bitwise,
+            "launches": cap["launches"],
+            "launches_by_source": cap["launches_by_source"],
+            "capture_ms": cap["capture_ms"],
+            # the eager mode's first run beside the captured mode's run
+            # that captures (its second)
+            "first_run_peak_extra_allocated_bytes": {
+                "eager": opts["eager"].first["peak_extra_allocated_bytes"],
+                "captured": cap["peak_extra_allocated_bytes"]},
+            "first_run_extra_reserved_bytes": {
+                "eager": opts["eager"].first["extra_reserved_bytes"],
+                "captured": cap["extra_reserved_bytes"]},
+            **{mode: {**{k: mean(mode, k) for k in keys},
+                      "walls": [p["wall_ms_per_iteration"]
+                                for p in prof[mode]],
+                      "host_syncs_per_run": runs[mode][0]["host_syncs"],
+                      "graph_replays_per_run": runs[mode][1]["graph_replays"],
+                      "peak_extra_allocated_bytes":
+                          runs[mode][0]["peak_extra_allocated_bytes"],
+                      "top_device_ms": prof[mode][0]["top_device_ms"]}
+               for mode in ("eager", "captured")}}
+        emit({"phase": "observed", "row": row, **out[row]})
+        del opts, runs, prof
+        torch.cuda.empty_cache()
+    return out
+
+
+def _stop_listener(at=None, on_stop=None):
+    """A ``CollectingListener`` that raises its ``flag`` (and calls
+    ``on_stop`` once) when the event of iteration ``at`` arrives."""
+    from tpu_sgd_torch.utils.events import CollectingListener
+
+    class StopAt(CollectingListener):
+        flag = False
+
+        def on_iteration(self, event):
+            super().on_iteration(event)
+            if at is not None and event.iteration >= at and not self.flag:
+                self.flag = True
+                if on_stop is not None:
+                    on_stop()
+
+        def stop(self):
+            return self.flag
+
+    return StopAt()
+
+
+def _ckpt_contents(path):
+    """Each checkpoint file's entries, by file name."""
+    out = {}
+    for f in sorted(os.listdir(path)):
+        if f.startswith("ckpt_"):
+            with np.load(os.path.join(path, f)) as z:
+                out[f] = {k: z[k] for k in z.files}
+    return out
+
+
+def _same_ckpts(a, b) -> bool:
+    return a.keys() == b.keys() and all(
+        a[f].keys() == b[f].keys()
+        and all(np.array_equal(a[f][k], b[f][k]) for k in a[f])
+        for f in a)
+
+
+def observed_driver(torch, tst, X, y):
+    """The observed driver on phase ``full``'s sliced run at 72
+    iterations: a listener and checkpoints every 5 iterations at K = 1,
+    K = 8 and K = 8 with C = 4 (histories, events and checkpoint contents
+    equal); a stop raised by the event of iteration 13 and a resume,
+    bitwise the uninterrupted run, in each mode (the stop lands at 13, at
+    the block boundary 16, and at the next window's poll, 64);
+    ``TrainingSupervisor`` preempted once."""
+    from tpu_sgd_torch.reliability import (
+        TrainingPreempted,
+        TrainingSupervisor,
+    )
+    from tpu_sgd_torch.utils.checkpoint import CheckpointManager
+
+    d = X.shape[1]
+    modes = {"k1": (1, 0), "k8": (OBS_K, 0), "k8_c4": (OBS_K, OBS_C)}
+    w0 = torch.zeros(d, device="cuda")
+
+    def optimizer(k, c):
+        opt = tst.GradientDescent(device="cuda").set_step_size(0.5)
+        opt.set_num_iterations(OBS_ITERS).set_mini_batch_fraction(FRAC)
+        opt.set_sampling("sliced").set_convergence_tol(0.0)
+        opt.set_superstep(k)
+        if c:
+            opt.set_residency(c)
+        return opt
+
+    out, ref = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (k, c) in modes.items():
+            lis = _stop_listener()
+            opt = optimizer(k, c).set_listener(lis)
+            path = os.path.join(tmp, name)
+            opt.set_checkpoint(CheckpointManager(path, keep=100),
+                               every=OBS_CKPT_EVERY)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            w, h = opt.optimize_with_history((X, y), w0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() - base
+            events = [(e.iteration, e.loss, e.weight_delta_norm,
+                       e.mini_batch_size) for e in lis.iterations]
+            ckpts = _ckpt_contents(path)
+            run = {"w": w, "h": np.asarray(h), "events": events,
+                   "ckpts": ckpts}
+            if ref is None:
+                ref = run
+            same = (bool(torch.equal(w, ref["w"]))
+                    and np.array_equal(run["h"], ref["h"])
+                    and events == ref["events"]
+                    and _same_ckpts(ckpts, ref["ckpts"]))
+            check(same, f"observed driver {name}: differs from k1")
+            check(len(h) == OBS_ITERS and len(events) == OBS_ITERS,
+                  f"observed driver {name}: {len(h)} losses")
+            # a stop raised at iteration 13, then a resume
+            stop_path = os.path.join(tmp, name + "_stop")
+            lis2 = _stop_listener(OBS_STOP_AT)
+            opt2 = optimizer(k, c).set_listener(lis2)
+            opt2.set_checkpoint(CheckpointManager(stop_path),
+                                every=OBS_CKPT_EVERY)
+            opt2.set_stop_signal(lis2.stop)
+            stopped_at = None
+            try:
+                opt2.optimize_with_history((X, y), w0)
+            except TrainingPreempted as e:
+                stopped_at = e.iteration
+            check(stopped_at is not None, f"{name}: the stop was ignored")
+            opt2.set_stop_signal(None)
+            w2, h2 = opt2.optimize_with_history((X, y), w0)
+            resumed = (bool(torch.equal(w2, ref["w"]))
+                       and np.array_equal(np.asarray(h2), ref["h"]))
+            check(resumed, f"{name}: stop at {stopped_at} and resume "
+                  "differs from the uninterrupted run")
+            # the warm pace: a listener only, the second of two runs
+            warm = optimizer(k, c).set_listener(_stop_listener())
+            warm.optimize_with_history((X, y), w0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            warm.optimize_with_history((X, y), w0)
+            torch.cuda.synchronize()
+            warm_ms = 1e3 * (time.perf_counter() - t) / OBS_ITERS
+            out[name] = {"first_run_ms_per_iteration": 1e3 * secs / OBS_ITERS,
+                         "warm_ms_per_iteration": warm_ms,
+                         "peak_extra_allocated_bytes": peak,
+                         "checkpoints": len(ckpts),
+                         "equal_to_k1": same, "stopped_at": stopped_at,
+                         "resume_bitwise": resumed}
+        # the supervisor around the K = 8 run, preempted once: the event
+        # of iteration 13 requests it, and the run stops at the boundary
+        sup = None
+        lis3 = _stop_listener(OBS_STOP_AT, lambda: sup.request_preempt())
+        opt3 = optimizer(OBS_K, 0).set_listener(lis3)
+        sup = TrainingSupervisor(
+            opt3, checkpoint_manager=os.path.join(tmp, "sup"),
+            checkpoint_every=OBS_CKPT_EVERY, install_signal_handlers=False)
+        first = sup.run((X, y), w0)
+        second = sup.run((X, y), w0)
+        sup_ok = (first.status == "preempted" and second.completed
+                  and bool(torch.equal(second.weights, ref["w"]))
+                  and np.array_equal(second.loss_history, ref["h"]))
+        check(sup_ok, f"supervisor: {first.status} at {first.preempted_at},"
+              f" then {second.status}")
+        out["supervisor"] = {"preempted_at": first.preempted_at,
+                             "then": second.status, "bitwise": sup_ok}
+    return out
+
+
+def device_step_check(torch):
+    """The updater's step on the card, ``step_size / sqrt(i)`` in f32 for
+    i = 1 .. 10^6, against numpy's host rounding: bitwise."""
+    from tpu_sgd_torch.ops.updaters import _this_step
+
+    i = np.arange(1, 1_000_001)
+    host = np.float32(0.5) / np.sqrt(i.astype(np.float32))
+    dev = _this_step(0.5, torch.arange(1, 1_000_001, device="cuda"))
+    same = bool(np.array_equal(dev.cpu().numpy(), host))
+    check(same, "the device step differs from the host rounding")
+    return same
+
+
+def sampler_ms(torch, tst, X, draws=20, replays=10):
+    """Device ms of one draw of each sampler at config 4's shape: ``draws``
+    draws captured in a CUDA graph (the sampler's generator registered with
+    it, as the run's blocks register it), the replay timed by events."""
+    from tpu_sgd_torch.optimize import gradient_descent as gd
+
+    out = {}
+    for mode in ("bernoulli", "sliced", "indexed"):
+        cfg = tst.SGDConfig(mini_batch_fraction=FRAC, sampling=mode)
+        s = gd._make_sampler(cfg, X)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(s.gen)
+        with torch.cuda.graph(graph):
+            for _ in range(draws):
+                s.draw()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        out[mode] = {"ms": start.elapsed_time(end) / (draws * replays),
+                     "offset_stride": s.stride}
+        del graph
+    return out
+
+
+def phase_observed(torch, tst, ck, X, y):
+    """Phase ``observed`` on phase ``full``'s matrix."""
+    t = time.perf_counter()
+    rows = observed_rows(torch, tst, ck, X, y)
+    driver = observed_driver(torch, tst, X, y)
+    out = {"rows": rows, "driver": driver,
+           "device_step_equals_host": device_step_check(torch),
+           "sampler_ms": sampler_ms(torch, tst, X),
+           "seconds": time.perf_counter() - t}
+    emit({"phase": "observed", "driver": driver,
+          "device_step_equals_host": out["device_step_equals_host"],
+          "sampler_ms": out["sampler_ms"], "seconds": out["seconds"]})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1761,6 +2278,8 @@ def main() -> int:
     gram, chunked_row = phase_gram(torch, tst, ck, X, y, w_true, sliced_ref,
                                    qn["b"])
     rows.append(chunked_row)
+    torch.cuda.empty_cache()
+    observed = phase_observed(torch, tst, ck, X, y)
     del X, y, sliced_ref
     torch.cuda.empty_cache()
     qn["c"] = leg_multinomial(torch, tst)
@@ -1839,6 +2358,21 @@ def main() -> int:
             gram["g_persistence"]["loaded_equals_resident_bitwise"],
         "window_loss_rel_err": {k: gram["h_precision"][k]
                                 for k in ("f64_sums", "f32_sums")}}})
+    emit({"observed": {
+        "rows": {row: {"bitwise_equal": r["bitwise_equal"],
+                       "capture_ms": r["capture_ms"],
+                       "launches_by_source": r["launches_by_source"]} | {
+            mode: {k: r[mode][k] for k in (
+                "wall_ms_per_iteration", "device_ms_per_iteration",
+                "idle_share", "aten_calls_per_iteration",
+                "host_syncs_per_run", "graph_replays_per_run",
+                "peak_extra_allocated_bytes")}
+            for mode in ("eager", "captured")}
+            for row, r in observed["rows"].items()},
+        "driver": observed["driver"],
+        "device_step_equals_host": observed["device_step_equals_host"],
+        "sampler_ms": observed["sampler_ms"],
+        "seconds": observed["seconds"]}})
     print(smi, flush=True)
     # one card drove the run, however many the host shows
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

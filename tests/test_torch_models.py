@@ -182,3 +182,19 @@ def test_later_slice_options_raise():
         alg.set_schedule("auto")
     with pytest.raises(NotImplementedError, match="A5"):
         tm.LinearRegressionWithSGD.train((X, y), mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("model,method,item", [
+    ("linear", "predict_streamed", "A9"),
+    ("multinomial", "predict_dense_bucketed", "A10")])
+def test_model_methods_of_later_slices_raise(model, method, item):
+    """Reference methods not ported yet raise naming their ROADMAP item
+    (not ``AttributeError``)."""
+    X = np.zeros((4, 3), np.float32)
+    if model == "linear":
+        m = tm.LinearRegressionModel(np.zeros(3), 0.0, device="cpu")
+    else:
+        m = tm.MultinomialLogisticRegressionModel(
+            np.zeros(6), 0.0, num_classes=3, device="cpu")
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}"):
+        getattr(m, method)(X)

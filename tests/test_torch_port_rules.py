@@ -36,7 +36,13 @@ def test_import_pulls_in_no_jax_and_no_tpu_sgd():
         "tpu_sgd_torch.optimize.normal, tpu_sgd_torch.optimize.oracle, "
         "tpu_sgd_torch.evaluation, tpu_sgd_torch.feature, "
         "tpu_sgd_torch.stat, tpu_sgd_torch.utils.persistence, "
-        "tpu_sgd_torch.ops.gram, tpu_sgd_torch.optimize.gram_driver\n"
+        "tpu_sgd_torch.ops.gram, tpu_sgd_torch.optimize.gram_driver, "
+        "tpu_sgd_torch.optimize.resident_driver, tpu_sgd_torch.obs.spans, "
+        "tpu_sgd_torch.obs.counters, tpu_sgd_torch.io.integrity, "
+        "tpu_sgd_torch.reliability, tpu_sgd_torch.reliability.failpoints, "
+        "tpu_sgd_torch.reliability.retry, "
+        "tpu_sgd_torch.reliability.supervisor, tpu_sgd_torch.utils, "
+        "tpu_sgd_torch.utils.events, tpu_sgd_torch.utils.checkpoint\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
         "print(bad)")
@@ -58,6 +64,11 @@ def test_import_builds_nothing():
         "from tpu_sgd_torch.ops import gram\n"
         "from tpu_sgd_torch import evaluation, feature, stat\n"
         "from tpu_sgd_torch.utils import persistence\n"
+        "from tpu_sgd_torch.optimize import resident_driver\n"
+        "from tpu_sgd_torch.obs import spans, counters\n"
+        "from tpu_sgd_torch.io import integrity\n"
+        "from tpu_sgd_torch.reliability import failpoints, retry, supervisor\n"
+        "from tpu_sgd_torch.utils import events, checkpoint\n"
         "print(len(_build._loaded))")
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "0"

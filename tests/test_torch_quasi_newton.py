@@ -492,7 +492,7 @@ def test_oracle_objective_helper_closed_form():
 
 @pytest.mark.parametrize("setter,item", [
     ("set_mesh", "A5"), ("set_streamed_stats", "A9"),
-    ("set_host_streaming", "A9")])
+    ("set_host_streaming", "A9"), ("set_ingest_options", "A9")])
 @pytest.mark.parametrize("cls", [tl.LBFGS, to.OWLQN])
 def test_schedules_of_later_slices_raise(cls, setter, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -181,10 +181,7 @@ def test_config_validation_matches_jax():
     ("set_host_streaming", (True,)),
     ("set_gram_options", (None, None, 64)),  # batch_rows: streamed build
     ("set_streamed_stats", (True,)),
-    ("set_superstep", (4,)),
-    ("set_residency", (8,)),
-    ("set_listener", (object(),)),
-    ("set_checkpoint", (object(),)),
+    ("set_ingest_options", ("bfloat16",)),
 ])
 def test_later_slice_setters_raise(setter, args):
     opt = tgd.GradientDescent(device="cpu")

@@ -176,13 +176,6 @@ def test_weights_carried_in_from_jax_as_numpy():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("method", ["set_checkpoint", "resume_from"])
-def test_checkpointing_is_a_later_slice(method):
-    t = tst.StreamingLinearRegressionWithSGD(device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        getattr(t, method)("somewhere")
-
-
 @pytest.mark.parametrize("family", ["linear", "logistic"])
 def test_default_device_raises_without_a_card(family):
     if torch.cuda.is_available():

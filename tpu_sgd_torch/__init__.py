@@ -2,7 +2,11 @@
 L-BFGS, OWL-QN and the normal equations for generalized linear models, on
 dense or sparse features, least squares also from block-prefix Gram
 statistics, on one NVIDIA H100, with evaluation metrics,
-feature scaling, column statistics and model persistence.
+feature scaling, column statistics and model persistence, and the
+observed driver's planes: listeners and event logs (``utils.events``),
+checkpoints (``utils.checkpoint``), fault injection, retry and the
+training supervisor (``reliability``), and span tracing (``obs``).
+SGD runs K iterations a host call, as one CUDA graph replay on the card.
 
 The JAX package ``tpu_sgd`` stays the reference; this package imports
 nothing of it, nor JAX.  Its hot step, the fused ``(grad_sum, loss_sum,

@@ -237,6 +237,12 @@ class MultinomialLogisticRegressionModel(GeneralizedLinearModel):
         out = pivot_class_traced(f32_product(Xb, W.T))
         return out[0] if _single(X) else out
 
+    def predict_dense_bucketed(self, X, buckets=None):
+        raise NotImplementedError(
+            "predict_dense_bucketed (the serving path's bucketed "
+            "programs) is not ported to tpu_sgd_torch yet (ROADMAP A10); "
+            "use the JAX package tpu_sgd for it")
+
 
 MultinomialLogisticRegressionModel.save = save_model
 MultinomialLogisticRegressionModel.load = classmethod(load_model)

@@ -89,6 +89,12 @@ class GeneralizedLinearModel:
     def predict_point(self, margin):
         raise NotImplementedError
 
+    def predict_streamed(self, X, batch_rows: int = 1_000_000):
+        raise NotImplementedError(
+            "predict_streamed (chunked scoring of host-resident data) is "
+            "not ported to tpu_sgd_torch yet (ROADMAP A9); use the JAX "
+            "package tpu_sgd for it")
+
     def predict(self, X):
         """Predict for one feature vector or a batch, dense or sparse."""
         out = self.predict_point(self.predict_margin(X))

@@ -5,8 +5,16 @@ As in the reference, online learning re-runs the batch optimizer on each
 micro-batch, warm-started from the latest weights and intercept: there is
 no separate online code path.  A "DStream" is any iterable of ``(X, y)``
 micro-batches, dense or sparse; ``train_on`` folds the model through it
-(config 5).  Checkpointing and resume wait for the checkpoint plane
-(ROADMAP A11).
+(config 5).
+
+Driver recovery: ``set_checkpoint`` persists the latest model and the
+stream position every K micro-batches through the shared
+``CheckpointManager`` (the JAX package's format; the intercept rides the
+npz ``x_`` extras), and ``resume_from`` rebuilds the algorithm mid-stream
+from the newest checkpoint; with a replayable stream the resumed run
+reproduces the uninterrupted run's weights and loss history exactly,
+because each micro-batch update is deterministic in ``(warm-start
+weights, batch)``.
 """
 
 from __future__ import annotations
@@ -37,6 +45,10 @@ class StreamingLinearAlgorithm:
         self.model: Optional[GeneralizedLinearModel] = None
         self._batch_count = 0
         self.loss_history: list = []
+        self.checkpoint_manager = None
+        self.checkpoint_every = 1
+        self.checkpoint_history_tail = None
+        self._resume_skip = 0
         self._model_update_listeners: list = []
 
     def latest_model(self) -> GeneralizedLinearModel:
@@ -58,19 +70,83 @@ class StreamingLinearAlgorithm:
 
     def set_checkpoint(self, manager_or_directory, every: int = 1,
                        history_tail: int = None):
-        raise NotImplementedError(
-            "streaming checkpoints need the checkpoint plane, not ported to "
-            "tpu_sgd_torch yet (ROADMAP A11); use the JAX package tpu_sgd "
-            "for it"
-        )
+        """Persist (latest model, batch index, cumulative loss history)
+        every ``every`` micro-batches: kill the driver mid-stream and
+        :meth:`resume_from` restarts from the newest checkpoint.  Accepts
+        a ``CheckpointManager`` or a directory path.
+
+        ``history_tail`` bounds the persisted loss history to its last N
+        entries.  The default (None, full history) keeps resume BITWISE
+        identical to the uninterrupted run, but re-serializes the whole
+        history every checkpoint (O(N²) cumulative I/O over a long
+        stream); an unbounded stream with frequent checkpoints should set
+        a tail (the resumed run's history then starts at the tail,
+        weights still exact)."""
+        import os
+
+        from tpu_sgd_torch.utils.checkpoint import CheckpointManager
+
+        if isinstance(manager_or_directory, (str, os.PathLike)):
+            manager_or_directory = CheckpointManager(
+                str(manager_or_directory))
+        self.checkpoint_manager = manager_or_directory
+        self.checkpoint_every = max(1, int(every))
+        if history_tail is not None and int(history_tail) < 1:
+            raise ValueError(
+                f"history_tail must be positive, got {history_tail}"
+            )
+        self.checkpoint_history_tail = (
+            None if history_tail is None else int(history_tail))
+        return self
 
     @classmethod
     def resume_from(cls, directory: str, every: int = 1, **init_kwargs):
-        raise NotImplementedError(
-            "streaming resume needs the checkpoint plane, not ported to "
-            "tpu_sgd_torch yet (ROADMAP A11); use the JAX package tpu_sgd "
-            "for it"
-        )
+        """Rebuild a streaming algorithm mid-stream from the newest
+        checkpoint in ``directory`` (written by :meth:`set_checkpoint`, by
+        this package or the JAX package): latest model, batch index and
+        loss history are restored, and checkpointing continues into the
+        same directory.  Construct with the SAME hyper-parameters as the
+        interrupted run (``init_kwargs``, ``device`` included): they are
+        not stored in the checkpoint.
+
+        With a stream replayed from the beginning, the next
+        :meth:`train_on` skips the already-consumed micro-batches and the
+        run reproduces the uninterrupted weights and history exactly; a
+        LIVE stream that only yields new batches should be consumed with
+        ``train_on(stream, skip=0)``."""
+        import warnings
+
+        from tpu_sgd_torch.utils.checkpoint import CheckpointManager
+
+        self = cls(**init_kwargs)
+        manager = CheckpointManager(directory)
+        ck = manager.restore()
+        if ck is None:
+            raise FileNotFoundError(
+                f"no checkpoint to resume from in {directory!r}"
+            )
+        if "intercept" not in ck["extras"]:
+            raise ValueError(
+                f"{directory!r} holds a non-streaming checkpoint "
+                f"(config_key={ck['config_key']!r}); streaming resume "
+                "needs one written by set_checkpoint"
+            )
+        expect_key = f"stream:{type(self.algorithm).__name__}"
+        if ck["config_key"] != expect_key:
+            warnings.warn(
+                f"resuming a checkpoint written by {ck['config_key']!r} "
+                f"with {expect_key!r} — construct the same streaming "
+                "family/hyper-parameters as the interrupted run",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        self.set_checkpoint(manager, every=every)
+        self.set_initial_weights(ck["weights"],
+                                 float(ck["extras"]["intercept"]))
+        self._batch_count = int(ck["iteration"])
+        self.loss_history = [float(v) for v in ck["loss_history"]]
+        self._resume_skip = self._batch_count
+        return self
 
     def add_model_update_listener(self, callback):
         """Register ``callback(model, batch_index)``, called after every
@@ -91,6 +167,27 @@ class StreamingLinearAlgorithm:
         for cb in self._model_update_listeners:
             cb(self.model, self._batch_count)
 
+    def _maybe_checkpoint(self):
+        if (self.checkpoint_manager is not None
+                and self.model is not None
+                and self._batch_count % self.checkpoint_every == 0):
+            m = self.model
+            self.checkpoint_manager.save(
+                self._batch_count,  # = batches consumed (stream position)
+                m.weights.detach().cpu().numpy(),
+                0.0,
+                np.asarray(
+                    self.loss_history if self.checkpoint_history_tail
+                    is None
+                    else self.loss_history[-self.checkpoint_history_tail:],
+                    np.float64,
+                ),
+                config_key=f"stream:{type(self.algorithm).__name__}",
+                extras={
+                    "intercept": np.asarray(float(m.intercept), np.float64),
+                },
+            )
+
     def train_on_batch(self, X, y) -> GeneralizedLinearModel:
         """One micro-batch update (the body of the reference's
         ``foreachRDD``), dense or sparse.  Every batch, an empty one
@@ -101,6 +198,7 @@ class StreamingLinearAlgorithm:
             X = np.asarray(X)
         if X.shape[0] == 0:
             self._batch_count += 1
+            self._maybe_checkpoint()
             return self.model
         if not isinstance(y, torch.Tensor):
             y = np.asarray(y)
@@ -109,15 +207,22 @@ class StreamingLinearAlgorithm:
         hist = getattr(self.algorithm.optimizer, "loss_history", None)
         if hist is not None and len(hist):
             self.loss_history.append(float(hist[-1]))
+        self._maybe_checkpoint()
         self.on_model_update()
         return self.model
 
     def train_on(self, stream: Iterable[Batch],
                  skip: Optional[int] = None) -> GeneralizedLinearModel:
         """Consume a whole stream (``trainOn(DStream)``), dropping the
-        first ``skip`` micro-batches (default 0: without resume there is no
-        consumed prefix to skip)."""
-        skip = skip or 0
+        first ``skip`` micro-batches: by default the number already
+        consumed when this instance was rebuilt by :meth:`resume_from`
+        (so a stream replayed from the beginning continues where the
+        interrupted run stopped), else 0; pass ``0`` for a live stream
+        that only yields new batches.  The resume skip is consumed by the
+        first ``train_on`` call."""
+        if skip is None:
+            skip = self._resume_skip
+        self._resume_skip = 0
         for i, (X, y) in enumerate(stream):
             if i < skip:
                 continue

@@ -26,11 +26,18 @@ the CPU, and launches a kernel when X lies on a CUDA device.  There is no
 fallback from one to the other: a CUDA input that neither kernel takes
 raises.  Each wrapper counts its launches in a plain int attribute
 ``launches``, and :func:`kernel_launch_counts` counts them by CUDA source;
-:func:`reset_launch_counts` sets all of them to 0.
+:func:`reset_launch_counts` sets all of them to 0.  Under CUDA graph
+capture a wrapper runs on the host once and launches nothing:
+:func:`captured_launches` takes what a capture counted back out and keeps
+it, and :func:`add_replayed_launches` adds it on each replay, so the
+counts stay one per kernel the card runs.  Nothing a wrapper does needs
+the host during a capture: starts stay device tensors, and a capture
+gets its own window scratch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -288,15 +295,23 @@ _WINDOW_SCRATCH: dict = {}
 
 def _window_scratch(index: int, d: int, parts: int, stream: int):
     """At least ``parts`` rows of partials (plans of one width differ in
-    blocks an SM by element type, so a cached scratch may be too short)."""
+    blocks an SM by element type, so a cached scratch may be too short).
+
+    Under CUDA graph capture the scratch is the graph's own, allocated
+    from its private memory pool: a cached scratch may be replaced by a
+    longer one later and freed while the graph still holds its
+    pointer."""
+    dev = torch.device("cuda", index)
+    fresh = lambda: (  # noqa: E731
+        torch.empty((parts, d), dtype=torch.float32, device=dev),
+        torch.empty((parts,), dtype=torch.float64, device=dev),
+        torch.empty((parts,), dtype=torch.float64, device=dev))
+    if torch.cuda.is_current_stream_capturing():
+        return fresh()
     key = (index, d, stream)
     scratch = _WINDOW_SCRATCH.get(key)
     if scratch is None or scratch[0].shape[0] < parts:
-        dev = torch.device("cuda", index)
-        scratch = (torch.empty((parts, d), dtype=torch.float32, device=dev),
-                   torch.empty((parts,), dtype=torch.float64, device=dev),
-                   torch.empty((parts,), dtype=torch.float64, device=dev))
-        _WINDOW_SCRATCH[key] = scratch
+        scratch = _WINDOW_SCRATCH[key] = fresh()
     return scratch
 
 
@@ -357,7 +372,9 @@ def _start_tensor(start, dev) -> Tensor:
         if start.numel() != 1:
             raise ValueError("the window start must be a scalar")
         return start.to(device=dev, dtype=torch.int64).reshape(1)
-    return torch.tensor([int(start)], dtype=torch.int64, device=dev)
+    # a fill: a tensor made from a host value would copy it from pageable
+    # memory, which a CUDA graph capture forbids
+    return torch.full((1,), int(start), dtype=torch.int64, device=dev)
 
 
 # -- plain versions ---------------------------------------------------------
@@ -521,6 +538,38 @@ def launch_counts() -> dict:
 def kernel_launch_counts() -> dict:
     """Launches by CUDA source since the last reset: which kernel ran."""
     return dict(KERNEL_LAUNCHES)
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Bracket a CUDA graph capture: the wrappers run and count as they
+    would launch, but a capture launches nothing.  Yields a dict that,
+    on exit, holds the launches the graph recorded (``{"wrappers": {...},
+    "sources": {...}}``), and takes them back out of the counts; each
+    replay adds them again (:func:`add_replayed_launches`).  So a count
+    stays one per kernel the card runs."""
+    before = launch_counts(), kernel_launch_counts()
+    record = {}
+    try:
+        yield record
+    finally:
+        after = launch_counts(), kernel_launch_counts()
+        record["wrappers"] = {k: after[0][k] - before[0][k]
+                              for k in after[0]}
+        record["sources"] = {k: after[1][k] - before[1][k]
+                             for k in after[1]}
+        for fn in WRAPPERS:
+            fn.launches = before[0][fn.__name__]
+        KERNEL_LAUNCHES.update(before[1])
+
+
+def add_replayed_launches(record: dict) -> None:
+    """One replay of a graph whose capture recorded ``record``: the
+    kernels it launches, counted by wrapper and by source."""
+    for fn in WRAPPERS:
+        fn.launches += record["wrappers"][fn.__name__]
+    for name, n in record["sources"].items():
+        KERNEL_LAUNCHES[name] += n
 
 
 class FusedGradient(Gradient):

@@ -166,8 +166,10 @@ def sparse_batch_sums(pointwise, X, y, weights, mask=None, Xt=None):
         losses = losses * m
         count = torch.sum(m)
     else:
-        count = torch.tensor(float(X.shape[0]), dtype=margins.dtype,
-                             device=margins.device)
+        # a fill, not a tensor from a host value: that would copy it
+        # from pageable memory, which a CUDA graph capture forbids
+        count = torch.full((), float(X.shape[0]), dtype=margins.dtype,
+                           device=margins.device)
     return grad_sum_of(coeff, X, Xt), torch.sum(losses), count
 
 
@@ -278,7 +280,7 @@ def _count(X, mask, dtype) -> Tensor:
     """The row count of a batch: the mask's sum, or all rows."""
     if mask is not None:
         return torch.sum(mask.to(dtype))
-    return torch.tensor(float(X.shape[0]), dtype=dtype, device=X.device)
+    return torch.full((), float(X.shape[0]), dtype=dtype, device=X.device)
 
 
 def _clamp_start(start: int, n: int, m: int) -> int:

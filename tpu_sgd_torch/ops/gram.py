@@ -172,7 +172,8 @@ class GramData:
     rows)."""
 
     __slots__ = ("X", "PG", "Pb", "Pyy", "G_tot", "b_tot", "yy_tot",
-                 "block_rows", "_logical_shape", "_logical_dtype")
+                 "block_rows", "_logical_shape", "_logical_dtype",
+                 "__weakref__")
 
     def __init__(self, X, PG, Pb, Pyy, G_tot, b_tot, yy_tot, block_rows,
                  logical_shape=None, logical_dtype=None):

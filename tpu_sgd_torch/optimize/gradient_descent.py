@@ -1,5 +1,5 @@
 """Mini-batch gradient descent: the port of ``tpu_sgd/optimize/gradient_descent.py``
-(dense, single-device, data resident on the device).
+(dense and sparse, single-device, data resident on the device).
 
 Per iteration, as in the reference's ``runMiniBatchSGD``:
 
@@ -7,15 +7,37 @@ Per iteration, as in the reference's ``runMiniBatchSGD``:
     -> fused (grad_sum, loss_sum, count)        one CUDA kernel launch
     -> grad /= count -> updater.compute -> convergence check
 
-The JAX package runs the loop as one ``lax.while_loop``; here it is a
-Python loop over device tensors.  The loss history is preallocated on the
-device and written there; the record count and the convergence flag are
-device tensors too.  What syncs the host: reading the convergence flag once
-per iteration when ``convergence_tol > 0`` (none when it is 0), and one
-read of the record count and the history when the run ends.  The sliced
-window's start is drawn on the device and read by the kernel through a
-pointer; it never reaches the host.  Capturing the loop as a CUDA graph is
-later work (ROADMAP A3).
+The JAX package runs the loop as one ``lax.while_loop``.  Here the loop
+runs in *blocks* of K iterations from state kept on the device: the
+weights, the reg value, the iteration counter (the updater's step
+``η/√t`` is computed from it on the device), the convergence flag, the
+record count and the loss history.  A block is a Python loop over device
+tensors; on a CUDA device the first full block of a run runs eagerly as
+the warm-up, the block is then captured once as a CUDA graph, and every
+later full block replays it, so K iterations cost one host call.  The
+unobserved run captures only where that repays itself: when the card
+waited on the host in the warm-up block and ``CAPTURE_MIN_REPLAYS``
+replays are ahead, or when the run repeats one on the same tensors; else
+its blocks stay eager.  A block shorter than K (a run's tail) runs
+eagerly.  The graph, its state buffers and the sample stream are cached
+by the identity of the run's tensors (held weakly between runs), so a
+second run on the same tensors replays at once.  Once the device flag
+says the run converged, the rest of the block is masked to no-ops, so the
+weights and the history freeze at the true iteration; the host reads the
+flag once a block, and only when ``convergence_tol > 0``.  One read of the
+record count and the history ends the run.  The captured replay runs the
+kernels of the eager block in the same order: the two are bitwise equal
+(``CUDA_GRAPHS = False`` runs every block eagerly, for that comparison).
+
+Listeners, checkpoints and stop signals take the *observed* driver
+(:meth:`GradientDescent._optimize_stepwise`, the JAX package's
+``_optimize_stepwise``): one eager step and its host bookkeeping an
+iteration (``observed_loop_tail``), or with ``set_superstep(K)`` the same
+block writing each step's ``(w, loss, reg, count, ‖Δw‖, ‖w‖)`` into K
+device rows, fetched once a block and replayed on the host through
+``_replay_fused_steps``, or with ``set_residency(C)`` windows of C blocks
+(``optimize/resident_driver.py``).  The three give the same history,
+events and checkpoints, bitwise.
 
 Least squares on dense data can run from block-prefix Gram statistics
 (``set_sufficient_stats``, ``ops/gram.py``): the gradient is rebound to a
@@ -27,22 +49,25 @@ sends block-aligned windows through the chunked-gather driver
 
 Sparse features (any non-strided layout) train undensified, as the JAX
 package's BCOO branch does on one device: X becomes CSR with int32
-indices where they fit, ``make_run`` builds its transposed CSR once, and
-each iteration's two products are CSR x vector (``ops/sparse.py``).  Only
-Bernoulli sampling (or full batch) applies to them.
+indices where they fit, the run builds its transposed CSR once, and each
+iteration's two products are CSR x vector (``ops/sparse.py``), captured
+like the dense path.  Only Bernoulli sampling (or full batch) applies to
+them.
 
-Sampling draws from a ``torch.Generator`` on the data's device, seeded
-from ``(seed, iteration)``, so a sample depends on nothing else — the same
-contract as the JAX package's ``fold_in(key, i)``, with other bits: the two
-packages draw different samples from the same seed.  Contract kept:
-``loss[t] = loss_sum/count + reg_val(previous weights)``, an empty sample
-skips the update, convergence is tested from the second iteration on, and
-the initial ``reg_val`` comes from a zero-gradient probe update.
+Sampling: iteration ``i``'s sample is a function of ``(seed, i)`` alone —
+the contract of the JAX package's ``fold_in(key, i)``, with other bits:
+the two packages draw different samples from the same seed (see
+:class:`_Sampler`).  Contract kept: ``loss[t] = loss_sum/count +
+reg_val(previous weights)``, an empty sample skips the update,
+convergence is tested from the second iteration on, and the initial
+``reg_val`` comes from a zero-gradient probe update.
 """
 
 from __future__ import annotations
 
+import time
 import warnings
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -50,6 +75,8 @@ import torch
 
 from tpu_sgd_torch.config import SGDConfig
 from tpu_sgd_torch.device import as_tensor, resolve_device
+from tpu_sgd_torch.obs.spans import span
+from tpu_sgd_torch.ops import cuda_kernels as ck
 from tpu_sgd_torch.ops.gradients import Gradient, LeastSquaresGradient
 from tpu_sgd_torch.ops.gram import (
     DEFAULT_BLOCK_ROWS,
@@ -62,9 +89,29 @@ from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
 
 Tensor = torch.Tensor
 
+#: iterations in a block of the unobserved run (``make_run``), one CUDA
+#: graph replay each.  A run's tail of ``N mod K`` iterations runs
+#: eagerly at the host's pace, and its first block is the eager warm-up,
+#: so K divides the usual iteration counts (20, 50, 100) and stays small;
+#: K = 5, 10 and 20 measured alike at 100 iterations (``PERF.md`` §6).
+RUN_BLOCK_ITERS = 10
+#: capture full blocks as CUDA graphs on a CUDA device.  ``False`` runs
+#: the same blocks eagerly: the reference a captured run is held to,
+#: bitwise.
+CUDA_GRAPHS = True
+#: replays a first run must have ahead before it captures its block
+#: (``_capture_repays``): on the card a capture cost 1.2-3 warm-up blocks
+#: of host time, now and then far more, and a replay of a host-paced
+#: block saved 0.4-0.95 of one; 9 replays repaid it in every host-paced
+#: row, 4 did not on config 5 (``scripts/first_call_cost.py``,
+#: ``PERF.md`` §6).  So K = 10 captures from 90 iterations.
+CAPTURE_MIN_REPLAYS = 8
+
 
 def _raise_if_nonfinite(losses, first_iteration: int = 1) -> None:
-    """The numerics check of ``set_check_numerics``."""
+    """The numerics check of ``set_check_numerics``.  ``first_iteration``
+    is the iteration of ``losses[0]``: the observed driver checks one loss
+    at a time and reports the true iteration."""
     arr = np.asarray(losses)
     bad = np.nonzero(~np.isfinite(arr))[0]
     if bad.size:
@@ -87,10 +134,19 @@ def _coerce_w0(gradient, initial_weights, n_features, device) -> Tensor:
     return w0
 
 
+def _host(t) -> np.ndarray:
+    """A tensor as a host numpy array (one copy from the card)."""
+    return t.detach().cpu().numpy() if isinstance(t, Tensor) \
+        else np.asarray(t)
+
+
+# -- sampling -----------------------------------------------------------------
+
 def _seed_for(seed: int, i: int) -> int:
-    """The generator seed of iteration ``i``: a function of ``(seed, i)``
-    alone, so iteration ``i`` draws the same sample in any run.  Mixed by
-    splitmix64, since the CPU generator keeps only the low 32 bits."""
+    """The CPU generator seed of iteration ``i``: a function of ``(seed,
+    i)`` alone, so iteration ``i`` draws the same sample in any run.
+    Mixed by splitmix64, since the CPU generator keeps only the low 32
+    bits."""
     z = (((int(seed) & 0xFFFFFFFF) << 32) | (int(i) & 0xFFFFFFFF))
     z = (z + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
@@ -100,51 +156,99 @@ def _seed_for(seed: int, i: int) -> int:
 
 def _window_start(gen, n: int, m: int, device) -> Tensor:
     """The sliced window's start, a ``(1,)`` device tensor drawn from
-    ``gen`` (seeded by the caller with ``_seed_for(seed, i)``): the one
-    window stream of ``make_run`` and the chunked gram driver."""
+    ``gen``: the one window stream of ``make_run`` and the chunked gram
+    driver."""
     return torch.randint(0, max(1, n - m + 1), (1,), generator=gen,
                          device=device)
 
 
-def _make_mask(cfg: SGDConfig, gen, n_local, valid, device):
-    """Per-iteration Bernoulli mini-batch mask (``valid`` at full batch:
-    no mask is drawn, so the kernel takes its unmasked variant)."""
-    if cfg.mini_batch_fraction < 1.0:
-        mask = torch.rand(n_local, generator=gen, device=device) \
-            < cfg.mini_batch_fraction
-        return mask if valid is None else mask & valid
-    return valid
+class _Sampler:
+    """The sample stream of a run: iteration ``i``'s draw is a function of
+    ``(seed, i)`` alone, also across a checkpoint resume at any ``i``.
+
+    On the CPU a generator is reseeded from ``_seed_for(seed, i)`` before
+    the draw of iteration ``i``.  A CUDA generator cannot be reseeded
+    inside a graph capture, and a replayed graph would keep the seed of
+    capture time, so on a CUDA device one Philox generator, seeded from
+    ``seed``, serves the run: :meth:`seek` sets its offset to ``stride ·
+    (i − 1)`` before the first draw of iteration ``i``, and each draw
+    advances it by ``stride``, eagerly or in a replayed graph (the graph
+    registers the generator, and each replay reads its offset at replay
+    time).  ``stride`` is what one draw advances the offset, measured
+    once with a draw of the run's own shape; :meth:`seek` runs on the host
+    before each block and never inside a capture."""
+
+    def __init__(self, seed: int, device: torch.device, draw):
+        self.seed = int(seed)
+        self.cuda = device.type == "cuda"
+        self._draw = draw
+        self.gen = torch.Generator(device=device)
+        self._next = 1
+        self.stride = 0
+        if self.cuda:
+            self.gen.manual_seed(_seed_for(self.seed, 0))
+            before = self.gen.get_offset()
+            draw(self.gen)
+            self.stride = self.gen.get_offset() - before
+
+    def seek(self, i: int) -> None:
+        """Position the stream at iteration ``i``'s draw."""
+        if self.cuda:
+            self.gen.set_offset(self.stride * (int(i) - 1))
+        else:
+            self._next = int(i)
+
+    def draw(self) -> Tensor:
+        """The next iteration's sample."""
+        if not self.cuda:
+            self.gen.manual_seed(_seed_for(self.seed, self._next))
+            self._next += 1
+        return self._draw(self.gen)
+
+
+def _make_sampler(cfg: SGDConfig, X) -> Optional[_Sampler]:
+    """The run's sample stream, or None at full batch: a window start
+    (sliced), ``round(frac · n)`` row indices (indexed) or a Bernoulli
+    mask (bernoulli)."""
+    frac = cfg.mini_batch_fraction
+    if frac >= 1.0:
+        return None
+    n, dev = X.shape[0], X.device
+    m = max(1, round(frac * n))
+    if cfg.sampling == "sliced":
+        # module-level lookup at draw time (tests inject window starts)
+        draw = lambda gen: _window_start(gen, n, m, dev)  # noqa: E731
+    elif cfg.sampling == "indexed":
+        draw = lambda gen: torch.randint(  # noqa: E731
+            0, n, (m,), generator=gen, device=dev)
+    else:
+        draw = lambda gen: torch.rand(  # noqa: E731
+            n, generator=gen, device=dev) < frac
+    return _Sampler(cfg.seed, dev, draw)
 
 
 def _make_local_sums(gradient, cfg):
-    """The per-iteration ``(grad_sum, loss_sum, count)`` recipe: sampling
-    (bernoulli / indexed / sliced) plus the fused batch sums."""
+    """The per-iteration ``(grad_sum, loss_sum, count)`` recipe from one
+    drawn sample (``_make_sampler``; None at full batch) plus the fused
+    batch sums."""
     indexed = cfg.sampling == "indexed" and cfg.mini_batch_fraction < 1.0
     sliced = cfg.sampling == "sliced" and cfg.mini_batch_fraction < 1.0
-    generators = {}
 
-    def local_sums(weights, X, y, i, valid, Xt=None):
-        dev = X.device
-        gen = generators.get(dev)
-        if gen is None:
-            gen = generators[dev] = torch.Generator(device=dev)
-        gen.manual_seed(_seed_for(cfg.seed, i))
-        n = X.shape[0]
-        if sliced or indexed:
-            m = max(1, round(cfg.mini_batch_fraction * n))
+    def local_sums(weights, X, y, sample, valid, Xt=None):
         if sliced:
             # a contiguous window at a random start, drawn on the device;
             # the window kernel reads it in place (assumes exchangeable
             # row order, see SGDConfig.sampling)
-            start = _window_start(gen, n, m, dev)
-            return gradient.window_sums(X, y, weights, start, m, valid=valid)
+            m = max(1, round(cfg.mini_batch_fraction * X.shape[0]))
+            return gradient.window_sums(X, y, weights, sample, m,
+                                        valid=valid)
         if indexed:
-            idx = torch.randint(0, n, (m,), generator=gen, device=dev)
-            Xb, yb = X[idx], y[idx]
-            mask = None if valid is None else valid[idx]
+            Xb, yb = X[sample], y[sample]
+            mask = None if valid is None else valid[sample]
         else:
             Xb, yb = X, y
-            mask = _make_mask(cfg, gen, n, valid, dev)
+            mask = sample if valid is None else (
+                valid if sample is None else sample & valid)
             if Xt is not None:
                 return gradient.batch_sums(Xb, yb, weights, mask, Xt=Xt)
         return gradient.batch_sums(Xb, yb, weights, mask)
@@ -152,16 +256,15 @@ def _make_local_sums(gradient, cfg):
     return local_sums
 
 
-def make_step(gradient: Gradient, updater: Updater, config: SGDConfig):
-    """One SGD iteration: ``step(weights, X, y, i, reg_val, valid, Xt) ->
-    (new_weights, loss_i, new_reg_val, count)``; ``loss_i`` already
-    includes the previous iteration's ``reg_val``.  ``Xt`` is sparse X's
-    transposed CSR (None for dense X)."""
-    cfg = config
+def _make_update(gradient, updater, cfg):
+    """The iteration's math after its sample is drawn: ``update(weights,
+    X, y, i, reg_val, sample, valid, Xt) -> (new_w, loss_i, new_reg,
+    count)`` with ``i`` the ``(1,)`` int64 iteration counter on the
+    weights' device."""
     local_sums = _make_local_sums(gradient, cfg)
 
-    def step(weights, X, y, i, reg_val, valid=None, Xt=None):
-        g, l, c = local_sums(weights, X, y, i, valid, Xt)
+    def update(weights, X, y, i, reg_val, sample, valid=None, Xt=None):
+        g, l, c = local_sums(weights, X, y, sample, valid, Xt)
         has_batch = c > 0
         safe_c = torch.clamp(c, min=1.0)
         loss_i = l / safe_c + reg_val
@@ -173,49 +276,555 @@ def make_step(gradient: Gradient, updater: Updater, config: SGDConfig):
         new_reg = torch.where(has_batch, new_reg, reg_val)
         return new_w, loss_i, new_reg, c
 
+    return update
+
+
+def make_step(gradient: Gradient, updater: Updater, config: SGDConfig):
+    """One SGD iteration: ``step(weights, X, y, i, reg_val, valid, Xt) ->
+    (new_weights, loss_i, new_reg_val, count)``; ``loss_i`` already
+    includes the previous iteration's ``reg_val``.  ``i`` is a host int
+    (the step positions the sample stream at iteration ``i``) or the
+    ``(1,)`` int64 counter of a block (the block positioned the stream
+    before its first iteration).  ``Xt`` is sparse X's transposed CSR
+    (None for dense X)."""
+    cfg = config
+    update = _make_update(gradient, updater, cfg)
+    samplers = {}
+
+    def sampler_for(X) -> Optional[_Sampler]:
+        key = (X.shape[0], str(X.device))
+        if key not in samplers:
+            samplers[key] = _make_sampler(cfg, X)
+        return samplers[key]
+
+    def step(weights, X, y, i, reg_val, valid=None, Xt=None):
+        sampler = sampler_for(X)
+        if not isinstance(i, Tensor):
+            if sampler is not None:
+                sampler.seek(i)
+            i = torch.full((1,), int(i), dtype=torch.int64,
+                           device=weights.device)
+        sample = None if sampler is None else sampler.draw()
+        return update(weights, X, y, i, reg_val, sample, valid, Xt)
+
     return step
+
+
+# -- blocks of iterations -----------------------------------------------------
+
+class _RunState:
+    """The device state of a run: the weights, the reg value, the
+    iteration counter, the convergence flag, the record count and the
+    loss history; for the observed drivers also ``ys``, one row a step of
+    a block (``w``, then loss, reg value, count, ``‖w_t − w_{t−1}‖``,
+    ``‖w_t‖``, all float32: the JAX package's ``pack_step_ys``)."""
+
+    def __init__(self, w0: Tensor, num_iterations: int, ys_rows: int = 0):
+        dev = w0.device
+        self.w = torch.empty_like(w0)
+        self.reg = torch.zeros((), dtype=torch.float32, device=dev)
+        self.i = torch.ones((1,), dtype=torch.int64, device=dev)
+        self.conv = torch.zeros((), dtype=torch.bool, device=dev)
+        self.n_rec = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.losses = torch.full((num_iterations,), float("nan"),
+                                 dtype=torch.float32, device=dev)
+        self.ys = (torch.zeros((ys_rows, w0.numel() + 5),
+                               dtype=torch.float32, device=dev)
+                   if ys_rows else None)
+
+    def reset(self, w0: Tensor, reg_val, i0: int) -> None:
+        """Start a run at iteration ``i0`` from ``w0`` and ``reg_val`` (a
+        tensor or a host float), in place: a captured graph keeps
+        reading these buffers."""
+        self.w.copy_(w0)
+        if isinstance(reg_val, Tensor):
+            self.reg.copy_(reg_val)
+        else:
+            self.reg.fill_(float(reg_val))
+        self.i.fill_(int(i0))
+        self.conv.fill_(False)
+        self.n_rec.zero_()
+        self.losses.fill_(float("nan"))
+
+    def ys_leaves(self, rows: np.ndarray):
+        """Host ys rows as the JAX package's six leaves ``(ws, losses,
+        regs, counts, delta_norms, weight_norms)``."""
+        d = self.w.numel()
+        return (rows[:, :d], rows[:, d], rows[:, d + 1], rows[:, d + 2],
+                rows[:, d + 3], rows[:, d + 4])
+
+
+def _record_step(st: _RunState, rec, active, loss_i, w, new_w, reg,
+                 new_reg, tol: float):
+    """One iteration's bookkeeping in the unobserved run, on the device:
+    record ``loss_i`` when ``rec``, test convergence when ``tol > 0``, and
+    return the weights and reg value to carry on (the new ones while
+    ``active``: once the flag is set, the rest of the block is a no-op).
+    Shared by ``make_run``'s block and the chunked gram driver."""
+    kept = st.losses.index_select(0, st.n_rec)
+    st.losses.index_copy_(0, st.n_rec, torch.where(
+        rec, loss_i.to(torch.float32).reshape(1), kept))
+    st.n_rec += rec.to(torch.int64)
+    if tol > 0.0:
+        diff = torch.linalg.vector_norm(new_w - w)
+        w_norm = torch.linalg.vector_norm(new_w)
+        st.conv |= rec & (st.i[0] > 1) & (
+            diff < tol * torch.clamp(w_norm, min=1.0))
+    return torch.where(active, new_w, w), torch.where(active, new_reg, reg)
+
+
+def _make_block(gradient, updater, cfg, *, history: bool):
+    """``block(state, data, sampler, steps)``: ``steps`` consecutive
+    iterations from ``state`` (a :class:`_RunState`), in place.
+
+    ``history=True`` is the unobserved run's block: each iteration
+    records its loss on the device and tests convergence there; once the
+    flag is set the rest of the block is masked to no-ops, so the weights,
+    the history and the count freeze at the true iteration.
+    ``history=False`` is the observed drivers' block: each iteration
+    writes its ys row, and the host decides convergence from the rows."""
+    update = _make_update(gradient, updater, cfg)
+    tol = cfg.convergence_tol
+
+    def block(st: _RunState, data, sampler, steps: int) -> None:
+        X, y, valid, Xt = data
+        w, reg = st.w, st.reg
+        for t in range(steps):
+            sample = None if sampler is None else sampler.draw()
+            new_w, loss_i, new_reg, c = update(w, X, y, st.i, reg, sample,
+                                               valid, Xt)
+            if history:
+                active = ~st.conv
+                w, reg = _record_step(st, active & (c > 0), active, loss_i,
+                                      w, new_w, reg, new_reg, tol)
+            else:
+                f32 = torch.float32
+                st.ys[t].copy_(torch.cat([new_w.reshape(-1), torch.stack([
+                    loss_i.to(f32), new_reg.to(f32), c.to(f32),
+                    torch.linalg.vector_norm(new_w - w),
+                    torch.linalg.vector_norm(new_w)])]))
+                w, reg = new_w, new_reg
+            st.i += 1
+        st.w.copy_(w)
+        st.reg.copy_(reg)
+
+    return block
+
+
+def _captures(gradient, cfg: SGDConfig, device) -> bool:
+    """Whether a run's full blocks may be captured as CUDA graphs: on a
+    CUDA device, unless ``CUDA_GRAPHS`` is off, or the window of ``sliced``
+    sampling is sliced on the host (a gradient without a kernel rule,
+    ``family=None``, reads the start there), which a capture cannot do."""
+    host_window = (cfg.sampling == "sliced" and cfg.mini_batch_fraction < 1.0
+                   and getattr(gradient, "family", None) is None)
+    return CUDA_GRAPHS and device.type == "cuda" and not host_window
+
+
+def _capture_repays(replays: int, host_ms: float, card_ms: float) -> bool:
+    """Whether capturing a block repays itself within one run: the card
+    waited on the host in the eager warm-up block (its time on the card,
+    ``card_ms`` between two events, idle gaps included, was no longer
+    than the host's ``host_ms`` to issue it, with 10% slack; a block the
+    card paces takes longer there), and ``replays`` replays, at least
+    ``CAPTURE_MIN_REPLAYS``, are ahead to save the host's time."""
+    return card_ms <= 1.1 * host_ms and replays >= CAPTURE_MIN_REPLAYS
+
+
+class _BlockRunner:
+    """Runs the blocks of a run from its device state.
+
+    On a CUDA device with ``capture``, the first full block (``k``
+    iterations) runs eagerly as the warm-up; the block is then captured
+    once as a CUDA graph (the sample stream's generator registered with
+    it) and every later full block replays the graph.  With ``adaptive``
+    (the unobserved run), a run captures only when the capture repays
+    itself in that run (``_capture_repays``: the warm-up, timed on the
+    host and on the card, is read once at the next full block; a run too
+    short for ``CAPTURE_MIN_REPLAYS`` replays is not even timed), or when
+    it repeats a run on the same tensors; otherwise its blocks stay
+    eager.
+    A capture launches nothing, so the kernel launches it records are
+    taken out of the wrappers' counts and added again on each replay
+    (``cuda_kernels.captured_launches``): a count stays one per kernel
+    the card runs, the frozen tail of a converged block included.  A
+    block shorter than ``k`` runs eagerly.  A failed capture or replay
+    raises; nothing falls back to the eager loop.
+
+    The runner holds its run's tensors only between :meth:`begin` and
+    :meth:`end`; in between runs it keeps weak references, to know a
+    repeated run on the same tensors, and its own buffers: the state and
+    the graph with its pool.  A tensor built for the run (``owned``:
+    sparse X's transposed CSR, a second copy of the data) goes at the
+    run's end with the graph that reads it, and the runner serves no
+    other run."""
+
+    def __init__(self, block, state: _RunState, data, sampler, k: int,
+                 capture: bool, adaptive: bool, owned=None):
+        self.block = block
+        self.state = state
+        self.sampler = sampler
+        self.k = int(k)
+        self.capture = bool(capture)
+        self.adaptive = bool(adaptive)
+        self._refs = tuple(None if t is None else weakref.ref(t)
+                           for t in data)
+        self._owned = owned
+        self.data = None
+        self.graph = None
+        self.launches = None
+        self.warm = False
+        self._last = 0
+        self._repeat = False
+        self._decision = None
+        self._warm_events = None
+        #: host ms to issue the warm-up block, and its ms on the card
+        #: (between two events, idle gaps included)
+        self.warm_host_ms = None
+        self.warm_card_ms = None
+        #: one-off ms of the capture (host clock)
+        self.capture_ms = None
+        #: runs begun, graph replays and eager blocks since construction
+        self.runs = 0
+        self.replays = 0
+        self.eager_blocks = 0
+
+    def same_data(self, X, y, valid, Xt, w0) -> bool:
+        """Whether a run on these tensors repeats this runner's."""
+        got = tuple(None if r is None else r() for r in self._refs)
+        return (got[0] is not None
+                and all(a is b for a, b in zip(got, (X, y, valid, Xt)))
+                and self.state.w.shape == w0.shape
+                and self.state.w.device == w0.device)
+
+    def begin(self, X, y, valid, Xt, last: int) -> None:
+        """Hold the run's tensors; the run ends at iteration ``last``."""
+        self.data = (X, y, valid, self._owned if Xt is None else Xt)
+        self._last = int(last)
+        self._repeat = self.runs > 0
+        self._decision = None
+        self.runs += 1
+
+    def end(self) -> None:
+        """Let go of the run's tensors (and of an owned tensor, its graph
+        and the runner's claim to the next run)."""
+        self.data = None
+        if self._owned is not None:
+            self._owned = self.graph = None
+            self._refs = (None,) * len(self._refs)
+
+    def _may_capture(self, i0: int) -> bool:
+        """Whether a run could still capture once the block at ``i0`` has
+        warmed up: always on the observed drivers and on a repeated run;
+        on a first unobserved run, when ``CAPTURE_MIN_REPLAYS`` full
+        blocks follow it."""
+        return (not self.adaptive or self._repeat
+                or (self._last - i0 + 1) // self.k - 1
+                >= CAPTURE_MIN_REPLAYS)
+
+    def _capture_now(self, i0: int) -> bool:
+        """Whether this run captures the block at ``i0`` (decided once a
+        run, at its first full block after the warm-up, from the warm-up's
+        times)."""
+        if not self.adaptive or self._repeat:
+            return True
+        if self._decision is None:
+            start, stop = self._warm_events
+            stop.synchronize()
+            self.warm_card_ms = start.elapsed_time(stop)
+            replays = (self._last - i0 + 1) // self.k
+            self._decision = _capture_repays(replays, self.warm_host_ms,
+                                             self.warm_card_ms)
+        return self._decision
+
+    def _eager(self, steps: int) -> None:
+        self.block(self.state, self.data, self.sampler, steps)
+        self.eager_blocks += 1
+
+    def _warm_up(self, steps: int) -> None:
+        """The first full block, eager; timed on the host and on the card
+        when a first unobserved run is to decide on a capture."""
+        if not self.adaptive or self._repeat:
+            self._eager(steps)
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            self._eager(steps)
+            stop.record()
+            self.warm_host_ms = 1e3 * (time.perf_counter() - t0)
+            self._warm_events = (start, stop)
+        self.warm = True
+
+    def _capture(self, i0: int, steps: int) -> None:
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        if self.sampler is not None:
+            graph.register_generator_state(self.sampler.gen)
+        with ck.captured_launches() as record:
+            with torch.cuda.graph(graph):
+                self.block(self.state, self.data, self.sampler, steps)
+        self.graph, self.launches = graph, record
+        self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        if self.sampler is not None:
+            self.sampler.seek(i0)
+
+    def run(self, i0: int, steps: int) -> None:
+        """Iterations ``i0 .. i0 + steps - 1`` (the state's counter is at
+        ``i0``)."""
+        if self.sampler is not None:
+            self.sampler.seek(i0)
+        full = steps == self.k
+        if self.graph is None and full and self.capture:
+            if not self.warm:
+                if self._may_capture(i0):
+                    self._warm_up(steps)
+                    return
+            elif self._capture_now(i0):
+                self._capture(i0, steps)
+        if self.graph is None or not full:
+            self._eager(steps)
+            return
+        self.graph.replay()
+        ck.add_replayed_launches(self.launches)
+        self.replays += 1
+
+
+def _run_blocks(runner: _BlockRunner, num_iterations: int,
+                check_conv: bool) -> None:
+    """Iterations ``1 .. num_iterations`` in blocks of ``runner.k``; with
+    ``check_conv`` the host reads the device's convergence flag once a
+    block, and the run stops at the block boundary (the rest of the block
+    ran masked to no-ops)."""
+    i0 = 1
+    while i0 <= num_iterations:
+        steps = min(runner.k, num_iterations - i0 + 1)
+        runner.run(i0, steps)
+        i0 += steps
+        if check_conv and bool(runner.state.conv):  # the host sync
+            break
+
+
+def _run_runner(cache: dict, make, X, y, valid, Xt, w0) -> _BlockRunner:
+    """The cached runner of ``cache`` when it ran on these tensors, else a
+    new one from ``make()`` (the old one, its graph and its buffers are
+    dropped first)."""
+    runner = cache.get("runner")
+    if runner is None or not runner.same_data(X, y, valid, Xt, w0):
+        cache.clear()
+        runner = cache["runner"] = make()
+    return runner
 
 
 def make_run(gradient: Gradient, updater: Updater, config: SGDConfig):
     """The whole optimization loop: ``run(initial_weights, X, y, valid,
     Xt) -> (weights, loss_history, n_recorded)``.  ``loss_history`` is a
     device tensor of length ``num_iterations``, NaN beyond ``n_recorded``
-    (a device int64 tensor of shape ``(1,)``).  Sparse ``X`` is CSR; its
-    transposed copy ``Xt`` is built here, once per run, unless the caller
-    passes the one it holds (``ops.sparse.transpose_csr``)."""
+    (a device int64 tensor of shape ``(1,)``).  The run goes in blocks of
+    ``RUN_BLOCK_ITERS`` iterations, captured as CUDA graphs on a CUDA
+    device where the capture repays itself (module docstring); the graph
+    and its buffers are kept for the next call on the same tensors.
+    Sparse ``X`` is CSR; its transposed copy ``Xt`` is built once, unless
+    the caller passes the one it holds (``ops.sparse.transpose_csr``)."""
     cfg = config
     check_conv = cfg.convergence_tol > 0.0
-    step = make_step(gradient, updater, cfg)
+    N = cfg.num_iterations
+    K = min(RUN_BLOCK_ITERS, N)
+    block = _make_block(gradient, updater, cfg, history=True)
+    cache: dict = {}
 
     def run(initial_weights, X, y, valid=None, Xt=None):
-        if Xt is None and is_sparse(X):
-            Xt = transpose_csr(X)
-        w = initial_weights
-        _, reg_val = updater.compute(
-            w, torch.zeros_like(w), 0.0, 1, cfg.reg_param)
-        dev = w.device
-        losses = torch.full((cfg.num_iterations,), float("nan"),
-                            dtype=torch.float32, device=dev)
-        n_rec = torch.zeros((1,), dtype=torch.int64, device=dev)
-        for i in range(1, cfg.num_iterations + 1):
-            new_w, loss_i, new_reg, c = step(w, X, y, i, reg_val, valid, Xt)
-            has_batch = c > 0
-            kept = losses.index_select(0, n_rec)
-            losses.index_copy_(0, n_rec, torch.where(
-                has_batch, loss_i.to(torch.float32).reshape(1), kept))
-            n_rec += has_batch.to(torch.int64)
-            converged = None
-            if check_conv and i > 1:
-                diff = torch.linalg.vector_norm(new_w - w)
-                w_norm = torch.linalg.vector_norm(new_w)
-                converged = has_batch & (
-                    diff < cfg.convergence_tol * torch.clamp(w_norm, min=1.0))
-            w, reg_val = new_w, new_reg
-            if converged is not None and bool(converged):  # the host sync
-                break
-        return w, losses, n_rec
+        w0 = initial_weights
 
+        def make():
+            own = transpose_csr(X) if Xt is None and is_sparse(X) else None
+            return _BlockRunner(block, _RunState(w0, N), (X, y, valid, Xt),
+                                _make_sampler(cfg, X), K,
+                                _captures(gradient, cfg, w0.device),
+                                adaptive=True, owned=own)
+
+        runner = _run_runner(cache, make, X, y, valid, Xt, w0)
+        st = runner.state
+        _, reg0 = updater.compute(w0, torch.zeros_like(w0), 0.0, 1,
+                                  cfg.reg_param)
+        st.reset(w0, reg0, 1)
+        runner.begin(X, y, valid, Xt, N)
+        try:
+            _run_blocks(runner, N, check_conv)
+        finally:
+            runner.end()
+        return st.w.clone(), st.losses.clone(), st.n_rec.clone()
+
+    run.cache = cache
     return run
+
+
+# -- the observed driver's host bookkeeping ------------------------------------
+
+def step_norms(new_w: Tensor, w: Tensor) -> Tensor:
+    """``(‖w_t − w_{t−1}‖, ‖w_t‖)`` of one observed step as one tensor,
+    fetched once: the same two reductions the block writes into its ys
+    rows, so the observed drivers agree bitwise."""
+    return torch.stack((torch.linalg.vector_norm(new_w - w),
+                        torch.linalg.vector_norm(new_w)))
+
+
+def observe_step(
+    i, prev_w, new_w, loss_i, new_reg, count, losses, reg_val, cfg, *,
+    listener=None, wall_dt=0.0, check_numerics=False,
+    save_cb=None, save_every=0,
+):
+    """One OBSERVED iteration's host bookkeeping: the per-step
+    record/convergence/checkpoint recipe of the K = 1 driver (the fused
+    twin is :func:`_replay_fused_steps`, which replays the same recipe
+    from ys rows).
+
+    Takes the step's DEVICE results plus the host-side running state;
+    fetches each scalar exactly once, appends to ``losses`` in place, and
+    fires ``save_cb(i, w_np, reg_val)`` on the cadence (``i % save_every
+    == 0``, on convergence, and at the final iteration).  An empty
+    sampled batch (``count == 0``) records nothing and returns ``prev_w``.
+
+    Returns ``(w, reg_val, converged)`` — ``w`` is ``new_w`` when the
+    step recorded, else ``prev_w``.  (The JAX package also feeds its live
+    loss series here; ``obs/timeseries.py`` is not ported yet.)
+    """
+    from tpu_sgd_torch.utils.events import IterationEvent
+
+    c_host = int(count)  # count gates the whole bookkeeping branch
+    converged = False
+    if c_host <= 0:
+        return prev_w, reg_val, converged
+    loss_f = float(loss_i)  # per-iteration loss history is the contract
+    if check_numerics and not np.isfinite(loss_f):
+        _raise_if_nonfinite([loss_f], first_iteration=i)
+    losses.append(loss_f)
+    reg_val = float(new_reg)
+    # one fetch for both norms
+    delta, w_norm = (float(v) for v in _host(step_norms(new_w, prev_w)))
+    if listener is not None:
+        listener.on_iteration(IterationEvent(
+            iteration=i,
+            loss=loss_f,
+            weight_delta_norm=delta,
+            mini_batch_size=c_host,
+            wall_time_s=wall_dt,
+        ))
+    if cfg.convergence_tol > 0 and i > 1:
+        converged = delta < cfg.convergence_tol * max(w_norm, 1.0)
+    if save_cb is not None and (
+            (save_every and i % save_every == 0)
+            or converged or i == cfg.num_iterations):
+        save_cb(i, _host(new_w), reg_val)
+    return new_w, reg_val, converged
+
+
+def observed_loop_tail(
+    i, w, new_w, loss_i, new_reg, count, losses, reg_val, cfg, *,
+    listener=None, wall_dt=0.0, save_cb=None, save_every=0,
+    stop_signal=None, check_numerics=False,
+):
+    """One observed iteration's ENTIRE host tail: :func:`observe_step`
+    plus the cooperative-preemption check (persist the CURRENT iteration
+    through ``save_cb``, then unwind
+    :class:`~tpu_sgd_torch.reliability.supervisor.TrainingPreempted`).
+    The caller owns the step's barrier and wall-clock timing.  (Here
+    ``check_numerics`` passes through to :func:`observe_step`: the K = 1
+    driver checks each loss at its true iteration.)"""
+    w, reg_val, converged = observe_step(
+        i, w, new_w, loss_i, new_reg, count, losses, reg_val, cfg,
+        listener=listener, wall_dt=wall_dt, check_numerics=check_numerics,
+        save_cb=save_cb, save_every=save_every,
+    )
+    if not converged and stop_signal is not None and stop_signal():
+        # cooperative preemption (TrainingSupervisor): persist the
+        # CURRENT iteration, then unwind cleanly; the save is atomic, so
+        # a kill racing this leaves the previous checkpoint intact
+        from tpu_sgd_torch.reliability.supervisor import TrainingPreempted
+
+        if save_cb is not None:
+            save_cb(i, _host(w), reg_val)
+        raise TrainingPreempted(i)
+    return w, reg_val, converged
+
+
+def _replay_fused_steps(
+    ys_host, i0, steps, losses, reg_val, cfg, *,
+    listener=None, wall_dt=0.0, check_numerics=False,
+    save_cb=None, save_every=0,
+):
+    """Replay one block's ys rows with EXACTLY the per-iteration loop's
+    host bookkeeping: the one definition of the fused drivers'
+    loss-history / convergence / checkpoint semantics.
+
+    ``ys_host`` is the host ``(weights, loss, reg, count, delta_norm,
+    weight_norm)`` stack; ``steps`` bounds the replay to the REAL
+    iterations.  Convergence is detected per STEP from the rows — the
+    true converged iteration, never the block boundary — with the host
+    float comparison of the per-iteration loop (``delta < tol *
+    max(||w||, 1)`` from the second update on), and empty sampled batches
+    (``count == 0``) skip the record.  ``save_cb(i, w_np, reg_val)``
+    fires on the same cadence with the EXACT iteration-``i`` state, so
+    fused checkpoints are indistinguishable from per-iteration ones and
+    resume stays bitwise.
+
+    Returns ``(t_last, reg_val, converged)``; the caller takes ``ys
+    weights[t_last]`` as the final state when the run ends inside a
+    block.
+    """
+    from tpu_sgd_torch.utils.events import IterationEvent
+
+    ws, ls, rs, cs, dns, wns = ys_host
+    converged = False
+    t_last = 0
+    for t in range(steps):
+        i = i0 + t
+        t_last = t
+        if int(cs[t]) > 0:
+            loss_f = float(ls[t])
+            if check_numerics and not np.isfinite(loss_f):
+                _raise_if_nonfinite([loss_f], first_iteration=i)
+            losses.append(loss_f)
+            reg_val = float(rs[t])
+            if listener is not None:
+                listener.on_iteration(IterationEvent(
+                    iteration=i,
+                    loss=loss_f,
+                    weight_delta_norm=float(dns[t]),
+                    mini_batch_size=int(cs[t]),
+                    wall_time_s=wall_dt,
+                ))
+            if cfg.convergence_tol > 0 and i > 1:
+                converged = float(dns[t]) < cfg.convergence_tol * max(
+                    float(wns[t]), 1.0)
+            if save_cb is not None and (
+                    (save_every and i % save_every == 0)
+                    or converged or i == cfg.num_iterations):
+                save_cb(i, ws[t], reg_val)
+        if converged:
+            break
+    return t_last, reg_val, converged
+
+
+def _fetch_rows(src: Tensor, rows: int, host: Optional[Tensor]):
+    """The first ``rows`` rows of a device ys buffer as a host numpy copy:
+    one copy into pinned memory on the card (``host``), then a wait for
+    it."""
+    if host is None:
+        return _host(src[:rows]).copy()
+    out = host[:rows]
+    out.copy_(src[:rows], non_blocking=True)
+    torch.cuda.current_stream(src.device).synchronize()
+    return out.numpy().copy()
+
+
+def _pinned_like(t: Tensor) -> Optional[Tensor]:
+    """A pinned host buffer shaped like ``t`` for its copies off the card
+    (None on the CPU)."""
+    if not t.is_cuda:
+        return None
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
 
 
 def _not_ported(what: str, item: str):
@@ -284,6 +893,22 @@ class GradientDescent(Optimizer):
         #: aligned)``, kept by identity so repeated calls on the same
         #: tensors never rebuild
         self._gram_entry = None
+        # the observed (listener / checkpoint) planes
+        self.listener = None
+        self.checkpoint_manager = None
+        self.checkpoint_every = 10
+        self.superstep = 1
+        self.resident_cadence = 0
+        self._stop_signal = None
+        #: the retry policy of the resident window hop (the JAX package
+        #: sets it through ``set_ingest_options(retry=...)``, ROADMAP A9)
+        self.ingest_retry_policy = None
+        #: the last run's loop, ``(key, run)`` (``make_run`` or the
+        #: chunked gram driver), and the observed driver's block runner,
+        #: ``(key, runner)``: their CUDA graphs and buffers are reused by
+        #: the next run on the same tensors, which they hold only weakly
+        self._run_cache = None
+        self._observed_entry = None
 
     # -- fluent config (returns self, like the reference's setters) --------
     def set_gradient(self, g: Gradient):
@@ -375,25 +1000,93 @@ class GradientDescent(Optimizer):
 
     def release_sufficient_stats(self):
         """Drop the cached statistics bundle, so the bound dataset and its
-        prefix stack can be freed; the next run rebuilds."""
+        prefix stack can be freed; the next run rebuilds.  The cached
+        loops and their CUDA graphs, which hold the bundle, go too."""
         self._gram_entry = None
+        self._run_cache = None
+        self._observed_entry = None
         return self
 
     def set_streamed_stats(self, flag: bool = True, block_rows: int = None):
         _not_ported("set_streamed_stats (statistics streamed from the "
                     "host)", "A9")
 
+    def set_ingest_options(self, wire_dtype=None, prefetch_depth=None,
+                           pipeline=None, retry=None, wire_compress=None):
+        _not_ported("set_ingest_options (the host ingest pipeline)", "A9")
+
     def set_superstep(self, k: int):
-        _not_ported("set_superstep", "A9")
+        """Run ``k`` consecutive iterations per host interaction on the
+        observed (listener / checkpoint) driver: one K-iteration block
+        from device state, captured once as a CUDA graph on the card and
+        replayed, its per-step ``(w, loss, reg, count, ‖Δw‖, ‖w‖)`` rows
+        fetched once a block and replayed through the per-iteration
+        bookkeeping (``_replay_fused_steps``).  History, listener events,
+        convergence at the true iteration and checkpoints are bitwise
+        those of ``k=1``; listener events arrive in bursts of ``k`` with
+        averaged wall times, and a stop signal is polled at block
+        boundaries (worst-case preemption latency ``k`` iterations; keep
+        ``k`` at or below the checkpoint cadence).  ``k=1`` restores the
+        per-iteration driver.  The unobserved run already goes in
+        captured blocks (``RUN_BLOCK_ITERS``) and ignores it.  The
+        host-streamed half of the JAX package's superstep waits for
+        ``set_host_streaming`` (ROADMAP A9)."""
+        if int(k) < 1:
+            raise ValueError(f"superstep must be >= 1, got {k}")
+        self.superstep = int(k)
+        return self
 
     def set_residency(self, cadence: int = 8):
-        _not_ported("set_residency", "A9")
+        """Hand the host a window of ``cadence`` blocks at a time on the
+        observed driver: the ``cadence`` K-iteration graph replays are
+        queued back to back, their ys rows collected in a device ring,
+        and one copy to pinned host memory goes out at the window's end;
+        the host then replays the window's rows through the same
+        bookkeeping (``optimize/resident_driver.py``), so history, events,
+        convergence and checkpoints are bitwise the superstep driver's.
+        Requires ``set_superstep(K >= 2)``.  Stop signals are polled once
+        a window, so worst-case preemption latency grows to ``cadence *
+        K`` iterations.  ``cadence=0`` restores the per-block driver; a
+        window of ONE block is the superstep driver already, so
+        ``cadence=1`` is rejected.  The host-streamed feeds of the JAX
+        package's residency wait for ROADMAP A9."""
+        c = int(cadence)
+        if c == 1:
+            raise ValueError(
+                "residency cadence 1 is the per-superstep driver "
+                "(set_superstep); use cadence >= 2 or 0 to disable")
+        if c < 0:
+            raise ValueError(f"cadence must be >= 0, got {cadence}")
+        self.resident_cadence = c
+        return self
 
     def set_listener(self, listener):
-        _not_ported("set_listener", "A11")
+        """Attach an ``SGDListener`` (``tpu_sgd_torch.utils.events``):
+        ``optimize`` then takes the observed driver, with host-visible
+        loss and timing events each iteration."""
+        self.listener = listener
+        return self
 
     def set_checkpoint(self, manager, every: int = 10):
-        _not_ported("set_checkpoint", "A11")
+        """Attach a ``CheckpointManager``; optimizer state is saved every
+        ``every`` iterations and ``optimize`` resumes from the latest
+        checkpoint when one exists (the JAX package's format: either
+        package restores the other's)."""
+        self.checkpoint_manager = manager
+        self.checkpoint_every = int(every)
+        return self
+
+    def set_stop_signal(self, stop_signal):
+        """Install a zero-arg callable polled on the observed driver: once
+        an iteration (K = 1), at each block boundary (``set_superstep``)
+        or at each window boundary (``set_residency``).  When it returns
+        True the current state is checkpointed (if a manager is attached)
+        and the run unwinds with ``TrainingPreempted``.  Pass ``None`` to
+        clear.  Installed by ``TrainingSupervisor``; the unobserved run
+        (no listener or checkpoint) does not poll it and runs to
+        completion."""
+        self._stop_signal = stop_signal
+        return self
 
     # -- optimization ------------------------------------------------------
     @property
@@ -481,15 +1174,53 @@ class GradientDescent(Optimizer):
         return self._run(self.gradient, X, y, w0)
 
     def _run(self, gradient, X, y, w0):
-        """One run of the loop (the chunked gram driver where it applies),
-        then the history read back once."""
-        run = (self._maybe_chunked_gram_run(gradient, X)
-               or make_run(gradient, self.updater, self.config))
+        """One run: the observed driver when a listener or a checkpoint
+        manager is attached, else the loop (the chunked gram driver where
+        it applies), then the history read back once."""
+        if self.listener is not None or self.checkpoint_manager is not None:
+            if self.gram_chunk_iters:
+                warnings.warn(
+                    "chunk_iters is ignored on the observed "
+                    "(listener/checkpoint) path: chunking amortizes the "
+                    "per-iteration host hop that listeners exist to "
+                    "provide; detach the listener to use the chunked "
+                    "driver",
+                    RuntimeWarning, stacklevel=3,
+                )
+            return self._optimize_stepwise(gradient, X, y, w0)
+        run = self._cached_run(gradient, X)
         w, losses, n_rec = run(w0, X, y)
         self._loss_history = losses[:int(n_rec)].cpu().numpy()
         if self.check_numerics:
             _raise_if_nonfinite(self._loss_history)
         return w, self._loss_history
+
+    def _cached_run(self, gradient, X):
+        """The loop of this run, the previous run's when its knobs are the
+        same, so that its CUDA graph replays at once on the same tensors
+        (it keeps its graph and state buffers until the next run with
+        other tensors or knobs, or ``release_sufficient_stats``; the run's
+        tensors it holds only weakly)."""
+        chunked = self._chunked_gram_applies(gradient, X)
+        key = (gradient, self.updater, self.config,
+               self.gram_chunk_iters if chunked else None,
+               X.block_rows if chunked else None,
+               X.shape[0] if chunked else None)
+        entry = self._run_cache
+        if entry is not None and entry[0][0] is gradient \
+                and entry[0][1] is self.updater and entry[0][2:] == key[2:]:
+            return entry[1]
+        self._run_cache = None  # free the superseded graph first
+        if chunked:
+            from tpu_sgd_torch.optimize import gram_driver
+
+            run = gram_driver.make_chunked_gram_run(
+                self.updater, self.config, n=X.shape[0],
+                block_rows=X.block_rows, chunk_iters=self.gram_chunk_iters)
+        else:
+            run = make_run(gradient, self.updater, self.config)
+        self._run_cache = (key, run)
+        return run
 
     def _maybe_gram(self, X, y, sparse_X):
         """The sufficient-statistics gradient when it applies (see
@@ -518,25 +1249,255 @@ class GradientDescent(Optimizer):
         self._gram_entry = (X, y, g) + opts
         return g
 
-    def _maybe_chunked_gram_run(self, gradient, X):
-        """The chunked-gather driver when ``chunk_iters`` is set and this
-        run has block-ALIGNED statistics windows: virtual statistics, or a
-        gradient in aligned mode (the gradient's own mode, not the
-        optimizer's knob, so a prebuilt exact gradient keeps its exact
-        windows).  None otherwise."""
-        from tpu_sgd_torch.optimize import gram_driver
+    def _chunked_gram_applies(self, gradient, X) -> bool:
+        """Whether the chunked-gather driver runs: ``chunk_iters`` is set
+        and this run has block-ALIGNED statistics windows (virtual
+        statistics, or a gradient in aligned mode: the gradient's own
+        mode, not the optimizer's knob, so a prebuilt exact gradient keeps
+        its exact windows)."""
+        cfg = self.config
+        return bool(self.gram_chunk_iters
+                    and isinstance(X, GramData)
+                    and isinstance(gradient, GramLeastSquaresGradient)
+                    and (X.X is None or gradient.aligned)
+                    and cfg.sampling == "sliced"
+                    and cfg.mini_batch_fraction < 1.0)
+
+    # -- the observed driver ---------------------------------------------------
+    def _observed_runner(self, gradient, X, y, w0, k: int) -> _BlockRunner:
+        """The observed driver's block runner (K-row ys), cached like the
+        loop's by the identity of its tensors and knobs."""
+        cfg = self.config
+        key = (gradient, self.updater, cfg, k)
+        entry = self._observed_entry
+        if (entry is not None and entry[0][0] is gradient
+                and entry[0][1] is self.updater and entry[0][2:] == key[2:]
+                and entry[1].same_data(X, y, None, None, w0)):
+            return entry[1]
+        self._observed_entry = None  # free the superseded graph first
+        Xt = transpose_csr(X) if is_sparse(X) else None
+        runner = _BlockRunner(
+            _make_block(gradient, self.updater, cfg, history=False),
+            _RunState(w0, cfg.num_iterations, ys_rows=k),
+            (X, y, None, None), _make_sampler(cfg, X), k,
+            _captures(gradient, cfg, w0.device), adaptive=False,
+            owned=Xt)
+        self._observed_entry = (key, runner)
+        return runner
+
+    def _optimize_stepwise(self, gradient, X, y, w0):
+        """The observed driver, used when a listener or a checkpoint
+        manager is attached: the JAX package's ``_optimize_stepwise`` on
+        one device, with the exact loss history and convergence semantics
+        of the loop (the same iteration math).
+
+        K = 1: one eager step an iteration, then ``observed_loop_tail``.
+        K >= 2 (``set_superstep``): the K-iteration block, replayed from
+        its CUDA graph on the card, its ys rows fetched once a block and
+        replayed through ``_replay_fused_steps``; a stop signal is polled
+        at the block boundary.  K >= 2 with C >= 2 (``set_residency``):
+        windows of C blocks, ``optimize/resident_driver.py``.  The three
+        give the same history, events (but their wall times) and
+        checkpoints, bitwise."""
+        from tpu_sgd_torch.utils.events import RunEvent
 
         cfg = self.config
-        if (not self.gram_chunk_iters
-                or not isinstance(X, GramData)
-                or not isinstance(gradient, GramLeastSquaresGradient)
-                or not (X.X is None or gradient.aligned)
-                or cfg.sampling != "sliced"
-                or cfg.mini_batch_fraction >= 1.0):
-            return None
-        return gram_driver.make_chunked_gram_run(
-            self.updater, cfg, n=X.shape[0], block_rows=X.block_rows,
-            chunk_iters=self.gram_chunk_iters)
+        dev = w0.device
+        _, reg0 = self.updater.compute(w0, torch.zeros_like(w0), 0.0, 1,
+                                       cfg.reg_param)
+        reg_val = float(reg0)
+        losses = []
+        start_iter = 1
+        config_key = repr((type(gradient).__name__,
+                           type(self.updater).__name__, cfg))
+        mgr = self.checkpoint_manager
+        if mgr is not None:
+            state = mgr.restore()
+            if state is not None:
+                if state["config_key"] and state["config_key"] != config_key:
+                    warnings.warn(
+                        "checkpoint config differs from current config; "
+                        "resuming anyway",
+                        RuntimeWarning,
+                        stacklevel=4,
+                    )
+                w0 = as_tensor(np.asarray(state["weights"]), dev,
+                               torch.float32)
+                reg_val = state["reg_val"]
+                losses = list(np.asarray(state["loss_history"], np.float32))
+                start_iter = state["iteration"] + 1
+        if self.listener is not None:
+            self.listener.on_run_start(cfg)
+
+        fused_k = int(self.superstep or 1)
+        resident_c = int(self.resident_cadence or 0)
+        if resident_c >= 2 and fused_k <= 1:
+            warnings.warn(
+                "set_residency rides the fused superstep executor; "
+                "call set_superstep(K >= 2) to engage the device-resident "
+                "driver",
+                RuntimeWarning, stacklevel=4,
+            )
+            resident_c = 0
+
+        def _save(ii, w_np, rv):
+            mgr.save(ii, np.asarray(w_np), rv, np.asarray(losses),
+                     config_key)
+
+        save_cb = _save if mgr is not None else None
+        runner = None
+        if fused_k > 1 and start_iter <= cfg.num_iterations:
+            runner = self._observed_runner(gradient, X, y, w0, fused_k)
+            runner.state.reset(w0, reg_val, start_iter)
+            runner.begin(X, y, None, None, cfg.num_iterations)
+        w = w0
+        t_run = time.perf_counter()
+        converged_early = False
+        try:
+            w, reg_val, converged_early = self._observed_route(
+                gradient, runner, X, y, w0, start_iter, losses, reg_val,
+                save_cb, fused_k, resident_c)
+        finally:
+            if runner is not None:
+                runner.end()
+
+        if self.listener is not None:
+            self.listener.on_run_end(
+                RunEvent(
+                    event="run_completed",
+                    num_iterations=len(losses),
+                    final_loss=losses[-1] if losses else None,
+                    converged_early=converged_early,
+                    wall_time_s=time.perf_counter() - t_run,
+                )
+            )
+        self._loss_history = np.asarray(losses, np.float32)
+        return w, self._loss_history
+
+    def _observed_route(self, gradient, runner, X, y, w0, start_iter, losses,
+                        reg_val, save_cb, fused_k, resident_c):
+        """The observed run from ``start_iter`` on its route (K = 1, K >= 2,
+        or windows of C blocks): ``(weights, reg_val, converged)``."""
+        cfg = self.config
+        w, converged_early = w0, False
+        if start_iter > cfg.num_iterations:
+            pass  # the checkpoint holds the finished run
+        elif fused_k > 1 and resident_c >= 2:
+            # windows of C captured blocks (optimize/resident_driver.py);
+            # the ring rows replay through the same _replay_fused_steps,
+            # so history, events, convergence and checkpoints are the
+            # superstep driver's, bitwise
+            from tpu_sgd_torch.optimize.resident_driver import (
+                ResidentBookkeeper,
+                ResidentLoop,
+            )
+
+            hooks = ResidentBookkeeper(
+                cfg, fused_k, resident_c, losses=losses,
+                reg_val=reg_val, start_iter=start_iter,
+                listener=self.listener, save_cb=save_cb,
+                save_every=self.checkpoint_every,
+                stop_signal=self._stop_signal,
+                retry_policy=self.ingest_retry_policy,
+                check_numerics=self.check_numerics)
+            loop = ResidentLoop(runner, cfg, fused_k, resident_c)
+            w_np, converged_early = loop.run(start_iter, hooks)
+            w = as_tensor(w_np, w0.device, torch.float32)
+            reg_val = hooks.reg_val
+        elif fused_k > 1:
+            w, reg_val, converged_early = self._observed_blocks(
+                runner, start_iter, losses, reg_val, save_cb)
+        else:
+            w, reg_val, converged_early = self._observed_steps(
+                gradient, X, y, w0, start_iter, losses, reg_val, save_cb)
+        return w, reg_val, converged_early
+
+    def _observed_blocks(self, runner, i0, losses, reg_val, save_cb):
+        """K iterations per block, replayed from the captured graph on
+        the card; the block's ys rows are fetched once and replayed with
+        the per-iteration bookkeeping."""
+        cfg, K, st = self.config, runner.k, runner.state
+        host = _pinned_like(st.ys)
+        w, converged = st.w, False
+        while i0 <= cfg.num_iterations and not converged:
+            steps = min(K, cfg.num_iterations - i0 + 1)
+            t0 = time.perf_counter()
+            # the span times replay -> rows on the host; the fetch is this
+            # driver's own boundary
+            with span("train.superstep", i0=i0, steps=steps):
+                runner.run(i0, steps)
+                rows = _fetch_rows(st.ys, steps, host)
+            ys_host = st.ys_leaves(rows)
+            dt = time.perf_counter() - t0
+            t_last, reg_val, converged = _replay_fused_steps(
+                ys_host, i0, steps, losses, reg_val, cfg,
+                listener=self.listener, wall_dt=dt / steps,
+                check_numerics=self.check_numerics,
+                save_cb=save_cb, save_every=self.checkpoint_every,
+            )
+            if converged or steps < K:
+                # the run ends inside the block: the true last
+                # iteration's state rides the rows
+                w = as_tensor(ys_host[0][t_last], st.w.device,
+                              torch.float32)
+            else:
+                w = st.w.clone()
+            if (not converged and self._stop_signal is not None
+                    and self._stop_signal()):
+                # cooperative preemption at the block BOUNDARY (a replay
+                # cannot stop mid-block): checkpoint the exact boundary
+                # iteration, then unwind; a resume replays from here
+                from tpu_sgd_torch.reliability.supervisor import (
+                    TrainingPreempted,
+                )
+
+                boundary = i0 + steps - 1
+                if save_cb is not None:
+                    save_cb(boundary, _host(w), reg_val)
+                raise TrainingPreempted(boundary)
+            i0 += steps
+        return w, reg_val, converged
+
+    def _observed_steps(self, gradient, X, y, w0, i, losses, reg_val,
+                        save_cb):
+        """One eager step an iteration, then its host tail
+        (``observed_loop_tail``): the per-iteration observed driver."""
+        cfg = self.config
+        update = _make_update(gradient, self.updater, cfg)
+        valid, Xt = None, transpose_csr(X) if is_sparse(X) else None
+        sampler = _make_sampler(cfg, X)
+        w = w0.clone()
+        reg = torch.full((), float(reg_val), dtype=torch.float32,
+                         device=w0.device)
+        converged = False
+        while i <= cfg.num_iterations:
+            t0 = time.perf_counter()
+            with span("train.step", i=i):
+                it = torch.full((1,), i, dtype=torch.int64, device=w.device)
+                sample = None
+                if sampler is not None:
+                    sampler.seek(i)
+                    sample = sampler.draw()
+                new_w, loss_i, new_reg, c = update(w, X, y, it, reg, sample,
+                                                   valid, Xt)
+                # the observed driver's host hop IS its contract: one
+                # barrier a step, then each scalar fetched once
+                if new_w.is_cuda:
+                    torch.cuda.synchronize(new_w.device)
+            dt = time.perf_counter() - t0
+            w, reg_val, converged = observed_loop_tail(
+                i, w, new_w, loss_i.to(torch.float32), new_reg, c, losses,
+                reg_val, cfg, listener=self.listener, wall_dt=dt,
+                save_cb=save_cb, save_every=self.checkpoint_every,
+                stop_signal=self._stop_signal,
+                check_numerics=self.check_numerics)
+            reg = new_reg  # the empty-batch rule already kept the old one
+            if converged:
+                break
+            i += 1
+        return w, reg_val, converged
+
+
 
 
 def run_mini_batch_sgd(

@@ -294,6 +294,10 @@ class LBFGS(Optimizer):
     def set_host_streaming(self, flag: bool = True, batch_rows: int = None):
         _not_ported("set_host_streaming (the streamed CostFun)", "A9")
 
+    def set_ingest_options(self, wire_dtype=None, prefetch_depth=None,
+                           pipeline=None, retry=None, wire_compress=None):
+        _not_ported("set_ingest_options (the host ingest pipeline)", "A9")
+
     @property
     def loss_history(self):
         return self._loss_history
