@@ -51,9 +51,11 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    ``LinearRegressionWithLBFGS`` and the planted weights, the Gram pass
    timed against its bound; (c) multinomial L-BFGS at MNIST8M's shape
    (8,100,000 x 784 bf16, 10 classes) against the planted softmax model's
-   accuracy; (d) sparse OWL-QN (hinge + L1) on phase 6's RCV1-scale CSR
-   against the SGD path's objective, with the dense kernels' launch
-   counts 0 and the peak memory bounded.  Configs 1 and 2 of phase
+   accuracy; (d) sparse OWL-QN on phase 6's RCV1-scale CSR: hinge + L1
+   (history non-increasing, objective below its start, reported beside
+   the SGD path's), and logistic + L1 against a full-batch SGD run of the
+   same objective, with the dense kernels' launch counts 0 and the peak
+   memory bounded.  Configs 1 and 2 of phase
    5 also run through ``LinearRegressionWithNormal`` and
    ``LogisticRegressionWithLBFGS``, and config 1 from sufficient
    statistics with sliced windows.
@@ -94,9 +96,34 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    also under ``TrainingSupervisor``.  The updater's device step for
    i = 1 .. 10^6 must equal the host's rounding; each sampler's draw is
    timed.
-10. summary — the kernel table, the sparse line, the quasi_newton line,
-   the gram line, the observed line, then the card's name and power
-   limit, then the last line ``{"ok": true, "device": {...}}``.
+10. streamed — host-streamed SGD (``set_host_streaming``), right after
+   phase 9: phase 4's matrix copied to the host once (the phase fails,
+   naming the shortfall, when the host lacks the room for it and the
+   staging ring).  (a) 3 full-batch iterations streamed against the
+   resident run on the same X (B1 masked by the batch's valid mask
+   against B1 unmasked): loss rtol 2e-4, weights at the gradient tier;
+   (b) Bernoulli, indexed and sliced at frac 0.1, 20 iterations each at
+   the full 10M rows: wall, device (kernels, copies) and idle share from
+   a 5-iteration traced run, the worker's assembly and checksum ms a
+   batch, H2D GB/s, logical and physical wire bytes, pinned, peak device
+   and host bytes; (c) on a 1M-row prefix, bitwise: the pinned ring's
+   slot reuse under a slow step, prefetch depth 2 against 0, K = 1
+   against K = 8 (Bernoulli) and against K = 8 with C = 4 (full batch,
+   fully resident slab), a resident half against none (the transferred
+   windows counted against ``resident_window_probability``), one
+   ``io.device_put`` fault and one ``io.chunk`` corruption healed, a stop
+   at 13 and its resume, ``topk:0.01`` at K = 8 against K = 8 with C = 4
+   (its final loss against the dense wire's reported); (d)
+   ``predict_streamed`` over the 10M host rows against ``predict``.
+   After phase 6: the RCV1-scale CSR as host arrays, Bernoulli at 0.1
+   and full batch, 60 iterations: repeat, prefetch A/B and K = 8 against
+   K = 1 bitwise, exact CSR launches, wire bytes >= 10x below dense f32,
+   peak device bytes below one dense batch; then the CSR kernel against
+   its plain twin and cuSPARSE at the sparse path's shapes.
+11. summary — the sparse line, the quasi_newton line, the gram line, the
+   streamed line, the observed line, the kernel table (B1-B3 and the CSR
+   kernel), then the card's name and power limit, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  It imports
 nothing of JAX or of the JAX package ``tpu_sgd``.
@@ -146,10 +173,14 @@ CHUNK_ROWS = 65536          # ChunkedGradient's block of leg (f)
 CHUNKED_STEP_RTOL = 2e-6
 CONFIG1_GRAM_FRAC = 0.5     # config 1's sliced fraction from statistics
 GRAM_CONFIG1_BLOCK = 1024   # leg (g)'s block at config 1's 100k rows
+CSR_SOURCE = "tpu_sgd_torch/ops/csrc/csr_products.cu"
 REPLACES = {
     "fused_gradient_sums": "tpu_sgd/ops/pallas_kernels.py:265",
     "fused_window_sums": "tpu_sgd/ops/pallas_kernels.py:342",
     "fused_window_sums_vpu": "tpu_sgd/ops/pallas_kernels.py:425",
+    # not Pallas kernels: XLA's BCOO products in the JAX package
+    "csr_margins": "tpu_sgd/ops/gradients.py:61",
+    "csr_grad_sum": "tpu_sgd/ops/gradients.py:81",
 }
 
 
@@ -992,22 +1023,26 @@ def phase_sparse(torch, tst, ck):
     check(X.is_cuda and X.layout == torch.sparse_csr, "RCV1 X not CSR on cuda")
     n, d = X.shape
     nnz = X._nnz()
-    ck.reset_launch_counts()
     runs, weights = {}, {}
+    launches = {k: 0 for k in ck.launch_counts()}
     for frac in (1.0, 0.1):
         alg = _sparse_alg(tst, SPARSE_ITERS, frac)
+        ck.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         model = alg.run((X, y))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
+        csr_launches = ck.csr_launch_counts(by_columns=True)
+        for k, v in ck.launch_counts().items():
+            launches[k] += v
         losses = alg.optimizer.loss_history
         acc = float((model.predict(X) == y).float().mean())
         weights[frac] = model.weights
         runs[str(frac)] = {
             "first_run_s": secs, "weights_device": str(model.weights.device),
             "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
-            "accuracy": acc,
+            "accuracy": acc, "csr_launches": csr_launches,
             "nonzero_weights": int((model.weights != 0).sum())}
         check(model.weights.is_cuda, f"frac {frac}: weights not on cuda")
         check(len(losses) == SPARSE_ITERS
@@ -1015,7 +1050,6 @@ def phase_sparse(torch, tst, ck):
               f"frac {frac}: loss history {losses}")
         check(losses[-1] < losses[0], f"frac {frac}: loss did not fall")
         check(acc > 0.8, f"frac {frac}: training accuracy {acc}")
-    launches = ck.launch_counts()
     check(all(v == 0 for v in launches.values()),
           f"the sparse path launched dense kernels: {launches}")
     again = _sparse_alg(tst, SPARSE_ITERS, 1.0).run((X, y)).weights
@@ -1052,6 +1086,8 @@ def phase_sparse(torch, tst, ck):
            "bitwise_repeatable": bitwise, "repeat_max_abs_diff": max_diff,
            "runs": runs}
     emit({"phase": "sparse", **out})
+    # the CSR kernel adds in a fixed order: two runs give the same bits
+    check(bitwise, f"sparse runs differ by up to {max_diff}")
     return out, X, y, weights[1.0]
 
 
@@ -1302,13 +1338,47 @@ def leg_multinomial(torch, tst):
     return out
 
 
-def leg_sparse_owlqn(torch, tst, ck, X, y, w_sgd):
-    """(d) Sparse OWL-QN (hinge + L1) at RCV1 scale, held against the SGD
-    path's frac-1.0 objective."""
+def _owlqn_logistic_vs_sgd(torch, tst, X, y, reg):
+    """(d), the objective check: OWL-QN on L1-regularized logistic
+    regression (its own problem) against a full-batch SGD run of the same
+    objective with phase ``sparse``'s step and iterations."""
     from tpu_sgd_torch.optimize.oracle import full_objective
 
+    g = tst.LogisticGradient()
+    alg = tst.LogisticRegressionWithSGD(100.0, SPARSE_ITERS, reg, 1.0)
+    alg.optimizer.set_updater(tst.L1Updater()).set_convergence_tol(0.0)
+    L_sgd = full_objective(g, X, y, alg.run((X, y)).weights, reg, "l1")
+    opt = tst.OWLQN(g, reg_param=reg, max_num_iterations=OWLQN_ITERS)
+    w, hist = opt.optimize_with_history((X, y), torch.zeros(X.shape[1],
+                                                            device="cuda"))
+    L = full_objective(g, X, y, w, reg, "l1")
+    check(_nonincreasing(hist), f"(d) logistic: the loss history rose: "
+          f"{hist}")
+    check(L <= L_sgd, f"(d): OWL-QN logistic objective {L} above the SGD "
+          f"path's {L_sgd}")
+    return {"logistic_objective": L, "logistic_sgd_objective": L_sgd,
+            "logistic_iterations": len(hist) - 1}
+
+
+def leg_sparse_owlqn(torch, tst, ck, X, y, w_sgd):
+    """(d) Sparse OWL-QN at RCV1 scale: hinge + L1 (its objective beside
+    the SGD path's frac-1.0 one, reported: with exact products the hinge
+    gradient does not change while every margin stays inside the hinge,
+    so the curvature pairs are 0 and OWL-QN takes steepest-descent steps,
+    as the JAX package's does), and logistic + L1, held against SGD on
+    the same objective."""
+    from tpu_sgd_torch.optimize.oracle import full_objective
+
+    class KeepTrials(tst.HingeGradient):
+        """The hinge gradient, keeping its last line search's trial
+        points (the CSR kernel's many-column case in ``csr_rows``)."""
+
+        def loss_sweep(self, X, y, W, mask=None):
+            self.trials = W
+            return super().loss_sweep(X, y, W, mask)
+
     reg = 1e-5
-    g = tst.HingeGradient()
+    g = KeepTrials()
     L_sgd = full_objective(g, X, y, w_sgd, reg, "l1")
     opt = tst.OWLQN(g, reg_param=reg, max_num_iterations=OWLQN_ITERS)
     torch.cuda.synchronize()
@@ -1319,6 +1389,7 @@ def leg_sparse_owlqn(torch, tst, ck, X, y, w_sgd):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches = ck.launch_counts()
+    csr_launches = ck.csr_launch_counts(by_columns=True)
     peak = torch.cuda.max_memory_allocated()
     L = full_objective(g, X, y, w, reg, "l1")
     check(w.is_cuda, "(d): weights not on cuda")
@@ -1326,8 +1397,7 @@ def leg_sparse_owlqn(torch, tst, ck, X, y, w_sgd):
     check(all(v == 0 for v in launches.values()),
           f"(d): the sparse path launched dense kernels: {launches}")
     check(peak < SPARSE_MEMORY_LIMIT, f"(d): peak device memory {peak}")
-    check(L <= L_sgd, f"(d): OWL-QN objective {L} above the SGD path's "
-          f"{L_sgd}")
+    check(L < float(hist[0]), f"(d): OWL-QN objective {L} did not fall")
     out = {"rows": X.shape[0], "d": X.shape[1], "reg_param": reg,
            "iterations": len(hist) - 1, "run_s": secs,
            "ms_per_iteration": 1e3 * secs / max(1, len(hist) - 1),
@@ -1335,9 +1405,11 @@ def leg_sparse_owlqn(torch, tst, ck, X, y, w_sgd):
            "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
            "exact_zeros": int((w == 0).sum()),
            "sgd_exact_zeros": int((w_sgd == 0).sum()),
-           "dense_kernel_launches": launches, "peak_allocated_bytes": peak}
+           "dense_kernel_launches": launches, "csr_launches": csr_launches,
+           "peak_allocated_bytes": peak}
+    out.update(_owlqn_logistic_vs_sgd(torch, tst, X, y, reg))
     emit({"phase": "quasi_newton", "leg": "d_sparse_owlqn", **out})
-    return out
+    return out | {"trials": g.trials}
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -2222,6 +2294,607 @@ def phase_observed(torch, tst, ck, X, y):
     return out
 
 
+# -- phase 10: host-streamed SGD ---------------------------------------------
+
+#: rows of the prefix that the bitwise contracts of leg (c) run on
+STREAM_PREFIX_ROWS = 1_000_000
+STREAM_ITERS = 20
+STREAM_STOP_AT = 13
+SPARSE_STREAM_ITERS = 60
+#: host bytes kept free beside the host copy of X and the staging ring
+HOST_SLACK_BYTES = 8 << 30
+
+
+def _mem_available() -> int:
+    """``MemAvailable`` of ``/proc/meminfo``, bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _rss_bytes() -> dict:
+    """The process's resident host memory now and at its peak."""
+    import resource
+
+    now = None
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = int(line.split()[1]) * 1024
+    return {"rss_bytes": now,
+            "peak_rss_bytes": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss * 1024}
+
+
+def _stream_opt(tst, mode, frac, iters, *, k=1, c=0, R=0, depth=2, wc=None,
+                gradient=None, updater=None, step=0.5, retry=None):
+    opt = tst.GradientDescent(gradient or tst.LeastSquaresGradient(),
+                              updater)
+    opt.set_num_iterations(iters).set_step_size(step) \
+        .set_mini_batch_fraction(frac).set_sampling(mode) \
+        .set_convergence_tol(0.0).set_host_streaming(True, resident_rows=R) \
+        .set_ingest_options(prefetch_depth=depth, wire_compress=wc,
+                            retry=retry).set_superstep(k)
+    if c:
+        opt.set_residency(c)
+    return opt
+
+
+class IngestSink:
+    """A trace sink that adds up what a streamed feed reports
+    (``optimize/streamed.py``, ``io/prefetch.py``): the worker's produce
+    and checksum spans, the ring's pinned bytes and its copies' bytes and
+    card ms."""
+
+    def __init__(self):
+        self.n = {"ingest.produce": 0, "ingest.checksum": 0}
+        self.secs = {"ingest.produce": 0.0, "ingest.checksum": 0.0}
+        self.h2d_bytes = 0
+        self.h2d_ms = 0.0
+        self.pinned_bytes = 0
+
+    def emit(self, kind, payload):
+        name = payload["name"]
+        if kind == "trace_span" and name in self.n:
+            self.n[name] += 1
+            self.secs[name] += payload["dur_s"]
+        elif name == "ingest.h2d":
+            self.h2d_bytes += payload["bytes"]
+            self.h2d_ms += payload["ms"]
+        elif name == "ingest.ring":
+            self.pinned_bytes = max(self.pinned_bytes,
+                                    payload["pinned_bytes"])
+
+    def report(self) -> dict:
+        batches = self.n["ingest.produce"]
+        per = (lambda s: 1e3 * s / batches) if batches else (lambda s: 0.0)
+        return {"batches": batches,
+                "assembly_ms_per_batch": per(self.secs["ingest.produce"]),
+                "checksum_ms_per_batch": per(self.secs["ingest.checksum"]),
+                "h2d_bytes": self.h2d_bytes, "h2d_ms": self.h2d_ms,
+                "h2d_gb_per_s": (self.h2d_bytes / (1e6 * self.h2d_ms)
+                                 if self.h2d_ms else None),
+                "pinned_bytes": self.pinned_bytes}
+
+
+def _streamed_run(torch, ck, opt, X, y, w0, iters, *, profile_iters=0):
+    """One streamed run: weights, history, wall ms an iteration, launches
+    of the dense and CSR wrappers (counts set to 0 just before), what the
+    feed reported with counters and tracing on (wire bytes; assembly,
+    checksum and copy times), peak device bytes; with ``profile_iters``
+    also a shorter profiled run for device ms (kernels and copies apart)
+    and the idle share."""
+    from tpu_sgd_torch.obs import counters, spans
+
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sink = IngestSink()
+    counters.enable()
+    counters.reset()
+    spans.enable_tracing(sink)
+    try:
+        t = time.perf_counter()
+        w, hist = opt.optimize_with_history((X, y), w0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        wire = counters.wire_ratios()
+    finally:
+        spans.disable_tracing()
+        counters.disable()
+        counters.reset()
+    stats = sink.report()
+    logical = sum(r["logical_bytes"] for r in wire.values())
+    physical = sum(r["physical_bytes"] for r in wire.values())
+    out = {"weights": w, "history": hist,
+           "wall_ms_per_iteration": 1e3 * secs / iters,
+           "launches": ck.launch_counts(),
+           "csr_launches": ck.csr_launch_counts(),
+           "csr_column_launches": ck.csr_launch_counts(by_columns=True),
+           "ingest": stats,
+           "wire_logical_bytes_per_iteration": logical / iters,
+           "wire_physical_bytes_per_iteration": physical / iters,
+           "peak_extra_device_bytes":
+               torch.cuda.max_memory_allocated() - base}
+    if profile_iters:
+        from torch.profiler import ProfilerActivity, profile
+
+        opt.set_num_iterations(profile_iters)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            opt.optimize_with_history((X, y), w0)
+            torch.cuda.synchronize()
+            traced = 1e3 * (time.perf_counter() - t) / profile_iters
+        opt.set_num_iterations(iters)
+        per = {k: v / profile_iters
+               for k, v in device_ms_by_kernel(torch, prof).items()}
+        copies = sum(v for k, v in per.items() if k.startswith("Memcpy"))
+        kernels = sum(v for k, v in per.items()
+                      if not k.startswith(("Memcpy", "Memset")))
+        out.update({
+            "traced_wall_ms_per_iteration": traced,
+            "device_kernel_ms_per_iteration": kernels,
+            "device_copy_ms_per_iteration": copies,
+            "idle_share": max(0.0, 1 - kernels / traced),
+            "top_device_ms": dict(sorted(per.items(),
+                                         key=lambda kv: -kv[1])[:6])})
+    return out
+
+
+def _same(a, b) -> bool:
+    return bool(np.array_equal(np.asarray(a["weights"].cpu()),
+                               np.asarray(b["weights"].cpu()))
+                and np.array_equal(a["history"], b["history"]))
+
+
+def _report(r) -> dict:
+    return {k: v for k, v in r.items() if k not in ("weights", "history")}
+
+
+def streamed_full_batch(torch, tst, ck, Xh, yh, X, y):
+    """Leg (a): 3 full-batch iterations streamed from the host rows
+    against the resident run on the same X; the streamed side sends X once
+    and runs B1 masked (its valid mask, all True), the resident side runs
+    B1 unmasked."""
+    iters = 3
+    w0 = torch.zeros(X.shape[1], device="cuda")
+    got = _streamed_run(torch, ck, _stream_opt(tst, "bernoulli", 1.0, iters),
+                        Xh, yh, w0, iters)
+    check(got["launches"]["fused_gradient_sums"] == iters,
+          f"(a) streamed B1 launches {got['launches']}")
+    ck.reset_launch_counts()
+    ref = tst.GradientDescent().set_num_iterations(iters).set_step_size(0.5) \
+        .set_mini_batch_fraction(1.0).set_convergence_tol(0.0)
+    w_ref, h_ref = ref.optimize_with_history((X, y), w0)
+    check(ck.launch_counts()["fused_gradient_sums"] == iters,
+          f"(a) resident B1 launches {ck.launch_counts()}")
+    rel = np.abs(got["history"] - h_ref) / np.abs(h_ref)
+    dw = (got["weights"] - w_ref).abs()
+    scale = float(w_ref.abs().max())
+    check(bool(np.all(rel <= 2e-4)), f"(a) loss rel {rel}")
+    check(bool(torch.all(dw <= 2e-3 + 2e-4 * w_ref.abs())),
+          f"(a) weights max |dw| {float(dw.max())} of {scale}")
+    return _report(got) | {
+        "streamed_b1": "masked (valid all True)", "resident_b1": "unmasked",
+        "loss_max_rel": float(rel.max()), "weights_max_abs_diff":
+            float(dw.max()), "weights_scale": scale}
+
+
+def streamed_sampled(torch, tst, ck, Xh, yh):
+    """Leg (b): Bernoulli, indexed and sliced at frac 0.1, 20 iterations
+    each at the full rows, then a 5-iteration traced run of each."""
+    w0 = torch.zeros(Xh.shape[1], device="cuda")
+    out = {}
+    for mode in ("bernoulli", "indexed", "sliced"):
+        r = _streamed_run(torch, ck, _stream_opt(tst, mode, FRAC,
+                                                 STREAM_ITERS),
+                          Xh, yh, w0, STREAM_ITERS, profile_iters=5)
+        h = r["history"]
+        check(len(h) == STREAM_ITERS and bool(np.all(np.isfinite(h)))
+              and h[-1] < h[0], f"(b) {mode}: history {h}")
+        check(r["launches"]["fused_gradient_sums"] == STREAM_ITERS,
+              f"(b) {mode}: B1 launches {r['launches']}")
+        out[mode] = _report(r) | _rss_bytes() | {
+            "loss_first": float(h[0]), "loss_last": float(h[-1])}
+    return out
+
+
+def _slow_ring_check(torch):
+    """The ring's slot reuse on the card: a 2-slot feed whose step sleeps
+    on the card before it reads its slot; without the FREE wait the copy
+    of item j + 2 would overwrite slot j before the step read it."""
+    from tpu_sgd_torch.io import PinnedRing, Prefetcher
+
+    ring = PinnedRing({"x": ((1 << 20,), torch.float32)}, 2,
+                      torch.device("cuda"))
+
+    def produce(j):
+        slot = j % 2
+        ring.claim(slot)["x"].fill_(float(j))
+        ring.send(slot, [(ring.dev[slot]["x"], ring.host[slot]["x"])])
+        return slot, j
+
+    sums = []
+    with Prefetcher(produce, range(12), depth=2) as feed:
+        for slot, j in feed:
+            x = ring.take(slot)["x"]
+            torch.cuda._sleep(20_000_000)  # ~10 ms on the card
+            sums.append((x.sum(), j))
+            ring.release(slot)
+    ring.drain()
+    ok = all(float(s) == j * (1 << 20) for s, j in sums)
+    check(ok, "the pinned ring refilled a slot its step still read")
+    return ok
+
+
+def streamed_contracts(torch, tst, ck, Xh, yh):
+    """Leg (c): the bitwise contracts, on the first ``STREAM_PREFIX_ROWS``
+    host rows."""
+    from tpu_sgd_torch.optimize.streamed import (HostSampler,
+                                                 resident_window_probability)
+    from tpu_sgd_torch.reliability import (RetryPolicy, TrainingPreempted,
+                                           corrupt_nth, fail_nth,
+                                           inject_faults)
+    from tpu_sgd_torch.reliability import failpoints as fp
+    from tpu_sgd_torch.utils.checkpoint import CheckpointManager
+
+    Xp, yp = Xh[:STREAM_PREFIX_ROWS], yh[:STREAM_PREFIX_ROWS]
+    n = Xp.shape[0]
+    w0 = torch.zeros(Xp.shape[1], device="cuda")
+    N = 32
+    out = {"rows": n, "ring_slot_reuse_ok": _slow_ring_check(torch)}
+
+    def run(opt, iters=N):
+        return _streamed_run(torch, ck, opt, Xp, yp, w0, iters)
+
+    base = run(_stream_opt(tst, "bernoulli", FRAC, N))
+    out["prefetch_2_vs_0"] = _same(base, run(_stream_opt(
+        tst, "bernoulli", FRAC, N, depth=0)))
+    k8 = run(_stream_opt(tst, "bernoulli", FRAC, N, k=8))
+    out["bernoulli_k1_vs_k8"] = _same(base, k8)
+    full = [run(_stream_opt(tst, "bernoulli", 1.0, N, **kw))
+            for kw in ({}, {"k": 8}, {"k": 8, "c": 4})]
+    out["full_batch_k1_vs_k8_vs_k8_c4"] = (_same(full[0], full[1])
+                                           and _same(full[0], full[2]))
+    slab = [run(_stream_opt(tst, "sliced", FRAC, N, R=n, **kw))
+            for kw in ({}, {"k": 8}, {"k": 8, "c": 4})]
+    out["resident_slab_k1_vs_k8_vs_k8_c4"] = (_same(slab[0], slab[1])
+                                              and _same(slab[0], slab[2]))
+    N_R = 40
+    r0 = run(_stream_opt(tst, "sliced", FRAC, N_R), N_R)
+    rh = run(_stream_opt(tst, "sliced", FRAC, N_R, R=n // 2), N_R)
+    cfg = tst.SGDConfig(num_iterations=N_R, mini_batch_fraction=FRAC,
+                        sampling="sliced", seed=42)
+    sampler = HostSampler(cfg, n, n // 2)
+    resident = sum(sampler.draw(i)[0] == "resident"
+                   for i in range(1, N_R + 1))
+    p = resident_window_probability(n, FRAC, n // 2)
+    window_bytes = round(FRAC * n) * Xp.shape[1] * 2
+    sent_windows = (rh["ingest"]["h2d_bytes"]
+                    - (n // 2) * Xp.shape[1] * 2
+                    - N_R * round(FRAC * n) * 5) / window_bytes
+    out["resident_half_vs_none"] = _same(r0, rh)
+    out["resident_windows"] = {
+        "resident": resident, "transferred": N_R - resident,
+        "transferred_by_bytes": sent_windows,
+        "expected_transferred": N_R * (1 - p), "probability": p}
+    check(abs(sent_windows - (N_R - resident)) < 1e-6,
+          f"(c) transferred windows {sent_windows} != {N_R - resident}")
+    check(abs(resident - N_R * p) <= 4 * math.sqrt(N_R * p * (1 - p)) + 1,
+          f"(c) {resident} resident windows, expected {N_R * p}")
+    opt = _stream_opt(tst, "bernoulli", FRAC, N,
+                      retry=RetryPolicy(max_attempts=3, base_backoff_s=0.0))
+    with inject_faults({"io.device_put": fail_nth(3),
+                        "io.chunk": corrupt_nth(5)}):
+        healed = run(opt)
+        fired = (fp.triggers("io.device_put"), fp.triggers("io.chunk"))
+    out["fault_heal"] = _same(base, healed) and fired == (1, 1)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        seen = {"i": 0}
+
+        class Stop:
+            def on_run_start(self, cfg):
+                pass
+
+            def on_iteration(self, e):
+                seen["i"] = e.iteration
+
+            def on_run_end(self, e):
+                pass
+
+        ref = run(_stream_opt(tst, "bernoulli", FRAC, STREAM_ITERS),
+                  STREAM_ITERS)
+        opt = _stream_opt(tst, "bernoulli", FRAC, STREAM_ITERS)
+        opt.set_listener(Stop()).set_checkpoint(CheckpointManager(tmp),
+                                                every=5)
+        opt.set_stop_signal(lambda: seen["i"] >= STREAM_STOP_AT)
+        try:
+            opt.optimize_with_history((Xp, yp), w0)
+            stopped = None
+        except TrainingPreempted as e:
+            stopped = e.iteration
+        opt2 = _stream_opt(tst, "bernoulli", FRAC, STREAM_ITERS)
+        opt2.set_checkpoint(CheckpointManager(tmp), every=5)
+        resumed = run(opt2, STREAM_ITERS)
+        out["stop_at_13_resume"] = stopped == STREAM_STOP_AT and _same(
+            ref, resumed)
+    comp = [run(_stream_opt(tst, "bernoulli", 1.0, N, wc="topk:0.01", **kw))
+            for kw in ({"k": 8}, {"k": 8, "c": 4})]
+    dense = full[1]
+    out["topk_k8_vs_k8_c4"] = _same(comp[0], comp[1])
+    out["topk_final_loss"] = float(comp[0]["history"][-1])
+    out["dense_final_loss"] = float(dense["history"][-1])
+    out["topk_over_dense_final_loss"] = (out["topk_final_loss"]
+                                         / out["dense_final_loss"])
+    for key in ("ring_slot_reuse_ok", "prefetch_2_vs_0", "bernoulli_k1_vs_k8",
+                "full_batch_k1_vs_k8_vs_k8_c4",
+                "resident_slab_k1_vs_k8_vs_k8_c4", "resident_half_vs_none",
+                "fault_heal", "stop_at_13_resume", "topk_k8_vs_k8_c4"):
+        check(out[key] is True, f"(c) {key} failed")
+    out["launches_k8_replayed"] = k8["launches"]
+    check(k8["launches"]["fused_gradient_sums"] == N,
+          f"(c) K = 8 B1 launches {k8['launches']}")
+    return out
+
+
+def streamed_predict(torch, tst, Xh, X):
+    """Leg (d): ``predict_streamed`` over the host rows against the
+    resident ``predict`` of the same model."""
+    w = torch.randn(X.shape[1], generator=torch.Generator(
+        device="cuda").manual_seed(9), device="cuda") / math.sqrt(X.shape[1])
+    model = tst.LinearRegressionModel(w, 0.25)
+    t = time.perf_counter()
+    got = model.predict_streamed(Xh)
+    secs = time.perf_counter() - t
+    ref = model.predict(X).cpu().numpy()
+    err = float(np.abs(got - ref).max())
+    scale = float(np.abs(ref).max())
+    check(got.shape == ref.shape and err <= 1e-5 * scale + 1e-6,
+          f"(d) predict_streamed max |d| {err} of {scale}")
+    return {"rows": int(got.shape[0]), "seconds": secs,
+            "max_abs_diff": err, "scale": scale}
+
+
+def phase_streamed_dense(torch, tst, ck, X, y):
+    """Phase ``streamed``, dense rows: phase ``full``'s X copied to the host
+    once, then legs (a)-(d)."""
+    n, d = X.shape
+    x_bytes = n * d * X.element_size()
+    ring_bytes = 2 * 2 * (round(FRAC * n) + 8 * int(math.sqrt(n))) * d * 2
+    need = x_bytes + ring_bytes + HOST_SLACK_BYTES
+    avail = _mem_available()
+    check(avail >= need,
+          f"phase streamed needs {need} host bytes (X {x_bytes}, staging "
+          f"{ring_bytes}, slack {HOST_SLACK_BYTES}); {avail} are "
+          f"available, {need - avail} short")
+    t = time.perf_counter()
+    Xh = X.cpu()
+    yh = y.cpu()
+    copy_s = time.perf_counter() - t
+    out = {"host_copy_seconds": copy_s, "host_bytes": x_bytes,
+           "mem_available_before": avail}
+    t = time.perf_counter()
+    legs = (("a_full_batch", lambda: streamed_full_batch(
+                torch, tst, ck, Xh, yh, X, y)),
+            ("b_sampled", lambda: streamed_sampled(torch, tst, ck, Xh, yh)),
+            ("c_contracts", lambda: streamed_contracts(torch, tst, ck, Xh,
+                                                       yh)),
+            ("d_predict", lambda: streamed_predict(torch, tst, Xh, X)))
+    out["leg_seconds"] = {}
+    for name, leg in legs:
+        t_leg = time.perf_counter()
+        out[name] = leg()
+        out["leg_seconds"][name] = time.perf_counter() - t_leg
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t
+    del Xh
+    return out
+
+
+def staged_sparse_batch(torch, tst, Xh, cfg):
+    """Iteration 1's batch of the streamed sparse run with config
+    ``cfg``, staged as the driver stages it (``(row_cap, nse_cap)`` CSR
+    components, the padding entries at the end of the last row) and put
+    on the card, with its transposed copy built there as the driver
+    builds it and its valid mask."""
+    from tpu_sgd_torch.io.sparse_wire import (csr_host, plan_sparse_batches,
+                                              sparse_batch_index_dtype,
+                                              stage_sparse_batch)
+    from tpu_sgd_torch.ops import sparse as sp
+    from tpu_sgd_torch.optimize.streamed import HostSampler
+
+    indptr, cols, vals, (n, d) = csr_host(Xh)
+    sampler = HostSampler(cfg, n)
+    cap = sampler.cap
+    nse = plan_sparse_batches(indptr, sampler.sample_rows,
+                              cfg.num_iterations, cap)
+    idt = sparse_batch_index_dtype(cap, nse, d)
+    host = (torch.empty((cap + 1,), dtype=idt),
+            torch.empty((nse,), dtype=idt),
+            torch.empty((nse,), dtype=torch.float32),
+            torch.empty((cap,), dtype=torch.bool))
+    stage_sparse_batch(indptr, cols, vals.astype(np.float32),
+                       sampler.sample_rows(1), cap, nse, out=host)
+    crow, col, val, valid = (t.cuda() for t in host)
+    crow_t = torch.empty((d + 1,), dtype=idt, device="cuda")
+    row_t = torch.empty((nse,), dtype=idt, device="cuda")
+    val_t = torch.empty((nse,), dtype=torch.float32, device="cuda")
+    sp.transpose_csr_into(crow, col, val, d, crow_t, row_t, val_t)
+    return {"X": sp._csr(crow, col, val, (cap, d)),
+            "Xt": sp._csr(crow_t, row_t, val_t, (d, cap)), "valid": valid}
+
+
+def csr_rows(torch, ck, X, sparse, owlqn, streamed, batch):
+    """The CSR kernel at every shape the smoke's sparse paths give it, each
+    against its plain twin and cuSPARSE (torch's CSR product, the library
+    call) with its bound; each case's launches are those of the run that
+    gives the kernel that shape:
+
+    * RCV1-scale X, all rows (phase ``sparse`` at frac 1.0), a 10% row
+      mask (frac 0.1), and the gradient over its transposed copy (both);
+    * the trial points of leg (d)'s last line search on X (OWL-QN's 30;
+      its hinge run, ``csr_margins/30``);
+    * iteration 1's staged batch of the streamed Bernoulli run, masked by
+      its valid rows, and the gradient over the batch's transposed copy
+      (that run)."""
+    from tpu_sgd_torch.ops import sparse as sp
+
+    Xt = sp.transpose_csr(X)
+    n, d = X.shape
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    w = torch.randn(d, generator=gen, device="cuda")
+    coeff = torch.randn(n, generator=gen, device="cuda")
+    mask = torch.rand(n, generator=gen, device="cuda") < FRAC
+    W = owlqn["trials"].T.contiguous()
+    Xb, Xbt, valid = batch["X"], batch["Xt"], batch["valid"]
+    cap = Xb.shape[0]
+    coeff_b = torch.randn(cap, generator=gen, device="cuda") * valid
+    row_nnz = torch.diff(X.crow_indices().long())
+    batch_nnz = torch.diff(Xb.crow_indices().long())
+    full = sparse["runs"]["1.0"]["csr_launches"]
+    tenth = sparse["runs"]["0.1"]["csr_launches"]
+    stream = streamed["runs"][str(FRAC)]["csr_column_launches"]
+    rows = []
+    # name, shape, kernel, plain, library, entries read, rows of the
+    # operand, its columns, right-hand columns, launches, their run
+    cases = (("csr_margins", "all rows", lambda: ck.csr_margins(X, w),
+              lambda: ck.csr_matmul_plain(X, w), lambda: X @ w,
+              X._nnz(), n, d, 1, full.get("csr_margins/1", 0),
+              "phase sparse, frac 1.0"),
+             ("csr_margins", "10% mask",
+              lambda: ck.csr_margins(X, w, mask),
+              lambda: ck.csr_matmul_plain(X, w, mask),
+              lambda: X @ w, int(row_nnz[mask].sum()), n, d, 1,
+              tenth.get("csr_margins/1", 0), "phase sparse, frac 0.1"),
+             ("csr_grad_sum", "all rows", lambda: ck.csr_grad_sum(Xt, coeff),
+              lambda: ck.csr_matmul_plain(Xt, coeff), lambda: Xt @ coeff,
+              Xt._nnz(), d, n, 1,
+              full.get("csr_grad_sum/1", 0) + tenth.get("csr_grad_sum/1", 0),
+              "phase sparse, frac 1.0 and 0.1"),
+             ("csr_margins", f"{W.shape[1]} trial points",
+              lambda: ck.csr_margins(X, W),
+              lambda: ck.csr_matmul_plain(X, W), lambda: X @ W,
+              X._nnz(), n, d, W.shape[1],
+              owlqn["csr_launches"].get(f"csr_margins/{W.shape[1]}", 0),
+              "leg (d), hinge + L1"),
+             ("csr_margins", "streamed batch",
+              lambda: ck.csr_margins(Xb, w, valid),
+              lambda: ck.csr_matmul_plain(Xb, w, valid), lambda: Xb @ w,
+              int(batch_nnz[valid].sum()), cap, d, 1,
+              stream.get("csr_margins/1", 0),
+              f"streamed sparse, frac {FRAC}"),
+             ("csr_grad_sum", "streamed batch, transposed",
+              lambda: ck.csr_grad_sum(Xbt, coeff_b),
+              lambda: ck.csr_matmul_plain(Xbt, coeff_b),
+              lambda: Xbt @ coeff_b, Xbt._nnz(), d, cap, 1,
+              stream.get("csr_grad_sum/1", 0),
+              f"streamed sparse, frac {FRAC}"))
+    for (name, shape, kern, plain, lib, nnz, prow, k, T, launches,
+         source_run) in cases:
+        got, ref = kern(), plain()
+        again = kern()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(bool(torch.equal(got, again)), f"{name} ({shape}) not bitwise")
+        check(err <= 1e-4 * scale + 1e-6,
+              f"{name} ({shape}): max |d| {err} of {scale}")
+        check(launches > 0, f"{name} ({shape}): no launch in {source_run}")
+        idx = X.col_indices().element_size()
+        bytes_ = nnz * (4 + idx) + (prow + 1) * idx + 4 * T * (k + prow)
+        if "mask" in shape or shape == "streamed batch":
+            bytes_ += prow  # the mask
+        t_bytes = 1e3 * bytes_ / HBM_BYTES_PER_S
+        t_ops = 1e3 * 2.0 * nnz * T / F32_FLOPS
+        bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+        ms = time_ms(torch, kern, 20)
+        rows.append({
+            "name": name, "path": f"sparse ({shape})",
+            "source": CSR_SOURCE, "shape": [prow, k], "columns": T,
+            "nnz": nnz, "max_abs_err": err, "grad_scale": scale, "ms": ms,
+            "plain_ms": time_ms(torch, plain, 20),
+            "library_ms": time_ms(torch, lib, 20),
+            "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / ms,
+            "launches": launches, "launches_from": source_run})
+    del Xt
+    return rows
+
+
+def phase_streamed_sparse(torch, tst, ck, X, y):
+    """Phase ``streamed``, sparse rows: the RCV1-scale CSR of phase
+    ``sparse`` held as host CSR arrays, Bernoulli at frac 0.1 and full
+    batch, 60 iterations (hinge + L1).  Returns the report and the
+    Bernoulli run's first staged batch on the card (for ``csr_rows``)."""
+    t = time.perf_counter()
+    Xh = X.cpu()
+    yh = y.cpu()
+    n, d = X.shape
+    w0 = torch.zeros(d, device="cuda")
+    out = {"host_copy_seconds": time.perf_counter() - t}
+
+    def opt(frac, **kw):
+        return _stream_opt(tst, "bernoulli", frac, SPARSE_STREAM_ITERS,
+                           gradient=tst.HingeGradient(),
+                           updater=tst.L1Updater(), step=100.0,
+                           **kw).set_reg_param(1e-5)
+
+    def run(o, profile_iters=0):
+        return _streamed_run(torch, ck, o, Xh, yh, w0, SPARSE_STREAM_ITERS,
+                             profile_iters=profile_iters)
+
+    runs = {}
+    for frac in (FRAC, 1.0):
+        a = run(opt(frac), profile_iters=10)
+        b = run(opt(frac))
+        h = a["history"]
+        check(len(h) == SPARSE_STREAM_ITERS and h[-1] < h[0],
+              f"sparse streamed frac {frac}: history {h[:3]}..{h[-3:]}")
+        check(a["launches"] == {"fused_gradient_sums": 0,
+                                "fused_window_sums": 0,
+                                "fused_window_sums_vpu": 0},
+              f"sparse streamed launched dense kernels {a['launches']}")
+        check(a["csr_launches"] == {"csr_margins": SPARSE_STREAM_ITERS,
+                                    "csr_grad_sum": SPARSE_STREAM_ITERS},
+              f"sparse streamed CSR launches {a['csr_launches']}")
+        rec = _report(a) | {"repeat_bitwise": _same(a, b),
+                            "loss_first": float(h[0]),
+                            "loss_last": float(h[-1])}
+        if frac < 1.0:
+            rec["prefetch_2_vs_0"] = _same(a, run(opt(frac, depth=0)))
+            rec["k8_vs_k1"] = _same(a, run(opt(frac, k=8)))
+            ratio = (a["wire_logical_bytes_per_iteration"]
+                     / a["wire_physical_bytes_per_iteration"])
+            rec["wire_dense_over_physical"] = ratio
+            check(ratio >= 10.0, f"sparse wire ratio {ratio} < 10")
+            dense_batch = bernoulli_rows(n) * d * 4
+            rec["dense_batch_f32_bytes"] = dense_batch
+            check(a["peak_extra_device_bytes"] < dense_batch,
+                  f"sparse streamed peak {a['peak_extra_device_bytes']} "
+                  f">= a dense batch ({dense_batch})")
+            for key in ("prefetch_2_vs_0", "k8_vs_k1"):
+                check(rec[key], f"sparse streamed {key} failed")
+        check(rec["repeat_bitwise"], f"sparse streamed frac {frac} repeat")
+        runs[str(frac)] = rec
+    out["runs"] = runs
+    out["launches"] = runs[str(FRAC)]["csr_launches"]
+    out["seconds"] = time.perf_counter() - t
+    return out, staged_sparse_batch(torch, tst, Xh, opt(FRAC).config)
+
+
+def bernoulli_rows(n: int) -> int:
+    """The Bernoulli row cap of the streamed drivers at ``FRAC``."""
+    from tpu_sgd_torch.optimize.streamed import bernoulli_cap
+
+    return bernoulli_cap(n, FRAC)
+
+
 def main() -> int:
     try:
         import torch
@@ -2280,6 +2953,9 @@ def main() -> int:
     rows.append(chunked_row)
     torch.cuda.empty_cache()
     observed = phase_observed(torch, tst, ck, X, y)
+    torch.cuda.empty_cache()
+    streamed = phase_streamed_dense(torch, tst, ck, X, y)
+    emit({"phase": "streamed", "dense": streamed})
     del X, y, sliced_ref
     torch.cuda.empty_cache()
     qn["c"] = leg_multinomial(torch, tst)
@@ -2288,21 +2964,18 @@ def main() -> int:
     phase_configs(torch, tst)
     sparse, X_sp, y_sp, w_sgd = phase_sparse(torch, tst, ck)
     qn["d"] = leg_sparse_owlqn(torch, tst, ck, X_sp, y_sp, w_sgd)
+    torch.cuda.empty_cache()
+    streamed["sparse"], batch = phase_streamed_sparse(torch, tst, ck, X_sp,
+                                                      y_sp)
+    emit({"phase": "streamed", "sparse": streamed["sparse"]})
+    rows.extend(csr_rows(torch, ck, X_sp, sparse, qn["d"],
+                         streamed["sparse"], batch))
+    del batch
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_sgd"))
     check(not leaked, f"imported {leaked}")
 
-    emit({"kernels": [{
-        "name": r["name"], "path": r.get("path", "sgd"), "route": "cuda",
-        "source": r.get("source", SOURCE),
-        "replaces": REPLACES[r["name"]], "launches": r["launches"],
-        "max_abs_err": r["max_abs_err"], "grad_scale": r["grad_scale"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-    } | {k: r[k] for k in ("host_paced_ms", "old_path_ms",
-                           "old_path_host_paced_ms") if k in r}
-        for r in rows]})
     emit({"sparse": {
         "shape": [sparse["rows"], sparse["d"]], "nnz": sparse["nnz"],
         "index_dtype": sparse["index_dtype"],
@@ -2329,7 +3002,8 @@ def main() -> int:
             "planted_accuracy")},
         "sparse_owlqn": {k: qn["d"][k] for k in (
             "objective", "sgd_objective", "iterations", "ms_per_iteration",
-            "exact_zeros", "peak_allocated_bytes")}}})
+            "exact_zeros", "peak_allocated_bytes", "logistic_objective",
+            "logistic_sgd_objective")}}})
     prof_keys = ("wall_ms_per_iteration", "device_ms_per_iteration",
                  "idle_share")
     emit({"gram": {
@@ -2358,6 +3032,11 @@ def main() -> int:
             gram["g_persistence"]["loaded_equals_resident_bitwise"],
         "window_loss_rel_err": {k: gram["h_precision"][k]
                                 for k in ("f64_sums", "f32_sums")}}})
+    emit({"streamed": {
+        "dense": {k: streamed[k] for k in (
+            "host_copy_seconds", "a_full_batch", "b_sampled",
+            "c_contracts", "d_predict", "leg_seconds", "seconds")},
+        "sparse": streamed["sparse"]}})
     emit({"observed": {
         "rows": {row: {"bitwise_equal": r["bitwise_equal"],
                        "capture_ms": r["capture_ms"],
@@ -2373,6 +3052,19 @@ def main() -> int:
         "device_step_equals_host": observed["device_step_equals_host"],
         "sampler_ms": observed["sampler_ms"],
         "seconds": observed["seconds"]}})
+    # the kernel table last but for the card's line: the end of the output
+    # is what a reader of a long run sees
+    emit({"kernels": [{
+        "name": r["name"], "path": r.get("path", "sgd"), "route": "cuda",
+        "source": r.get("source", SOURCE),
+        "replaces": REPLACES[r["name"]], "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"], "grad_scale": r["grad_scale"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    } | {k: r[k] for k in ("host_paced_ms", "old_path_ms",
+                           "old_path_host_paced_ms", "nnz", "columns",
+                           "share_of_bound", "launches_from") if k in r}
+        for r in rows]})
     print(smi, flush=True)
     # one card drove the run, however many the host shows
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

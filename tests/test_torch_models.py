@@ -174,10 +174,11 @@ def test_sgd_config_from_dict():
 def test_later_slice_options_raise():
     X, y, _ = linear_data(50, 3, seed=20)
     alg = tm.LinearRegressionWithSGD(device="cpu")
-    # feature scaling arrived with feature.py; host streaming is later work
+    # feature scaling arrived with feature.py, host streaming with the
+    # ingest slice; the planner and data parallelism are later work
     assert alg.set_feature_scaling(True) is alg
-    with pytest.raises(NotImplementedError, match="A9"):
-        alg.optimizer.set_host_streaming(True)
+    assert alg.optimizer.set_host_streaming(True) is alg.optimizer
+    assert alg.optimizer.host_streaming
     with pytest.raises(NotImplementedError, match="A11"):
         alg.set_schedule("auto")
     with pytest.raises(NotImplementedError, match="A5"):
@@ -185,7 +186,6 @@ def test_later_slice_options_raise():
 
 
 @pytest.mark.parametrize("model,method,item", [
-    ("linear", "predict_streamed", "A9"),
     ("multinomial", "predict_dense_bucketed", "A10")])
 def test_model_methods_of_later_slices_raise(model, method, item):
     """Reference methods not ported yet raise naming their ROADMAP item

@@ -42,7 +42,11 @@ def test_import_pulls_in_no_jax_and_no_tpu_sgd():
         "tpu_sgd_torch.reliability, tpu_sgd_torch.reliability.failpoints, "
         "tpu_sgd_torch.reliability.retry, "
         "tpu_sgd_torch.reliability.supervisor, tpu_sgd_torch.utils, "
-        "tpu_sgd_torch.utils.events, tpu_sgd_torch.utils.checkpoint\n"
+        "tpu_sgd_torch.utils.events, tpu_sgd_torch.utils.checkpoint, "
+        "tpu_sgd_torch.io, tpu_sgd_torch.io.wire, "
+        "tpu_sgd_torch.io.chunking, tpu_sgd_torch.io.prefetch, "
+        "tpu_sgd_torch.io.sparse_wire, tpu_sgd_torch.optimize.streamed, "
+        "tpu_sgd_torch.optimize.streamed_sparse\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
         "print(bad)")
@@ -69,6 +73,8 @@ def test_import_builds_nothing():
         "from tpu_sgd_torch.io import integrity\n"
         "from tpu_sgd_torch.reliability import failpoints, retry, supervisor\n"
         "from tpu_sgd_torch.utils import events, checkpoint\n"
+        "from tpu_sgd_torch.io import wire, chunking, prefetch, sparse_wire\n"
+        "from tpu_sgd_torch.optimize import streamed, streamed_sparse\n"
         "print(len(_build._loaded))")
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "0"
@@ -125,6 +131,59 @@ def test_cpu_path_launches_no_kernel():
     assert ck.launch_counts() == {"fused_gradient_sums": 0,
                                   "fused_window_sums": 0,
                                   "fused_window_sums_vpu": 0}
+
+
+def test_cpu_streamed_and_sparse_paths_launch_no_kernel():
+    ck.reset_launch_counts()
+    X, y, _ = tst.linear_data(400, 4, seed=1)
+    for sampling in ("bernoulli", "sliced", "indexed"):
+        tst.GradientDescent(device="cpu").set_host_streaming(True) \
+            .set_sampling(sampling).set_mini_batch_fraction(0.2) \
+            .set_num_iterations(4).set_superstep(2) \
+            .optimize((X, y), np.zeros(4))
+    Xs, ys, _ = tst.sparse_data(60, 30, nnz_per_row=4, kind="svm", seed=2)
+    for streamed in (False, True):
+        tst.GradientDescent(tst.HingeGradient(), device="cpu") \
+            .set_host_streaming(streamed).set_mini_batch_fraction(0.5) \
+            .set_num_iterations(3).optimize((Xs, ys), np.zeros(30))
+    assert ck.launch_counts() == {"fused_gradient_sums": 0,
+                                  "fused_window_sums": 0,
+                                  "fused_window_sums_vpu": 0}
+    assert ck.csr_launch_counts() == {"csr_margins": 0, "csr_grad_sum": 0}
+    assert ck.kernel_launch_counts() == {"fused_sums": 0, "window_sums": 0}
+
+
+def test_every_kernel_source_is_built_and_none_at_import():
+    from tpu_sgd_torch.ops import _build
+
+    assert _build.SOURCES == ("fused_sums", "window_sums", "csr_products")
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").exists()
+    src = (_build.CSRC / "csr_products.cu").read_text()
+    assert "atomicAdd" not in src  # the CSR kernel adds in a fixed order
+
+
+def test_streamed_path_on_a_mesh_raises_naming_a5():
+    from tpu_sgd_torch.optimize.streamed import optimize_host_streamed
+
+    X, y, _ = tst.linear_data(20, 3, seed=0)
+    with pytest.raises(NotImplementedError, match="A5"):
+        optimize_host_streamed(tst.LeastSquaresGradient(),
+                               tst.SimpleUpdater(), tst.SGDConfig(), X, y,
+                               np.zeros(3), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="A5"):
+        tst.GradientDescent(device="cpu").set_host_streaming(True) \
+            .set_mesh(object())
+
+
+def test_streamed_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the rule is for hosts "
+                    "without one")
+    X, y, _ = tst.linear_data(20, 3, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tst.GradientDescent().set_host_streaming(True).optimize(
+            (X, y), np.zeros(3))
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -416,6 +416,48 @@ def test_sparse_owlqn_hinge_matches_jax():
     assert int((tw == 0).sum()) == int(np.sum(np.asarray(jw) == 0))
 
 
+def test_sparse_owlqn_hinge_l1_from_zero_stalls_as_jax():
+    """OWL-QN on hinge + L1 from w = 0 on RCV1-shaped rows (chip_smoke
+    leg (d)'s problem, small): while every margin stays inside the hinge
+    the gradient does not change, so each curvature pair has s·y = 0 and
+    both packages take the same steepest-descent step every iteration:
+    the objective falls by a constant amount and ends far above a
+    full-batch SGD run's (phase ``sparse``'s step, 60 iterations)."""
+    from tpu_sgd.utils.mlutils import rcv1_like_data as j_rcv1
+    from tpu_sgd_torch.utils.mlutils import rcv1_like_data as t_rcv1
+
+    n, d, reg = 1000, 2000, 1e-5
+    jX, y = j_rcv1(n, d, seed=3)[:2]
+    tX, ty = t_rcv1(n, d, seed=3)[:2]
+    np.testing.assert_array_equal(np.asarray(y), np.asarray(ty))
+    y = np.asarray(y)
+    w0 = np.zeros(d, np.float32)
+    jw, jh = jo.OWLQN(jg.HingeGradient(), reg_param=reg,
+                      max_num_iterations=20).optimize_with_history((jX, y),
+                                                                   w0)
+    tw, th = to.OWLQN(tg.HingeGradient(), reg_param=reg,
+                      max_num_iterations=20, device=CPU
+                      ).optimize_with_history((tX, y), w0)
+    jh, th = np.asarray(jh, np.float64), np.asarray(th, np.float64)
+    assert len(th) == len(jh) == 21
+    np.testing.assert_allclose(th, jh, rtol=1e-4)
+    sgd = tst.GradientDescent(tg.HingeGradient(), tu.L1Updater(),
+                              device=CPU)
+    sgd.set_step_size(100.0).set_num_iterations(60).set_reg_param(reg) \
+        .set_convergence_tol(0.0)
+    w_sgd = sgd.optimize((tX, y), torch.zeros(d))
+    L_sgd = tor.full_objective(tg.HingeGradient(), tX, y, w_sgd, reg, "l1")
+    for h, w, obj in ((jh, jw, lambda w: jor.full_objective(
+                          jg.HingeGradient(), jX, y, w, reg, "l1")),
+                      (th, tw, lambda w: tor.full_objective(
+                          tg.HingeGradient(), tX, y, w, reg, "l1"))):
+        steps = np.diff(h)
+        assert np.all(steps < 0)
+        np.testing.assert_allclose(steps, steps[0], rtol=1e-3)
+        assert h[-1] > 0.9 * h[0]
+        assert obj(w) > 5 * L_sgd
+
+
 # ---- oracles (tests/test_oracle.py, configs 1-3) ---------------------------
 
 def test_config1_matches_normal_equations_oracle():

@@ -352,11 +352,27 @@ def test_residency_without_superstep_warns_and_falls_back(rng):
 
 
 def test_extra_carried_state_is_a_later_slice():
+    """Extra carried state (the compressed wire's error feedback) arrived
+    with the ingest slice: a seventh ring leaf goes to ``extras_cb``
+    before the window's replay, and ``last_extra`` follows the replayed
+    boundary (the streamed drivers' use is pinned in
+    ``tests/test_torch_streamed.py``)."""
     from tpu_sgd_torch.config import SGDConfig
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        ResidentBookkeeper(SGDConfig(), 4, 2, losses=[], reg_val=0.0,
-                           start_iter=1, extras_cb=lambda *a: None)
+    got = []
+    hooks = ResidentBookkeeper(SGDConfig(num_iterations=6,
+                                         convergence_tol=0.0), 2, 2,
+                               losses=[], reg_val=0.0, start_iter=1,
+                               extras_cb=lambda i0, ex: got.append(
+                                   (i0, ex.copy())))
+    ws = np.arange(8.0, dtype=np.float32).reshape(4, 2)
+    ones = np.ones(4, np.float32)
+    exs = 10 + ws
+    hooks.replay(1, (ws, ones, ones, ones, ones, ones, exs), 2)
+    assert got and got[0][0] == 1
+    np.testing.assert_array_equal(got[0][1], exs)
+    np.testing.assert_array_equal(hooks.last_extra, exs[3])
+    assert hooks.replayed_through == 4 and len(hooks.losses) == 4
 
 
 def test_k1_k8_and_residency_give_equal_histories_events_and_checkpoints(

@@ -177,11 +177,12 @@ def test_config_validation_matches_jax():
 
 
 @pytest.mark.parametrize("setter,args", [
-    ("set_mesh", (object(),)),
-    ("set_host_streaming", (True,)),
-    ("set_gram_options", (None, None, 64)),  # batch_rows: streamed build
-    ("set_streamed_stats", (True,)),
-    ("set_ingest_options", ("bfloat16",)),
+    pytest.param("set_mesh", (object(),), id="set_mesh-args0"),
+    # batch_rows: the streamed build's chunk
+    pytest.param("set_gram_options", (None, None, 64),
+                 id="set_gram_options-args2"),
+    pytest.param("set_streamed_stats", (True,),
+                 id="set_streamed_stats-args3"),
 ])
 def test_later_slice_setters_raise(setter, args):
     opt = tgd.GradientDescent(device="cpu")

@@ -321,6 +321,26 @@ def test_captured_launches_move_to_the_replays():
     ck.reset_launch_counts()
 
 
+def test_csr_launches_by_columns_move_to_the_replays():
+    """The CSR wrappers' counts by right-hand column count follow the
+    same capture and replay rule as their totals."""
+    ck.reset_launch_counts()
+    ck._count_csr(ck.csr_margins, torch.zeros(4))  # an eager launch before
+    with ck.captured_launches() as record:
+        ck._count_csr(ck.csr_margins, torch.zeros(4, 25))
+        ck._count_csr(ck.csr_grad_sum, torch.zeros(4))
+    assert ck.csr_launch_counts(by_columns=True) == {"csr_margins/1": 1}
+    assert record["csr_columns"] == {"csr_margins/25": 1,
+                                     "csr_grad_sum/1": 1}
+    ck.add_replayed_launches(record)
+    ck.add_replayed_launches(record)
+    assert ck.csr_launch_counts(by_columns=True) == {
+        "csr_margins/1": 1, "csr_margins/25": 2, "csr_grad_sum/1": 2}
+    assert ck.csr_launch_counts() == {"csr_margins": 3, "csr_grad_sum": 2}
+    ck.reset_launch_counts()
+    assert ck.csr_launch_counts(by_columns=True) == {}
+
+
 def test_the_cpu_path_captures_nothing(rng):
     X, y = _data(rng, n=300, d=6)
     o = _opt("sliced", iters=20, k=4).set_listener(SGDListener())

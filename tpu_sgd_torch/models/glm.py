@@ -53,6 +53,29 @@ def _single(X) -> bool:
             or (is_sparse(X) and X.dim() == 1) or np.ndim(X) == 1)
 
 
+def _host_numpy(t) -> np.ndarray:
+    """Predictions as a host numpy array (a copy: the chunk's buffers are
+    reused)."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy().copy()
+    return np.asarray(t)
+
+
+def _concat(outs) -> np.ndarray:
+    return np.concatenate(outs) if outs else np.zeros((0,), np.float32)
+
+
+def _csr_rows(X, start: int, stop: int):
+    """Rows ``[start, stop)`` of a CSR tensor as a CSR tensor (views of
+    its entries)."""
+    crow = X.crow_indices()
+    lo, hi = int(crow[start]), int(crow[stop])
+    return torch.sparse_csr_tensor(
+        crow[start:stop + 1] - crow[start], X.col_indices()[lo:hi],
+        X.values()[lo:hi], size=(stop - start, X.shape[1]),
+        check_invariants=False)
+
+
 class GeneralizedLinearModel:
     """Weights + intercept + prediction rule (abstract ``predict_point``).
     ``weights`` is a ``(d,)`` float32 tensor; a numpy array moves to
@@ -89,11 +112,57 @@ class GeneralizedLinearModel:
     def predict_point(self, margin):
         raise NotImplementedError
 
-    def predict_streamed(self, X, batch_rows: int = 1_000_000):
-        raise NotImplementedError(
-            "predict_streamed (chunked scoring of host-resident data) is "
-            "not ported to tpu_sgd_torch yet (ROADMAP A9); use the JAX "
-            "package tpu_sgd for it")
+    def predict_streamed(self, X, batch_rows: int = 1_000_000
+                         ) -> np.ndarray:
+        """Chunked prediction for host-resident data beyond the card's
+        memory: fixed ``batch_rows`` chunks (``io.plan_chunks``) are
+        copied into a pinned ring on the prefetcher's worker and sent to
+        the card on a side stream while the previous chunk is scored, and
+        each chunk's predictions come back to host memory, so the card
+        holds two chunks whatever ``len(X)``.  ``X``: a numpy array, a CPU
+        tensor (bf16 included) or a CPU sparse tensor (CSR row slices,
+        never densified).  Returns a numpy array."""
+        from tpu_sgd_torch.io import (PinnedRing, Prefetcher, plan_chunks,
+                                      ring_slots)
+        from tpu_sgd_torch.io.wire import host_tensor
+
+        if batch_rows <= 0:
+            raise ValueError(f"batch_rows must be positive, got {batch_rows}")
+        if _single(X):
+            return np.asarray(self.predict(X))
+        dev = self.weights.device
+        if is_sparse(X):
+            X = to_csr(X)
+            return _concat([
+                _host_numpy(self.predict(_csr_rows(X, c.start, c.stop)))
+                for c in plan_chunks(X.shape[0], batch_rows)])
+        Xh = host_tensor(X)
+        if not Xh.is_contiguous():
+            Xh = Xh.contiguous()
+        plan = plan_chunks(Xh.shape[0], batch_rows)
+        if plan.n_chunks == 0:
+            return np.zeros((0,), np.float32)
+        depth = 2
+        slots = ring_slots(depth)
+        ring = PinnedRing({"x": ((plan.chunk_rows,) + tuple(Xh.shape[1:]),
+                                 Xh.dtype)}, slots, dev)
+
+        def produce(chunk):
+            slot = chunk.index % slots
+            buf = ring.claim(slot)["x"][:chunk.valid]
+            buf.copy_(Xh[chunk.start:chunk.stop])
+            ring.send(slot, [(ring.dev[slot]["x"][:chunk.valid], buf)])
+            return chunk, slot
+
+        outs = []
+        with Prefetcher(produce, plan, depth=depth) as feed:
+            for chunk, slot in feed:
+                rows = ring.take(slot)["x"][:chunk.valid]
+                out = self.predict_point(self.predict_margin(rows))
+                ring.release(slot)
+                outs.append(_host_numpy(out))
+        ring.drain()
+        return _concat(outs)
 
     def predict(self, X):
         """Predict for one feature vector or a batch, dense or sparse."""

@@ -21,10 +21,10 @@ from __future__ import annotations
 
 import logging
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
-__all__ = ["RuntimeCounters", "inc", "enable", "disable", "is_enabled",
-           "snapshot", "reset", "deltas"]
+__all__ = ["RuntimeCounters", "inc", "record_wire", "wire_ratios",
+           "enable", "disable", "is_enabled", "snapshot", "reset", "deltas"]
 
 logger = logging.getLogger("tpu_sgd_torch.obs")
 
@@ -89,6 +89,45 @@ def inc(name: str, n: int = 1, nbytes: int = 0) -> None:
     if not _ENABLED:
         return
     _GLOBAL.inc(name, n, nbytes)
+
+
+def record_wire(fmt: str, logical_nbytes: int, physical_nbytes: int) -> None:
+    """Tag one wire transfer by FORMAT (``dense-f32`` / ``bf16`` / ``csr``
+    / ``topk``): ``physical`` is what actually crosses the link, ``logical``
+    the dense-f32-equivalent payload it represents.  Counter names:
+    ``<subsystem>.wire.<fmt>`` carries the physical bytes,
+    ``<subsystem>.wire.<fmt>.logical`` the logical bytes, both with one
+    ``n`` per transfer (``<subsystem>`` is the calling thread's span tag,
+    ``obs.spans.current_subsystem``).  Same disabled-mode cost contract as
+    :func:`inc`."""
+    if not _ENABLED:
+        return
+    from tpu_sgd_torch.obs.spans import current_subsystem
+
+    base = f"{current_subsystem()}.wire.{fmt}"
+    _GLOBAL.inc(base, nbytes=int(physical_nbytes))
+    _GLOBAL.inc(base + ".logical", nbytes=int(logical_nbytes))
+
+
+def wire_ratios(counts: Optional[Dict[str, Dict[str, int]]] = None
+                ) -> Dict[str, Dict[str, float]]:
+    """Per-stage wire compression table from a counter snapshot:
+    ``{"<subsystem>.wire.<fmt>": {n, physical_bytes, logical_bytes,
+    ratio}}`` with ``ratio = logical / physical``."""
+    counts = snapshot() if counts is None else counts
+    out: Dict[str, Dict[str, float]] = {}
+    for name, c in counts.items():
+        if ".wire." not in name or name.endswith(".logical"):
+            continue
+        logical = counts.get(name + ".logical", {"bytes": 0})["bytes"]
+        phys = c["bytes"]
+        out[name] = {
+            "n": c["n"],
+            "physical_bytes": phys,
+            "logical_bytes": logical,
+            "ratio": (logical / phys) if phys else float("inf"),
+        }
+    return out
 
 
 def snapshot() -> Dict[str, Dict[str, int]]:

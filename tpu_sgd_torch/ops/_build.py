@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-SOURCES = ("fused_sums", "window_sums")
+SOURCES = ("fused_sums", "window_sums", "csr_products")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

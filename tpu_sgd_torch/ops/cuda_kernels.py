@@ -20,6 +20,14 @@ TPU the two window kernels differed in how they used the matrix unit; on
 Hopper both are one dot product and one FMA per element, so they launch
 the same kernel and keep separate launch counts.
 
+Sparse features have a kernel of their own, ``csrc/csr_products.cu``:
+:func:`csr_margins` and :func:`csr_grad_sum` compute a CSR matrix times a
+vector (or a few columns) with a fixed order of additions and no float
+atomics, so two runs give the same bits.  It is not a port of a Pallas
+kernel (the JAX package leaves its BCOO products to XLA); it is the one
+sparse product of the card's paths (``ops/gradients.py`` ``margins_of`` and
+``grad_sum_of``).
+
 Each wrapper takes its plain PyTorch version (``*_plain``, the same
 arithmetic: ``margins_of`` -> pointwise -> ``grad_sum_of``) when X lies on
 the CPU, and launches a kernel when X lies on a CUDA device.  There is no
@@ -516,27 +524,193 @@ def fused_window_sums_vpu(
                    num_tiles, tile_m, valid)
 
 
+# -- the CSR products (csrc/csr_products.cu) -----------------------------------
+
+#: most right-hand columns the CSR kernel takes (the line searches' 25 and
+#: 30 trial points and the multinomial classes are far below it)
+CSR_MAX_COLUMNS = 1024
+
+
+def _csr_library() -> ctypes.CDLL:
+    lib = _build.load("csr_products")
+    fn = lib.tsgd_csr_matmul
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [i, p, p, p, p, i, p, ll, ll, p, p, p, p]
+        fn.restype = ctypes.c_int
+        lib.tsgd_csr_segment_entries.argtypes = []
+        lib.tsgd_csr_segment_entries.restype = ctypes.c_longlong
+        lib.tsgd_csr_error_string.argtypes = [ctypes.c_int]
+        lib.tsgd_csr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def csr_matmul_plain(X: Tensor, rhs: Tensor,
+                     mask: Optional[Tensor] = None) -> Tensor:
+    """Plain PyTorch ``X @ rhs`` of a CSR ``X`` at the accumulation dtype
+    (the values promote, as the JAX package's BCOO products promote them),
+    with the rows that ``mask`` drops set to 0."""
+    acc = acc_dtype(matmul_dtype(X))
+    out = X.to(acc) @ rhs.to(acc)
+    if mask is not None:
+        keep = mask.reshape((-1,) + (1,) * (out.dim() - 1))
+        out = torch.where(keep, out, torch.zeros((), dtype=out.dtype))
+    return out
+
+
+def _csr_operands(X: Tensor, rhs: Tensor, mask: Optional[Tensor]):
+    """The CSR kernel's shape rule; raises on anything outside it: X a
+    CSR tensor with float32 values and int32 or int64 indices, ``rhs``
+    on X's device with X's column count as its first dimension and at
+    most ``CSR_MAX_COLUMNS`` columns (taken as float32), ``mask`` bool
+    with one entry a row."""
+    if X.layout != torch.sparse_csr or X.dim() != 2:
+        raise ValueError(
+            f"the CSR kernel takes a 2-D sparse CSR X, got {X.layout} "
+            f"with shape {tuple(X.shape)}")
+    rows, k = X.shape
+    vals = X.values()
+    if vals.dtype != torch.float32:
+        raise TypeError(
+            f"the CSR kernel takes float32 values, got {vals.dtype}")
+    crow, col = X.crow_indices(), X.col_indices()
+    if crow.dtype != col.dtype or crow.dtype not in (torch.int32,
+                                                     torch.int64):
+        raise TypeError(
+            f"the CSR kernel takes int32 or int64 indices, got "
+            f"{crow.dtype} / {col.dtype}")
+    if rhs.device != X.device:
+        raise ValueError(f"rhs is on {rhs.device}, X on {X.device}")
+    if rhs.dim() not in (1, 2) or rhs.shape[0] != k:
+        raise ValueError(
+            f"rhs must have shape ({k},) or ({k}, T), got "
+            f"{tuple(rhs.shape)}")
+    T = 1 if rhs.dim() == 1 else rhs.shape[1]
+    if not 1 <= T <= CSR_MAX_COLUMNS:
+        raise ValueError(
+            f"the CSR kernel takes 1 to {CSR_MAX_COLUMNS} right-hand "
+            f"columns, got {T}")
+    if mask is not None:
+        if mask.dtype != torch.bool or mask.shape != (rows,) \
+                or mask.device != X.device:
+            raise TypeError(
+                f"mask must be a bool tensor of shape ({rows},) on "
+                f"{X.device}, got {mask.dtype} {tuple(mask.shape)} on "
+                f"{mask.device}")
+    return crow, col, vals.contiguous(), \
+        rhs.to(torch.float32).contiguous(), T
+
+
+def _csr_launch(X: Tensor, rhs: Tensor, mask: Optional[Tensor]) -> Tensor:
+    """Both phases of ``csrc/csr_products.cu`` on the current stream;
+    returns the ``(rows,)`` or ``(rows, T)`` float32 product.  Does not
+    synchronise: the segment numbering is made on the card."""
+    crow, col, vals, rhs_c, T = _csr_operands(X, rhs, mask)
+    lib = _csr_library()
+    seg = int(lib.tsgd_csr_segment_entries())
+    rows = X.shape[0]
+    dev = X.device
+    lens = torch.diff(crow.to(torch.int64))
+    nseg = torch.div(lens + (seg - 1), seg, rounding_mode="floor")
+    if mask is not None:
+        nseg = nseg * mask
+    prefix = torch.zeros((rows + 1,), dtype=torch.int64, device=dev)
+    torch.cumsum(nseg, 0, out=prefix[1:])
+    # every row's segments: at most one per row plus one per full segment
+    max_segs = rows + X._nnz() // seg + 1
+    seg_row = torch.empty((max_segs,), dtype=torch.int64, device=dev)
+    partial = torch.empty((max_segs, T), dtype=torch.float32, device=dev)
+    out = torch.empty((rows, T) if rhs.dim() == 2 else (rows,),
+                      dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tsgd_csr_matmul(
+            crow.element_size(), crow.data_ptr(), col.data_ptr(),
+            vals.data_ptr(), rhs_c.data_ptr(), T, prefix.data_ptr(), rows,
+            max_segs, seg_row.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            stream)
+    if rc != 0:
+        raise RuntimeError(
+            "csr_products kernel launch failed: "
+            f"{lib.tsgd_csr_error_string(rc).decode()} (cudaError {rc})")
+    return out
+
+
+def csr_margins(X: Tensor, rhs: Tensor,
+                mask: Optional[Tensor] = None) -> Tensor:
+    """Margins ``X @ rhs`` of a CSR ``X`` (``rhs`` the weights ``(d,)``, or
+    ``Wᵀ`` ``(d, T)``), float32; a row that ``mask`` drops is 0 and its
+    entries are never read.  On a CUDA X, one launch of the deterministic
+    CSR kernel (``csrc/csr_products.cu``, shape rule in
+    :func:`_csr_operands`); on a CPU X, :func:`csr_matmul_plain`."""
+    if not X.is_cuda:
+        return csr_matmul_plain(X, rhs, mask)
+    out = _csr_launch(X, rhs, mask)
+    _count_csr(csr_margins, rhs)
+    return out
+
+
+def csr_grad_sum(Xt: Tensor, coeff: Tensor) -> Tensor:
+    """The gradient sum ``Xᵀ @ coeff`` from X's transposed CSR ``Xt``
+    (``ops/sparse.py`` ``transpose_csr``), ``(d,)`` or ``(d, T)`` float32.
+    On a CUDA ``Xt``, one launch of the CSR kernel; on the CPU, the plain
+    version."""
+    if not Xt.is_cuda:
+        return csr_matmul_plain(Xt, coeff)
+    out = _csr_launch(Xt, coeff, None)
+    _count_csr(csr_grad_sum, coeff)
+    return out
+
+
+def _count_csr(fn, rhs: Tensor) -> None:
+    """One launch of a CSR wrapper, counted in all and by its right-hand
+    column count."""
+    fn.launches += 1
+    key = f"{fn.__name__}/{1 if rhs.dim() == 1 else rhs.shape[1]}"
+    CSR_COLUMN_LAUNCHES[key] = CSR_COLUMN_LAUNCHES.get(key, 0) + 1
+
+
 fused_gradient_sums.launches = 0
 fused_window_sums.launches = 0
 fused_window_sums_vpu.launches = 0
+csr_margins.launches = 0
+csr_grad_sum.launches = 0
 WRAPPERS = (fused_gradient_sums, fused_window_sums, fused_window_sums_vpu)
+#: the CSR kernel's wrappers (one source, ``csrc/csr_products.cu``),
+#: counted apart from the dense kernels' so that a count of the dense
+#: path stays exactly theirs
+CSR_WRAPPERS = (csr_margins, csr_grad_sum)
 #: launches by CUDA source (csrc/<name>.cu), counted where each launches
 KERNEL_LAUNCHES = {"fused_sums": 0, "window_sums": 0}
+#: the CSR wrappers' launches by right-hand column count T, keyed
+#: ``"<wrapper>/<T>"`` (OWL-QN's line-search sweep is ``"csr_margins/30"``)
+CSR_COLUMN_LAUNCHES = {}
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS:
+    for fn in WRAPPERS + CSR_WRAPPERS:
         fn.launches = 0
     for name in KERNEL_LAUNCHES:
         KERNEL_LAUNCHES[name] = 0
+    CSR_COLUMN_LAUNCHES.clear()
 
 
 def launch_counts() -> dict:
+    """Launches of the dense kernels' wrappers since the last reset."""
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
+def csr_launch_counts(by_columns: bool = False) -> dict:
+    """Launches of the CSR kernel's wrappers since the last reset; by
+    wrapper and right-hand column count with ``by_columns``."""
+    if by_columns:
+        return dict(CSR_COLUMN_LAUNCHES)
+    return {fn.__name__: fn.launches for fn in CSR_WRAPPERS}
+
+
 def kernel_launch_counts() -> dict:
-    """Launches by CUDA source since the last reset: which kernel ran."""
+    """Launches of the dense sources since the last reset: which kernel
+    ran (the CSR source's are :func:`csr_launch_counts`)."""
     return dict(KERNEL_LAUNCHES)
 
 
@@ -545,31 +719,43 @@ def captured_launches():
     """Bracket a CUDA graph capture: the wrappers run and count as they
     would launch, but a capture launches nothing.  Yields a dict that,
     on exit, holds the launches the graph recorded (``{"wrappers": {...},
-    "sources": {...}}``), and takes them back out of the counts; each
-    replay adds them again (:func:`add_replayed_launches`).  So a count
-    stays one per kernel the card runs."""
-    before = launch_counts(), kernel_launch_counts()
+    "sources": {...}, "csr_columns": {...}}``), and takes them back out
+    of the counts; each replay adds them again
+    (:func:`add_replayed_launches`).  So a count stays one per kernel the
+    card runs."""
+    def counts():
+        return ({fn.__name__: fn.launches for fn in WRAPPERS + CSR_WRAPPERS},
+                kernel_launch_counts(), dict(CSR_COLUMN_LAUNCHES))
+
+    before = counts()
     record = {}
     try:
         yield record
     finally:
-        after = launch_counts(), kernel_launch_counts()
+        after = counts()
         record["wrappers"] = {k: after[0][k] - before[0][k]
                               for k in after[0]}
         record["sources"] = {k: after[1][k] - before[1][k]
                              for k in after[1]}
-        for fn in WRAPPERS:
+        record["csr_columns"] = {k: n - before[2].get(k, 0)
+                                 for k, n in after[2].items()
+                                 if n != before[2].get(k, 0)}
+        for fn in WRAPPERS + CSR_WRAPPERS:
             fn.launches = before[0][fn.__name__]
         KERNEL_LAUNCHES.update(before[1])
+        CSR_COLUMN_LAUNCHES.clear()
+        CSR_COLUMN_LAUNCHES.update(before[2])
 
 
 def add_replayed_launches(record: dict) -> None:
     """One replay of a graph whose capture recorded ``record``: the
     kernels it launches, counted by wrapper and by source."""
-    for fn in WRAPPERS:
+    for fn in WRAPPERS + CSR_WRAPPERS:
         fn.launches += record["wrappers"][fn.__name__]
     for name, n in record["sources"].items():
         KERNEL_LAUNCHES[name] += n
+    for key, n in record["csr_columns"].items():
+        CSR_COLUMN_LAUNCHES[key] = CSR_COLUMN_LAUNCHES.get(key, 0) + n
 
 
 class FusedGradient(Gradient):

@@ -14,10 +14,14 @@ kernel when dense data lies on a CUDA device (``ops/cuda_kernels.py``),
 and to its plain PyTorch version when it lies on the CPU.  A subclass with
 a rule of its own (``family = None``) always takes the plain version.
 
-Sparse features (any non-strided layout, ``ops/sparse.py``) take neither:
-as in the JAX package, where BCOO products lower to gather and segment-sum
-and never reach a Pallas kernel, both products are torch CSR x vector
-products at the accumulation dtype, on the CPU or the card alike.
+Sparse features (any non-strided layout, ``ops/sparse.py``) take neither
+fused kernel: as in the JAX package, where BCOO products lower to gather
+and segment-sum and never reach a Pallas kernel, the margins and the
+gradient are two CSR products.  On the card both go to the deterministic
+CSR kernel (``cuda_kernels.csr_margins`` / ``csr_grad_sum``, shape rule:
+CSR with float32 values and int32 or int64 indices, a right-hand side of 1
+to ``CSR_MAX_COLUMNS`` columns; anything else raises), on the CPU to its
+plain twin, torch's CSR product at the accumulation dtype.
 
 Matrix weights (the line search's ``(T, d)`` stack of trial points, the
 multinomial ``(K-1, d)`` class rows) take ``torch.matmul``, as the JAX
@@ -100,7 +104,8 @@ def row_chunks(X: Tensor, per_row: int):
     return [(s, min(n, s + rows)) for s in range(0, max(n, 1), rows)]
 
 
-def margins_of(X: Tensor, weights: Tensor) -> Tensor:
+def margins_of(X: Tensor, weights: Tensor,
+               mask: Optional[Tensor] = None) -> Tensor:
     """``X @ w`` (or ``X @ Wᵀ`` for matrix trial or class weights) with
     the weights rounded to X's dtype and an f32 (or wider) result.  A
     vector ``w`` upcasts both operands (a torch bf16 matmul would return
@@ -111,12 +116,18 @@ def margins_of(X: Tensor, weights: Tensor) -> Tensor:
 
     Sparse ``X`` computes at the accumulation dtype, as the JAX package
     does for BCOO: int one-hot values promote instead of truncating
-    ``w``."""
+    ``w``.  It goes to ``cuda_kernels.csr_margins``: the CSR kernel on the
+    card, its plain twin on the CPU; ``mask`` (sparse X only) sets the
+    margins of the rows it drops to 0, and the kernel never reads them."""
     mm = matmul_dtype(X)
     acc = acc_dtype(mm)
     if is_sparse(X):
+        from tpu_sgd_torch.ops import cuda_kernels
+
         rhs = weights.T.contiguous() if weights.dim() == 2 else weights
-        return to_csr(X).to(acc) @ rhs.to(acc)
+        return cuda_kernels.csr_margins(to_csr(X), rhs, mask)
+    if mask is not None:
+        raise ValueError("margins_of takes a row mask for sparse X only")
     if weights.dim() == 2:
         # computed as W @ Xᵀ and returned transposed: the (T, rows) product
         # has aligned rows whatever T is; X @ Wᵀ with T = 25 or 225 ran
@@ -133,13 +144,16 @@ def grad_sum_of(coeff: Tensor, X: Tensor, Xt: Optional[Tensor] = None
     accumulation, as :func:`margins_of`.  For sparse ``X`` it is ``Xt @
     coeff`` at the accumulation dtype, ``Xt`` the transposed CSR
     (:func:`~tpu_sgd_torch.ops.sparse.transpose_csr`, built here when the
-    caller holds none)."""
+    caller holds none), through ``cuda_kernels.csr_grad_sum`` (the CSR
+    kernel on the card, its plain twin on the CPU)."""
     mm = matmul_dtype(X)
     acc = acc_dtype(mm)
     if is_sparse(X):
+        from tpu_sgd_torch.ops import cuda_kernels
+
         if Xt is None:
             Xt = transpose_csr(to_csr(X))
-        out = Xt.to(acc) @ coeff.to(acc)
+        out = cuda_kernels.csr_grad_sum(Xt, coeff.contiguous())
         return out.T if coeff.dim() == 2 else out
     if coeff.dim() == 2:
         return mm_acc(coeff.T.to(mm), X.to(mm))
@@ -158,7 +172,7 @@ def sparse_batch_sums(pointwise, X, y, weights, mask=None, Xt=None):
     """``(grad_sum, loss_sum, count)`` of sparse ``X``: the JAX
     ``Gradient.batch_sums`` arithmetic with CSR products; a ``mask`` zeroes
     the coefficients and losses of the rows it drops."""
-    margins = margins_of(X, weights)
+    margins = margins_of(X, weights, mask)
     coeff, losses = pointwise(margins, y.to(margins.dtype))
     if mask is not None:
         m = mask.to(margins.dtype)

@@ -325,10 +325,11 @@ class GramLeastSquaresGradient(LeastSquaresGradient):
     def build_streamed(cls, X, y, block_rows: int = DEFAULT_BLOCK_ROWS,
                        **kwargs):
         """Statistics of a host-resident dataset too large for the card:
-        needs the ingest pipeline (ROADMAP A9)."""
-        from tpu_sgd_torch.optimize.gradient_descent import _not_ported
+        the streamed statistics (ROADMAP A9, second half)."""
+        from tpu_sgd_torch.optimize.gradient_descent import (A9_REST,
+                                                             _not_ported)
 
-        _not_ported("GramLeastSquaresGradient.build_streamed", "A9")
+        _not_ported("GramLeastSquaresGradient.build_streamed", A9_REST)
 
     @staticmethod
     def _resolve_stats_dtype(data_dtype, stats_dtype) -> torch.dtype:

@@ -94,6 +94,27 @@ def transpose_csr(X: Tensor) -> Tensor:
                 (d, n))
 
 
+def transpose_csr_into(crow: Tensor, col: Tensor, vals: Tensor, d: int,
+                       out_crow: Tensor, out_row: Tensor,
+                       out_vals: Tensor) -> None:
+    """:func:`transpose_csr` of the CSR components ``(crow, col, vals)``
+    (``d`` columns) into fixed buffers (``out_crow (d + 1,)``, ``out_row``
+    and ``out_vals`` of the entry count), with no host read: the streamed
+    sparse feed builds each batch's transposed copy on the card this way,
+    outside the captured step, into the slot the step reads.  The same
+    stable order as :func:`transpose_csr`."""
+    order = torch.argsort(col, stable=True)
+    rows = torch.repeat_interleave(
+        torch.arange(crow.numel() - 1, dtype=col.dtype, device=col.device),
+        torch.diff(crow), output_size=col.numel())
+    sorted_col = col[order]
+    out_row.copy_(rows[order])
+    out_vals.copy_(vals[order])
+    out_crow.copy_(torch.searchsorted(
+        sorted_col, torch.arange(d + 1, dtype=col.dtype, device=col.device),
+        out_int32=col.dtype == torch.int32))
+
+
 def csr_bytes(X: Tensor) -> int:
     """Bytes of a CSR tensor's three arrays."""
     return sum(t.numel() * t.element_size()

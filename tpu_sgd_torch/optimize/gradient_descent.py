@@ -279,6 +279,72 @@ def _make_update(gradient, updater, cfg):
     return update
 
 
+def _make_compressed_update(gradient, updater, cfg, topk_frac: float):
+    """:func:`_make_update` over the COMPRESSED wire (top-k with error
+    feedback, the JAX package's single-device ``make_compressed_step``):
+    ``update(weights, ef, X, y, i, reg_val, sample, valid, Xt) -> (new_w,
+    new_ef, loss_i, new_reg, count)``.  The normalized gradient is folded
+    into the accumulator ``ef``; the ``k = topk_nnz(d, frac)`` entries of
+    largest magnitude (``io.sparse_wire.topk_indices``: the lower index
+    wins a tie, every run alike) are the applied update and leave the
+    accumulator, the rest stays in it.  An empty sampled batch leaves the
+    weights AND the accumulator untouched."""
+    from tpu_sgd_torch.io.sparse_wire import topk_indices, topk_nnz
+
+    local_sums = _make_local_sums(gradient, cfg)
+
+    def update(weights, ef, X, y, i, reg_val, sample, valid=None, Xt=None):
+        g, l, c = local_sums(weights, X, y, sample, valid, Xt)
+        has_batch = c > 0
+        safe_c = torch.clamp(c, min=1.0)
+        loss_i = l / safe_c + reg_val
+        acc = ef + (g / safe_c).to(ef.dtype)
+        k = topk_nnz(acc.shape[-1], topk_frac)  # fixed: one shape a run
+        sel = torch.zeros(acc.shape, dtype=torch.bool, device=acc.device)
+        sel.index_fill_(0, topk_indices(acc, k), True)
+        zero = torch.zeros((), dtype=acc.dtype, device=acc.device)
+        ghat = torch.where(sel, acc, zero)
+        new_ef = torch.where(sel, zero, acc)
+        new_w, new_reg = updater.compute(
+            weights, ghat.to(weights.dtype), cfg.step_size, i, cfg.reg_param)
+        new_w = torch.where(has_batch, new_w, weights)
+        new_reg = torch.where(has_batch, new_reg, reg_val)
+        new_ef = torch.where(has_batch, new_ef, ef)
+        return new_w, new_ef, loss_i, new_reg, c
+
+    return update
+
+
+def make_compressed_step(gradient: Gradient, updater: Updater,
+                         config: SGDConfig, topk_frac: float):
+    """One SGD iteration over the compressed wire, single device:
+    ``step(weights, ef, X, y, i, reg_val, valid, Xt) -> (new_w, new_ef,
+    loss_i, new_reg_val, count)``.  Sampling and the batch sums are
+    :func:`make_step`'s; the applied update is the top-k of the
+    error-feedback accumulator ``ef`` plus the normalized gradient (see
+    :func:`_make_compressed_update`).  ``ef`` is optimizer state: the
+    caller carries it, checkpoints it (``extras={"ef": ...}``) and restores
+    it on resume."""
+    cfg = config
+    update = _make_compressed_update(gradient, updater, cfg, topk_frac)
+    samplers = {}
+
+    def step(weights, ef, X, y, i, reg_val, valid=None, Xt=None):
+        key = (X.shape[0], str(X.device))
+        if key not in samplers:
+            samplers[key] = _make_sampler(cfg, X)
+        sampler = samplers[key]
+        if not isinstance(i, Tensor):
+            if sampler is not None:
+                sampler.seek(i)
+            i = torch.full((1,), int(i), dtype=torch.int64,
+                           device=weights.device)
+        sample = None if sampler is None else sampler.draw()
+        return update(weights, ef, X, y, i, reg_val, sample, valid, Xt)
+
+    return step
+
+
 def make_step(gradient: Gradient, updater: Updater, config: SGDConfig):
     """One SGD iteration: ``step(weights, X, y, i, reg_val, valid, Xt) ->
     (new_weights, loss_i, new_reg_val, count)``; ``loss_i`` already
@@ -317,10 +383,15 @@ class _RunState:
     iteration counter, the convergence flag, the record count and the
     loss history; for the observed drivers also ``ys``, one row a step of
     a block (``w``, then loss, reg value, count, ``‖w_t − w_{t−1}‖``,
-    ``‖w_t‖``, all float32: the JAX package's ``pack_step_ys``)."""
+    ``‖w_t‖``, all float32: the JAX package's ``pack_step_ys``),
+    followed by the step's extra carried state when the run carries one
+    (``extra``: the compressed wire's error-feedback accumulator)."""
 
-    def __init__(self, w0: Tensor, num_iterations: int, ys_rows: int = 0):
+    def __init__(self, w0: Tensor, num_iterations: int, ys_rows: int = 0,
+                 extra: Optional[Tensor] = None):
         dev = w0.device
+        self.extra = None if extra is None else torch.empty_like(extra)
+        extra_cols = 0 if extra is None else extra.numel()
         self.w = torch.empty_like(w0)
         self.reg = torch.zeros((), dtype=torch.float32, device=dev)
         self.i = torch.ones((1,), dtype=torch.int64, device=dev)
@@ -328,15 +399,19 @@ class _RunState:
         self.n_rec = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.losses = torch.full((num_iterations,), float("nan"),
                                  dtype=torch.float32, device=dev)
-        self.ys = (torch.zeros((ys_rows, w0.numel() + 5),
+        self.ys = (torch.zeros((ys_rows, w0.numel() + 5 + extra_cols),
                                dtype=torch.float32, device=dev)
                    if ys_rows else None)
 
-    def reset(self, w0: Tensor, reg_val, i0: int) -> None:
+    def reset(self, w0: Tensor, reg_val, i0: int, extra0=None) -> None:
         """Start a run at iteration ``i0`` from ``w0`` and ``reg_val`` (a
-        tensor or a host float), in place: a captured graph keeps
-        reading these buffers."""
+        tensor or a host float), and ``extra0`` where the run carries
+        extra state, in place: a captured graph keeps reading these
+        buffers."""
         self.w.copy_(w0)
+        if self.extra is not None:
+            self.extra.copy_(torch.as_tensor(extra0, dtype=self.extra.dtype)
+                             .reshape(self.extra.shape))
         if isinstance(reg_val, Tensor):
             self.reg.copy_(reg_val)
         else:
@@ -348,10 +423,14 @@ class _RunState:
 
     def ys_leaves(self, rows: np.ndarray):
         """Host ys rows as the JAX package's six leaves ``(ws, losses,
-        regs, counts, delta_norms, weight_norms)``."""
+        regs, counts, delta_norms, weight_norms)``, and a seventh, the
+        per-step extra state, when the run carries one."""
         d = self.w.numel()
-        return (rows[:, :d], rows[:, d], rows[:, d + 1], rows[:, d + 2],
-                rows[:, d + 3], rows[:, d + 4])
+        leaves = (rows[:, :d], rows[:, d], rows[:, d + 1], rows[:, d + 2],
+                  rows[:, d + 3], rows[:, d + 4])
+        if self.extra is not None:
+            leaves += (rows[:, d + 5:],)
+        return leaves
 
 
 def _record_step(st: _RunState, rec, active, loss_i, w, new_w, reg,
@@ -373,7 +452,8 @@ def _record_step(st: _RunState, rec, active, loss_i, w, new_w, reg,
     return torch.where(active, new_w, w), torch.where(active, new_reg, reg)
 
 
-def _make_block(gradient, updater, cfg, *, history: bool):
+def _make_block(gradient, updater, cfg, *, history: bool,
+                stacked: bool = False, topk_frac: Optional[float] = None):
     """``block(state, data, sampler, steps)``: ``steps`` consecutive
     iterations from ``state`` (a :class:`_RunState`), in place.
 
@@ -382,31 +462,55 @@ def _make_block(gradient, updater, cfg, *, history: bool):
     flag is set the rest of the block is masked to no-ops, so the weights,
     the history and the count freeze at the true iteration.
     ``history=False`` is the observed drivers' block: each iteration
-    writes its ys row, and the host decides convergence from the rows."""
-    update = _make_update(gradient, updater, cfg)
+    writes its ys row, and the host decides convergence from the rows.
+
+    ``stacked=True`` is the host-streamed superstep's block: ``data``
+    holds one batch a step (``X[t]``, ``y[t]``, ``valid[t]``, ``Xt[t]``:
+    a ``(K, rows, d)`` superchunk, or lists of sparse batches).
+    ``topk_frac`` runs the compressed-wire update, its error-feedback
+    accumulator carried in ``state.extra`` and written into each ys
+    row."""
+    if topk_frac is None:
+        update = _make_update(gradient, updater, cfg)
+    else:
+        cupdate = _make_compressed_update(gradient, updater, cfg, topk_frac)
     tol = cfg.convergence_tol
 
     def block(st: _RunState, data, sampler, steps: int) -> None:
         X, y, valid, Xt = data
-        w, reg = st.w, st.reg
+        w, reg, ef = st.w, st.reg, st.extra
         for t in range(steps):
+            if stacked:
+                Xb, yb, vb = X[t], y[t], valid[t]
+                Xtb = None if Xt is None else Xt[t]
+            else:
+                Xb, yb, vb, Xtb = X, y, valid, Xt
             sample = None if sampler is None else sampler.draw()
-            new_w, loss_i, new_reg, c = update(w, X, y, st.i, reg, sample,
-                                               valid, Xt)
+            if topk_frac is None:
+                new_w, loss_i, new_reg, c = update(w, Xb, yb, st.i, reg,
+                                                   sample, vb, Xtb)
+            else:
+                new_w, ef, loss_i, new_reg, c = cupdate(
+                    w, ef, Xb, yb, st.i, reg, sample, vb, Xtb)
             if history:
                 active = ~st.conv
                 w, reg = _record_step(st, active & (c > 0), active, loss_i,
                                       w, new_w, reg, new_reg, tol)
             else:
                 f32 = torch.float32
-                st.ys[t].copy_(torch.cat([new_w.reshape(-1), torch.stack([
+                row = [new_w.reshape(-1), torch.stack([
                     loss_i.to(f32), new_reg.to(f32), c.to(f32),
                     torch.linalg.vector_norm(new_w - w),
-                    torch.linalg.vector_norm(new_w)])]))
+                    torch.linalg.vector_norm(new_w)])]
+                if topk_frac is not None:
+                    row.append(ef.reshape(-1).to(f32))
+                st.ys[t].copy_(torch.cat(row))
                 w, reg = new_w, new_reg
             st.i += 1
         st.w.copy_(w)
         st.reg.copy_(reg)
+        if topk_frac is not None:
+            st.extra.copy_(ef)
 
     return block
 
@@ -827,6 +931,13 @@ def _pinned_like(t: Tensor) -> Optional[Tensor]:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
 
 
+#: the roadmap item of what is still to port from the ingest slice: the
+#: streamed statistics and quasi-Newton feeds (the host-streamed SGD half
+#: of A9 is ported)
+A9_REST = ("A9, second half: the streamed statistics and quasi-Newton "
+           "feeds")
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to tpu_sgd_torch yet (ROADMAP {item}); use "
@@ -850,7 +961,7 @@ def _apply_gram_knobs(optimizer, batch_rows=None, **knobs) -> None:
     ``batch_rows`` sizes the streamed build's chunk, which is not ported."""
     if batch_rows is not None:
         _not_ported("set_gram_options(batch_rows=...), the streamed "
-                    "build's chunk cap,", "A9")
+                    "build's chunk cap,", A9_REST)
     provided = {}
     for name, val in knobs.items():
         if val is None:
@@ -900,8 +1011,15 @@ class GradientDescent(Optimizer):
         self.superstep = 1
         self.resident_cadence = 0
         self._stop_signal = None
-        #: the retry policy of the resident window hop (the JAX package
-        #: sets it through ``set_ingest_options(retry=...)``, ROADMAP A9)
+        #: host streaming (``set_host_streaming``) and the ingest knobs
+        #: (``set_ingest_options``); the retry policy also heals the
+        #: resident window hop
+        self.host_streaming = False
+        self.streaming_resident_rows = 0
+        self.ingest_wire_dtype = None
+        self.ingest_prefetch_depth = 2
+        self.ingest_pipeline = True
+        self.ingest_wire_compress = None
         self.ingest_retry_policy = None
         #: the last run's loop, ``(key, run)`` (``make_run`` or the
         #: chunked gram driver), and the observed driver's block runner,
@@ -964,7 +1082,21 @@ class GradientDescent(Optimizer):
         _not_ported("set_mesh (data parallelism)", "A5")
 
     def set_host_streaming(self, flag: bool = True, resident_rows: int = 0):
-        _not_ported("set_host_streaming", "A9")
+        """Keep the dataset in host memory and stream each iteration's
+        sampled batch to the card (``optimize/streamed.py``; sparse X:
+        ``optimize/streamed_sparse.py``): for data that does not fit, or
+        does not stay, on the card.  The batch is drawn on the host with
+        the JAX package's numpy rule, assembled into a pinned slot and
+        copied on a side stream while the card runs the previous step.
+
+        ``resident_rows``: rows ``[0, resident_rows)`` are placed on the
+        card once, and a sliced window inside them is copied on the card
+        instead of over PCIe (sliced sampling only); the window sequence,
+        and so the result, is unchanged.  Knobs: ``set_ingest_options``,
+        ``set_superstep``, ``set_residency``."""
+        self.host_streaming = bool(flag)
+        self.streaming_resident_rows = int(resident_rows)
+        return self
 
     def set_sufficient_stats(self, flag: bool = True):
         """Run least squares from precomputed block-prefix Gram statistics
@@ -1009,11 +1141,59 @@ class GradientDescent(Optimizer):
 
     def set_streamed_stats(self, flag: bool = True, block_rows: int = None):
         _not_ported("set_streamed_stats (statistics streamed from the "
-                    "host)", "A9")
+                    "host)", A9_REST)
 
     def set_ingest_options(self, wire_dtype=None, prefetch_depth=None,
                            pipeline=None, retry=None, wire_compress=None):
-        _not_ported("set_ingest_options (the host ingest pipeline)", "A9")
+        """Knobs of the host->device ingest pipeline (``tpu_sgd_torch/io``)
+        of ``set_host_streaming``; every argument is validated before any
+        is applied, and ``None`` leaves a knob as it is.
+
+        ``wire_dtype="bfloat16"`` casts each batch on the host and moves
+        half the bytes (``io/wire.py`` says when that is safe).
+        ``prefetch_depth`` caps the batches staged at once, the one being
+        consumed included (2 = double buffer; 0 or 1 assemble inline,
+        bitwise the same run).  ``pipeline=False`` is the plain feed: no
+        lookahead, no wire cast, no compression.  ``retry`` is a
+        ``tpu_sgd_torch.reliability.RetryPolicy`` that re-runs a failed
+        batch assembly or transfer (and the resident window hop); a
+        healed run is bitwise the clean one; ``False`` clears it.
+        ``wire_compress="topk:<frac>"``: the top-k error-feedback update
+        (its accumulator is optimizer state, checkpointed as
+        ``extras={"ef": ...}``); ``False`` clears it."""
+        from tpu_sgd_torch.io.sparse_wire import parse_wire_compress
+        from tpu_sgd_torch.io.wire import resolve_wire_dtype
+        from tpu_sgd_torch.reliability.retry import RetryPolicy
+
+        provided = {}
+        if wire_compress is not None:
+            if wire_compress is False:
+                provided["ingest_wire_compress"] = None
+            else:
+                parse_wire_compress(wire_compress)
+                provided["ingest_wire_compress"] = str(wire_compress)
+        if retry is not None:
+            if retry is False:
+                provided["ingest_retry_policy"] = None
+            elif not isinstance(retry, RetryPolicy):
+                raise TypeError(
+                    f"retry must be a RetryPolicy or False, got "
+                    f"{type(retry).__name__}")
+            else:
+                provided["ingest_retry_policy"] = retry
+        if wire_dtype is not None:
+            resolve_wire_dtype(wire_dtype, "float32")  # validate the name
+            provided["ingest_wire_dtype"] = str(wire_dtype)
+        if prefetch_depth is not None:
+            if int(prefetch_depth) < 0:
+                raise ValueError(
+                    f"prefetch_depth must be >= 0, got {prefetch_depth}")
+            provided["ingest_prefetch_depth"] = int(prefetch_depth)
+        if pipeline is not None:
+            provided["ingest_pipeline"] = bool(pipeline)
+        for attr, val in provided.items():
+            setattr(self, attr, val)
+        return self
 
     def set_superstep(self, k: int):
         """Run ``k`` consecutive iterations per host interaction on the
@@ -1028,9 +1208,10 @@ class GradientDescent(Optimizer):
         boundaries (worst-case preemption latency ``k`` iterations; keep
         ``k`` at or below the checkpoint cadence).  ``k=1`` restores the
         per-iteration driver.  The unobserved run already goes in
-        captured blocks (``RUN_BLOCK_ITERS``) and ignores it.  The
-        host-streamed half of the JAX package's superstep waits for
-        ``set_host_streaming`` (ROADMAP A9)."""
+        captured blocks (``RUN_BLOCK_ITERS``) and ignores it.  On the
+        host-streamed feed (``set_host_streaming``) the worker stacks K
+        batches into one superchunk slot and the card runs them as one
+        captured block."""
         if int(k) < 1:
             raise ValueError(f"superstep must be >= 1, got {k}")
         self.superstep = int(k)
@@ -1048,8 +1229,9 @@ class GradientDescent(Optimizer):
         a window, so worst-case preemption latency grows to ``cadence *
         K`` iterations.  ``cadence=0`` restores the per-block driver; a
         window of ONE block is the superstep driver already, so
-        ``cadence=1`` is rejected.  The host-streamed feeds of the JAX
-        package's residency wait for ROADMAP A9."""
+        ``cadence=1`` is rejected.  On the host-streamed feed it applies,
+        as in the JAX package, to the full-batch and fully-resident
+        feeds; a host-sampled feed warns and runs the superstep driver."""
         c = int(cadence)
         if c == 1:
             raise ValueError(
@@ -1105,7 +1287,15 @@ class GradientDescent(Optimizer):
         X, y = data
         dev = resolve_device(self.device)
         if isinstance(X, GramData):
+            if self.host_streaming:
+                raise NotImplementedError(
+                    "GramData input supports the resident path (the "
+                    "statistics are already on the device); drop "
+                    "set_host_streaming")
             return self._optimize_gram_data(X, y, initial_weights, dev)
+        if self.host_streaming:
+            # before any device conversion: X never lives on the card whole
+            return self._optimize_host_streamed(X, y, initial_weights, dev)
         X = as_tensor(X, dev)
         sparse_X = is_sparse(X)
         if sparse_X:
@@ -1138,6 +1328,57 @@ class GradientDescent(Optimizer):
             # the statistics ride where X goes (GramData)
             return self._run(gram, gram.data, y, w0)
         return self._run(self.gradient, X, y, w0)
+
+    def _optimize_host_streamed(self, X, y, initial_weights, dev):
+        """``set_host_streaming``: the dense streamed driver
+        (``optimize/streamed.py``) or, for sparse X, the sparse one
+        (``optimize/streamed_sparse.py``), with this optimizer's knobs.
+        ``pipeline=False`` is the plain feed: no lookahead, no wire cast,
+        no compression (the bitwise A/B reference)."""
+        from tpu_sgd_torch.optimize.streamed import optimize_host_streamed
+
+        knobs = dict(
+            listener=self.listener,
+            checkpoint_manager=self.checkpoint_manager,
+            checkpoint_every=self.checkpoint_every,
+            prefetch_depth=(self.ingest_prefetch_depth
+                            if self.ingest_pipeline else 0),
+            retry_policy=self.ingest_retry_policy,
+            stop_signal=self._stop_signal,
+            superstep_k=self.superstep,
+            resident_cadence=self.resident_cadence,
+            wire_compress=(self.ingest_wire_compress
+                           if self.ingest_pipeline else None),
+            check_numerics=self.check_numerics)
+        if is_sparse(X):
+            from tpu_sgd_torch.optimize.streamed_sparse import (
+                optimize_host_streamed_sparse,
+            )
+
+            if self.ingest_wire_dtype is not None:
+                warnings.warn(
+                    "wire_dtype applies to dense row chunks; the sparse feed "
+                    "ships CSR components at the data dtype (its "
+                    "compression is the sparsity itself)",
+                    RuntimeWarning, stacklevel=3)
+            if self.streaming_resident_rows:
+                raise NotImplementedError(
+                    "resident_rows needs sliced windows, which need a dense "
+                    "row layout; sparse features stream bernoulli batches")
+            w, hist = optimize_host_streamed_sparse(
+                self.gradient, self.updater, self.config, X, y,
+                initial_weights, device=dev, **knobs)
+        else:
+            w, hist = optimize_host_streamed(
+                self.gradient, self.updater, self.config, X, y,
+                initial_weights, device=dev,
+                resident_rows=self.streaming_resident_rows,
+                wire_dtype=(self.ingest_wire_dtype
+                            if self.ingest_pipeline else None), **knobs)
+        self._loss_history = hist
+        if self.check_numerics:
+            _raise_if_nonfinite(hist)
+        return w, hist
 
     def _optimize_gram_data(self, X: GramData, y, initial_weights, dev):
         """Statistics-first input (``GramLeastSquaresGradient.build`` or

@@ -51,6 +51,7 @@ from tpu_sgd_torch.ops.updaters import (
 )
 from tpu_sgd_torch.optimize.gradient_descent import (
     _apply_gram_knobs,
+    A9_REST,
     _not_ported,
 )
 from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
@@ -289,14 +290,15 @@ class LBFGS(Optimizer):
 
     def set_streamed_stats(self, flag: bool = True, block_rows: int = None):
         _not_ported("set_streamed_stats (statistics streamed from the "
-                    "host)", "A9")
+                    "host)", A9_REST)
 
     def set_host_streaming(self, flag: bool = True, batch_rows: int = None):
-        _not_ported("set_host_streaming (the streamed CostFun)", "A9")
+        _not_ported("set_host_streaming (the streamed CostFun)", A9_REST)
 
     def set_ingest_options(self, wire_dtype=None, prefetch_depth=None,
                            pipeline=None, retry=None, wire_compress=None):
-        _not_ported("set_ingest_options (the host ingest pipeline)", "A9")
+        _not_ported("set_ingest_options (the streamed CostFun's ingest "
+                    "pipeline)", A9_REST)
 
     @property
     def loss_history(self):

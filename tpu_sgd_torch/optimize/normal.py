@@ -33,7 +33,7 @@ import torch
 from tpu_sgd_torch.device import as_tensor, resolve_device, true_f32_matmul
 from tpu_sgd_torch.ops.gradients import acc_dtype, matmul_dtype, mm_acc
 from tpu_sgd_torch.ops.sparse import is_sparse
-from tpu_sgd_torch.optimize.gradient_descent import _not_ported
+from tpu_sgd_torch.optimize.gradient_descent import A9_REST, _not_ported
 from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
 
 Tensor = torch.Tensor
@@ -128,7 +128,7 @@ class NormalEquations(Optimizer):
     def set_host_streaming(self, flag: bool = True, batch_rows: int = None,
                            resume_dir: str = None):
         _not_ported("set_host_streaming (the host-streamed Gram totals)",
-                    "A9")
+                    A9_REST)
 
     def set_mesh(self, mesh):
         _not_ported("set_mesh (data parallelism)", "A5")

@@ -34,8 +34,13 @@ window is queued, and the ORIGINAL exception re-raises on the host, where
 checkpoint.  A replayed graph calls nothing on the host, so the ring has
 no size cap.
 
-Not ported: ``with_extra`` (the compressed wire's error-feedback carry)
-comes with that wire (ROADMAP A9).
+Extra carried state (the JAX driver's ``with_extra``): when the block
+carries the compressed wire's error-feedback accumulator
+(``_RunState.extra``), each ring row holds it after the step's other
+values, the rings gain a seventh leaf, and the bookkeeper hands each
+window's accumulators to ``extras_cb(i0w, extras)`` before the replay, so
+a checkpoint saved mid-window reads the accumulator of its exact
+iteration (``last_extra`` follows the replayed boundary like ``last_w``).
 
 Observability: the driver emits ``train.resident_dispatch`` and
 ``train.window`` spans and the ``train.io_callback`` counter.
@@ -72,11 +77,6 @@ class ResidentBookkeeper:
                  save_every: int = 0, stop_signal=None,
                  retry_policy=None, check_numerics: bool = False,
                  extras_cb: Optional[Callable] = None):
-        if extras_cb is not None:
-            raise NotImplementedError(
-                "extra carried state (the compressed wire's error "
-                "feedback) is not ported to tpu_sgd_torch yet (ROADMAP "
-                "A9); use the JAX package tpu_sgd for it")
         self.cfg = config
         self.k = int(k)
         self.cadence = int(cadence)
@@ -88,12 +88,18 @@ class ResidentBookkeeper:
         self.stop_signal = stop_signal
         self.retry_policy = retry_policy
         self.check_numerics = bool(check_numerics)
+        #: called as ``extras_cb(i0w, extras)`` with a window's per-step
+        #: extra state (the error-feedback accumulators) before its replay
+        self.extras_cb = extras_cb
         #: last iteration whose bookkeeping has been replayed (the
         #: preemption boundary)
         self.replayed_through = int(start_iter) - 1
         #: host copy of the weights AT ``replayed_through`` (from the ring
         #: rows: the final state when a run ends inside a block)
         self.last_w: Optional[np.ndarray] = None
+        #: host copy of the extra state AT ``replayed_through`` (runs that
+        #: carry one)
+        self.last_extra: Optional[np.ndarray] = None
         self.host_converged = False
         self.stop_requested = False
         self.error: Optional[BaseException] = None
@@ -137,12 +143,18 @@ class ResidentBookkeeper:
         """Replay ``n_supersteps`` blocks of ring rows starting at
         iteration ``i0w`` with EXACTLY the fused drivers' bookkeeping
         (``_replay_fused_steps`` per block).  Steps past
-        ``num_iterations`` are bounded out here."""
+        ``num_iterations`` are bounded out here.  A seventh leaf carries
+        the per-step extra state (see the module docstring)."""
         from tpu_sgd_torch.optimize.gradient_descent import (
             _replay_fused_steps,
         )
 
         K, cfg = self.k, self.cfg
+        exs = None
+        if len(rings) == 7:
+            exs, rings = rings[6], rings[:6]
+            if self.extras_cb is not None:
+                self.extras_cb(i0w, exs)
         ws, ls, rs, cs, dns, wns = rings
         now = time.perf_counter()
         n_steps = max(1, n_supersteps * K)
@@ -164,6 +176,8 @@ class ResidentBookkeeper:
             )
             self.replayed_through = base + t_last
             self.last_w = np.asarray(ws[lo + t_last])
+            if exs is not None:
+                self.last_extra = np.asarray(exs[lo + t_last])
             if conv:
                 self.host_converged = True
                 break
@@ -175,7 +189,7 @@ def _device_converged(rings, i0w: int, tol: float) -> bool:
     with ``‖Δw‖ < tol · max(‖w‖, 1)``."""
     if tol <= 0.0:
         return False
-    _, _, _, cs, dns, wns = rings
+    cs, dns, wns = rings[3], rings[4], rings[5]
     idx = i0w + np.arange(cs.shape[0])
     f32 = np.float32
     hit = (cs > 0) & (idx > 1) & (

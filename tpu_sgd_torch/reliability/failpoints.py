@@ -254,8 +254,24 @@ def _corrupt_payload(payload, kind: str, rng: random.Random):
 #: modules that are not ported yet)
 HOOK_SITES = {
     "io.resident_callback": "tpu_sgd_torch/optimize/resident_driver.py",
+    "io.prefetch.produce": "tpu_sgd_torch/io/prefetch.py",
+    "io.superstep": "tpu_sgd_torch/io/chunking.py",
+    "io.sparse_wire": "tpu_sgd_torch/io/sparse_wire.py",
+    "io.device_put": "tpu_sgd_torch/optimize/streamed.py",
+    "optimize.streamed.step": "tpu_sgd_torch/optimize/streamed.py",
     "checkpoint.save": "tpu_sgd_torch/utils/checkpoint.py",
     "checkpoint.load": "tpu_sgd_torch/utils/checkpoint.py",
+}
+
+#: the corrupting sites and the module that holds each one's
+#: ``corruptpoint("<name>", ...)`` call: each passes a host-bytes frame
+#: between its ``seal()`` and its consume-site ``verify()``
+#: (``io/integrity.py``), so an armed corrupting spec models silent wire
+#: damage exactly where the checksum must catch it
+CORRUPT_SITES = {
+    "io.chunk": "tpu_sgd_torch/optimize/streamed.py",
+    "io.sparse_chunk": "tpu_sgd_torch/optimize/streamed_sparse.py",
+    "io.segment": "tpu_sgd_torch/io/sparse_wire.py",
 }
 
 # -- arming registry --------------------------------------------------------
