@@ -17,7 +17,12 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    by source) x f32/bf16 x the three families, windows of 1, R - 1, R,
    R + 1 rows (R the planner's stage rows), fewer rows than the grid and
    65,536 rows, starts random, negative and past the end, ``valid`` on
-   and off, each call repeated bitwise.
+   and off, each call repeated bitwise.  Then the CSR kernel bit for bit
+   against its numpy walk (``cuda_kernels.csr_walk``) on small matrices
+   (empty rows, rows of 1-33 entries, a row longer than three blocks'
+   shares, many rows of 1-3 entries), T in {1, 2, 30, 1024}, int32 and
+   int64 indices, no mask and a mask at both block shares; and an int64
+   CSR whose row holds more than 2^31 entries, at T = 1 and 2.
 4. full    — the main path at config 4's width: 10,000,000 x 1000 bf16
    least squares made on the card from a seed, trained through
    ``LinearRegressionWithSGD`` at ``mini_batch_fraction=0.1``: Bernoulli,
@@ -119,7 +124,9 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    and full batch, 60 iterations: repeat, prefetch A/B and K = 8 against
    K = 1 bitwise, exact CSR launches, wire bytes >= 10x below dense f32,
    peak device bytes below one dense batch; then the CSR kernel against
-   its plain twin and cuSPARSE at the sparse path's shapes.
+   its plain twin and cuSPARSE at the sparse path's shapes, each call at
+   most two CUDA launches (the nodes of its captured graph), without a
+   host sync, and replayed from a CUDA graph bitwise.
 11. summary — the sparse line, the quasi_newton line, the gram line, the
    streamed line, the observed line, the kernel table (B1-B3 and the CSR
    kernel), then the card's name and power limit, then the last line
@@ -354,8 +361,115 @@ def phase_kernels(torch, ck, grads):
     else:
         raise RuntimeError("check failed: _check_tile_smem took d=60000")
     routed = window_route_cases(torch, ck, grads, gen, worst)
+    walked = csr_walk_cases(torch, ck, worst)
+    walked += csr_long_row_cases(torch, ck)
     torch.cuda.synchronize()
-    return cases + routed, worst
+    return cases + routed + walked, worst
+
+
+def csr_long_row_cases(torch, ck):
+    """The CSR kernel on an int64 CSR whose middle row holds more than
+    2^31 entries (26 GB on the card), at T = 1 and 2: the block where
+    that row ends lies more than 2^31 entries past the row's start, and
+    must still pass its part to the second pass as a head carry.  Every
+    column index is 0 and every value 0 but the first S and those from
+    that block on (the rows around the long one, its first entries and
+    its last block's), so each row's sum is a small integer, exact in any
+    order."""
+    S = ck.CSR_BLOCK_ITEMS
+    # row 1's end mark is the last item of its block
+    L = (-(-2**31 // S) + 2) * S - 9
+    crow_np = np.cumsum([0, 7, L, 3]).astype(np.int64)
+    split = ck.csr_split(crow_np, S)
+    hb = int(np.flatnonzero(split.head_row == 1)[0])
+    check(int(split.first_entry[hb] - crow_np[1]) > 2**31,
+          f"csr long row: block {hb} lies within 2^31 of the row's start")
+    nnz = int(crow_np[-1])
+    col = torch.zeros(nnz, dtype=torch.int64, device="cuda")
+    val = torch.zeros(nnz, dtype=torch.float32, device="cuda")
+    val[:S] = 1.0
+    val[int(split.first_entry[hb]):] = 1.0
+    X = torch.sparse_csr_tensor(torch.from_numpy(crow_np).cuda(), col, val,
+                                size=(3, 1))
+    sums = torch.stack([val[int(a):int(b)].sum()
+                        for a, b in zip(crow_np[:-1], crow_np[1:])])
+    for T in (1, 2):
+        rhs = torch.arange(1, T + 1, dtype=torch.float32,
+                           device="cuda").reshape(1, T)
+        got = ck.csr_margins(X, rhs[:, 0] if T == 1 else rhs)
+        want = (sums[:, None] * rhs).reshape(got.shape)
+        check(bool(torch.equal(got, want)),
+              f"csr long row T={T}: {got.tolist()} != {want.tolist()}")
+    del X, col, val
+    torch.cuda.empty_cache()
+    return 2
+
+
+def csr_walk_cases(torch, ck, worst):
+    """The CSR kernel bit for bit against its numpy walk (``ck.csr_walk``,
+    the order of additions that the CPU tests hold against the plain twin
+    and the JAX package's BCOO products), and within 1e-4 of its scale of
+    the plain twin: rows of 0, 1, 31, 32, 33 and 75 entries with one
+    longer than three blocks' shares, and 3,000 rows of 1-3 entries (a
+    transposed CSR's tail); T in {1, 2, 30, 1024}; int32 and int64
+    indices; no mask and a Bernoulli mask, the mask also at the wide share
+    that only large masked calls take.  Then a matrix without entries and
+    one without rows."""
+    rng = np.random.default_rng(5)
+    min_blocks = ck.CSR_MASKED_MIN_BLOCKS
+    shapes = {
+        "mixed": np.concatenate([[0, 1, 31, 32, 33, 0, 0, 75,
+                                  3 * ck.CSR_BLOCK_ITEMS + 500, 2],
+                                 rng.integers(0, 40, 300)]),
+        "short": rng.integers(1, 4, 3000),
+        "empty": np.zeros(700, np.int64)}
+    cases = 0
+    for shape, lens in shapes.items():
+        k = int(max(64, lens.max() + 64))
+        col = np.concatenate([np.sort(rng.choice(k, int(n), replace=False))
+                              for n in lens] + [np.zeros(0, np.int64)])
+        val = rng.normal(size=col.size).astype(np.float32)
+        crow = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        rows = crow.size - 1
+        for idt in (torch.int32, torch.int64):
+            X = torch.sparse_csr_tensor(
+                torch.from_numpy(crow).to(idt), torch.from_numpy(col).to(idt),
+                torch.from_numpy(val), size=(rows, k)).cuda()
+            for T in (1, 2, 30, 1024):
+                rhs = rng.normal(size=(k, T)).astype(np.float32)
+                keep = rng.random(rows) < 0.4
+                # no mask; a mask at the share these shapes give, and at
+                # the wide share of large masked calls
+                for mask_np, wide in ((None, 0), (keep, 0), (keep, 1)):
+                    mask = None if mask_np is None else \
+                        torch.from_numpy(mask_np).cuda()
+                    arg = torch.from_numpy(rhs).cuda()
+                    ck.CSR_MASKED_MIN_BLOCKS = 0 if wide else min_blocks
+                    try:
+                        got = ck.csr_margins(
+                            X, arg[:, 0] if T == 1 else arg, mask)
+                    finally:
+                        ck.CSR_MASKED_MIN_BLOCKS = min_blocks
+                    got = got.reshape(rows, T).cpu().numpy()
+                    share = (ck.CSR_MASKED_BLOCK_ITEMS if wide
+                             else ck.CSR_BLOCK_ITEMS)
+                    walk = ck.csr_walk(crow, col, val, rhs, mask_np, share)
+                    ref = ck.csr_matmul_plain(X, arg, mask).cpu().numpy()
+                    err = float(np.abs(got - ref).max()) if got.size else 0.0
+                    scale = float(np.abs(ref).max()) if got.size else 0.0
+                    what = (f"csr kernel {shape} {idt} T={T} "
+                            f"mask={mask_np is not None} share={share}")
+                    check(np.array_equal(got, walk), f"{what}: not its walk")
+                    check(err <= 1e-4 * scale + 1e-6, f"{what}: {err}")
+                    worst["csr_margins"] = max(worst.get("csr_margins", 0.0),
+                                               err)
+                    cases += 1
+    none = torch.sparse_csr_tensor(torch.zeros(1, dtype=torch.int32),
+                                   torch.zeros(0, dtype=torch.int32),
+                                   torch.zeros(0), size=(0, 5)).cuda()
+    check(ck.csr_margins(none, torch.ones(5, device="cuda")).shape == (0,),
+          "csr kernel on a matrix without rows")
+    return cases + 1
 
 
 def window_route_cases(torch, ck, grads, gen, worst):
@@ -2741,10 +2855,21 @@ def csr_rows(torch, ck, X, sparse, owlqn, streamed, batch):
       its hinge run, ``csr_margins/30``);
     * iteration 1's staged batch of the streamed Bernoulli run, masked by
       its valid rows, and the gradient over the batch's transposed copy
-      (that run)."""
+      (that run).
+
+    Each case is also held to the kernel's contract for capture: no host
+    synchronisation (torch's sync detector set to raise), at most two CUDA
+    launches a call (the nodes of a CUDA graph that captured one call,
+    read through the driver), and that graph's replay bitwise equal to
+    the eager call.  ``one_line_graph_ms`` is the same call on the
+    operand's structure with every column index 0 (:func:`one_line_csr`):
+    the same split and entry stream, each gather of rhs one line, so
+    ``graph_ms`` less it is what the gathers' misses cost."""
     from tpu_sgd_torch.ops import sparse as sp
 
     Xt = sp.transpose_csr(X)
+    X1, Xt1, Xb1, Xbt1 = (one_line_csr(torch, A)
+                          for A in (X, Xt, batch["X"], batch["Xt"]))
     n, d = X.shape
     gen = torch.Generator(device="cuda").manual_seed(21)
     w = torch.randn(d, generator=gen, device="cuda")
@@ -2760,41 +2885,46 @@ def csr_rows(torch, ck, X, sparse, owlqn, streamed, batch):
     tenth = sparse["runs"]["0.1"]["csr_launches"]
     stream = streamed["runs"][str(FRAC)]["csr_column_launches"]
     rows = []
-    # name, shape, kernel, plain, library, entries read, rows of the
-    # operand, its columns, right-hand columns, launches, their run
+    # name, shape, kernel, plain, library, the kernel on one line, entries
+    # read, rows of the operand, its columns, right-hand columns, launches,
+    # their run
     cases = (("csr_margins", "all rows", lambda: ck.csr_margins(X, w),
               lambda: ck.csr_matmul_plain(X, w), lambda: X @ w,
+              lambda: ck.csr_margins(X1, w),
               X._nnz(), n, d, 1, full.get("csr_margins/1", 0),
               "phase sparse, frac 1.0"),
              ("csr_margins", "10% mask",
               lambda: ck.csr_margins(X, w, mask),
               lambda: ck.csr_matmul_plain(X, w, mask),
-              lambda: X @ w, int(row_nnz[mask].sum()), n, d, 1,
+              lambda: X @ w, lambda: ck.csr_margins(X1, w, mask),
+              int(row_nnz[mask].sum()), n, d, 1,
               tenth.get("csr_margins/1", 0), "phase sparse, frac 0.1"),
              ("csr_grad_sum", "all rows", lambda: ck.csr_grad_sum(Xt, coeff),
               lambda: ck.csr_matmul_plain(Xt, coeff), lambda: Xt @ coeff,
-              Xt._nnz(), d, n, 1,
+              lambda: ck.csr_grad_sum(Xt1, coeff), Xt._nnz(), d, n, 1,
               full.get("csr_grad_sum/1", 0) + tenth.get("csr_grad_sum/1", 0),
               "phase sparse, frac 1.0 and 0.1"),
              ("csr_margins", f"{W.shape[1]} trial points",
               lambda: ck.csr_margins(X, W),
               lambda: ck.csr_matmul_plain(X, W), lambda: X @ W,
-              X._nnz(), n, d, W.shape[1],
+              lambda: ck.csr_margins(X1, W), X._nnz(), n, d, W.shape[1],
               owlqn["csr_launches"].get(f"csr_margins/{W.shape[1]}", 0),
               "leg (d), hinge + L1"),
              ("csr_margins", "streamed batch",
               lambda: ck.csr_margins(Xb, w, valid),
               lambda: ck.csr_matmul_plain(Xb, w, valid), lambda: Xb @ w,
+              lambda: ck.csr_margins(Xb1, w, valid),
               int(batch_nnz[valid].sum()), cap, d, 1,
               stream.get("csr_margins/1", 0),
               f"streamed sparse, frac {FRAC}"),
              ("csr_grad_sum", "streamed batch, transposed",
               lambda: ck.csr_grad_sum(Xbt, coeff_b),
               lambda: ck.csr_matmul_plain(Xbt, coeff_b),
-              lambda: Xbt @ coeff_b, Xbt._nnz(), d, cap, 1,
+              lambda: Xbt @ coeff_b, lambda: ck.csr_grad_sum(Xbt1, coeff_b),
+              Xbt._nnz(), d, cap, 1,
               stream.get("csr_grad_sum/1", 0),
               f"streamed sparse, frac {FRAC}"))
-    for (name, shape, kern, plain, lib, nnz, prow, k, T, launches,
+    for (name, shape, kern, plain, lib, one_line, nnz, prow, k, T, launches,
          source_run) in cases:
         got, ref = kern(), plain()
         again = kern()
@@ -2805,6 +2935,12 @@ def csr_rows(torch, ck, X, sparse, owlqn, streamed, batch):
         check(err <= 1e-4 * scale + 1e-6,
               f"{name} ({shape}): max |d| {err} of {scale}")
         check(launches > 0, f"{name} ({shape}): no launch in {source_run}")
+        check(no_host_sync(torch, kern), f"{name} ({shape}) syncs the host")
+        replay, per_call = captured_call(torch, ck, kern)
+        check(1 <= sum(per_call.values()) <= 2,
+              f"{name} ({shape}): {per_call} CUDA launches a call")
+        check(bool(torch.equal(replay, got)),
+              f"{name} ({shape}): captured replay differs from the eager call")
         idx = X.col_indices().element_size()
         bytes_ = nnz * (4 + idx) + (prow + 1) * idx + 4 * T * (k + prow)
         if "mask" in shape or shape == "streamed batch":
@@ -2814,17 +2950,104 @@ def csr_rows(torch, ck, X, sparse, owlqn, streamed, batch):
         bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
                      else (t_ops, "operations"))
         ms = time_ms(torch, kern, 20)
+        with ck.captured_launches():
+            kern_graph = graph_ms(torch, kern)
+            one_line_graph = graph_ms(torch, one_line)
         rows.append({
             "name": name, "path": f"sparse ({shape})",
             "source": CSR_SOURCE, "shape": [prow, k], "columns": T,
             "nnz": nnz, "max_abs_err": err, "grad_scale": scale, "ms": ms,
             "plain_ms": time_ms(torch, plain, 20),
             "library_ms": time_ms(torch, lib, 20),
+            # device time alone: calls replayed from a CUDA graph (events
+            # over back-to-back calls include the host's pacing of them)
+            "graph_ms": kern_graph,
+            "library_graph_ms": graph_ms(torch, lib),
             "bound_ms": bound, "bound_by": by,
             "share_of_bound": bound / ms,
+            "one_line_graph_ms": one_line_graph,
+            "cuda_launches_per_call": per_call, "host_syncs": 0,
+            "replay_bitwise": True,
             "launches": launches, "launches_from": source_run})
-    del Xt
+    del Xt, X1, Xt1, Xb1, Xbt1
     return rows
+
+
+def one_line_csr(torch, X):
+    """``X``'s row pointers and values with every column index 0: a
+    product over it reads the same entries in the same split, and each
+    gather of rhs reads rhs's first line."""
+    return torch.sparse_csr_tensor(
+        X.crow_indices(), torch.zeros_like(X.col_indices()), X.values(),
+        size=X.shape)
+
+
+#: CUgraphNodeType names (cuda.h) of the nodes a capture can record
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty"}
+
+
+def graph_node_types(torch, graph) -> dict:
+    """The nodes of a captured ``torch.cuda.CUDAGraph(keep_graph=True)``
+    by type, read through the driver (``cuGraphGetNodes``): every kernel,
+    copy and set the captured calls enqueued, torch's own included."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes")
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType")
+        name = GRAPH_NODE_TYPES.get(kind.value, str(kind.value))
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def no_host_sync(torch, fn) -> bool:
+    """True when one ``fn`` call makes no host synchronisation: torch's
+    sync detector raises on the first."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        return False
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return True
+
+
+def captured_call(torch, ck, fn):
+    """One ``fn`` call captured in a CUDA graph (warmed up on the
+    capture's side stream; its launches kept out of the counts) and
+    replayed once: returns the replay's result and the graph's nodes by
+    type, i.e. what one call launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with ck.captured_launches():
+        with torch.cuda.graph(graph):
+            out = fn()
+    nodes = graph_node_types(torch, graph)
+    graph.replay()
+    torch.cuda.synchronize()
+    out = out.clone()
+    del graph
+    return out, nodes
 
 
 def phase_streamed_sparse(torch, tst, ck, X, y):
@@ -3063,7 +3286,10 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     } | {k: r[k] for k in ("host_paced_ms", "old_path_ms",
                            "old_path_host_paced_ms", "nnz", "columns",
-                           "share_of_bound", "launches_from") if k in r}
+                           "share_of_bound", "graph_ms",
+                           "library_graph_ms", "one_line_graph_ms",
+                           "cuda_launches_per_call", "launches_from")
+         if k in r}
         for r in rows]})
     print(smi, flush=True)
     # one card drove the run, however many the host shows

@@ -22,11 +22,14 @@ the same kernel and keep separate launch counts.
 
 Sparse features have a kernel of their own, ``csrc/csr_products.cu``:
 :func:`csr_margins` and :func:`csr_grad_sum` compute a CSR matrix times a
-vector (or a few columns) with a fixed order of additions and no float
-atomics, so two runs give the same bits.  It is not a port of a Pallas
-kernel (the JAX package leaves its BCOO products to XLA); it is the one
-sparse product of the card's paths (``ops/gradients.py`` ``margins_of`` and
-``grad_sum_of``).
+vector (or up to ``CSR_MAX_COLUMNS`` columns) with a fixed order of
+additions and no float atomics, so two runs give the same bits.  It is not
+a port of a Pallas kernel (the JAX package leaves its BCOO products to
+XLA); it is the one sparse product of the card's paths (``ops/gradients.py``
+``margins_of`` and ``grad_sum_of``).  Its merge-path split of the rows'
+end marks and the entries into blocks of ``CSR_BLOCK_ITEMS`` has a mirror
+here (:func:`csr_split`, :func:`csr_walker_lanes`); the wrapper sizes the
+grid and the carries from shapes alone (:func:`csr_grid`).
 
 Each wrapper takes its plain PyTorch version (``*_plain``, the same
 arithmetic: ``margins_of`` -> pointwise -> ``grad_sum_of``) when X lies on
@@ -49,8 +52,9 @@ import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpu_sgd_torch.ops import _build
@@ -529,20 +533,246 @@ def fused_window_sums_vpu(
 #: most right-hand columns the CSR kernel takes (the line searches' 25 and
 #: 30 trial points and the multinomial classes are far below it)
 CSR_MAX_COLUMNS = 1024
+#: path items (the rows' end marks and the entries) a block of the CSR
+#: kernel takes: the whole of its merge-path split.  15 a thread at T = 1,
+#: an odd stride, so the threads' first products in shared memory fall in
+#: different banks, all loaded in one round
+CSR_BLOCK_ITEMS = 3840
+#: the share under a row mask, which leaves most of a block's entries
+#: unread, on a matrix large enough: twice the items, so half the blocks
+#: pay the fixed cost of finding their rows
+CSR_MASKED_BLOCK_ITEMS = 2 * CSR_BLOCK_ITEMS
+#: the fewest blocks of CSR_MASKED_BLOCK_ITEMS for which a masked call
+#: takes that share: with fewer, the card holds most blocks at once, and a
+#: call costs about one block's time, which the longer share lengthens
+CSR_MASKED_MIN_BLOCKS = 2048
+#: threads a block of the CSR kernel (``tsgd_csr_block_threads``)
+CSR_BLOCK_THREADS = 256
+
+
+def _bind_csr(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``csr_products.cu`` and check
+    that its block is the one this module's mirror assumes."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.tsgd_csr_matmul.argtypes = [i, p, p, p, p, i, p, ll, ll, ll, p, p, p]
+    lib.tsgd_csr_matmul.restype = ctypes.c_int
+    for name in ("tsgd_csr_block_threads", "tsgd_csr_thread_items"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    lib.tsgd_csr_error_string.argtypes = [ctypes.c_int]
+    lib.tsgd_csr_error_string.restype = ctypes.c_char_p
+    threads = lib.tsgd_csr_block_threads()
+    items = lib.tsgd_csr_thread_items()
+    if threads != CSR_BLOCK_THREADS or CSR_BLOCK_ITEMS != threads * items:
+        raise RuntimeError(
+            f"csr_products.cu takes {threads} threads of {items} items a "
+            f"block, its mirror {CSR_BLOCK_THREADS} threads and "
+            f"{CSR_BLOCK_ITEMS} items")
+    return lib
 
 
 def _csr_library() -> ctypes.CDLL:
     lib = _build.load("csr_products")
-    fn = lib.tsgd_csr_matmul
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, p, p, p, p, i, p, ll, ll, p, p, p, p]
-        fn.restype = ctypes.c_int
-        lib.tsgd_csr_segment_entries.argtypes = []
-        lib.tsgd_csr_segment_entries.restype = ctypes.c_longlong
-        lib.tsgd_csr_error_string.argtypes = [ctypes.c_int]
-        lib.tsgd_csr_error_string.restype = ctypes.c_char_p
+    if lib.tsgd_csr_matmul.argtypes is None:
+        _bind_csr(lib)
     return lib
+
+
+def csr_walker_lanes(T: int) -> Tuple[int, int]:
+    """``(W, C)`` of the CSR kernel for ``T`` right-hand columns: a walker
+    is W lanes (T rounded up to a power of two, at most 32), each lane
+    adds C columns (``W * C >= T``), so a block has
+    ``CSR_BLOCK_THREADS // W`` walkers."""
+    if not 1 <= T <= CSR_MAX_COLUMNS:
+        raise ValueError(f"T must be in [1, {CSR_MAX_COLUMNS}], got {T}")
+    lanes = 1
+    while lanes < min(T, 32):
+        lanes *= 2
+    cols = 1
+    while lanes * cols < T:
+        cols *= 2
+    return lanes, cols
+
+
+def csr_block_items(masked: bool, rows: int, nnz: int) -> int:
+    """The CSR kernel's block share for a call on ``rows`` rows and
+    ``nnz`` entries, with or without a mask (shapes alone decide it)."""
+    if masked and csr_grid(rows, nnz, CSR_MASKED_BLOCK_ITEMS) \
+            >= CSR_MASKED_MIN_BLOCKS:
+        return CSR_MASKED_BLOCK_ITEMS
+    return CSR_BLOCK_ITEMS
+
+
+def csr_grid(rows: int, nnz: int, block_items: int = CSR_BLOCK_ITEMS) -> int:
+    """Blocks of the CSR kernel: the ``rows + nnz`` path items in shares of
+    ``block_items`` (none for a matrix without rows)."""
+    if rows == 0:
+        return 0
+    return -(-(rows + nnz) // block_items)
+
+
+def csr_carry_floats(grid: int, T: int) -> int:
+    """Size in float32 of the CSR kernel's carries: a block's int64 head
+    row (two floats), its head and its tail (T floats each)."""
+    return grid * (2 * T + 2)
+
+
+def csr_path_rows(crow, diag):
+    """The merge-path search of the CSR kernel: for each diagonal (a count
+    of path items), the rows whose end mark lies among its first items,
+    i.e. the number of rows ``p`` with ``crow[p + 1] + p + 1 <= diag``.
+    The diagonal's entry is ``diag - rows``."""
+    crow = np.asarray(crow, dtype=np.int64)
+    ends = crow[1:] + np.arange(1, crow.size, dtype=np.int64)
+    return np.searchsorted(ends, np.asarray(diag, dtype=np.int64),
+                           side="right")
+
+
+class CsrSplit(NamedTuple):
+    """The CSR kernel's split of one matrix (:func:`csr_split`).
+
+    ``first_row[b]`` / ``first_entry[b]``: where block ``b`` begins on the
+    path (``b = grid`` is the end); ``head_row[b]``: the row that began in
+    an earlier block and ends in ``b`` (summed by the second pass), or -1;
+    ``tail_row[b]``: the row ``b`` ends inside (``rows`` past the last)."""
+
+    first_row: np.ndarray
+    first_entry: np.ndarray
+    head_row: np.ndarray
+    tail_row: np.ndarray
+
+
+def csr_split(crow, block_items: int = CSR_BLOCK_ITEMS) -> CsrSplit:
+    """The blocks of the CSR kernel on a matrix with row pointers
+    ``crow``, as the kernel finds them on the card."""
+    crow = np.asarray(crow, dtype=np.int64)
+    rows, nnz = crow.size - 1, int(crow[-1])
+    grid = csr_grid(rows, nnz, block_items)
+    diag = np.minimum(np.arange(grid + 1, dtype=np.int64) * block_items,
+                      rows + nnz)
+    first = csr_path_rows(crow, diag)
+    entry = diag - first
+    head = (first[:-1] < first[1:]) & (entry[:-1] > crow[first[:-1]])
+    return CsrSplit(first, entry, np.where(head, first[:-1], -1), first[1:])
+
+
+def _fmaf(v, x, acc):
+    """fmaf, elementwise: the f32 product is exact in f64."""
+    return (np.float64(v) * x.astype(np.float64)
+            + acc.astype(np.float64)).astype(np.float32)
+
+
+def csr_walk(crow, col, val, rhs, mask=None, block_items=CSR_BLOCK_ITEMS):
+    """The CSR kernel's arithmetic in its order, in numpy (a model for
+    tests, slow): each walker's sums (of the f32 products staged at T = 1,
+    fmaf chains above), the scan of the walkers' tails, the blocks' head
+    and tail carries, and pass 2's strided lanes and shuffle tree.
+    ``rhs`` is ``(k, T)`` float32, ``mask`` a bool array or None; returns
+    the ``(rows, T)`` float32 product the card gives bit for bit."""
+    S = block_items
+    crow = np.asarray(crow, np.int64)
+    rows, nnz = crow.size - 1, int(crow[-1])
+    T = rhs.shape[1]
+    W, _ = csr_walker_lanes(T)
+    walkers = CSR_BLOCK_THREADS // W
+    per = S // walkers
+    sp = csr_split(crow, S)
+    grid = sp.head_row.size
+    out = np.full((rows, T), np.nan, np.float32)
+    head = np.full((grid, T), np.nan, np.float32)
+    tail = np.full((grid, T), np.nan, np.float32)
+    zero = np.zeros(T, np.float32)
+    for b in range(grid):
+        d0, d1 = b * S, min(b * S + S, rows + nnz)
+        rb = sp.first_row[b]
+        dw0 = np.minimum(d0 + np.arange(walkers) * per, d1)
+        dw1 = np.minimum(dw0 + per, d1)
+        r0s = csr_path_rows(crow, dw0)
+        r1s = np.append(r0s[1:], sp.first_row[b + 1])
+        tails = np.zeros((walkers, T), np.float32)
+        parts = {}
+        for w in range(walkers):
+            r0, r1 = r0s[w], r1s[w]
+            e0, e1 = dw0[w] - r0, dw1[w] - r1
+            e = e0
+            for r in range(r0, r1 + 1):
+                hi = e1 if r == r1 else crow[r + 1]
+                acc = zero
+                if r < rows and (mask is None or mask[r]):
+                    for k in range(e, hi):
+                        if W == 1:  # the staged product, then the sum
+                            acc = acc + val[k] * rhs[col[k]]
+                        else:
+                            acc = _fmaf(val[k], rhs[col[k]], acc)
+                if r < r1:
+                    if r == r0 and e0 > crow[r0]:
+                        parts[w] = acc
+                    else:
+                        out[r] = acc
+                e = hi
+            tails[w] = acc
+        tails = _scan_tails(tails, r1s, W)
+        for w, part in parts.items():
+            if w > 0:
+                part = tails[w - 1] + part
+            if r0s[w] == rb and d0 - rb > crow[rb]:
+                head[b] = part
+            else:
+                out[r0s[w]] = part
+        tail[b] = tails[-1]
+    ct = 1
+    while ct < min(T, 32):
+        ct *= 2
+    lanes = np.arange(32)
+    for b, r in enumerate(sp.head_row):
+        if r < 0:
+            continue
+        first = (crow[r] + r) // S
+        for t0 in range(0, T, ct):
+            acc = np.zeros(32, np.float32)
+            for lane in lanes:
+                t = t0 + lane % ct
+                if t < T:
+                    for i in range(first + lane // ct, b, 32 // ct):
+                        acc[lane] = acc[lane] + tail[i, t]
+            off = 16
+            while off >= ct:
+                acc = acc + acc[lanes ^ off]
+                off //= 2
+            for tl in range(min(ct, T - t0)):
+                out[r, t0 + tl] = acc[tl] + head[b, t0 + tl]
+    return out
+
+
+def _hillis_steele(vals, keys, span):
+    """Inclusive segmented (by key) Hillis-Steele scan within runs of
+    ``span`` slots: ``v[w] = v[w - d] + v[w]`` where the keys agree."""
+    pos = np.arange(len(keys)) % span
+    step = 1
+    while step < span:
+        same = (keys[:-step] == keys[step:]) & (pos[step:] >= step)
+        new = vals.copy()
+        new[step:][same] = vals[:-step][same] + vals[step:][same]
+        vals, step = new, 2 * step
+    return vals
+
+
+def _scan_tails(tails, keys, W):
+    """The kernel's scan of its walkers' tails.  T = 1 (one thread a
+    walker): each warp's 32 by shuffles, then the warps' totals chained in
+    warp order and added where a walker's run began in an earlier warp;
+    T > 1: one Hillis-Steele scan over all the block's walkers."""
+    if W > 1:
+        return _hillis_steele(tails, keys, len(keys))
+    v = _hillis_steele(tails, keys, 32)
+    run, out = None, v.copy()
+    for k in range(len(keys) // 32):
+        last = 32 * k + 31
+        if k > 0:
+            same = keys[32 * k:last + 1] == keys[last - 32]
+            out[32 * k:last + 1][same] = run + v[32 * k:last + 1][same]
+        run = out[last]
+    return out
 
 
 def csr_matmul_plain(X: Tensor, rhs: Tensor,
@@ -602,33 +832,29 @@ def _csr_operands(X: Tensor, rhs: Tensor, mask: Optional[Tensor]):
 
 
 def _csr_launch(X: Tensor, rhs: Tensor, mask: Optional[Tensor]) -> Tensor:
-    """Both phases of ``csrc/csr_products.cu`` on the current stream;
-    returns the ``(rows,)`` or ``(rows, T)`` float32 product.  Does not
-    synchronise: the segment numbering is made on the card."""
+    """The two passes of ``csrc/csr_products.cu`` on the current stream;
+    returns the ``(rows,)`` or ``(rows, T)`` float32 product.  Allocates
+    the output and the carries, both sized from shapes, and nothing else;
+    reads nothing back, so a call can be captured in a CUDA graph."""
     crow, col, vals, rhs_c, T = _csr_operands(X, rhs, mask)
-    lib = _csr_library()
-    seg = int(lib.tsgd_csr_segment_entries())
-    rows = X.shape[0]
-    dev = X.device
-    lens = torch.diff(crow.to(torch.int64))
-    nseg = torch.div(lens + (seg - 1), seg, rounding_mode="floor")
     if mask is not None:
-        nseg = nseg * mask
-    prefix = torch.zeros((rows + 1,), dtype=torch.int64, device=dev)
-    torch.cumsum(nseg, 0, out=prefix[1:])
-    # every row's segments: at most one per row plus one per full segment
-    max_segs = rows + X._nnz() // seg + 1
-    seg_row = torch.empty((max_segs,), dtype=torch.int64, device=dev)
-    partial = torch.empty((max_segs, T), dtype=torch.float32, device=dev)
+        mask = mask.contiguous()
+    lib = _csr_library()
+    rows, nnz = X.shape[0], X._nnz()
+    dev = X.device
+    block_items = csr_block_items(mask is not None, rows, nnz)
+    grid = csr_grid(rows, nnz, block_items)
     out = torch.empty((rows, T) if rhs.dim() == 2 else (rows,),
                       dtype=torch.float32, device=dev)
+    carries = torch.empty((csr_carry_floats(grid, T),), dtype=torch.float32,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tsgd_csr_matmul(
             crow.element_size(), crow.data_ptr(), col.data_ptr(),
-            vals.data_ptr(), rhs_c.data_ptr(), T, prefix.data_ptr(), rows,
-            max_segs, seg_row.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            stream)
+            vals.data_ptr(), rhs_c.data_ptr(), T,
+            None if mask is None else mask.data_ptr(), rows, nnz,
+            block_items, carries.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
             "csr_products kernel launch failed: "
@@ -640,8 +866,8 @@ def csr_margins(X: Tensor, rhs: Tensor,
                 mask: Optional[Tensor] = None) -> Tensor:
     """Margins ``X @ rhs`` of a CSR ``X`` (``rhs`` the weights ``(d,)``, or
     ``Wᵀ`` ``(d, T)``), float32; a row that ``mask`` drops is 0 and its
-    entries are never read.  On a CUDA X, one launch of the deterministic
-    CSR kernel (``csrc/csr_products.cu``, shape rule in
+    entries are never read.  On a CUDA X, one call of the deterministic
+    CSR kernel (``csrc/csr_products.cu``: two launches, shape rule in
     :func:`_csr_operands`); on a CPU X, :func:`csr_matmul_plain`."""
     if not X.is_cuda:
         return csr_matmul_plain(X, rhs, mask)
@@ -653,7 +879,7 @@ def csr_margins(X: Tensor, rhs: Tensor,
 def csr_grad_sum(Xt: Tensor, coeff: Tensor) -> Tensor:
     """The gradient sum ``Xᵀ @ coeff`` from X's transposed CSR ``Xt``
     (``ops/sparse.py`` ``transpose_csr``), ``(d,)`` or ``(d, T)`` float32.
-    On a CUDA ``Xt``, one launch of the CSR kernel; on the CPU, the plain
+    On a CUDA ``Xt``, one call of the CSR kernel; on the CPU, the plain
     version."""
     if not Xt.is_cuda:
         return csr_matmul_plain(Xt, coeff)
