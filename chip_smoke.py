@@ -39,7 +39,9 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    its pass criterion against a numpy/scipy oracle: config 3 both on dense
    ``svm_data`` and undensified on its RCV1 stand-in after a LIBSVM round
    trip (against the LP oracle and against the dense path on the same
-   data); then config 5, streaming SGD over ten micro-batches.
+   data; the file must be read by the native parser, built on the card's
+   host at first use); then config 5, streaming SGD over ten
+   micro-batches.
 6. sparse  — config 3 at full RCV1 scale, 697,641 x 47,236 with 75
    nonzeros a row, made on the card from a seed and trained undensified
    (hinge + L1) at frac 1.0 and 0.1: loss, accuracy, peak memory, dense
@@ -127,9 +129,29 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    its plain twin and cuSPARSE at the sparse path's shapes, each call at
    most two CUDA launches (the nodes of its captured graph), without a
    host sync, and replayed from a CUDA graph bitwise.
-11. summary — the sparse line, the quasi_newton line, the gram line, the
-   streamed line, the observed line, the kernel table (B1-B3 and the CSR
-   kernel), then the card's name and power limit, then the last line
+11. streamed_qn — the streamed statistics and quasi-Newton feeds, right
+   after phase 10's dense legs, on its host copy of the 10M x 1000 rows:
+   (a) binary L-BFGS (logistic + L2, 5 iterations) with every cost
+   evaluation and sweep streamed from the host rows at the default chunk
+   (``set_host_streaming``): history rtol 2e-4 against the resident run, a
+   second run bitwise, B1 launches exactly chunks x cost evaluations; wall
+   ms, cost evaluations and sweeps per iteration, H2D GB/s, device ms and
+   idle share from a traced 2-iteration run, the bound at phase 10's H2D
+   rate; B1 timed at the chunk shape; (b) OWL-QN (logistic + L1, 3
+   iterations) streamed from the first 2M rows against the resident run;
+   (c) ``build_streamed`` (B = 8,192) bitwise the resident build of the
+   whole blocks, its seconds against phase 8's build and the transfer
+   bound, its peak under the stack + 1 GB + the staged chunks; then
+   ``set_streamed_stats`` for sliced SGD (bitwise the resident aligned
+   run) and for L-BFGS (phase 8 leg (e)'s objective within 1 + 1e-4);
+   (d) a streamed build and the normal equations' streamed totals over
+   the first 1M rows stopped by a fault in the feed and resumed, bitwise;
+   (e) the normal equations from streamed totals over the 10M rows: leg
+   (b) of phase 7's objective within 1 + 1e-5, two runs bitwise.
+12. summary — the sparse line, the quasi_newton line, the gram line, the
+   streamed line, the streamed_qn line, the observed line, the kernel
+   table (B1-B3, B1 at the streamed chunk shape, and the CSR kernel),
+   then the card's name and power limit, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  It imports
@@ -138,6 +160,7 @@ nothing of JAX or of the JAX package ``tpu_sgd``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -896,6 +919,7 @@ def config3_sparse(torch, tst, rows):
     sparse path, held to the LP oracle and to the dense path on the same
     data densified (frac 1.0: neither run samples)."""
     from tpu_sgd_torch.ops.sparse import csr_from_triple
+    from tpu_sgd_torch.utils import mlutils
     from tpu_sgd_torch.utils.mlutils import (load_libsvm_file,
                                              rcv1_like_data,
                                              save_as_libsvm_file)
@@ -908,6 +932,9 @@ def config3_sparse(torch, tst, rows):
         save_as_libsvm_file(path, X0, y0)
         csr, y, d_read = load_libsvm_file(path, num_features=d, dense=False)
     io_s = time.perf_counter() - t
+    check(mlutils.last_reader == "native",
+          f"config 3: the LIBSVM file was read by the {mlutils.last_reader} "
+          "parser, not the native one")
     X = csr_from_triple(csr, d_read)
     check(np.array_equal(y, y0)
           and torch.equal(X.col_indices(), X0.col_indices())
@@ -937,7 +964,8 @@ def config3_sparse(torch, tst, rows):
            "objective": L, "dense_objective": L_dense, "oracle": L_star,
            "gap": (L - L_star) / L_star, "vs_dense": L / L_dense,
            "accuracy": acc, "oracle_accuracy": acc_star,
-           "libsvm_roundtrip_s": io_s, "lp_s": lp_s,
+           "libsvm_roundtrip_s": io_s, "libsvm_reader": mlutils.last_reader,
+           "lp_s": lp_s,
            "train_s": models["sparse_s"], "dense_train_s": models["dense_s"]}
     check(out["weights_device"].startswith("cuda")
           and out["gap"] < 0.20 and acc > acc_star - 0.01
@@ -1265,21 +1293,27 @@ def _qn_iteration_profile(torch, tst, X, y, iters=10):
             "rest_ms": busy - b1 - products, "top_device_ms": dict(top)}
 
 
+def logistic_labels(torch, X, w_true):
+    """Labels of a planted logistic model with margins of std ~2, drawn on
+    the card from a seed (legs (a) of phases quasi_newton and
+    streamed_qn)."""
+    from tpu_sgd_torch.ops.gradients import f32_product
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    w_plant = w_true * (2.0 / torch.linalg.vector_norm(w_true))
+    p = torch.sigmoid(f32_product(X, w_plant))
+    return (torch.rand(X.shape[0], generator=gen, device="cuda") < p).float()
+
+
 def leg_binary_lbfgs(torch, tst, ck, X, w_true):
     """(a) Binary L-BFGS at config 4's shape; returns the leg's record and
     B1's full-batch timing row."""
-    from tpu_sgd_torch.ops.gradients import f32_product
     from tpu_sgd_torch.optimize.lbfgs import _build_loss_sweep, _reg_terms
     from tpu_sgd_torch.optimize.oracle import full_objective
 
     n, d = X.shape
     reg = 1e-4
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    # a planted logistic model with margins of std ~2
-    w_plant = w_true * (2.0 / torch.linalg.vector_norm(w_true))
-    p = torch.sigmoid(f32_product(X, w_plant))
-    y = (torch.rand(n, generator=gen, device="cuda") < p).float()
-    del p
+    y = logistic_labels(torch, X, w_true)
     alg = tst.LogisticRegressionWithLBFGS(max_num_iterations=QN_ITERS,
                                           reg_param=reg)
     torch.cuda.synchronize()
@@ -1396,6 +1430,7 @@ def leg_normal_equations(torch, tst, X, y, w_true):
            "w_rel_err": rel, "noise_level": noise, "gram_ms": gram_ms,
            "gram_bound_ms": bound, "gram_bound_by": by}
     emit({"phase": "quasi_newton", "leg": "b_normal_equations", **out})
+    out["weights"] = w_ne  # for phase streamed_qn (e)
     return out
 
 
@@ -2413,6 +2448,11 @@ def phase_observed(torch, tst, ck, X, y):
 #: rows of the prefix that the bitwise contracts of leg (c) run on
 STREAM_PREFIX_ROWS = 1_000_000
 STREAM_ITERS = 20
+STREAMED_QN_ITERS = 5       # leg (a) of phase streamed_qn
+# leg (b): OWL-QN over the first 2M host rows, cut in depth for time
+STREAMED_OWLQN_ROWS, STREAMED_OWLQN_ITERS = 2_000_000, 3
+# leg (d): the resumed builds over the first 1M rows in 8-block chunks
+RESUME_ROWS, RESUME_BATCH_ROWS = 1_000_000, 8 * 8192
 STREAM_STOP_AT = 13
 SPARSE_STREAM_ITERS = 60
 #: host bytes kept free beside the host copy of X and the staging ring
@@ -2806,8 +2846,431 @@ def phase_streamed_dense(torch, tst, ck, X, y):
         out["leg_seconds"][name] = time.perf_counter() - t_leg
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t
-    del Xh
+    return out, Xh, yh
+
+
+# -- phase streamed_qn --------------------------------------------------------
+
+def _rel_max(got, ref) -> float:
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.max(np.abs(got - ref) / np.abs(ref)))
+
+
+def _same_run(torch, a, b) -> bool:
+    """Two ``(weights, history)`` runs equal bit for bit."""
+    return bool(torch.equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+
+
+@contextlib.contextmanager
+def counting_evaluations(scf):
+    """Count the streamed CostFun's cost evaluations and sweeps inside the
+    block (its methods wrapped on the instance, and unwrapped after: the
+    wrappers hold the instance, a cycle that would keep its staging
+    buffers alive until the garbage collector ran)."""
+    counts = {"cost": 0, "sweep": 0}
+    for name in counts:
+        real = getattr(scf, f"{name}_sums")
+
+        def wrapped(w, _real=real, _name=name):
+            counts[_name] += 1
+            return _real(w)
+
+        setattr(scf, f"{name}_sums", wrapped)
+    try:
+        yield counts
+    finally:
+        for name in counts:
+            delattr(scf, f"{name}_sums")
+
+
+def b1_chunk_row(torch, tst, ck, X, y, w, scf, launches):
+    """B1 at the streamed CostFun's chunk shape: a full chunk unmasked (its
+    rule for every chunk but the tail) and the tail's mask; against the
+    plain version, two library matmuls of the same work and the bound."""
+    cap, d = scf.cap, X.shape[1]
+    Xc, yc = X[:cap], y[:cap]
+    pw = tst.LogisticGradient().pointwise
+    ok, err, scale = _close(torch, ck.fused_gradient_sums(pw, Xc, yc, w),
+                            ck.fused_gradient_sums_plain(pw, Xc, yc, w), True)
+    check(ok, f"B1 at the chunk shape: max|dg|={err} of {scale}")
+    tail = scf.n - (scf.n_chunks - 1) * cap
+    mask = torch.zeros(cap, dtype=torch.bool, device="cuda")
+    mask[:tail] = True
+    ok, m_err, _ = _close(torch, ck.fused_gradient_sums(pw, Xc, yc, w, mask),
+                          ck.fused_gradient_sums_plain(pw, Xc, yc, w, mask),
+                          True)
+    check(ok, f"B1 at the tail's mask: max|dg|={m_err}")
+    bound, by = _bound_ms(cap, d, X.element_size(), 0)
+    wb = w.to(X.dtype)
+    coeff = torch.randn(cap, device="cuda").to(X.dtype)
+    return {"name": "fused_gradient_sums", "path": "streamed_costfun_chunk",
+            "shape": [cap, d], "selected_rows": cap, "max_abs_err": err,
+            "grad_scale": scale, "masked_max_abs_err": m_err,
+            "masked_rows": tail,
+            "ms": time_ms(torch, lambda: ck.fused_gradient_sums(
+                pw, Xc, yc, w), 50),
+            "graph_ms": graph_ms(torch, lambda: ck.fused_gradient_sums(
+                pw, Xc, yc, w)),
+            "masked_ms": time_ms(torch, lambda: ck.fused_gradient_sums(
+                pw, Xc, yc, w, mask), 50),
+            "plain_ms": time_ms(torch, lambda: ck.fused_gradient_sums_plain(
+                pw, Xc, yc, w), 5),
+            "library_ms": time_ms(torch, lambda: (Xc @ wb, coeff @ Xc), 50),
+            "bound_ms": bound, "bound_by": by, "launches": launches,
+            "launches_from": "streamed_qn (a), its first run"}
+
+
+def streamed_qn_lbfgs(torch, tst, ck, X, y, Xh, yh, h2d_gb_s):
+    """(a) Binary L-BFGS with logistic + L2, every cost evaluation and sweep
+    streamed from the 10M host rows (default chunk), against the resident
+    run; a second run bitwise, with the feed's events and the evaluations
+    counted; a traced 2-iteration run; B1 at the chunk shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_sgd_torch.obs import spans
+
+    d = X.shape[1]
+    w0 = torch.zeros(d, device="cuda")
+
+    def make():
+        return tst.LBFGS(tst.LogisticGradient(), tst.SquaredL2Updater(),
+                         reg_param=1e-4, convergence_tol=0.0,
+                         max_num_iterations=STREAMED_QN_ITERS)
+
+    ref = make().optimize_with_history((X, y), w0)
+    opt = make().set_host_streaming(True)
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first = opt.optimize_with_history((Xh, yh), w0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = ck.launch_counts()
+    by_source = ck.kernel_launch_counts()
+    hist = first[1]
+    its = len(hist) - 1
+    scf = opt._stream_costfun_entry[2]
+    expect = scf.n_chunks * len(hist)
+    check(its == STREAMED_QN_ITERS, f"(a): {its} iterations, {hist}")
+    check(launches["fused_gradient_sums"] == expect
+          and by_source == {"fused_sums": expect, "window_sums": 0},
+          f"(a): launches {launches} / {by_source}, expected {expect} "
+          f"({scf.n_chunks} chunks x {len(hist)} cost evaluations)")
+    rel = _rel_max(hist, ref[1])
+    check(len(ref[1]) == len(hist) and rel <= 2e-4,
+          f"(a): history {hist} against the resident {ref[1]}")
+    sink = IngestSink()
+    spans.enable_tracing(sink)
+    try:
+        with counting_evaluations(scf) as counts:
+            second = opt.optimize_with_history((Xh, yh), w0)
+            torch.cuda.synchronize()
+    finally:
+        spans.disable_tracing()
+    check(_same_run(torch, first, second),
+          "(a): a second run is not bitwise the first")
+    feed = sink.report()
+    opt.set_max_num_iterations(2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        opt.optimize_with_history((Xh, yh), w0)
+        torch.cuda.synchronize()
+        traced = 1e3 * (time.perf_counter() - t) / 2
+    per = {k: v / 2 for k, v in device_ms_by_kernel(torch, prof).items()}
+    copies = sum(v for k, v in per.items() if k.startswith("Memcpy"))
+    kernels = sum(v for k, v in per.items()
+                  if not k.startswith(("Memcpy", "Memset")))
+    pass_bytes = scf.n_chunks * scf.cap * (d * X.element_size() + 4)
+    passes = (counts["cost"] + counts["sweep"]) / its
+    row = b1_chunk_row(torch, tst, ck, X, y, first[0], scf,
+                       launches["fused_gradient_sums"])
+    out = {"rows": scf.n, "chunk_rows": scf.cap, "chunks": scf.n_chunks,
+           "iterations": its, "history": [float(h) for h in hist],
+           "history_max_rel_vs_resident": rel, "launches": launches,
+           "wall_ms_per_iteration": 1e3 * secs / its,
+           "cost_evaluations": counts["cost"], "sweeps": counts["sweep"],
+           "cost_evaluations_per_iteration": counts["cost"] / its,
+           "sweeps_per_iteration": counts["sweep"] / its,
+           "h2d_gb_per_s": feed["h2d_gb_per_s"],
+           "h2d_bytes_per_pass": pass_bytes,
+           "assembly_ms_per_chunk": feed["assembly_ms_per_batch"],
+           "pinned_bytes": scf._ring.pinned_bytes,
+           "traced_wall_ms_per_iteration": traced,
+           "device_kernel_ms_per_iteration": kernels,
+           "device_copy_ms_per_iteration": copies,
+           "idle_share": max(0.0, 1 - kernels / traced),
+           "top_device_ms": dict(sorted(per.items(),
+                                        key=lambda kv: -kv[1])[:6]),
+           "bound_ms_per_iteration":
+               1e3 * passes * pass_bytes / (1e9 * h2d_gb_s),
+           "bound_by": "h2d bytes at phase streamed's rate",
+           "bitwise_repeat": True}
+    out["share_of_bound"] = (out["bound_ms_per_iteration"]
+                             / out["wall_ms_per_iteration"])
+    opt.release_sufficient_stats()
+    return out, row
+
+
+def streamed_qn_owlqn(torch, tst, X, y, Xh, yh):
+    """(b) OWL-QN with logistic + L1 streamed from the first
+    ``STREAMED_OWLQN_ROWS`` host rows (cut in depth to keep the phase
+    short), against the resident run on the same rows."""
+    rows = STREAMED_OWLQN_ROWS
+    w0 = torch.zeros(X.shape[1], device="cuda")
+
+    def make():
+        return tst.OWLQN(tst.LogisticGradient(), reg_param=1e-4,
+                         convergence_tol=0.0,
+                         max_num_iterations=STREAMED_OWLQN_ITERS)
+
+    _, h_ref = make().optimize_with_history((X[:rows], y[:rows]), w0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    w, hist = make().set_host_streaming(True).optimize_with_history(
+        (Xh[:rows], yh[:rows]), w0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    rel = _rel_max(hist, h_ref)
+    check(len(hist) == len(h_ref) == STREAMED_OWLQN_ITERS + 1
+          and rel <= 2e-4, f"(b): history {hist} against {h_ref}")
+    return {"rows": rows, "iterations": len(hist) - 1,
+            "history_max_rel_vs_resident": rel, "seconds": secs,
+            "exact_zeros": int((w == 0).sum())}
+
+
+def streamed_qn_statistics(torch, tst, ck, X, y_ls, Xh, yh_ls, gram,
+                           h2d_gb_s):
+    """(c) ``build_streamed`` from the 10M host rows against the resident
+    ``build`` of the whole blocks (bitwise), its time against phase gram's
+    resident build and the transfer bound, its peak; then
+    ``set_streamed_stats`` for sliced SGD (bitwise the resident aligned
+    run) and for L-BFGS (leg (e) of phase gram's objective)."""
+    from tpu_sgd_torch.optimize.oracle import full_objective
+
+    n, d = X.shape
+    B = GRAM_BLOCK
+    n_use = (n // B) * B
+    depth, chunk_rows = 2, 64 * B
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    g_s = tst.GramLeastSquaresGradient.build_streamed(Xh, yh_ls, block_rows=B)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    stack = g_s.data.PG.numel() * g_s.data.PG.element_size()
+    staged = depth * chunk_rows * (d * X.element_size() + 4)
+    check(peak < stack + 1e9 + staged,
+          f"(c): build peak {peak} bytes, stack {stack}, staged {staged}")
+    g_r = tst.GramLeastSquaresGradient.build(X[:n_use], y_ls[:n_use],
+                                             block_rows=B, aligned=True)
+    for leaf in ("PG", "Pb", "Pyy", "G_tot", "b_tot", "yy_tot"):
+        check(torch.equal(getattr(g_s.data, leaf), getattr(g_r.data, leaf)),
+              f"(c): streamed {leaf} is not the resident build's")
+    check(g_s.data.shape == (n_use, d), f"(c): shape {g_s.data.shape}")
+    del g_s
+    torch.cuda.empty_cache()
+    moved = n_use * (d * X.element_size() + 4)
+    w0 = torch.zeros(d, device="cuda")
+
+    def gd():
+        return tst.GradientDescent().set_num_iterations(ITERS) \
+            .set_step_size(0.5).set_mini_batch_fraction(FRAC) \
+            .set_sampling("sliced").set_convergence_tol(0.0)
+
+    o = gd().set_streamed_stats(True)
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = o.optimize_with_history((Xh, yh_ls), w0)
+    torch.cuda.synchronize()
+    gd_s = time.perf_counter() - t
+    check(all(v == 0 for v in ck.launch_counts().values()),
+          f"(c): the statistics launched kernels {ck.launch_counts()}")
+    o.release_sufficient_stats()
+    ref = tst.GradientDescent(g_r).set_num_iterations(ITERS) \
+        .set_step_size(0.5).set_mini_batch_fraction(FRAC) \
+        .set_sampling("sliced").set_convergence_tol(0.0) \
+        .optimize_with_history((g_r.data.X, y_ls[:n_use]), w0)
+    check(_same_run(torch, got, ref), "(c): set_streamed_stats SGD is not the "
+          "resident aligned run")
+    del g_r
+    torch.cuda.empty_cache()
+    lb = tst.LBFGS(tst.LeastSquaresGradient(), tst.SquaredL2Updater(),
+                   max_num_iterations=QN_ITERS, convergence_tol=0.0) \
+        .set_streamed_stats(True)
+    t = time.perf_counter()
+    w_lb, h_lb = lb.optimize_with_history((Xh, yh_ls), w0)
+    torch.cuda.synchronize()
+    lb_s = time.perf_counter() - t
+    lb.release_sufficient_stats()
+    L = full_objective(tst.LeastSquaresGradient(), X, y_ls, w_lb)
+    L_e = gram["e_lbfgs"]["objective"]
+    check(L <= L_e * (1 + 1e-4),
+          f"(c): L-BFGS objective {L} > phase gram (e)'s {L_e} x (1 + 1e-4)")
+    return {"block_rows": B, "rows_used": n_use, "build_s": build_s,
+            "resident_build_warm_s": gram["a_build"]["warm_s"],
+            "transfer_bound_s": moved / (1e9 * h2d_gb_s),
+            "share_of_transfer_bound": moved / (1e9 * h2d_gb_s) / build_s,
+            "stack_bytes": stack, "peak_allocated_bytes": peak,
+            "peak_limit_bytes": stack + 1e9 + staged,
+            "stack_equals_resident_bitwise": True,
+            "sgd_seconds_with_build": gd_s,
+            "sgd_equals_resident_aligned_bitwise": True,
+            "sgd_loss_last": float(got[1][-1]),
+            "lbfgs_seconds_with_build": lb_s,
+            "lbfgs_iterations": len(h_lb) - 1, "lbfgs_objective": L,
+            "gram_e_objective": L_e}
+
+
+def streamed_qn_resume(torch, tst, Xh, yh):
+    """(d) A streamed prefix build over the first ``RESUME_ROWS`` host rows
+    stopped by a fault in its feed after its third chunk, then resumed:
+    bitwise the uninterrupted build; the same for the totals through
+    ``NormalEquations.set_host_streaming(resume_dir=)`` (stopped after a
+    save)."""
+    from tpu_sgd_torch.reliability import failpoints as fp
+
+    Xr, yr = Xh[:RESUME_ROWS], yh[:RESUME_ROWS]
+    kw = dict(block_rows=GRAM_BLOCK, batch_rows=RESUME_BATCH_ROWS)
+    build = tst.GramLeastSquaresGradient.build_streamed
+    ref = build(Xr, yr, **kw)
+    w0 = np.zeros(Xh.shape[1], np.float32)
+
+    def normal(**kw2):
+        return tst.NormalEquations().set_host_streaming(
+            True, batch_rows=RESUME_BATCH_ROWS, **kw2)
+
+    w_ref = normal().optimize((Xr, yr), w0)
+    out = {"rows": RESUME_ROWS, "chunk_rows": RESUME_BATCH_ROWS}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rd = os.path.join(tmp, "prefix")
+        with fp.inject_faults({"io.prefetch.produce": fp.fail_nth(4)}):
+            try:
+                build(Xr, yr, resume_dir=rd, **kw)
+                stopped = False
+            except fp.FaultInjected:
+                stopped = True
+        check(stopped, "(d): the prefix build did not stop")
+        with open(os.path.join(rd, "meta.json")) as f:
+            out["prefix_high_water_rows"] = json.load(f)["high_water_rows"]
+        check(out["prefix_high_water_rows"] == 3 * RESUME_BATCH_ROWS,
+              f"(d): stopped at {out['prefix_high_water_rows']} rows")
+        got = build(Xr, yr, resume_dir=rd, **kw)
+        for leaf in ("PG", "Pb", "Pyy", "G_tot", "b_tot", "yy_tot"):
+            check(torch.equal(getattr(got.data, leaf),
+                              getattr(ref.data, leaf)),
+                  f"(d): the resumed {leaf} is not the uninterrupted one")
+        check(not os.path.exists(rd), "(d): the prefix parts remain")
+        del got, ref
+        rd = os.path.join(tmp, "totals")
+        ne = normal(resume_dir=rd)
+        with fp.inject_faults({"io.prefetch.produce": fp.fail_nth(7)}):
+            try:
+                ne.optimize((Xr, yr), w0)
+                stopped = False
+            except fp.FaultInjected:
+                stopped = True
+        check(stopped, "(d): the totals pass did not stop")
+        with np.load(os.path.join(rd, "totals.npz")) as z:
+            out["totals_rows_done"] = int(z["rows_done"])
+        check(out["totals_rows_done"] == 4 * RESUME_BATCH_ROWS,
+              f"(d): totals saved at {out['totals_rows_done']} rows")
+        w = ne.optimize((Xr, yr), w0)
+        check(torch.equal(w, w_ref), "(d): the resumed normal solve is not "
+              "the uninterrupted one")
+    out["seconds"] = time.perf_counter() - t
+    out["prefix_resumed_bitwise"] = out["totals_resumed_bitwise"] = True
     return out
+
+
+def ls_objective_exact(torch, X, y, w, chunk=1_000_000) -> float:
+    """The least-squares objective of ``w`` itself: margins of f32 ``w``
+    over the rows upcast to f32, the squared residuals summed in f64.  The
+    oracle's ``full_objective`` rounds ``w`` to X's bf16 (the kernels'
+    mixed-precision contract), which moves the objective of two solves a
+    few 1e-6 apart by about 1e-5 of itself."""
+    total = 0.0
+    w32 = w.to(torch.float32)
+    for s in range(0, X.shape[0], chunk):
+        r = X[s:s + chunk].to(torch.float32) @ w32 - y[s:s + chunk]
+        total += float(torch.sum(r.double() ** 2))
+    return 0.5 * total / X.shape[0]
+
+
+def streamed_qn_normal(torch, tst, X, y_ls, Xh, yh_ls, qn_b, h2d_gb_s):
+    """(e) The normal equations from host-streamed totals over the 10M host
+    rows: leg (b)'s resident objective within (1 + 1e-5), both evaluated
+    at their own f32 weights; two runs bitwise, seconds against the
+    transfer bound."""
+    from tpu_sgd_torch.optimize.oracle import full_objective
+
+    n, d = X.shape
+    w0 = torch.zeros(d, device="cuda")
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        w = tst.NormalEquations().set_host_streaming(True).optimize(
+            (Xh, yh_ls), w0)
+        torch.cuda.synchronize()
+        runs.append((w, time.perf_counter() - t))
+    check(torch.equal(runs[0][0], runs[1][0]),
+          "(e): two streamed normal solves differ")
+    L = ls_objective_exact(torch, X, y_ls, runs[0][0])
+    L_b = ls_objective_exact(torch, X, y_ls, qn_b["weights"])
+    check(L <= L_b * (1 + 1e-5),
+          f"(e): objective {L} > leg (b)'s {L_b} x (1 + 1e-5)")
+    bound = n * (d * X.element_size() + 4) / (1e9 * h2d_gb_s)
+    return {"rows": n, "seconds": [r[1] for r in runs],
+            "transfer_bound_s": bound,
+            "share_of_transfer_bound": bound / runs[1][1], "objective": L,
+            "resident_objective": L_b,
+            "objective_bf16_weights": full_objective(
+                tst.LeastSquaresGradient(), X, y_ls, runs[0][0]),
+            "resident_objective_bf16_weights": qn_b["objective"],
+            "bitwise_repeat": True}
+
+
+def phase_streamed_qn(torch, tst, ck, X, y, w_true, Xh, qn_b, gram,
+                      streamed):
+    """Phase ``streamed_qn``, right after phase ``streamed`` on its host
+    copy of the 10M x 1000 bf16 rows: legs (a)-(e).  Returns the phase's
+    record and B1's row at the streamed chunk shape."""
+    t0 = time.perf_counter()
+    h2d = max(r["ingest"]["h2d_gb_per_s"]
+              for r in streamed["b_sampled"].values())
+    y_log = logistic_labels(torch, X, w_true)
+    yh_log = y_log.cpu()
+    y_ls = y.to(torch.bfloat16).to(torch.float32)
+    yh_ls = y_ls.cpu()
+    out = {"phase_streamed_h2d_gb_per_s": h2d, "leg_seconds": {}}
+    legs = (("a_lbfgs", lambda: streamed_qn_lbfgs(
+                torch, tst, ck, X, y_log, Xh, yh_log, h2d)),
+            ("b_owlqn", lambda: streamed_qn_owlqn(
+                torch, tst, X, y_log, Xh, yh_log)),
+            ("c_statistics", lambda: streamed_qn_statistics(
+                torch, tst, ck, X, y_ls, Xh, yh_ls, gram, h2d)),
+            ("d_resume", lambda: streamed_qn_resume(torch, tst, Xh, yh_ls)),
+            ("e_normal", lambda: streamed_qn_normal(
+                torch, tst, X, y_ls, Xh, yh_ls, qn_b, h2d)))
+    row = None
+    for name, leg in legs:
+        t = time.perf_counter()
+        rec = leg()
+        if name == "a_lbfgs":
+            rec, row = rec
+        out[name] = rec
+        out["leg_seconds"][name] = time.perf_counter() - t
+        emit({"phase": "streamed_qn", "leg": name, **rec})
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out, row
 
 
 def staged_sparse_batch(torch, tst, Xh, cfg):
@@ -3177,9 +3640,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     observed = phase_observed(torch, tst, ck, X, y)
     torch.cuda.empty_cache()
-    streamed = phase_streamed_dense(torch, tst, ck, X, y)
+    streamed, Xh, _ = phase_streamed_dense(torch, tst, ck, X, y)
     emit({"phase": "streamed", "dense": streamed})
-    del X, y, sliced_ref
+    streamed_qn, b1_chunk = phase_streamed_qn(torch, tst, ck, X, y, w_true,
+                                              Xh, qn["b"], gram, streamed)
+    rows.append(b1_chunk)
+    del X, y, sliced_ref, Xh
     torch.cuda.empty_cache()
     qn["c"] = leg_multinomial(torch, tst)
     torch.cuda.empty_cache()
@@ -3260,6 +3726,7 @@ def main() -> int:
             "host_copy_seconds", "a_full_batch", "b_sampled",
             "c_contracts", "d_predict", "leg_seconds", "seconds")},
         "sparse": streamed["sparse"]}})
+    emit({"streamed_qn": streamed_qn})
     emit({"observed": {
         "rows": {row: {"bitwise_equal": r["bitwise_equal"],
                        "capture_ms": r["capture_ms"],
@@ -3288,7 +3755,8 @@ def main() -> int:
                            "old_path_host_paced_ms", "nnz", "columns",
                            "share_of_bound", "graph_ms",
                            "library_graph_ms", "one_line_graph_ms",
-                           "cuda_launches_per_call", "launches_from")
+                           "cuda_launches_per_call", "launches_from",
+                           "masked_ms", "masked_rows")
          if k in r}
         for r in rows]})
     print(smi, flush=True)

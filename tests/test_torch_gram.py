@@ -11,11 +11,10 @@ carries the whole prefix's rounding), loss rtol 1e-3; trajectories rtol
 5e-4 / atol 5e-4; the chunked driver against the per-iteration aligned
 driver rtol 1e-5 / atol 1e-6.
 
-Not twinned here: the mesh cases (ROADMAP A5), the streamed builds and
-their checkpoints, ``set_streamed_stats`` and the listener / checkpoint
-cases (A9, A11), and the planner's ownership of the gram knobs (A11).
-Their setters and builders raise ``NotImplementedError`` naming the item,
-which the error probes below check.
+The streamed builds, their checkpoints and ``set_streamed_stats`` are
+twinned in ``tests/test_torch_streamed_gram.py``.  Not twinned: the mesh
+cases (ROADMAP A5), the listener / checkpoint cases and the planner's
+ownership of the gram knobs (A11).
 """
 
 import json
@@ -1054,19 +1053,54 @@ def test_single_block_virtual_stats_warn_on_sliced(rng):
     assert any("degenerate to FULL-BATCH" in str(r.message) for r in rec)
 
 
-# ---- what later slices bring -------------------------------------------------
+# ---- the streamed statistics entry points -----------------------------------
+
+def _streamed_stats_run(opt):
+    """``opt`` (a setter's return value) on 300 host rows: a finite,
+    non-increasing history."""
+    X, y, _ = _data(np.random.default_rng(3), n=300, d=4)
+    _, hist = opt.optimize_with_history((X, y), np.zeros(4, np.float32))
+    assert len(hist) > 1 and np.all(np.isfinite(hist))
+    assert hist[-1] < hist[0]
+    return opt
+
+
+def _streamed_build_runs():
+    g = TGram.build_streamed(np.ones((8, 2)), np.ones(8), block_rows=4,
+                             device=CPU)
+    assert g.data.X is None and g.data.shape == (8, 2)
+    return g
+
+
+def _batch_rows_knob(opt):
+    assert opt.set_gram_options(batch_rows=64) is opt
+    assert opt.gram_batch_rows == 64
+    _streamed_stats_run(opt.set_streamed_stats(True, block_rows=16))
+    assert opt._streamed_gram_entry[3][1] == 64
+
 
 @pytest.mark.parametrize("probe", [
-    lambda: TGram.build_streamed(np.ones((8, 2)), np.ones(8)),
-    lambda: tst.GradientDescent(device=CPU).set_streamed_stats(True),
-    lambda: tst.LBFGS(device=CPU).set_streamed_stats(True),
-    lambda: tst.OWLQN(device=CPU).set_streamed_stats(True),
-    lambda: tst.GradientDescent(device=CPU).set_gram_options(batch_rows=64),
-    lambda: tst.LBFGS(device=CPU).set_gram_options(batch_rows=64),
+    pytest.param(_streamed_build_runs, id="<lambda>0"),
+    pytest.param(lambda: _streamed_stats_run(
+        tst.GradientDescent(device=CPU).set_step_size(0.2)
+        .set_streamed_stats(True, block_rows=16)), id="<lambda>1"),
+    pytest.param(lambda: _streamed_stats_run(
+        tst.LBFGS(device=CPU).set_streamed_stats(True, block_rows=16)),
+        id="<lambda>2"),
+    pytest.param(lambda: _streamed_stats_run(
+        tst.OWLQN(device=CPU).set_streamed_stats(True, block_rows=16)),
+        id="<lambda>3"),
+    pytest.param(lambda: _batch_rows_knob(
+        tst.GradientDescent(device=CPU).set_step_size(0.2)),
+        id="<lambda>4"),
+    pytest.param(lambda: _batch_rows_knob(tst.LBFGS(device=CPU)),
+                 id="<lambda>5"),
 ])
 def test_streamed_statistics_raise_naming_a9(probe):
-    with pytest.raises(NotImplementedError, match="A9"):
-        probe()
+    """Each entry point of the streamed statistics (ROADMAP A9, second
+    half) returns its gradient or optimizer and runs on the CPU; their
+    parity is held in ``tests/test_torch_streamed_gram.py``."""
+    probe()
 
 
 def test_default_device_is_the_card():

@@ -127,12 +127,29 @@ def test_sparse_features_raise():
         tn.NormalEquations(device=CPU).optimize((X, y), np.zeros(10))
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda o: o.set_mesh(object()), "A5"),
-    (lambda o: o.set_host_streaming(True), "A9")])
-def test_later_slices_raise(call, item):
-    with pytest.raises(NotImplementedError, match=item):
-        call(tn.NormalEquations(device=CPU))
+def _mesh_raises(opt):
+    with pytest.raises(NotImplementedError, match="A5"):
+        opt.set_mesh(object())
+
+
+def _host_streaming_solves(opt):
+    """The host-streamed totals give the resident solve (parity:
+    ``tests/test_torch_streamed_gram.py``)."""
+    X, y, _ = linear_data(600, 6, eps=0.1, seed=4)
+    w0 = np.zeros(6, np.float32)
+    assert opt.set_host_streaming(True, batch_rows=128) is opt
+    w = opt.optimize((X, y), w0)
+    ref = tn.NormalEquations(reg_param=opt.reg_param, device=CPU).optimize(
+        (X, y), w0)
+    np.testing.assert_allclose(w.numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("call", [
+    pytest.param(_mesh_raises, id="<lambda>-A5"),
+    pytest.param(_host_streaming_solves, id="<lambda>-A9")])
+def test_later_slices_raise(call):
+    """``set_mesh`` raises naming A5; ``set_host_streaming`` runs."""
+    call(tn.NormalEquations(device=CPU))
 
 
 def test_true_f32_matmul_restores_the_settings():

@@ -46,7 +46,9 @@ def test_import_pulls_in_no_jax_and_no_tpu_sgd():
         "tpu_sgd_torch.io, tpu_sgd_torch.io.wire, "
         "tpu_sgd_torch.io.chunking, tpu_sgd_torch.io.prefetch, "
         "tpu_sgd_torch.io.sparse_wire, tpu_sgd_torch.optimize.streamed, "
-        "tpu_sgd_torch.optimize.streamed_sparse\n"
+        "tpu_sgd_torch.optimize.streamed_sparse, "
+        "tpu_sgd_torch.optimize.streamed_costfun, "
+        "tpu_sgd_torch.utils.native\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
         "print(bad)")
@@ -55,7 +57,8 @@ def test_import_pulls_in_no_jax_and_no_tpu_sgd():
 
 
 def test_import_builds_nothing():
-    """Importing every module starts no compiler and loads no library."""
+    """Importing every module starts no compiler (nvcc, or the C++
+    compiler of the native LIBSVM parser) and loads no library."""
     out = _python(
         "import subprocess\n"
         "def refuse(*a, **k): raise AssertionError('started %r' % (a,))\n"
@@ -75,9 +78,13 @@ def test_import_builds_nothing():
         "from tpu_sgd_torch.utils import events, checkpoint\n"
         "from tpu_sgd_torch.io import wire, chunking, prefetch, sparse_wire\n"
         "from tpu_sgd_torch.optimize import streamed, streamed_sparse\n"
-        "print(len(_build._loaded))")
+        "from tpu_sgd_torch.optimize import streamed_costfun\n"
+        "from tpu_sgd_torch.utils import mlutils, native\n"
+        "print(len(_build._loaded), native._lib, mlutils.last_reader)")
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "0"
+    # no CUDA library loaded, the LIBSVM parser neither loaded nor built
+    # (a build would have started the compiler), no file read
+    assert out.stdout.strip() == "0 None None"
 
 
 def test_default_device_raises_without_cuda():

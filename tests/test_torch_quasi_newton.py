@@ -530,16 +530,48 @@ def test_oracle_objective_helper_closed_form():
                            "elastic", device=CPU)
 
 
-# ---- later slices raise ----------------------------------------------------
+# ---- the schedules of host rows; the mesh raises ----------------------------
 
-@pytest.mark.parametrize("setter,item", [
-    ("set_mesh", "A5"), ("set_streamed_stats", "A9"),
-    ("set_host_streaming", "A9"), ("set_ingest_options", "A9")])
+def _runs_on_host_rows(opt):
+    X, y = _data("least_squares", n=400, d=5)
+    _, hist = opt.optimize_with_history((X, y), np.zeros(5, np.float32))
+    assert len(hist) > 1 and hist[-1] < hist[0]
+
+
+def _mesh_raises(opt):
+    with pytest.raises(NotImplementedError, match="A5"):
+        opt.set_mesh(object())
+
+
+def _streamed_stats_runs(opt):
+    assert opt.set_streamed_stats(True, block_rows=64) is opt
+    _runs_on_host_rows(opt)
+
+
+def _host_streaming_runs(opt):
+    assert opt.set_host_streaming(True, batch_rows=128) is opt
+    _runs_on_host_rows(opt)
+
+
+def _ingest_options(opt):
+    """The wire knobs apply; the compressed merge of meshed totals is A5."""
+    assert opt.set_ingest_options(wire_dtype="bfloat16") is opt
+    with pytest.raises(NotImplementedError, match="A5"):
+        opt.set_ingest_options(wire_compress="topk:0.1")
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(_mesh_raises, id="set_mesh-A5"),
+    pytest.param(_streamed_stats_runs, id="set_streamed_stats-A9"),
+    pytest.param(_host_streaming_runs, id="set_host_streaming-A9"),
+    pytest.param(_ingest_options, id="set_ingest_options-A9")])
 @pytest.mark.parametrize("cls", [tl.LBFGS, to.OWLQN])
-def test_schedules_of_later_slices_raise(cls, setter, item):
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(cls(device=CPU), setter)(object() if setter == "set_mesh"
-                                         else True)
+def test_schedules_of_later_slices_raise(cls, case):
+    """``set_mesh`` raises naming A5; the schedules of ROADMAP A9's second
+    half return the optimizer and run (their parity:
+    ``tests/test_torch_streamed_costfun.py``, ``test_torch_streamed_gram
+    .py``)."""
+    case(cls(device=CPU))
 
 
 def test_owlqn_has_no_updater_axis():

@@ -133,6 +133,10 @@ class Prefetcher:
         try:
             return fut.result()
         except BaseException:
+            # the future holds the exception, whose traceback holds this
+            # frame: drop it, or the cycle keeps the caller's frames (and
+            # their device buffers) alive until the garbage collector runs
+            del fut
             self.close()
             raise
 

@@ -49,14 +49,31 @@ indices.  Masks, ``valid``, an unbound or
 different matrix, and feature sharding run the stock exact path, which on
 the card is the fused kernel (``ops/cuda_kernels.py``).
 
-Not ported yet: ``build_streamed`` and the build checkpoints, which stream
-host-resident data through the ingest pipeline (ROADMAP A9).
+Host-resident data too large for the card builds its statistics in one
+streamed pass (:meth:`GramLeastSquaresGradient.build_streamed`, and the
+totals alone by :meth:`GramLeastSquaresGradient._streamed_totals` for the
+normal equations): chunks of whole blocks go through the ingest pipeline
+(``tpu_sgd_torch/io``: a prefetch worker, pinned slots, copies on a side
+stream) and each block is summed by the resident build's own arithmetic
+(``_block_stats``, the f64 carry of ``_running_sum``), which carries on
+across chunk boundaries.  So a streamed stack equals the resident
+``build`` over the same whole blocks bit for bit, whatever the chunk size.
+A build given ``resume_dir`` persists each chunk's prefix rows and the
+f64 carry (``_PrefixBuildCheckpoint``; the totals: the carry alone,
+``_TotalsBuildCheckpoint``), so a build stopped part way resumes from its
+last chunk to the same bits.  The JAX package carries f32 prefix rows
+across chunks and in its part files; a resume directory it wrote records
+no carry dtype and is refused.
 """
 
 from __future__ import annotations
 
+import contextlib
+import glob
+import hashlib
 import json
 import os
+import shutil
 import warnings
 from typing import Optional, Tuple
 
@@ -64,6 +81,9 @@ import numpy as np
 import torch
 
 from tpu_sgd_torch.device import as_tensor, resolve_device, true_f32_matmul
+from tpu_sgd_torch.io.chunking import plan_chunks
+from tpu_sgd_torch.io.prefetch import PinnedRing, Prefetcher, ring_slots
+from tpu_sgd_torch.io.wire import host_tensor, resolve_wire_dtype
 from tpu_sgd_torch.ops.cuda_kernels import _start_tensor
 from tpu_sgd_torch.ops.gradients import (
     LeastSquaresGradient,
@@ -120,21 +140,310 @@ def aligned_window_terms(PG_diff, Pb_diff, yy_diff, w_sd):
     return g_sum, loss_sum
 
 
-def _running_sum(stacks, blocks):
+def _running_sum(stacks, blocks, carries=None, k0: int = 0):
     """Inclusive running sums with a leading zero entry, written in place:
     ``P[0] = 0`` and ``P[k+1] = P[k] + block_k`` for each of ``stacks``,
     summed in a ``SUM_DTYPE`` carry and rounded once into each entry, with
     one block's statistics live at a time (``blocks`` yields one tuple per
-    block).  Returns the carries: the sums over all blocks."""
-    carries = [torch.zeros(P.shape[1:], dtype=SUM_DTYPE, device=P.device)
-               for P in stacks]
-    for P in stacks:
-        P[0].zero_()
-    for k, stats in enumerate(blocks):
+    block).  Returns the carries: the sums over all blocks.
+
+    A streamed build passes the carries of the blocks before its chunk
+    (updated in place) and ``k0``, the chunk's first block: its entries
+    land at ``P[k0 + 1] ...``."""
+    if carries is None:
+        carries = [torch.zeros(P.shape[1:], dtype=SUM_DTYPE,
+                               device=P.device) for P in stacks]
+        for P in stacks:
+            P[0].zero_()
+    for k, stats in enumerate(blocks, start=k0 + 1):
         for P, c, s in zip(stacks, carries, stats):
             c += s
-            P[k + 1].copy_(c)
+            P[k].copy_(c)
     return carries
+
+
+def streamed_totals_chunking(n: int, block_rows: int, batch_rows=None):
+    """``(B, chunk)`` of a streamed TOTALS build: block size and chunk rows.
+    ``batch_rows`` caps the chunk exactly: the totals carry has no prefix
+    stack, so the block shrinks to honour a small cap.  Default: 64
+    blocks a chunk.  The JAX package's policy, shared with
+    ``NormalEquations.set_host_streaming``."""
+    n = max(1, int(n))
+    B = max(1, min(int(block_rows), n))
+    if batch_rows:
+        B = max(1, min(B, int(batch_rows)))
+        chunk = max(B, (int(batch_rows) // B) * B)
+    else:
+        chunk = 64 * B
+    return B, min(chunk, n)
+
+
+def _acc_totals(carry, X, y, B, valid=None):
+    """Add the statistics ``(XᵀX, Xᵀy, yᵀy)`` of ``(X, y)`` to the
+    ``SUM_DTYPE`` carry ``(G, b, yy)`` in place, ``B`` rows at a time (the
+    last block may be short), each block upcast on its own.  ``valid``
+    masks rows exactly (one operand's rows zeroed).  Returns the carry."""
+    G, b, yy = carry
+    for s in range(0, X.shape[0], B):
+        Xb = X[s:s + B].to(SUM_DTYPE)
+        yb = y[s:s + B].to(SUM_DTYPE)
+        Xm, ym = Xb, yb
+        if valid is not None:
+            v = valid[s:s + B].to(SUM_DTYPE)
+            Xm, ym = Xb * v[:, None], yb * v
+        G += _dot_wide(Xm.T, Xb)
+        b += _dot_wide(ym, Xb)
+        yy += _dot_wide(ym, yb)
+    return carry
+
+
+def _chunk_prefix(stacks, carries, X, y, B, k0):
+    """One streamed chunk of whole blocks into the prefix stacks, its
+    first block at ``k0``, the carries continued in place."""
+    return _running_sum(
+        stacks, GramLeastSquaresGradient._block_stats(X, y, B=B), carries, k0)
+
+
+def _sum_carries(d: int, device):
+    """Zero ``SUM_DTYPE`` carries ``(G, b, yy)`` of width ``d``."""
+    return [torch.zeros(shape, dtype=SUM_DTYPE, device=device)
+            for shape in ((d, d), (d,), ())]
+
+
+def _host_bytes(t: Tensor) -> bytes:
+    """A host tensor's bytes, whatever its dtype (bf16 included)."""
+    return t.contiguous().view(-1).view(torch.uint8).numpy().tobytes()
+
+
+def _dataset_fingerprint(Xh: Tensor, yh: Tensor, n_rows: int) -> str:
+    """Cheap dataset identity for the resume checkpoints: the first and
+    the last used row and the head of the labels, so a stale resume_dir
+    of another dataset of the same shape is refused."""
+    h = hashlib.sha1()
+    h.update(_host_bytes(Xh[0]))
+    h.update(_host_bytes(Xh[n_rows - 1]))
+    h.update(_host_bytes(yh[:min(64, n_rows)].to(torch.float64)))
+    return h.hexdigest()
+
+
+def _atomic_json_write(path: str, obj) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _atomic_savez(path: str, **arrays) -> None:
+    """``np.savez`` to ``path`` through a temporary file and a rename, so
+    the file exists whole or not at all."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def _to_host(t: Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _validate_or_write_meta(meta_path: str, meta: dict,
+                            validate_keys) -> dict:
+    """Compare a checkpoint meta on disk with this build's (raising on a
+    mismatch of geometry, dataset or wire) or write a fresh one; returns
+    the meta on disk.  A meta without ``carry_dtype`` was written by a
+    build that carries its sums at the stats dtype (the JAX package's),
+    and cannot resume this one bitwise: it is refused."""
+    if not os.path.exists(meta_path):
+        _atomic_json_write(meta_path, meta)
+        return meta
+    with open(meta_path) as f:
+        on_disk = json.load(f)
+    where = os.path.dirname(meta_path)
+    if "carry_dtype" not in on_disk:
+        raise ValueError(
+            f"resume_dir {where!r} holds a build that records no carry "
+            "dtype: one that carries its sums at the stats dtype (the JAX "
+            "package writes such parts), which this build, carrying "
+            f"{_dtype_name(SUM_DTYPE)} sums, cannot resume bitwise; point "
+            "resume_dir at a fresh directory or delete the stale one")
+    want = {k: meta[k] for k in validate_keys}
+    got = {k: on_disk.get(k) for k in validate_keys}
+    if got != want:
+        raise ValueError(
+            f"resume_dir {where!r} holds a different build ({got} != "
+            f"{want}); point resume_dir at a fresh directory or delete the "
+            "stale one")
+    return on_disk
+
+
+class _TotalsBuildCheckpoint:
+    """Resumability of a streamed TOTALS build: the whole mid-pass state
+    is the ``SUM_DTYPE`` carry, so a checkpoint is one small atomic npz
+    (the carry and the rows done) beside a meta of geometry, dataset
+    fingerprint, effective wire and carry dtype."""
+
+    def __init__(self, path, *, n, d, B, chunk, sd_name, fingerprint="",
+                 wire="none"):
+        self.path = path
+        self.meta = {
+            "class": "TotalsBuildCheckpoint",
+            "n": int(n), "d": int(d), "B": int(B), "chunk": int(chunk),
+            "stats_dtype": sd_name, "fingerprint": fingerprint,
+            # chunks summed under one wire never mix with a resumed pass
+            # under another
+            "wire": wire, "carry_dtype": _dtype_name(SUM_DTYPE),
+        }
+        os.makedirs(path, exist_ok=True)
+        self._state_path = os.path.join(path, "totals.npz")
+        _validate_or_write_meta(os.path.join(path, "meta.json"), self.meta,
+                                tuple(self.meta))
+
+    def restore(self, device):
+        """``(rows_done, carry | None)`` from the last checkpoint."""
+        if not os.path.exists(self._state_path):
+            return 0, None
+        with np.load(self._state_path) as z:
+            carry = [torch.from_numpy(z[k]).to(device)
+                     for k in ("G", "b", "yy")]
+            return int(z["rows_done"]), carry
+
+    def save(self, rows_done, carry) -> None:
+        G, b, yy = (_to_host(t) for t in carry)
+        _atomic_savez(self._state_path, rows_done=np.asarray(rows_done),
+                      G=G, b=b, yy=yy)
+
+    def finalize(self) -> None:
+        shutil.rmtree(self.path, ignore_errors=True)
+
+
+class _PrefixBuildCheckpoint:
+    """Per-chunk persistence of the streamed prefix build: each part file
+    holds one chunk's prefix rows (stats dtype; ``Pb`` and ``Pyy`` at
+    ``SUM_DTYPE``) and the ``SUM_DTYPE`` carry after it, written
+    atomically; ``meta.json`` records the geometry, the dataset, the wire,
+    the carry dtype and the high-water row.  A restart replays the parts
+    into the new stack and continues from the last part's carry, so the
+    resumed build is bitwise the uninterrupted one."""
+
+    def __init__(self, path, *, n_used, d, B, sd_name, chunk,
+                 fingerprint="", wire="none"):
+        self.path = path
+        self.meta = {
+            "class": "PrefixBuildCheckpoint",
+            "n_used": int(n_used), "d": int(d), "B": int(B),
+            "stats_dtype": sd_name, "chunk": int(chunk),
+            "fingerprint": fingerprint,
+            # a resumed pass under another wire would mix two wires'
+            # statistics
+            "wire": wire, "carry_dtype": _dtype_name(SUM_DTYPE),
+            "high_water_rows": 0,
+        }
+        os.makedirs(path, exist_ok=True)
+        self._meta_path = os.path.join(path, "meta.json")
+        on_disk = _validate_or_write_meta(
+            self._meta_path, self.meta,
+            ("class", "n_used", "d", "B", "stats_dtype", "fingerprint",
+             "wire", "carry_dtype"))
+        if on_disk is not self.meta:
+            self.meta["high_water_rows"] = int(
+                on_disk.get("high_water_rows", 0))
+
+    def _part_path(self, start_block: int) -> str:
+        return os.path.join(self.path, f"part_{start_block:08d}.npz")
+
+    def restore(self):
+        """``(resume_row, parts)``: the row to continue from and the
+        persisted ``(start_block, (pG, pb, pyy), carry)`` chunks in order.
+        Parts past the recorded high-water mark (a stop between a part's
+        write and the meta's) are whole chunks and are replayed too."""
+        parts = []
+        resume_row = 0
+        for fp in sorted(glob.glob(os.path.join(self.path, "part_*.npz"))):
+            start_block = int(os.path.basename(fp)[5:-4])
+            if start_block * self.meta["B"] != resume_row:
+                break  # a gap: an earlier part is missing
+            with np.load(fp) as z:
+                rows = tuple(z[k] for k in ("pG", "pb", "pyy"))
+                carry = tuple(z[k] for k in ("cG", "cb", "cyy"))
+            parts.append((start_block, rows, carry))
+            resume_row += rows[0].shape[0] * self.meta["B"]
+        return resume_row, parts
+
+    def save_part(self, start_block: int, rows, carry,
+                  high_water_rows: int) -> None:
+        pG, pb, pyy = (_to_host(t) for t in rows)
+        cG, cb, cyy = (_to_host(t) for t in carry)
+        _atomic_savez(self._part_path(start_block), pG=pG, pb=pb, pyy=pyy,
+                      cG=cG, cb=cb, cyy=cyy)
+        self.meta["high_water_rows"] = int(high_water_rows)
+        _atomic_json_write(self._meta_path, self.meta)
+
+    def finalize(self) -> None:
+        """Drop the parts once the build completed (``GramData.save`` is
+        the durable format)."""
+        shutil.rmtree(self.path, ignore_errors=True)
+
+
+def _float_dtype(dtype: torch.dtype) -> torch.dtype:
+    """A floating dtype as it is; int and bool as f32 (``optimize()``'s
+    coercion)."""
+    return dtype if dtype.is_floating_point else torch.float32
+
+
+def _host_rows(X, y):
+    """Host ``(X, y)`` of a streamed pass as contiguous CPU tensors (a
+    numpy array is wrapped, not copied); raises on anything but a
+    non-empty 2-D matrix.  Int and bool rows stay as they are: the feed
+    casts each chunk to f32 (:func:`_float_dtype`) on its way."""
+    Xh = host_tensor(X)
+    yh = host_tensor(y)
+    if Xh.dim() != 2 or Xh.shape[0] == 0:
+        raise ValueError(
+            f"need a non-empty (n, d) matrix, got {tuple(Xh.shape)}")
+    return Xh.contiguous(), yh.contiguous()
+
+
+def _stream_chunks(Xh, yh, plan, device, wire, depth):
+    """Yield ``(chunk, Xc, yc)`` for each chunk of ``plan``: its valid rows
+    on ``device``, X at the ``wire`` dtype when one is set, else at its
+    float dtype, y at its float dtype.  The prefetch worker stages each
+    chunk in a pinned ring slot (the cast in the same copy) and copies it
+    on a side stream.  The consumer queues its work on a chunk before it
+    asks for the next one, which frees the slot."""
+    xdt = wire if wire is not None else _float_dtype(Xh.dtype)
+    slots = ring_slots(depth)
+    rows = plan.chunk_rows
+    ring = PinnedRing({"x": ((rows, Xh.shape[1]), xdt),
+                       "y": ((rows,), _float_dtype(yh.dtype))}, slots,
+                      device)
+
+    def produce(c):
+        slot = c.index % slots
+        host = ring.claim(slot)
+        dev = ring.dev[slot]
+        v = c.valid
+        host["x"][:v].copy_(Xh[c.start:c.stop])
+        host["y"][:v].copy_(yh[c.start:c.stop])
+        ring.send(slot, [(dev["x"][:v], host["x"][:v]),
+                         (dev["y"][:v], host["y"][:v])])
+        return c, slot
+
+    with Prefetcher(produce, plan, depth=depth) as feed:
+        for c, slot in feed:
+            dev = ring.take(slot)
+            yield c, dev["x"][:c.valid], dev["y"][:c.valid]
+            ring.release(slot)
+    ring.drain()
+
+
+def _sync_chunks(Xh, yh, n, chunk, start, device):
+    """The plain feed (``pipeline=False``): chunk after chunk from
+    ``start``, each copied at its float dtype, no lookahead, no wire
+    cast."""
+    for s in range(start, n, chunk):
+        e = min(s + chunk, n)
+        yield (s, e, Xh[s:e].to(device, _float_dtype(Xh.dtype)),
+               yh[s:e].to(device, _float_dtype(yh.dtype)))
 
 
 def _full(value, dtype, like: Tensor) -> Tensor:
@@ -323,13 +632,154 @@ class GramLeastSquaresGradient(LeastSquaresGradient):
 
     @classmethod
     def build_streamed(cls, X, y, block_rows: int = DEFAULT_BLOCK_ROWS,
-                       **kwargs):
-        """Statistics of a host-resident dataset too large for the card:
-        the streamed statistics (ROADMAP A9, second half)."""
-        from tpu_sgd_torch.optimize.gradient_descent import (A9_REST,
-                                                             _not_ported)
+                       batch_rows: Optional[int] = None, stats_dtype=None,
+                       resume_dir: Optional[str] = None, wire_dtype=None,
+                       prefetch_depth: int = 2, pipeline: bool = True,
+                       device=None) -> "GramLeastSquaresGradient":
+        """Statistics of a HOST-resident dataset too large for the card
+        (a numpy array or a CPU tensor, bf16 included), in one streamed
+        pass on ``device`` (``None``: the card).  The gradient comes back
+        bound to a VIRTUAL ``GramData`` (``X=None``) of logical shape
+        ``(n // B · B, d)``: the trailing ``n % block_rows`` rows are
+        dropped, and block-aligned sliced windows and full-batch sums then
+        run from the statistics alone.
 
-        _not_ported("GramLeastSquaresGradient.build_streamed", A9_REST)
+        ``batch_rows`` is the host->device chunk (default 64 blocks, then
+        whole blocks).  ``pipeline=True`` feeds chunk ``k+1`` while chunk
+        ``k`` is summed (``prefetch_depth`` chunks staged at once, the one
+        being summed included); ``wire_dtype="bfloat16"`` casts each chunk
+        on the host and moves half the bytes; ``pipeline=False`` is the
+        plain feed, no lookahead and no wire cast, bitwise the same on an
+        f32 wire.  The stack is allocated once on the card and written in
+        place, so the peak is the stack plus the staged chunks.
+        ``resume_dir`` makes the pass resumable (module docstring)."""
+        dev = resolve_device(device)
+        Xh, yh = _host_rows(X, y)
+        n, d = Xh.shape
+        B = max(1, min(int(block_rows), n))
+        nbf = n // B
+        data_dtype = _float_dtype(Xh.dtype)
+        sd = cls._resolve_stats_dtype(data_dtype, stats_dtype)
+        chunk = (max(1, int(batch_rows) // B) if batch_rows else 64) * B
+        PG, Pb, Pyy = cls._streamed_prefix(
+            Xh, yh, B, sd, chunk, dev, resume_dir=resume_dir,
+            wire_dtype=wire_dtype, prefetch_depth=prefetch_depth,
+            pipeline=pipeline)
+        data = GramData(None, PG, Pb, Pyy, PG[-1], Pb[-1], Pyy[-1], B,
+                        logical_shape=(nbf * B, d), logical_dtype=data_dtype)
+        return cls(data)
+
+    @classmethod
+    def _streamed_prefix(cls, Xh, yh, B, sd, chunk, device, resume_dir=None,
+                         wire_dtype=None, prefetch_depth=2, pipeline=True):
+        """``(PG, Pb, Pyy)`` of the whole blocks of host rows ``(Xh, yh)``,
+        streamed chunk by chunk (``chunk`` a multiple of ``B``) into one
+        stack allocated on ``device``; each chunk's blocks go through
+        :func:`_chunk_prefix`, the ``SUM_DTYPE`` carry threading the
+        chunks.  See :meth:`build_streamed` and the module docstring for
+        the feed and ``resume_dir``."""
+        n_used = (Xh.shape[0] // B) * B
+        nbf = n_used // B
+        d = Xh.shape[1]
+        # the legacy plain feed transfers at the data dtype
+        wd = resolve_wire_dtype(wire_dtype, Xh.dtype) if pipeline else None
+        stacks = (torch.empty((nbf + 1, d, d), dtype=sd, device=device),
+                  torch.empty((nbf + 1, d), dtype=SUM_DTYPE, device=device),
+                  torch.empty((nbf + 1,), dtype=SUM_DTYPE, device=device))
+        for P in stacks:
+            P[0].zero_()
+        carries = _sum_carries(d, device)
+        s = 0
+        ckpt = None
+        if resume_dir is not None:
+            ckpt = _PrefixBuildCheckpoint(
+                resume_dir, n_used=n_used, d=d, B=B, sd_name=_dtype_name(sd),
+                chunk=chunk, fingerprint=_dataset_fingerprint(Xh, yh, n_used),
+                wire="none" if wd is None else _dtype_name(wd))
+            s, parts = ckpt.restore()
+            for start_block, rows, carry in parts:
+                for P, r in zip(stacks, rows):
+                    P[start_block + 1:start_block + 1 + r.shape[0]].copy_(
+                        torch.from_numpy(r))
+                carries = [torch.from_numpy(c).to(device) for c in carry]
+
+        def one(start, stop, Xc, yc):
+            k0 = start // B
+            _chunk_prefix(stacks, carries, Xc, yc, B, k0)
+            if ckpt is not None:
+                rows = tuple(P[k0 + 1:stop // B + 1] for P in stacks)
+                ckpt.save_part(k0, rows, carries, high_water_rows=stop)
+
+        if pipeline and s < n_used:
+            plan = plan_chunks(n_used, chunk, offset=s, round_to=B)
+            with contextlib.closing(_stream_chunks(
+                    Xh, yh, plan, device, wd, prefetch_depth)) as feed:
+                for c, Xc, yc in feed:
+                    one(c.start, c.stop, Xc, yc)
+        elif not pipeline:
+            for start, stop, Xc, yc in _sync_chunks(Xh, yh, n_used, chunk, s,
+                                                    device):
+                one(start, stop, Xc, yc)
+        if ckpt is not None:
+            ckpt.finalize()
+        return stacks
+
+    @classmethod
+    def _streamed_totals(cls, Xh, yh, B, sd, chunk, device=None,
+                         resume_dir=None, checkpoint_every: int = 4,
+                         wire_dtype=None, prefetch_depth=2, pipeline=True):
+        """TOTAL statistics ``(G, b, yy)`` of host rows ``(Xh, yh)``,
+        streamed chunk by chunk with a ``SUM_DTYPE`` carry and no prefix
+        stack (the normal equations read only totals).  Every row counts,
+        the ``n % B`` tail included.  Returned as :meth:`_total_stats`
+        returns them: ``G`` at the stats dtype ``sd``, ``b`` and ``yy`` at
+        ``SUM_DTYPE``; bitwise the same for any ``chunk`` that is a
+        multiple of ``B`` and with either feed on an f32 wire.
+
+        ``resume_dir``: the carry is saved every ``checkpoint_every``
+        chunks and at the end (each save reads the carry back to the
+        host), so a pass stopped part way resumes from its last save,
+        bitwise."""
+        dev = resolve_device(device)
+        Xh, yh = _host_rows(Xh, yh)
+        n, d = Xh.shape
+        wd = resolve_wire_dtype(wire_dtype, Xh.dtype) if pipeline else None
+        carry = _sum_carries(d, dev)
+        s = 0
+        ckpt = None
+        if resume_dir is not None:
+            ckpt = _TotalsBuildCheckpoint(
+                resume_dir, n=n, d=d, B=B, chunk=chunk,
+                sd_name=_dtype_name(sd),
+                fingerprint=_dataset_fingerprint(Xh, yh, n),
+                wire="none" if wd is None else _dtype_name(wd))
+            s, saved = ckpt.restore(dev)
+            if saved is not None:
+                carry = saved
+        since_save = 0
+
+        def one(stop, Xc, yc):
+            nonlocal since_save
+            _acc_totals(carry, Xc, yc, B)
+            since_save += 1
+            if ckpt is not None and (since_save >= checkpoint_every
+                                     or stop >= n):
+                ckpt.save(stop, carry)
+                since_save = 0
+
+        if pipeline and s < n:  # a restore at row n has nothing left
+            plan = plan_chunks(n, chunk, offset=s, round_to=B)
+            with contextlib.closing(_stream_chunks(
+                    Xh, yh, plan, dev, wd, prefetch_depth)) as feed:
+                for c, Xc, yc in feed:
+                    one(c.stop, Xc, yc)
+        elif not pipeline:
+            for _, stop, Xc, yc in _sync_chunks(Xh, yh, n, chunk, s, dev):
+                one(stop, Xc, yc)
+        if ckpt is not None:
+            ckpt.finalize()
+        G, b, yy = carry
+        return G.to(sd), b, yy
 
     @staticmethod
     def _resolve_stats_dtype(data_dtype, stats_dtype) -> torch.dtype:
@@ -367,20 +817,8 @@ class GramLeastSquaresGradient(LeastSquaresGradient):
         included; ``G`` comes back at the stats dtype, ``b`` and ``yy`` at
         ``SUM_DTYPE``, as :meth:`build` stores them.  ``valid`` masks rows
         exactly (one operand's rows zeroed)."""
-        n, d = X.shape
-        G = torch.zeros((d, d), dtype=SUM_DTYPE, device=X.device)
-        b = torch.zeros((d,), dtype=SUM_DTYPE, device=X.device)
-        yy = torch.zeros((), dtype=SUM_DTYPE, device=X.device)
-        for s in range(0, n, B):
-            Xb = X[s:s + B].to(SUM_DTYPE)
-            yb = y[s:s + B].to(SUM_DTYPE)
-            Xm, ym = Xb, yb
-            if valid is not None:
-                v = valid[s:s + B].to(SUM_DTYPE)
-                Xm, ym = Xb * v[:, None], yb * v
-            G += _dot_wide(Xm.T, Xb)
-            b += _dot_wide(ym, Xb)
-            yy += _dot_wide(ym, yb)
+        G, b, yy = _acc_totals(_sum_carries(X.shape[1], X.device), X, y, B,
+                               valid)
         return G.to(stats_dtype), b, yy
 
     @staticmethod

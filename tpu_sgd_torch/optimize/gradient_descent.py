@@ -45,7 +45,9 @@ Least squares on dense data can run from block-prefix Gram statistics
 goes, so each sliced window or full batch costs a ``(d, d)`` matvec
 instead of a pass over the rows.  ``set_gram_options(chunk_iters=K)``
 sends block-aligned windows through the chunked-gather driver
-(``optimize/gram_driver.py``).
+(``optimize/gram_driver.py``).  ``set_streamed_stats`` builds those
+statistics from host rows in one streamed pass
+(``GramLeastSquaresGradient.build_streamed``) and runs on them, aligned.
 
 Sparse features (any non-strided layout) train undensified, as the JAX
 package's BCOO branch does on one device: X becomes CSR with int32
@@ -931,13 +933,6 @@ def _pinned_like(t: Tensor) -> Optional[Tensor]:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
 
 
-#: the roadmap item of what is still to port from the ingest slice: the
-#: streamed statistics and quasi-Newton feeds (the host-streamed SGD half
-#: of A9 is ported)
-A9_REST = ("A9, second half: the streamed statistics and quasi-Newton "
-           "feeds")
-
-
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to tpu_sgd_torch yet (ROADMAP {item}); use "
@@ -951,17 +946,14 @@ _GRAM_KNOBS = {
     "block_rows": ("gram_block_rows", True),
     "aligned": ("gram_aligned", False),
     "chunk_iters": ("gram_chunk_iters", True),
+    "batch_rows": ("gram_batch_rows", True),
 }
 
 
-def _apply_gram_knobs(optimizer, batch_rows=None, **knobs) -> None:
+def _apply_gram_knobs(optimizer, **knobs) -> None:
     """Validate every knob, then apply them all, so a bad later argument
     leaves the earlier ones untouched (the JAX package's
-    ``apply_user_gram_knobs``, without the planner's bookkeeping).
-    ``batch_rows`` sizes the streamed build's chunk, which is not ported."""
-    if batch_rows is not None:
-        _not_ported("set_gram_options(batch_rows=...), the streamed "
-                    "build's chunk cap,", A9_REST)
+    ``apply_user_gram_knobs``, without the planner's bookkeeping)."""
     provided = {}
     for name, val in knobs.items():
         if val is None:
@@ -976,6 +968,83 @@ def _apply_gram_knobs(optimizer, batch_rows=None, **knobs) -> None:
         provided[name] = (attr, val)
     for attr, val in provided.values():
         setattr(optimizer, attr, val)
+
+
+def _apply_ingest_options(optimizer, wire_dtype=None, prefetch_depth=None,
+                          pipeline=None, retry=None,
+                          wire_compress=None) -> None:
+    """The body of ``set_ingest_options``, shared by ``GradientDescent``
+    and ``LBFGS``: every argument is validated before any is applied, and
+    ``None`` leaves a knob as it is."""
+    from tpu_sgd_torch.io.sparse_wire import parse_wire_compress
+    from tpu_sgd_torch.io.wire import resolve_wire_dtype
+    from tpu_sgd_torch.reliability.retry import RetryPolicy
+
+    provided = {}
+    if wire_compress is not None:
+        if wire_compress is False:
+            provided["ingest_wire_compress"] = None
+        else:
+            parse_wire_compress(wire_compress)
+            provided["ingest_wire_compress"] = str(wire_compress)
+    if retry is not None:
+        if retry is False:
+            provided["ingest_retry_policy"] = None
+        elif not isinstance(retry, RetryPolicy):
+            raise TypeError(
+                f"retry must be a RetryPolicy or False, got "
+                f"{type(retry).__name__}")
+        else:
+            provided["ingest_retry_policy"] = retry
+    if wire_dtype is not None:
+        resolve_wire_dtype(wire_dtype, "float32")  # validate the name
+        provided["ingest_wire_dtype"] = str(wire_dtype)
+    if prefetch_depth is not None:
+        if int(prefetch_depth) < 0:
+            raise ValueError(
+                f"prefetch_depth must be >= 0, got {prefetch_depth}")
+        provided["ingest_prefetch_depth"] = int(prefetch_depth)
+    if pipeline is not None:
+        provided["ingest_pipeline"] = bool(pipeline)
+    for attr, val in provided.items():
+        setattr(optimizer, attr, val)
+
+
+def _streamed_gram(optimizer, X, y) -> GramLeastSquaresGradient:
+    """``set_streamed_stats``'s guards (dense least squares, and not with
+    host streaming) and its build from host rows with the optimizer's gram
+    and ingest knobs, cached by ``(X, y)`` identity and knobs in
+    ``optimizer._streamed_gram_entry``; shared by ``GradientDescent`` and
+    ``LBFGS``."""
+    if optimizer.host_streaming:
+        raise ValueError(
+            "set_streamed_stats and set_host_streaming are alternative "
+            "schedules for data beyond the card; enable exactly one")
+    if is_sparse(X):
+        raise NotImplementedError(
+            "streamed statistics need dense rows; sparse features are "
+            "~1000x smaller and stay resident on the card instead")
+    if type(optimizer.gradient) is not LeastSquaresGradient:
+        raise NotImplementedError(
+            "streamed statistics exist for least squares only (the "
+            f"quadratic loss); got {type(optimizer.gradient).__name__}: "
+            "use set_host_streaming")
+    opts = (optimizer.gram_block_rows, optimizer.gram_batch_rows,
+            optimizer.ingest_wire_dtype, optimizer.ingest_prefetch_depth,
+            optimizer.ingest_pipeline, resolve_device(optimizer.device))
+    entry = optimizer._streamed_gram_entry
+    if (entry is not None and entry[0] is X and entry[1] is y
+            and entry[3] == opts):
+        return entry[2]
+    optimizer._streamed_gram_entry = None  # free the superseded stack
+    g = GramLeastSquaresGradient.build_streamed(
+        X, y, block_rows=optimizer.gram_block_rows,
+        batch_rows=optimizer.gram_batch_rows,
+        wire_dtype=optimizer.ingest_wire_dtype,
+        prefetch_depth=optimizer.ingest_prefetch_depth,
+        pipeline=optimizer.ingest_pipeline, device=opts[-1])
+    optimizer._streamed_gram_entry = (X, y, g, opts)
+    return g
 
 
 class GradientDescent(Optimizer):
@@ -1004,6 +1073,11 @@ class GradientDescent(Optimizer):
         #: aligned)``, kept by identity so repeated calls on the same
         #: tensors never rebuild
         self._gram_entry = None
+        #: ``set_streamed_stats`` and its build's chunk rows; the last
+        #: streamed build, ``(X, y, gradient, knobs)``
+        self.streamed_stats = False
+        self.gram_batch_rows = None
+        self._streamed_gram_entry = None
         # the observed (listener / checkpoint) planes
         self.listener = None
         self.checkpoint_manager = None
@@ -1125,9 +1199,10 @@ class GradientDescent(Optimizer):
         data); ``chunk_iters=K`` sends block-aligned sliced runs through
         the chunked-gather driver (``optimize/gram_driver.py``), K windows
         gathered per outer step, with the same per-iteration contract.
-        ``batch_rows`` (the streamed build's chunk) raises (ROADMAP A9)."""
-        _apply_gram_knobs(self, batch_rows=batch_rows, block_rows=block_rows,
-                          aligned=aligned, chunk_iters=chunk_iters)
+        ``batch_rows`` caps the host->device chunk of the streamed build
+        (``set_streamed_stats``; default 64 blocks)."""
+        _apply_gram_knobs(self, block_rows=block_rows, aligned=aligned,
+                          chunk_iters=chunk_iters, batch_rows=batch_rows)
         return self
 
     def release_sufficient_stats(self):
@@ -1135,13 +1210,28 @@ class GradientDescent(Optimizer):
         prefix stack can be freed; the next run rebuilds.  The cached
         loops and their CUDA graphs, which hold the bundle, go too."""
         self._gram_entry = None
+        self._streamed_gram_entry = None
         self._run_cache = None
         self._observed_entry = None
         return self
 
     def set_streamed_stats(self, flag: bool = True, block_rows: int = None):
-        _not_ported("set_streamed_stats (statistics streamed from the "
-                    "host)", A9_REST)
+        """Least squares on host data too large for the card from
+        statistics streamed once: one pass through the ingest pipeline
+        builds the block-prefix stack on the card
+        (``GramLeastSquaresGradient.build_streamed``; knobs
+        ``set_gram_options(batch_rows=)``, ``set_ingest_options``), then
+        every iteration runs from the statistics with no host transfer.
+        Windows are block-ALIGNED (there are no rows for an exact edge) and
+        the trailing ``n % block_rows`` rows are dropped: harmless on
+        shuffled rows, not on sorted data (``set_host_streaming`` streams
+        exact windows).  Applies to exactly ``LeastSquaresGradient`` on
+        dense data with sliced or full-batch sampling, and raises
+        otherwise; the build is cached per ``(X, y)`` identity."""
+        if block_rows is not None:
+            _apply_gram_knobs(self, block_rows=block_rows)
+        self.streamed_stats = bool(flag)
+        return self
 
     def set_ingest_options(self, wire_dtype=None, prefetch_depth=None,
                            pipeline=None, retry=None, wire_compress=None):
@@ -1160,39 +1250,11 @@ class GradientDescent(Optimizer):
         healed run is bitwise the clean one; ``False`` clears it.
         ``wire_compress="topk:<frac>"``: the top-k error-feedback update
         (its accumulator is optimizer state, checkpointed as
-        ``extras={"ef": ...}``); ``False`` clears it."""
-        from tpu_sgd_torch.io.sparse_wire import parse_wire_compress
-        from tpu_sgd_torch.io.wire import resolve_wire_dtype
-        from tpu_sgd_torch.reliability.retry import RetryPolicy
-
-        provided = {}
-        if wire_compress is not None:
-            if wire_compress is False:
-                provided["ingest_wire_compress"] = None
-            else:
-                parse_wire_compress(wire_compress)
-                provided["ingest_wire_compress"] = str(wire_compress)
-        if retry is not None:
-            if retry is False:
-                provided["ingest_retry_policy"] = None
-            elif not isinstance(retry, RetryPolicy):
-                raise TypeError(
-                    f"retry must be a RetryPolicy or False, got "
-                    f"{type(retry).__name__}")
-            else:
-                provided["ingest_retry_policy"] = retry
-        if wire_dtype is not None:
-            resolve_wire_dtype(wire_dtype, "float32")  # validate the name
-            provided["ingest_wire_dtype"] = str(wire_dtype)
-        if prefetch_depth is not None:
-            if int(prefetch_depth) < 0:
-                raise ValueError(
-                    f"prefetch_depth must be >= 0, got {prefetch_depth}")
-            provided["ingest_prefetch_depth"] = int(prefetch_depth)
-        if pipeline is not None:
-            provided["ingest_pipeline"] = bool(pipeline)
-        for attr, val in provided.items():
-            setattr(self, attr, val)
+        ``extras={"ef": ...}``); ``False`` clears it.  ``wire_dtype``,
+        ``prefetch_depth`` and ``pipeline`` also drive the streamed build
+        of ``set_streamed_stats``."""
+        _apply_ingest_options(self, wire_dtype, prefetch_depth, pipeline,
+                              retry, wire_compress)
         return self
 
     def set_superstep(self, k: int):
@@ -1293,6 +1355,21 @@ class GradientDescent(Optimizer):
                     "statistics are already on the device); drop "
                     "set_host_streaming")
             return self._optimize_gram_data(X, y, initial_weights, dev)
+        if self.streamed_stats:
+            # before any device conversion: the rows never live on the card
+            cfg = self.config
+            if cfg.mini_batch_fraction < 1.0 and cfg.sampling != "sliced":
+                raise NotImplementedError(
+                    "streamed statistics support sliced sampling or full "
+                    f"batch (got sampling={cfg.sampling!r}); use "
+                    "set_host_streaming for bernoulli or indexed sampling")
+            gram = _streamed_gram(self, X, y)
+            orig, self.gradient = self.gradient, gram
+            try:
+                return self.optimize_with_history(
+                    (gram.data, y[:gram.data.shape[0]]), initial_weights)
+            finally:
+                self.gradient = orig
         if self.host_streaming:
             # before any device conversion: X never lives on the card whole
             return self._optimize_host_streamed(X, y, initial_weights, dev)

@@ -23,8 +23,13 @@ nothing back.
 Least squares on dense data can run from sufficient statistics
 (``set_sufficient_stats``, ``ops/gram.py``): the cost then reads the
 ``(d, d)`` total Gram instead of X, and the sweep is its quadratic form.
-The mesh, streamed-statistics and host-streaming schedules are later
-slices (ROADMAP A5, A9): their setters raise.
+Data beyond the card (host rows: a numpy array or a CPU tensor) takes
+one of two schedules.  ``set_host_streaming`` evaluates every cost and
+sweep by streaming the rows through the card in fixed chunks
+(``optimize/streamed_costfun.py``, B1 on each chunk), for any loss;
+``set_streamed_stats`` (least squares) builds the statistics in one
+streamed pass (``GramLeastSquaresGradient.build_streamed``) and runs from
+them.  The mesh is a later slice (ROADMAP A5): ``set_mesh`` raises.
 """
 
 from __future__ import annotations
@@ -51,8 +56,9 @@ from tpu_sgd_torch.ops.updaters import (
 )
 from tpu_sgd_torch.optimize.gradient_descent import (
     _apply_gram_knobs,
-    A9_REST,
+    _apply_ingest_options,
     _not_ported,
+    _streamed_gram,
 )
 from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
 
@@ -234,6 +240,20 @@ class LBFGS(Optimizer):
         self.gram_block_rows = DEFAULT_BLOCK_ROWS
         #: the last statistics build, ``(X, y, gradient, block_rows)``
         self._gram_entry = None
+        #: the schedules for host rows, their chunk rows and ingest knobs
+        self.host_streaming = False
+        self.stream_batch_rows = None
+        self.streamed_stats = False
+        self.gram_batch_rows = None
+        self.ingest_wire_dtype = None
+        self.ingest_prefetch_depth = 2
+        self.ingest_pipeline = True
+        self.ingest_retry_policy = None
+        #: the last streamed CostFun, ``(X, y, StreamedCostFun, knobs)``,
+        #: and the last streamed statistics build, ``(X, y, gradient,
+        #: knobs)``, kept by identity
+        self._stream_costfun_entry = None
+        self._streamed_gram_entry = None
 
     # fluent setters, reference parity
     def set_gradient(self, g):
@@ -276,29 +296,69 @@ class LBFGS(Optimizer):
         return self
 
     def release_sufficient_stats(self):
-        """Drop the cached statistics bundle so the bound dataset and its
-        prefix stack can be freed."""
+        """Drop the cached statistics bundles (resident and streamed) and
+        the streamed CostFun, so the bound dataset, its prefix stack and
+        the CostFun's pinned staging can be freed."""
         self._gram_entry = None
+        self._streamed_gram_entry = None
+        self._stream_costfun_entry = None
         return self
 
     def set_gram_options(self, block_rows: int = None,
                          batch_rows: int = None):
         """``block_rows`` sizes the statistics' prefix stack;
-        ``batch_rows`` (the streamed build's chunk) raises (ROADMAP A9)."""
-        _apply_gram_knobs(self, batch_rows=batch_rows, block_rows=block_rows)
+        ``batch_rows`` caps the host->device chunk of the streamed build
+        (``set_streamed_stats``; default 64 blocks)."""
+        _apply_gram_knobs(self, block_rows=block_rows, batch_rows=batch_rows)
         return self
 
     def set_streamed_stats(self, flag: bool = True, block_rows: int = None):
-        _not_ported("set_streamed_stats (statistics streamed from the "
-                    "host)", A9_REST)
+        """Least squares on host rows too large for the card: one streamed
+        pass builds the block-prefix statistics on the card
+        (``GramLeastSquaresGradient.build_streamed``, knobs
+        ``set_gram_options(batch_rows=)`` and ``set_ingest_options``),
+        after which every cost and sweep is an O(d²) read of the totals.
+        Full-batch sums are exact but for the dropped ``n % block_rows``
+        tail rows.  Applies to exactly ``LeastSquaresGradient`` on dense
+        data and raises otherwise; the build is cached per ``(X, y)``
+        identity."""
+        if block_rows is not None:
+            _apply_gram_knobs(self, block_rows=block_rows)
+        self.streamed_stats = bool(flag)
+        return self
 
     def set_host_streaming(self, flag: bool = True, batch_rows: int = None):
-        _not_ported("set_host_streaming (the streamed CostFun)", A9_REST)
+        """Quasi-Newton for ANY loss on host rows too large for the card:
+        every full-batch cost and line-search sweep streams the rows
+        through the card in fixed chunks into accumulators there (the
+        chunked treeAggregate CostFun, ``optimize/streamed_costfun.py``),
+        re-reading the data on each evaluation.  ``batch_rows`` caps the
+        chunk (default ~256 MB of rows).  The CostFun keeps its own feed:
+        ``set_ingest_options`` applies to ``set_streamed_stats``'s
+        build."""
+        if batch_rows is not None:
+            if int(batch_rows) < 1:
+                raise ValueError(
+                    f"batch_rows must be positive, got {batch_rows}")
+            self.stream_batch_rows = int(batch_rows)
+        self.host_streaming = bool(flag)
+        return self
 
     def set_ingest_options(self, wire_dtype=None, prefetch_depth=None,
                            pipeline=None, retry=None, wire_compress=None):
-        _not_ported("set_ingest_options (the streamed CostFun's ingest "
-                    "pipeline)", A9_REST)
+        """Ingest knobs of the streamed statistics build
+        (``set_streamed_stats``), as ``GradientDescent.set_ingest_options``
+        validates them: ``wire_dtype``, ``prefetch_depth``, ``pipeline``;
+        ``retry`` is kept for the same contract, and the quasi-Newton feeds
+        do not retry.  ``wire_compress`` compresses the merge of meshed
+        streamed totals, which is not ported (ROADMAP A5)."""
+        if wire_compress is not None and wire_compress is not False:
+            _not_ported("set_ingest_options(wire_compress=...), the "
+                        "compressed merge of the meshed streamed totals,",
+                        "A5")
+        _apply_ingest_options(self, wire_dtype, prefetch_depth, pipeline,
+                              retry)
+        return self
 
     @property
     def loss_history(self):
@@ -350,10 +410,96 @@ class LBFGS(Optimizer):
         self._gram_entry = (X, y, g, self.gram_block_rows)
         return g, g.data
 
+    def _maybe_streamed_reentry(self, X, y, initial_weights):
+        """``set_streamed_stats``: build the virtual statistics from the
+        host rows before anything moves to the card, swap the gradient,
+        and run ``optimize_with_history`` on the ``GramData`` (shared with
+        OWL-QN).  None when the flag is off or X is already statistics."""
+        if not self.streamed_stats or isinstance(X, GramData):
+            return None
+        g = _streamed_gram(self, X, y)
+        orig, self.gradient = self.gradient, g
+        try:
+            return self.optimize_with_history(
+                (g.data, y[:g.data.shape[0]]), initial_weights)
+        finally:
+            self.gradient = orig
+
+    def _host_streamed_costfun(self, X, y):
+        """The guards of ``set_host_streaming`` and its
+        :class:`StreamedCostFun`, cached by ``(X, y)`` identity, chunk
+        rows, device and gradient (shared with OWL-QN)."""
+        from tpu_sgd_torch.optimize.streamed_costfun import StreamedCostFun
+
+        if isinstance(X, GramData):
+            raise ValueError(
+                "GramData input already runs from its statistics beyond "
+                "the card; drop set_host_streaming")
+        if is_sparse(X):
+            raise NotImplementedError(
+                "host streaming needs dense rows; sparse features are "
+                "~1000x smaller and stay resident on the card instead")
+        if self.streamed_stats:
+            raise ValueError(
+                "set_streamed_stats and set_host_streaming are alternative "
+                "schedules for data beyond the card; enable exactly one")
+        if self.sufficient_stats:
+            raise ValueError(
+                "set_sufficient_stats needs device-resident data; it "
+                "cannot combine with set_host_streaming")
+        opts = (self.stream_batch_rows, resolve_device(self.device))
+        entry = self._stream_costfun_entry
+        if (entry is not None and entry[0] is X and entry[1] is y
+                and entry[3] == opts and entry[2].gradient is self.gradient):
+            return entry[2]
+        self._stream_costfun_entry = None  # free the old staging first
+        scf = StreamedCostFun(self.gradient, X, y,
+                              batch_rows=self.stream_batch_rows,
+                              device=opts[1])
+        self._stream_costfun_entry = (X, y, scf, opts)
+        return scf
+
+    def _host_streamed_evaluators(self, X, y, initial_weights):
+        """``(w0, cost1, sweep1, loss1)`` over the streamed CostFun, as
+        :meth:`_qn_loop` takes them; None for empty input (the resident
+        path's early return covers it)."""
+        if X.shape[0] == 0:
+            return None
+        scf = self._host_streamed_costfun(X, y)
+        w = as_tensor(initial_weights, scf.device, torch.float32)
+        reg_value, reg_grad = _reg_terms(self.updater, self.reg_param)
+
+        def cost1(wv):
+            g_sum, l_sum, c = scf.cost_sums(wv)
+            return l_sum / c + reg_value(wv), g_sum / c + reg_grad(wv)
+
+        if hasattr(self.gradient, "loss_sweep"):
+            def sweep1(W):
+                l_sum, c = scf.sweep_sums(W)
+                return l_sum / c + reg_value(W)
+
+            return w, cost1, sweep1, None
+        _warn_sequential_line_search(self.gradient, self._LS_TRIALS)
+
+        def loss1(wv):
+            l_sum, c = scf.loss_sums(wv)
+            return l_sum / c + reg_value(wv)
+
+        return w, cost1, None, loss1
+
     def optimize_with_history(self, data: Dataset, initial_weights):
         """``(weights, loss_history)``: weights a float32 tensor on the
         run's device, the history a numpy array (one entry per cost
         evaluation)."""
+        X, y = data
+        streamed = self._maybe_streamed_reentry(X, y, initial_weights)
+        if streamed is not None:
+            return streamed
+        if self.host_streaming:
+            # before _coerce_inputs, which would move X to the card whole
+            ev = self._host_streamed_evaluators(X, y, initial_weights)
+            if ev is not None:
+                return self._qn_loop(*ev)
         arrays, w = self._resident(data, initial_weights)
         if arrays is None:
             return w, self._loss_history

@@ -20,9 +20,17 @@ Gram's largest entry, an f32 product of the upcast rows by 2.3e-5, and
 4,096-row blocks added in f64 by 1.0e-5 (``scripts/probe_f32_products.py``
 on an H100 80GB HBM3 at 700 W).
 
-Not ported yet: the mesh (ROADMAP A5) and the host-streamed totals with
-their AUTO placement (A9).  Data too large for the card fails where it is
-moved there; it never moves to the CPU.
+Host rows too large for the card (a numpy array or a CPU tensor) take
+``set_host_streaming``: the totals accumulate from streamed chunks with an
+f64 carry (``GramLeastSquaresGradient._streamed_totals``, resumable with
+``resume_dir``), every row counted, then the same solve.  Those totals are
+at least as precise as the resident Gram's.  There is no AUTO placement
+yet (the JAX package streams when the data exceed the probed device
+budget; that is the planner, ROADMAP A11): the default is resident, and
+data too large for the card fails where it is moved there; it never
+moves to the CPU.
+
+Not ported yet: the mesh (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -31,9 +39,15 @@ import numpy as np
 import torch
 
 from tpu_sgd_torch.device import as_tensor, resolve_device, true_f32_matmul
+from tpu_sgd_torch.io.wire import host_tensor
+from tpu_sgd_torch.ops.gram import (
+    DEFAULT_BLOCK_ROWS,
+    GramLeastSquaresGradient,
+    streamed_totals_chunking,
+)
 from tpu_sgd_torch.ops.gradients import acc_dtype, matmul_dtype, mm_acc
 from tpu_sgd_torch.ops.sparse import is_sparse
-from tpu_sgd_torch.optimize.gradient_descent import A9_REST, _not_ported
+from tpu_sgd_torch.optimize.gradient_descent import _not_ported
 from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
 
 Tensor = torch.Tensor
@@ -119,6 +133,11 @@ class NormalEquations(Optimizer):
     def __init__(self, reg_param: float = 0.0, device=None):
         self.reg_param = float(reg_param)
         self.device = device
+        #: None and False: resident (no AUTO placement before the planner,
+        #: ROADMAP A11); True: the host-streamed totals
+        self.host_streaming = None
+        self.stream_batch_rows = None
+        self.stream_resume_dir = None
         self._loss = None
 
     def set_reg_param(self, r: float):
@@ -127,8 +146,25 @@ class NormalEquations(Optimizer):
 
     def set_host_streaming(self, flag: bool = True, batch_rows: int = None,
                            resume_dir: str = None):
-        _not_ported("set_host_streaming (the host-streamed Gram totals)",
-                    A9_REST)
+        """Exact least squares on host rows too large for the card: the
+        Gram totals accumulate from host chunks streamed through the card
+        with an f64 carry, every row counted, then the ``(d, d)`` solve.
+        ``batch_rows`` caps the chunk exactly (default 64 blocks of 8,192
+        rows; the block shrinks to a smaller cap).  ``resume_dir`` makes
+        the pass resumable: the carry is saved every few chunks, and a
+        pass stopped part way resumes to the same bits; like
+        ``batch_rows`` it stays set.  ``flag=None`` or ``False`` runs
+        resident: the port has no AUTO placement until the planner
+        (ROADMAP A11)."""
+        if batch_rows is not None:
+            if int(batch_rows) < 1:
+                raise ValueError(
+                    f"batch_rows must be positive, got {batch_rows}")
+            self.stream_batch_rows = int(batch_rows)
+        if resume_dir is not None:
+            self.stream_resume_dir = resume_dir
+        self.host_streaming = None if flag is None else bool(flag)
+        return self
 
     def set_mesh(self, mesh):
         _not_ported("set_mesh (data parallelism)", "A5")
@@ -148,6 +184,14 @@ class NormalEquations(Optimizer):
                 "GradientDescent/LBFGS/OWLQN instead"
             )
         dev = resolve_device(self.device)
+        if self.host_streaming:
+            # before any device conversion: X never lives on the card whole
+            if np.shape(initial_weights)[-1] != X.shape[1]:
+                raise ValueError(
+                    f"initial_weights has length "
+                    f"{np.shape(initial_weights)[-1]} but the data has "
+                    f"{X.shape[1]} features")
+            return self._optimize_host_streamed(X, y, dev)
         X = as_tensor(X, dev)
         if not X.dtype.is_floating_point or X.dtype == torch.float64:
             X = X.to(torch.float32)
@@ -161,6 +205,24 @@ class NormalEquations(Optimizer):
                 f"{X.shape[1]} features"
             )
         w, loss = _solve(*_gram_sums(X.contiguous(), y), self.reg_param)
+        return self._finish(w, loss)
+
+    def _optimize_host_streamed(self, X, y, dev):
+        """The exact solve from host-streamed Gram totals (see
+        ``set_host_streaming``)."""
+        Xh = host_tensor(X)
+        n = Xh.shape[0]
+        B, chunk = streamed_totals_chunking(n, DEFAULT_BLOCK_ROWS,
+                                            self.stream_batch_rows)
+        # the resident path's f32 (f64 rows train in f32, as the JAX
+        # package computes with x64 off); the carry is f64 either way
+        sd = torch.float32
+        G, b, yy = GramLeastSquaresGradient._streamed_totals(
+            Xh, y, B, sd, chunk, device=dev,
+            resume_dir=self.stream_resume_dir)
+        w, loss = _solve(G, b.to(sd), yy.to(sd),
+                         torch.full((), float(n), dtype=sd, device=dev),
+                         self.reg_param)
         return self._finish(w, loss)
 
     def _finish(self, w, loss):

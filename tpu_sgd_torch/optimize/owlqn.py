@@ -15,7 +15,9 @@ The smooth cost is the same ``Gradient.batch_sums`` call as L-BFGS's (one
 fused-kernel launch for the binary families on dense X, or the total
 statistics for Lasso least squares under ``set_sufficient_stats``).  Host syncs per
 iteration: the directional derivative, the sweep (its objectives and
-predicted decreases in one read) and ``s . y``.
+predicted decreases in one read) and ``s . y``.  Host rows beyond the card
+take L-BFGS's two schedules (``set_host_streaming``,
+``set_streamed_stats``), inherited.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import List
 import numpy as np
 import torch
 
+from tpu_sgd_torch.device import as_tensor
 from tpu_sgd_torch.ops.gradients import Gradient
 from tpu_sgd_torch.optimize.lbfgs import (
     LBFGS,
@@ -118,7 +121,49 @@ class OWLQN(LBFGS):
             reg[-1] = 0.0
         return reg
 
+    def _host_streamed_evaluators(self, X, y, initial_weights):
+        """OWL-QN's shape of the streamed CostFun's evaluators (see
+        ``LBFGS._host_streamed_evaluators``): ``(w0, reg, smooth_cost1,
+        sweep1, full_loss1)``, the smooth part from the cost and the FULL
+        objective (smooth + L1) from the sweep and the loss, as
+        :meth:`_owlqn_loop` takes them; None for empty input."""
+        if X.shape[0] == 0:
+            return None
+        scf = self._host_streamed_costfun(X, y)
+        w = as_tensor(initial_weights, scf.device, torch.float32)
+        reg = self._reg_vector(w)
+
+        def l1_value(wv):
+            return torch.sum(reg * torch.abs(wv), dim=-1)
+
+        def smooth_cost1(wv):
+            g_sum, l_sum, c = scf.cost_sums(wv)
+            return l_sum / c, g_sum / c
+
+        if hasattr(self.gradient, "loss_sweep"):
+            def sweep1(W):
+                l_sum, c = scf.sweep_sums(W)
+                return l_sum / c + l1_value(W)
+
+            return w, reg, smooth_cost1, sweep1, None
+        _warn_sequential_line_search(self.gradient, self._LS_TRIALS)
+
+        def full_loss1(wv):
+            l_sum, c = scf.loss_sums(wv)
+            return l_sum / c + l1_value(wv)
+
+        return w, reg, smooth_cost1, None, full_loss1
+
     def optimize_with_history(self, data: Dataset, initial_weights):
+        X, y = data
+        streamed = self._maybe_streamed_reentry(X, y, initial_weights)
+        if streamed is not None:
+            return streamed
+        if self.host_streaming:
+            # before _coerce_inputs, which would move X to the card whole
+            ev = self._host_streamed_evaluators(X, y, initial_weights)
+            if ev is not None:
+                return self._owlqn_loop(*ev)
         arrays, w = self._resident(data, initial_weights)
         if arrays is None:
             return w, self._loss_history

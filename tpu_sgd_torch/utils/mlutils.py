@@ -5,8 +5,11 @@ the port depends on nothing of the JAX package.
 part files, or a glob) into dense arrays or a CSR triple;
 ``save_as_libsvm_file`` writes it back, from dense or sparse features;
 ``append_bias`` appends a 1.0 column; ``k_fold`` and ``train_test_split``
-split dense or sparse data.  Only the Python parser is ported: the JAX
-package's native C++ parser waits for ROADMAP A4.
+split dense or sparse data.  Each file is parsed by the native C++ parser
+(``utils/native``, compiled at first use), and by the Python one only where
+the JAX package's ``_parse_one`` turns to it: when the native parse raises
+(no compiler, or a file it refuses, where the Python parser then raises
+its own error).  :data:`last_reader` names the reader of the last file.
 
 The generators make the same seeds, the same draws and the same arrays as
 the originals; ``rcv1_like_data`` returns its matrix as a CSR tensor on
@@ -70,6 +73,23 @@ def _parse_libsvm_python(path: str):
     )
 
 
+#: the reader of the last file parsed: ``"native"`` or ``"python"``
+last_reader: Optional[str] = None
+
+
+def _parse_one(path: str):
+    global last_reader
+    from tpu_sgd_torch.utils.native import parse_libsvm
+
+    try:
+        out = parse_libsvm(path)
+        last_reader = "native"
+    except Exception:
+        last_reader = "python"
+        out = _parse_libsvm_python(path)
+    return out
+
+
 def _resolve_input_paths(path: str):
     """Expand ``path`` as ``sc.textFile`` does: a directory reads its part
     files (sorted; markers like _SUCCESS and hidden files skipped), a glob
@@ -117,9 +137,9 @@ def load_libsvm_file(
     ``ValueError``."""
     files = _resolve_input_paths(path)
     if len(files) == 1:
-        labels, rows, cols, vals, max_idx = _parse_libsvm_python(files[0])
+        labels, rows, cols, vals, max_idx = _parse_one(files[0])
     else:
-        parts = [_parse_libsvm_python(f) for f in files]
+        parts = [_parse_one(f) for f in files]
         offsets = np.cumsum([0] + [p[0].shape[0] for p in parts[:-1]])
         labels = np.concatenate([p[0] for p in parts])
         rows = np.concatenate(
