@@ -148,10 +148,27 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    the first 1M rows stopped by a fault in the feed and resumed, bitwise;
    (e) the normal equations from streamed totals over the 10M rows: leg
    (b) of phase 7's objective within 1 + 1e-5, two runs bitwise.
-12. summary — the sparse line, the quasi_newton line, the gram line, the
-   streamed line, the streamed_qn line, the observed line, the kernel
-   table (B1-B3, B1 at the streamed chunk shape, and the CSR kernel),
-   then the card's name and power limit, then the last line
+12. mesh — data parallelism (``tpu_sgd_torch.parallel``), after the
+   sparse phases, on its own 10M x 1000 bf16 matrix made as 8 row blocks
+   from ``(seed, block)``: (a) this process as a mesh of one rank over
+   NCCL, full batch bitwise the single-device run, Bernoulli and sliced
+   captured (the gather inside the CUDA graph) bitwise the eager blocks
+   with exact launches, wall and device ms beside phase 4's profile; (d)
+   the observed driver on that mesh (a listener at K = 1 and 8, a stop at
+   13 and its resume, bitwise); (b) 8 ranks on the one card over gloo,
+   subprocesses of this script (``--mesh-rank``), 1.25M rows each:
+   Bernoulli, indexed, sliced at 0.1 and full batch twice each, launches
+   exact per rank, every rank bitwise equal, full batch and a 1M-row
+   prefix bitwise the one-process rank-order sum, objectives within
+   1.01x of the single-device runs; (c) phase 6's CSR in 8 row blocks
+   over the same world, hinge + L1 at 1.0 (history rtol 2e-4 against one
+   device) and 0.1, peak memory per rank; the kernels timed at a rank's
+   shapes.
+13. summary — the sparse line, the quasi_newton line, the gram line, the
+   streamed line, the streamed_qn line, the mesh line, the observed line,
+   the kernel table (B1-B3, B1 at the streamed chunk shape, the CSR
+   kernel, and B1, B2 and the CSR kernel at a mesh rank's shapes), then
+   the card's name and power limit, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero.  It imports
@@ -733,6 +750,7 @@ def phase_profile(torch, tst, X, y, iters=20):
                      "idle_share": max(0.0, 1 - busy / wall),
                      "top_device_ms": dict(top)}
     emit({"phase": "profile", "iterations": iters, **out})
+    return out
 
 
 def _bound_ms(sel_rows, d, itemsize, extra_bytes):
@@ -3574,6 +3592,722 @@ def phase_streamed_sparse(torch, tst, ck, X, y):
     return out, staged_sparse_batch(torch, tst, Xh, opt(FRAC).config)
 
 
+# -- phase 13: data parallelism ----------------------------------------------
+
+MESH_RANKS = 8
+MESH_SEED = 10
+MESH_ITERS = ITERS          # 20: ``_expected_launches`` counts per run
+MESH_PREFIX_ROWS = 125_000  # a rank's rows of the 1M-row bitwise check
+MESH_WINDOW_START = 500_000  # B2's row: a shard's 125,000-row window
+MESH_TIMEOUT = 480          # seconds for the 8-rank job, start-up included
+MESH_COMBINE_REPS = 100
+MESH_OBS_K = 8
+MESH_OBS_STOP_AT = 13
+MESH_HISTORY_RTOL = 2e-4    # the gradient tier
+# bf16 full batch against one device: 5.8e-4 on the card, 1.3e-3 in a CPU
+# replay at 400,000 rows (the margins round w to bf16)
+MESH_FULL_HISTORY_RTOL = 3e-3
+MESH_FULL_OBJECTIVE_TOL = 1e-4  # |ratio - 1| at full batch (read 2.7e-5)
+MESH_OBJECTIVE_RATIO = 1.01  # the matched objective of a sampled run
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def fill_mesh_block(torch, X, y, block, seed=MESH_SEED,
+                    chunk=MESH_PREFIX_ROWS):
+    """Row block ``block`` of phase ``mesh``'s data made into ``X`` (bf16,
+    ``(rows, d)``) and ``y`` on their device from ``(seed, block)`` alone,
+    ``chunk`` rows at a time (a block's first ``chunk`` rows do not depend
+    on its length): a rank makes its own block and the parent every block,
+    bit for bit the same.  ``y = X w + 0.1 eps`` with ``w`` from ``seed``
+    alone, the margins summed by rows (no library product, whose algorithm
+    might differ between processes)."""
+    dev, d = X.device, X.shape[1]
+    w = torch.rand(d, generator=torch.Generator(device=dev).manual_seed(seed),
+                   device=dev) * 2 - 1
+    gen = torch.Generator(device=dev).manual_seed(
+        seed * 1_000_003 + 1 + block)
+    for s in range(0, X.shape[0], chunk):
+        e = min(X.shape[0], s + chunk)
+        X[s:e] = torch.randn(e - s, d, generator=gen,
+                             device=dev).to(torch.bfloat16)
+        y[s:e] = (X[s:e].float() * w).sum(dim=1) + 0.1 * torch.randn(
+            e - s, generator=gen, device=dev)
+    return w
+
+
+def _block_digest(X, y) -> str:
+    """sha256 of ``y`` and of every 1,000th row of ``X`` (bf16 values,
+    exact in f32)."""
+    import hashlib
+
+    h = hashlib.sha256(y.cpu().numpy().tobytes())
+    h.update(X[::1000].float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def csr_row_block(torch, X, lo, hi):
+    """Rows ``[lo, hi)`` of a CSR ``X`` as a CSR of their own, on X's
+    device."""
+    crow = X.crow_indices()
+    a, b = int(crow[lo]), int(crow[hi])
+    return torch.sparse_csr_tensor(crow[lo:hi + 1] - crow[lo],
+                                   X.col_indices()[a:b], X.values()[a:b],
+                                   size=(hi - lo, X.shape[1]))
+
+
+def _mesh_alg(tst, mode, frac, mesh=None):
+    """Phase ``full``'s least-squares run (step, seed, iterations) at
+    ``frac`` with ``mode`` sampling, on ``mesh`` when one is given."""
+    alg = tst.LinearRegressionWithSGD(0.5, MESH_ITERS, None, frac)
+    alg.optimizer.set_convergence_tol(0.0).set_sampling(
+        "bernoulli" if mode == "full" else mode)
+    if mesh is not None:
+        alg.optimizer.set_mesh(mesh)
+    return alg
+
+
+def _mesh_run(torch, ck, alg, X, y) -> dict:
+    """One run of ``alg``: weights, history, launches by wrapper and by
+    source (set to 0 just before and read just after), wall ms an
+    iteration."""
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = alg.run((X, y))
+    torch.cuda.synchronize()
+    return {"w": model.weights,
+            "h": np.asarray(alg.optimizer.loss_history),
+            "launches": ck.launch_counts(),
+            "by_source": ck.kernel_launch_counts(),
+            "ms": 1e3 * (time.perf_counter() - t) / MESH_ITERS}
+
+
+def _check_launches(run, mode, what):
+    wrappers, sources = _expected_launches(
+        "bernoulli" if mode == "full" else mode)
+    check(run["launches"] == wrappers and run["by_source"] == sources,
+          f"{what} {mode}: launches {run['launches']} "
+          f"{run['by_source']}")
+
+
+def _combine_ms(torch, par, mesh, reps=MESH_COMBINE_REPS) -> dict:
+    """Wall ms of one ``combine_sums`` of a ``(FULL_D + 2)``-float vector
+    on the card, and of its parts under gloo: the copy to the host (which
+    waits for the card) and the gather of a host vector."""
+    from tpu_sgd_torch.parallel.mesh import all_gather
+
+    g = torch.ones(FULL_D, device="cuda")
+    l = torch.ones((), device="cuda")
+    c = torch.ones((), device="cuda")
+    flat = torch.ones(FULL_D + 2)
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / reps
+
+    out = {"combine_ms": per_call(lambda: par.combine_sums(mesh, g, l, c))}
+    if mesh.backend != "nccl":  # gloo's route through the host, by part
+        out["to_host_ms"] = per_call(lambda: g.cpu())
+        out["host_gather_ms"] = per_call(lambda: all_gather(mesh, flat))
+    return out
+
+
+def mesh_rank_runs(torch, tst, ck, par, mesh, out_dir):
+    """One rank's work in (b) and (c): its block of the data made on the
+    card; Bernoulli, indexed and sliced at ``FRAC`` and full batch,
+    each run twice; Bernoulli and sliced on its first
+    ``MESH_PREFIX_ROWS`` rows; the combine timed; then hinge + L1 on its
+    CSR row block (``sparse<rank>.npz``) at frac 1.0 and ``FRAC``.
+    Returns ``(report, arrays)``."""
+    rank, dev = mesh.rank, "cuda"
+    rows = FULL_ROWS // mesh.size
+    X = torch.empty((rows, FULL_D), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((rows,), dtype=torch.float32, device=dev)
+    fill_mesh_block(torch, X, y, rank)
+    res = {"rank": rank, "world": mesh.size, "backend": mesh.backend,
+           "digest": _block_digest(X, y), "runs": {}, "sparse": {}}
+    arrays = {}
+    for mode in ("bernoulli", "indexed", "sliced", "full"):
+        frac = 1.0 if mode == "full" else FRAC
+        first, again = (_mesh_run(torch, ck, _mesh_alg(tst, mode, frac, mesh),
+                                  X, y) for _ in range(2))
+        res["runs"][mode] = {
+            "ms_per_iteration": again["ms"],
+            "first_run_ms_per_iteration": first["ms"],
+            "launches": first["launches"],
+            "launches_by_source": first["by_source"],
+            "again_launches": again["launches"],
+            "repeat_bitwise": _same_run(torch, (first["w"], first["h"]),
+                                        (again["w"], again["h"])),
+            "loss_first": float(first["h"][0]),
+            "loss_last": float(first["h"][-1])}
+        arrays[mode + "_w"] = first["w"].cpu().numpy()
+        arrays[mode + "_h"] = first["h"]
+    for mode in ("bernoulli", "sliced"):
+        r = _mesh_run(torch, ck, _mesh_alg(tst, mode, FRAC, mesh),
+                      X[:MESH_PREFIX_ROWS], y[:MESH_PREFIX_ROWS])
+        arrays[f"prefix_{mode}_w"] = r["w"].cpu().numpy()
+        arrays[f"prefix_{mode}_h"] = r["h"]
+    res["combine_ms"] = _combine_ms(torch, par, mesh)
+    del X, y
+    with np.load(os.path.join(out_dir, f"sparse{rank}.npz")) as z:
+        Xs = torch.sparse_csr_tensor(
+            torch.as_tensor(z["crow"]).to(dev),
+            torch.as_tensor(z["col"]).to(dev),
+            torch.as_tensor(z["val"]).to(dev),
+            size=tuple(int(v) for v in z["shape"]))
+        ys = torch.as_tensor(z["y"]).to(dev)
+    for frac in (1.0, FRAC):
+        alg = _sparse_alg(tst, MESH_ITERS, frac)
+        alg.optimizer.set_mesh(mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launch_counts()
+        t = time.perf_counter()
+        model = alg.run((Xs, ys))
+        torch.cuda.synchronize()
+        h = np.asarray(alg.optimizer.loss_history)
+        res["sparse"][str(frac)] = {
+            "ms_per_iteration": 1e3 * (time.perf_counter() - t) / MESH_ITERS,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "rows": int(Xs.shape[0]), "nnz": int(Xs._nnz()),
+            "csr_launches": ck.csr_launch_counts(),
+            "dense_launches": ck.launch_counts(),
+            "loss_first": float(h[0]), "loss_last": float(h[-1])}
+        arrays[f"sparse_{frac}_w"] = model.weights.cpu().numpy()
+        arrays[f"sparse_{frac}_h"] = h
+    return res, arrays
+
+
+def mesh_child(rank, world, port, out_dir) -> int:
+    """A rank of (b) and (c), started by the parent as ``chip_smoke.py
+    --mesh-rank RANK WORLD PORT DIR``: a gloo world on the one card
+    (NCCL refuses two ranks on one card), the port only."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: a mesh rank needs the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import tpu_sgd_torch as tst
+    from tpu_sgd_torch import parallel as par
+    from tpu_sgd_torch.ops import cuda_kernels as ck
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    par.initialize_distributed(f"tcp://127.0.0.1:{port}", int(world),
+                               int(rank), backend="gloo")
+    mesh = par.data_mesh()
+    res, arrays = mesh_rank_runs(torch, tst, ck, par, mesh, out_dir)
+    res["leaked"] = sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("jax", "jaxlib", "tpu_sgd"))
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    par.mesh.barrier(mesh, "cuda")
+    torch.distributed.destroy_process_group()
+    check(not res["leaked"], f"mesh rank {rank} imported {res['leaked']}")
+    return 0
+
+
+def mesh_spawn(world, out_dir, timeout=MESH_TIMEOUT, script=None,
+               flag="--mesh-rank"):
+    """Start ``world`` ranks, ``python3 SCRIPT FLAG RANK WORLD PORT DIR``
+    (by default this script's ``mesh_child``), on a free port and wait
+    for all; a rank that exits non-zero, or a job that outlives
+    ``timeout``, fails the phase, every rank stopped first.  Only a port
+    taken between the probe and the bind starts the job again, on another
+    port.  Each rank's output goes to ``rank<r>.log``.  Returns the job's
+    seconds."""
+    script = script or os.path.abspath(__file__)
+    logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(world)]
+    for attempt in range(3):
+        port = _free_port()
+        t = time.perf_counter()
+        procs = []
+        try:
+            for r in range(world):
+                with open(logs[r], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, script, flag, str(r), str(world),
+                         str(port), out_dir],
+                        stdout=log, stderr=subprocess.STDOUT))
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break  # the others would wait for it in a collective
+                check(time.perf_counter() - t < timeout,
+                      f"the mesh job hung past {timeout} s")
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        secs = time.perf_counter() - t
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if not bad:
+            return secs
+        text = []
+        for r in range(world):
+            with open(logs[r]) as f:
+                text.append(f.read())
+        if attempt < 2 and any("address already in use" in x.lower()
+                               for x in text):
+            continue
+        tails = "\n".join(f"--- rank {r} ---\n{text[r][-2000:]}"
+                          for r in bad)
+        raise RuntimeError(f"check failed: mesh ranks {bad} exited non-zero"
+                           f"\n{tails}")
+    raise RuntimeError("check failed: no free port for the mesh job")
+
+
+def rank_order_reference(torch, tst, shards, mode, iters=MESH_ITERS):
+    """The meshed run's arithmetic in one process on the card: each
+    shard's own sample stream (``_make_sampler(..., shard=s)``; none at
+    full batch, ``mode="full"``) and kernel sums, added in rank order on
+    the card (the gloo ranks add on the host), then ``make_run``'s update
+    (least squares, simple updater)."""
+    from tpu_sgd_torch.optimize import gradient_descent as tgd
+
+    frac = 1.0 if mode == "full" else FRAC
+    cfg = tst.SGDConfig(step_size=0.5, num_iterations=iters,
+                        mini_batch_fraction=frac, convergence_tol=0.0,
+                        sampling="bernoulli" if mode == "full" else mode)
+    g, u = tst.LeastSquaresGradient(), tst.SimpleUpdater()
+    dev = shards[0][0].device
+    d = shards[0][0].shape[1]
+    samplers = [tgd._make_sampler(cfg, Xs, shard=s)
+                for s, (Xs, _) in enumerate(shards)]
+    w = torch.zeros(d, device=dev)
+    reg = torch.zeros((), device=dev)
+    reg.copy_(u.compute(w, torch.zeros_like(w), 0.0, 1, 0.0)[1])
+    hist = []
+    for i in range(1, iters + 1):
+        it = torch.full((1,), i, dtype=torch.int64, device=dev)
+        parts = []
+        for (Xs, ys), smp in zip(shards, samplers):
+            sample = None
+            if smp is not None:
+                smp.seek(i)
+                sample = smp.draw()
+            if mode == "sliced":
+                m = max(1, round(FRAC * Xs.shape[0]))
+                gs, ls, cs = g.window_sums(Xs, ys, w, sample, m)
+            else:
+                gs, ls, cs = g.batch_sums(Xs, ys, w, sample)
+            parts.append(torch.cat([gs, ls.reshape(1), cs.reshape(1)]))
+        tot = parts[0]
+        for p in parts[1:]:  # rank order, one add at a time
+            tot = tot + p
+        c = tot[d + 1]
+        safe = torch.clamp(c, min=1.0)
+        loss = tot[d] / safe + reg
+        new_w, new_reg = u.compute(w, tot[:d] / safe, cfg.step_size, it, 0.0)
+        if bool(c > 0):
+            hist.append(loss.to(torch.float32))
+            w, reg = new_w, new_reg
+    return w, torch.stack(hist).cpu().numpy()
+
+
+def mesh_observed(torch, tst, X, y, mesh):
+    """(d) The observed driver on a mesh: a listener at K = 1 and at
+    ``MESH_OBS_K`` (captured blocks, the gather in the graph under NCCL)
+    bitwise the unobserved meshed run; a stop raised by the event of
+    ``MESH_OBS_STOP_AT`` and its resume from rank 0's checkpoint,
+    bitwise."""
+    from tpu_sgd_torch.reliability import TrainingPreempted
+    from tpu_sgd_torch.utils.checkpoint import CheckpointManager
+
+    def opt(k):
+        return (tst.GradientDescent(device=X.device).set_step_size(0.5)
+                .set_num_iterations(MESH_ITERS).set_mini_batch_fraction(FRAC)
+                .set_convergence_tol(0.0).set_mesh(mesh).set_superstep(k))
+
+    w0 = torch.zeros(X.shape[1], device=X.device)
+    ref_w, ref_h = opt(1).optimize_with_history((X, y), w0)
+    out = {}
+    for k in (1, MESH_OBS_K):
+        lis = _stop_listener()
+        w, h = opt(k).set_listener(lis).optimize_with_history((X, y), w0)
+        same = bool(torch.equal(w, ref_w)) and np.array_equal(h, ref_h)
+        check(same and len(lis.iterations) == MESH_ITERS,
+              f"mesh observed K={k}: not the unobserved run")
+        out[f"k{k}_bitwise"] = same
+    with tempfile.TemporaryDirectory() as tmp:
+        lis = _stop_listener(at=MESH_OBS_STOP_AT)
+        o = opt(1).set_listener(lis).set_checkpoint(CheckpointManager(tmp),
+                                                    every=5)
+        o.set_stop_signal(lis.stop)
+        stopped = None
+        try:
+            o.optimize_with_history((X, y), w0)
+        except TrainingPreempted as e:
+            stopped = e.iteration
+        o.set_stop_signal(None)
+        w, h = o.optimize_with_history((X, y), w0)
+    same = bool(torch.equal(w, ref_w)) and np.array_equal(h, ref_h)
+    check(stopped == MESH_OBS_STOP_AT and same,
+          f"mesh observed: stopped at {stopped}, resume bitwise {same}")
+    out.update(stopped_at=stopped, resume_bitwise=same)
+    return out
+
+
+def _check_objective_ratios(ratios, full, what) -> None:
+    """Each meshed run's objective over the single-device run's: the full
+    batch run (key ``full``) within ``MESH_FULL_OBJECTIVE_TOL`` of 1 (the
+    same problem, another summation order), each sampled run (its own
+    per-shard sample stream) at most ``MESH_OBJECTIVE_RATIO``."""
+    for key, r in ratios.items():
+        ok = (abs(r - 1.0) <= MESH_FULL_OBJECTIVE_TOL if key == full
+              else r <= MESH_OBJECTIVE_RATIO)
+        check(ok, f"{what} {key}: objective {r}x the single device's")
+
+
+def mesh_world1(torch, tst, ck, X, y, profile):
+    """(a) and (d): this process as a mesh of one rank over NCCL.
+    Full batch meshed bitwise the single-device run; at ``FRAC``, per
+    sampler, every block eager (``CUDA_GRAPHS = False``) against a first
+    run, a second that captures its second block, and a third that
+    replays both, bitwise, launches exact; the replayed run's wall and
+    device ms an iteration beside phase ``profile``'s single-device rows;
+    then (d).  Every optimizer's CUDA graphs, which hold the captured
+    gather, are released before the group is destroyed.  Returns
+    ``(report, the single-device full-batch run)``."""
+    import gc
+
+    import torch.distributed as dist
+
+    from tpu_sgd_torch import parallel as par
+    from tpu_sgd_torch.optimize import gradient_descent as tgd
+
+    par.initialize_distributed(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
+                               backend="nccl")
+    try:
+        mesh = par.data_mesh()
+        check(mesh.backend == "nccl" and mesh.size == 1,
+              f"world-1 mesh {mesh} over {mesh.backend}")
+        single = _mesh_run(torch, ck, _mesh_alg(tst, "full", 1.0), X, y)
+        meshed = _mesh_run(torch, ck, _mesh_alg(tst, "full", 1.0, mesh), X, y)
+        _check_launches(meshed, "full", "world 1")
+        full_same = _same_run(torch, (single["w"], single["h"]),
+                              (meshed["w"], meshed["h"]))
+        check(full_same, "world 1, full batch: not the single-device run")
+        out = {"backend": mesh.backend, "full_batch_bitwise": full_same,
+               "full_batch_ms_per_iteration": {
+                   "single_device": single["ms"], "mesh": meshed["ms"]},
+               "rows": {}}
+        for mode in ("bernoulli", "sliced"):
+            tgd.CUDA_GRAPHS = False
+            try:
+                eager = _mesh_run(torch, ck, _mesh_alg(tst, mode, FRAC, mesh),
+                                  X, y)
+            finally:
+                tgd.CUDA_GRAPHS = True
+            alg = _mesh_alg(tst, mode, FRAC, mesh)
+            runs = [_mesh_run(torch, ck, alg, X, y) for _ in range(3)]
+            runner = alg.optimizer._run_cache[1].cache["runner"]
+            for r in [eager] + runs:
+                _check_launches(r, mode, "world 1")
+            same = all(_same_run(torch, (eager["w"], eager["h"]),
+                                 (r["w"], r["h"])) for r in runs)
+            check(same, f"world 1 {mode}: captured blocks differ from eager")
+            replays = runner.replays
+            check(replays == (3 if runner.capture else 0),
+                  f"world 1 {mode}: {replays} graph replays")
+            prof = _run_profile(torch, lambda: alg.run((X, y)), MESH_ITERS)
+            out["rows"][mode] = {
+                "captured_equals_eager_bitwise": same,
+                "graph_replays_in_three_runs": replays,
+                "capture_ms": runner.capture_ms,
+                "eager_ms_per_iteration": eager["ms"],
+                "launches": runs[-1]["launches"],
+                "mesh": {k: prof[k] for k in (
+                    "wall_ms_per_iteration", "device_ms_per_iteration",
+                    "idle_share", "top_device_ms",
+                    "aten_calls_per_iteration")},
+                "single_device": {k: profile[mode][k] for k in (
+                    "wall_ms_per_iteration", "device_ms_per_iteration",
+                    "idle_share")} if mode in profile else None}
+            alg.optimizer.release_graphs()
+            del alg, runner
+        out["observed"] = mesh_observed(torch, tst, X, y, mesh)
+    finally:
+        gc.collect()
+        dist.destroy_process_group()
+    return out, single
+
+
+def mesh_kernel_rows(torch, ck, tst, Xs, ys, Xb):
+    """The kernels at a rank's shapes, each against its plain version,
+    the library and its bound: B1 over a 1,250,000-row shard with a 10%
+    mask, B2 over a 125,000-row window of it, the CSR products over a
+    rank's row block of the RCV1-scale CSR and its transposed copy."""
+    from tpu_sgd_torch.ops import sparse as sp
+
+    pw = tst.LeastSquaresGradient().pointwise
+    n, d = Xs.shape
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    w = torch.randn(d, generator=gen, device="cuda") / math.sqrt(d)
+    mask = torch.rand(n, generator=gen, device="cuda") < FRAC
+    got = ck.fused_gradient_sums(pw, Xs, ys, w, mask)
+    ok, err, scale = _close(torch, got,
+                            ck.fused_gradient_sums_plain(pw, Xs, ys, w, mask),
+                            True)
+    check(ok, f"shard fused_gradient_sums: max|dg|={err} of {scale}")
+    sel = int(mask.sum())
+    bound, by = _bound_ms(sel, d, 2, n)
+    wb = w.to(torch.bfloat16)
+    coeff = torch.randn(n, device="cuda").to(torch.bfloat16)
+    rows = [{
+        "name": "fused_gradient_sums",
+        "path": f"mesh (a rank's {n:,}-row shard, 10% mask)",
+        "shape": [n, d], "selected_rows": sel, "max_abs_err": err,
+        "grad_scale": scale,
+        "ms": time_ms(torch, lambda: ck.fused_gradient_sums(
+            pw, Xs, ys, w, mask), 50),
+        "plain_ms": time_ms(torch, lambda: ck.fused_gradient_sums_plain(
+            pw, Xs, ys, w, mask), 3),
+        "library_ms": time_ms(torch, lambda: (Xs @ wb, coeff @ Xs), 20),
+        "bound_ms": bound, "bound_by": by}]
+    m = round(FRAC * n)
+    rows.append(window_row(torch, ck, ck.fused_window_sums, pw, Xs, ys, w,
+                           MESH_WINDOW_START, m,
+                           f"mesh (a shard's {m:,}-row window)"))
+    Xbt = sp.transpose_csr(Xb)
+    nb, db = Xb.shape
+    wd = torch.randn(db, generator=gen, device="cuda")
+    cb = torch.randn(nb, generator=gen, device="cuda")
+    idx = Xb.col_indices().element_size()
+    for name, path, kern, plain, lib, prow, k in (
+            ("csr_margins", f"mesh (a rank's {nb:,}-row CSR block)",
+             lambda: ck.csr_margins(Xb, wd),
+             lambda: ck.csr_matmul_plain(Xb, wd), lambda: Xb @ wd, nb, db),
+            ("csr_grad_sum", "mesh (the block's transposed CSR)",
+             lambda: ck.csr_grad_sum(Xbt, cb),
+             lambda: ck.csr_matmul_plain(Xbt, cb), lambda: Xbt @ cb, db,
+             nb)):
+        got, ref = kern(), plain()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(err <= 1e-4 * scale + 1e-6,
+              f"{name} ({path}): max |d| {err} of {scale}")
+        nnz = Xb._nnz()
+        bytes_ = nnz * (4 + idx) + (prow + 1) * idx + 4 * (k + prow)
+        t_bytes = 1e3 * bytes_ / HBM_BYTES_PER_S
+        t_ops = 1e3 * 2.0 * nnz / F32_FLOPS
+        bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+        rows.append({
+            "name": name, "path": path, "source": CSR_SOURCE,
+            "shape": [prow, k], "columns": 1, "nnz": nnz,
+            "max_abs_err": err, "grad_scale": scale,
+            "ms": time_ms(torch, kern, 50),
+            "plain_ms": time_ms(torch, plain, 20),
+            "library_ms": time_ms(torch, lib, 20),
+            "bound_ms": bound, "bound_by": by})
+    for r in rows:
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    return rows
+
+
+def phase_mesh(torch, tst, ck, X_sp, y_sp, profile):
+    """Phase ``mesh``: data parallelism at config 4's shape, after config
+    4's matrix of phase ``full`` was freed.  The data: 10M x 1000 bf16
+    least squares as 8 row blocks, each made from ``(seed, block)``
+    (``fill_mesh_block``); the parent holds all 8, each rank its own.
+
+    (a) This process as a mesh of one rank over NCCL (``mesh_world1``).
+    (b) 8 ranks on the one card over gloo, subprocesses of this script:
+    Bernoulli, indexed and sliced at 0.1 and full batch, each twice
+    (bitwise), launches exact per rank, every rank's weights bitwise
+    equal; on the first 125,000 rows of each block (1M rows), Bernoulli
+    and sliced bitwise the one-process rank-order sum
+    (``rank_order_reference``), and full batch over all 10M rows too;
+    against the single-device run, full batch's history at
+    ``MESH_FULL_HISTORY_RTOL`` (its first loss at the gradient tier) and
+    its objective within ``MESH_FULL_OBJECTIVE_TOL``, each sampled run's
+    objective within 1.01x.  (c) Phase ``sparse``'s CSR in 8 row blocks,
+    hinge + L1 at 1.0 (the gradient tier against the single-device run,
+    the objective within ``MESH_FULL_OBJECTIVE_TOL``) and 0.1 (the
+    objective within 1.01x), over the same world; peak memory per rank.
+    (d) The observed driver at world 1 (``mesh_observed``)."""
+    t0 = time.perf_counter()
+    world, n, d, dev = MESH_RANKS, FULL_ROWS, FULL_D, "cuda"
+    rows = n // world
+    X = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((n,), dtype=torch.float32, device=dev)
+    blocks = [(X[b * rows:(b + 1) * rows], y[b * rows:(b + 1) * rows])
+              for b in range(world)]
+    for b, (Xb, yb) in enumerate(blocks):
+        fill_mesh_block(torch, Xb, yb, b)
+    digests = [_block_digest(Xb, yb) for Xb, yb in blocks]
+    world1, single = mesh_world1(torch, tst, ck, X, y, profile)
+    emit({"phase": "mesh", "part": "a_d_world1", **world1})
+
+    # the one-process references of (b) and (c)
+    objective = {}
+    for mode in ("bernoulli", "indexed", "sliced"):
+        r = _mesh_run(torch, ck, _mesh_alg(tst, mode, FRAC), X, y)
+        objective[mode] = ls_objective_exact(torch, X, y, r["w"])
+    reference = {mode: rank_order_reference(
+        torch, tst, [(Xb[:MESH_PREFIX_ROWS], yb[:MESH_PREFIX_ROWS])
+                     for Xb, yb in blocks], mode)
+        for mode in ("bernoulli", "sliced")}
+    full_reference = rank_order_reference(torch, tst, blocks, "full")
+    ns = X_sp.shape[0]
+    srows = -(-ns // world)
+    sparse_single = {}
+    for frac in (1.0, FRAC):
+        alg = _sparse_alg(tst, MESH_ITERS, frac)
+        model = alg.run((X_sp, y_sp))
+        sparse_single[frac] = (model.weights,
+                               np.asarray(alg.optimizer.loss_history))
+    kernel_rows = mesh_kernel_rows(torch, ck, tst, *blocks[0],
+                                   csr_row_block(torch, X_sp, 0, srows))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        crow = X_sp.crow_indices().cpu().numpy()
+        col = X_sp.col_indices().cpu().numpy()
+        val = X_sp.values().cpu().numpy()
+        yh = y_sp.cpu().numpy()
+        for r in range(world):
+            lo, hi = min(ns, r * srows), min(ns, (r + 1) * srows)
+            a, b = int(crow[lo]), int(crow[hi])
+            np.savez(os.path.join(tmp, f"sparse{r}.npz"),
+                     crow=crow[lo:hi + 1] - crow[lo], col=col[a:b],
+                     val=val[a:b], y=yh[lo:hi],
+                     shape=np.array([hi - lo, X_sp.shape[1]]))
+        del crow, col, val
+        job_s = mesh_spawn(world, tmp)
+        reports, arrays = [], []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+            with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+                arrays.append({k: z[k] for k in z.files})
+
+    for r, rep in enumerate(reports):
+        check(rep["rank"] == r and rep["world"] == world
+              and rep["backend"] == "gloo", f"mesh rank {r}: {rep}")
+        check(rep["digest"] == digests[r], f"mesh rank {r}: other data")
+        check(not rep["leaked"], f"mesh rank {r} imported {rep['leaked']}")
+        for mode, run in rep["runs"].items():
+            _check_launches({"launches": run["launches"],
+                             "by_source": run["launches_by_source"]},
+                            mode, f"mesh rank {r}")
+            check(run["again_launches"] == run["launches"],
+                  f"mesh rank {r} {mode}: launches differ between runs")
+            check(run["repeat_bitwise"], f"mesh rank {r} {mode}: two runs "
+                  "differ")
+        for frac, run in rep["sparse"].items():
+            check(run["csr_launches"] == {"csr_margins": MESH_ITERS,
+                                          "csr_grad_sum": MESH_ITERS}
+                  and not any(run["dense_launches"].values()),
+                  f"mesh rank {r} sparse {frac}: {run['csr_launches']} "
+                  f"{run['dense_launches']}")
+    for k in arrays[0]:
+        check(all(np.array_equal(a[k], arrays[0][k]) for a in arrays[1:]),
+              f"mesh: ranks differ in {k}")
+    a0 = arrays[0]
+    prefix = {}
+    for mode, (w_ref, h_ref) in reference.items():
+        same = (np.array_equal(a0[f"prefix_{mode}_w"], w_ref.cpu().numpy())
+                and np.array_equal(a0[f"prefix_{mode}_h"], h_ref))
+        check(same, f"mesh prefix {mode}: not the one-process rank-order sum")
+        prefix[mode] = same
+    full_same = (np.array_equal(a0["full_w"], full_reference[0].cpu().numpy())
+                 and np.array_equal(a0["full_h"], full_reference[1]))
+    check(full_same, "mesh full batch: not the one-process rank-order sum")
+    # iteration 1 sums the same rows at the same weights: the gradient
+    # tier.  Later weights differ in their last bits, and the margins
+    # round them to bf16 (the mixed-precision contract), so whole runs
+    # are held to the matched objective
+    full_rel = _rel_max(a0["full_h"], single["h"])
+    first_rel = _rel_max(a0["full_h"][:1], single["h"][:1])
+    check(first_rel <= MESH_HISTORY_RTOL,
+          f"mesh full batch: iteration 1's loss {first_rel} from the "
+          "single device")
+    check(full_rel <= MESH_FULL_HISTORY_RTOL,
+          f"mesh full batch: history {full_rel} from the single device")
+    objective["full"] = ls_objective_exact(torch, X, y, single["w"])
+    ratios = {}
+    for mode in ("bernoulli", "indexed", "sliced", "full"):
+        ours = ls_objective_exact(torch, X, y, torch.as_tensor(
+            a0[mode + "_w"], device=dev))
+        ratios[mode] = ours / objective[mode]
+    _check_objective_ratios(ratios, "full", "mesh")
+    del X, y, blocks
+    torch.cuda.empty_cache()
+    sparse_rel = _rel_max(a0["sparse_1.0_h"], sparse_single[1.0][1])
+    check(sparse_rel <= MESH_HISTORY_RTOL,
+          f"mesh sparse full batch: history {sparse_rel} from one device")
+    Xsc, ysh = _scipy_csr(X_sp), y_sp.cpu().numpy()
+    sparse_obj = {str(f): _hinge_objective_sparse(Xsc, ysh, a0[f"sparse_{f}_w"],
+                                                  1e-5)
+                  / _hinge_objective_sparse(Xsc, ysh,
+                                            sparse_single[f][0].cpu().numpy(),
+                                            1e-5)
+                  for f in (1.0, FRAC)}
+    _check_objective_ratios(sparse_obj, "1.0", "mesh sparse")
+    r0 = reports[0]
+    launches = (r0["runs"]["bernoulli"]["launches"]["fused_gradient_sums"],
+                r0["runs"]["sliced"]["launches"]["fused_window_sums"],
+                r0["sparse"]["1.0"]["csr_launches"]["csr_margins"],
+                r0["sparse"]["1.0"]["csr_launches"]["csr_grad_sum"])
+    for row, count, run in zip(kernel_rows, launches, (
+            "rank 0's Bernoulli run", "rank 0's sliced run",
+            "rank 0's sparse run, frac 1.0",
+            "rank 0's sparse run, frac 1.0")):
+        row["launches"], row["launches_from"] = count, run
+        check(count > 0, f"{row['name']} ({row['path']}): no launch")
+    out = {
+        "ranks": world, "rows_per_rank": rows, "d": d,
+        "iterations": MESH_ITERS, "job_seconds": job_s,
+        "b": {mode: {
+            "ms_per_iteration_by_rank": [
+                rep["runs"][mode]["ms_per_iteration"] for rep in reports],
+            "first_run_ms_per_iteration_rank0":
+                r0["runs"][mode]["first_run_ms_per_iteration"],
+            "loss_first": r0["runs"][mode]["loss_first"],
+            "loss_last": r0["runs"][mode]["loss_last"]}
+            for mode in r0["runs"]},
+        "combine_ms_by_rank": {k: [rep["combine_ms"][k] for rep in reports]
+                               for k in r0["combine_ms"]},
+        "ranks_bitwise_equal": True, "repeat_bitwise": True,
+        "prefix_bitwise_rank_order_sum": prefix,
+        "full_batch_bitwise_rank_order_sum": full_same,
+        "full_batch_history_max_rel": full_rel,
+        "full_batch_first_loss_rel": first_rel,
+        "sampled_objective_ratio": ratios,
+        "c_sparse": {
+            "rows_per_rank": [rep["sparse"]["1.0"]["rows"]
+                              for rep in reports],
+            "nnz_per_rank": [rep["sparse"]["1.0"]["nnz"] for rep in reports],
+            "history_max_rel_full_batch": sparse_rel,
+            "objective_ratio": sparse_obj,
+            "ms_per_iteration_rank0": {
+                f: r0["sparse"][f]["ms_per_iteration"] for f in r0["sparse"]},
+            "peak_allocated_bytes_by_rank": {
+                f: [rep["sparse"][f]["peak_allocated_bytes"]
+                    for rep in reports] for f in r0["sparse"]}},
+        "seconds": time.perf_counter() - t0}
+    emit({"phase": "mesh", "part": "b_c_ranks", **out})
+    return {"world1": world1, **out}, kernel_rows
+
+
 def bernoulli_rows(n: int) -> int:
     """The Bernoulli row cap of the streamed drivers at ``FRAC``."""
     from tpu_sgd_torch.optimize.streamed import bernoulli_cap
@@ -3582,6 +4316,8 @@ def bernoulli_rows(n: int) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_child(*sys.argv[2:6])
     try:
         import torch
     except ImportError:
@@ -3628,7 +4364,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t})
 
     X, y, w_true, launches, sliced_ref = phase_full(torch, tst, ck)
-    phase_profile(torch, tst, X, y)
+    profile = phase_profile(torch, tst, X, y)
     rows = phase_timing(torch, tst, ck, X, y, launches)
     qn = {}
     qn["a"], b1_row = leg_binary_lbfgs(torch, tst, ck, X, w_true)
@@ -3660,6 +4396,9 @@ def main() -> int:
     rows.extend(csr_rows(torch, ck, X_sp, sparse, qn["d"],
                          streamed["sparse"], batch))
     del batch
+    torch.cuda.empty_cache()
+    mesh, mesh_rows = phase_mesh(torch, tst, ck, X_sp, y_sp, profile)
+    rows.extend(mesh_rows)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_sgd"))
@@ -3727,6 +4466,11 @@ def main() -> int:
             "c_contracts", "d_predict", "leg_seconds", "seconds")},
         "sparse": streamed["sparse"]}})
     emit({"streamed_qn": streamed_qn})
+    emit({"mesh": {k: mesh[k] for k in (
+        "world1", "b", "combine_ms_by_rank", "prefix_bitwise_rank_order_sum",
+        "full_batch_bitwise_rank_order_sum", "full_batch_first_loss_rel",
+        "full_batch_history_max_rel", "sampled_objective_ratio", "c_sparse",
+        "job_seconds", "seconds")}})
     emit({"observed": {
         "rows": {row: {"bitwise_equal": r["bitwise_equal"],
                        "capture_ms": r["capture_ms"],

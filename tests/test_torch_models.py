@@ -181,8 +181,13 @@ def test_later_slice_options_raise():
     assert alg.optimizer.host_streaming
     with pytest.raises(NotImplementedError, match="A11"):
         alg.set_schedule("auto")
+    from tpu_sgd_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
+
+    # a data mesh trains (test_torch_parallel.py); feature-axis sharding
+    # is A5's second part
     with pytest.raises(NotImplementedError, match="A5"):
-        tm.LinearRegressionWithSGD.train((X, y), mesh=object(), device="cpu")
+        tm.LinearRegressionWithSGD.train(
+            (X, y), mesh=Mesh({DATA_AXIS: 4, MODEL_AXIS: 2}), device="cpu")
 
 
 @pytest.mark.parametrize("model,method,item", [

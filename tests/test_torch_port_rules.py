@@ -48,7 +48,10 @@ def test_import_pulls_in_no_jax_and_no_tpu_sgd():
         "tpu_sgd_torch.io.sparse_wire, tpu_sgd_torch.optimize.streamed, "
         "tpu_sgd_torch.optimize.streamed_sparse, "
         "tpu_sgd_torch.optimize.streamed_costfun, "
-        "tpu_sgd_torch.utils.native\n"
+        "tpu_sgd_torch.utils.native, tpu_sgd_torch.parallel, "
+        "tpu_sgd_torch.parallel.mesh, tpu_sgd_torch.parallel.distributed, "
+        "tpu_sgd_torch.parallel.data_parallel, "
+        "tpu_sgd_torch.parallel.sparse_parallel\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
         "print(bad)")
@@ -80,6 +83,8 @@ def test_import_builds_nothing():
         "from tpu_sgd_torch.optimize import streamed, streamed_sparse\n"
         "from tpu_sgd_torch.optimize import streamed_costfun\n"
         "from tpu_sgd_torch.utils import mlutils, native\n"
+        "from tpu_sgd_torch.parallel import mesh, distributed\n"
+        "from tpu_sgd_torch.parallel import data_parallel, sparse_parallel\n"
         "print(len(_build._loaded), native._lib, mlutils.last_reader)")
     assert out.returncode == 0, out.stderr
     # no CUDA library loaded, the LIBSVM parser neither loaded nor built
@@ -178,9 +183,11 @@ def test_streamed_path_on_a_mesh_raises_naming_a5():
         optimize_host_streamed(tst.LeastSquaresGradient(),
                                tst.SimpleUpdater(), tst.SGDConfig(), X, y,
                                np.zeros(3), device="cpu", mesh=object())
+    from tpu_sgd_torch.parallel import DATA_AXIS, Mesh
+
     with pytest.raises(NotImplementedError, match="A5"):
         tst.GradientDescent(device="cpu").set_host_streaming(True) \
-            .set_mesh(object())
+            .set_mesh(Mesh({DATA_AXIS: 2})).optimize((X, y), np.zeros(3))
 
 
 def test_streamed_default_device_raises_without_cuda():

@@ -6,7 +6,9 @@ feature scaling, column statistics and model persistence, and the
 observed driver's planes: listeners and event logs (``utils.events``),
 checkpoints (``utils.checkpoint``), fault injection, retry and the
 training supervisor (``reliability``), and span tracing (``obs``).
-SGD runs K iterations a host call, as one CUDA graph replay on the card.
+SGD runs K iterations a host call, as one CUDA graph replay on the card,
+on one device or data-parallel over a ``torch.distributed`` mesh
+(``parallel``).
 
 The JAX package ``tpu_sgd`` stays the reference; this package imports
 nothing of it, nor JAX.  Its hot step, the fused ``(grad_sum, loss_sum,
@@ -15,7 +17,7 @@ count)`` of a mini-batch, is a CUDA kernel written by hand for Hopper
 points run on the card unless the caller passes ``device="cpu"``.
 """
 
-from tpu_sgd_torch.config import SGDConfig
+from tpu_sgd_torch.config import MeshConfig, SGDConfig
 from tpu_sgd_torch.device import resolve_device
 from tpu_sgd_torch.evaluation import (
     BinaryClassificationMetrics,
@@ -47,6 +49,7 @@ from tpu_sgd_torch.optimize import (
     run_lbfgs,
     run_mini_batch_sgd,
 )
+from tpu_sgd_torch.parallel import data_mesh, make_mesh
 from tpu_sgd_torch.stat import MultivariateStatisticalSummary, col_stats, corr
 from tpu_sgd_torch.utils.mlutils import (
     a9a_like_data,
@@ -56,7 +59,7 @@ from tpu_sgd_torch.utils.mlutils import (
 )
 
 __all__ = (
-    ["SGDConfig", "resolve_device", "glm_model_from_numpy",
+    ["SGDConfig", "MeshConfig", "data_mesh", "make_mesh", "resolve_device", "glm_model_from_numpy",
      "gram_data_from_numpy",
      "multinomial_model_from_numpy", "sgd_config_from_dict", "Vectors",
      "DenseVector", "SparseVector", "BLAS", "GradientDescent", "LBFGS",

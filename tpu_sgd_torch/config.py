@@ -1,10 +1,9 @@
 """Configuration of mini-batch SGD: the port of ``tpu_sgd/config.py``.
 
-Only ``SGDConfig`` is ported in this slice; ``MeshConfig`` and
-``ServingConfig`` wait for the data-parallel and serving slices (ROADMAP
-A5, A10).  Defaults and validation match the JAX package exactly:
-step=1.0, iters=100, reg=0.0, frac=1.0, convTol=0.001 (the reference's
-``GradientDescent`` defaults).
+``SGDConfig`` and ``MeshConfig``; ``ServingConfig`` waits for the serving
+slice (ROADMAP A10).  ``SGDConfig``'s defaults and validation match the
+JAX package exactly: step=1.0, iters=100, reg=0.0, frac=1.0,
+convTol=0.001 (the reference's ``GradientDescent`` defaults).
 """
 
 from __future__ import annotations
@@ -72,3 +71,32 @@ class SGDConfig:
 
     def replace(self, **kwargs) -> "SGDConfig":
         return dataclasses.replace(self, **kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Shape of the mesh of ranks the optimizer runs over: ``data`` ranks
+    on the example axis (data parallelism, the reference's only axis) by
+    ``model`` ranks on the feature axis (described here; runs on it are
+    ROADMAP A5's second part).  Each rank is one process driving one
+    device (``parallel/mesh.py``)."""
+
+    data: int = 1
+    model: int = 1
+
+    def __post_init__(self):
+        if self.data < 1 or self.model < 1:
+            raise ValueError(
+                f"mesh axes must be >= 1, got data={self.data}, "
+                f"model={self.model}")
+
+    def build(self, group=None):
+        """The ``parallel.Mesh`` this config describes over the ranks of
+        ``group`` (default: all ranks; needs a process group)."""
+        from tpu_sgd_torch.parallel.mesh import make_mesh
+
+        return make_mesh(n_data=self.data, n_model=self.model, group=group)
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.model

@@ -1,5 +1,5 @@
 """Sparse features, trained undensified: the port of ``tpu_sgd/ops/sparse.py``
-(single device; the mesh layout waits for ROADMAP A5).
+(a data mesh's row blocks: ``parallel/sparse_parallel.py``).
 
 The JAX package keeps sparse features as a BCOO matrix; here they are a
 torch sparse CSR tensor.  Any non-strided layout (CSR, CSC, COO, BSR)

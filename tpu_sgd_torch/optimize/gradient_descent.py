@@ -1,5 +1,6 @@
 """Mini-batch gradient descent: the port of ``tpu_sgd/optimize/gradient_descent.py``
-(dense and sparse, single-device, data resident on the device).
+(dense and sparse, data resident on the device; one device, or one rank
+of a data mesh, ``set_mesh``).
 
 Per iteration, as in the reference's ``runMiniBatchSGD``:
 
@@ -56,6 +57,15 @@ iteration's two products are CSR x vector (``ops/sparse.py``), captured
 like the dense path.  Only Bernoulli sampling (or full batch) applies to
 them.
 
+Data parallelism (``set_mesh``, ``parallel/``): each rank runs this same
+loop on its own rows and draws its own shard's sample; after the local
+sums the ranks combine ``(grad_sum, loss_sum, count)`` in rank order
+(``parallel.mesh.combine_sums``), so the update, the history and the
+convergence test run alike on every rank and the weights stay
+replicated.  Under NCCL the gather is captured in the block's CUDA graph
+like the kernels; under gloo it goes through the host, and the blocks
+stay eager.
+
 Sampling: iteration ``i``'s sample is a function of ``(seed, i)`` alone —
 the contract of the JAX package's ``fold_in(key, i)``, with other bits:
 the two packages draw different samples from the same seed (see
@@ -88,6 +98,13 @@ from tpu_sgd_torch.ops.gram import (
 from tpu_sgd_torch.ops.sparse import is_sparse, to_csr, transpose_csr
 from tpu_sgd_torch.ops.updaters import SimpleUpdater, Updater
 from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
+from tpu_sgd_torch.parallel.mesh import (
+    Mesh,
+    any_rank,
+    as_data_mesh,
+    barrier,
+    combine_sums,
+)
 
 Tensor = torch.Tensor
 
@@ -144,16 +161,24 @@ def _host(t) -> np.ndarray:
 
 # -- sampling -----------------------------------------------------------------
 
-def _seed_for(seed: int, i: int) -> int:
-    """The CPU generator seed of iteration ``i``: a function of ``(seed,
-    i)`` alone, so iteration ``i`` draws the same sample in any run.
-    Mixed by splitmix64, since the CPU generator keeps only the low 32
-    bits."""
-    z = (((int(seed) & 0xFFFFFFFF) << 32) | (int(i) & 0xFFFFFFFF))
+def _splitmix64(z: int) -> int:
     z = (z + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
     return z ^ (z >> 31)
+
+
+def _seed_for(seed: int, i: int, shard: Optional[int] = None) -> int:
+    """The CPU generator seed of iteration ``i``: a function of ``(seed,
+    i)`` alone, so iteration ``i`` draws the same sample in any run.
+    Mixed by splitmix64, since the CPU generator keeps only the low 32
+    bits.  On a mesh the data shard is folded in by one more round (the
+    JAX package folds the shard index into every sample key); without
+    one the seed is what it always was."""
+    z = _splitmix64(((int(seed) & 0xFFFFFFFF) << 32) | (int(i) & 0xFFFFFFFF))
+    if shard is not None:
+        z = _splitmix64(z ^ (int(shard) & 0xFFFFFFFFFFFFFFFF))
+    return z
 
 
 def _window_start(gen, n: int, m: int, device) -> Tensor:
@@ -178,17 +203,23 @@ class _Sampler:
     registers the generator, and each replay reads its offset at replay
     time).  ``stride`` is what one draw advances the offset, measured
     once with a draw of the run's own shape; :meth:`seek` runs on the host
-    before each block and never inside a capture."""
+    before each block and never inside a capture.
 
-    def __init__(self, seed: int, device: torch.device, draw):
+    On a mesh, ``shard`` (the rank's data index) is folded into every seed
+    (:func:`_seed_for`): each shard draws its own stream over its own
+    rows, the CUDA generator seeded from ``(seed, shard)``."""
+
+    def __init__(self, seed: int, device: torch.device, draw,
+                 shard: Optional[int] = None):
         self.seed = int(seed)
+        self.shard = shard
         self.cuda = device.type == "cuda"
         self._draw = draw
         self.gen = torch.Generator(device=device)
         self._next = 1
         self.stride = 0
         if self.cuda:
-            self.gen.manual_seed(_seed_for(self.seed, 0))
+            self.gen.manual_seed(_seed_for(self.seed, 0, shard))
             before = self.gen.get_offset()
             draw(self.gen)
             self.stride = self.gen.get_offset() - before
@@ -203,15 +234,17 @@ class _Sampler:
     def draw(self) -> Tensor:
         """The next iteration's sample."""
         if not self.cuda:
-            self.gen.manual_seed(_seed_for(self.seed, self._next))
+            self.gen.manual_seed(_seed_for(self.seed, self._next, self.shard))
             self._next += 1
         return self._draw(self.gen)
 
 
-def _make_sampler(cfg: SGDConfig, X) -> Optional[_Sampler]:
+def _make_sampler(cfg: SGDConfig, X, shard: Optional[int] = None
+                  ) -> Optional[_Sampler]:
     """The run's sample stream, or None at full batch: a window start
     (sliced), ``round(frac · n)`` row indices (indexed) or a Bernoulli
-    mask (bernoulli)."""
+    mask (bernoulli), over the ``n`` rows of ``X`` (on a mesh, the rank's
+    padded local rows, and ``shard`` its data index)."""
     frac = cfg.mini_batch_fraction
     if frac >= 1.0:
         return None
@@ -226,7 +259,7 @@ def _make_sampler(cfg: SGDConfig, X) -> Optional[_Sampler]:
     else:
         draw = lambda gen: torch.rand(  # noqa: E731
             n, generator=gen, device=dev) < frac
-    return _Sampler(cfg.seed, dev, draw)
+    return _Sampler(cfg.seed, dev, draw, shard)
 
 
 def _make_local_sums(gradient, cfg):
@@ -258,15 +291,20 @@ def _make_local_sums(gradient, cfg):
     return local_sums
 
 
-def _make_update(gradient, updater, cfg):
+def _make_update(gradient, updater, cfg, mesh=None):
     """The iteration's math after its sample is drawn: ``update(weights,
     X, y, i, reg_val, sample, valid, Xt) -> (new_w, loss_i, new_reg,
     count)`` with ``i`` the ``(1,)`` int64 iteration counter on the
-    weights' device."""
+    weights' device.  On a data ``mesh`` the rank's local sums are
+    combined over the ranks (``parallel.mesh.combine_sums``) before the
+    update, which then runs identically on every rank: the weights stay
+    replicated."""
     local_sums = _make_local_sums(gradient, cfg)
 
     def update(weights, X, y, i, reg_val, sample, valid=None, Xt=None):
         g, l, c = local_sums(weights, X, y, sample, valid, Xt)
+        if mesh is not None:
+            g, l, c = combine_sums(mesh, g, l, c)
         has_batch = c > 0
         safe_c = torch.clamp(c, min=1.0)
         loss_i = l / safe_c + reg_val
@@ -347,22 +385,29 @@ def make_compressed_step(gradient: Gradient, updater: Updater,
     return step
 
 
-def make_step(gradient: Gradient, updater: Updater, config: SGDConfig):
+def _shard_of(mesh) -> Optional[int]:
+    return None if mesh is None else mesh.rank
+
+
+def make_step(gradient: Gradient, updater: Updater, config: SGDConfig,
+              mesh=None):
     """One SGD iteration: ``step(weights, X, y, i, reg_val, valid, Xt) ->
     (new_weights, loss_i, new_reg_val, count)``; ``loss_i`` already
     includes the previous iteration's ``reg_val``.  ``i`` is a host int
     (the step positions the sample stream at iteration ``i``) or the
     ``(1,)`` int64 counter of a block (the block positioned the stream
     before its first iteration).  ``Xt`` is sparse X's transposed CSR
-    (None for dense X)."""
+    (None for dense X).  On a 1-D data ``mesh`` (``parallel.mesh``), X,
+    y and valid are the rank's padded local rows, the sample is the
+    rank's shard stream, and the sums are combined over the ranks."""
     cfg = config
-    update = _make_update(gradient, updater, cfg)
+    update = _make_update(gradient, updater, cfg, mesh)
     samplers = {}
 
     def sampler_for(X) -> Optional[_Sampler]:
         key = (X.shape[0], str(X.device))
         if key not in samplers:
-            samplers[key] = _make_sampler(cfg, X)
+            samplers[key] = _make_sampler(cfg, X, _shard_of(mesh))
         return samplers[key]
 
     def step(weights, X, y, i, reg_val, valid=None, Xt=None):
@@ -455,7 +500,8 @@ def _record_step(st: _RunState, rec, active, loss_i, w, new_w, reg,
 
 
 def _make_block(gradient, updater, cfg, *, history: bool,
-                stacked: bool = False, topk_frac: Optional[float] = None):
+                stacked: bool = False, topk_frac: Optional[float] = None,
+                mesh=None):
     """``block(state, data, sampler, steps)``: ``steps`` consecutive
     iterations from ``state`` (a :class:`_RunState`), in place.
 
@@ -471,9 +517,10 @@ def _make_block(gradient, updater, cfg, *, history: bool,
     a ``(K, rows, d)`` superchunk, or lists of sparse batches).
     ``topk_frac`` runs the compressed-wire update, its error-feedback
     accumulator carried in ``state.extra`` and written into each ys
-    row."""
+    row.  ``mesh``: the data mesh whose ranks combine each step's sums
+    (dense or sparse data, not with ``stacked`` or ``topk_frac``)."""
     if topk_frac is None:
-        update = _make_update(gradient, updater, cfg)
+        update = _make_update(gradient, updater, cfg, mesh)
     else:
         cupdate = _make_compressed_update(gradient, updater, cfg, topk_frac)
     tol = cfg.convergence_tol
@@ -517,14 +564,18 @@ def _make_block(gradient, updater, cfg, *, history: bool,
     return block
 
 
-def _captures(gradient, cfg: SGDConfig, device) -> bool:
+def _captures(gradient, cfg: SGDConfig, device, mesh=None) -> bool:
     """Whether a run's full blocks may be captured as CUDA graphs: on a
     CUDA device, unless ``CUDA_GRAPHS`` is off, or the window of ``sliced``
     sampling is sliced on the host (a gradient without a kernel rule,
-    ``family=None``, reads the start there), which a capture cannot do."""
+    ``family=None``, reads the start there), which a capture cannot do, or
+    the run's mesh combines over a backend other than NCCL (gloo gathers
+    through the host, which a capture cannot do either)."""
     host_window = (cfg.sampling == "sliced" and cfg.mini_batch_fraction < 1.0
                    and getattr(gradient, "family", None) is None)
-    return CUDA_GRAPHS and device.type == "cuda" and not host_window
+    host_combine = mesh is not None and mesh.backend != "nccl"
+    return (CUDA_GRAPHS and device.type == "cuda" and not host_window
+            and not host_combine)
 
 
 def _capture_repays(replays: int, host_ms: float, card_ms: float) -> bool:
@@ -549,7 +600,9 @@ class _BlockRunner:
     host and on the card, is read once at the next full block; a run too
     short for ``CAPTURE_MIN_REPLAYS`` replays is not even timed), or when
     it repeats a run on the same tensors; otherwise its blocks stay
-    eager.
+    eager.  On a mesh the decision must be the same on every rank, so it
+    reads no clock (``timed=False``): a first run captures when
+    ``CAPTURE_MIN_REPLAYS`` replays are ahead.
     A capture launches nothing, so the kernel launches it records are
     taken out of the wrappers' counts and added again on each replay
     (``cuda_kernels.captured_launches``): a count stays one per kernel
@@ -566,13 +619,15 @@ class _BlockRunner:
     other run."""
 
     def __init__(self, block, state: _RunState, data, sampler, k: int,
-                 capture: bool, adaptive: bool, owned=None):
+                 capture: bool, adaptive: bool, owned=None,
+                 timed: bool = True):
         self.block = block
         self.state = state
         self.sampler = sampler
         self.k = int(k)
         self.capture = bool(capture)
         self.adaptive = bool(adaptive)
+        self.timed = bool(timed)
         self._refs = tuple(None if t is None else weakref.ref(t)
                            for t in data)
         self._owned = owned
@@ -635,10 +690,13 @@ class _BlockRunner:
         if not self.adaptive or self._repeat:
             return True
         if self._decision is None:
+            replays = (self._last - i0 + 1) // self.k
+            if not self.timed:
+                self._decision = replays >= CAPTURE_MIN_REPLAYS
+                return self._decision
             start, stop = self._warm_events
             stop.synchronize()
             self.warm_card_ms = start.elapsed_time(stop)
-            replays = (self._last - i0 + 1) // self.k
             self._decision = _capture_repays(replays, self.warm_host_ms,
                                              self.warm_card_ms)
         return self._decision
@@ -650,7 +708,7 @@ class _BlockRunner:
     def _warm_up(self, steps: int) -> None:
         """The first full block, eager; timed on the host and on the card
         when a first unobserved run is to decide on a capture."""
-        if not self.adaptive or self._repeat:
+        if not self.adaptive or self._repeat or not self.timed:
             self._eager(steps)
         else:
             start = torch.cuda.Event(enable_timing=True)
@@ -723,7 +781,8 @@ def _run_runner(cache: dict, make, X, y, valid, Xt, w0) -> _BlockRunner:
     return runner
 
 
-def make_run(gradient: Gradient, updater: Updater, config: SGDConfig):
+def make_run(gradient: Gradient, updater: Updater, config: SGDConfig,
+             mesh=None):
     """The whole optimization loop: ``run(initial_weights, X, y, valid,
     Xt) -> (weights, loss_history, n_recorded)``.  ``loss_history`` is a
     device tensor of length ``num_iterations``, NaN beyond ``n_recorded``
@@ -732,12 +791,15 @@ def make_run(gradient: Gradient, updater: Updater, config: SGDConfig):
     device where the capture repays itself (module docstring); the graph
     and its buffers are kept for the next call on the same tensors.
     Sparse ``X`` is CSR; its transposed copy ``Xt`` is built once, unless
-    the caller passes the one it holds (``ops.sparse.transpose_csr``)."""
+    the caller passes the one it holds (``ops.sparse.transpose_csr``).
+    On a 1-D data ``mesh`` the run is :func:`make_step`'s over the rank's
+    local rows (the JAX package's ``make_run`` under ``shard_map``): every
+    rank records the same history and stops at the same block."""
     cfg = config
     check_conv = cfg.convergence_tol > 0.0
     N = cfg.num_iterations
     K = min(RUN_BLOCK_ITERS, N)
-    block = _make_block(gradient, updater, cfg, history=True)
+    block = _make_block(gradient, updater, cfg, history=True, mesh=mesh)
     cache: dict = {}
 
     def run(initial_weights, X, y, valid=None, Xt=None):
@@ -746,9 +808,10 @@ def make_run(gradient: Gradient, updater: Updater, config: SGDConfig):
         def make():
             own = transpose_csr(X) if Xt is None and is_sparse(X) else None
             return _BlockRunner(block, _RunState(w0, N), (X, y, valid, Xt),
-                                _make_sampler(cfg, X), K,
-                                _captures(gradient, cfg, w0.device),
-                                adaptive=True, owned=own)
+                                _make_sampler(cfg, X, _shard_of(mesh)), K,
+                                _captures(gradient, cfg, w0.device, mesh),
+                                adaptive=True, owned=own,
+                                timed=mesh is None)
 
         runner = _run_runner(cache, make, X, y, valid, Xt, w0)
         st = runner.state
@@ -1101,6 +1164,8 @@ class GradientDescent(Optimizer):
         #: the next run on the same tensors, which they hold only weakly
         self._run_cache = None
         self._observed_entry = None
+        #: the device mesh of ``set_mesh`` (None: one device)
+        self.mesh = None
 
     # -- fluent config (returns self, like the reference's setters) --------
     def set_gradient(self, g: Gradient):
@@ -1151,9 +1216,29 @@ class GradientDescent(Optimizer):
         self.check_numerics = bool(flag)
         return self
 
-    # -- schedules and planes of later slices -------------------------------
+    # -- schedules ----------------------------------------------------------
     def set_mesh(self, mesh):
-        _not_ported("set_mesh (data parallelism)", "A5")
+        """Train data-parallel over a ``parallel.Mesh`` (``None``: one
+        device): ``X`` and ``y`` are this rank's local rows
+        (``parallel.shard_dataset`` pads uneven counts with a valid
+        mask), each rank samples its own shard, and the ranks combine
+        every step's sums in rank order (``parallel.mesh.combine_sums``),
+        so every rank holds the same weights and history.  Dense and
+        sparse data, the unobserved run and the observed driver
+        (listener, checkpoint: rank 0 writes it, then all ranks pass a
+        barrier; ``set_superstep``).  A sharded 'model' axis, host
+        streaming, sufficient or streamed statistics and residency raise
+        ``NotImplementedError`` naming ROADMAP A5 when the run starts.
+
+        Teardown: on NCCL the cached CUDA graphs hold the captured
+        gather, so call :meth:`release_graphs` (or drop the optimizer)
+        before ``torch.distributed.destroy_process_group``."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(
+                "set_mesh takes a tpu_sgd_torch.parallel.Mesh (make_mesh, "
+                f"data_mesh, MeshConfig.build), got {type(mesh).__name__}")
+        self.mesh = mesh
+        return self
 
     def set_host_streaming(self, flag: bool = True, resident_rows: int = 0):
         """Keep the dataset in host memory and stream each iteration's
@@ -1211,6 +1296,13 @@ class GradientDescent(Optimizer):
         loops and their CUDA graphs, which hold the bundle, go too."""
         self._gram_entry = None
         self._streamed_gram_entry = None
+        return self.release_graphs()
+
+    def release_graphs(self):
+        """Drop the cached loops and the observed driver's block runner,
+        with their CUDA graphs and buffers; the next run builds them
+        again.  On an NCCL mesh call it before the process group is
+        destroyed (``set_mesh``)."""
         self._run_cache = None
         self._observed_entry = None
         return self
@@ -1325,7 +1417,8 @@ class GradientDescent(Optimizer):
         an iteration (K = 1), at each block boundary (``set_superstep``)
         or at each window boundary (``set_residency``).  When it returns
         True the current state is checkpointed (if a manager is attached)
-        and the run unwinds with ``TrainingPreempted``.  Pass ``None`` to
+        and the run unwinds with ``TrainingPreempted``; on a mesh, when it
+        returns True on any rank, every rank stops there.  Pass ``None`` to
         clear.  Installed by ``TrainingSupervisor``; the unobserved run
         (no listener or checkpoint) does not poll it and runs to
         completion."""
@@ -1348,6 +1441,7 @@ class GradientDescent(Optimizer):
         ``GramData`` bundle (with a ``GramLeastSquaresGradient``)."""
         X, y = data
         dev = resolve_device(self.device)
+        mesh = self._data_mesh(X, dev)
         if isinstance(X, GramData):
             if self.host_streaming:
                 raise NotImplementedError(
@@ -1391,6 +1485,10 @@ class GradientDescent(Optimizer):
             X = X.contiguous()
         y = as_tensor(y, dev, torch.float32)
         w0 = _coerce_w0(self.gradient, initial_weights, X.shape[1], dev)
+        if mesh is not None:
+            # every rank pads to the longest rank's rows, so the checks
+            # below decide alike on every rank
+            return self._run_meshed(mesh, X, y, w0, sparse_X)
         n = X.shape[0]
         if n == 0:
             self._loss_history = np.zeros((0,), np.float32)
@@ -1405,6 +1503,55 @@ class GradientDescent(Optimizer):
             # the statistics ride where X goes (GramData)
             return self._run(gram, gram.data, y, w0)
         return self._run(self.gradient, X, y, w0)
+
+    def _data_mesh(self, X, dev):
+        """The 1-D data mesh of this run, or None: raises naming ROADMAP A5
+        for what does not compose with a mesh yet, one message each."""
+        if self.mesh is None:
+            return None
+        mesh = as_data_mesh(self.mesh)  # a sharded 'model' axis raises
+        for on, what in (
+                (isinstance(X, GramData)
+                 or isinstance(self.gradient, GramLeastSquaresGradient),
+                 "statistics (GramData) input on a mesh (gram_parallel)"),
+                (self.sufficient_stats,
+                 "set_sufficient_stats on a mesh (gram_parallel)"),
+                (self.streamed_stats,
+                 "set_streamed_stats on a mesh (the meshed streamed "
+                 "totals)"),
+                (self.host_streaming,
+                 "set_host_streaming on a mesh (meshed host streaming)"),
+                (self.resident_cadence >= 2,
+                 "set_residency on a mesh (the meshed resident driver)")):
+            if on:
+                _not_ported(what, "A5")
+        if mesh.backend == "nccl" and dev.type != "cuda":
+            raise ValueError(
+                f"an NCCL mesh combines on the card; this optimizer runs "
+                f"on {dev} (use a gloo group for CPU ranks)")
+        return mesh
+
+    def _run_meshed(self, mesh, X, y, w0, sparse_X):
+        """A data-parallel run on this rank's local rows: padded to the
+        longest rank's (``parallel.shard_dataset`` / ``shard_csr``),
+        then the run or the observed driver with the mesh's combine."""
+        from tpu_sgd_torch.parallel.data_parallel import shard_dataset
+        from tpu_sgd_torch.parallel.sparse_parallel import shard_csr
+
+        Xt = None
+        if sparse_X:
+            X, Xt, y, valid = shard_csr(mesh, X, y, device=w0.device)
+        else:
+            X, y, valid = shard_dataset(mesh, X, y, device=w0.device)
+        if X.shape[0] == 0:
+            self._loss_history = np.zeros((0,), np.float32)
+            return w0, self._loss_history
+        if X.shape[0] * mesh.size * self.config.mini_batch_fraction < 1:
+            warnings.warn(
+                "The miniBatchFraction is too small", RuntimeWarning,
+                stacklevel=3,
+            )
+        return self._run(self.gradient, X, y, w0, valid, Xt, mesh)
 
     def _optimize_host_streamed(self, X, y, initial_weights, dev):
         """``set_host_streaming``: the dense streamed driver
@@ -1491,10 +1638,11 @@ class GradientDescent(Optimizer):
                         X.device)
         return self._run(self.gradient, X, y, w0)
 
-    def _run(self, gradient, X, y, w0):
+    def _run(self, gradient, X, y, w0, valid=None, Xt=None, mesh=None):
         """One run: the observed driver when a listener or a checkpoint
         manager is attached, else the loop (the chunked gram driver where
-        it applies), then the history read back once."""
+        it applies), then the history read back once.  ``valid``, ``Xt``
+        and ``mesh`` come from a meshed run (``_run_meshed``)."""
         if self.listener is not None or self.checkpoint_manager is not None:
             if self.gram_chunk_iters:
                 warnings.warn(
@@ -1505,15 +1653,19 @@ class GradientDescent(Optimizer):
                     "driver",
                     RuntimeWarning, stacklevel=3,
                 )
-            return self._optimize_stepwise(gradient, X, y, w0)
-        run = self._cached_run(gradient, X)
-        w, losses, n_rec = run(w0, X, y)
+            return self._optimize_stepwise(gradient, X, y, w0, valid, Xt,
+                                           mesh)
+        run = self._cached_run(gradient, X, mesh)
+        if mesh is None:  # the chunked gram driver takes (w0, X, y)
+            w, losses, n_rec = run(w0, X, y)
+        else:
+            w, losses, n_rec = run(w0, X, y, valid, Xt)
         self._loss_history = losses[:int(n_rec)].cpu().numpy()
         if self.check_numerics:
             _raise_if_nonfinite(self._loss_history)
         return w, self._loss_history
 
-    def _cached_run(self, gradient, X):
+    def _cached_run(self, gradient, X, mesh=None):
         """The loop of this run, the previous run's when its knobs are the
         same, so that its CUDA graph replays at once on the same tensors
         (it keeps its graph and state buffers until the next run with
@@ -1523,7 +1675,7 @@ class GradientDescent(Optimizer):
         key = (gradient, self.updater, self.config,
                self.gram_chunk_iters if chunked else None,
                X.block_rows if chunked else None,
-               X.shape[0] if chunked else None)
+               X.shape[0] if chunked else None, self.mesh)
         entry = self._run_cache
         if entry is not None and entry[0][0] is gradient \
                 and entry[0][1] is self.updater and entry[0][2:] == key[2:]:
@@ -1536,7 +1688,7 @@ class GradientDescent(Optimizer):
                 self.updater, self.config, n=X.shape[0],
                 block_rows=X.block_rows, chunk_iters=self.gram_chunk_iters)
         else:
-            run = make_run(gradient, self.updater, self.config)
+            run = make_run(gradient, self.updater, self.config, mesh)
         self._run_cache = (key, run)
         return run
 
@@ -1582,28 +1734,31 @@ class GradientDescent(Optimizer):
                     and cfg.mini_batch_fraction < 1.0)
 
     # -- the observed driver ---------------------------------------------------
-    def _observed_runner(self, gradient, X, y, w0, k: int) -> _BlockRunner:
+    def _observed_runner(self, gradient, X, y, w0, k: int, valid=None,
+                         Xt=None, mesh=None) -> _BlockRunner:
         """The observed driver's block runner (K-row ys), cached like the
         loop's by the identity of its tensors and knobs."""
         cfg = self.config
-        key = (gradient, self.updater, cfg, k)
+        key = (gradient, self.updater, cfg, k, self.mesh)
         entry = self._observed_entry
         if (entry is not None and entry[0][0] is gradient
                 and entry[0][1] is self.updater and entry[0][2:] == key[2:]
-                and entry[1].same_data(X, y, None, None, w0)):
+                and entry[1].same_data(X, y, valid, Xt, w0)):
             return entry[1]
         self._observed_entry = None  # free the superseded graph first
-        Xt = transpose_csr(X) if is_sparse(X) else None
+        own = transpose_csr(X) if Xt is None and is_sparse(X) else None
         runner = _BlockRunner(
-            _make_block(gradient, self.updater, cfg, history=False),
+            _make_block(gradient, self.updater, cfg, history=False,
+                        mesh=mesh),
             _RunState(w0, cfg.num_iterations, ys_rows=k),
-            (X, y, None, None), _make_sampler(cfg, X), k,
-            _captures(gradient, cfg, w0.device), adaptive=False,
-            owned=Xt)
+            (X, y, valid, Xt), _make_sampler(cfg, X, _shard_of(mesh)), k,
+            _captures(gradient, cfg, w0.device, mesh), adaptive=False,
+            owned=own)
         self._observed_entry = (key, runner)
         return runner
 
-    def _optimize_stepwise(self, gradient, X, y, w0):
+    def _optimize_stepwise(self, gradient, X, y, w0, valid=None, Xt=None,
+                           mesh=None):
         """The observed driver, used when a listener or a checkpoint
         manager is attached: the JAX package's ``_optimize_stepwise`` on
         one device, with the exact loss history and convergence semantics
@@ -1616,7 +1771,14 @@ class GradientDescent(Optimizer):
         at the block boundary.  K >= 2 with C >= 2 (``set_residency``):
         windows of C blocks, ``optimize/resident_driver.py``.  The three
         give the same history, events (but their wall times) and
-        checkpoints, bitwise."""
+        checkpoints, bitwise.
+
+        On a mesh every rank runs the driver and calls its own listener;
+        rank 0 alone writes a checkpoint, then all ranks pass a host
+        barrier, and all ranks read it on resume.  The ranks agree on
+        each stop poll (any rank's signal stops every rank), so they
+        stop at the same iteration; a rank with no stop signal polls as
+        False."""
         from tpu_sgd_torch.utils.events import RunEvent
 
         cfg = self.config
@@ -1659,22 +1821,27 @@ class GradientDescent(Optimizer):
             resident_c = 0
 
         def _save(ii, w_np, rv):
-            mgr.save(ii, np.asarray(w_np), rv, np.asarray(losses),
-                     config_key)
+            if mesh is None or mesh.rank == 0:
+                mgr.save(ii, np.asarray(w_np), rv, np.asarray(losses),
+                         config_key)
+            if mesh is not None:
+                barrier(mesh, dev)
 
         save_cb = _save if mgr is not None else None
+        stop = self._agreed_stop(mesh, dev)
         runner = None
         if fused_k > 1 and start_iter <= cfg.num_iterations:
-            runner = self._observed_runner(gradient, X, y, w0, fused_k)
+            runner = self._observed_runner(gradient, X, y, w0, fused_k,
+                                           valid, Xt, mesh)
             runner.state.reset(w0, reg_val, start_iter)
-            runner.begin(X, y, None, None, cfg.num_iterations)
+            runner.begin(X, y, valid, Xt, cfg.num_iterations)
         w = w0
         t_run = time.perf_counter()
         converged_early = False
         try:
             w, reg_val, converged_early = self._observed_route(
-                gradient, runner, X, y, w0, start_iter, losses, reg_val,
-                save_cb, fused_k, resident_c)
+                gradient, runner, (X, y, valid, Xt, mesh), w0, start_iter,
+                losses, reg_val, save_cb, fused_k, resident_c, stop)
         finally:
             if runner is not None:
                 runner.end()
@@ -1692,10 +1859,25 @@ class GradientDescent(Optimizer):
         self._loss_history = np.asarray(losses, np.float32)
         return w, self._loss_history
 
-    def _observed_route(self, gradient, runner, X, y, w0, start_iter, losses,
-                        reg_val, save_cb, fused_k, resident_c):
+    def _agreed_stop(self, mesh, dev):
+        """The stop poll of the observed driver: the stop signal itself
+        on one device; on a mesh, every rank's answer gathered so that
+        all stop together (:func:`parallel.mesh.any_rank`), polled by
+        every rank when any rank has a signal (agreed once here, so the
+        ranks' collectives pair).  ``None``: nothing to poll."""
+        signal = self._stop_signal
+        if mesh is None:
+            return signal
+        if not any_rank(mesh, signal is not None, dev):
+            return None
+        return lambda: any_rank(mesh, signal is not None and signal(), dev)
+
+    def _observed_route(self, gradient, runner, data, w0, start_iter, losses,
+                        reg_val, save_cb, fused_k, resident_c, stop):
         """The observed run from ``start_iter`` on its route (K = 1, K >= 2,
-        or windows of C blocks): ``(weights, reg_val, converged)``."""
+        or windows of C blocks): ``(weights, reg_val, converged)``;
+        ``data`` is ``(X, y, valid, Xt, mesh)``; ``stop`` is the stop
+        poll (``_agreed_stop``)."""
         cfg = self.config
         w, converged_early = w0, False
         if start_iter > cfg.num_iterations:
@@ -1715,7 +1897,7 @@ class GradientDescent(Optimizer):
                 reg_val=reg_val, start_iter=start_iter,
                 listener=self.listener, save_cb=save_cb,
                 save_every=self.checkpoint_every,
-                stop_signal=self._stop_signal,
+                stop_signal=stop,
                 retry_policy=self.ingest_retry_policy,
                 check_numerics=self.check_numerics)
             loop = ResidentLoop(runner, cfg, fused_k, resident_c)
@@ -1724,13 +1906,14 @@ class GradientDescent(Optimizer):
             reg_val = hooks.reg_val
         elif fused_k > 1:
             w, reg_val, converged_early = self._observed_blocks(
-                runner, start_iter, losses, reg_val, save_cb)
+                runner, start_iter, losses, reg_val, save_cb, stop)
         else:
             w, reg_val, converged_early = self._observed_steps(
-                gradient, X, y, w0, start_iter, losses, reg_val, save_cb)
+                gradient, data, w0, start_iter, losses, reg_val, save_cb,
+                stop)
         return w, reg_val, converged_early
 
-    def _observed_blocks(self, runner, i0, losses, reg_val, save_cb):
+    def _observed_blocks(self, runner, i0, losses, reg_val, save_cb, stop):
         """K iterations per block, replayed from the captured graph on
         the card; the block's ys rows are fetched once and replayed with
         the per-iteration bookkeeping."""
@@ -1760,8 +1943,7 @@ class GradientDescent(Optimizer):
                               torch.float32)
             else:
                 w = st.w.clone()
-            if (not converged and self._stop_signal is not None
-                    and self._stop_signal()):
+            if not converged and stop is not None and stop():
                 # cooperative preemption at the block BOUNDARY (a replay
                 # cannot stop mid-block): checkpoint the exact boundary
                 # iteration, then unwind; a resume replays from here
@@ -1776,14 +1958,16 @@ class GradientDescent(Optimizer):
             i0 += steps
         return w, reg_val, converged
 
-    def _observed_steps(self, gradient, X, y, w0, i, losses, reg_val,
-                        save_cb):
+    def _observed_steps(self, gradient, data, w0, i, losses, reg_val,
+                        save_cb, stop):
         """One eager step an iteration, then its host tail
         (``observed_loop_tail``): the per-iteration observed driver."""
         cfg = self.config
-        update = _make_update(gradient, self.updater, cfg)
-        valid, Xt = None, transpose_csr(X) if is_sparse(X) else None
-        sampler = _make_sampler(cfg, X)
+        X, y, valid, Xt, mesh = data
+        update = _make_update(gradient, self.updater, cfg, mesh)
+        if Xt is None and is_sparse(X):
+            Xt = transpose_csr(X)
+        sampler = _make_sampler(cfg, X, _shard_of(mesh))
         w = w0.clone()
         reg = torch.full((), float(reg_val), dtype=torch.float32,
                          device=w0.device)
@@ -1807,8 +1991,7 @@ class GradientDescent(Optimizer):
                 i, w, new_w, loss_i.to(torch.float32), new_reg, c, losses,
                 reg_val, cfg, listener=self.listener, wall_dt=dt,
                 save_cb=save_cb, save_every=self.checkpoint_every,
-                stop_signal=self._stop_signal,
-                check_numerics=self.check_numerics)
+                stop_signal=stop, check_numerics=self.check_numerics)
             reg = new_reg  # the empty-batch rule already kept the old one
             if converged:
                 break

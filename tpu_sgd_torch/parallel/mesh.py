@@ -1,0 +1,186 @@
+"""The data mesh and its combine: the port of ``tpu_sgd/parallel/mesh.py``.
+
+The JAX package's mesh is a ``jax.sharding.Mesh`` of devices in one
+program, and ``lax.psum`` inside ``shard_map`` combines the shards.  Here
+one process drives one device, PyTorch's idiom, so the JAX package's
+multi-host rule is the only rule: a mesh is a ``torch.distributed``
+process group, each rank holds its own rows, and the ranks combine their
+sums with a collective.
+
+:class:`Mesh` is a thin description: its axes' sizes and the data group
+(``None``: the default group).  ``torch.distributed``'s ``DeviceMesh``
+would need a live process group even to describe a shape, and builds one
+subgroup per axis collectively; the port needs only the data group, and
+a mesh with a sharded ``model`` axis is described but never run (every
+route on it raises naming ROADMAP A5).
+
+The combine (:func:`combine_sums`, the counterpart of the ``psum`` of
+``(grad_sum, loss_sum, count)``) all-gathers every rank's sums and adds
+the shards one rank at a time, in rank order, with explicit elementwise
+adds (:func:`rank_order_sum`), never a reduction over the rank axis, whose
+order differs between the CPU and the card.  So the result is bitwise
+independent of the backend, of NCCL's algorithm and of the ring layout,
+and equals a one-process rank-order sum of the same shards.  NCCL gathers
+on the card (and may be captured in a CUDA graph); gloo gathers host
+tensors only, so a card's vector goes through the host, and the adds run
+there in the same order, with the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+class Mesh:
+    """A ``(data[, model])`` mesh of ranks: ``shape`` maps each axis name
+    to its size, ``group`` is the process group of the data axis (``None``:
+    the default group).  Ranks lie row-major over ``(data, model)``, as
+    the JAX package's ``make_mesh`` lays out its devices."""
+
+    def __init__(self, shape: dict, group=None):
+        if DATA_AXIS not in shape:
+            raise ValueError(f"a mesh needs a '{DATA_AXIS}' axis, got "
+                             f"{tuple(shape)}")
+        for name, size in shape.items():
+            if name not in (DATA_AXIS, MODEL_AXIS) or int(size) < 1:
+                raise ValueError(f"bad mesh axis {name}={size}")
+        self.shape = {k: int(v) for k, v in shape.items()}
+        self.group = group
+        self._backend = None
+
+    @property
+    def size(self) -> int:
+        """Ranks on the data axis."""
+        return self.shape[DATA_AXIS]
+
+    @property
+    def rank(self) -> int:
+        """This process's index on the data axis: its shard."""
+        return dist.get_rank(self.group)
+
+    @property
+    def backend(self) -> str:
+        if self._backend is None:
+            self._backend = str(dist.get_backend(self.group))
+        return self._backend
+
+    def __repr__(self):
+        return f"Mesh({self.shape})"
+
+
+def _world(group) -> int:
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "a mesh needs a torch.distributed process group: call "
+            "tpu_sgd_torch.parallel.initialize_distributed(...) first, or "
+            "run under torchrun")
+    return dist.get_world_size(group)
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
+              group=None) -> Mesh:
+    """A ``(data, model)`` mesh over the ranks of ``group`` (default: all
+    ranks), ``n_data`` defaulting to ``world // n_model``.  One process
+    drives one device, so the mesh covers the group exactly: a rank
+    outside it would idle."""
+    world = _world(group)
+    if n_data is None:
+        n_data = world // n_model
+    n = n_data * n_model
+    if n != world:
+        raise ValueError(
+            f"mesh {n_data}x{n_model} needs {n} ranks, the group has "
+            f"{world}")
+    return Mesh({DATA_AXIS: n_data, MODEL_AXIS: n_model}, group)
+
+
+def data_mesh(group=None) -> Mesh:
+    """1-D mesh over every rank of ``group`` (default: all ranks) on the
+    'data' axis."""
+    return Mesh({DATA_AXIS: _world(group)}, group)
+
+
+def has_model_axis(mesh) -> bool:
+    """True when the mesh shards the FEATURE axis (a 2-D mesh with a
+    non-trivial 'model' dimension)."""
+    return mesh is not None and mesh.shape.get(MODEL_AXIS, 1) > 1
+
+
+def as_data_mesh(mesh):
+    """The 1-D data view of a mesh: a data-only mesh passes through, a
+    trivial (size-1) 'model' axis is flattened away, and a sharded one
+    raises ``NotImplementedError`` naming ROADMAP A5."""
+    if mesh is None or set(mesh.shape) == {DATA_AXIS}:
+        return mesh
+    if has_model_axis(mesh):
+        raise NotImplementedError(
+            f"this operation composes with a 1-D '{DATA_AXIS}' mesh; got "
+            f"axes {mesh.shape}: feature-axis ('{MODEL_AXIS}') sharding is "
+            "not ported to tpu_sgd_torch yet (ROADMAP A5); use the JAX "
+            "package tpu_sgd for it")
+    return Mesh({DATA_AXIS: mesh.size}, mesh.group)
+
+
+#: the one-buffer gather: ``all_gather_single`` where torch has it (the
+#: new name of ``all_gather_into_tensor``, which warns there)
+_gather_into = (getattr(dist, "all_gather_single", None)
+                or dist.all_gather_into_tensor)
+
+
+def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's 1-D ``t`` stacked in rank order, ``(ranks, len(t))``,
+    by one collective into one buffer.  NCCL gathers on the card; gloo
+    gathers host tensors, so a card's tensor goes through the host and
+    the result stays there."""
+    if mesh.backend != "nccl" and t.is_cuda:
+        t = t.cpu()
+    t = t.contiguous()
+    out = torch.empty((mesh.size * t.numel(),), dtype=t.dtype,
+                      device=t.device)
+    _gather_into(out, t, group=mesh.group)
+    return out.view(mesh.size, t.numel())
+
+
+def rank_order_sum(parts) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...``, one elementwise add at a time in
+    list order: the one summation order of the combine, wherever it runs."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def combine_sums(mesh: Mesh, g, l, c):
+    """The data-axis combine of one rank's ``(grad_sum, loss_sum, count)``
+    (the JAX package's ``lax.psum``): one gather of the ``(numel(g) + 2)``
+    vector, then :func:`rank_order_sum`; the same sums, bitwise, on every
+    rank.  Shape-generic (matrix weights too)."""
+    dt = torch.promote_types(torch.promote_types(g.dtype, l.dtype), c.dtype)
+    flat = torch.cat([g.reshape(-1).to(dt), l.reshape(1).to(dt),
+                      c.reshape(1).to(dt)])
+    total = rank_order_sum(all_gather(mesh, flat).unbind(0)).to(g.device)
+    k = g.numel()
+    return (total[:k].reshape(g.shape).to(g.dtype),
+            total[k].reshape(l.shape).to(l.dtype),
+            total[k + 1].reshape(c.shape).to(c.dtype))
+
+
+def any_rank(mesh: Mesh, flag: bool, device) -> bool:
+    """True on every rank when ``flag`` is True on any rank: one gather of
+    one int on the collective's own device, read back on the host, so it
+    is also a host barrier (NCCL's gather alone only queues on the
+    card's stream)."""
+    got = all_gather(mesh, torch.full((1,), int(bool(flag)),
+                                      dtype=torch.int32, device=device))
+    return bool(got.cpu().any())
+
+
+def barrier(mesh: Mesh, device) -> None:
+    """Return once every rank of the mesh has reached it, on the host."""
+    any_rank(mesh, False, device)
