@@ -7,7 +7,9 @@ Run from the root of the repository.  Phases, each printing one JSON line:
 
 1. device  — exits non-zero without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` gives them.
-2. build   — compiles every CUDA source with ``nvcc`` (sm_90a), in parallel.
+2. build   — compiles every CUDA source with ``nvcc`` (sm_90a), in parallel;
+   prints each kernel's registers and spills (``window_sums.cu``'s
+   ``window_main`` and ``gather_main`` apart).
 3. kernels — each kernel wrapper against its plain PyTorch version on the
    card: three loss families x {f32, bf16} x {mask, no mask}, ragged row
    counts, d in {24, 1000, 47237}; the window kernels at random and
@@ -22,19 +24,29 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    (empty rows, rows of 1-33 entries, a row longer than three blocks'
    shares, many rows of 1-3 entries), T in {1, 2, 30, 1024}, int32 and
    int64 indices, no mask and a mask at both block shares; and an int64
-   CSR whose row holds more than 2^31 entries, at T = 1 and 2.
+   CSR whose row holds more than 2^31 entries, at T = 1 and 2.  Then B1 by
+   shape: d in {24, 1000, 2048, 4096, 7216} x f32/bf16 x the three
+   families, unmasked and under masks of no live row, one, 0.1%, 10%, 30%,
+   all, the blocks' share boundaries only and a prefix: against the plain
+   version, a second call bitwise, the all-true mask bitwise the unmasked
+   call, the ring's grid on the card equal to its mirror, the route
+   (``window_sums.cu``'s gather or window entry; ``fused_sums.cu`` for
+   7,216 f32 and a misaligned base) counted by source.
 4. full    — the main path at config 4's width: 10,000,000 x 1000 bf16
    least squares made on the card from a seed, trained through
    ``LinearRegressionWithSGD`` at ``mini_batch_fraction=0.1``: Bernoulli,
    sliced, and sliced through ``FusedGradient(window_kernel="vpu")``.
    Launch counts (by wrapper and by CUDA source) are set to 0 before and
-   read after; each kernel must have run once per iteration.  Then a
+   read after; each kernel must have run once per iteration, all in
+   ``window_sums.cu`` (B1's Bernoulli batch in its gather entry).  Then a
    profiler trace splits an iteration's device time by kernel, and each
    kernel is timed at these shapes beside its plain version, one PyTorch
-   call of the same work and its bound.  The window kernel is timed beside
-   the old window path (``fused_sums.cu``) in turns (old, new, new, old),
-   each as device time (launches captured in a CUDA graph, the replay
-   timed with events) and as back-to-back calls paced by the host.
+   call of the same work and its bound.  B1 and the window kernel are
+   timed beside their old route (``fused_sums.cu``) in turns (old, new,
+   new, old), each as device time (launches captured in a CUDA graph, the
+   replay timed with events) and as back-to-back calls paced by the host;
+   masked B1's library yardstick is an ``index_select`` of the live rows
+   and two matmuls over them.
 5. configs — configs 1-3 of BASELINE.md through the user API, each held to
    its pass criterion against a numpy/scipy oracle: config 3 both on dense
    ``svm_data`` and undensified on its RCV1 stand-in after a LIBSVM round
@@ -137,7 +149,8 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    second run bitwise, B1 launches exactly chunks x cost evaluations; wall
    ms, cost evaluations and sweeps per iteration, H2D GB/s, device ms and
    idle share from a traced 2-iteration run, the bound at phase 10's H2D
-   rate; B1 timed at the chunk shape; (b) OWL-QN (logistic + L1, 3
+   rate; B1 timed at the chunk shape and at the tail's prefix mask, each
+   against its old route in turns; (b) OWL-QN (logistic + L1, 3
    iterations) streamed from the first 2M rows against the resident run;
    (c) ``build_streamed`` (B = 8,192) bitwise the resident build of the
    whole blocks, its seconds against phase 8's build and the transfer
@@ -166,8 +179,9 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    shapes.
 13. summary — the sparse line, the quasi_newton line, the gram line, the
    streamed line, the streamed_qn line, the mesh line, the observed line,
-   the kernel table (B1-B3, B1 at the streamed chunk shape, the CSR
-   kernel, and B1, B2 and the CSR kernel at a mesh rank's shapes), then
+   the kernel table (B1-B3, B1 at the streamed chunk shape and its tail,
+   the CSR kernel, and B1, B2 and the CSR kernel at a mesh rank's
+   shapes), then
    the card's name and power limit, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -221,6 +235,10 @@ CHUNKED_STEP_RTOL = 2e-6
 CONFIG1_GRAM_FRAC = 0.5     # config 1's sliced fraction from statistics
 GRAM_CONFIG1_BLOCK = 1024   # leg (g)'s block at config 1's 100k rows
 CSR_SOURCE = "tpu_sgd_torch/ops/csrc/csr_products.cu"
+#: B1's kernels and their second passes as the profiler names them
+#: (window_sums.cu's entries, or fused_sums.cu's)
+B1_KERNELS = tuple(f"void (anonymous namespace)::{k}" for k in (
+    "window_main", "gather_main", "window_reduce", "sums_phase"))
 REPLACES = {
     "fused_gradient_sums": "tpu_sgd/ops/pallas_kernels.py:265",
     "fused_window_sums": "tpu_sgd/ops/pallas_kernels.py:342",
@@ -299,6 +317,39 @@ def ptxas_report(log: str) -> dict:
     spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
     return {"max_registers": max(regs) if regs else None,
             "max_spill_bytes": max(spills) if spills else None}
+
+
+def _entry_name(mangled: str) -> str:
+    """A kernel's own name from its mangled one (the name after an
+    anonymous namespace's, or the free function's)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if m:
+        rest = mangled[m.end() + int(m.group(1)):]
+        m2 = re.match(r"(\d+)", rest)
+        if m2:
+            return rest[m2.end():m2.end() + int(m2.group(1))]
+    m = re.match(r"_Z(\d+)", mangled)
+    if m:
+        return mangled[m.end():m.end() + int(m.group(1))]
+    return mangled
+
+
+def ptxas_entries(log: str) -> dict:
+    """Registers (each instance's, sorted) and most spill bytes of each
+    kernel in one ``-Xptxas -v`` log, by the kernel's name."""
+    out = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        name = _entry_name(part.split("'")[0])
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        e = out.setdefault(name, {"registers": [], "max_spill_bytes": 0})
+        if regs:
+            e["registers"] = sorted(set(e["registers"])
+                                    | {int(regs.group(1))})
+        if spill:
+            e["max_spill_bytes"] = max(e["max_spill_bytes"],
+                                       int(spill.group(1)))
+    return out
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -401,6 +452,7 @@ def phase_kernels(torch, ck, grads):
     else:
         raise RuntimeError("check failed: _check_tile_smem took d=60000")
     routed = window_route_cases(torch, ck, grads, gen, worst)
+    routed += gather_route_cases(torch, ck, grads, gen, worst)
     walked = csr_walk_cases(torch, ck, worst)
     walked += csr_long_row_cases(torch, ck)
     torch.cuda.synchronize()
@@ -579,6 +631,119 @@ def window_route_cases(torch, ck, grads, gen, worst):
     return cases
 
 
+#: B1's widths by element type: the ring's (gather and window entries of
+#: window_sums.cu), or fused_sums.cu's (7,216 f32: no ring fits)
+GATHER_ROUTES = ((24, ("float32", "bfloat16")), (1000, ("float32", "bfloat16")),
+                 (2048, ("float32", "bfloat16")),
+                 (4096, ("float32", "bfloat16")),
+                 (7216, ("bfloat16", "float32")))
+GATHER_ROWS = 20_011
+
+
+def _gather_masks(torch, gen, n, blocks):
+    """Masks of every density the gather entry treats apart: none live,
+    one row, 0.1%, 10%, 30%, all, live rows only at the blocks' share
+    boundaries, and a prefix (the CostFun tail's shape)."""
+    u = torch.rand(n, generator=gen, device="cuda")
+    zeros = lambda: torch.zeros(n, dtype=torch.bool, device="cuda")  # noqa
+    one, edges, prefix = zeros(), zeros(), zeros()
+    one[n // 3] = True
+    for b in range(1, blocks):
+        e = n * b // blocks
+        edges[e - 1] = edges[e] = True
+    prefix[:n // 8] = True
+    return {"zero": zeros(), "one_row": one, "p0.001": u < 0.001,
+            "p0.1": u < 0.1, "p0.3": u < 0.3,
+            "all": torch.ones(n, dtype=torch.bool, device="cuda"),
+            "share_edges": edges, "prefix": prefix}
+
+
+def gather_route_cases(torch, ck, grads, gen, worst):
+    """B1 by shape: at d in {24, 1000, 2048, 4096, 7216} in f32 and bf16,
+    the three families, unmasked and under every mask of
+    ``_gather_masks``: the kernel against the plain version (``_close``),
+    a second call bitwise equal, an all-true mask bitwise the unmasked
+    call, a mask with no live row a zero gradient, loss and count, and the
+    route asserted through the launch counts by source (the ring's widths
+    to window_sums.cu, 7,216 f32 and a base one element off alignment to
+    fused_sums.cu)."""
+    cases = 0
+    n = GATHER_ROWS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d, dtypes in GATHER_ROUTES:
+        for dt in dtypes:
+            dtype = getattr(torch, dt)
+            X = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+            w = torch.randn(d, generator=gen, device="cuda") / math.sqrt(d)
+            y_ls = torch.randn(n, generator=gen, device="cuda")
+            y_01 = (torch.rand(n, generator=gen, device="cuda") < 0.5).float()
+            plan = ck.window_plan_for(X)
+            ring = plan is not None
+            check(ring == ((d, dt) != (7216, "float32")),
+                  f"B1 route of d={d} {dt}: plan {plan}")
+            # the ring's blocks (its mirror), for masks live at their
+            # shares' edges
+            blocks = ck.ring_grid(n, plan, sms) if ring else 64
+            masks = _gather_masks(torch, gen, n, blocks)
+            bf16 = dtype == torch.bfloat16
+            ck.reset_launch_counts()
+            calls = 0
+            for name, g in grads.items():
+                y = y_ls if name == "least_squares" else y_01
+                unmasked = ck.fused_gradient_sums(g.pointwise, X, y, w)
+                calls += 1
+                ok, err, scale = _close(torch, unmasked,
+                                        ck.fused_gradient_sums_plain(
+                                            g.pointwise, X, y, w), bf16)
+                check(ok, f"B1 {name} {dt} d={d} unmasked: {err} of {scale}")
+                for mname, m in masks.items():
+                    got = ck.fused_gradient_sums(g.pointwise, X, y, w, m)
+                    again = ck.fused_gradient_sums(g.pointwise, X, y, w, m)
+                    calls += 2
+                    ref = ck.fused_gradient_sums_plain(g.pointwise, X, y, w, m)
+                    ok, err, scale = _close(torch, got, ref, bf16)
+                    what = f"B1 {name} {dt} d={d} mask {mname}"
+                    check(ok, f"{what}: max|dg|={err} of {scale}, count "
+                          f"{float(got[2])} vs {float(ref[2])}")
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"{what}: a second call differs")
+                    if mname == "all":
+                        check(all(torch.equal(a, b)
+                                  for a, b in zip(got, unmasked)),
+                              f"{what}: not bitwise the unmasked call")
+                    if mname == "zero":
+                        check(float(got[2]) == 0.0 and float(got[1]) == 0.0
+                              and not bool(got[0].any()),
+                              f"{what}: {got[1]}, {got[2]}")
+                    key = "b1_ring" if ring else "b1_fused_sums"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    cases += 1
+            counts = ck.kernel_launch_counts()
+            expect = ({"fused_sums": 0, "window_sums": calls} if ring
+                      else {"fused_sums": calls, "window_sums": 0})
+            check(counts == expect,
+                  f"B1 d={d} {dt}: launches by source {counts} != {expect}")
+            del X
+    # a base one element past alignment: fused_sums.cu, masked or not
+    X = torch.randn(3 * 1000 + 1, generator=gen, device="cuda").to(
+        torch.bfloat16)[1:].view(3, 1000)
+    y = torch.randn(3, generator=gen, device="cuda")
+    w = torch.randn(1000, generator=gen, device="cuda")
+    m = torch.tensor([True, False, True], device="cuda")
+    ck.reset_launch_counts()
+    for mask in (None, m):
+        g = grads["least_squares"]
+        ok, err, _ = _close(torch, ck.fused_gradient_sums(g.pointwise, X, y,
+                                                          w, mask),
+                            ck.fused_gradient_sums_plain(g.pointwise, X, y,
+                                                         w, mask), True)
+        check(ok, f"B1 on a misaligned base, mask={mask is not None}: {err}")
+        cases += 1
+    check(ck.kernel_launch_counts() == {"fused_sums": 2, "window_sums": 0},
+          f"misaligned base: launches {ck.kernel_launch_counts()}")
+    return cases
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def make_full_data(torch, n, d, seed=4, chunk=1_000_000):
@@ -677,17 +842,17 @@ def phase_full(torch, tst, ck):
                   f"bernoulli counts {counts.min()}..{counts.max()}")
         else:
             check(bool(np.all(counts == m)), f"{mode} counts {counts}")
-        # B1 through fused_sums.cu; each sliced window through window_sums.cu
-        src = ("fused_sums" if mode == "bernoulli" else "window_sums")
+        # B1's Bernoulli batch through window_sums.cu's gather entry, each
+        # sliced window through its window entry
         check(runs[mode]["launches_by_source"]
-              == {"fused_sums": 0, "window_sums": 0} | {src: ITERS},
+              == {"fused_sums": 0, "window_sums": ITERS},
               f"{mode}: launches by source {runs[mode]['launches_by_source']}")
     counts = ck.launch_counts()
     expect = {"fused_gradient_sums": ITERS, "fused_window_sums": ITERS,
               "fused_window_sums_vpu": ITERS}
     check(counts == expect, f"main-path launches {counts} != {expect}")
     by_source = ck.kernel_launch_counts()
-    check(by_source == {"fused_sums": ITERS, "window_sums": 2 * ITERS},
+    check(by_source == {"fused_sums": 0, "window_sums": 3 * ITERS},
           f"main-path launches by source {by_source}")
     emit({"phase": "full", "rows": n, "d": FULL_D, "dtype": "bfloat16",
           "mini_batch_fraction": FRAC, "iterations": ITERS,
@@ -715,12 +880,14 @@ def device_ms_by_kernel(torch, prof) -> dict:
     return out
 
 
-def phase_profile(torch, tst, X, y, iters=20):
+def phase_profile(torch, tst, ck, X, y, iters=20):
     """Where a warm training iteration's time goes, per sampling mode: the
-    host's wall clock over ``iters`` iterations without tracing, then
-    ``torch.profiler`` device time by kernel name over the same run traced.
-    Idle share = 1 - device time / untraced wall time; the traced run's
-    extra wall time is the tracing overhead."""
+    host's wall clock over ``iters`` iterations without tracing (its
+    launches counted by wrapper and by source: one a replayed iteration,
+    all in ``window_sums.cu``), then ``torch.profiler`` device time by
+    kernel name over the same run traced.  Idle share = 1 - device time /
+    untraced wall time; the traced run's extra wall time is the tracing
+    overhead."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
@@ -730,10 +897,20 @@ def phase_profile(torch, tst, X, y, iters=20):
         for _ in range(2):  # warm: allocator, generator and the capture
             alg.run((X, y))  # (a repeated run captures its block)
         torch.cuda.synchronize()
+        ck.reset_launch_counts()
         t = time.perf_counter()
         alg.run((X, y))
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t) / iters
+        wrapper = ("fused_gradient_sums" if mode == "bernoulli"
+                   else "fused_window_sums")
+        launches = {"wrappers": ck.launch_counts(),
+                    "sources": ck.kernel_launch_counts()}
+        check(launches["wrappers"][wrapper] == iters
+              and sum(launches["wrappers"].values()) == iters
+              and launches["sources"] == {"fused_sums": 0,
+                                          "window_sums": iters},
+              f"profile {mode}: launches {launches}")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
@@ -744,7 +921,7 @@ def phase_profile(torch, tst, X, y, iters=20):
                    for k, v in device_ms_by_kernel(torch, prof).items()}
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-        out[mode] = {"wall_ms_per_iteration": wall,
+        out[mode] = {"wall_ms_per_iteration": wall, "launches": launches,
                      "traced_wall_ms_per_iteration": traced,
                      "device_ms_per_iteration": busy,
                      "idle_share": max(0.0, 1 - busy / wall),
@@ -814,10 +991,81 @@ def window_row(torch, ck, kernel, pw, X, y, w, s0, rows, path):
         "bound_ms": bound, "bound_by": by}
 
 
+def b1_row(torch, ck, pw, X, y, w, mask, path, reps):
+    """B1 at one shape of the main path: max |dg| against the plain version;
+    the new route (``gradient_sums_route``: the gather or window entry of
+    ``window_sums.cu``) and the old one (``fused_sums.cu``, called
+    directly) timed in turns (old, new, new, old), each as graph-replayed
+    device time and as host-paced back-to-back calls; the plain version;
+    the library yardstick (two matmuls over the rows the call sums: for a
+    mask, after an ``index_select`` of the live rows, which the time
+    includes, the indices found beforehand; the old yardstick over all
+    rows beside it); the bound (the mask's bytes included)."""
+    n, d = X.shape
+    route = ck.gradient_sums_route(X, mask is not None)
+    check(route != "fused_sums", f"B1 at {path} does not take the ring")
+
+    def new():
+        return ck.fused_gradient_sums(pw, X, y, w, mask)
+
+    def old():
+        return ck._launch(pw, X, y, w, mask, None, 1, n)
+
+    ref = ck.fused_gradient_sums_plain(pw, X, y, w, mask)
+    bf16 = X.dtype == torch.bfloat16
+    ok, err, scale = _close(torch, new(), ref, bf16)
+    check(ok, f"B1 at {path}: max|dg|={err} of {scale}")
+    ok, old_err, _ = _close(torch, old(), ref, bf16)
+    check(ok, f"B1's old route at {path}: max|dg|={old_err}")
+    turns = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        fn = old if which == "old" else new
+        turns[which].append({"device_ms": graph_ms(torch, fn),
+                             "host_paced_ms": time_ms(torch, fn, reps)})
+
+    def mean(which, key):
+        return sum(t[key] for t in turns[which]) / len(turns[which])
+
+    wb = w.to(X.dtype)
+    sel = n if mask is None else int(mask.sum())
+    coeff = torch.randn(sel, device="cuda").to(X.dtype)
+    row = {"name": "fused_gradient_sums", "path": path,
+           "source": WINDOW_SOURCE, "route": route, "shape": [n, d],
+           "selected_rows": sel, "max_abs_err": err,
+           "old_path_max_abs_err": old_err, "grad_scale": scale,
+           "ms": mean("new", "device_ms"),
+           "host_paced_ms": mean("new", "host_paced_ms"),
+           "old_path_ms": mean("old", "device_ms"),
+           "old_path_host_paced_ms": mean("old", "host_paced_ms"),
+           "turns": turns,
+           "plain_ms": time_ms(torch, lambda: ck.fused_gradient_sums_plain(
+               pw, X, y, w, mask), 2)}
+    if mask is None:
+        row["library_ms"] = time_ms(torch, lambda: (X @ wb, coeff @ X), reps)
+    else:
+        idx = torch.nonzero(mask).squeeze(1)
+
+        def library():
+            Xs = X.index_select(0, idx)
+            return Xs @ wb, coeff @ Xs
+
+        row["library_ms"] = time_ms(torch, library, reps)
+        row["library_includes"] = ("index_select of the live rows, then "
+                                   "two matmuls over them")
+        coeff_all = torch.randn(n, device="cuda").to(X.dtype)
+        row["library_all_rows_ms"] = time_ms(
+            torch, lambda: (X @ wb, coeff_all @ X), max(2, reps // 4))
+    bound, by = _bound_ms(sel, d, X.element_size(),
+                          0 if mask is None else n)
+    row.update(bound_ms=bound, bound_by=by, share_of_bound=bound / row["ms"])
+    return row
+
+
 def phase_timing(torch, tst, ck, X, y, launches):
-    """Each kernel at the main path's shapes: its time, the plain
-    version's, one PyTorch call of the same work (two matmuls, as a
-    yardstick only) and the bound; max |dg| against the plain version."""
+    """Each kernel at the main path's shapes: B1 (``b1_row``: new route
+    and old in turns) and B2/B3 (``window_row``), each with the plain
+    version's time, one PyTorch call of the same work (a yardstick only)
+    and the bound; max |dg| against the plain version."""
     n, d = X.shape
     g = tst.LeastSquaresGradient()
     pw = g.pointwise
@@ -825,26 +1073,7 @@ def phase_timing(torch, tst, ck, X, y, launches):
                     device="cuda") / math.sqrt(d)
     mask = torch.rand(n, generator=torch.Generator(device="cuda")
                       .manual_seed(6), device="cuda") < FRAC
-    wb = w.to(torch.bfloat16)
-    coeff = torch.randn(n, device="cuda").to(torch.bfloat16)
-    rows = []
-
-    got = ck.fused_gradient_sums(pw, X, y, w, mask)
-    ref = ck.fused_gradient_sums_plain(pw, X, y, w, mask)
-    ok, err, scale = _close(torch, got, ref, True)
-    check(ok, f"full-width fused_gradient_sums: max|dg|={err} of {scale}")
-    sel = int(mask.sum())
-    bound, by = _bound_ms(sel, d, 2, n)  # + the mask's n bytes
-    rows.append({
-        "name": "fused_gradient_sums", "shape": [n, d], "selected_rows": sel,
-        "max_abs_err": err, "grad_scale": scale,
-        "ms": time_ms(torch, lambda: ck.fused_gradient_sums(pw, X, y, w,
-                                                            mask), 10),
-        "plain_ms": time_ms(torch, lambda: ck.fused_gradient_sums_plain(
-            pw, X, y, w, mask), 2),
-        "library_ms": time_ms(torch, lambda: (X @ wb, coeff @ X), 5),
-        "bound_ms": bound, "bound_by": by})
-
+    rows = [b1_row(torch, ck, pw, X, y, w, mask, "sgd", 10)]
     m = round(FRAC * n)
     for kernel in (ck.fused_window_sums, ck.fused_window_sums_vpu):
         rows.append(window_row(torch, ck, kernel, pw, X, y, w,
@@ -1300,7 +1529,7 @@ def _qn_iteration_profile(torch, tst, X, y, iters=10):
         torch.cuda.synchronize()
     per = {k: v / its for k, v in device_ms_by_kernel(torch, prof).items()}
     busy = sum(per.values())
-    b1 = sum(v for k, v in per.items() if "sums_phase" in k)
+    b1 = sum(v for k, v in per.items() if k.startswith(B1_KERNELS))
     products = sum(v for k, v in per.items()
                    if any(p in k.lower() for p in _PRODUCT_NAMES))
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
@@ -1344,7 +1573,7 @@ def leg_binary_lbfgs(torch, tst, ck, X, w_true):
     by_source = ck.kernel_launch_counts()
     hist = alg.optimizer.loss_history
     check(model.weights.is_cuda, "(a): weights not on the card")
-    check(by_source == {"fused_sums": len(hist), "window_sums": 0},
+    check(by_source == {"fused_sums": 0, "window_sums": len(hist)},
           f"(a): launches by source {by_source}")
     check(_nonincreasing(hist), f"(a): the loss history rose: {hist}")
     check(launches == {"fused_gradient_sums": len(hist),
@@ -1372,27 +1601,11 @@ def leg_binary_lbfgs(torch, tst, ck, X, w_true):
     ladder = 0.5 ** torch.arange(25, device="cuda", dtype=torch.float32)
     trials = model.weights[None, :] * (1.0 - ladder[:, None])
     sweep_ms = time_ms(torch, lambda: sweep(trials), 3)
-    # B1 at the full-batch shape, beside its bound, plain version and two
-    # library matmuls of the same work
-    pw = g.pointwise
-    wv = model.weights
-    got = ck.fused_gradient_sums(pw, X, y, wv)
-    ref = ck.fused_gradient_sums_plain(pw, X, y, wv)
-    ok, err, scale = _close(torch, got, ref, True)
-    check(ok, f"full-batch fused_gradient_sums: max|dg|={err} of {scale}")
-    bound, by = _bound_ms(n, d, 2, 0)
-    wb = wv.to(torch.bfloat16)
-    coeff = torch.randn(n, device="cuda").to(torch.bfloat16)
-    row = {"name": "fused_gradient_sums", "path": "lbfgs_full_batch",
-           "shape": [n, d], "selected_rows": n, "max_abs_err": err,
-           "grad_scale": scale,
-           "ms": time_ms(torch, lambda: ck.fused_gradient_sums(pw, X, y, wv),
-                         10),
-           "plain_ms": time_ms(torch, lambda: ck.fused_gradient_sums_plain(
-               pw, X, y, wv), 2),
-           "library_ms": time_ms(torch, lambda: (X @ wb, coeff @ X), 5),
-           "bound_ms": bound, "bound_by": by,
-           "launches": launches["fused_gradient_sums"]}
+    # B1 at the full-batch shape (the window entry over all rows), against
+    # the old route in turns, beside its bound, plain version and library
+    row = b1_row(torch, ck, g.pointwise, X, y, model.weights, None,
+                 "lbfgs_full_batch", 5)
+    row["launches"] = launches["fused_gradient_sums"]
     out = {"rows": n, "d": d, "reg_param": reg,
            "cost_evaluations": len(hist), "launches": launches,
            "first_run_s": secs, "loss_first": float(hist[0]),
@@ -2112,8 +2325,8 @@ def _expected_launches(row):
     launches), 16 a ``ChunkedGradient`` iteration, none from the
     statistics."""
     blocks = -(-round(FRAC * FULL_ROWS) // CHUNK_ROWS)
-    n = {"bernoulli": ("fused_gradient_sums", "fused_sums", ITERS),
-         "indexed": ("fused_gradient_sums", "fused_sums", ITERS),
+    n = {"bernoulli": ("fused_gradient_sums", "window_sums", ITERS),
+         "indexed": ("fused_gradient_sums", "window_sums", ITERS),
          "sliced": ("fused_window_sums", "window_sums", ITERS),
          "sliced_vpu": ("fused_window_sums_vpu", "window_sums", ITERS),
          "chunked_gradient": ("fused_window_sums", "window_sums",
@@ -2902,41 +3115,29 @@ def counting_evaluations(scf):
             delattr(scf, f"{name}_sums")
 
 
-def b1_chunk_row(torch, tst, ck, X, y, w, scf, launches):
-    """B1 at the streamed CostFun's chunk shape: a full chunk unmasked (its
-    rule for every chunk but the tail) and the tail's mask; against the
-    plain version, two library matmuls of the same work and the bound."""
-    cap, d = scf.cap, X.shape[1]
+def b1_chunk_rows(torch, tst, ck, X, y, w, scf, routes):
+    """B1 at the streamed CostFun's chunk shape (``b1_row``): a full chunk
+    unmasked (its rule for every chunk but the tail) and the tail's mask,
+    whose live rows are a prefix of the chunk: they fall to the first
+    blocks of the grid alone (the split is by rows, not by live rows).
+    Each row's launches are those of its route in ``routes``
+    (``ck.gradient_route_counts`` of the run)."""
+    cap = scf.cap
     Xc, yc = X[:cap], y[:cap]
     pw = tst.LogisticGradient().pointwise
-    ok, err, scale = _close(torch, ck.fused_gradient_sums(pw, Xc, yc, w),
-                            ck.fused_gradient_sums_plain(pw, Xc, yc, w), True)
-    check(ok, f"B1 at the chunk shape: max|dg|={err} of {scale}")
     tail = scf.n - (scf.n_chunks - 1) * cap
     mask = torch.zeros(cap, dtype=torch.bool, device="cuda")
     mask[:tail] = True
-    ok, m_err, _ = _close(torch, ck.fused_gradient_sums(pw, Xc, yc, w, mask),
-                          ck.fused_gradient_sums_plain(pw, Xc, yc, w, mask),
-                          True)
-    check(ok, f"B1 at the tail's mask: max|dg|={m_err}")
-    bound, by = _bound_ms(cap, d, X.element_size(), 0)
-    wb = w.to(X.dtype)
-    coeff = torch.randn(cap, device="cuda").to(X.dtype)
-    return {"name": "fused_gradient_sums", "path": "streamed_costfun_chunk",
-            "shape": [cap, d], "selected_rows": cap, "max_abs_err": err,
-            "grad_scale": scale, "masked_max_abs_err": m_err,
-            "masked_rows": tail,
-            "ms": time_ms(torch, lambda: ck.fused_gradient_sums(
-                pw, Xc, yc, w), 50),
-            "graph_ms": graph_ms(torch, lambda: ck.fused_gradient_sums(
-                pw, Xc, yc, w)),
-            "masked_ms": time_ms(torch, lambda: ck.fused_gradient_sums(
-                pw, Xc, yc, w, mask), 50),
-            "plain_ms": time_ms(torch, lambda: ck.fused_gradient_sums_plain(
-                pw, Xc, yc, w), 5),
-            "library_ms": time_ms(torch, lambda: (Xc @ wb, coeff @ Xc), 50),
-            "bound_ms": bound, "bound_by": by, "launches": launches,
-            "launches_from": "streamed_qn (a), its first run"}
+    rows = [b1_row(torch, ck, pw, Xc, yc, w, None, "streamed_costfun_chunk",
+                   50),
+            b1_row(torch, ck, pw, Xc, yc, w, mask,
+                   f"streamed_costfun_tail ({tail:,} live rows, a prefix)",
+                   50)]
+    for r in rows:
+        r["launches"] = routes[r["route"]]
+        r["launches_from"] = (f"streamed_qn (a), its first run: the "
+                              f"{r['route']} route's calls")
+    return rows
 
 
 def streamed_qn_lbfgs(torch, tst, ck, X, y, Xh, yh, h2d_gb_s):
@@ -2966,15 +3167,21 @@ def streamed_qn_lbfgs(torch, tst, ck, X, y, Xh, yh, h2d_gb_s):
     secs = time.perf_counter() - t
     launches = ck.launch_counts()
     by_source = ck.kernel_launch_counts()
+    routes = ck.gradient_route_counts()
     hist = first[1]
     its = len(hist) - 1
     scf = opt._stream_costfun_entry[2]
     expect = scf.n_chunks * len(hist)
+    # every chunk unmasked but a partial tail, which is masked
+    masked = len(hist) if scf.n % scf.cap else 0
     check(its == STREAMED_QN_ITERS, f"(a): {its} iterations, {hist}")
     check(launches["fused_gradient_sums"] == expect
-          and by_source == {"fused_sums": expect, "window_sums": 0},
-          f"(a): launches {launches} / {by_source}, expected {expect} "
-          f"({scf.n_chunks} chunks x {len(hist)} cost evaluations)")
+          and by_source == {"fused_sums": 0, "window_sums": expect}
+          and routes == {"gather": masked, "window": expect - masked,
+                         "fused_sums": 0},
+          f"(a): launches {launches} / {by_source} / {routes}, expected "
+          f"{expect} ({scf.n_chunks} chunks x {len(hist)} cost "
+          f"evaluations, {masked} of them masked tails)")
     rel = _rel_max(hist, ref[1])
     check(len(ref[1]) == len(hist) and rel <= 2e-4,
           f"(a): history {hist} against the resident {ref[1]}")
@@ -3002,8 +3209,7 @@ def streamed_qn_lbfgs(torch, tst, ck, X, y, Xh, yh, h2d_gb_s):
                   if not k.startswith(("Memcpy", "Memset")))
     pass_bytes = scf.n_chunks * scf.cap * (d * X.element_size() + 4)
     passes = (counts["cost"] + counts["sweep"]) / its
-    row = b1_chunk_row(torch, tst, ck, X, y, first[0], scf,
-                       launches["fused_gradient_sums"])
+    row = b1_chunk_rows(torch, tst, ck, X, y, first[0], scf, routes)
     out = {"rows": scf.n, "chunk_rows": scf.cap, "chunks": scf.n_chunks,
            "iterations": its, "history": [float(h) for h in hist],
            "history_max_rel_vs_resident": rel, "launches": launches,
@@ -3259,7 +3465,7 @@ def phase_streamed_qn(torch, tst, ck, X, y, w_true, Xh, qn_b, gram,
                       streamed):
     """Phase ``streamed_qn``, right after phase ``streamed`` on its host
     copy of the 10M x 1000 bf16 rows: legs (a)-(e).  Returns the phase's
-    record and B1's row at the streamed chunk shape."""
+    record and B1's rows at the streamed chunk shape."""
     t0 = time.perf_counter()
     h2d = max(r["ingest"]["h2d_gb_per_s"]
               for r in streamed["b_sampled"].values())
@@ -3277,18 +3483,18 @@ def phase_streamed_qn(torch, tst, ck, X, y, w_true, Xh, qn_b, gram,
             ("d_resume", lambda: streamed_qn_resume(torch, tst, Xh, yh_ls)),
             ("e_normal", lambda: streamed_qn_normal(
                 torch, tst, X, y_ls, Xh, yh_ls, qn_b, h2d)))
-    row = None
+    b1_rows = []
     for name, leg in legs:
         t = time.perf_counter()
         rec = leg()
         if name == "a_lbfgs":
-            rec, row = rec
+            rec, b1_rows = rec
         out[name] = rec
         out["leg_seconds"][name] = time.perf_counter() - t
         emit({"phase": "streamed_qn", "leg": name, **rec})
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
-    return out, row
+    return out, b1_rows
 
 
 def staged_sparse_batch(torch, tst, Xh, cfg):
@@ -4062,26 +4268,8 @@ def mesh_kernel_rows(torch, ck, tst, Xs, ys, Xb):
     gen = torch.Generator(device="cuda").manual_seed(31)
     w = torch.randn(d, generator=gen, device="cuda") / math.sqrt(d)
     mask = torch.rand(n, generator=gen, device="cuda") < FRAC
-    got = ck.fused_gradient_sums(pw, Xs, ys, w, mask)
-    ok, err, scale = _close(torch, got,
-                            ck.fused_gradient_sums_plain(pw, Xs, ys, w, mask),
-                            True)
-    check(ok, f"shard fused_gradient_sums: max|dg|={err} of {scale}")
-    sel = int(mask.sum())
-    bound, by = _bound_ms(sel, d, 2, n)
-    wb = w.to(torch.bfloat16)
-    coeff = torch.randn(n, device="cuda").to(torch.bfloat16)
-    rows = [{
-        "name": "fused_gradient_sums",
-        "path": f"mesh (a rank's {n:,}-row shard, 10% mask)",
-        "shape": [n, d], "selected_rows": sel, "max_abs_err": err,
-        "grad_scale": scale,
-        "ms": time_ms(torch, lambda: ck.fused_gradient_sums(
-            pw, Xs, ys, w, mask), 50),
-        "plain_ms": time_ms(torch, lambda: ck.fused_gradient_sums_plain(
-            pw, Xs, ys, w, mask), 3),
-        "library_ms": time_ms(torch, lambda: (Xs @ wb, coeff @ Xs), 20),
-        "bound_ms": bound, "bound_by": by}]
+    rows = [b1_row(torch, ck, pw, Xs, ys, w, mask,
+                   f"mesh (a rank's {n:,}-row shard, 10% mask)", 50)]
     m = round(FRAC * n)
     rows.append(window_row(torch, ck, ck.fused_window_sums, pw, Xs, ys, w,
                            MESH_WINDOW_START, m,
@@ -4348,7 +4536,8 @@ def main() -> int:
 
     t = time.perf_counter()
     report = _build.build_all()
-    sources = {k: {"seconds": v["seconds"], **ptxas_report(v["log"])}
+    sources = {k: {"seconds": v["seconds"], **ptxas_report(v["log"]),
+                   "entries": ptxas_entries(v["log"])}
                for k, v in report.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "sources": sources})
@@ -4364,7 +4553,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t})
 
     X, y, w_true, launches, sliced_ref = phase_full(torch, tst, ck)
-    profile = phase_profile(torch, tst, X, y)
+    profile = phase_profile(torch, tst, ck, X, y)
     rows = phase_timing(torch, tst, ck, X, y, launches)
     qn = {}
     qn["a"], b1_row = leg_binary_lbfgs(torch, tst, ck, X, w_true)
@@ -4380,7 +4569,7 @@ def main() -> int:
     emit({"phase": "streamed", "dense": streamed})
     streamed_qn, b1_chunk = phase_streamed_qn(torch, tst, ck, X, y, w_true,
                                               Xh, qn["b"], gram, streamed)
-    rows.append(b1_chunk)
+    rows.extend(b1_chunk)
     del X, y, sliced_ref, Xh
     torch.cuda.empty_cache()
     qn["c"] = leg_multinomial(torch, tst)
@@ -4500,7 +4689,8 @@ def main() -> int:
                            "share_of_bound", "graph_ms",
                            "library_graph_ms", "one_line_graph_ms",
                            "cuda_launches_per_call", "launches_from",
-                           "masked_ms", "masked_rows")
+                           "route", "library_all_rows_ms",
+                           "library_includes")
          if k in r}
         for r in rows]})
     print(smi, flush=True)

@@ -7,8 +7,10 @@ card: blocks per SM that the register budget is fitted to
 
 Each variant is built from a copy of ``tpu_sgd_torch/ops/csrc/fused_sums.cu``
 with the two constants replaced, then timed (CUDA events) on 10M x 1000
-bf16 data: ``fused_gradient_sums`` with a 10% mask, ``fused_window_sums`` on
-a 1M-row window, and the same window on f32 data.  Variants run in one
+bf16 data, each call launched in ``fused_sums.cu`` directly
+(``cuda_kernels._launch``; the wrappers send these widths to
+``window_sums.cu``): the batch under a 10% mask, a 1M-row window, and a
+1M-row window of f32 data.  Variants run in one
 order, then in the reverse order.  Prints one line per variant:
 ``(min_blocks, rows_per_warp) [(b1_ms, b2_ms, f32_window_ms,
 max_spill_bytes), ...]`` (spill -1: already built), then the card's name
@@ -68,12 +70,14 @@ def main():
             log = _build.build_all(["fused_sums"])["fused_sums"]["log"]
             spill = max([int(b) for b in
                          re.findall(r"(\d+) bytes spill", log)] or [-1])
-            b1 = cs.time_ms(torch, lambda: ck.fused_gradient_sums(
-                pw, X, y, w, mask), 10)
-            b2 = cs.time_ms(torch, lambda: ck.fused_window_sums(
-                pw, X, y, w, st, 500, tile_m=2000), 20)
-            f32 = cs.time_ms(torch, lambda: ck.fused_window_sums(
-                pw, Xf, yf, w, zero, 1000, tile_m=1000), 10)
+            # fused_sums.cu itself (the wrappers route these shapes to
+            # window_sums.cu): the masked batch, a window, an f32 window
+            b1 = cs.time_ms(torch, lambda: ck._launch(
+                pw, X, y, w, mask, None, 1, X.shape[0]), 10)
+            b2 = cs.time_ms(torch, lambda: ck._launch(
+                pw, X, y, w, None, st, 2000, 500 * 2000), 20)
+            f32 = cs.time_ms(torch, lambda: ck._launch(
+                pw, Xf, yf, w, None, zero, 1000, 1000 * 1000), 10)
             res.setdefault(key, []).append((b1, b2, f32, spill))
     for k, v in res.items():
         print(k, v, flush=True)

@@ -380,6 +380,44 @@ def test_linear_regression_on_sparse_matches_jax():
                                atol=2e-3)
 
 
+def test_multinomial_lbfgs_sparse_train_and_predict():
+    """Multinomial L-BFGS with an intercept on CSR, against the JAX
+    package on the same BCOO rows (the twin of
+    ``tests/test_sparse.py::test_multinomial_lbfgs_sparse_train_and_predict``):
+    equal iteration counts, the port's objective within 1.01x of the JAX
+    run's (30 quasi-Newton steps from other summation orders are held by
+    matched objective, as tests/test_torch_multinomial.py holds its
+    runs), at least 99% of the predicted classes equal and the JAX test's
+    accuracy bar; then prediction on dense rows and on one sparse row
+    equal to the sparse batch's."""
+    jX, jy, _ = js.sparse_data(600, 30, nnz_per_row=8, kind="linear",
+                               seed=23)
+    tX, ty, _ = ts.sparse_data(600, 30, nnz_per_row=8, kind="linear",
+                               seed=23)
+    y = np.asarray(jy)
+    y3 = ((y > -0.5).astype(np.float32) + (y > 0.5).astype(np.float32))
+    jalg = jcls.LogisticRegressionWithLBFGS(max_num_iterations=30)
+    jalg.set_num_classes(3).set_intercept(True)
+    jm = jalg.run((jX, y3))
+    talg = tst.LogisticRegressionWithLBFGS(max_num_iterations=30,
+                                           device="cpu")
+    talg.set_num_classes(3).set_intercept(True)
+    tm = talg.run((tX, torch.from_numpy(y3)))
+    jh = np.asarray(jalg.optimizer.loss_history)
+    th = np.asarray(talg.optimizer.loss_history)
+    assert len(th) == len(jh)
+    assert th[-1] <= 1.01 * jh[-1]
+    preds = tm.predict(tX).numpy()
+    assert float(np.mean(preds == np.asarray(jm.predict(jX)))) >= 0.99
+    assert float(np.mean(preds == y3)) > 0.6
+    # dense rows agree with the sparse batch
+    Xd = tX.to_dense().numpy()
+    np.testing.assert_array_equal(tm.predict(Xd).numpy(), preds)
+    # one sparse row predicts as the same dense row
+    v = tst.SparseVector(30, np.nonzero(Xd[0])[0], Xd[0][Xd[0] != 0])
+    assert float(tm.predict(v)) == float(tm.predict(Xd[0])) == preds[0]
+
+
 # -- guards ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("layout", ["csr", "csc", "coo", "bsr"])

@@ -1,10 +1,11 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
-``_build/lib<name>-<hash>.so`` (the hash covers the source and the flags, so
-an edited source never loads a stale library).  Nothing is built when a
-module is imported: :func:`load` builds on first use, and :func:`build_all`
-starts one ``nvcc`` per source at once.  ``_build/`` is git-ignored.
+``_build/lib<name>-<hash>.so`` (the hash covers the source, the headers of
+``csrc/`` it may include and the flags, so an edited source never loads a
+stale library).  Nothing is built when a module is imported: :func:`load`
+builds on first use, and :func:`build_all` starts one ``nvcc`` per source
+at once.  ``_build/`` is git-ignored.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 SOURCES = ("fused_sums", "window_sums", "csr_products")
+#: the directory of the headers the sources share (on nvcc's include path)
+INCLUDE = Path(__file__).with_name("csrc")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -47,7 +50,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(INCLUDE.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -59,7 +64,8 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(INCLUDE), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

@@ -9,7 +9,10 @@
 //   fused_window_sums_vpu (_window_kernel_vpu)  -> the same window
 // On the TPU the two window kernels differed only in how the gradient
 // reduction used the matrix unit; here both are one dot product per row and
-// one FMA per column, so a single kernel serves all three entries.
+// one FMA per column, so a single kernel serves all three entries.  It
+// takes the calls that csrc/window_sums.cu does not: rows that are not
+// whole 16-byte units, rings that do not fit in shared memory, bases that
+// are not 16-byte aligned (tpu_sgd_torch/ops/cuda_kernels.py's shape rule).
 //
 // It computes (grad_sum (d,), loss_sum, count) under the JAX package's
 // mixed-precision contract (tpu_sgd/ops/gradients.py margins_of/grad_sum_of):
@@ -29,7 +32,9 @@
 // width allows), then the block adds coeff * x for the tile column by
 // column, 8 rows' loads in flight, while the tile is still in L1/L2, into a
 // (d,) f32 accumulator in shared memory.  The grid holds as many blocks as
-// fit on the card at once.
+// fit on the card at once; that count (the shared-memory attribute, the
+// occupancy) is computed once per kernel instance, device and size, and
+// cached (launch_cache.cuh).
 //
 // Determinism: each block walks a fixed contiguous range of rows and writes
 // its partial gradient, loss and count to scratch; a second kernel sums the
@@ -40,6 +45,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch_cache.cuh"
 
 namespace {
 
@@ -120,6 +127,7 @@ __device__ __forceinline__ void pointwise(float m, float y, float& coeff,
 }
 
 struct Args {
+  int device;
   const void* X;
   const float* y;
   const float* w;
@@ -350,25 +358,31 @@ __global__ void sums_phase2(const float* __restrict__ part_grad,
   }
 }
 
+tsgd::LaunchCache g_launch_cache;
+
 template <int F, typename T, bool MASK, int VEC>
 cudaError_t launch(const Args& a) {
   auto kern = sums_phase1<F, T, MASK, VEC>;
-  const size_t smem = sizeof(float) * static_cast<size_t>(a.d) *
-                      (a.w_in_smem ? 2 : 1);
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
+  const int smem = static_cast<int>(sizeof(float)) * a.d *
+                   (a.w_in_smem ? 2 : 1);
   // as many blocks as fit on the card at once, at most a.blocks (the
   // scratch rows the wrapper allocated) and at most one per tile of rows
-  int device = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int resident = 0;
+  cudaError_t e = g_launch_cache.get(
+      kern, a.device, smem, 1,
+      [&](int* out) {
+        int sms = 0, per_sm = 0;
+        cudaError_t err = cudaDeviceGetAttribute(
+            &sms, cudaDevAttrMultiProcessorCount, a.device);
+        if (err != cudaSuccess) return err;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                            kThreads, smem);
+        *out = (per_sm > 0 ? per_sm : 1) * sms;
+        return err;
+      },
+      &resident);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                    smem);
-  if (e != cudaSuccess) return e;
-  long long blocks = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+  long long blocks = resident;
   const long long tiles = (a.rows + kTileRows - 1) / kTileRows;
   if (blocks > a.blocks) blocks = a.blocks;
   if (blocks > tiles) blocks = tiles;
@@ -417,7 +431,7 @@ extern "C" {
 
 // Launches both phases on `stream`; returns the cudaError_t of the launches
 // (0 on success).  Does not synchronise.
-int tsgd_fused_sums(int family, int dtype, int vec, const void* X,
+int tsgd_fused_sums(int family, int dtype, int device, int vec, const void* X,
                     const void* y, const void* w, const void* mask,
                     const void* start, long long start_scale,
                     long long n_total, long long rows, int d, int w_in_smem,
@@ -425,7 +439,8 @@ int tsgd_fused_sums(int family, int dtype, int vec, const void* X,
                     void* part_cnt, void* grad, void* loss, void* cnt,
                     void* stream) {
   if (d <= 0 || blocks <= 0 || rows < 0) return cudaErrorInvalidValue;
-  Args a{X,
+  Args a{device,
+         X,
          static_cast<const float*>(y),
          static_cast<const float*>(w),
          static_cast<const uint8_t*>(mask),

@@ -1,12 +1,16 @@
-// Fused window gradient sums for generalized linear models, for Hopper
-// (sm_90a).  Built by tpu_sgd_torch/ops/_build.py with nvcc into a shared
-// library with a plain C interface; tpu_sgd_torch/ops/cuda_kernels.py loads
-// it with ctypes and routes a window to it by shape (window_stage_plan).
+// Fused window and gathered-row gradient sums for generalized linear
+// models, for Hopper (sm_90a).  Built by tpu_sgd_torch/ops/_build.py with
+// nvcc into a shared library with a plain C interface;
+// tpu_sgd_torch/ops/cuda_kernels.py loads it with ctypes and routes a call
+// to it by shape (window_stage_plan).
 //
-// Replaces the Pallas TPU window kernels of tpu_sgd/ops/pallas_kernels.py:
+// Replaces the Pallas TPU kernels of tpu_sgd/ops/pallas_kernels.py:
 //   fused_window_sums     :342 (pallas_call :407, _window_kernel)
 //   fused_window_sums_vpu :425 (pallas_call :407, _window_kernel_vpu)
-// Both sum rows [start, start + rows) of a row-major X:
+//   fused_gradient_sums   :265 (pallas_call :313, _masked_kernel)
+// The window entries sum rows [start, start + rows) of a row-major X, the
+// gradient entry rows [0, n) of it, unmasked as a window at start 0, or
+// the rows a bool mask keeps (gather_main):
 //   margin = x . round_T(w)                f32 accumulation
 //   (coeff, loss) = pointwise(margin, y)   in f32, zero where valid is 0
 //   grad  += round_T(coeff) * x            f32 accumulation
@@ -18,43 +22,67 @@
 // takes the widths whose rows are whole 16-byte units and whose stage ring
 // fits in shared memory, fused_sums.cu the rest.
 //
-// What bounds it: the bytes of the window.  Its rows are one contiguous
-// range of device memory, read once (3.35 TB/s on an H100 SXM); the two
-// dot products are 4 flops an element.  The design keeps HBM busy and the
+// What bounds it: the bytes of the rows summed.  A window's rows are one
+// contiguous range of device memory, a mask's live rows are scattered
+// whole rows of it, each read once (3.35 TB/s on an H100 SXM); the two dot
+// products are 4 flops an element.  The design keeps HBM busy and the
 // fixed costs small:
 //   * a persistent grid, two blocks an SM for rows of up to 2,048
 //     columns (so one block's margins overlap the other's column pass)
 //     and one for wider rows, each walking a contiguous share of the
-//     window in tiles of R rows;
+//     window (or of the mask's rows, whatever their live count) in tiles
+//     of R rows;
 //   * a ring of S tiles in shared memory, each filled by bulk copies
-//     (cp.async.bulk, the Tensor Memory Accelerator) of the tile's rows and
-//     of 16-byte aligned supersets of their labels and valid flags, all
-//     completing on the tile's "full" mbarrier; one producer thread keeps
-//     the ring in flight and refills a tile once all 8 consumer warps have
-//     arrived on its "empty" mbarrier, so the next tiles load while this
-//     one is summed (plain loads of the labels, even a tile ahead, put a
+//     (cp.async.bulk, the Tensor Memory Accelerator) completing on the
+//     tile's "full" mbarrier; a producer warp keeps the ring in flight and
+//     refills a tile once all 8 consumer warps have arrived on its "empty"
+//     mbarrier, so the next tiles load while this one is summed;
+//   * window_main's producer is one thread: one copy of the tile's rows,
+//     and copies of 16-byte aligned supersets of their labels and valid
+//     flags (plain loads of the labels, even a tile ahead, put a
 //     device-memory latency on every tile's path);
+//   * gather_main's producer is the whole warp.  It walks its share of the
+//     mask 512 rows a step (one 16-byte load a lane, the next step's already
+//     in flight), compacts the live rows in row order (per-lane popcounts, a
+//     shuffle scan) and deals them into the ring's R-row slots across steps,
+//     so only a share's last tile is partial and no dropped row is read.  Each
+//     lane walks its own set bits and issues the copies of its live rows, one
+//     cp.async.bulk a run of consecutive rows, and lands each row's label with
+//     a 4-byte cp.async tracked by the same full barrier
+//     (cp.async.mbarrier.arrive): the labels cost the producer no load
+//     latency and no registers (plain loads of the labels at the deal put
+//     their latency in the producer's path; a bulk copy of each label's
+//     16-byte unit would need 16 bytes a row of stage space, over the label
+//     area the planner sizes the ring with).  Every lane arrives on the full
+//     barrier when its tile is dealt; the tile's first word after the labels
+//     holds its row count, and a share ends with a tile of fewer than R rows
+//     (none when its live count is a multiple of R).  A copy a row costs
+//     nothing against one a tile, nor does the rows' spread
+//     (scripts/probe_gather_kernel.py, PERF.md);
 //   * consumer warps that read X from shared memory only: margins (two
-//     rows a warp, one 16-byte load a lane a row), the pointwise rule,
+//     rows a warp, one 16-byte load a lane a row; the gather entry loads
+//     both rows without a branch), the pointwise rule,
 //     then the column pass with each thread's columns held in registers
 //     for the whole share; every row crosses HBM once and never L1/L2
-//     again;
+//     again.  Both entries run the same consumer code (ring_sums);
 //   * a deterministic reduction that uses the card: blocks in clusters of
 //     2 add their (d,) sums through distributed shared memory in rank
 //     order, each rank a slice of the columns, leaving one partial a
 //     cluster; a second kernel spreads the partials of 32 columns over 8
 //     warps a block (ceil(d/32) blocks) and adds them in a fixed order in
 //     f64.  There are no float atomics, so two calls are bitwise equal.
+// gather_main takes the grid that window_main takes for n rows, so with
+// every row live it deals the window's tiles and gives its bits.
 // Launch state (the shared-memory attribute, the clusters that fit) is
-// computed once per kernel instance, device and ring size, and cached.
+// computed once per kernel instance, device and ring size, and cached
+// (launch_cache.cuh).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
-#include <vector>
+#include "launch_cache.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -243,16 +271,158 @@ __device__ __forceinline__ Span aligned_span(const void* src, int count,
   return Span{reinterpret_cast<const unsigned char*>(lo), lead, bytes};
 }
 
-template <int F, typename T, int CPT>
-__global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
-    window_main(const T* __restrict__ X, const float* __restrict__ y,
-                const float* __restrict__ w,
-                const uint8_t* __restrict__ valid,
-                const long long* __restrict__ start, long long start_scale,
-                long long n_total, long long rows, int d, int stage_rows,
-                int stages, float* __restrict__ part_grad,
-                double* __restrict__ part_loss,
-                double* __restrict__ part_cnt) {
+// One 4-byte copy from device memory into this block's shared memory
+// (cp.async, tracked by the next cp.async.mbarrier.arrive of the thread).
+__device__ __forceinline__ void copy4_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// `bar` tracks this thread's cp.async copies issued so far: its pending
+// count rises by one now and falls when they have landed.
+__device__ __forceinline__ void mbar_track_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Where a tile's row count sits in gather_main's ring: the word after the
+// tile's labels (R f32 values from the label area's start).
+constexpr int kGatherCountOffset = kLabelYBytes;
+static_assert(4 * kMaxStageRows <= kGatherCountOffset &&
+                  kGatherCountOffset + 4 <= kLabelBytes,
+              "a gathered tile's labels and row count fit its label area");
+
+// Rows of the mask one producer step covers: 16 a lane.
+constexpr int kMaskStepRows = 16 * 32;
+
+__device__ __forceinline__ int clamp16(long long v) {
+  return static_cast<int>(v < 0 ? 0 : (v > 16 ? 16 : v));
+}
+
+// gather_main's producer: the whole warp walks the mask over rows
+// [b_begin, b_end), compacts the live rows in row order and deals them into
+// tiles of stage_rows; see the note at the top.
+template <typename T>
+__device__ __forceinline__ void gather_produce(
+    const T* __restrict__ X, const float* __restrict__ y,
+    const uint8_t* __restrict__ mask, long long b_begin, long long b_end,
+    int row_bytes, int stage_rows, int stages, int stage_bytes, int x_bytes,
+    unsigned char* ring, uint64_t* full, uint64_t* empty, int lane) {
+  const unsigned char* xbytes = reinterpret_cast<const unsigned char*>(X);
+  // 16-byte loads from the aligned unit holding the share's first flag
+  // (a unit never crosses a page, so the flags it reads around the share
+  // are mapped; they are masked off below)
+  const uintptr_t a0 = reinterpret_cast<uintptr_t>(mask + b_begin);
+  const unsigned char* base =
+      reinterpret_cast<const unsigned char*>(a0 & ~static_cast<uintptr_t>(15));
+  const long long first = b_begin - static_cast<long long>(a0 & 15);
+  const long long R = stage_rows;
+  long long dealt = 0;  // live rows dealt so far: the next one's ordinal
+  uint32_t pend = 0;    // bytes this lane copied into the open tile
+
+  auto flags = [&](long long c0) {
+    const long long r = c0 + 16 * lane;
+    if (r >= b_end) return make_uint4(0u, 0u, 0u, 0u);
+    return __ldg(reinterpret_cast<const uint4*>(base + (r - first)));
+  };
+  // a dealt tile: its row count, then every lane's arrival (with the bytes
+  // it copied into the tile, and its label copies tracked)
+  auto close = [&](long long t, int nr) {
+    const int s = static_cast<int>(t % stages);
+    unsigned char* st = ring + s * stage_bytes;
+    if (lane == 0)
+      *reinterpret_cast<int*>(st + x_bytes + kGatherCountOffset) = nr;
+    mbar_track_async(&full[s]);
+    mbar_arrive_expect_tx(&full[s], pend);
+    pend = 0;
+  };
+  auto open = [&](long long t) {
+    mbar_wait(&empty[t % stages], ((t / stages) & 1) ^ 1);
+  };
+
+  uint4 cur = flags(first);
+  for (long long c0 = first; c0 < b_end; c0 += kMaskStepRows) {
+    const uint4 next = flags(c0 + kMaskStepRows);
+    // this lane's 16 rows: bit k for row r0 + k, live and in the share
+    const long long r0 = c0 + 16 * lane;
+    const uint32_t word[4] = {__vcmpne4(cur.x, 0u), __vcmpne4(cur.y, 0u),
+                              __vcmpne4(cur.z, 0u), __vcmpne4(cur.w, 0u)};
+    uint32_t bits = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t v = word[q];
+      bits |= ((v & 1u) | ((v >> 7) & 2u) | ((v >> 14) & 4u) |
+               ((v >> 21) & 8u))
+              << (4 * q);
+    }
+    const int klo = clamp16(b_begin - r0);
+    const int khi = clamp16(b_end - r0);
+    bits &= ((1u << khi) - 1u) & ~((1u << klo) - 1u);
+    // ordinals: an inclusive scan of the lanes' counts
+    const int cnt = __popc(bits);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    const long long q0 = dealt + (incl - cnt);  // this lane's first ordinal
+    // the tiles this step's live rows fall in, in order
+    for (long long t = dealt / R; t * R < dealt + total; ++t) {
+      if (t * R >= dealt) open(t);  // a tile begun in an earlier step is open
+      const int s = static_cast<int>(t % stages);
+      unsigned char* st = ring + s * stage_bytes;
+      float* s_y = reinterpret_cast<float*>(st + x_bytes);
+      const long long lo = t * R;
+      // this lane's live rows in the tile: its set bits ranked [ja, jb)
+      const long long ra = lo - q0, rb = lo + R - q0;
+      const int ja = static_cast<int>(ra < 0 ? 0 : (ra > cnt ? cnt : ra));
+      const int jb = static_cast<int>(rb < 0 ? 0 : (rb > cnt ? cnt : rb));
+      uint32_t m = bits;
+      for (int j = 0; j < ja; ++j) m &= m - 1u;
+      int slot = static_cast<int>(q0 + ja - lo);
+      for (int left = jb - ja; left > 0;) {
+        // a run of consecutive live rows from bit k: one bulk copy
+        const int k = __ffs(m) - 1;
+        int len = __ffs(~(m >> k)) - 1;
+        if (len > left) len = left;
+        const long long r = r0 + k;
+        for (int e = 0; e < len; ++e) copy4_async(s_y + slot + e, y + r + e);
+        const uint32_t nb = static_cast<uint32_t>(len * row_bytes);
+        bulk_load(st + slot * row_bytes,
+                  xbytes + r * static_cast<long long>(row_bytes), nb,
+                  &full[s]);
+        pend += nb;
+        m &= ~(((1u << len) - 1u) << k);
+        slot += len;
+        left -= len;
+      }
+      if (lo + R <= dealt + total) close(t, stage_rows);
+    }
+    dealt += total;
+    cur = next;
+  }
+  // the share's last tile: the open one, partial, or a fresh empty one
+  const long long t = dealt / R;
+  if (dealt % R == 0) open(t);
+  close(t, static_cast<int>(dealt % R));
+}
+
+// The body of both entries.  WINDOW: rows [row0, row0 + rows) of X, the
+// producer one thread.  GATHER: the rows of [0, rows) that `valid` keeps,
+// dealt by gather_produce; tiles carry their row count, and the consumers
+// stop after the first tile of fewer than stage_rows rows.
+template <int F, typename T, int CPT, bool GATHER>
+__device__ __forceinline__ void ring_sums(
+    const T* __restrict__ X, const float* __restrict__ y,
+    const float* __restrict__ w, const uint8_t* __restrict__ valid,
+    const long long* __restrict__ start, long long start_scale,
+    long long n_total, long long rows, int d, int stage_rows, int stages,
+    float* __restrict__ part_grad,
+    double* __restrict__ part_loss, double* __restrict__ part_cnt) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kMaxStages];
   __shared__ __align__(8) uint64_t empty[kMaxStages];
@@ -285,7 +455,8 @@ __global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
   }
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], 1);
+      // a gathered tile is complete when every producer lane has arrived
+      mbar_init(&full[s], GATHER ? 32 : 1);
       mbar_init(&empty[s], kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -300,8 +471,12 @@ __global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
   const unsigned char* xbytes = reinterpret_cast<const unsigned char*>(X);
 
   if (warp == kConsumerWarps) {
-    // producer: one thread keeps the ring full
-    if (lane == 0) {
+    if constexpr (GATHER) {
+      gather_produce<T>(X, y, valid, b_begin, b_end, row_bytes, stage_rows,
+                        stages, stage_bytes, x_bytes, ring, full, empty,
+                        lane);
+    } else if (lane == 0) {
+      // producer: one thread keeps the ring full
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % stages;
         const long long r0 = b_begin + static_cast<long long>(t) * stage_rows;
@@ -342,21 +517,29 @@ __global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
 
     const int rb = warp * kRowsPerWarp;  // this warp's rows of a tile
 
-    for (int t = 0; t < ntiles; ++t) {
+    for (int t = 0; GATHER || t < ntiles; ++t) {
       const int s = t % stages;
-      const long long r0 = b_begin + static_cast<long long>(t) * stage_rows;
-      const long long left = b_end - r0;
-      const int nr = static_cast<int>(left < stage_rows ? left : stage_rows);
       float* coeff = s_coeff[t & 1];
       mbar_wait(&full[s], (t / stages) & 1);
       const unsigned char* st = ring + s * stage_bytes;
-      const float* s_y = reinterpret_cast<const float*>(st + x_bytes) +
-                         aligned_span(y + row0 + r0, nr, 4).lead;
-      const uint8_t* s_v =
-          valid == nullptr
-              ? nullptr
-              : st + x_bytes + kLabelYBytes +
-                    aligned_span(valid + row0 + r0, nr, 1).lead;
+      int nr;
+      const float* s_y;
+      const uint8_t* s_v;
+      if constexpr (GATHER) {
+        nr = *reinterpret_cast<const int*>(st + x_bytes + kGatherCountOffset);
+        s_y = reinterpret_cast<const float*>(st + x_bytes);
+        s_v = nullptr;
+      } else {
+        const long long r0 = b_begin + static_cast<long long>(t) * stage_rows;
+        const long long left = b_end - r0;
+        nr = static_cast<int>(left < stage_rows ? left : stage_rows);
+        s_y = reinterpret_cast<const float*>(st + x_bytes) +
+              aligned_span(y + row0 + r0, nr, 4).lead;
+        s_v = valid == nullptr
+                  ? nullptr
+                  : st + x_bytes + kLabelYBytes +
+                        aligned_span(valid + row0 + r0, nr, 1).lead;
+      }
 
       // (a) margins, pointwise rule, rounded coefficients: rows rb, rb + 1
       if (rb < nr) {
@@ -381,9 +564,13 @@ __global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
             wv[q + 2] = v.z;
             wv[q + 3] = v.w;
           }
+          // The gather entry sums a missing row too (it reads the first
+          // row's slot, and its dot is dropped below), so that no branch
+          // holds the second row's loads back: with the branch, it ran 12%
+          // slower at a 10% mask (PERF.md).
 #pragma unroll
           for (int k = 0; k < kRowsPerWarp; ++k) {
-            if (in[k]) {
+            if (GATHER || in[k]) {
               float xv[kVec16];
               load16<T>(xr[k] + c * kVec16, xv);
 #pragma unroll
@@ -432,6 +619,10 @@ __global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
               acc[k][e] = fmaf(cf, xv[e], acc[k][e]);
           }
         }
+      }
+      // a gathered share ends with its first partial tile
+      if constexpr (GATHER) {
+        if (nr < stage_rows) break;
       }
       // this warp is done with the tile: let the producer refill it
       __syncwarp();
@@ -492,6 +683,34 @@ __global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
   cluster_sync();
 }
 
+template <int F, typename T, int CPT>
+__global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
+    window_main(const T* __restrict__ X, const float* __restrict__ y,
+                const float* __restrict__ w,
+                const uint8_t* __restrict__ valid,
+                const long long* __restrict__ start, long long start_scale,
+                long long n_total, long long rows, int d, int stage_rows,
+                int stages, float* __restrict__ part_grad,
+                double* __restrict__ part_loss,
+                double* __restrict__ part_cnt) {
+  ring_sums<F, T, CPT, false>(X, y, w, valid, start, start_scale, n_total,
+                              rows, d, stage_rows, stages, part_grad,
+                              part_loss, part_cnt);
+}
+
+// The rows of [0, n) that `mask` keeps.
+template <int F, typename T, int CPT>
+__global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
+    gather_main(const T* __restrict__ X, const float* __restrict__ y,
+                const float* __restrict__ w,
+                const uint8_t* __restrict__ mask, long long n, int d,
+                int stage_rows, int stages, float* __restrict__ part_grad,
+                double* __restrict__ part_loss,
+                double* __restrict__ part_cnt) {
+  ring_sums<F, T, CPT, true>(X, y, w, mask, nullptr, 1, n, n, d, stage_rows,
+                             stages, part_grad, part_loss, part_cnt);
+}
+
 // Sums the clusters' partials: block b takes columns [32 b, 32 b + 32),
 // warp k the partials k, k + 8, ..., then warp 0 adds the 8 warps' sums in
 // order; block 0's warp 1 sums loss and count.  Deterministic, in f64.
@@ -540,16 +759,17 @@ struct Args {
   const void* X;
   const float* y;
   const float* w;
-  const uint8_t* valid;     // null: every row counts
+  const uint8_t* valid;     // window: null, every row counts; gather: mask
   const long long* start;   // null: rows start at 0; else device scalar
   long long start_scale;    // first row = clamp(start[0] * start_scale)
   long long n_total;        // rows of X
-  long long rows;           // rows summed
+  long long rows;           // rows summed (gather: the mask's rows, n)
   int d;
   int stage_rows;           // R: rows a ring stage holds
   int stages;               // S: stages of the ring
   int cluster;              // blocks a cluster
   int max_parts;            // scratch rows: most clusters
+  bool gather;              // gather_main (the rows `valid` keeps)
   float* part_grad;         // (max_parts, d)
   double* part_loss;        // (max_parts,)
   double* part_cnt;         // (max_parts,)
@@ -559,82 +779,71 @@ struct Args {
   cudaStream_t stream;
 };
 
-// What a launch needs to know of a kernel instance on a device, computed
-// on its first launch there and kept.
-struct LaunchState {
-  const void* kernel;
-  int device;
-  int smem;
-  int cluster;
-  int max_clusters;
-};
+tsgd::LaunchCache g_launch_cache;
 
-std::mutex g_mutex;
-std::vector<LaunchState> g_states;
-
+// The clusters of instance `kern` that fit on the card at once at `smem`
+// bytes of dynamic shared memory (cached: launch_cache.cuh).
 template <typename K>
-cudaError_t launch_state(K kern, const Args& a, int smem, LaunchState* out) {
-  std::lock_guard<std::mutex> lock(g_mutex);
-  const void* key = reinterpret_cast<const void*>(kern);
-  bool attribute_set = false;
-  for (const LaunchState& s : g_states) {
-    if (s.kernel != key || s.device != a.device) continue;
-    attribute_set = true;
-    if (s.smem == smem && s.cluster == a.cluster) {
-      *out = s;
-      return cudaSuccess;
-    }
-  }
-  cudaError_t e;
-  if (!attribute_set) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMaxDynamicSmem);
-    if (e != cudaSuccess) return e;
-  }
-  int sms = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, a.device);
+cudaError_t max_clusters(K kern, const Args& a, int smem, int* clusters) {
+  return g_launch_cache.get(
+      kern, a.device, smem, a.cluster,
+      [&](int* out) {
+        int sms = 0;
+        cudaError_t e = cudaDeviceGetAttribute(
+            &sms, cudaDevAttrMultiProcessorCount, a.device);
+        if (e != cudaSuccess) return e;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3((sms / a.cluster) * a.cluster);
+        cfg.blockDim = dim3(kThreads);
+        cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = a.cluster;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        e = cudaOccupancyMaxActiveClusters(out, kern, &cfg);
+        if (e != cudaSuccess) return e;
+        return *out < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+      },
+      clusters);
+}
+
+template <typename T>
+int ring_smem(const Args& a) {
+  const int row_bytes = a.d * static_cast<int>(sizeof(T));
+  return a.stages * (a.stage_rows * row_bytes + kLabelBytes) + 8 * a.d;
+}
+
+// Clusters of the persistent grid over a.rows rows: as many as fit on the
+// card at once (window_main's occupancy, for either entry, so that the
+// gather entry splits n rows as the window entry does), at most one a
+// scratch row (the wrapper sizes the scratch for the blocks an SM its plan
+// aims at), and no more clusters than the rows have tiles.
+template <int F, typename T, int CPT>
+cudaError_t grid_clusters(const Args& a, long long* clusters) {
+  const int smem = ring_smem<T>(a);
+  if (smem > kMaxDynamicSmem) return cudaErrorInvalidValue;
+  int fit = 0;
+  cudaError_t e = max_clusters(window_main<F, T, CPT>, a, smem, &fit);
   if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((sms / a.cluster) * a.cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
-  if (e != cudaSuccess) return e;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  LaunchState s{key, a.device, smem, a.cluster, clusters};
-  g_states.push_back(s);
-  *out = s;
+  const long long tiles = (a.rows + a.stage_rows - 1) / a.stage_rows;
+  long long c = fit;
+  if (c > a.max_parts) c = a.max_parts;
+  const long long need = (tiles + a.cluster - 1) / a.cluster;
+  if (c > need) c = need;
+  if (c < 1) c = 1;
+  *clusters = c;
   return cudaSuccess;
 }
 
 template <int F, typename T, int CPT>
 cudaError_t launch(const Args& a) {
-  auto kern = window_main<F, T, CPT>;
-  const int row_bytes = a.d * static_cast<int>(sizeof(T));
-  const int smem =
-      a.stages * (a.stage_rows * row_bytes + kLabelBytes) + 8 * a.d;
-  if (smem > kMaxDynamicSmem) return cudaErrorInvalidValue;
-  LaunchState st;
-  cudaError_t e = launch_state(kern, a, smem, &st);
+  long long clusters = 0;
+  cudaError_t e = grid_clusters<F, T, CPT>(a, &clusters);
   if (e != cudaSuccess) return e;
-  // persistent: as many clusters as fit on the card at once, at most one a
-  // scratch row (the wrapper sizes the scratch for the blocks an SM its
-  // plan aims at), and no more clusters than the window has tiles
-  const long long tiles = (a.rows + a.stage_rows - 1) / a.stage_rows;
-  long long clusters = st.max_clusters;
-  if (clusters > a.max_parts) clusters = a.max_parts;
-  const long long need = (tiles + a.cluster - 1) / a.cluster;
-  if (clusters > need) clusters = need;
-  if (clusters < 1) clusters = 1;
-
+  const int smem = ring_smem<T>(a);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(clusters * a.cluster));
   cfg.blockDim = dim3(kThreads);
@@ -647,10 +856,21 @@ cudaError_t launch(const Args& a) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(a.X), a.y, a.w,
-                         a.valid, a.start, a.start_scale, a.n_total, a.rows,
-                         a.d, a.stage_rows, a.stages, a.part_grad,
-                         a.part_loss, a.part_cnt);
+  if (a.gather) {
+    auto kern = gather_main<F, T, CPT>;
+    int fit = 0;  // sets the gather entry's shared-memory attribute
+    e = max_clusters(kern, a, smem, &fit);
+    if (e != cudaSuccess) return e;
+    e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(a.X), a.y, a.w,
+                           a.valid, a.rows, a.d, a.stage_rows, a.stages,
+                           a.part_grad, a.part_loss, a.part_cnt);
+  } else {
+    e = cudaLaunchKernelEx(&cfg, window_main<F, T, CPT>,
+                           static_cast<const T*>(a.X), a.y, a.w, a.valid,
+                           a.start, a.start_scale, a.n_total, a.rows, a.d,
+                           a.stage_rows, a.stages, a.part_grad, a.part_loss,
+                           a.part_cnt);
+  }
   if (e != cudaSuccess) return e;
   const int parts = static_cast<int>(clusters);
   window_reduce<<<(a.d + 31) / 32, kReduceThreads, 0, a.stream>>>(
@@ -677,6 +897,23 @@ cudaError_t by_dtype(int dtype, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+int dispatch(int family, int dtype, const Args& a) {
+  const int itemsize = dtype == kBF16 ? 2 : 4;
+  if (a.d <= 0 || (a.d * itemsize) % 16 != 0 || a.rows < 0 ||
+      a.rows > a.n_total || a.stage_rows < 1 ||
+      a.stage_rows > kMaxStageRows || a.stages < 1 ||
+      a.stages > kMaxStages || a.cluster < 1 || a.cluster > 8 ||
+      a.max_parts < 1 ||
+      reinterpret_cast<uintptr_t>(a.X) % 16 != 0)
+    return cudaErrorInvalidValue;
+  switch (family) {
+    case kLeastSquares: return by_dtype<kLeastSquares>(dtype, a);
+    case kLogistic: return by_dtype<kLogistic>(dtype, a);
+    case kHinge: return by_dtype<kHinge>(dtype, a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -690,12 +927,6 @@ int tsgd_window_sums(int family, int dtype, int device, const void* X,
                      int stage_rows, int stages, int cluster, int max_parts,
                      void* part_grad, void* part_loss, void* part_cnt,
                      void* grad, void* loss, void* cnt, void* stream) {
-  const int itemsize = dtype == kBF16 ? 2 : 4;
-  if (d <= 0 || (d * itemsize) % 16 != 0 || rows < 0 || rows > n_total ||
-      stage_rows < 1 || stage_rows > kMaxStageRows || stages < 1 ||
-      stages > kMaxStages || cluster < 1 || cluster > 8 || max_parts < 1 ||
-      reinterpret_cast<uintptr_t>(X) % 16 != 0)
-    return cudaErrorInvalidValue;
   Args a{device,
          X,
          static_cast<const float*>(y),
@@ -710,6 +941,7 @@ int tsgd_window_sums(int family, int dtype, int device, const void* X,
          stages,
          cluster,
          max_parts,
+         false,
          static_cast<float*>(part_grad),
          static_cast<double*>(part_loss),
          static_cast<double*>(part_cnt),
@@ -717,12 +949,42 @@ int tsgd_window_sums(int family, int dtype, int device, const void* X,
          static_cast<float*>(loss),
          static_cast<float*>(cnt),
          static_cast<cudaStream_t>(stream)};
-  switch (family) {
-    case kLeastSquares: return by_dtype<kLeastSquares>(dtype, a);
-    case kLogistic: return by_dtype<kLogistic>(dtype, a);
-    case kHinge: return by_dtype<kHinge>(dtype, a);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch(family, dtype, a);
+}
+
+// Launches the gather kernel (the rows of [0, n) that `mask` keeps) and
+// the reduction on `stream`; returns the cudaError_t of the launches.
+// Does not synchronise.
+int tsgd_gather_sums(int family, int dtype, int device, const void* X,
+                     const void* y, const void* w, const void* mask,
+                     long long n, int d, int stage_rows, int stages,
+                     int cluster, int max_parts, void* part_grad,
+                     void* part_loss, void* part_cnt, void* grad, void* loss,
+                     void* cnt, void* stream) {
+  if (mask == nullptr) return cudaErrorInvalidValue;
+  Args a{device,
+         X,
+         static_cast<const float*>(y),
+         static_cast<const float*>(w),
+         static_cast<const uint8_t*>(mask),
+         nullptr,
+         1,
+         n,
+         n,
+         d,
+         stage_rows,
+         stages,
+         cluster,
+         max_parts,
+         true,
+         static_cast<float*>(part_grad),
+         static_cast<double*>(part_loss),
+         static_cast<double*>(part_cnt),
+         static_cast<float*>(grad),
+         static_cast<float*>(loss),
+         static_cast<float*>(cnt),
+         static_cast<cudaStream_t>(stream)};
+  return dispatch(family, dtype, a);
 }
 
 const char* tsgd_window_error_string(int code) {

@@ -2,23 +2,31 @@
 
 The JAX package's three Pallas kernels compute ``(grad_sum, loss_sum,
 count)`` of a mini-batch in one pass over X.  Here two hand-written CUDA
-kernels (sm_90a) serve the three wrappers:
+sources (sm_90a) serve the three wrappers:
 
   * :func:`fused_gradient_sums` (Pallas ``_masked_kernel``) sums rows
-    ``[0, n)`` with an optional Bernoulli mask, in ``csrc/fused_sums.cu``;
+    ``[0, n)`` with an optional Bernoulli mask;
   * :func:`fused_window_sums` (``_window_kernel``) and
     :func:`fused_window_sums_vpu` (``_window_kernel_vpu``) sum
     ``num_tiles * tile_m`` rows from row ``start_tile * tile_m``, read in
     place from the full X.  The start stays a device tensor: the kernel
     reads it through a pointer and clamps it on the device.
 
-A window goes by shape to one of two kernels: ``csrc/window_sums.cu``
-(bulk copies into a shared-memory ring, a cluster reduction) when
+The shape rule.  A CUDA call goes to ``csrc/window_sums.cu`` (bulk copies
+into a shared-memory ring, a cluster reduction) when
 :func:`window_stage_plan` gives X's width a plan and X's base address is
-16-byte aligned, else the window route of ``csrc/fused_sums.cu``.  On the
-TPU the two window kernels differed in how they used the matrix unit; on
-Hopper both are one dot product and one FMA per element, so they launch
-the same kernel and keep separate launch counts.
+16-byte aligned (:func:`window_plan_for`): a window to its ``window_main``,
+an unmasked ``fused_gradient_sums`` to the same entry as a window of ``n``
+rows at start 0, a masked one to its ``gather_main``, which deals the live
+rows into the ring (:func:`gradient_sums_route`).  Every other call goes
+to ``csrc/fused_sums.cu``: rows that are not whole 16-byte units (d =
+1001 bf16, say), widths above ``WINDOW_MAX_D`` up to the
+:func:`_check_tile_smem` limit, rings that do not fit, misaligned bases.
+Wider rows raise.  On the TPU the two window kernels differed in how they
+used the matrix unit; on Hopper both are one dot product and one FMA per
+element, so they launch the same kernel and keep separate launch counts.
+The ring's split of rows among its blocks has a mirror here
+(:func:`ring_grid`).
 
 Sparse features have a kernel of their own, ``csrc/csr_products.cu``:
 :func:`csr_margins` and :func:`csr_grad_sum` compute a CSR matrix times a
@@ -36,8 +44,9 @@ arithmetic: ``margins_of`` -> pointwise -> ``grad_sum_of``) when X lies on
 the CPU, and launches a kernel when X lies on a CUDA device.  There is no
 fallback from one to the other: a CUDA input that neither kernel takes
 raises.  Each wrapper counts its launches in a plain int attribute
-``launches``, and :func:`kernel_launch_counts` counts them by CUDA source;
-:func:`reset_launch_counts` sets all of them to 0.  Under CUDA graph
+``launches``, :func:`kernel_launch_counts` counts them by CUDA source and
+:func:`gradient_route_counts` counts :func:`fused_gradient_sums`'s by
+route; :func:`reset_launch_counts` sets all of them to 0.  Under CUDA graph
 capture a wrapper runs on the host once and launches nothing:
 :func:`captured_launches` takes what a capture counted back out and keeps
 it, and :func:`add_replayed_launches` adds it on each replay, so the
@@ -188,12 +197,25 @@ def window_stage_plan(d: int, itemsize: int) -> Optional[StagePlan]:
     return None
 
 
+def ring_grid(rows: int, plan: StagePlan, sms: int,
+              max_clusters: Optional[int] = None) -> int:
+    """Blocks of ``csrc/window_sums.cu``'s persistent grid over ``rows``
+    rows, the same for both of its entries: as many clusters as fit on the
+    card at once (``max_clusters``; the plan sizes the ring so that ``sms
+    * blocks_per_sm / cluster`` fit), at most one a scratch row (the
+    wrapper allocates that many), and no more than the rows' tiles need."""
+    parts = max(1, sms * plan.blocks_per_sm // plan.cluster)
+    clusters = parts if max_clusters is None else min(max_clusters, parts)
+    tiles = -(-rows // plan.stage_rows)
+    return max(1, min(clusters, -(-tiles // plan.cluster))) * plan.cluster
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_sums")
     fn = lib.tsgd_fused_sums
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, i, i, p, p, p, p, p, ll, ll, ll, i, i, i,
+        fn.argtypes = [i, i, i, i, p, p, p, p, p, ll, ll, ll, i, i, i,
                        p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.tsgd_error_string.argtypes = [ctypes.c_int]
@@ -202,13 +224,20 @@ def _library() -> ctypes.CDLL:
 
 
 def _window_library() -> ctypes.CDLL:
-    lib = _build.load("window_sums")
+    return _bind_window(_build.load("window_sums"))
+
+
+def _bind_window(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``window_sums.cu`` (once)."""
     fn = lib.tsgd_window_sums
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [i, i, i, p, p, p, p, p, ll, ll, ll, i, i, i, i, i,
                        p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
+        lib.tsgd_gather_sums.argtypes = [i, i, i, p, p, p, p, ll, i, i, i,
+                                         i, i, p, p, p, p, p, p, p]
+        lib.tsgd_gather_sums.restype = ctypes.c_int
         lib.tsgd_window_error_string.argtypes = [ctypes.c_int]
         lib.tsgd_window_error_string.restype = ctypes.c_char_p
     return lib
@@ -286,7 +315,7 @@ def _launch(pointwise, X, y, w, mask, start, start_scale, rows):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tsgd_fused_sums(
-            family, _DTYPES[X.dtype], vec, X.data_ptr(), y.data_ptr(),
+            family, _DTYPES[X.dtype], index, vec, X.data_ptr(), y.data_ptr(),
             w.data_ptr(), None if mask is None else mask.data_ptr(),
             None if start is None else start.data_ptr(), start_scale,
             n, rows, d, int(_w_in_smem(d)), blocks,
@@ -328,10 +357,13 @@ def _window_scratch(index: int, d: int, parts: int, stream: int):
 
 
 def _launch_window(pointwise, X, y, w, valid, start, start_scale, rows,
-                   plan: StagePlan):
-    """``csrc/window_sums.cu`` on the current stream: rows ``[s, s +
-    rows)`` from ``s = clamp(start * start_scale)``; returns device tensors
-    ``(grad (d,), loss (), count ())``.  Does not synchronise."""
+                   plan: StagePlan, gather: bool = False):
+    """``csrc/window_sums.cu`` on the current stream; returns device tensors
+    ``(grad (d,), loss (), count ())``.  Does not synchronise.  The window
+    entry sums rows ``[s, s + rows)`` from ``s = clamp(start *
+    start_scale)`` (``start`` None: 0) where ``valid`` is not 0; with
+    ``gather`` the gather entry sums the rows of ``[0, n)`` that the mask
+    ``valid`` keeps."""
     family = _family_of(pointwise)
     y, w, valid = _operands(X, y, w, valid)
     n, d = X.shape
@@ -344,18 +376,27 @@ def _launch_window(pointwise, X, y, w, valid, start, start_scale, rows,
     grad, loss, cnt = out[:d], out[d], out[d + 1]
     stream = torch.cuda.current_stream(dev).cuda_stream
     part_grad, part_loss, part_cnt = _window_scratch(index, d, parts, stream)
-    args = (family, _DTYPES[X.dtype], index, X.data_ptr(), y.data_ptr(),
-            w.data_ptr(), None if valid is None else valid.data_ptr(),
-            start.data_ptr(), start_scale, n, rows, d, plan.stage_rows,
-            plan.stages, plan.cluster, parts, part_grad.data_ptr(),
-            part_loss.data_ptr(), part_cnt.data_ptr(), out.data_ptr(),
-            out.data_ptr() + 4 * d, out.data_ptr() + 4 * d + 4, stream)
+    sums = (part_grad.data_ptr(), part_loss.data_ptr(), part_cnt.data_ptr(),
+            out.data_ptr(), out.data_ptr() + 4 * d,
+            out.data_ptr() + 4 * d + 4, stream)
+    if gather:
+        fn = lib.tsgd_gather_sums
+        args = (family, _DTYPES[X.dtype], index, X.data_ptr(), y.data_ptr(),
+                w.data_ptr(), valid.data_ptr(), n, d, plan.stage_rows,
+                plan.stages, plan.cluster, parts, *sums)
+    else:
+        fn = lib.tsgd_window_sums
+        args = (family, _DTYPES[X.dtype], index, X.data_ptr(), y.data_ptr(),
+                w.data_ptr(), None if valid is None else valid.data_ptr(),
+                None if start is None else start.data_ptr(), start_scale, n,
+                rows, d, plan.stage_rows, plan.stages, plan.cluster, parts,
+                *sums)
     # the kernels launch on the current device: make it X's
     if torch.cuda.current_device() == index:
-        rc = lib.tsgd_window_sums(*args)
+        rc = fn(*args)
     else:
         with torch.cuda.device(dev):
-            rc = lib.tsgd_window_sums(*args)
+            rc = fn(*args)
     if rc != 0:
         raise RuntimeError(
             "window_sums kernel launch failed: "
@@ -442,15 +483,35 @@ def fused_gradient_sums(
 
     ``pointwise`` is a built-in ``Gradient``'s bound ``pointwise``;
     ``mask`` (bool, ``(n,)``) drops rows, and the kernel never reads a
-    dropped row.  The JAX function's ``tile_m`` and ``interpret`` have no
-    counterpart: the kernel's row tile is fixed, rows need no padding, and
-    there is no interpret mode (CPU tensors take the plain version).
+    dropped row.  On the card the call goes by the module's shape rule
+    (:func:`gradient_sums_route`).  The JAX function's ``tile_m`` and
+    ``interpret`` have no counterpart: the kernels' row tiles are fixed,
+    rows need no padding, and there is no interpret mode (CPU tensors take
+    the plain version).
     """
     if not X.is_cuda:
         return fused_gradient_sums_plain(pointwise, X, y, w, mask)
-    out = _launch(pointwise, X, y, w, mask, None, 1, X.shape[0])
+    route = gradient_sums_route(X, mask is not None)
+    n = X.shape[0]
+    if route == "fused_sums":
+        out = _launch(pointwise, X, y, w, mask, None, 1, n)
+    else:
+        out = _launch_window(pointwise, X, y, w, mask, None, 1, n,
+                             window_plan_for(X), gather=route == "gather")
     fused_gradient_sums.launches += 1
+    GRADIENT_ROUTE_LAUNCHES[route] += 1
     return out
+
+
+def gradient_sums_route(X: Tensor, masked: bool) -> str:
+    """The kernel a CUDA call of :func:`fused_gradient_sums` on X
+    launches: ``"gather"`` (``window_sums.cu``'s gather entry) for a mask
+    and ``"window"`` (its window entry over rows ``[0, n)``) without one,
+    when X's width has a ring plan and its base is 16-byte aligned; else
+    ``"fused_sums"`` (``csrc/fused_sums.cu``).  Shapes alone decide."""
+    if window_plan_for(X) is None:
+        return "fused_sums"
+    return "gather" if masked else "window"
 
 
 def _window(counter, pointwise, X, y, w, start_tile, num_tiles, tile_m,
@@ -908,6 +969,8 @@ WRAPPERS = (fused_gradient_sums, fused_window_sums, fused_window_sums_vpu)
 CSR_WRAPPERS = (csr_margins, csr_grad_sum)
 #: launches by CUDA source (csrc/<name>.cu), counted where each launches
 KERNEL_LAUNCHES = {"fused_sums": 0, "window_sums": 0}
+#: fused_gradient_sums's launches by route (gradient_sums_route)
+GRADIENT_ROUTE_LAUNCHES = {"gather": 0, "window": 0, "fused_sums": 0}
 #: the CSR wrappers' launches by right-hand column count T, keyed
 #: ``"<wrapper>/<T>"`` (OWL-QN's line-search sweep is ``"csr_margins/30"``)
 CSR_COLUMN_LAUNCHES = {}
@@ -916,8 +979,9 @@ CSR_COLUMN_LAUNCHES = {}
 def reset_launch_counts() -> None:
     for fn in WRAPPERS + CSR_WRAPPERS:
         fn.launches = 0
-    for name in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[name] = 0
+    for counts in (KERNEL_LAUNCHES, GRADIENT_ROUTE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
     CSR_COLUMN_LAUNCHES.clear()
 
 
@@ -940,18 +1004,26 @@ def kernel_launch_counts() -> dict:
     return dict(KERNEL_LAUNCHES)
 
 
+def gradient_route_counts() -> dict:
+    """:func:`fused_gradient_sums`'s launches since the last reset, by the
+    route each took: the gather or window entry of ``window_sums.cu``, or
+    ``fused_sums.cu``."""
+    return dict(GRADIENT_ROUTE_LAUNCHES)
+
+
 @contextlib.contextmanager
 def captured_launches():
     """Bracket a CUDA graph capture: the wrappers run and count as they
     would launch, but a capture launches nothing.  Yields a dict that,
     on exit, holds the launches the graph recorded (``{"wrappers": {...},
-    "sources": {...}, "csr_columns": {...}}``), and takes them back out
-    of the counts; each replay adds them again
+    "sources": {...}, "routes": {...}, "csr_columns": {...}}``), and takes
+    them back out of the counts; each replay adds them again
     (:func:`add_replayed_launches`).  So a count stays one per kernel the
     card runs."""
     def counts():
         return ({fn.__name__: fn.launches for fn in WRAPPERS + CSR_WRAPPERS},
-                kernel_launch_counts(), dict(CSR_COLUMN_LAUNCHES))
+                kernel_launch_counts(), dict(CSR_COLUMN_LAUNCHES),
+                gradient_route_counts())
 
     before = counts()
     record = {}
@@ -963,23 +1035,27 @@ def captured_launches():
                               for k in after[0]}
         record["sources"] = {k: after[1][k] - before[1][k]
                              for k in after[1]}
+        record["routes"] = {k: after[3][k] - before[3][k] for k in after[3]}
         record["csr_columns"] = {k: n - before[2].get(k, 0)
                                  for k, n in after[2].items()
                                  if n != before[2].get(k, 0)}
         for fn in WRAPPERS + CSR_WRAPPERS:
             fn.launches = before[0][fn.__name__]
         KERNEL_LAUNCHES.update(before[1])
+        GRADIENT_ROUTE_LAUNCHES.update(before[3])
         CSR_COLUMN_LAUNCHES.clear()
         CSR_COLUMN_LAUNCHES.update(before[2])
 
 
 def add_replayed_launches(record: dict) -> None:
     """One replay of a graph whose capture recorded ``record``: the
-    kernels it launches, counted by wrapper and by source."""
+    kernels it launches, counted by wrapper, by source and by route."""
     for fn in WRAPPERS + CSR_WRAPPERS:
         fn.launches += record["wrappers"][fn.__name__]
     for name, n in record["sources"].items():
         KERNEL_LAUNCHES[name] += n
+    for name, n in record["routes"].items():
+        GRADIENT_ROUTE_LAUNCHES[name] += n
     for key, n in record["csr_columns"].items():
         CSR_COLUMN_LAUNCHES[key] = CSR_COLUMN_LAUNCHES.get(key, 0) + n
 
