@@ -177,11 +177,44 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    over the same world, hinge + L1 at 1.0 (history rtol 2e-4 against one
    device) and 0.1, peak memory per rank; the kernels timed at a rank's
    shapes.
-13. summary — the sparse line, the quasi_newton line, the gram line, the
-   streamed line, the streamed_qn line, the mesh line, the observed line,
-   the kernel table (B1-B3, B1 at the streamed chunk shape and its tail,
-   the CSR kernel, and B1, B2 and the CSR kernel at a mesh rank's
-   shapes), then
+13. serve — the serving plane (``tpu_sgd_torch.serve``, ``.tenant``),
+   after phase 12: through ``Server``, 20,000 single-row requests a model
+   from 8 client threads (4,000 closed loop, one in flight a client: p50
+   / p99 latency; the rest open loop: rows/s at saturation) for config
+   4's width (1,000; served from a ``ModelRegistry`` whose checkpoint
+   directory gets 4 new versions mid-traffic), config 2's (a9a, 123,
+   logistic scores), multinomial at MNIST8M's shape (784 x 10 classes)
+   and config 3's RCV1 width (47,236, sparse rows of 75 entries, SVM
+   margins).  Every dense batch bitwise ``model.predict`` on the same
+   rows (the batch's own registry version), every answer its batch's, no
+   padded-shape key after warm-up; sparse answers within 1e-6 relative of
+   ``model.predict`` on all rows, each batch re-scored bitwise, one CSR
+   kernel launch a batch (counts set to 0 before, read after).  Then each
+   bucket's product alone (graph replays) against its bytes bound, and a
+   batch of 8 and of 512 rows: wall, H2D and D2H ms, device ms, kernels
+   and copies, the host's share.  Then 10,000 tenants' checkpoints
+   written, a 1,024-row slab at width 1,000, Zipf(1.1) traffic through
+   ``TenantServer`` (the same split) while 8 hot tenants are republished
+   6 times: uniform batches bitwise the single-model engine on one
+   version, mixed rows within 1e-5 of one version, one version a tenant
+   a batch, admissions from disk and evictions counted.  The CSR kernel
+   at 1, 8, 32, 128 and 512 RCV1 rows against its plain twin and
+   cuSPARSE joins the kernel table.
+   Each served dense batch is also held to a float64 numpy score of its
+   model (within 1e-5 of ``|x|.|w| + |b|`` a row; MNIST8M's classes on
+   every row whose top two logits lie 1e-3 apart).
+14. corr — ``stat.corr`` of a CSR matrix (100,000 x 4,096, 75 entries a
+   row, made from a seed): its Gram by column blocks through the CSR
+   kernel (``csr_grad_sum``, one launch a block of 1,024 columns and one
+   for the column means, counted), two calls bitwise equal, against a float64 correlation of
+   the dense copy on the card; the kernel at a block's shape joins the
+   kernel table.
+15. summary — the sparse line, the quasi_newton line, the gram line, the
+   streamed line, the streamed_qn line, the mesh line, the serve line,
+   the corr line, the observed line, the kernel table (B1-B3, B1 at the
+   streamed chunk shape and its tail, the CSR kernel, B1, B2 and the CSR
+   kernel at a mesh rank's shapes, the CSR kernel at the serving shapes
+   and at a correlation block), then
    the card's name and power limit, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -4496,6 +4529,782 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile):
     return {"world1": world1, **out}, kernel_rows
 
 
+# -- phase serve ---------------------------------------------------------------
+
+SERVE_REQUESTS = 20_000     # single-row requests per model, in all
+SERVE_CLIENTS = 8           # client threads
+SERVE_CLOSED_LOOP = 4_000   # of them closed loop (the latency run)
+SERVE_SINGLE = 16           # of those, sent by one client first
+SERVE_RELOADS = 4           # registry versions published mid-traffic
+TENANTS, SLAB_ROWS, ZIPF_S = 10_000, 1_024, 1.1
+TENANT_HOT = 8              # hot tenants republished mid-traffic
+TENANT_UNIFORM = 400        # closed-loop requests that all ask tenant 0
+SERVE_BUCKETS = (1, 8, 32, 128, 512)
+A9A_D, MNIST_K = 123, 10
+SERVE_SEED = 31
+#: the phase's size on the card; a CPU rehearsal passes smaller ones
+SERVE_SIZE = {"device": "cuda", "requests": SERVE_REQUESTS,
+              "closed": SERVE_CLOSED_LOOP, "tenants": TENANTS,
+              "slab": SLAB_ROWS}
+
+
+def _serve_rows(kind, n, d, rng):
+    """``n`` request rows of a served model from ``rng``: config 4's
+    Gaussian features, config 2's binary a9a-like rows (about 11% ones),
+    MNIST8M-like pixels in [0, 1), or RCV1-like sparse rows
+    (``SparseVector``s of ``RCV1_NNZ`` unit-norm positive entries)."""
+    if kind == "rcv1":
+        from tpu_sgd_torch.linalg import SparseVector
+
+        rows = []
+        for _ in range(n):
+            idx = np.sort(rng.choice(d, RCV1_NNZ, replace=False))
+            v = np.abs(rng.normal(size=RCV1_NNZ)).astype(np.float32)
+            rows.append(SparseVector(d, idx, v / np.linalg.norm(v)))
+        return rows
+    if kind == "a9a":
+        return (rng.random((n, d)) < 0.113).astype(np.float32)
+    if kind == "mnist":
+        return rng.random((n, d), dtype=np.float32)
+    return rng.normal(size=(n, d)).astype(np.float32)
+
+
+def _log_batches(engine):
+    """Wrap ``engine.predict_batch`` to keep every batch it scores: its
+    arguments and a copy of its answers (the batch is the unit of the
+    bitwise contract: the same rows through ``model.predict``)."""
+    log = []
+    real = engine.predict_batch
+
+    def logged(*args):
+        out = real(*args)
+        log.append(args + (out.copy(),))
+        return out
+
+    engine.predict_batch = logged
+    return log
+
+
+def _drive(submit, n, clients, closed):
+    """Drive requests ``0 .. n-1`` through ``submit(i)`` from ``clients``
+    threads, request i on thread ``i % clients``.  Closed loop: each
+    thread waits for an answer before its next request (the latency
+    run; one request in flight a client).  Open loop: each thread
+    submits all of its requests, then collects them (saturation).
+    Returns the answers, each request's latency (closed loop; submit to
+    answer) and the wall seconds."""
+    import threading
+
+    answers = [None] * n
+    lat = np.zeros(n)
+    errors = []
+
+    def run(k):
+        try:
+            if closed:
+                for i in range(k, n, clients):
+                    t = time.perf_counter()
+                    answers[i] = submit(i).result(timeout=300)
+                    lat[i] = time.perf_counter() - t
+            else:
+                futs = [(i, submit(i)) for i in range(k, n, clients)]
+                for i, f in futs:
+                    answers[i] = f.result(timeout=300)
+        except BaseException as e:  # reported on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(k,), name=f"client{k}")
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a client thread hung")
+    if errors:
+        raise errors[0]
+    return np.asarray(answers, np.float32), lat, wall
+
+
+def _legs(n_closed, n_all):
+    """A served model's legs, as ``(leg, clients, first, end)`` request
+    ranges: ``SERVE_SINGLE`` requests from one client (a lone request a
+    batch: bucket 1), the closed loop over ``SERVE_CLIENTS`` clients
+    (latency), the rest open loop (saturation)."""
+    return (("single", 1, 0, SERVE_SINGLE),
+            ("latency", SERVE_CLIENTS, SERVE_SINGLE, n_closed),
+            ("saturation", SERVE_CLIENTS, n_closed, n_all))
+
+
+def _leg_report(leg, lat, wall, n, clients, batches):
+    """A closed-loop leg's p50 / p99 / max latency (submit to answer) and
+    its offered load; the open-loop leg's rows/s."""
+    if leg == "saturation":
+        return {"rows_per_s": n / wall, "rows": n, "batches": len(batches),
+                "mean_batch_rows": n / len(batches),
+                "offered": f"open loop: {clients} clients submit every "
+                           "request, then wait for the answers"}
+    return {**_latency(lat),
+            "offered": f"closed loop: {clients} client(s), one request in "
+                       "flight each",
+            "achieved_requests_per_s": n / wall, "batches": len(batches)}
+
+
+def _latency(lat) -> dict:
+    """p50 / p99 / max of request latencies given in seconds, in ms."""
+    lat = np.sort(lat)
+    n = len(lat)
+    return {"p50_ms": 1e3 * float(lat[int(0.50 * (n - 1))]),
+            "p99_ms": 1e3 * float(lat[int(0.99 * (n - 1))]),
+            "max_ms": 1e3 * float(lat[-1]), "requests": n}
+
+
+def _answers_equal_batches(rows, answers, log, key=lambda r: r.tobytes()):
+    """Every answer is its batch's answer for its row, bit for bit (a row
+    is found by its bytes; the request rows are distinct)."""
+    by_row = {}
+    for entry in log:
+        X, out = entry[-2], entry[-1]
+        for j in range(X.shape[0]):
+            by_row[key(X[j])] = out[j]
+    got = np.asarray([by_row[key(r)] for r in rows], np.float32)
+    return bool(np.array_equal(got.view(np.int32), answers.view(np.int32)))
+
+
+def _same_bits(a, b) -> bool:
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return a.shape == b.shape and bool(
+        np.array_equal(a.view(np.int32), b.view(np.int32)))
+
+
+def _float64_check(name, kind, log) -> dict:
+    """Every served dense batch against a float64 numpy score of its own
+    model on the same rows, an independent reference: ``X @ w + b`` (the
+    sigmoid for the logistic family) within 1e-5 of the row's
+    ``|x|.|w| + |b|`` (the scale of a float32 dot's rounding), and the
+    multinomial classes (pivot rule over ``[x, 1] @ Wᵀ``) equal on every
+    row whose top two logits lie more than 1e-3 apart."""
+    weights = {}
+    worst, rows, decided = 0.0, 0, 0
+    for m, X, o in log:
+        if id(m) not in weights:
+            weights[id(m)] = m.weights.detach().cpu().numpy().astype(
+                np.float64)
+        w = weights[id(m)]
+        X64 = np.asarray(X, np.float64)
+        rows += X64.shape[0]
+        if kind == "mnist":
+            X64 = np.hstack([X64, np.ones((X64.shape[0], 1))])
+            logits = np.hstack([np.zeros((X64.shape[0], 1)),
+                                X64 @ w.reshape(m.num_classes - 1, -1).T])
+            top2 = np.sort(logits, axis=1)[:, -2:]
+            clear = top2[:, 1] - top2[:, 0] > 1e-3
+            bad = int(np.sum(np.argmax(logits, 1)[clear] != o[clear]))
+            check(not bad, f"{name}: {bad} classes differ from float64")
+            decided += int(clear.sum())
+            continue
+        ref = X64 @ w + m.intercept
+        if m._activation == "sigmoid":
+            ref = 1.0 / (1.0 + np.exp(-ref))
+        err = np.abs(o - ref) / (np.abs(X64) @ np.abs(w) + abs(m.intercept))
+        worst = max(worst, float(err.max()))
+    if kind == "mnist":
+        check(decided > 0.9 * rows, f"{name}: {decided} of {rows} rows "
+              "clear of a tie")
+        return {"rows": rows, "rows_decided": decided,
+                "tolerance": "classes equal where the top two logits lie "
+                             "more than 1e-3 apart"}
+    check(worst <= 1e-5, f"{name}: {worst} of |x|.|w| + |b| from float64")
+    return {"rows": rows, "max_err": worst,
+            "tolerance": "1e-5 of |x|.|w| + |b| a row"}
+
+
+def _dense_compute(torch, model, kind, rows, device) -> dict:
+    """The device part of a dense batch of ``rows`` padded rows: the ops of
+    ``ops/bucketed.py`` on rows already on the card (the multinomial
+    model's rows with their bias column), with the f32 elements it moves
+    and its multiply-adds."""
+    if kind == "mnist":
+        w = model.weights.reshape(model.num_classes - 1, -1).T
+    else:
+        w = model.weights
+    from tpu_sgd_torch.ops.gradients import pivot_class_traced
+
+    X = torch.randn(rows, w.shape[0], device=device)
+
+    def fn():
+        r = X.to(torch.float32) @ w + float(model.intercept)
+        if kind == "mnist":  # the pivot rule on the card: one class a row
+            return pivot_class_traced(r)
+        return torch.sigmoid(r) if model._activation == "sigmoid" else r
+
+    return {"fn": fn, "X": X, "elems": X.numel() + w.numel() + rows,
+            "macs": rows * w.numel()}
+
+
+def _bucket_rows(torch, ck, fn, elems, macs, **_):
+    """One bucket's device part alone: its time from a CUDA graph's
+    replays against its bound (``elems`` f32 elements moved, ``macs``
+    multiply-adds), and its kernels (the nodes of a graph that captured
+    one call)."""
+    t_bytes = 1e3 * 4 * elems / HBM_BYTES_PER_S
+    t_ops = 1e3 * 2.0 * macs / F32_FLOPS
+    ms = graph_ms(torch, fn)
+    _, nodes = captured_call(torch, ck, fn)
+    return {"device_ms": ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share_of_bound": max(t_bytes, t_ops) / ms,
+            "kernels": nodes.get("kernel", 0)}
+
+
+def _event_ms(torch, fn, reps=30) -> float:
+    """Device-timeline ms of one ``fn`` call (a copy from or to pageable
+    host memory), by CUDA events around each call."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def _anatomy(torch, ck, call, copies_in, n_in, copy_out, compute,
+             reps=30):
+    """A batch through its engine: the wall of ``call`` by the host clock
+    (each call ends in its copy back), its copies in (``n_in`` arrays)
+    and out and its device part (``compute``, graph replays) on the
+    device timeline, the host's share of the wall, its kernels (a
+    capture of ``compute``) and copies."""
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        call()
+    wall = 1e3 * (time.perf_counter() - t) / reps
+    h2d = sum(_event_ms(torch, c, reps) for c in copies_in)
+    d2h = _event_ms(torch, copy_out, reps)
+    dev = graph_ms(torch, compute)
+    _, nodes = captured_call(torch, ck, compute)
+    return {"wall_ms": wall, "h2d_ms": h2d, "d2h_ms": d2h,
+            "compute_ms": dev, "device_ms": h2d + dev + d2h,
+            "host_share": max(0.0, 1 - (h2d + dev + d2h) / wall),
+            "kernels_per_batch": nodes.get("kernel", 0),
+            "copies_per_batch": n_in + 1}
+
+
+def _dense_batches(torch, ck, engine, model, kind, d, rng):
+    """Each bucket's device part alone, and a batch of 8 and of 512 rows
+    through the engine (:func:`_anatomy`)."""
+    from tpu_sgd_torch.serve import stack_rows
+
+    dev = engine.device
+    computes = {n: _dense_compute(torch, model, kind, n, dev)
+                for n in SERVE_BUCKETS}
+    buckets = {str(n): _bucket_rows(torch, ck, **c)
+               for n, c in computes.items()}
+    batch = {}
+    for n in (8, 512):
+        X = stack_rows(list(_serve_rows(kind, n, d, rng)))
+        c = computes[n]
+        Xp = torch.zeros(tuple(c["X"].shape))
+        res = torch.zeros(tuple(c["fn"]().shape), device=dev)
+        batch[str(n)] = {"rows": n, **_anatomy(
+            torch, ck, lambda: engine.predict_batch(model, X),
+            [lambda: Xp.to(dev)], 1, lambda: res.cpu(), c["fn"])}
+    return buckets, batch
+
+
+def _sparse_batch(torch, ck, engine, model, d, n, rng):
+    """A sparse batch of ``n`` RCV1-width rows through the engine, as
+    :func:`_anatomy` reads it (its CSR's three arrays copied in)."""
+    from tpu_sgd_torch.serve import stack_rows
+
+    dev = engine.device
+    X = stack_rows(_serve_rows("rcv1", n, d, rng))
+    Xd = X.to(dev)
+    res = torch.zeros(n, device=dev)
+    return {"rows": n, "nnz": int(X._nnz()), **_anatomy(
+        torch, ck, lambda: engine.predict_batch(model, X),
+        [lambda: X.to(dev)], 3, lambda: res.cpu(),
+        lambda: ck.csr_margins(Xd, model.weights) + float(model.intercept))}
+
+
+def serve_csr_rows(torch, ck, d, log, rng):
+    """The CSR kernel (``csr_margins``) at the serving shapes: batches of
+    1, 8, 32, 128 and 512 RCV1-width rows of ``RCV1_NNZ`` entries, each
+    against its plain twin and cuSPARSE (torch's CSR product, the library
+    call) with its bound (of w, only the 32-byte sectors the batch's
+    columns touch); ``launches`` are the served sparse run's batches of
+    that bucket's row range (one launch each; sparse batches are not
+    padded, so a 5-row batch counts under the 8-row shape)."""
+    from tpu_sgd_torch.ops.bucketed import bucket_for
+    from tpu_sgd_torch.serve import stack_rows
+
+    w = torch.from_numpy(rng.normal(size=d).astype(np.float32)).cuda()
+    served = {}
+    for _, X, _ in log:
+        b = bucket_for(X.shape[0])
+        served[b] = served.get(b, 0) + 1
+    check(sum(served.get(n, 0) for n in SERVE_BUCKETS) == len(log),
+          f"serve csr: served batches by bucket {served}")
+    rows, lo = [], 1
+    for n in SERVE_BUCKETS:
+        X = stack_rows(_serve_rows("rcv1", n, d, rng)).cuda()
+        got, ref = ck.csr_margins(X, w), ck.csr_matmul_plain(X, w)
+        again = ck.csr_margins(X, w)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(bool(torch.equal(got, again)), f"serve csr ({n}) not bitwise")
+        check(err <= 1e-4 * scale + 1e-6,
+              f"serve csr ({n}): max |d| {err} of {scale}")
+        replay, per_call = captured_call(torch, ck,
+                                         lambda: ck.csr_margins(X, w))
+        check(1 <= sum(per_call.values()) <= 2,
+              f"serve csr ({n}): {per_call} CUDA launches a call")
+        check(bool(torch.equal(replay, got)), f"serve csr ({n}): replay")
+        nnz = X._nnz()
+        idx = X.col_indices().element_size()
+        # w is read only where the batch's columns fall: its distinct
+        # 32-byte sectors (8 floats), at most all of w
+        w_bytes = min(4 * d, 32 * int(torch.unique(
+            X.col_indices() // 8).numel()))
+        bytes_ = nnz * (4 + idx) + (n + 1) * idx + 4 * n + w_bytes
+        t_bytes = 1e3 * bytes_ / HBM_BYTES_PER_S
+        t_ops = 1e3 * 2.0 * nnz / F32_FLOPS
+        bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+        ms = time_ms(torch, lambda: ck.csr_margins(X, w), 50)
+        with ck.captured_launches():
+            kern_graph = graph_ms(torch, lambda: ck.csr_margins(X, w))
+        rows.append({
+            "name": "csr_margins", "path": f"serve ({n} rows)",
+            "source": CSR_SOURCE, "shape": [n, d], "columns": 1,
+            "nnz": nnz, "max_abs_err": err, "grad_scale": scale, "ms": ms,
+            "plain_ms": time_ms(torch, lambda: ck.csr_matmul_plain(X, w),
+                                50),
+            "library_ms": time_ms(torch, lambda: X @ w, 50),
+            "graph_ms": kern_graph,
+            "library_graph_ms": graph_ms(torch, lambda: X @ w),
+            "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / ms,
+            "w_bytes": w_bytes, "cuda_launches_per_call": per_call,
+            "launches": served.get(n, 0),
+            "launches_from": "phase serve, RCV1-width sparse batches of "
+                             f"{lo}-{n} rows (not padded; this row times "
+                             f"{n} rows)"})
+        lo = n + 1
+    return rows
+
+
+def _serve_model(torch, ck, name, model, kind, d, rng, size, *,
+                 registry=None, publish=None):
+    """One model through ``Server``: ``size["closed"]`` requests closed loop
+    over ``SERVE_CLIENTS`` threads (latency; ``publish``, when given, runs
+    beside it: the registry's new versions mid-traffic), then the rest of
+    ``size["requests"]`` open loop (saturation).  Checks every dense batch
+    bitwise against ``model.predict`` on the same rows (the batch's own
+    model, for a registry) and every answer against its batch; sparse
+    answers against ``model.predict`` on all rows within 1e-6 relative,
+    every sparse batch re-scored bitwise, and one CSR kernel launch a
+    sparse batch."""
+    import threading
+
+    from tpu_sgd_torch.ops import bucketed
+    from tpu_sgd_torch.serve import Server, stack_rows
+
+    n_all, n_closed, dev = size["requests"], size["closed"], size["device"]
+    rows = _serve_rows(kind, n_all, d, rng)
+    sparse = kind == "rcv1"
+    out = {"width": d}
+    ck.reset_launch_counts()
+    shapes0 = bucketed.program_cache_size()
+    answers, log = [], []
+    for leg, clients, lo, hi in _legs(n_closed, n_all):
+        server = (Server(registry=registry, reload_interval_s=0.0,
+                         max_queue=n_all, device=dev)
+                  if registry is not None else
+                  Server(model, max_queue=n_all, device=dev))
+        batches = _log_batches(server.engine)
+        pub = (threading.Thread(target=publish, name="publisher")
+               if leg == "latency" and publish is not None else None)
+        with server:
+            if pub is not None:
+                pub.start()
+            got, lat, wall = _drive(lambda i: server.submit(rows[lo + i]),
+                                    hi - lo, clients, leg != "saturation")
+            if pub is not None:
+                pub.join(timeout=300)
+                check(not pub.is_alive(), "the publisher hung")
+        out[leg] = _leg_report(leg, lat, wall, hi - lo, clients, batches)
+        answers.append(got)
+        log += batches
+    answers = np.concatenate(answers)
+    check(bool(np.isfinite(answers).all()), f"{name}: non-finite answers")
+    if sparse:
+        if dev != "cpu":
+            launches = ck.csr_launch_counts()["csr_margins"]
+            check(launches == len(log),
+                  f"{name}: {launches} CSR launches for {len(log)} batches")
+            check(sum(ck.launch_counts().values()) == 0,
+                  f"{name}: a dense kernel ran")
+            out["csr_launches"] = launches
+        X_all = stack_rows(rows).to(dev)
+        ref = model.predict(X_all).cpu().numpy()
+        rel = float(np.max(np.abs(answers - ref)) / np.max(np.abs(ref)))
+        check(rel <= 1e-6, f"{name}: answers vs predict, relative {rel}")
+        check(_same_bits(model.predict(X_all).cpu().numpy(), ref),
+              f"{name}: predict does not repeat")
+        check(all(_same_bits(server.engine.predict_batch(m, X), o)
+                  for m, X, o in log),
+              f"{name}: a re-scored sparse batch differs")
+        out["max_rel_vs_predict"] = rel
+        out["batches_repeat_bitwise"] = len(log)
+    else:
+        bad = sum(not _same_bits(m.predict(X).cpu().numpy(), o)
+                  for m, X, o in log)
+        check(not bad, f"{name}: {bad} of {len(log)} batches differ "
+              "from model.predict on the same rows")
+        check(_answers_equal_batches(rows, answers, log),
+              f"{name}: an answer differs from its batch")
+        out["batches_bitwise_predict"] = len(log)
+        out["vs_float64"] = _float64_check(name, kind, log)
+    out["new_shape_keys"] = bucketed.program_cache_size() - shapes0
+    check(out["new_shape_keys"] == 0,
+          f"{name}: {out['new_shape_keys']} padded shapes after warm-up")
+    if registry is not None:
+        out["versions_served"] = sorted({int(m.intercept)
+                                         for m, _, _ in log})
+        check(len(out["versions_served"]) >= 2,
+              f"{name}: served versions {out['versions_served']}")
+    return out, log
+
+
+def _tenant_leg(torch, tst, ck, rng, tmp, size):
+    """The tenant plane: ``size["tenants"]`` tenants' checkpoints written
+    first, a ``size["slab"]``-row slab at config 4's width, Zipf(``ZIPF_S``)
+    traffic through ``TenantServer`` (closed loop, then open loop) while
+    the hot tenants are republished.  Every uniform batch is bitwise the
+    single-model engine on one version of its tenant, every mixed row
+    within tight tolerance of one version of its tenant, the rows of one
+    tenant in one batch on one version, every answer its batch's."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_sgd_torch.serve import PredictEngine
+    from tpu_sgd_torch.tenant import (TenantModelStore, TenantPredictEngine,
+                                      TenantServer)
+
+    n_all, n_closed, dev = size["requests"], size["closed"], size["device"]
+    n_ten, d = size["tenants"], FULL_D
+    W = rng.normal(size=(n_ten, d)).astype(np.float32)
+    b = rng.normal(size=n_ten).astype(np.float32)
+    store = TenantModelStore(os.path.join(tmp, "tenants"),
+                             capacity=size["slab"], d=d, device=dev)
+    t = time.perf_counter()
+    with ThreadPoolExecutor(16) as pool:
+        list(pool.map(lambda i: store.publish(i, W[i], float(b[i])),
+                      range(n_ten)))
+    out = {"tenants": n_ten, "slab_rows": size["slab"], "width": d,
+           "zipf_s": ZIPF_S, "publish_seconds": time.perf_counter() - t}
+    versions = {i: [(W[i], float(b[i]))] for i in range(n_ten)}
+    p = np.arange(1, n_ten + 1, dtype=np.float64) ** -ZIPF_S
+    tids = rng.choice(n_ten, size=n_all, p=p / p.sum())
+    # the first requests all ask for tenant 0 (hot, republished): their
+    # batches are uniform, the M = 1 case
+    n_uniform = min(TENANT_UNIFORM, n_closed // 2)
+    tids[:n_uniform] = 0
+    X = rng.normal(size=(n_all, d)).astype(np.float32)
+    warm = TenantPredictEngine(store)  # every bucket through both paths
+    for n in SERVE_BUCKETS:
+        warm.predict_batch(np.zeros(n, np.int64), X[:n])
+        warm.predict_batch(np.arange(n) % 2 + 1, X[:n])
+    shapes0 = warm.compile_count
+    ledger0 = store.slab.ledger_snapshot()
+    stop = threading.Event()
+
+    def publisher():
+        # version v: weights (1 + v) W[t], intercept b[t] + 1000 v, so any
+        # two versions' scores of a row lie about 1000 apart
+        for v in range(1, 7):
+            for tid in range(TENANT_HOT):
+                w_new = (W[tid] * (1.0 + v)).astype(np.float32)
+                versions[tid].append((w_new, float(b[tid]) + 1000.0 * v))
+                store.publish(tid, w_new, float(b[tid]) + 1000.0 * v)
+            if stop.wait(0.05):
+                return
+
+    log, answers = [], []
+    for leg, clients, lo, hi in _legs(n_closed, n_all):
+        srv = TenantServer(store, max_batch=SERVE_BUCKETS[-1],
+                           max_queue=n_all)
+        batches = _log_batches(srv.engine)
+        pub = threading.Thread(target=publisher, name="publisher") \
+            if leg == "latency" else None
+        with srv:
+            if pub is not None:
+                pub.start()
+            got, lat, wall = _drive(
+                lambda i: srv.submit(int(tids[lo + i]), X[lo + i]), hi - lo,
+                clients, leg != "saturation")
+            if pub is not None:
+                stop.set()
+                pub.join(timeout=300)
+                check(not pub.is_alive(), "the publisher hung")
+        out[leg] = _leg_report(leg, lat, wall, hi - lo, clients, batches)
+        if leg == "latency":
+            # the forced tenant-0 prefix apart from the Zipf requests
+            cut = max(0, n_uniform - lo)
+            out[leg]["uniform_prefix"] = _latency(lat[:cut])
+            out[leg]["zipf_only"] = _latency(lat[cut:])
+        log += batches
+        answers.append(got)
+    single = PredictEngine(device=dev)
+    uniform = mixed = 0
+    for tb, Xb, ob in log:
+        uniq = np.unique(tb)
+        if len(uniq) == 1:
+            hits = [k for k, (w_, b_) in enumerate(versions[int(uniq[0])])
+                    if _same_bits(single.predict_batch(
+                        tst.LinearRegressionModel(w_, b_, device=dev), Xb),
+                        ob)]
+            check(len(hits) == 1, f"a uniform batch of tenant {uniq[0]} "
+                  f"matches versions {hits}")
+            uniform += 1
+            continue
+        mixed += 1
+        scale = float(np.abs(ob).max())
+        chosen = {}
+        for j, t_ in enumerate(tb):
+            ref = [float(Xb[j].astype(np.float64) @ w_ + b_)
+                   for w_, b_ in versions[int(t_)]]
+            hits = [k for k, r in enumerate(ref)
+                    if abs(r - ob[j]) <= 1e-5 * max(abs(r), scale)]
+            check(len(hits) == 1, f"a mixed row of tenant {t_} matches "
+                  f"versions {hits} ({ob[j]} against {ref})")
+            check(chosen.setdefault(int(t_), hits[0]) == hits[0],
+                  f"tenant {t_} on two versions in one batch")
+    check(_answers_equal_batches(
+        [np.concatenate([[np.float32(t_)], x]) for t_, x in zip(tids, X)],
+        np.concatenate(answers),
+        [(np.column_stack([tb.astype(np.float32), Xb]), ob)
+         for tb, Xb, ob in log]),
+        "a tenant answer differs from its batch")
+    ledger = store.slab.ledger_snapshot()
+    out.update({"uniform_batches": uniform, "mixed_batches": mixed,
+                "versions_published": TENANT_HOT * 6,
+                "ledger": {k: ledger[k] - ledger0[k]
+                           for k in ("admitted", "evicted", "swapped",
+                                     "hits", "misses")},
+                "resident": ledger["resident"],
+                "new_shape_keys": warm.compile_count - shapes0})
+    check(out["new_shape_keys"] == 0,
+          f"tenant: {out['new_shape_keys']} padded shapes after warm-up")
+    check(out["ledger"]["misses"] > 0 and out["ledger"]["evicted"] > 0,
+          f"tenant: no admission from disk under Zipf ({out['ledger']})")
+    check(out["ledger"]["swapped"] > 0, "tenant: no hot swap mid-traffic")
+    check(uniform > 0 and mixed > 0,
+          f"tenant: {uniform} uniform and {mixed} mixed batches")
+    if dev != "cpu":
+        out["bucket_device_ms"], out["batch"] = _gather_batches(
+            torch, ck, srv.engine, store, log, d)
+    return out
+
+
+def _gather_batches(torch, ck, engine, store, log, d):
+    """The mixed-tenant gathered pass alone at each bucket on the slab
+    (the rows, their slab rows, slots, intercepts and answers crossing
+    device memory once), and a mixed batch of the run through the engine
+    (:func:`_anatomy`; its rows and slot vector copied in)."""
+    from tpu_sgd_torch.ops.bucketed import bucket_for
+
+    _, _, Wd, bd = store.slab.snapshot_resident()
+    dev = engine.store.slab.device
+    computes = {}
+    for n in SERVE_BUCKETS:
+        Xd = torch.randn(n, d, device=dev)
+        sd = torch.arange(n, device=dev) % Wd.shape[0]
+        computes[n] = (lambda Xd=Xd, sd=sd:
+                       (Xd.to(torch.float32) * Wd[sd]).sum(-1) + bd[sd])
+    buckets = {str(n): _bucket_rows(torch, ck, fn, 2 * n * d + 4 * n, n * d)
+               for n, fn in computes.items()}
+    tb, Xb = next((tb, Xb) for tb, Xb, _ in log
+                  if len(np.unique(tb)) > 1 and len(tb) > 256)
+    rows = bucket_for(len(tb))
+    Xp, sp = torch.zeros(rows, d), torch.zeros(rows, dtype=torch.int64)
+    res = torch.zeros(rows, device=dev)
+    batch = {"rows": int(Xb.shape[0]), "tenants": int(len(np.unique(tb))),
+             **_anatomy(torch, ck, lambda: engine.predict_batch(tb, Xb),
+                        [lambda: Xp.to(dev), lambda: sp.to(dev)], 2,
+                        lambda: res.cpu(), computes[rows])}
+    return buckets, batch
+
+
+def phase_serve(torch, tst, ck, size=None):
+    """Phase ``serve``: the serving plane (module docstring, phase 13).
+    ``size`` (default :data:`SERVE_SIZE`) sets the device, the requests
+    a model, the closed-loop share, the tenants and the slab rows; on the
+    CPU (a rehearsal) the card's timings and the kernel rows are left
+    out.  Returns the phase's report and the CSR kernel's rows at the
+    serving shapes."""
+    from tpu_sgd_torch.serve import ModelRegistry, PredictEngine, stack_rows
+    from tpu_sgd_torch.utils import CheckpointManager
+
+    size = dict(SERVE_SIZE, **(size or {}))
+    dev = size["device"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SERVE_SEED)
+    report = {"requests_per_model": size["requests"],
+              "clients": SERVE_CLIENTS, "closed_loop": size["closed"]}
+    engine = PredictEngine(device=dev)
+    with tempfile.TemporaryDirectory(prefix="serve_") as tmp:
+        # config 4's width from a registry, republished mid-traffic; a
+        # version's intercept is its number
+        mgr = CheckpointManager(os.path.join(tmp, "registry"),
+                                keep=SERVE_RELOADS + 2)
+        w4 = rng.normal(size=FULL_D).astype(np.float32)
+
+        def save(v):
+            mgr.save(v, (w4 * (1.0 + 0.25 * v)).astype(np.float32), 0.0, [],
+                     extras={"intercept": np.float64(v)})
+
+        def publish():
+            for v in range(2, 2 + SERVE_RELOADS):
+                time.sleep(0.2)
+                save(v)
+
+        save(1)
+        registry = ModelRegistry(mgr, tst.LinearRegressionModel, device=dev)
+        models = {
+            "config4": (registry.model(), "config4", FULL_D,
+                        {"registry": registry, "publish": publish}),
+            "config2": (tst.LogisticRegressionModel(
+                rng.normal(size=A9A_D).astype(np.float32), -0.2,
+                device=dev).clear_threshold(), "a9a", A9A_D, {}),
+            "mnist8m": (tst.MultinomialLogisticRegressionModel(
+                rng.normal(size=(MNIST_K - 1) * (MNIST8M_D + 1))
+                .astype(np.float32) * 0.05, 0.0, MNIST_K, MNIST8M_D + 1,
+                has_intercept_column=True, device=dev), "mnist", MNIST8M_D,
+                {}),
+            "rcv1": (tst.SVMModel(rng.normal(size=RCV1_D).astype(np.float32),
+                                  0.05, device=dev).clear_threshold(),
+                     "rcv1", RCV1_D, {}),
+        }
+        csr_log = []
+        for name, (model, kind, d, kw) in models.items():
+            for n in SERVE_BUCKETS:  # warm-up: every bucket's shape
+                engine.predict_batch(model, stack_rows(
+                    list(_serve_rows(kind, n, d, rng))))
+            t = time.perf_counter()
+            report[name], log = _serve_model(torch, ck, name, model, kind, d,
+                                             rng, size, **kw)
+            report[name]["seconds"] = time.perf_counter() - t
+            emit({"phase": "serve", "model": name, **report[name]})
+            if kind == "rcv1":
+                csr_log = log
+        if dev != "cpu":
+            # each bucket's product alone, and a batch's anatomy
+            for name, (model, kind, d, _) in models.items():
+                if kind == "rcv1":
+                    report[name]["batch"] = {
+                        str(n): _sparse_batch(torch, ck, engine, model, d,
+                                              n, rng) for n in (8, 512)}
+                    continue
+                (report[name]["bucket_device_ms"],
+                 report[name]["batch"]) = _dense_batches(
+                    torch, ck, engine, model, kind, d, rng)
+        t = time.perf_counter()
+        report["tenant"] = _tenant_leg(torch, tst, ck, rng, tmp, size)
+        report["tenant"]["seconds"] = time.perf_counter() - t
+        emit({"phase": "serve", "model": "tenant",
+              **{k: v for k, v in report["tenant"].items()
+                 if k not in ("bucket_device_ms", "batch")}})
+    rows = [] if dev == "cpu" else serve_csr_rows(torch, ck, RCV1_D,
+                                                  csr_log, rng)
+    report["seconds"] = time.perf_counter() - t0
+    return report, rows
+
+
+CORR_ROWS, CORR_D, CORR_NNZ, CORR_SEED = 100_000, 4_096, 75, 41
+
+
+def phase_corr(torch, tst, ck):
+    """Phase ``corr``: ``stat.corr`` of a CSR X on the card.  Its Gram goes
+    through ``csr_grad_sum`` once a block of ``CSR_MAX_COLUMNS`` columns,
+    and its column means once more (counted from 0), two calls agree bit
+    for bit, and the result is held
+    to a float64 correlation of X's dense copy.  Returns the phase's
+    report and the kernel's row at one block's shape."""
+    from tpu_sgd_torch import stat
+    from tpu_sgd_torch.ops.sparse import sparse_data, transpose_csr
+
+    t0 = time.perf_counter()
+    X = sparse_data(CORR_ROWS, CORR_D, CORR_NNZ, seed=CORR_SEED)[0].cuda()
+    blocks = -(-CORR_D // ck.CSR_MAX_COLUMNS)
+    ck.reset_launch_counts()
+    t = time.perf_counter()
+    C = stat.corr(X)
+    corr_s = time.perf_counter() - t
+    launches = ck.csr_launch_counts()
+    # one launch a block of the Gram, one for the column means
+    check(launches["csr_grad_sum"] == blocks + 1
+          and launches["csr_margins"] == 0,
+          f"corr: {launches} CSR launches for {blocks} blocks")
+    check(sum(ck.launch_counts().values()) == 0, "corr: a dense kernel ran")
+    check(_same_bits(stat.corr(X), C), "corr: two calls differ")
+    Xd = X.to_dense().double()
+    mean = Xd.mean(0)
+    cov = (Xd.T @ Xd - CORR_ROWS * torch.outer(mean, mean)) / (CORR_ROWS - 1)
+    sd = torch.sqrt(torch.diagonal(cov))
+    ref = (cov / torch.outer(sd, sd)).cpu().numpy()
+    del Xd, cov
+    err = float(np.nanmax(np.abs(C - ref)))
+    check(err <= 1e-4, f"corr: max |d| {err} against float64")
+    # the kernel alone at one block's shape: X's transposed copy against
+    # a dense (rows, 1024) block of X's columns
+    Xt = transpose_csr(X)
+    B = X.to_dense()[:, :ck.CSR_MAX_COLUMNS].contiguous()
+    got, ref_b = ck.csr_grad_sum(Xt, B), ck.csr_matmul_plain(Xt, B)
+    torch.cuda.synchronize()
+    b_err = float((got - ref_b).abs().max())
+    scale = float(ref_b.abs().max())
+    check(b_err <= 1e-4 * scale, f"corr block: max |d| {b_err} of {scale}")
+    nnz, idx = Xt._nnz(), Xt.col_indices().element_size()
+    bytes_ = (nnz * (4 + idx) + (CORR_D + 1) * idx + 4 * B.numel()
+              + 4 * CORR_D * B.shape[1])
+    t_bytes = 1e3 * bytes_ / HBM_BYTES_PER_S
+    t_ops = 1e3 * 2.0 * nnz * B.shape[1] / F32_FLOPS
+    bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                 else (t_ops, "operations"))
+    ms = time_ms(torch, lambda: ck.csr_grad_sum(Xt, B), 10)
+    row = {
+        "name": "csr_grad_sum", "path": "corr (a Gram block)",
+        "source": CSR_SOURCE, "shape": [CORR_D, CORR_ROWS],
+        "columns": int(B.shape[1]), "nnz": nnz, "max_abs_err": b_err,
+        "grad_scale": scale, "ms": ms,
+        "plain_ms": time_ms(torch, lambda: ck.csr_matmul_plain(Xt, B), 10),
+        "library_ms": time_ms(torch, lambda: Xt @ B, 10),
+        "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms,
+        "launches": launches["csr_grad_sum"],
+        "launches_from": f"phase corr, one corr call ({blocks} Gram "
+                         "blocks and the column means)"}
+    out = {"rows": CORR_ROWS, "d": CORR_D, "nnz": int(X._nnz()),
+           "blocks": blocks, "csr_grad_sum_launches": row["launches"],
+           "corr_seconds": corr_s, "max_abs_err_vs_float64": err,
+           "repeat_bitwise": True, "seconds": time.perf_counter() - t0}
+    del X, Xt, B
+    torch.cuda.empty_cache()
+    return out, row
+
+
 def bernoulli_rows(n: int) -> int:
     """The Bernoulli row cap of the streamed drivers at ``FRAC``."""
     from tpu_sgd_torch.optimize.streamed import bernoulli_cap
@@ -4588,6 +5397,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh, mesh_rows = phase_mesh(torch, tst, ck, X_sp, y_sp, profile)
     rows.extend(mesh_rows)
+    del X_sp, y_sp
+    torch.cuda.empty_cache()
+    serve, serve_rows = phase_serve(torch, tst, ck)
+    rows.extend(serve_rows)
+    corr, corr_row = phase_corr(torch, tst, ck)
+    rows.append(corr_row)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_sgd"))
@@ -4660,6 +5475,8 @@ def main() -> int:
         "full_batch_bitwise_rank_order_sum", "full_batch_first_loss_rel",
         "full_batch_history_max_rel", "sampled_objective_ratio", "c_sparse",
         "job_seconds", "seconds")}})
+    emit({"serve": serve})
+    emit({"corr": corr})
     emit({"observed": {
         "rows": {row: {"bitwise_equal": r["bitwise_equal"],
                        "capture_ms": r["capture_ms"],

@@ -292,6 +292,49 @@ class TestCorr:
         np.testing.assert_allclose(C_sp, jstat.corr(jX), rtol=2e-3,
                                    atol=2e-3)
 
+    def test_sparse_pearson_beyond_one_column_block_matches_dense(self):
+        """A CSR X wider than one block of the CSR kernel's right-hand
+        side (2,100 columns: blocks of 1,024, 1,024 and 52) against the
+        float64 ``np.corrcoef`` of its dense copy, at the tolerance of
+        the JAX comparison above."""
+        _, tX = _sparse_pair(400, 2100, 40, 12)
+        dense = tX.to_dense().double().numpy()
+        np.testing.assert_allclose(tstat.corr(tX), np.corrcoef(dense.T),
+                                   rtol=2e-3, atol=2e-3)
+
+    def test_sparse_gram_goes_through_the_csr_kernel(self, monkeypatch):
+        """The sparse Gram calls ``cuda_kernels.csr_grad_sum`` once a block
+        of at most ``CSR_MAX_COLUMNS`` columns (the CSR kernel on the
+        card, never a library's sparse-sparse product), and equals the
+        float64 ``Xᵀ X``; duplicate entries add, as in a sparse product.
+        ``corr`` adds one call for the column means."""
+        from tpu_sgd_torch.ops import cuda_kernels
+
+        calls = []
+        real = cuda_kernels.csr_grad_sum
+
+        def spy(Xt, coeff):
+            calls.append(tuple(coeff.shape))
+            return real(Xt, coeff)
+
+        monkeypatch.setattr(cuda_kernels, "csr_grad_sum", spy)
+        _, tX = _sparse_pair(300, 2100, 30, 13)
+        G = tstat._csr_gram(ts.transpose_csr(tX))
+        assert calls == [(300, 1024), (300, 1024), (300, 52)]
+        Xd = tX.to_dense().double()
+        np.testing.assert_allclose(G.numpy(), (Xd.T @ Xd).numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        dup = torch.sparse_csr_tensor(
+            torch.tensor([0, 3, 4]), torch.tensor([1, 1, 0, 2]),
+            torch.tensor([1.0, 2.0, 4.0, 5.0]), size=(2, 3))
+        # X = [[4, 1 + 2, 0], [0, 0, 5]]
+        np.testing.assert_array_equal(
+            tstat._csr_gram(ts.transpose_csr(dup)).numpy(),
+            np.array([[16, 12, 0], [12, 9, 0], [0, 0, 25]], np.float32))
+        calls.clear()
+        tstat.corr(tX)
+        assert calls == [(300, 1024), (300, 1024), (300, 52), (300,)]
+
     def test_bad_methods_rejected(self, rng):
         with pytest.raises(ValueError, match="unknown"):
             tstat.corr(rng.normal(size=(10, 2)), method="kendall")

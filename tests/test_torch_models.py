@@ -193,13 +193,16 @@ def test_later_slice_options_raise():
 @pytest.mark.parametrize("model,method,item", [
     ("multinomial", "predict_dense_bucketed", "A10")])
 def test_model_methods_of_later_slices_raise(model, method, item):
-    """Reference methods not ported yet raise naming their ROADMAP item
-    (not ``AttributeError``)."""
-    X = np.zeros((4, 3), np.float32)
+    """Reference methods of a later slice: each raised naming its ROADMAP
+    item until the slice landed.  ``predict_dense_bucketed`` (A10, the
+    serving slice) now runs, and gives ``predict``'s classes."""
+    X = np.random.default_rng(0).normal(size=(4, 3)).astype(np.float32)
     if model == "linear":
         m = tm.LinearRegressionModel(np.zeros(3), 0.0, device="cpu")
     else:
         m = tm.MultinomialLogisticRegressionModel(
-            np.zeros(6), 0.0, num_classes=3, device="cpu")
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}"):
-        getattr(m, method)(X)
+            np.arange(6, dtype=np.float32) - 2.5, 0.0, num_classes=3,
+            device="cpu")
+    assert item == "A10"
+    got = getattr(m, method)(X)
+    np.testing.assert_array_equal(got, m.predict(X).numpy())

@@ -217,3 +217,79 @@ def test_chip_smoke_fails_outside_the_repository(tmp_path):
                               if k != "PYTHONPATH"})
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+_SERVING_MODULES = (
+    "tpu_sgd_torch.serve", "tpu_sgd_torch.serve.batcher",
+    "tpu_sgd_torch.serve.engine", "tpu_sgd_torch.serve.metrics",
+    "tpu_sgd_torch.serve.registry", "tpu_sgd_torch.tenant",
+    "tpu_sgd_torch.tenant.engine", "tpu_sgd_torch.tenant.serve",
+    "tpu_sgd_torch.tenant.slab", "tpu_sgd_torch.tenant.store",
+    "tpu_sgd_torch.ops.bucketed", "tpu_sgd_torch.obs.timeseries",
+    "tpu_sgd_torch.reliability.health")
+
+
+def test_serving_imports_pull_in_no_jax_and_build_nothing():
+    """A fresh process imports the serving and tenant planes: no JAX, no
+    JAX package, no compiler started, no library loaded, no thread."""
+    out = _python(
+        "import subprocess, sys, threading\n"
+        "def refuse(*a, **k): raise AssertionError('started %r' % (a,))\n"
+        "subprocess.Popen = refuse\n"
+        f"import importlib\nfor m in {_SERVING_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from tpu_sgd_torch.ops import _build\n"
+        "bad = sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
+        "print(bad, len(_build._loaded), threading.active_count())")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] 0 1"
+
+
+def test_serving_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the rule is for hosts "
+                    "without one")
+    from tpu_sgd_torch.serve import ModelRegistry, PredictEngine, Server
+    from tpu_sgd_torch.tenant import TenantModelStore, WeightSlab
+
+    model = tst.LinearRegressionModel(np.zeros(3), 0.0, device="cpu")
+    for make in (lambda: PredictEngine(),
+                 lambda: Server(model),
+                 lambda: ModelRegistry(str(tmp_path), tst.
+                                       LinearRegressionModel),
+                 lambda: TenantModelStore(str(tmp_path / "t"), capacity=2,
+                                          d=3),
+                 lambda: WeightSlab(2, 3)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    # a model elsewhere than the engine's device is refused, never moved
+    with pytest.raises(ValueError, match="serves on"):
+        Server(model, device="meta")
+
+
+def test_cpu_serving_launches_no_kernel(tmp_path):
+    from tpu_sgd_torch.serve import PredictEngine, Server
+    from tpu_sgd_torch.tenant import TenantModelStore, TenantPredictEngine
+
+    ck.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    d = 8
+    model = tst.LogisticRegressionModel(rng.normal(size=d), 0.1,
+                                        device="cpu")
+    X = rng.normal(size=(20, d)).astype(np.float32)
+    Xs = torch.from_numpy(np.where(X > 1.0, X, 0.0)).to_sparse_csr()
+    engine = PredictEngine(device="cpu")
+    engine.predict_batch(model, X)
+    engine.predict_batch(model, Xs)
+    with Server(model, max_latency_s=0.002, device="cpu") as server:
+        server.predict(X[0], timeout=30)
+    store = TenantModelStore(str(tmp_path), capacity=2, d=d, device="cpu")
+    for t in range(3):
+        store.publish(t, rng.normal(size=d))
+    TenantPredictEngine(store).predict_batch([0, 1, 0], X[:3])
+    assert ck.launch_counts() == {"fused_gradient_sums": 0,
+                                  "fused_window_sums": 0,
+                                  "fused_window_sums_vpu": 0}
+    assert ck.csr_launch_counts() == {"csr_margins": 0, "csr_grad_sum": 0}
+    assert ck.kernel_launch_counts() == {"fused_sums": 0, "window_sums": 0}

@@ -5,7 +5,10 @@ statistics, on one NVIDIA H100, with evaluation metrics,
 feature scaling, column statistics and model persistence, and the
 observed driver's planes: listeners and event logs (``utils.events``),
 checkpoints (``utils.checkpoint``), fault injection, retry and the
-training supervisor (``reliability``), and span tracing (``obs``).
+training supervisor (``reliability``), span tracing and the windowed
+time series (``obs``), and serving (``serve``: micro-batched endpoints
+with admission control and hot reload; ``tenant``: many tenants' models
+on one weight slab).
 SGD runs K iterations a host call, as one CUDA graph replay on the card,
 on one device or data-parallel over a ``torch.distributed`` mesh
 (``parallel``).

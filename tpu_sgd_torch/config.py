@@ -1,8 +1,9 @@
-"""Configuration of mini-batch SGD: the port of ``tpu_sgd/config.py``.
+"""Configuration: the port of ``tpu_sgd/config.py``.
 
-``SGDConfig`` and ``MeshConfig``; ``ServingConfig`` waits for the serving
-slice (ROADMAP A10).  ``SGDConfig``'s defaults and validation match the
-JAX package exactly: step=1.0, iters=100, reg=0.0, frac=1.0,
+``SGDConfig``, ``MeshConfig`` and the process-wide ``ServingConfig``
+(the serving plane's admission knobs, read by
+``serve.batcher.MicroBatcher``).  ``SGDConfig``'s defaults and validation
+match the JAX package exactly: step=1.0, iters=100, reg=0.0, frac=1.0,
 convTol=0.001 (the reference's ``GradientDescent`` defaults).
 """
 
@@ -100,3 +101,55 @@ class MeshConfig:
     @property
     def n_devices(self) -> int:
         return self.data * self.model
+
+
+def _default_shed_utilization():
+    # interactive deliberately absent: the premium lane sheds only at
+    # queue-full-with-no-victim (serve/batcher.py documents the order)
+    return {"batch": 0.75, "shadow": 0.50}
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """Serving-plane admission knobs.
+
+    ``shed_utilization`` maps lane -> queue-utilization fraction at which
+    NEW arrivals to that lane are shed.  A batcher built with
+    ``shed_utilization=None`` reads the PROCESS config here at
+    construction; a RUNNING batcher is actuated through
+    ``MicroBatcher.set_shed_utilization``.
+    """
+
+    shed_utilization: dict = dataclasses.field(
+        default_factory=_default_shed_utilization)
+
+    def __post_init__(self):
+        for lane, thr in self.shed_utilization.items():
+            if not (0.0 < float(thr) <= 1.0):
+                raise ValueError(
+                    f"shed_utilization[{lane!r}] must be in (0, 1], "
+                    f"got {thr}")
+
+    def replace(self, **kwargs) -> "ServingConfig":
+        return dataclasses.replace(self, **kwargs)
+
+
+_SERVING_CONFIG = ServingConfig()
+
+
+def serving_config() -> ServingConfig:
+    """The process-wide serving config new batchers default to."""
+    return _SERVING_CONFIG
+
+
+def set_serving_config(cfg: ServingConfig) -> ServingConfig:
+    """Install a new process-wide serving config (returns the previous
+    one, for scoped restore in tests).  Affects batchers constructed
+    AFTER the call; running ones are actuated via their own
+    ``set_shed_utilization``."""
+    global _SERVING_CONFIG
+    if not isinstance(cfg, ServingConfig):
+        raise TypeError(f"expected ServingConfig, got {type(cfg).__name__}")
+    prev = _SERVING_CONFIG
+    _SERVING_CONFIG = cfg
+    return prev

@@ -6,9 +6,10 @@ Reference defaults: step=1.0, iters=100, reg=0.01, frac=1.0 and the
 squared-L2 updater; config 3 swaps the SVM's updater for L1.  Thresholds
 are mutable and clearable (``clear_threshold`` makes ``predict`` return raw
 scores).  Models save and load in the JAX package's format
-(``utils/persistence.py``).  The multinomial model predicts with a plain
-``X @ Wᵀ`` and the pivot rule; the bucketed serving path waits for ROADMAP
-A10.
+(``utils/persistence.py``).  The multinomial model predicts a dense batch
+through ``predict_dense_bucketed`` (the bucketed ``X @ Wᵀ`` of
+``ops/bucketed.py`` and the pivot rule on the device, the path the
+serving engine takes), a sparse one through the CSR product.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from tpu_sgd_torch.models.glm import (
     save_model,
 )
 from tpu_sgd_torch.models.regression import apply_train_options
+from tpu_sgd_torch.ops.bucketed import (DEFAULT_BUCKETS, bucketed_matvec,
+                                        dense_rows)
 from tpu_sgd_torch.ops.gradients import (
     HingeGradient,
     LogisticGradient,
@@ -36,6 +39,7 @@ from tpu_sgd_torch.ops.sparse import append_bias_auto
 from tpu_sgd_torch.ops.updaters import SquaredL2Updater
 from tpu_sgd_torch.optimize.gradient_descent import GradientDescent
 from tpu_sgd_torch.optimize.lbfgs import LBFGS
+from tpu_sgd_torch.utils.mlutils import append_bias
 
 
 class _ThresholdedModel(GeneralizedLinearModel):
@@ -57,15 +61,19 @@ class _ThresholdedModel(GeneralizedLinearModel):
     def score(self, margin):
         raise NotImplementedError
 
-    def predict_point(self, margin):
-        s = self.score(margin)
+    def _decide(self, scores):
         if self.threshold is None:
-            return s
-        return (s > self.threshold).to(torch.float32)
+            return scores
+        return (scores > self.threshold).to(torch.float32)
+
+    def predict_point(self, margin):
+        return self._decide(self.score(margin))
 
 
 class LogisticRegressionModel(_ThresholdedModel):
     """Sigmoid score thresholded at 0.5 by default."""
+
+    _activation = "sigmoid"
 
     def score(self, margin):
         return torch.sigmoid(margin)
@@ -227,21 +235,39 @@ class MultinomialLogisticRegressionModel(GeneralizedLinearModel):
 
     def predict(self, X):
         """Predicted classes (float32) for one feature vector or a batch,
-        dense or sparse: ``X @ Wᵀ`` in f32 (row chunks of a dense X) and
-        the pivot rule, on the weights' device."""
-        Xb = self._batch(X)
-        self._check_width(int(Xb.shape[-1]))
-        if self.has_intercept_column:
-            Xb = append_bias_auto(Xb)
-        W = self.weights.reshape(self.num_classes - 1, Xb.shape[-1])
-        out = pivot_class_traced(f32_product(Xb, W.T))
+        on the weights' device.  A dense batch goes through
+        :meth:`predict_dense_bucketed`, the serving engine's path; a
+        sparse one, or one that needs autograd, through ``X @ Wᵀ`` in f32
+        (the CSR kernel for a sparse X on the card) and the pivot rule."""
+        if self._plain_route(X):
+            Xb = self._batch(X)
+            self._check_width(int(Xb.shape[-1]))
+            if self.has_intercept_column:
+                Xb = append_bias_auto(Xb)
+            W = self.weights.reshape(self.num_classes - 1, Xb.shape[-1])
+            out = pivot_class_traced(f32_product(Xb, W.T))
+        else:
+            out = self.predict_dense_bucketed(X)
         return out[0] if _single(X) else out
 
-    def predict_dense_bucketed(self, X, buckets=None):
-        raise NotImplementedError(
-            "predict_dense_bucketed (the serving path's bucketed "
-            "programs) is not ported to tpu_sgd_torch yet (ROADMAP A10); "
-            "use the JAX package tpu_sgd for it")
+    def predict_dense_bucketed(self, X, buckets=None) -> torch.Tensor:
+        """The one home of the dense multinomial decision path:
+        validation, the bias column, per-class margins through the
+        bucketed matvec (``ops/bucketed.py``) and the pivot argmax, all
+        on the weights' device.  ``predict`` and the serving engine both
+        route here, so serving results equal ad-hoc prediction; the
+        engine passes its own ``buckets`` and fetches the classes.
+        Returns float32 classes, batch-shaped."""
+        Xt = dense_rows(X)
+        if Xt.dim() == 1:  # batch-shaped: (d,) scores as (1,)
+            Xt = Xt[None]
+        self._check_width(int(Xt.shape[-1]))
+        if self.has_intercept_column:
+            Xt = append_bias(Xt)
+        W = self.weights.reshape(self.num_classes - 1, Xt.shape[-1])
+        margins = bucketed_matvec(
+            Xt, W.T, 0.0, DEFAULT_BUCKETS if buckets is None else buckets)
+        return pivot_class_traced(margins)
 
 
 MultinomialLogisticRegressionModel.save = save_model

@@ -20,7 +20,8 @@ import torch
 from tpu_sgd_torch.device import as_tensor, resolve_device
 from tpu_sgd_torch.linalg import SparseVector
 from tpu_sgd_torch.models.labeled_point import LabeledPoint, to_arrays
-from tpu_sgd_torch.ops.gradients import f32_product
+from tpu_sgd_torch.ops.bucketed import (bucketed_matvec, dense_rows,
+                                        plain_margins)
 from tpu_sgd_torch.ops.sparse import (
     append_bias_auto,
     csr_from_triple,
@@ -53,6 +54,13 @@ def _single(X) -> bool:
             or (is_sparse(X) and X.dim() == 1) or np.ndim(X) == 1)
 
 
+def _dense_batch(X):
+    """A dense vector or batch as a 2-D tensor where it lies (a vector as
+    one row), for the bucketed matvec."""
+    Xt = dense_rows(X)
+    return Xt[None] if Xt.dim() == 1 else Xt
+
+
 def _host_numpy(t) -> np.ndarray:
     """Predictions as a host numpy array (a copy: the chunk's buffers are
     reused)."""
@@ -81,6 +89,11 @@ class GeneralizedLinearModel:
     ``weights`` is a ``(d,)`` float32 tensor; a numpy array moves to
     ``device`` (``None``: the card)."""
 
+    #: the activation the bucketed scores carry (``"sigmoid"`` for the
+    #: logistic family), so that ``predict`` and the serving engine score
+    #: a dense batch through one and the same bucketed pass
+    _activation = None
+
     def __init__(self, weights, intercept: float = 0.0, device=None):
         if isinstance(weights, torch.Tensor) and device is None:
             self.weights = weights.to(torch.float32)
@@ -102,15 +115,35 @@ class GeneralizedLinearModel:
             return to_csr(row_matrix(X))
         return torch.atleast_2d(X)
 
+    def _plain_route(self, X) -> bool:
+        """Whether ``X`` takes the plain product rather than the bucketed
+        pass: sparse input, and weights or an input that require grad
+        (the JAX package sends tracers down its pure-jnp path; the
+        bucketed pass runs under ``no_grad``).  ``ops/bucketed.py``
+        decides the shape of every other batch."""
+        return (isinstance(X, SparseVector) or is_sparse(X)
+                or self.weights.requires_grad
+                or (isinstance(X, torch.Tensor) and X.requires_grad))
+
     def predict_margin(self, X) -> torch.Tensor:
-        """Raw margin(s) ``x.w + b``, always batch-shaped (a single vector
-        yields shape (1,)).  Plain ``X @ w + b`` in f32 (by row chunks of
-        a dense X); the bucketed serving matvec waits for the serving
-        slice (ROADMAP A10)."""
-        return f32_product(self._batch(X), self.weights) + self.intercept
+        """Raw margin(s) ``x.w + b`` on the weights' device, always
+        batch-shaped (a single vector yields shape (1,)).  A dense batch
+        goes through the bucketed matvec (``ops/bucketed.py``), as the
+        serving engine's batches do; a sparse one, or one that needs
+        autograd, takes the plain ``X @ w + b`` in f32 (the CSR kernel
+        for a sparse X on the card)."""
+        if self._plain_route(X):
+            return plain_margins(self._batch(X), self.weights,
+                                 self.intercept)
+        return bucketed_matvec(_dense_batch(X), self.weights,
+                               self.intercept)
 
     def predict_point(self, margin):
         raise NotImplementedError
+
+    def _decide(self, scores):
+        """Predictions from scores that already carry ``_activation``."""
+        return self.predict_point(scores)
 
     def predict_streamed(self, X, batch_rows: int = 1_000_000
                          ) -> np.ndarray:
@@ -165,8 +198,16 @@ class GeneralizedLinearModel:
         return _concat(outs)
 
     def predict(self, X):
-        """Predict for one feature vector or a batch, dense or sparse."""
-        out = self.predict_point(self.predict_margin(X))
+        """Predict for one feature vector or a batch, dense or sparse, on
+        the weights' device.  A dense batch is scored in one bucketed
+        pass with the family's activation, the pass the serving engine
+        runs, so the two agree bitwise."""
+        if self._plain_route(X):
+            out = self.predict_point(self.predict_margin(X))
+        else:
+            out = self._decide(bucketed_matvec(
+                _dense_batch(X), self.weights, self.intercept,
+                activation=self._activation))
         return out[0] if _single(X) else out
 
     def __repr__(self):

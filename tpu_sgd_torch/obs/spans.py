@@ -62,8 +62,8 @@ _SINK = None                  # object with .emit(kind, payload)
 _IDS = itertools.count(1)     # process-wide span ids (atomic under GIL)
 _TL = threading.local()       # .stack: list of _Span; .tag: str
 
-#: the windowed time-series hooks (installed by ``obs/timeseries.py``,
-#: which is not ported yet): ``_ON_SPAN(name, dur_s, ts, attrs, error)`` fires on every
+#: the windowed time-series hooks (installed by ``obs/timeseries.py``'s
+#: ``enable``): ``_ON_SPAN(name, dur_s, ts, attrs, error)`` fires on every
 #: span close, ``_ON_EVENT(name, ts, attrs)`` on every instant event —
 #: both GIL-atomic single references swapped whole like ``_SINK``, both
 #: pure host work (the zero-added-runtime-events pin holds with the

@@ -535,9 +535,14 @@ def f32_product(X, rhs: Tensor) -> Tensor:
     """``X @ rhs`` in float32 with X promoted, as ``jnp`` promotes a bf16
     or int X against f32 weights (the weights are not rounded): the
     prediction product.  A dense X goes by row chunks, so a bf16 X is
-    never copied whole to f32."""
+    never copied whole to f32.  A sparse X (its values promoted to f32)
+    goes to ``cuda_kernels.csr_margins``: the CSR kernel on the card, a
+    fixed order of additions, so sparse predictions repeat bitwise; its
+    plain twin on the CPU."""
     if is_sparse(X):
-        return to_csr(X).to(torch.float32) @ rhs
+        from tpu_sgd_torch.ops import cuda_kernels
+
+        return cuda_kernels.csr_margins(to_csr(X).to(torch.float32), rhs)
     n = X.shape[0]
     out = torch.empty((n,) + tuple(rhs.shape[1:]), dtype=torch.float32,
                       device=rhs.device)

@@ -88,6 +88,7 @@ import torch
 from tpu_sgd_torch.config import SGDConfig
 from tpu_sgd_torch.device import as_tensor, resolve_device
 from tpu_sgd_torch.obs.spans import span
+from tpu_sgd_torch.obs.timeseries import observe_scalar
 from tpu_sgd_torch.ops import cuda_kernels as ck
 from tpu_sgd_torch.ops.gradients import Gradient, LeastSquaresGradient
 from tpu_sgd_torch.ops.gram import (
@@ -856,8 +857,9 @@ def observe_step(
     sampled batch (``count == 0``) records nothing and returns ``prev_w``.
 
     Returns ``(w, reg_val, converged)`` — ``w`` is ``new_w`` when the
-    step recorded, else ``prev_w``.  (The JAX package also feeds its live
-    loss series here; ``obs/timeseries.py`` is not ported yet.)
+    step recorded, else ``prev_w``.  The live ``train.loss`` /
+    ``train.weight_delta`` series (``obs/timeseries.py``) take the host
+    floats fetched here, with no added sync.
     """
     from tpu_sgd_torch.utils.events import IterationEvent
 
@@ -872,6 +874,8 @@ def observe_step(
     reg_val = float(new_reg)
     # one fetch for both norms
     delta, w_norm = (float(v) for v in _host(step_norms(new_w, prev_w)))
+    observe_scalar("train.loss", loss_f)
+    observe_scalar("train.weight_delta", delta)
     if listener is not None:
         listener.on_iteration(IterationEvent(
             iteration=i,
@@ -956,6 +960,10 @@ def _replay_fused_steps(
                 _raise_if_nonfinite([loss_f], first_iteration=i)
             losses.append(loss_f)
             reg_val = float(rs[t])
+            # the live series from the replayed ys: already host numpy
+            # (one bulk fetch a block), so no added sync
+            observe_scalar("train.loss", loss_f)
+            observe_scalar("train.weight_delta", float(dns[t]))
             if listener is not None:
                 listener.on_iteration(IterationEvent(
                     iteration=i,

@@ -7,10 +7,10 @@
   ``Deadline`` and ``CircuitBreaker``;
 * :mod:`~tpu_sgd_torch.reliability.supervisor`: ``TrainingSupervisor``,
   auto-checkpoint, cooperative preemption and crash-resume to bitwise
-  identical weights.
-
-The JAX package's ``health`` module (heartbeats and straggler monitors)
-waits for its time series (ROADMAP A11).
+  identical weights;
+* :mod:`~tpu_sgd_torch.reliability.health`: ``Heartbeat`` and the
+  ``HealthMonitor`` that flags stragglers (the serving batcher's flush
+  thread ticks one).
 
 Quickstart::
 
@@ -34,6 +34,7 @@ from tpu_sgd_torch.reliability.failpoints import (
     inject_faults,
     inject_latency,
 )
+from tpu_sgd_torch.reliability.health import HealthMonitor, Heartbeat
 from tpu_sgd_torch.reliability.retry import (
     CircuitBreaker,
     Deadline,
@@ -53,6 +54,8 @@ __all__ = [
     "DeadlineExceeded",
     "FailpointSpec",
     "FaultInjected",
+    "HealthMonitor",
+    "Heartbeat",
     "RetriesExhausted",
     "RetryPolicy",
     "SupervisedResult",

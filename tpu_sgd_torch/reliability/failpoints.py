@@ -261,6 +261,9 @@ HOOK_SITES = {
     "optimize.streamed.step": "tpu_sgd_torch/optimize/streamed.py",
     "checkpoint.save": "tpu_sgd_torch/utils/checkpoint.py",
     "checkpoint.load": "tpu_sgd_torch/utils/checkpoint.py",
+    "serve.registry.reload": "tpu_sgd_torch/serve/registry.py",
+    "serve.batcher.enqueue": "tpu_sgd_torch/serve/batcher.py",
+    "serve.admit": "tpu_sgd_torch/serve/batcher.py",
 }
 
 #: the corrupting sites and the module that holds each one's

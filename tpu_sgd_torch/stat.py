@@ -6,8 +6,9 @@ statistics are column reductions; CSR statistics come from index-adds and
 scatter-reductions over the stored entries, never densified, with the
 implicit zeros folded into the extrema.  Pearson correlation is one Gram
 pass over the centered columns in true f32
-(:func:`~tpu_sgd_torch.device.true_f32_matmul`); a CSR matrix uses a
-sparse-sparse Gram whose only dense result is the ``(d, d)`` output.
+(:func:`~tpu_sgd_torch.device.true_f32_matmul`); a CSR matrix's Gram
+goes through the CSR kernel by blocks of columns, never through a
+library's sparse-sparse product.
 """
 
 from __future__ import annotations
@@ -162,13 +163,48 @@ def _ranks(X) -> np.ndarray:
     return out
 
 
+def _csr_gram(Xt: Tensor) -> Tensor:
+    """The raw Gram ``Xᵀ X`` of a CSR X, from its transposed copy ``Xt``
+    (``(d, n)``), as a dense ``(d, d)`` float32 matrix: X's columns in
+    blocks of at most ``CSR_MAX_COLUMNS``, each block densified
+    (``(n, block)``, from the rows of ``Xt`` that hold its columns) as the
+    right-hand side of one ``cuda_kernels.csr_grad_sum`` over ``Xt``: the
+    CSR kernel on the card, a fixed order of additions, so the Gram
+    repeats bitwise; its plain twin on the CPU."""
+    from tpu_sgd_torch.ops import cuda_kernels
+
+    d, n = Xt.shape
+    crow = Xt.crow_indices().cpu()
+    rows, vals = Xt.col_indices().long(), Xt.values()
+    feature = torch.repeat_interleave(
+        torch.arange(d, device=vals.device), torch.diff(Xt.crow_indices()),
+        output_size=vals.numel())
+    G = torch.empty((d, d), dtype=torch.float32, device=vals.device)
+    step = cuda_kernels.CSR_MAX_COLUMNS
+    for j0 in range(0, d, step):
+        j1 = min(d, j0 + step)
+        lo, hi = int(crow[j0]), int(crow[j1])
+        block = torch.zeros((n, j1 - j0), dtype=torch.float32,
+                            device=vals.device)
+        block.index_put_((rows[lo:hi], feature[lo:hi] - j0), vals[lo:hi],
+                         accumulate=True)
+        G[:, j0:j1] = cuda_kernels.csr_grad_sum(Xt, block)
+    return G
+
+
 def _pearson_csr(X: Tensor) -> Tensor:
-    """Pearson of a CSR X: the raw Gram from a sparse-sparse ``Xᵀ @ X``
-    (only the ``(d, d)`` result goes dense), centering folded in as
-    ``cov = (G - n * outer(mean, mean)) / (n - 1)``."""
+    """Pearson of a CSR X: the raw Gram by column blocks through the CSR
+    kernel (:func:`_csr_gram`; only ``(n, block)`` and the ``(d, d)``
+    result go dense) and the column means as one more product of the
+    kernel (``Xᵀ 1 / n``), so the result repeats bitwise on the card;
+    centering folded in as ``cov = (G - n * outer(mean, mean)) / (n - 1)``."""
+    from tpu_sgd_torch.ops import cuda_kernels
+
     n, d = X.shape
-    G = (transpose_csr(X).to(torch.float32) @ X.to(torch.float32)).to_dense()
-    mean, _ = column_mean_variance(X)
+    Xt = transpose_csr(X.to(torch.float32))
+    G = _csr_gram(Xt)
+    mean = cuda_kernels.csr_grad_sum(
+        Xt, torch.ones((n,), dtype=torch.float32, device=G.device)) / n
     cov = (G - n * torch.outer(mean, mean)) / max(n - 1, 1)
     return _corr_from_cov(cov)
 
