@@ -176,7 +176,16 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    1.01x of the single-device runs; (c) phase 6's CSR in 8 row blocks
    over the same world, hinge + L1 at 1.0 (history rtol 2e-4 against one
    device) and 0.1, peak memory per rank; the kernels timed at a rank's
-   shapes.
+   shapes.  Then, in the same job, resident training on a mesh: (e) the
+   4 x 2 ``(data, model)`` mesh (a rank 2.5M rows x 500 columns; full
+   batch, Bernoulli, sliced; bitwise the one-process 2-D rank-order sum
+   on a 1M-row prefix and on all rows, 0 fused-kernel launches, two
+   library products an iteration, the margin combine timed); (f) meshed
+   L-BFGS (B1 a cost evaluation, bitwise its reference); (g) the meshed
+   normal equations; (h) the meshed statistics (each rank's prefix stack,
+   sliced exact and aligned, L-BFGS from the meshed totals); (i)
+   ``set_residency`` and feature scaling on a mesh, OWL-QN on the 8 CSR
+   blocks.
 13. serve — the serving plane (``tpu_sgd_torch.serve``, ``.tenant``),
    after phase 12: through ``Server``, 20,000 single-row requests a model
    from 8 client threads (4,000 closed loop, one in flight a client: p50
@@ -1822,7 +1831,7 @@ def leg_sparse_owlqn(torch, tst, ck, X, y, w_sgd):
            "peak_allocated_bytes": peak}
     out.update(_owlqn_logistic_vs_sgd(torch, tst, X, y, reg))
     emit({"phase": "quasi_newton", "leg": "d_sparse_owlqn", **out})
-    return out | {"trials": g.trials}
+    return out | {"trials": g.trials, "weights": w}
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -3838,7 +3847,7 @@ MESH_SEED = 10
 MESH_ITERS = ITERS          # 20: ``_expected_launches`` counts per run
 MESH_PREFIX_ROWS = 125_000  # a rank's rows of the 1M-row bitwise check
 MESH_WINDOW_START = 500_000  # B2's row: a shard's 125,000-row window
-MESH_TIMEOUT = 480          # seconds for the 8-rank job, start-up included
+MESH_TIMEOUT = 720          # seconds for the 8-rank job, start-up included
 MESH_COMBINE_REPS = 100
 MESH_OBS_K = 8
 MESH_OBS_STOP_AT = 13
@@ -3859,25 +3868,29 @@ def _free_port() -> int:
 
 
 def fill_mesh_block(torch, X, y, block, seed=MESH_SEED,
-                    chunk=MESH_PREFIX_ROWS):
+                    chunk=MESH_PREFIX_ROWS, cols=None):
     """Row block ``block`` of phase ``mesh``'s data made into ``X`` (bf16,
     ``(rows, d)``) and ``y`` on their device from ``(seed, block)`` alone,
     ``chunk`` rows at a time (a block's first ``chunk`` rows do not depend
     on its length): a rank makes its own block and the parent every block,
     bit for bit the same.  ``y = X w + 0.1 eps`` with ``w`` from ``seed``
     alone, the margins summed by rows (no library product, whose algorithm
-    might differ between processes)."""
-    dev, d = X.device, X.shape[1]
+    might differ between processes).  ``cols`` (a slice of the ``FULL_D``
+    columns): X holds only those columns of the block's rows, and y is
+    the whole rows' (a 2-D mesh rank's feature block)."""
+    dev = X.device
+    d = FULL_D if cols is not None else X.shape[1]
     w = torch.rand(d, generator=torch.Generator(device=dev).manual_seed(seed),
                    device=dev) * 2 - 1
     gen = torch.Generator(device=dev).manual_seed(
         seed * 1_000_003 + 1 + block)
     for s in range(0, X.shape[0], chunk):
         e = min(X.shape[0], s + chunk)
-        X[s:e] = torch.randn(e - s, d, generator=gen,
-                             device=dev).to(torch.bfloat16)
-        y[s:e] = (X[s:e].float() * w).sum(dim=1) + 0.1 * torch.randn(
+        Xc = torch.randn(e - s, d, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        y[s:e] = (Xc.float() * w).sum(dim=1) + 0.1 * torch.randn(
             e - s, generator=gen, device=dev)
+        X[s:e] = Xc if cols is None else Xc[:, cols]
     return w
 
 
@@ -3925,6 +3938,7 @@ def _mesh_run(torch, ck, alg, X, y) -> dict:
             "h": np.asarray(alg.optimizer.loss_history),
             "launches": ck.launch_counts(),
             "by_source": ck.kernel_launch_counts(),
+            "products": ck.model_axis_product_counts(),
             "ms": 1e3 * (time.perf_counter() - t) / MESH_ITERS}
 
 
@@ -3964,12 +3978,14 @@ def _combine_ms(torch, par, mesh, reps=MESH_COMBINE_REPS) -> dict:
 
 
 def mesh_rank_runs(torch, tst, ck, par, mesh, out_dir):
-    """One rank's work in (b) and (c): its block of the data made on the
-    card; Bernoulli, indexed and sliced at ``FRAC`` and full batch,
+    """One rank's work in (b), (c) and (e)-(i): its block of the data made
+    on the card; Bernoulli, indexed and sliced at ``FRAC`` and full batch,
     each run twice; Bernoulli and sliced on its first
-    ``MESH_PREFIX_ROWS`` rows; the combine timed; then hinge + L1 on its
-    CSR row block (``sparse<rank>.npz``) at frac 1.0 and ``FRAC``.
-    Returns ``(report, arrays)``."""
+    ``MESH_PREFIX_ROWS`` rows; the combine timed; (f)-(i) on the block
+    (``mesh_rank_dense``); the block freed, (e) on the 4 x 2 mesh
+    (``mesh_rank_2d``); then hinge + L1 on its CSR row block
+    (``sparse<rank>.npz``) at frac 1.0 and ``FRAC``, and OWL-QN on it
+    (``mesh_rank_sparse_owlqn``).  Returns ``(report, arrays)``."""
     rank, dev = mesh.rank, "cuda"
     rows = FULL_ROWS // mesh.size
     X = torch.empty((rows, FULL_D), dtype=torch.bfloat16, device=dev)
@@ -4000,7 +4016,14 @@ def mesh_rank_runs(torch, tst, ck, par, mesh, out_dir):
         arrays[f"prefix_{mode}_w"] = r["w"].cpu().numpy()
         arrays[f"prefix_{mode}_h"] = r["h"]
     res["combine_ms"] = _combine_ms(torch, par, mesh)
+    dense, dense_arrays = mesh_rank_dense(torch, tst, ck, par, mesh, X, y)
+    res.update(dense)
+    arrays.update(dense_arrays)
     del X, y
+    torch.cuda.empty_cache()
+    res["e"], e_arrays = mesh_rank_2d(torch, tst, ck, par)
+    arrays.update(e_arrays)
+    torch.cuda.empty_cache()
     with np.load(os.path.join(out_dir, f"sparse{rank}.npz")) as z:
         Xs = torch.sparse_csr_tensor(
             torch.as_tensor(z["crow"]).to(dev),
@@ -4027,6 +4050,9 @@ def mesh_rank_runs(torch, tst, ck, par, mesh, out_dir):
             "loss_first": float(h[0]), "loss_last": float(h[-1])}
         arrays[f"sparse_{frac}_w"] = model.weights.cpu().numpy()
         arrays[f"sparse_{frac}_h"] = h
+    res["i_sparse"], sp_arrays = mesh_rank_sparse_owlqn(torch, tst, ck, mesh,
+                                                        Xs, ys)
+    arrays.update(sp_arrays)
     return res, arrays
 
 
@@ -4113,12 +4139,14 @@ def mesh_spawn(world, out_dir, timeout=MESH_TIMEOUT, script=None,
     raise RuntimeError("check failed: no free port for the mesh job")
 
 
-def rank_order_reference(torch, tst, shards, mode, iters=MESH_ITERS):
+def rank_order_reference(torch, tst, shards, mode, iters=MESH_ITERS,
+                         grads=None):
     """The meshed run's arithmetic in one process on the card: each
     shard's own sample stream (``_make_sampler(..., shard=s)``; none at
     full batch, ``mode="full"``) and kernel sums, added in rank order on
     the card (the gloo ranks add on the host), then ``make_run``'s update
-    (least squares, simple updater)."""
+    (least squares, simple updater).  ``grads``: each shard's gradient
+    (its statistics gradient, its X then the ``GramData``)."""
     from tpu_sgd_torch.optimize import gradient_descent as tgd
 
     frac = 1.0 if mode == "full" else FRAC
@@ -4126,6 +4154,7 @@ def rank_order_reference(torch, tst, shards, mode, iters=MESH_ITERS):
                         mini_batch_fraction=frac, convergence_tol=0.0,
                         sampling="bernoulli" if mode == "full" else mode)
     g, u = tst.LeastSquaresGradient(), tst.SimpleUpdater()
+    grads = grads or [g] * len(shards)
     dev = shards[0][0].device
     d = shards[0][0].shape[1]
     samplers = [tgd._make_sampler(cfg, Xs, shard=s)
@@ -4137,16 +4166,16 @@ def rank_order_reference(torch, tst, shards, mode, iters=MESH_ITERS):
     for i in range(1, iters + 1):
         it = torch.full((1,), i, dtype=torch.int64, device=dev)
         parts = []
-        for (Xs, ys), smp in zip(shards, samplers):
+        for (Xs, ys), smp, gr in zip(shards, samplers, grads):
             sample = None
             if smp is not None:
                 smp.seek(i)
                 sample = smp.draw()
             if mode == "sliced":
                 m = max(1, round(FRAC * Xs.shape[0]))
-                gs, ls, cs = g.window_sums(Xs, ys, w, sample, m)
+                gs, ls, cs = gr.window_sums(Xs, ys, w, sample, m)
             else:
-                gs, ls, cs = g.batch_sums(Xs, ys, w, sample)
+                gs, ls, cs = gr.batch_sums(Xs, ys, w, sample)
             parts.append(torch.cat([gs, ls.reshape(1), cs.reshape(1)]))
         tot = parts[0]
         for p in parts[1:]:  # rank order, one add at a time
@@ -4292,8 +4321,11 @@ def mesh_world1(torch, tst, ck, X, y, profile):
 def mesh_kernel_rows(torch, ck, tst, Xs, ys, Xb):
     """The kernels at a rank's shapes, each against its plain version,
     the library and its bound: B1 over a 1,250,000-row shard with a 10%
-    mask, B2 over a 125,000-row window of it, the CSR products over a
-    rank's row block of the RCV1-scale CSR and its transposed copy."""
+    mask, B2 over a 125,000-row window of it, B1 over the whole shard
+    unmasked (meshed L-BFGS's cost evaluation), the CSR products over a
+    rank's row block of the RCV1-scale CSR and its transposed copy, and
+    the margins of 30 trial points over the block (meshed OWL-QN's
+    line-search sweep)."""
     from tpu_sgd_torch.ops import sparse as sp
 
     pw = tst.LeastSquaresGradient().pointwise
@@ -4307,33 +4339,43 @@ def mesh_kernel_rows(torch, ck, tst, Xs, ys, Xb):
     rows.append(window_row(torch, ck, ck.fused_window_sums, pw, Xs, ys, w,
                            MESH_WINDOW_START, m,
                            f"mesh (a shard's {m:,}-row window)"))
+    rows.append(b1_row(torch, ck, pw, Xs, ys, w, None,
+                       f"mesh (a rank's {n:,}-row shard, unmasked: meshed "
+                       "L-BFGS's cost)", 50))
     Xbt = sp.transpose_csr(Xb)
     nb, db = Xb.shape
     wd = torch.randn(db, generator=gen, device="cuda")
     cb = torch.randn(nb, generator=gen, device="cuda")
     idx = Xb.col_indices().element_size()
-    for name, path, kern, plain, lib, prow, k in (
+    W30 = torch.randn((db, 30), generator=gen, device="cuda") / 30
+    for name, path, kern, plain, lib, prow, k, T in (
             ("csr_margins", f"mesh (a rank's {nb:,}-row CSR block)",
              lambda: ck.csr_margins(Xb, wd),
-             lambda: ck.csr_matmul_plain(Xb, wd), lambda: Xb @ wd, nb, db),
+             lambda: ck.csr_matmul_plain(Xb, wd), lambda: Xb @ wd, nb, db,
+             1),
             ("csr_grad_sum", "mesh (the block's transposed CSR)",
              lambda: ck.csr_grad_sum(Xbt, cb),
              lambda: ck.csr_matmul_plain(Xbt, cb), lambda: Xbt @ cb, db,
-             nb)):
+             nb, 1),
+            ("csr_margins", f"mesh (a rank's {nb:,}-row CSR block, 30 trial "
+             "points: meshed OWL-QN's sweep)",
+             lambda: ck.csr_margins(Xb, W30),
+             lambda: ck.csr_matmul_plain(Xb, W30), lambda: Xb @ W30, nb, db,
+             30)):
         got, ref = kern(), plain()
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
         check(err <= 1e-4 * scale + 1e-6,
               f"{name} ({path}): max |d| {err} of {scale}")
         nnz = Xb._nnz()
-        bytes_ = nnz * (4 + idx) + (prow + 1) * idx + 4 * (k + prow)
+        bytes_ = nnz * (4 + idx) + (prow + 1) * idx + 4 * T * (k + prow)
         t_bytes = 1e3 * bytes_ / HBM_BYTES_PER_S
-        t_ops = 1e3 * 2.0 * nnz / F32_FLOPS
+        t_ops = 1e3 * 2.0 * nnz * T / F32_FLOPS
         bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
                      else (t_ops, "operations"))
         rows.append({
             "name": name, "path": path, "source": CSR_SOURCE,
-            "shape": [prow, k], "columns": 1, "nnz": nnz,
+            "shape": [prow, k], "columns": T, "nnz": nnz,
             "max_abs_err": err, "grad_scale": scale,
             "ms": time_ms(torch, kern, 50),
             "plain_ms": time_ms(torch, plain, 20),
@@ -4344,7 +4386,583 @@ def mesh_kernel_rows(torch, ck, tst, Xs, ys, Xb):
     return rows
 
 
-def phase_mesh(torch, tst, ck, X_sp, y_sp, profile):
+# -- phase mesh, parts (e)-(i): resident training on a mesh -----------------
+
+MESH2D = (4, 2)             # (data, model): each rank 2.5M rows x 500 columns
+MESH2D_PREFIX_ROWS = 250_000  # a data block's rows of the 1M-row bitwise check
+MESH_QN_ITERS = 10          # meshed L-BFGS iterations (leg (a) runs 20)
+MESH_QN_REG = 1e-4          # its squared-L2 term
+MESH_NORMAL_RTOL = 1e-5     # meshed normal equations against one device
+MESH_STATS_RTOL = 1e-3      # the statistics run against the stock one
+MESH_RES_K, MESH_RES_C, MESH_RES_ITERS = 8, 3, 24
+MESH_OWLQN_OBJECTIVE_TOL = 1e-3  # |ratio - 1| against leg (d)'s objective
+
+
+def _qn_objective(torch, X, y, w, reg=MESH_QN_REG) -> float:
+    """Least squares plus the squared-L2 term of the meshed L-BFGS runs,
+    at ``w`` itself (``ls_objective_exact``)."""
+    return (ls_objective_exact(torch, X, y, w)
+            + 0.5 * reg * float(torch.sum(w.double() ** 2)))
+
+
+def _mesh_lbfgs(tst, mesh=None, stats=False):
+    opt = tst.LBFGS(tst.LeastSquaresGradient(), tst.SquaredL2Updater(),
+                    reg_param=MESH_QN_REG, max_num_iterations=MESH_QN_ITERS,
+                    convergence_tol=0.0)
+    if mesh is not None:
+        opt.set_mesh(mesh)
+    return opt.set_sufficient_stats(stats)
+
+
+def _mesh_stats_opt(tst, mesh, aligned):
+    return (tst.GradientDescent().set_step_size(0.5)
+            .set_num_iterations(MESH_ITERS).set_mini_batch_fraction(FRAC)
+            .set_sampling("sliced").set_convergence_tol(0.0).set_mesh(mesh)
+            .set_sufficient_stats(True).set_gram_options(aligned=aligned))
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def mesh_rank_dense(torch, tst, ck, par, mesh, X, y):
+    """A rank's (f)-(i) on its 1.25M-row block: meshed L-BFGS twice, the
+    meshed normal equations, the meshed statistics (sliced exact and
+    aligned, then L-BFGS from the meshed totals), and on its first
+    ``MESH_PREFIX_ROWS`` rows ``set_residency`` beside the superstep
+    driver and feature scaling.  Returns ``(report, arrays)``."""
+    import warnings
+
+    from tpu_sgd_torch.utils import CollectingListener
+
+    d = X.shape[1]
+    w0 = torch.zeros(d, device="cuda")
+    res, arrays = {}, {}
+    runs = []
+    for _ in range(2):
+        ck.reset_launch_counts()
+        (w, h), secs = _timed(torch, lambda: _mesh_lbfgs(
+            tst, mesh).optimize_with_history((X, y), w0))
+        runs.append((w, h, ck.launch_counts(), ck.gradient_route_counts(),
+                     secs))
+    (w, h, launches, routes, secs), again = runs[0], runs[1]
+    res["f"] = {"cost_evaluations": len(h),
+                "b1_launches": launches["fused_gradient_sums"],
+                "launches": launches, "b1_routes": routes,
+                "repeat_bitwise": _same_run(torch, (w, h), again[:2]),
+                "ms_per_iteration": 1e3 * again[4] / max(1, len(h) - 1),
+                "first_run_ms_per_iteration": 1e3 * secs / max(1, len(h) - 1)}
+    arrays["f_w"], arrays["f_h"] = w.cpu().numpy(), h
+    y_ls = y.to(torch.bfloat16).to(torch.float32)
+    w, secs = _timed(torch, lambda: tst.NormalEquations().set_mesh(
+        mesh).optimize((X, y_ls), w0))
+    res["g"] = {"seconds": secs}
+    arrays["g_w"] = w.cpu().numpy()
+    res["h"] = {}
+    for aligned in (False, True):
+        opt = _mesh_stats_opt(tst, mesh, aligned)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launch_counts()
+        (w, h), secs = _timed(torch, lambda: opt.optimize_with_history(
+            (X, y), w0))
+        gram = opt._gram_dp_entry[3]
+        key = "aligned" if aligned else "exact"
+        res["h"][key] = {
+            "seconds": secs, "engaged": gram is not None,
+            "stack_bytes": gram.data.PG.numel() * gram.data.PG.element_size(),
+            "peak_extra_bytes": torch.cuda.max_memory_allocated() - base,
+            "launches": ck.launch_counts()}
+        arrays[f"h_{key}_w"], arrays[f"h_{key}_h"] = w.cpu().numpy(), h
+        opt.release_sufficient_stats()
+        del opt, gram
+    ck.reset_launch_counts()
+    (w, h), secs = _timed(torch, lambda: _mesh_lbfgs(
+        tst, mesh, stats=True).optimize_with_history((X, y), w0))
+    res["h"]["lbfgs"] = {"seconds": secs, "launches": ck.launch_counts(),
+                         "cost_evaluations": len(h)}
+    arrays["h_lbfgs_w"], arrays["h_lbfgs_h"] = w.cpu().numpy(), h
+    Xp, yp = X[:MESH_PREFIX_ROWS], y[:MESH_PREFIX_ROWS]
+
+    def observed(residency):
+        lis = CollectingListener()
+        o = (tst.GradientDescent().set_step_size(0.5)
+             .set_num_iterations(MESH_RES_ITERS)
+             .set_mini_batch_fraction(FRAC).set_convergence_tol(0.0)
+             .set_mesh(mesh).set_superstep(MESH_RES_K).set_listener(lis))
+        if residency:
+            o.set_residency(MESH_RES_C)
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            w, h = o.optimize_with_history((Xp, yp), w0)
+        o.release_graphs()
+        return w, h, [str(r.message) for r in rec], len(lis.iterations)
+
+    rw, rh, msgs, events = observed(True)
+    sw, sh, _, _ = observed(False)
+    res["i"] = {"residency_warned": any(
+        "set_residency is single-device" in m for m in msgs),
+        "residency_events": events,
+        "residency_bitwise_superstep": _same_run(torch, (rw, rh), (sw, sh))}
+    alg = tst.LinearRegressionWithSGD(0.5, MESH_ITERS, None, 1.0)
+    alg.set_feature_scaling(True)
+    alg.optimizer.set_convergence_tol(0.0).set_mesh(mesh)
+    model = alg.run((Xp, yp))
+    arrays["i_scaled_w"] = model.weights.cpu().numpy()
+    arrays["i_scaled_h"] = np.asarray(alg.optimizer.loss_history)
+    return res, arrays
+
+
+def mesh_rank_2d(torch, tst, ck, par):
+    """A rank's (e) on the 4 x 2 mesh: the rows of its data block (fill
+    blocks ``2 di`` and ``2 di + 1``, 2.5M rows) and the columns of its
+    model block (500).  Full batch, Bernoulli and sliced at 0.1 through
+    ``GradientDescent`` on the first ``MESH2D_PREFIX_ROWS`` rows of the
+    data block with every column (the rank keeps its block), then through
+    ``dp_mp_run_fn`` on its 2.5M x 500 block, the whole vector gathered;
+    launches and library products counted; the margin combine timed."""
+    n_data, n_model = MESH2D
+    m2 = par.make_mesh(n_data=n_data, n_model=n_model)
+    di, mi = m2.rank, m2.model_index
+    res = {"data_index": di, "model_index": mi, "prefix": {}, "full": {}}
+    arrays = {}
+    Xp = torch.empty((MESH2D_PREFIX_ROWS, FULL_D), dtype=torch.bfloat16,
+                     device="cuda")
+    yp = torch.empty((MESH2D_PREFIX_ROWS,), device="cuda")
+    fill_mesh_block(torch, Xp, yp, 2 * di)
+    for mode in ("full", "bernoulli", "sliced"):
+        frac = 1.0 if mode == "full" else FRAC
+        r = _mesh_run(torch, ck, _mesh_alg(tst, mode, frac, m2), Xp, yp)
+        res["prefix"][mode] = {"launches": r["launches"],
+                               "products": r["products"], "ms": r["ms"]}
+        arrays[f"e_prefix_{mode}_w"] = r["w"].cpu().numpy()
+        arrays[f"e_prefix_{mode}_h"] = r["h"]
+    del Xp, yp
+    rows, b = FULL_ROWS // n_data, FULL_D // n_model
+    cols = slice(mi * b, (mi + 1) * b)
+    Xb = torch.empty((rows, b), dtype=torch.bfloat16, device="cuda")
+    yb = torch.empty((rows,), device="cuda")
+    half = rows // 2
+    fill_mesh_block(torch, Xb[:half], yb[:half], 2 * di, cols=cols)
+    fill_mesh_block(torch, Xb[half:], yb[half:], 2 * di + 1, cols=cols)
+    g, u = tst.LeastSquaresGradient(), tst.SimpleUpdater()
+    for mode in ("full", "bernoulli", "sliced"):
+        frac = 1.0 if mode == "full" else FRAC
+        cfg = tst.SGDConfig(step_size=0.5, num_iterations=MESH_ITERS,
+                            mini_batch_fraction=frac, convergence_tol=0.0,
+                            sampling="bernoulli" if mode == "full" else mode)
+        run = par.dp_mp_run_fn(g, u, cfg, m2)
+        ck.reset_launch_counts()
+        (wb, h, n), secs = _timed(torch, lambda: run(
+            torch.zeros(b, device="cuda"), Xb, yb, None))
+        w = par.gather_model(m2, wb).reshape(-1)
+        res["full"][mode] = {"launches": ck.launch_counts(),
+                             "products": ck.model_axis_product_counts(),
+                             "ms_per_iteration": 1e3 * secs / MESH_ITERS}
+        arrays[f"e_full_{mode}_w"] = w.cpu().numpy()
+        arrays[f"e_full_{mode}_h"] = h[:int(n)].cpu().numpy()
+        arrays[f"e_block_{mode}_w"] = wb.cpu().numpy()
+    combine = {}
+    for name, length in (("full_batch", rows), ("window", round(FRAC * rows))):
+        margins = torch.ones(length, device="cuda")
+        par.combine_model(m2, margins)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(20):
+            par.combine_model(m2, margins)
+        torch.cuda.synchronize()
+        combine[name] = {"ms": 1e3 * (time.perf_counter() - t) / 20,
+                         "bytes_per_rank": 4 * length}
+    res["margin_combine"] = combine
+    return res, arrays
+
+
+def mesh_rank_sparse_owlqn(torch, tst, ck, mesh, Xs, ys):
+    """A rank's (i), sparse: OWL-QN hinge + L1 (leg (d)'s problem) on its
+    CSR row block, the CSR kernel's launches by right-hand columns."""
+    ck.reset_launch_counts()
+    (w, h), secs = _timed(torch, lambda: tst.OWLQN(
+        tst.HingeGradient(), reg_param=1e-5,
+        max_num_iterations=OWLQN_ITERS).set_mesh(mesh).optimize_with_history(
+        (Xs, ys), torch.zeros(Xs.shape[1], device="cuda")))
+    return ({"iterations": len(h) - 1, "seconds": secs,
+             "csr_launches": ck.csr_launch_counts(by_columns=True),
+             "dense_launches": ck.launch_counts()},
+            {"i_owlqn_w": w.cpu().numpy(), "i_owlqn_h": h})
+
+
+def rank_order_reference_2d(torch, tst, shards, mode, iters=MESH_ITERS,
+                            n_model=MESH2D[1]):
+    """A 2-D run's arithmetic in one process on the card (``n_model``
+    feature blocks; the 4 x 2 mesh's by default): each data shard's rows
+    cut into contiguous column blocks, its own sample stream;
+    per shard the blocks' partial margins (``mm_acc``) added in model-rank
+    order, the pointwise rule, each block's gradient; per block the sums
+    added in data-rank order, each block's update, the reg values added in
+    model-rank order (least squares, simple updater)."""
+    from tpu_sgd_torch.ops.gradients import _window_rows, mm_acc
+    from tpu_sgd_torch.optimize import gradient_descent as tgd
+
+    frac = 1.0 if mode == "full" else FRAC
+    cfg = tst.SGDConfig(step_size=0.5, num_iterations=iters,
+                        mini_batch_fraction=frac, convergence_tol=0.0,
+                        sampling="bernoulli" if mode == "full" else mode)
+    g, u = tst.LeastSquaresGradient(), tst.SimpleUpdater()
+    b = FULL_D // n_model
+    blocks = [[X[:, m * b:(m + 1) * b].contiguous() for m in range(n_model)]
+              for X, _ in shards]
+    samplers = [tgd._make_sampler(cfg, bl[0], shard=s)
+                for s, bl in enumerate(blocks)]
+    w = [torch.zeros(b, device="cuda") for _ in range(n_model)]
+    regs = [u.compute(wm, torch.zeros_like(wm), 0.0, 1, 0.0)[1] for wm in w]
+    reg = regs[0]
+    for r in regs[1:]:
+        reg = reg + r
+    hist = []
+    for i in range(1, iters + 1):
+        it = torch.full((1,), i, dtype=torch.int64, device="cuda")
+        parts = [[] for _ in range(n_model)]
+        for (_, ys), bl, smp in zip(shards, blocks, samplers):
+            Xs, yv, mask = bl, ys, None
+            if smp is not None:
+                smp.seek(i)
+                sample = smp.draw()
+                if mode == "sliced":
+                    m_rows = max(1, round(FRAC * ys.shape[0]))
+                    Xs = [_window_rows(B, ys, None, sample, m_rows)[0]
+                          for B in bl]
+                    yv = _window_rows(bl[0], ys, None, sample, m_rows)[1]
+                else:
+                    mask = sample
+            partial = [mm_acc(Xs[m], w[m].to(torch.bfloat16)[:, None])[:, 0]
+                       for m in range(n_model)]
+            margins = partial[0]
+            for p in partial[1:]:  # model-rank order
+                margins = margins + p
+            coeff, losses = g.pointwise(margins, yv.to(margins.dtype))
+            if mask is not None:
+                mf = mask.to(margins.dtype)
+                coeff, losses, count = coeff * mf, losses * mf, torch.sum(mf)
+            else:
+                count = torch.full((), float(yv.shape[0]), device="cuda")
+            for m in range(n_model):
+                gm = mm_acc(coeff.to(torch.bfloat16)[None, :], Xs[m])[0]
+                parts[m].append(torch.cat([gm, torch.sum(losses).reshape(1),
+                                           count.reshape(1)]))
+        tots = []
+        for m in range(n_model):
+            tot = parts[m][0]
+            for p in parts[m][1:]:  # data-rank order
+                tot = tot + p
+            tots.append(tot)
+        c = tots[0][b + 1]
+        safe = torch.clamp(c, min=1.0)
+        loss = tots[0][b] / safe + reg
+        new = [u.compute(w[m], tots[m][:b] / safe, cfg.step_size, it, 0.0)
+               for m in range(n_model)]
+        if bool(c > 0):
+            hist.append(loss.to(torch.float32))
+            w = [nw for nw, _ in new]
+            reg = new[0][1]
+            for _, r in new[1:]:
+                reg = reg + r
+    del blocks
+    return torch.cat(w), torch.stack(hist).cpu().numpy()
+
+
+def lbfgs_rank_order_reference(torch, tst, blocks, stats=False):
+    """Meshed L-BFGS's arithmetic in one process on the card: every cost
+    evaluation's B1 sums and every sweep's loss sums over each block, added
+    in rank order, then the port's own loop; with ``stats`` the rank-order
+    sum of every block's f64 totals, then the unmeshed loop from them."""
+    from tpu_sgd_torch.ops.gram import GramLeastSquaresGradient as G
+    from tpu_sgd_torch.ops.gram import _acc_totals, _sum_carries
+
+    g = tst.LeastSquaresGradient()
+    d = blocks[0][0].shape[1]
+    opt = _mesh_lbfgs(tst)
+    reg = MESH_QN_REG
+    w0 = torch.zeros(d, device="cuda")
+
+    def rank_order(parts):
+        tot = parts[0]
+        for p in parts[1:]:
+            tot = tot + p
+        return tot
+
+    if stats:
+        B = min(8192, blocks[0][0].shape[0])
+        tot = rank_order([torch.cat([t.reshape(-1) for t in _acc_totals(
+            _sum_carries(d, "cuda"), Xb, yb, B)]) for Xb, yb in blocks])
+        n = sum(Xb.shape[0] for Xb, _ in blocks)
+        gram = G(G.totals_only_data(
+            tot[:d * d].reshape(d, d).to(torch.float32), tot[d * d:d * d + d],
+            tot[-1], n, d, blocks[0][0].dtype))
+        return opt.set_gradient(gram).optimize_with_history(
+            (gram.data, blocks[0][1]), w0)
+
+    def cost1(w):
+        tot = rank_order([torch.cat([gs, ls.reshape(1), cs.reshape(1)])
+                          for gs, ls, cs in (g.batch_sums(Xb, yb, w)
+                                             for Xb, yb in blocks)])
+        return (tot[d] / tot[d + 1] + 0.5 * reg * torch.sum(w * w, dim=-1),
+                tot[:d] / tot[d + 1] + reg * w)
+
+    def sweep1(W):
+        tot = rank_order([torch.cat([ls, cs.reshape(1)])
+                          for ls, cs in (g.loss_sweep(Xb, yb, W)
+                                         for Xb, yb in blocks)])
+        T = W.shape[0]
+        return tot[:T] / tot[T] + 0.5 * reg * torch.sum(W * W, dim=-1)
+
+    return opt._qn_loop(w0, cost1, sweep1, None)
+
+
+def mesh_resident_checks(torch, tst, ck, X, y, blocks, reports, arrays,
+                         single, objective, sparse_owlqn):
+    """The parent's side of (e)-(i), after the rank job (the ranks' memory
+    is free): each rank's report checked, and rank 0's arrays (every rank's
+    are bitwise equal, checked by the caller) against the one-process
+    rank-order references and against one device on the parent's whole
+    matrix.  ``single``: the single-device full-batch run; ``objective``:
+    the single-device sampled runs' objectives; ``sparse_owlqn``: ``(X_sp,
+    y_sp, leg (d)'s weights)``.  Returns the report."""
+    from tpu_sgd_torch.optimize import normal
+
+    a0, out = arrays[0], {}
+    n_data, n_model = MESH2D
+    rows2 = FULL_ROWS // n_data
+    dev = "cuda"
+    # (e) the 2-D mesh
+    for rep in reports:
+        e = rep["e"]
+        for where in ("prefix", "full"):
+            for mode, r in e[where].items():
+                check(not any(r["launches"].values())
+                      and r["products"] == 2 * MESH_ITERS,
+                      f"mesh 2-D {where} {mode} rank {rep['rank']}: "
+                      f"launches {r['launches']}, {r['products']} products")
+    for r, a in enumerate(arrays):
+        peer = arrays[r - r % n_model]  # the first rank of its data row
+        for mode in ("full", "bernoulli", "sliced"):
+            col = arrays[r % n_model][f"e_block_{mode}_w"]
+            check(np.array_equal(a[f"e_block_{mode}_w"], col),
+                  f"mesh 2-D {mode}: rank {r}'s block differs from its "
+                  "model column's")
+            check(np.array_equal(a[f"e_full_{mode}_w"],
+                                 peer[f"e_full_{mode}_w"]),
+                  f"mesh 2-D {mode}: rank {r}'s weights differ")
+    e_out = {"prefix_bitwise_rank_order_sum": {},
+             "full_bitwise_rank_order_sum": {}, "objective_ratio": {}}
+    prefix = [(X[s * rows2:s * rows2 + MESH2D_PREFIX_ROWS],
+               y[s * rows2:s * rows2 + MESH2D_PREFIX_ROWS])
+              for s in range(n_data)]
+    full = [(X[s * rows2:(s + 1) * rows2], y[s * rows2:(s + 1) * rows2])
+            for s in range(n_data)]
+    for mode in ("full", "bernoulli", "sliced"):
+        for key, shards in (("prefix", prefix), ("full", full)):
+            w, h = rank_order_reference_2d(torch, tst, shards, mode)
+            same = (np.array_equal(a0[f"e_{key}_{mode}_w"], w.cpu().numpy())
+                    and np.array_equal(a0[f"e_{key}_{mode}_h"], h))
+            check(same, f"mesh 2-D {key} {mode}: not the one-process "
+                  "rank-order sum")
+            e_out[f"{key}_bitwise_rank_order_sum"][mode] = same
+            del w
+        torch.cuda.empty_cache()
+        ours = ls_objective_exact(torch, X, y, torch.as_tensor(
+            a0[f"e_full_{mode}_w"], device=dev))
+        ref = objective["full" if mode == "full" else mode]
+        e_out["objective_ratio"][mode] = ours / ref
+    _check_objective_ratios(e_out["objective_ratio"], "full", "mesh 2-D")
+    e_out["full_batch_history_max_rel"] = _rel_max(a0["e_full_full_h"],
+                                                   single["h"])
+    e_out["full_batch_first_loss_rel"] = _rel_max(a0["e_full_full_h"][:1],
+                                                  single["h"][:1])
+    check(e_out["full_batch_first_loss_rel"] <= MESH_HISTORY_RTOL
+          and e_out["full_batch_history_max_rel"] <= MESH_FULL_HISTORY_RTOL,
+          f"mesh 2-D full batch against one device: {e_out}")
+    r0 = reports[0]["e"]
+    e_out.update(
+        ms_per_iteration_by_rank={mode: [rep["e"]["full"][mode][
+            "ms_per_iteration"] for rep in reports] for mode in r0["full"]},
+        prefix_ms_per_iteration_rank0={
+            mode: r0["prefix"][mode]["ms"] for mode in r0["prefix"]},
+        margin_combine_by_rank={k: [rep["e"]["margin_combine"][k]["ms"]
+                                    for rep in reports]
+                                for k in r0["margin_combine"]},
+        margin_combine_bytes_per_rank={
+            k: v["bytes_per_rank"] for k, v in r0["margin_combine"].items()},
+        launches_dense=0, products_per_iteration=2)
+    out["e"] = e_out
+    # (f) meshed L-BFGS
+    for rep in reports:
+        f = rep["f"]
+        check(f["repeat_bitwise"], f"mesh L-BFGS rank {rep['rank']}: two "
+              "runs differ")
+        check(f["b1_launches"] == f["cost_evaluations"]
+              and f["b1_routes"]["window"] == f["cost_evaluations"],
+              f"mesh L-BFGS rank {rep['rank']}: {f['b1_launches']} B1 "
+              f"launches ({f['b1_routes']}) for {f['cost_evaluations']} "
+              "cost evaluations")
+    w, h = lbfgs_rank_order_reference(torch, tst, blocks)
+    f_same = (np.array_equal(a0["f_w"], w.cpu().numpy())
+              and np.array_equal(a0["f_h"], h))
+    check(f_same, "mesh L-BFGS: not the one-process rank-order sum")
+    ws, hs = _mesh_lbfgs(tst).optimize_with_history(
+        (X, y), torch.zeros(FULL_D, device=dev))
+    check(len(hs) == len(a0["f_h"]), f"mesh L-BFGS: {len(a0['f_h'])} "
+          f"evaluations, one device {len(hs)}")
+    L_single = _qn_objective(torch, X, y, ws)
+    L_mesh = _qn_objective(torch, X, y, torch.as_tensor(a0["f_w"],
+                                                          device=dev))
+    f_out = {"bitwise_rank_order_sum": f_same,
+             "history_max_rel": _rel_max(a0["f_h"], hs),
+             "objective_ratio": L_mesh / L_single,
+             "cost_evaluations": reports[0]["f"]["cost_evaluations"],
+             "b1_launches_rank0": reports[0]["f"]["b1_launches"],
+             "ms_per_iteration_by_rank": [rep["f"]["ms_per_iteration"]
+                                          for rep in reports]}
+    check(f_out["history_max_rel"] <= MESH_FULL_HISTORY_RTOL
+          and abs(f_out["objective_ratio"] - 1) <= MESH_FULL_OBJECTIVE_TOL,
+          f"mesh L-BFGS against one device: {f_out}")
+    out["f"] = f_out
+    # (g) meshed normal equations
+    parts = []
+    for Xb, yb in blocks:
+        A, b, yy = normal._gram_sums_wide(Xb, yb.to(torch.bfloat16).to(
+            torch.float32))
+        parts.append(torch.cat([A.reshape(-1), b, yy.reshape(1),
+                                torch.full((1,), float(Xb.shape[0]),
+                                           dtype=torch.float64, device=dev)]))
+    tot = parts[0]
+    for p in parts[1:]:
+        tot = tot + p
+    d = FULL_D
+    w_ref, _ = normal._solve(tot[:d * d].reshape(d, d).float(),
+                             tot[d * d:d * d + d].float(), tot[-2].float(),
+                             tot[-1].float(), 0.0)
+    g_same = np.array_equal(a0["g_w"], w_ref.cpu().numpy())
+    check(g_same, "mesh normal equations: not the rank-order sum")
+    w_one = tst.NormalEquations().optimize(
+        (X, y.to(torch.bfloat16).to(torch.float32)),
+        torch.zeros(d, device=dev))
+    g_rel = float(torch.linalg.vector_norm(
+        torch.as_tensor(a0["g_w"], device=dev) - w_one)
+        / torch.linalg.vector_norm(w_one))
+    check(g_rel <= MESH_NORMAL_RTOL, f"mesh normal equations: {g_rel} "
+          "from one device")
+    out["g"] = {"bitwise_rank_order_sum": g_same, "rel_to_one_device": g_rel,
+                "seconds_by_rank": [rep["g"]["seconds"] for rep in reports]}
+    # (h) meshed statistics
+    h_out = {"bitwise_rank_order_sum": {}}
+    grams = [tst.GramLeastSquaresGradient.build(Xb, yb, block_rows=GRAM_BLOCK)
+             for Xb, yb in blocks]
+    for key, aligned in (("exact", False), ("aligned", True)):
+        for rep in reports:
+            hr = rep["h"][key]
+            check(hr["engaged"] and not any(hr["launches"].values()),
+                  f"mesh statistics {key} rank {rep['rank']}: {hr}")
+        gs = [tst.GramLeastSquaresGradient(gr.data, aligned=aligned)
+              for gr in grams]
+        w, h = rank_order_reference(
+            torch, tst, [(gr.data, yb) for gr, (_, yb) in zip(grams, blocks)],
+            "sliced", grads=gs)
+        same = (np.array_equal(a0[f"h_{key}_w"], w.cpu().numpy())
+                and np.array_equal(a0[f"h_{key}_h"], h))
+        check(same, f"mesh statistics {key}: not the rank-order sum")
+        h_out["bitwise_rank_order_sum"][key] = same
+    del grams, gs
+    torch.cuda.empty_cache()
+    # as phase gram (c): the history against the stock windows summed in
+    # f32 (the meshed run's own windows, rank order, w not rounded to
+    # bf16), the objective against (b)'s stock run (the bf16 kernel)
+    _, h_f32 = rank_order_reference(
+        torch, tst, blocks, "sliced",
+        grads=[_exact_window_gradient(torch, tst)] * len(blocks))
+    h_out["history_max_rel_vs_f32_windows"] = _rel_max(a0["h_exact_h"],
+                                                       h_f32)
+    h_out["history_max_rel_vs_bf16_kernel_run"] = _rel_max(
+        a0["h_exact_h"], a0["sliced_h"])
+    stock = ls_objective_exact(torch, X, y, torch.as_tensor(
+        a0["sliced_w"], device=dev))
+    h_out["objective_ratio_vs_stock"] = {
+        key: ls_objective_exact(torch, X, y, torch.as_tensor(
+            a0[f"h_{key}_w"], device=dev)) / stock
+        for key in ("exact", "aligned")}
+    check(h_out["history_max_rel_vs_f32_windows"] <= MESH_STATS_RTOL
+          and max(h_out["objective_ratio_vs_stock"].values())
+          <= MESH_OBJECTIVE_RATIO,
+          f"mesh statistics against the stock sliced run: {h_out}")
+    w, h = lbfgs_rank_order_reference(torch, tst, blocks, stats=True)
+    h_out["lbfgs_bitwise_rank_order_sum"] = (
+        np.array_equal(a0["h_lbfgs_w"], w.cpu().numpy())
+        and np.array_equal(a0["h_lbfgs_h"], h))
+    check(h_out["lbfgs_bitwise_rank_order_sum"],
+          "mesh statistics L-BFGS: not the rank-order sum of the totals")
+    L_stats = _qn_objective(torch, X, y, torch.as_tensor(a0["h_lbfgs_w"],
+                                                         device=dev))
+    h_out["lbfgs_objective_ratio_vs_one_device"] = L_stats / L_single
+    check(L_stats <= L_single * (1 + 1e-4), "mesh statistics L-BFGS: "
+          f"objective {L_stats} above one device's {L_single} x (1 + 1e-4)")
+    for rep in reports:
+        check(not any(rep["h"]["lbfgs"]["launches"].values()),
+              f"mesh statistics L-BFGS rank {rep['rank']}: launches")
+    h_out.update(
+        stack_bytes_rank0=reports[0]["h"]["exact"]["stack_bytes"],
+        peak_extra_bytes_by_rank=[rep["h"]["exact"]["peak_extra_bytes"]
+                                  for rep in reports],
+        seconds_rank0={k: reports[0]["h"][k]["seconds"]
+                       for k in ("exact", "aligned", "lbfgs")})
+    out["h"] = h_out
+    # (i) residency, feature scaling, sparse OWL-QN
+    for rep in reports:
+        ir = rep["i"]
+        check(ir["residency_warned"] and ir["residency_bitwise_superstep"]
+              and ir["residency_events"] == MESH_RES_ITERS,
+              f"mesh residency rank {rep['rank']}: {ir}")
+    Xp = torch.cat([Xb[:MESH_PREFIX_ROWS] for Xb, _ in blocks])
+    yp = torch.cat([yb[:MESH_PREFIX_ROWS] for _, yb in blocks])
+    alg = tst.LinearRegressionWithSGD(0.5, MESH_ITERS, None, 1.0)
+    alg.set_feature_scaling(True)
+    alg.optimizer.set_convergence_tol(0.0)
+    w_sc = alg.run((Xp, yp)).weights
+    i_out = {"residency_bitwise_superstep": True,
+             "scaled_history_max_rel": _rel_max(
+                 a0["i_scaled_h"], np.asarray(alg.optimizer.loss_history)),
+             "scaled_objective_ratio": ls_objective_exact(
+                 torch, Xp, yp, torch.as_tensor(a0["i_scaled_w"],
+                                                device=dev))
+             / ls_objective_exact(torch, Xp, yp, w_sc)}
+    check(i_out["scaled_history_max_rel"] <= MESH_FULL_HISTORY_RTOL
+          and abs(i_out["scaled_objective_ratio"] - 1)
+          <= MESH_FULL_OBJECTIVE_TOL,
+          f"mesh feature scaling against one device: {i_out}")
+    del Xp, yp
+    X_sp, y_sp, w_d = sparse_owlqn
+    Xsc, ysh = _scipy_csr(X_sp), y_sp.cpu().numpy()
+    i_out["owlqn_objective_ratio"] = (
+        _hinge_objective_sparse(Xsc, ysh, a0["i_owlqn_w"], 1e-5)
+        / _hinge_objective_sparse(Xsc, ysh, w_d.cpu().numpy(), 1e-5))
+    i_out["owlqn_iterations"] = reports[0]["i_sparse"]["iterations"]
+    i_out["owlqn_seconds_rank0"] = reports[0]["i_sparse"]["seconds"]
+    check(abs(i_out["owlqn_objective_ratio"] - 1)
+          <= MESH_OWLQN_OBJECTIVE_TOL,
+          f"mesh sparse OWL-QN against leg (d): {i_out}")
+    for rep in reports:
+        sr = rep["i_sparse"]
+        check(sr["csr_launches"].get("csr_margins/30", 0) > 0
+              and not any(sr["dense_launches"].values()),
+              f"mesh sparse OWL-QN rank {rep['rank']}: {sr}")
+    out["i"] = i_out
+    return out
+
+
+def phase_mesh(torch, tst, ck, X_sp, y_sp, profile, sparse_owlqn_w):
     """Phase ``mesh``: data parallelism at config 4's shape, after config
     4's matrix of phase ``full`` was freed.  The data: 10M x 1000 bf16
     least squares as 8 row blocks, each made from ``(seed, block)``
@@ -4364,7 +4982,24 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile):
     hinge + L1 at 1.0 (the gradient tier against the single-device run,
     the objective within ``MESH_FULL_OBJECTIVE_TOL``) and 0.1 (the
     objective within 1.01x), over the same world; peak memory per rank.
-    (d) The observed driver at world 1 (``mesh_observed``)."""
+    (d) The observed driver at world 1 (``mesh_observed``).
+    (e)-(i) Resident training on a mesh, in the same 8-rank job after (b)
+    (``mesh_rank_dense``, ``mesh_rank_2d``, ``mesh_rank_sparse_owlqn``),
+    checked after it (``mesh_resident_checks``): (e) the 4 x 2 mesh, full
+    batch, Bernoulli and sliced, on a 1M-row prefix through the user API
+    and on all 10M rows on each rank's 2.5M x 500 block, bitwise the
+    one-process 2-D rank-order sum, no fused kernel and two library
+    products an iteration, full batch against one device at the full-batch
+    tolerances, sampled objectives within 1.01x, the margin combine timed;
+    (f) meshed L-BFGS, bitwise its rank-order reference and itself, B1
+    launches = cost evaluations, against one device; (g) the meshed normal
+    equations, bitwise, within ``MESH_NORMAL_RTOL`` of one device; (h)
+    each rank's prefix stack, sliced exact and aligned bitwise their
+    rank-order references and against (b)'s stock sliced run, L-BFGS from
+    the meshed totals against one device; (i) ``set_residency`` (warns,
+    bitwise the superstep run), feature scaling on the 1M-row prefix
+    against one device, OWL-QN hinge + L1 on the 8 CSR blocks against leg
+    (d)."""
     t0 = time.perf_counter()
     world, n, d, dev = MESH_RANKS, FULL_ROWS, FULL_D, "cuda"
     rows = n // world
@@ -4440,6 +5075,8 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile):
                   f"mesh rank {r} sparse {frac}: {run['csr_launches']} "
                   f"{run['dense_launches']}")
     for k in arrays[0]:
+        if k.startswith("e_block_"):
+            continue  # a 2-D rank's weight block: its model column's
         check(all(np.array_equal(a[k], arrays[0][k]) for a in arrays[1:]),
               f"mesh: ranks differ in {k}")
     a0 = arrays[0]
@@ -4470,6 +5107,10 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile):
             a0[mode + "_w"], device=dev))
         ratios[mode] = ours / objective[mode]
     _check_objective_ratios(ratios, "full", "mesh")
+    resident = mesh_resident_checks(
+        torch, tst, ck, X, y, blocks, reports, arrays, single, objective,
+        (X_sp, y_sp, sparse_owlqn_w))
+    emit({"phase": "mesh", "part": "e_i_resident", **resident})
     del X, y, blocks
     torch.cuda.empty_cache()
     sparse_rel = _rel_max(a0["sparse_1.0_h"], sparse_single[1.0][1])
@@ -4486,12 +5127,16 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile):
     r0 = reports[0]
     launches = (r0["runs"]["bernoulli"]["launches"]["fused_gradient_sums"],
                 r0["runs"]["sliced"]["launches"]["fused_window_sums"],
+                r0["f"]["b1_launches"],
                 r0["sparse"]["1.0"]["csr_launches"]["csr_margins"],
-                r0["sparse"]["1.0"]["csr_launches"]["csr_grad_sum"])
+                r0["sparse"]["1.0"]["csr_launches"]["csr_grad_sum"],
+                r0["i_sparse"]["csr_launches"].get("csr_margins/30", 0))
     for row, count, run in zip(kernel_rows, launches, (
             "rank 0's Bernoulli run", "rank 0's sliced run",
+            "rank 0's meshed L-BFGS run (f)",
             "rank 0's sparse run, frac 1.0",
-            "rank 0's sparse run, frac 1.0")):
+            "rank 0's sparse run, frac 1.0",
+            "rank 0's meshed OWL-QN run (i)")):
         row["launches"], row["launches_from"] = count, run
         check(count > 0, f"{row['name']} ({row['path']}): no launch")
     out = {
@@ -4526,7 +5171,7 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile):
                     for rep in reports] for f in r0["sparse"]}},
         "seconds": time.perf_counter() - t0}
     emit({"phase": "mesh", "part": "b_c_ranks", **out})
-    return {"world1": world1, **out}, kernel_rows
+    return {"world1": world1, "resident": resident, **out}, kernel_rows
 
 
 # -- phase serve ---------------------------------------------------------------
@@ -5395,7 +6040,8 @@ def main() -> int:
                          streamed["sparse"], batch))
     del batch
     torch.cuda.empty_cache()
-    mesh, mesh_rows = phase_mesh(torch, tst, ck, X_sp, y_sp, profile)
+    mesh, mesh_rows = phase_mesh(torch, tst, ck, X_sp, y_sp, profile,
+                                 qn["d"]["weights"])
     rows.extend(mesh_rows)
     del X_sp, y_sp
     torch.cuda.empty_cache()
@@ -5474,7 +6120,7 @@ def main() -> int:
         "world1", "b", "combine_ms_by_rank", "prefix_bitwise_rank_order_sum",
         "full_batch_bitwise_rank_order_sum", "full_batch_first_loss_rel",
         "full_batch_history_max_rel", "sampled_objective_ratio", "c_sparse",
-        "job_seconds", "seconds")}})
+        "resident", "job_seconds", "seconds")}})
     emit({"serve": serve})
     emit({"corr": corr})
     emit({"observed": {

@@ -183,11 +183,13 @@ def test_later_slice_options_raise():
         alg.set_schedule("auto")
     from tpu_sgd_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
 
-    # a data mesh trains (test_torch_parallel.py); feature-axis sharding
-    # is A5's second part
-    with pytest.raises(NotImplementedError, match="A5"):
+    # a data mesh trains (test_torch_parallel.py), and so does a 2-D one
+    # (test_torch_mesh_resident.py); host streaming on a 2-D mesh is
+    # refused with the JAX package's message
+    with pytest.raises(NotImplementedError, match="supports 1-D data"):
         tm.LinearRegressionWithSGD.train(
-            (X, y), mesh=Mesh({DATA_AXIS: 4, MODEL_AXIS: 2}), device="cpu")
+            (X, y), mesh=Mesh({DATA_AXIS: 4, MODEL_AXIS: 2}),
+            host_streaming=True, device="cpu")
 
 
 @pytest.mark.parametrize("model,method,item", [

@@ -128,8 +128,17 @@ def test_sparse_features_raise():
 
 
 def _mesh_raises(opt):
-    with pytest.raises(NotImplementedError, match="A5"):
+    """``set_mesh`` takes a data mesh (its runs:
+    ``tests/test_torch_mesh_qn.py``) and raises for anything else: a
+    non-Mesh, and a 2-D mesh with the reference's message."""
+    from tpu_sgd_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         opt.set_mesh(object())
+    with pytest.raises(ValueError, match="data-only mesh"):
+        opt.set_mesh(Mesh({DATA_AXIS: 2, MODEL_AXIS: 2}))
+    mesh = Mesh({DATA_AXIS: 2})
+    assert opt.set_mesh(mesh).mesh is mesh
 
 
 def _host_streaming_solves(opt):
@@ -148,7 +157,8 @@ def _host_streaming_solves(opt):
     pytest.param(_mesh_raises, id="<lambda>-A5"),
     pytest.param(_host_streaming_solves, id="<lambda>-A9")])
 def test_later_slices_raise(call):
-    """``set_mesh`` raises naming A5; ``set_host_streaming`` runs."""
+    """``set_mesh`` raises for what is not a data mesh;
+    ``set_host_streaming`` runs."""
     call(tn.NormalEquations(device=CPU))
 
 

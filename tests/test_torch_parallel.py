@@ -36,6 +36,7 @@ import torch
 import tpu_sgd as jt
 from tpu_sgd.parallel import data_parallel as jdp
 from tpu_sgd.parallel.mesh import data_mesh as jdata_mesh
+from tpu_sgd.parallel.mesh import make_mesh as jmake_mesh
 import tpu_sgd_torch as tst
 from tpu_sgd_torch import parallel as par
 from tpu_sgd_torch.optimize import gradient_descent as tgd
@@ -313,11 +314,22 @@ def test_train_with_mesh_matches_the_jax_mesh(world):
 
 
 def test_2d_mesh_constructs_and_every_route_raises_naming_a5(world):
-    _, outs, _ = world
+    """The 4 x 2 mesh constructs (``make_mesh`` and ``MeshConfig``), runs
+    (each rank passing its data block's rows, as the JAX 2-D run's result),
+    and refuses what the reference refuses on it with the reference's
+    message, naming no ROADMAP item: the 2-D routes were the ones that
+    raised naming A5 here, and none does now
+    (``tests/test_torch_mesh_resident.py`` holds the 2-D runs)."""
+    inp, outs, _ = world
+    jw = (jt.GradientDescent().set_mesh(jmake_mesh(n_data=4, n_model=2))
+          .optimize((inp["ls_X"], inp["ls_y"]), np.zeros(12, np.float32)))
     for o in outs:
         assert o["mesh2d_shape"].tolist() == [4, 2]
         assert o["config2d_shape"].tolist() == [4, 2]
-        assert "ROADMAP A5" in str(o["mesh2d_raises"])
+        msg = str(o["mesh2d_raises"])
+        assert "needs dense column blocks" in msg and "ROADMAP" not in msg
+        np.testing.assert_array_equal(o["mesh2d_w"], outs[0]["mesh2d_w"])
+    _close(outs[0]["mesh2d_w"], jw, atol=1e-5)
 
 
 # ---- sparse, multinomial ----------------------------------------------------
@@ -561,37 +573,48 @@ def test_mesh_config_and_the_mesh_description():
     assert par.as_data_mesh(flat) is flat and par.as_data_mesh(None) is None
     assert not par.has_model_axis(m)
     m2 = par.Mesh({par.DATA_AXIS: 4, par.MODEL_AXIS: 2})
-    assert par.has_model_axis(m2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    assert par.has_model_axis(m2) and m2.n_model == 2
+    with pytest.raises(NotImplementedError,
+                       match="composes with a 1-D 'data' mesh"):
         par.as_data_mesh(m2)
     with pytest.raises(ValueError):
         par.Mesh({par.MODEL_AXIS: 2})
 
 
 def test_set_mesh_takes_a_mesh_and_the_others_still_raise():
+    """``set_mesh`` takes a ``Mesh`` on every optimizer now; what still
+    raises is a non-Mesh, and on the quasi-Newton and exact solvers a 2-D
+    mesh (the reference's ``ValueError``), before anything is sent to
+    another rank (``tests/test_torch_mesh_qn.py`` holds their runs)."""
     X, y = _linear(40, 3, 1)
     with pytest.raises(TypeError, match="Mesh"):
         tst.GradientDescent(device="cpu").set_mesh(object())
     mesh = par.Mesh({par.DATA_AXIS: 1})
+    two_d = par.Mesh({par.DATA_AXIS: 2, par.MODEL_AXIS: 2})
     assert tst.GradientDescent(device="cpu").set_mesh(mesh).mesh is mesh
+    assert tst.GradientDescent(device="cpu").set_mesh(two_d).mesh is two_d
     for opt in (tst.LBFGS(device="cpu"), tst.OWLQN(device="cpu"),
                 tst.NormalEquations(device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            opt.set_mesh(mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        assert opt.set_mesh(mesh).mesh is mesh
+        with pytest.raises(ValueError, match="data-only mesh"):
+            opt.set_mesh(two_d)
+    with pytest.raises(ValueError, match="data-only mesh"):
         tst.LogisticRegressionWithLBFGS.train((X, (y > 0).astype(
-            np.float32)), mesh=mesh, device="cpu")
+            np.float32)), mesh=two_d, device="cpu")
 
 
 @pytest.mark.parametrize("knob", [
     lambda o: o.set_host_streaming(True),
-    lambda o: o.set_sufficient_stats(True),
+    lambda o: o.set_sufficient_stats(True).set_host_streaming(True),
     lambda o: o.set_streamed_stats(True),
-    lambda o: o.set_superstep(4).set_residency(2),
+    lambda o: o.set_superstep(4).set_residency(2).set_streamed_stats(True),
 ])
 def test_schedules_of_the_second_part_raise_on_a_mesh(knob):
     """One message each, raised before anything is sent to another rank
-    (so no process group is needed here)."""
+    (so no process group is needed here).  Host streaming and streamed
+    statistics are the streamed half, not ported yet: they raise with or
+    without the resident knobs (sufficient statistics, residency), which
+    run on a mesh (``tests/test_torch_mesh_resident.py``)."""
     X, y = _linear(40, 3, 1)
     opt = tst.GradientDescent(device="cpu").set_mesh(
         par.Mesh({par.DATA_AXIS: 2}))
@@ -602,8 +625,12 @@ def test_schedules_of_the_second_part_raise_on_a_mesh(knob):
 
 
 def test_feature_scaling_on_a_mesh_raises():
+    """Feature scaling on a mesh fits the scaler on every rank's rows
+    (``tests/test_torch_mesh_resident.py``), so it needs the process
+    group: without one it raises at the fit, before any training, and
+    never falls back to this rank's rows alone."""
     X, y = _linear(40, 3, 1)
     alg = tst.LinearRegressionWithSGD(device="cpu").set_feature_scaling(True)
     alg.optimizer.set_mesh(par.Mesh({par.DATA_AXIS: 2}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises((RuntimeError, ValueError), match="process group"):
         alg.run((X, y))

@@ -59,6 +59,24 @@ def test_import_pulls_in_no_jax_and_no_tpu_sgd():
     assert out.stdout.strip() == "[]"
 
 
+def test_the_meshed_modules_import_no_jax_and_build_nothing():
+    """``parallel.model_parallel`` and ``parallel.gram_parallel`` (the 2-D
+    mesh and the meshed statistics): a fresh process imports them without
+    JAX or the JAX package, starting no compiler and loading no kernel
+    library."""
+    out = _python(
+        "import subprocess, sys\n"
+        "def refuse(*a, **k): raise AssertionError('started %r' % (a,))\n"
+        "subprocess.Popen = refuse\n"
+        "from tpu_sgd_torch.parallel import model_parallel, gram_parallel\n"
+        "from tpu_sgd_torch.ops import _build\n"
+        "bad = sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
+        "print(bad, len(_build._loaded))")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] 0"
+
+
 def test_import_builds_nothing():
     """Importing every module starts no compiler (nvcc, or the C++
     compiler of the native LIBSVM parser) and loads no library."""

@@ -530,7 +530,7 @@ def test_oracle_objective_helper_closed_form():
                            "elastic", device=CPU)
 
 
-# ---- the schedules of host rows; the mesh raises ----------------------------
+# ---- the schedules of host rows; the mesh takes a data mesh only -------------
 
 def _runs_on_host_rows(opt):
     X, y = _data("least_squares", n=400, d=5)
@@ -539,8 +539,17 @@ def _runs_on_host_rows(opt):
 
 
 def _mesh_raises(opt):
-    with pytest.raises(NotImplementedError, match="A5"):
+    """``set_mesh`` takes a data mesh (its runs:
+    ``tests/test_torch_mesh_qn.py``) and raises for a non-Mesh and, with
+    the JAX package's message, for a 2-D mesh."""
+    from tpu_sgd_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         opt.set_mesh(object())
+    with pytest.raises(ValueError, match="data-only mesh"):
+        opt.set_mesh(Mesh({DATA_AXIS: 4, MODEL_AXIS: 2}))
+    mesh = Mesh({DATA_AXIS: 2})
+    assert opt.set_mesh(mesh).mesh is mesh
 
 
 def _streamed_stats_runs(opt):
@@ -567,8 +576,8 @@ def _ingest_options(opt):
     pytest.param(_ingest_options, id="set_ingest_options-A9")])
 @pytest.mark.parametrize("cls", [tl.LBFGS, to.OWLQN])
 def test_schedules_of_later_slices_raise(cls, case):
-    """``set_mesh`` raises naming A5; the schedules of ROADMAP A9's second
-    half return the optimizer and run (their parity:
+    """``set_mesh`` takes only a data mesh; the schedules of ROADMAP A9's
+    second half return the optimizer and run (their parity:
     ``tests/test_torch_streamed_costfun.py``, ``test_torch_streamed_gram
     .py``)."""
     case(cls(device=CPU))

@@ -177,16 +177,20 @@ def test_config_validation_matches_jax():
 
 
 def _mesh_raises(opt):
-    """A 1-D data mesh is taken (meshed SGD runs: ``test_torch_parallel``);
-    a 2-D mesh with a sharded 'model' axis raises naming A5 at the run,
-    and what is not a mesh raises at once."""
+    """A 1-D data mesh is taken (meshed SGD runs: ``test_torch_parallel``),
+    and so is a 2-D mesh with a sharded 'model' axis (its runs:
+    ``test_torch_mesh_resident``); on it host streaming raises at the run
+    with the JAX package's message, and what is not a mesh raises at
+    once."""
     from tpu_sgd_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
 
     assert opt.set_mesh(Mesh({DATA_AXIS: 1})) is opt
     opt.set_mesh(Mesh({DATA_AXIS: 4, MODEL_AXIS: 2}))
     X, y, _ = linear_data(40, 3, seed=2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A5"):
-        opt.optimize((X, y), np.zeros(3, np.float32))
+    with pytest.raises(NotImplementedError, match=r"supports 1-D data"):
+        opt.set_host_streaming(True).optimize((X, y),
+                                              np.zeros(3, np.float32))
+    opt.set_host_streaming(False)
     with pytest.raises(TypeError):
         opt.set_mesh(object())
 
@@ -213,6 +217,7 @@ def _batch_rows_applies(opt):
     pytest.param(_streamed_stats_runs, id="set_streamed_stats-args3"),
 ])
 def test_later_slice_setters_raise(case):
-    """``set_mesh`` takes a data mesh and a 2-D one raises naming its item
-    (A5); the streamed statistics' setters apply and run."""
+    """``set_mesh`` takes a data mesh and a 2-D one (host streaming on the
+    2-D one raises the JAX package's refusal); the streamed statistics'
+    setters apply and run."""
     case(tgd.GradientDescent(device="cpu"))

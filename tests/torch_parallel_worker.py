@@ -81,6 +81,10 @@ def main(rank, world, port, tmp):
     def local(name):
         return par.local_rows(inp[name + "_X"], inp[name + "_y"], rank, world)
 
+    def local2d(name, m):  # a 2-D mesh's rank passes its data block's rows
+        return par.local_rows(inp[name + "_X"], inp[name + "_y"], m.rank,
+                              m.size)
+
     def gd(gradient=None, updater=None, **knobs):
         o = tst.GradientDescent(gradient, updater, device=CPU)
         o.set_convergence_tol(0.0).set_mesh(mesh)
@@ -132,9 +136,13 @@ def main(rank, world, port, tmp):
     out["mesh2d_shape"] = np.array([m2.shape["data"], m2.shape["model"]])
     out["config2d_shape"] = np.array(list(
         tst.MeshConfig(data=4, model=2).build().shape.values()))
+    Xl, yl = local2d("ls", m2)
+    out["mesh2d_w"] = tst.GradientDescent(device=CPU).set_mesh(m2).optimize(
+        (Xl, yl), np.zeros(12, np.float32)).numpy()
     try:
         tst.GradientDescent(device=CPU).set_mesh(m2).optimize(
-            local("ls"), np.zeros(12, np.float32))
+            (torch.as_tensor(Xl).to_sparse_csr(), yl),
+            np.zeros(12, np.float32))
         out["mesh2d_raises"] = np.array("")
     except NotImplementedError as e:
         out["mesh2d_raises"] = np.array(str(e))

@@ -78,9 +78,8 @@ class SGDConfig:
 class MeshConfig:
     """Shape of the mesh of ranks the optimizer runs over: ``data`` ranks
     on the example axis (data parallelism, the reference's only axis) by
-    ``model`` ranks on the feature axis (described here; runs on it are
-    ROADMAP A5's second part).  Each rank is one process driving one
-    device (``parallel/mesh.py``)."""
+    ``model`` ranks on the feature axis (``parallel/model_parallel.py``).
+    Each rank is one process driving one device (``parallel/mesh.py``)."""
 
     data: int = 1
     model: int = 1
@@ -93,7 +92,9 @@ class MeshConfig:
 
     def build(self, group=None):
         """The ``parallel.Mesh`` this config describes over the ranks of
-        ``group`` (default: all ranks; needs a process group)."""
+        ``group`` (default: all ranks; needs a process group).  With
+        ``model > 1`` every rank of the group must call it: it builds the
+        mesh's row and column groups collectively."""
         from tpu_sgd_torch.parallel.mesh import make_mesh
 
         return make_mesh(n_data=self.data, n_model=self.model, group=group)

@@ -140,8 +140,11 @@ class StandardScaler:
         self.with_mean = bool(with_mean)
         self.with_std = bool(with_std)
 
-    def fit(self, X) -> StandardScalerModel:
+    def fit(self, X, mesh=None) -> StandardScalerModel:
+        """The column statistics of ``X``; on a data ``mesh``, X is this
+        rank's rows and the statistics are every rank's
+        (``stat.column_mean_variance``)."""
         from tpu_sgd_torch.stat import column_mean_variance
 
-        mean, var = column_mean_variance(X)
+        mean, var = column_mean_variance(X, mesh)
         return StandardScalerModel(mean, var, self.with_mean, self.with_std)

@@ -288,19 +288,16 @@ class GeneralizedLinearAlgorithm:
             initial_weights.cpu() if isinstance(initial_weights, torch.Tensor)
             else initial_weights, np.float32))
         scaler = None
-        if self.use_feature_scaling and getattr(self.optimizer, "mesh",
-                                                None) is not None:
-            raise NotImplementedError(
-                "feature scaling on a mesh needs the column statistics of "
-                "every rank's rows; it is not ported to tpu_sgd_torch yet "
-                "(ROADMAP A5); use the JAX package tpu_sgd for it")
         if self.use_feature_scaling:
             # Fit BEFORE the bias column exists; initial weights arrive in
             # ORIGINAL space and move into scaled space by w * std, per
-            # d-sized block of flat stacked (multinomial) weights
+            # d-sized block of flat stacked (multinomial) weights.  On a
+            # mesh the statistics are every rank's rows', and each rank
+            # scales its own rows
             from tpu_sgd_torch.feature import StandardScaler
 
-            scaler = StandardScaler(with_mean=False, with_std=True).fit(X)
+            scaler = StandardScaler(with_mean=False, with_std=True).fit(
+                X, mesh=getattr(self.optimizer, "mesh", None))
             X = scaler.transform(X)
             std = scaler.std.cpu()
             w0 = (w0.reshape(-1, std.shape[0]) * std[None, :]).reshape(

@@ -51,7 +51,7 @@ def apply_train_options(alg, mesh=None, sampling=None,
                         schedule=None):
     """The static ``train`` options shared by every SGD family; those of
     later slices raise ``NotImplementedError`` through their setters, or
-    when the run starts (a mesh with host streaming or statistics)."""
+    when the run starts (a mesh with host streaming)."""
     if mesh is not None:
         alg.optimizer.set_mesh(mesh)
     if sampling is not None:
@@ -113,10 +113,10 @@ class _RegressionWithSGD(GeneralizedLinearAlgorithm):
         """Static train() parity with the reference's object methods.
         ``sampling`` picks the mini-batch sampler (``SGDConfig.sampling``);
         ``device=None`` trains on the card.  ``mesh`` (a
-        ``parallel.Mesh``) trains data-parallel on this rank's rows; a
+        ``parallel.Mesh``, 1-D or 2-D) trains on this rank's rows; a
         ``schedule`` other than ``"off"`` belongs to a later slice and
         raises ``NotImplementedError``, and so does ``mesh`` with
-        ``host_streaming`` or ``sufficient_stats``."""
+        ``host_streaming``."""
         alg = cls(step_size, num_iterations, reg_param, mini_batch_fraction,
                   device=device)
         alg.set_intercept(intercept)

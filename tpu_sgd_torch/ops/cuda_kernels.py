@@ -974,12 +974,26 @@ GRADIENT_ROUTE_LAUNCHES = {"gather": 0, "window": 0, "fused_sums": 0}
 #: the CSR wrappers' launches by right-hand column count T, keyed
 #: ``"<wrapper>/<T>"`` (OWL-QN's line-search sweep is ``"csr_margins/30"``)
 CSR_COLUMN_LAUNCHES = {}
+#: library products of the 2-D mesh's margin-combined sums
+#: (``gradients.margin_combined_sums``: the margins and the gradient, two
+#: a call), which run no kernel of this module
+MODEL_AXIS_PRODUCTS = {"products": 0}
+
+
+def count_model_axis_products(n: int) -> None:
+    MODEL_AXIS_PRODUCTS["products"] += int(n)
+
+
+def model_axis_product_counts() -> int:
+    """Library products of the 2-D mesh's sums since the last reset."""
+    return MODEL_AXIS_PRODUCTS["products"]
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS + CSR_WRAPPERS:
         fn.launches = 0
-    for counts in (KERNEL_LAUNCHES, GRADIENT_ROUTE_LAUNCHES):
+    for counts in (KERNEL_LAUNCHES, GRADIENT_ROUTE_LAUNCHES,
+                   MODEL_AXIS_PRODUCTS):
         for name in counts:
             counts[name] = 0
     CSR_COLUMN_LAUNCHES.clear()
@@ -1023,7 +1037,7 @@ def captured_launches():
     def counts():
         return ({fn.__name__: fn.launches for fn in WRAPPERS + CSR_WRAPPERS},
                 kernel_launch_counts(), dict(CSR_COLUMN_LAUNCHES),
-                gradient_route_counts())
+                gradient_route_counts(), dict(MODEL_AXIS_PRODUCTS))
 
     before = counts()
     record = {}
@@ -1036,6 +1050,8 @@ def captured_launches():
         record["sources"] = {k: after[1][k] - before[1][k]
                              for k in after[1]}
         record["routes"] = {k: after[3][k] - before[3][k] for k in after[3]}
+        record["model_axis"] = {k: after[4][k] - before[4][k]
+                                for k in after[4]}
         record["csr_columns"] = {k: n - before[2].get(k, 0)
                                  for k, n in after[2].items()
                                  if n != before[2].get(k, 0)}
@@ -1043,6 +1059,7 @@ def captured_launches():
             fn.launches = before[0][fn.__name__]
         KERNEL_LAUNCHES.update(before[1])
         GRADIENT_ROUTE_LAUNCHES.update(before[3])
+        MODEL_AXIS_PRODUCTS.update(before[4])
         CSR_COLUMN_LAUNCHES.clear()
         CSR_COLUMN_LAUNCHES.update(before[2])
 
@@ -1056,6 +1073,8 @@ def add_replayed_launches(record: dict) -> None:
         KERNEL_LAUNCHES[name] += n
     for name, n in record["routes"].items():
         GRADIENT_ROUTE_LAUNCHES[name] += n
+    for name, n in record["model_axis"].items():
+        MODEL_AXIS_PRODUCTS[name] += n
     for key, n in record["csr_columns"].items():
         CSR_COLUMN_LAUNCHES[key] = CSR_COLUMN_LAUNCHES.get(key, 0) + n
 
@@ -1110,6 +1129,8 @@ class FusedGradient(Gradient):
 
     def batch_sums(self, X, y, weights, mask=None, margin_axis_name=None,
                    Xt=None):
+        # a margin combine (a 2-D mesh) goes to the base path, as
+        # PallasGradient sends margin_axis_name to XLA
         if margin_axis_name is not None or is_sparse(X):
             return self.base.batch_sums(
                 X, y, weights, mask, margin_axis_name=margin_axis_name,

@@ -160,12 +160,55 @@ def grad_sum_of(coeff: Tensor, X: Tensor, Xt: Optional[Tensor] = None
     return coeff.to(mm).to(acc) @ X.to(acc)
 
 
-def _no_feature_sharding(margin_axis_name) -> None:
-    if margin_axis_name is not None:
+def margin_combined_sums(pointwise, X, y, weights, mask, margin_combine):
+    """``(grad_sum, loss_sum, count)`` of a column block of X on a 2-D
+    ``(data, model)`` mesh: the margins product over the block, the
+    model-axis combine of the partial margins (``margin_combine``, which
+    adds every model rank's in rank order), then the pointwise rule, the
+    mask and the gradient product over the block.  The JAX package's base
+    path (``tpu_sgd/ops/gradients.py:122-140``): ``PallasGradient`` sends
+    ``margin_axis_name`` there (``pallas_kernels.py:498-527``), since the
+    combine sits between the two matvecs that a fused kernel would run in
+    one pass.  So the two products here are library products
+    (:func:`mm_acc`, an f32 output for bf16 X), as that path leaves them to
+    XLA, counted by ``cuda_kernels.model_axis_product_counts``; which path
+    runs is decided by the mesh's shape alone."""
+    from tpu_sgd_torch.ops import cuda_kernels
+
+    if is_sparse(X):
         raise NotImplementedError(
-            "feature-axis sharding (margin_axis_name) is not ported yet "
-            "(ROADMAP A5)"
-        )
+            "feature-axis ('model') sharding needs dense column blocks; "
+            "sparse features support 1-D 'data' meshes")
+    mm = matmul_dtype(X)
+    Xm = X.to(mm)
+    margins = margin_combine(mm_acc(Xm, weights.to(mm)[:, None])[:, 0])
+    coeff, losses = pointwise(margins, y.to(margins.dtype))
+    if mask is not None:
+        m = mask.to(margins.dtype)
+        coeff = coeff * m
+        losses = losses * m
+        count = torch.sum(m)
+    else:
+        count = torch.full((), float(X.shape[0]), dtype=margins.dtype,
+                           device=margins.device)
+    grad = mm_acc(coeff.to(mm)[None, :], Xm)[0]
+    cuda_kernels.count_model_axis_products(2)
+    return grad, torch.sum(losses), count
+
+
+def _window_rows(X, y, valid, start, m):
+    """The length-``m`` row window at ``start`` placed as
+    ``lax.dynamic_slice_in_dim`` places it, gathered on the device when
+    ``start`` is a device tensor (nothing syncs the host, so a CUDA graph
+    may capture it), sliced on the host when it is an int."""
+    if not isinstance(start, Tensor):
+        return _slice_window(X, y, valid, start, m)
+    n = X.shape[0]
+    s = start.reshape(-1)[:1].to(torch.int64)
+    s = torch.clamp(torch.where(s < 0, s + n, s), 0, max(n - m, 0))
+    idx = s + torch.arange(m, device=X.device)
+    mask = None if valid is None else valid.index_select(0, idx)
+    return X.index_select(0, idx), y.index_select(0, idx), mask
 
 
 def sparse_batch_sums(pointwise, X, y, weights, mask=None, Xt=None):
@@ -221,10 +264,16 @@ class Gradient:
         """Fused mini-batch ``(grad_sum, loss_sum, count)``, unnormalized;
         ``mask`` (bool, one entry per row) is the Bernoulli sample.
         ``Xt``: for sparse ``X``, its transposed CSR when the caller
-        already holds it (the optimizer builds it once per dataset)."""
+        already holds it (the optimizer builds it once per dataset).
+        ``margin_axis_name``: on a 2-D mesh, the model axis's combine of
+        the partial margins (a callable; ``parallel.mesh.combine_model``
+        bound to the mesh): X is the rank's column block, and the sums run
+        through :func:`margin_combined_sums`."""
         from tpu_sgd_torch.ops import cuda_kernels
 
-        _no_feature_sharding(margin_axis_name)
+        if margin_axis_name is not None:
+            return margin_combined_sums(self.pointwise, X, y, weights, mask,
+                                        margin_axis_name)
         if is_sparse(X):
             return sparse_batch_sums(self.pointwise, X, y, weights, mask, Xt)
         if self.family is None:
@@ -272,6 +321,10 @@ class Gradient:
         ``start`` may stay a device tensor: the window kernel reads it
         through a pointer, so the sliced sampler never syncs the host.
         (A rule without a kernel slices on the host and reads ``start``.)
+        With ``margin_axis_name`` (a 2-D mesh) the window's rows are
+        gathered on the device and summed by :meth:`batch_sums`'s
+        margin-combined path, the JAX package's ``_slice_window`` then
+        ``batch_sums``.
         """
         from tpu_sgd_torch.ops import cuda_kernels
 
@@ -280,7 +333,10 @@ class Gradient:
                 "sliced sampling needs a dense row layout; use bernoulli "
                 "sampling with sparse features"
             )
-        _no_feature_sharding(margin_axis_name)
+        if margin_axis_name is not None:
+            Xb, yb, mask = _window_rows(X, y, valid, start, m)
+            return self.batch_sums(Xb, yb, weights, mask,
+                                   margin_axis_name=margin_axis_name)
         if self.family is None:
             Xb, yb, mask = _slice_window(X, y, valid, start, m)
             return self.batch_sums(Xb, yb, weights, mask)
@@ -363,7 +419,12 @@ class ChunkedGradient(Gradient):
                 "sliced sampling needs a dense row layout; use bernoulli "
                 "sampling with sparse features"
             )
-        _no_feature_sharding(margin_axis_name)
+        if margin_axis_name is not None:
+            # a combine per block would be one more collective each; the
+            # base path's one window serves the feature-sharded margins
+            return self.base.window_sums(
+                X, y, weights, start, m, valid,
+                margin_axis_name=margin_axis_name)
         c = min(self.chunk_rows, m)
         nblk, rem = divmod(m, c)
         # clamp ONCE, like the stock path's whole window: per-block
@@ -464,8 +525,13 @@ class MultinomialLogisticGradient:
     ) -> Tuple[Tensor, Tensor, Tensor]:
         """``(grad_sum (K-1)*D, loss_sum, count)``, computed class-major:
         ``(K-1, rows)`` margins and coefficients (aligned products on the
-        card, see :func:`margins_of`)."""
-        _no_feature_sharding(margin_axis_name)
+        card, see :func:`margins_of`).  ``margin_axis_name``: the model
+        axis's combine of the partial ``(K-1, rows)`` margins of a column
+        block (a 2-D mesh)."""
+        if margin_axis_name is not None and is_sparse(X):
+            raise NotImplementedError(
+                "feature-axis ('model') sharding needs dense column blocks; "
+                "sparse features support 1-D 'data' meshes")
         K = self.num_classes
         D = X.shape[-1]
         W = weights.reshape(K - 1, D)
@@ -476,7 +542,10 @@ class MultinomialLogisticGradient:
         sparse = is_sparse(X)
         for s, e in row_chunks(X, K):
             Xc = X if sparse else X[s:e]
-            log_probs = self._log_probs(margins_of(Xc, W).T)  # (K, rows)
+            margins = margins_of(Xc, W)  # (rows, K-1)
+            if margin_axis_name is not None:
+                margins = margin_axis_name(margins)
+            log_probs = self._log_probs(margins.T)  # (K, rows)
             y_int = y[s:e].to(torch.int64)
             losses = -torch.gather(log_probs, 0, y_int[None, :])[0]
             # one_hot(y - 1, K - 1): the pivot's column is all zeros

@@ -64,7 +64,12 @@ sums the ranks combine ``(grad_sum, loss_sum, count)`` in rank order
 convergence test run alike on every rank and the weights stay
 replicated.  Under NCCL the gather is captured in the block's CUDA graph
 like the kernels; under gloo it goes through the host, and the blocks
-stay eager.
+stay eager.  Least squares runs from each rank's own prefix statistics
+where ``set_sufficient_stats`` applies (``parallel/gram_parallel.py``).
+On a 2-D ``(data, model)`` mesh each rank trains its block of the
+features (``parallel/model_parallel.py``): the partial margins, the reg
+value and the convergence norms combine over the model axis, the sums
+over the data axis.
 
 Sampling: iteration ``i``'s sample is a function of ``(seed, i)`` alone —
 the contract of the JAX package's ``fold_in(key, i)``, with other bits:
@@ -104,7 +109,9 @@ from tpu_sgd_torch.parallel.mesh import (
     any_rank,
     as_data_mesh,
     barrier,
+    combine_model,
     combine_sums,
+    has_model_axis,
 )
 
 Tensor = torch.Tensor
@@ -263,12 +270,25 @@ def _make_sampler(cfg: SGDConfig, X, shard: Optional[int] = None
     return _Sampler(cfg.seed, dev, draw, shard)
 
 
-def _make_local_sums(gradient, cfg):
+def _model_combiner(mesh):
+    """The model axis's combine of a 2-D mesh (``parallel.mesh
+    .combine_model`` bound to it), or None on one device or a data
+    mesh."""
+    if not has_model_axis(mesh):
+        return None
+    return lambda t: combine_model(mesh, t)
+
+
+def _make_local_sums(gradient, cfg, margin_combine=None):
     """The per-iteration ``(grad_sum, loss_sum, count)`` recipe from one
     drawn sample (``_make_sampler``; None at full batch) plus the fused
-    batch sums."""
+    batch sums.  ``margin_combine``: a 2-D mesh's model-axis combine of
+    the partial margins (``_model_combiner``), handed to the gradient as
+    its ``margin_axis_name``."""
     indexed = cfg.sampling == "indexed" and cfg.mini_batch_fraction < 1.0
     sliced = cfg.sampling == "sliced" and cfg.mini_batch_fraction < 1.0
+    kw = {} if margin_combine is None else {
+        "margin_axis_name": margin_combine}
 
     def local_sums(weights, X, y, sample, valid, Xt=None):
         if sliced:
@@ -277,7 +297,7 @@ def _make_local_sums(gradient, cfg):
             # row order, see SGDConfig.sampling)
             m = max(1, round(cfg.mini_batch_fraction * X.shape[0]))
             return gradient.window_sums(X, y, weights, sample, m,
-                                        valid=valid)
+                                        valid=valid, **kw)
         if indexed:
             Xb, yb = X[sample], y[sample]
             mask = None if valid is None else valid[sample]
@@ -287,7 +307,7 @@ def _make_local_sums(gradient, cfg):
                 valid if sample is None else sample & valid)
             if Xt is not None:
                 return gradient.batch_sums(Xb, yb, weights, mask, Xt=Xt)
-        return gradient.batch_sums(Xb, yb, weights, mask)
+        return gradient.batch_sums(Xb, yb, weights, mask, **kw)
 
     return local_sums
 
@@ -299,8 +319,13 @@ def _make_update(gradient, updater, cfg, mesh=None):
     weights' device.  On a data ``mesh`` the rank's local sums are
     combined over the ranks (``parallel.mesh.combine_sums``) before the
     update, which then runs identically on every rank: the weights stay
-    replicated."""
-    local_sums = _make_local_sums(gradient, cfg)
+    replicated.  On a 2-D ``(data, model)`` mesh ``weights`` and X are
+    the rank's feature block: the partial margins are combined over the
+    model axis inside the sums, the sums over the data axis, and the reg
+    value, a sum over features, over the model axis; every rank of one
+    model column then holds the same weight block."""
+    model = _model_combiner(mesh)
+    local_sums = _make_local_sums(gradient, cfg, model)
 
     def update(weights, X, y, i, reg_val, sample, valid=None, Xt=None):
         g, l, c = local_sums(weights, X, y, sample, valid, Xt)
@@ -312,6 +337,8 @@ def _make_update(gradient, updater, cfg, mesh=None):
         new_w, new_reg = updater.compute(
             weights, g / safe_c, cfg.step_size, i, cfg.reg_param
         )
+        if model is not None:
+            new_reg = model(new_reg)
         # Reference behavior on an empty sampled batch: skip the update.
         new_w = torch.where(has_batch, new_w, weights)
         new_reg = torch.where(has_batch, new_reg, reg_val)
@@ -481,20 +508,32 @@ class _RunState:
         return leaves
 
 
+def _global_norms(new_w, w, model):
+    """``(‖w_t − w_{t−1}‖, ‖w_t‖)`` of the whole weight vector: on a 2-D
+    mesh the squared norms of the rank's block summed over the model axis
+    (``model``), then the roots, as the JAX package's ``_global_norms``."""
+    if model is None:
+        return (torch.linalg.vector_norm(new_w - w),
+                torch.linalg.vector_norm(new_w))
+    sq = model(torch.stack([torch.sum((new_w - w) ** 2),
+                            torch.sum(new_w ** 2)]))
+    return torch.sqrt(sq[0]), torch.sqrt(sq[1])
+
+
 def _record_step(st: _RunState, rec, active, loss_i, w, new_w, reg,
-                 new_reg, tol: float):
+                 new_reg, tol: float, model=None):
     """One iteration's bookkeeping in the unobserved run, on the device:
     record ``loss_i`` when ``rec``, test convergence when ``tol > 0``, and
     return the weights and reg value to carry on (the new ones while
     ``active``: once the flag is set, the rest of the block is a no-op).
-    Shared by ``make_run``'s block and the chunked gram driver."""
+    Shared by ``make_run``'s block and the chunked gram driver; ``model``
+    is a 2-D mesh's model-axis combine (the norms span every block)."""
     kept = st.losses.index_select(0, st.n_rec)
     st.losses.index_copy_(0, st.n_rec, torch.where(
         rec, loss_i.to(torch.float32).reshape(1), kept))
     st.n_rec += rec.to(torch.int64)
     if tol > 0.0:
-        diff = torch.linalg.vector_norm(new_w - w)
-        w_norm = torch.linalg.vector_norm(new_w)
+        diff, w_norm = _global_norms(new_w, w, model)
         st.conv |= rec & (st.i[0] > 1) & (
             diff < tol * torch.clamp(w_norm, min=1.0))
     return torch.where(active, new_w, w), torch.where(active, new_reg, reg)
@@ -519,7 +558,10 @@ def _make_block(gradient, updater, cfg, *, history: bool,
     ``topk_frac`` runs the compressed-wire update, its error-feedback
     accumulator carried in ``state.extra`` and written into each ys
     row.  ``mesh``: the data mesh whose ranks combine each step's sums
-    (dense or sparse data, not with ``stacked`` or ``topk_frac``)."""
+    (dense or sparse data, not with ``stacked`` or ``topk_frac``), or a
+    2-D mesh (dense data, ``history=True``: the JAX package's observed
+    driver refuses it)."""
+    model = _model_combiner(mesh)
     if topk_frac is None:
         update = _make_update(gradient, updater, cfg, mesh)
     else:
@@ -545,7 +587,7 @@ def _make_block(gradient, updater, cfg, *, history: bool,
             if history:
                 active = ~st.conv
                 w, reg = _record_step(st, active & (c > 0), active, loss_i,
-                                      w, new_w, reg, new_reg, tol)
+                                      w, new_w, reg, new_reg, tol, model)
             else:
                 f32 = torch.float32
                 row = [new_w.reshape(-1), torch.stack([
@@ -795,12 +837,16 @@ def make_run(gradient: Gradient, updater: Updater, config: SGDConfig,
     the caller passes the one it holds (``ops.sparse.transpose_csr``).
     On a 1-D data ``mesh`` the run is :func:`make_step`'s over the rank's
     local rows (the JAX package's ``make_run`` under ``shard_map``): every
-    rank records the same history and stops at the same block."""
+    rank records the same history and stops at the same block.  On a 2-D
+    ``(data, model)`` mesh, ``initial_weights`` and X are the rank's
+    feature block (``parallel.model_parallel``), and the run returns the
+    rank's block of the weights."""
     cfg = config
     check_conv = cfg.convergence_tol > 0.0
     N = cfg.num_iterations
     K = min(RUN_BLOCK_ITERS, N)
     block = _make_block(gradient, updater, cfg, history=True, mesh=mesh)
+    model = _model_combiner(mesh)
     cache: dict = {}
 
     def run(initial_weights, X, y, valid=None, Xt=None):
@@ -818,6 +864,10 @@ def make_run(gradient: Gradient, updater: Updater, config: SGDConfig,
         st = runner.state
         _, reg0 = updater.compute(w0, torch.zeros_like(w0), 0.0, 1,
                                   cfg.reg_param)
+        if model is not None:
+            # the reg value sums over features: a warm-started 2-D run
+            # would otherwise record a block's share at iteration 1
+            reg0 = model(reg0)
         st.reset(w0, reg0, 1)
         runner.begin(X, y, valid, Xt, N)
         try:
@@ -1149,6 +1199,9 @@ class GradientDescent(Optimizer):
         self.streamed_stats = False
         self.gram_batch_rows = None
         self._streamed_gram_entry = None
+        #: the last per-rank statistics build on a data mesh, ``(X, y,
+        #: mesh, gradient, block_rows, aligned)``
+        self._gram_dp_entry = None
         # the observed (listener / checkpoint) planes
         self.listener = None
         self.checkpoint_manager = None
@@ -1234,9 +1287,15 @@ class GradientDescent(Optimizer):
         so every rank holds the same weights and history.  Dense and
         sparse data, the unobserved run and the observed driver
         (listener, checkpoint: rank 0 writes it, then all ranks pass a
-        barrier; ``set_superstep``).  A sharded 'model' axis, host
-        streaming, sufficient or streamed statistics and residency raise
-        ``NotImplementedError`` naming ROADMAP A5 when the run starts.
+        barrier; ``set_superstep``; ``set_residency`` warns and runs the
+        superstep driver), and least squares from per-rank statistics
+        (``set_sufficient_stats``, ``parallel/gram_parallel.py``).  On a
+        2-D ``(data, model)`` mesh (``make_mesh(n_data, n_model)``) each
+        rank still passes its rows and the whole ``initial_weights``; it
+        trains its block of the features (``parallel/model_parallel.py``)
+        and returns the whole vector.  Host streaming and streamed
+        statistics on a mesh raise ``NotImplementedError`` naming ROADMAP
+        A5 when the run starts.
 
         Teardown: on NCCL the cached CUDA graphs hold the captured
         gather, so call :meth:`release_graphs` (or drop the optimizer)
@@ -1303,6 +1362,7 @@ class GradientDescent(Optimizer):
         prefix stack can be freed; the next run rebuilds.  The cached
         loops and their CUDA graphs, which hold the bundle, go too."""
         self._gram_entry = None
+        self._gram_dp_entry = None
         self._streamed_gram_entry = None
         return self.release_graphs()
 
@@ -1513,40 +1573,72 @@ class GradientDescent(Optimizer):
         return self._run(self.gradient, X, y, w0)
 
     def _data_mesh(self, X, dev):
-        """The 1-D data mesh of this run, or None: raises naming ROADMAP A5
-        for what does not compose with a mesh yet, one message each."""
+        """The mesh of this run (a data mesh, or a 2-D ``(data, model)``
+        mesh), or None.  Raises where the JAX package refuses a mesh,
+        with its message, and names ROADMAP A5 for the streamed routes on
+        a data mesh, which are not ported yet."""
         if self.mesh is None:
             return None
-        mesh = as_data_mesh(self.mesh)  # a sharded 'model' axis raises
-        for on, what in (
-                (isinstance(X, GramData)
-                 or isinstance(self.gradient, GramLeastSquaresGradient),
-                 "statistics (GramData) input on a mesh (gram_parallel)"),
-                (self.sufficient_stats,
-                 "set_sufficient_stats on a mesh (gram_parallel)"),
-                (self.streamed_stats,
-                 "set_streamed_stats on a mesh (the meshed streamed "
-                 "totals)"),
-                (self.host_streaming,
-                 "set_host_streaming on a mesh (meshed host streaming)"),
-                (self.resident_cadence >= 2,
-                 "set_residency on a mesh (the meshed resident driver)")):
-            if on:
-                _not_ported(what, "A5")
+        two_d = has_model_axis(self.mesh)
+        if isinstance(X, GramData):
+            raise NotImplementedError(
+                "GramData input supports the single-device resident path "
+                "(stats are already on device); drop set_mesh/"
+                "set_host_streaming")
+        if self.streamed_stats:
+            if two_d:
+                raise NotImplementedError(
+                    "streamed statistics compose with a 1-D 'data' mesh; "
+                    "feature-axis ('model') sharding needs resident column "
+                    "blocks")
+            _not_ported("set_streamed_stats on a mesh (the meshed streamed "
+                        "totals)", "A5")
+        if self.host_streaming:
+            if two_d:
+                raise NotImplementedError(
+                    "host streaming supports 1-D data meshes; feature-axis "
+                    "('model') sharding needs the resident path")
+            if is_sparse(X):
+                raise NotImplementedError(
+                    "host-streamed sparse training is single-device (shard "
+                    "the resident sparse path with set_mesh instead)")
+            _not_ported("set_host_streaming on a mesh (meshed host "
+                        "streaming)", "A5")
+        mesh = self.mesh if two_d else as_data_mesh(self.mesh)
         if mesh.backend == "nccl" and dev.type != "cuda":
             raise ValueError(
                 f"an NCCL mesh combines on the card; this optimizer runs "
                 f"on {dev} (use a gloo group for CPU ranks)")
         return mesh
 
+    def _warn_chunk_iters_with_mesh(self, stacklevel: int = 3) -> None:
+        """One warning for every route that drops an explicit
+        ``chunk_iters`` because a mesh is set: the meshed runs keep the
+        per-iteration driver."""
+        if self.gram_chunk_iters and self.mesh is not None:
+            warnings.warn(
+                "chunk_iters applies to the single-device aligned-gram "
+                "driver only; the meshed gram runners keep the "
+                "per-iteration driver (drop set_mesh to use the chunked "
+                "driver)",
+                RuntimeWarning, stacklevel=stacklevel,
+            )
+
     def _run_meshed(self, mesh, X, y, w0, sparse_X):
         """A data-parallel run on this rank's local rows: padded to the
         longest rank's (``parallel.shard_dataset`` / ``shard_csr``),
-        then the run or the observed driver with the mesh's combine."""
+        then the run or the observed driver with the mesh's combine;
+        least squares from per-rank statistics where
+        ``set_sufficient_stats`` applies (``_maybe_gram_dp``).  A 2-D mesh
+        goes to :meth:`_run_model_sharded`."""
         from tpu_sgd_torch.parallel.data_parallel import shard_dataset
         from tpu_sgd_torch.parallel.sparse_parallel import shard_csr
 
+        self._warn_chunk_iters_with_mesh(stacklevel=4)
+        if has_model_axis(mesh):
+            return self._run_model_sharded(mesh, X, y, w0, sparse_X)
         Xt = None
+        X_in, y_in = X, y
         if sparse_X:
             X, Xt, y, valid = shard_csr(mesh, X, y, device=w0.device)
         else:
@@ -1559,7 +1651,83 @@ class GradientDescent(Optimizer):
                 "The miniBatchFraction is too small", RuntimeWarning,
                 stacklevel=3,
             )
+        observed = (self.listener is not None
+                    or self.checkpoint_manager is not None)
+        if observed and self.sufficient_stats and not sparse_X:
+            warnings.warn(
+                "sufficient_stats is not applied on the meshed "
+                "listener/checkpoint path (the observed per-iteration "
+                "stepper uses the stock DP step); detach the listener "
+                "or run single-device to combine them",
+                RuntimeWarning, stacklevel=3,
+            )
+        elif not sparse_X:
+            gram = self._maybe_gram_dp(X_in, y_in, X, y, valid, mesh)
+            if gram is not None:
+                # each rank's statistics ride where its rows go
+                return self._run(gram, gram.data, y, w0, None, None, mesh)
         return self._run(self.gradient, X, y, w0, valid, Xt, mesh)
+
+    def _maybe_gram_dp(self, X, y, Xs, ys, valid, mesh):
+        """The sufficient-statistics substitution on a data mesh
+        (``parallel/gram_parallel.py``): this rank's block-prefix
+        statistics of its own rows, cached by ``(X, y, mesh)`` identity
+        and the gram knobs; None where it does not apply.  Padded ranks
+        (a ``valid`` mask, agreed by every rank) run the stock meshed
+        path, as in the JAX package: a statistics window is normalized by
+        its full length, the stock path by its realized valid count."""
+        from tpu_sgd_torch.parallel.gram_parallel import (
+            build_sharded_gram_stats,
+        )
+
+        cfg = self.config
+        if (not self.sufficient_stats or valid is not None
+                or type(self.gradient) is not LeastSquaresGradient
+                or (cfg.mini_batch_fraction < 1.0
+                    and cfg.sampling != "sliced")):
+            return None
+        opts = (self.gram_block_rows, self.gram_aligned)
+        entry = self._gram_dp_entry
+        if (entry is not None and entry[0] is X and entry[1] is y
+                and entry[2] is self.mesh and entry[4:] == opts):
+            return entry[3]
+        self._gram_dp_entry = None  # free the superseded stack first
+        gram = build_sharded_gram_stats(mesh, Xs, ys,
+                                        block_rows=self.gram_block_rows,
+                                        aligned=self.gram_aligned)
+        self._gram_dp_entry = (X, y, self.mesh, gram) + opts
+        return gram
+
+    def _run_model_sharded(self, mesh, X, y, w0, sparse_X):
+        """A run on a 2-D ``(data, model)`` mesh
+        (``parallel/model_parallel.py``): X and y are this rank's rows, as
+        on a data mesh, and ``w0`` the whole weight vector; the rank keeps
+        its block of the (zero-padded) features, and every rank gets the
+        whole trained vector back.  Refuses what the JAX package refuses
+        on such a mesh, with its message."""
+        from tpu_sgd_torch.parallel.model_parallel import dp_mp_optimize
+
+        if sparse_X:
+            raise NotImplementedError(
+                "feature-axis ('model') sharding needs dense column "
+                "blocks; sparse features support 1-D 'data' meshes")
+        if self.gradient.weight_dim(X.shape[1]) != X.shape[1]:
+            raise NotImplementedError(
+                "feature-axis ('model') sharding supports vector-weight "
+                "gradients only; matrix-weight gradients (multinomial) "
+                "need a 1-D 'data' mesh")
+        if self.listener is not None or self.checkpoint_manager is not None:
+            raise NotImplementedError(
+                "listener/checkpoint mode supports single-device and 1-D "
+                "data meshes")
+        w, losses, n_rec = dp_mp_optimize(
+            self.gradient, self.updater, self.config, mesh, w0, X, y,
+            device=w0.device,
+            run_for=lambda Xb: self._cached_run(self.gradient, Xb, mesh))
+        self._loss_history = losses[:int(n_rec)].cpu().numpy()
+        if self.check_numerics:
+            _raise_if_nonfinite(self._loss_history)
+        return w, self._loss_history
 
     def _optimize_host_streamed(self, X, y, initial_weights, dev):
         """``set_host_streaming``: the dense streamed driver
@@ -1679,7 +1847,7 @@ class GradientDescent(Optimizer):
         (it keeps its graph and state buffers until the next run with
         other tensors or knobs, or ``release_sufficient_stats``; the run's
         tensors it holds only weakly)."""
-        chunked = self._chunked_gram_applies(gradient, X)
+        chunked = mesh is None and self._chunked_gram_applies(gradient, X)
         key = (gradient, self.updater, self.config,
                self.gram_chunk_iters if chunked else None,
                X.block_rows if chunked else None,
@@ -1819,6 +1987,14 @@ class GradientDescent(Optimizer):
 
         fused_k = int(self.superstep or 1)
         resident_c = int(self.resident_cadence or 0)
+        if resident_c >= 2 and fused_k > 1 and mesh is not None:
+            warnings.warn(
+                "set_residency is single-device (io_callback cadence "
+                "hooks do not ride shard_map); the meshed observed "
+                "path runs the fused superstep driver",
+                RuntimeWarning, stacklevel=4,
+            )
+            resident_c = 0
         if resident_c >= 2 and fused_k <= 1:
             warnings.warn(
                 "set_residency rides the fused superstep executor; "

@@ -29,7 +29,19 @@ sweep by streaming the rows through the card in fixed chunks
 (``optimize/streamed_costfun.py``, B1 on each chunk), for any loss;
 ``set_streamed_stats`` (least squares) builds the statistics in one
 streamed pass (``GramLeastSquaresGradient.build_streamed``) and runs from
-them.  The mesh is a later slice (ROADMAP A5): ``set_mesh`` raises.
+them.
+
+On a data mesh (``set_mesh``) each rank passes its own rows: every cost
+evaluation is the rank's sums (B1 on dense rows, the CSR kernel on sparse
+ones) combined over the ranks in rank order
+(``parallel.mesh.combine_sums``), and the sweep's ``(T,)`` loss sums and
+count the same way, so every rank holds the same objective and gradient,
+bitwise, and takes the same host decisions; the loop checks that they
+agree (``_agree``) before each decision to stop.  Least squares with
+``set_sufficient_stats`` builds the total statistics of every rank's rows
+once (``parallel.gram_parallel.build_sharded_total_stats``) and then runs
+unmeshed from them.  The streamed schedules on a mesh are ROADMAP A5's
+next slice and raise.
 """
 
 from __future__ import annotations
@@ -61,6 +73,13 @@ from tpu_sgd_torch.optimize.gradient_descent import (
     _streamed_gram,
 )
 from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
+from tpu_sgd_torch.parallel.mesh import (
+    Mesh,
+    all_gather,
+    combine,
+    combine_sums,
+    has_model_axis,
+)
 
 Tensor = torch.Tensor
 
@@ -124,46 +143,97 @@ def _coerce_inputs(X, y, w, device):
             as_tensor(w, device, torch.float32))
 
 
-def _sums_kw(Xt):
-    """The transposed CSR for ``batch_sums`` when there is one (a user's
-    gradient for dense data need not take the keyword)."""
-    return {} if Xt is None else {"Xt": Xt}
+def _sums_kw(Xt, valid=None):
+    """The keywords of ``batch_sums``: the transposed CSR and the padded
+    rank's ``valid`` mask, where there are (a user's gradient for dense,
+    unpadded data need not take them)."""
+    kw = {} if Xt is None else {"Xt": Xt}
+    if valid is not None:
+        kw["mask"] = valid
+    return kw
 
 
-def _build_cost(gradient, reg_value, reg_grad, X, y, Xt=None):
+def _build_cost(gradient, reg_value, reg_grad, X, y, Xt=None, valid=None,
+                mesh=None):
     """``cost(w) -> (f, g)``: full objective and gradient, one
-    ``batch_sums`` pass."""
-    kw = _sums_kw(Xt)
+    ``batch_sums`` pass; on a data ``mesh``, the rank's sums over its
+    rows (``valid`` masks a padded rank's pad) combined in rank order
+    before the reg terms are added."""
+    kw = _sums_kw(Xt, valid)
 
     def cost(w):
         g_sum, l_sum, c = gradient.batch_sums(X, y, w, **kw)
+        if mesh is not None:
+            g_sum, l_sum, c = combine_sums(mesh, g_sum, l_sum, c)
         return l_sum / c + reg_value(w), g_sum / c + reg_grad(w)
 
     return cost
 
 
-def _build_loss_only(gradient, reg_value, X, y, Xt=None):
+def _build_loss_only(gradient, reg_value, X, y, Xt=None, valid=None,
+                     mesh=None):
     """``loss(w) -> f``: the objective alone, for the sequential line
     search of a gradient without ``loss_sweep``."""
-    kw = _sums_kw(Xt)
+    kw = _sums_kw(Xt, valid)
 
     def loss(w):
         _, l_sum, c = gradient.batch_sums(X, y, w, **kw)
+        if mesh is not None:
+            l_sum, c = combine(mesh, l_sum, c)
         return l_sum / c + reg_value(w)
 
     return loss
 
 
-def _build_loss_sweep(gradient, reg_value, X, y):
+def _build_loss_sweep(gradient, reg_value, X, y, valid=None, mesh=None):
     """``sweep(W) -> (T,)`` objectives of ``T`` trial weight vectors in
     one ``loss_sweep`` pass (vector weights and the multinomial matrix
-    weights alike)."""
+    weights alike); on a mesh the ``(T,)`` loss sums and the count are
+    combined in rank order."""
+    kw = {} if valid is None else {"mask": valid}
 
     def sweep(W):
-        l_sum, c = gradient.loss_sweep(X, y, W)
+        l_sum, c = gradient.loss_sweep(X, y, W, **kw)
+        if mesh is not None:
+            l_sum, c = combine(mesh, l_sum, c)
         return l_sum / c + reg_value(W)
 
     return sweep
+
+
+def check_data_mesh(mesh, who: str):
+    """``set_mesh``'s argument checks for the solvers that shard rows only
+    (L-BFGS, OWL-QN, the normal equations): a ``Mesh`` (or None) without
+    a sharded model axis, refused with the JAX package's message."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"{who}.set_mesh takes a tpu_sgd_torch.parallel.Mesh (make_mesh, "
+            f"data_mesh, MeshConfig.build), got {type(mesh).__name__}")
+    if has_model_axis(mesh):
+        raise ValueError(
+            f"{who} shards rows over a 1-D 'data' mesh; a 2-D (data, "
+            "model) mesh would silently replicate X across the model "
+            "axis — use a data-only mesh")
+    return mesh
+
+
+def agree_on_host(mesh, values, device) -> None:
+    """Raise on every rank unless every rank of the data ``mesh`` holds
+    the same host ``values`` (the scalars a quasi-Newton loop decides
+    on): one gather of them.  After a rank-order combine the ranks hold
+    the same bits, so they branch alike; this checks it rather than
+    assuming it, and a disagreement raises on all ranks together, so
+    none is left waiting in a collective."""
+    if mesh is None:
+        return
+    got = all_gather(mesh, torch.tensor([float(v) for v in values],
+                                        dtype=torch.float64, device=device))
+    got = got.cpu().numpy()
+    same = (got == got[0]) | (np.isnan(got) & np.isnan(got[0]))
+    if not same.all():
+        raise RuntimeError(
+            "the ranks of the mesh disagree on the quasi-Newton loop's "
+            f"host decisions: {got.tolist()}")
 
 
 def _push_correction(s_stack, y_stack, rho, k, m, s, yv, sy):
@@ -254,6 +324,8 @@ class LBFGS(Optimizer):
         #: knobs)``, kept by identity
         self._stream_costfun_entry = None
         self._streamed_gram_entry = None
+        #: the data mesh of ``set_mesh`` (None: one device)
+        self.mesh = None
 
     # fluent setters, reference parity
     def set_gradient(self, g):
@@ -280,9 +352,17 @@ class LBFGS(Optimizer):
         self.reg_param = float(r)
         return self
 
-    # -- schedules of later slices ------------------------------------------
+    # -- schedules -----------------------------------------------------------
     def set_mesh(self, mesh):
-        _not_ported("set_mesh (data parallelism)", "A5")
+        """Shard the cost (and the line-search sweep) by rows over a 1-D
+        data mesh (``parallel.Mesh``; ``None``: one device): each rank
+        passes its own rows, padded to the longest rank's with a valid
+        mask (``parallel.shard_dataset`` / ``shard_csr``), and the ranks
+        combine every evaluation's sums in rank order, so every rank runs
+        the same iterations to the same weights.  A 2-D mesh raises
+        ``ValueError``."""
+        self.mesh = check_data_mesh(mesh, type(self).__name__)
+        return self
 
     def set_sufficient_stats(self, flag: bool = True):
         """Run the least-squares cost and line-search sweep from
@@ -369,30 +449,59 @@ class LBFGS(Optimizer):
         return w
 
     def _resident(self, data, initial_weights):
-        """``(X, y, w, Xt)`` on the run's device, or None for empty input
-        (the history is then empty)."""
+        """The run's evaluation inputs on its device, ``((gradient, X, y,
+        Xt, valid, mesh), w)``, or ``(None, w)`` for empty input (the
+        history is then empty).  ``set_sufficient_stats`` swaps in the
+        statistics gradient, X becoming its ``GramData``; on a mesh its
+        totals combine every rank's rows and the run goes unmeshed
+        (``mesh`` None).  Otherwise a mesh shards the rows: ``valid``
+        masks a padded rank's pad, ``Xt`` is sparse X's transposed CSR."""
+        from tpu_sgd_torch.parallel.data_parallel import agree, shard_dataset
+        from tpu_sgd_torch.parallel.sparse_parallel import shard_csr
+
         X, y = data
-        X, y, w = _coerce_inputs(X, y, initial_weights,
-                                 resolve_device(self.device))
-        if X.shape[0] == 0:
+        mesh = self.mesh
+        if mesh is not None and isinstance(X, GramData):
+            raise NotImplementedError(
+                "GramData input supports unmeshed quasi-Newton runs (the "
+                "statistics already live on one device); drop set_mesh")
+        dev = resolve_device(self.device)
+        X, y, w = _coerce_inputs(X, y, initial_weights, dev)
+        if mesh is not None and mesh.backend == "nccl" and dev.type != "cuda":
+            raise ValueError(
+                f"an NCCL mesh combines on the card; this optimizer runs "
+                f"on {dev} (use a gloo group for CPU ranks)")
+        n = (X.shape[0] if mesh is None
+             else int(agree(mesh, [X.shape[0]], dev).sum()))
+        if n == 0:
             self._loss_history = np.zeros((0,), np.float32)
             return None, w
-        Xt = transpose_csr(X) if is_sparse(X) else None
-        return (X, y, Xt), w
+        gradient, Xg = self._substitute_gram(self.gradient, X, y)
+        if Xg is not X or mesh is None:
+            # statistics (every rank's totals on a mesh) or one device
+            Xt = transpose_csr(X) if is_sparse(X) else None
+            return (gradient, Xg, y, Xt, None, None), w
+        if is_sparse(X):
+            X, Xt, y, valid = shard_csr(mesh, X, y, device=dev)
+        else:
+            (X, y, valid), Xt = shard_dataset(mesh, X, y, device=dev), None
+        return (gradient, X, y, Xt, valid, mesh), w
 
     def _substitute_gram(self, gradient, X, y):
         """``set_sufficient_stats`` where it fits (exactly
         ``LeastSquaresGradient`` on dense X), cached by ``(X, y)``
         identity; shared with OWL-QN (Lasso least squares).  Returns
         ``(gradient, X)``: on substitution X becomes the ``GramData``
-        bundle."""
+        bundle.  On a mesh the bundle holds the totals of every rank's
+        rows (``build_sharded_total_stats``)."""
         if isinstance(X, GramData) and not isinstance(
                 gradient, GramLeastSquaresGradient):
             raise ValueError(
                 "GramData input needs a GramLeastSquaresGradient (use "
                 "GramLeastSquaresGradient.build and pass it as the "
                 "gradient)")
-        if (isinstance(gradient, GramLeastSquaresGradient)
+        if (self.mesh is None
+                and isinstance(gradient, GramLeastSquaresGradient)
                 and gradient.data is not None and gradient.data.X is X):
             # a user-built gram gradient on exactly this matrix
             return gradient, gradient.data
@@ -402,12 +511,20 @@ class LBFGS(Optimizer):
             return gradient, X
         entry = self._gram_entry
         if (entry is not None and entry[0] is X and entry[1] is y
-                and entry[3] == self.gram_block_rows):
+                and entry[3:] == (self.gram_block_rows, self.mesh)):
             return entry[2], entry[2].data
         self._gram_entry = None  # free the superseded stack first
-        g = GramLeastSquaresGradient.build(
-            X, y, block_rows=self.gram_block_rows, device=X.device)
-        self._gram_entry = (X, y, g, self.gram_block_rows)
+        if self.mesh is not None:
+            from tpu_sgd_torch.parallel.gram_parallel import (
+                build_sharded_total_stats,
+            )
+
+            g = GramLeastSquaresGradient(build_sharded_total_stats(
+                self.mesh, X, y, block_rows=self.gram_block_rows))
+        else:
+            g = GramLeastSquaresGradient.build(
+                X, y, block_rows=self.gram_block_rows, device=X.device)
+        self._gram_entry = (X, y, g, self.gram_block_rows, self.mesh)
         return g, g.data
 
     def _maybe_streamed_reentry(self, X, y, initial_weights):
@@ -417,6 +534,9 @@ class LBFGS(Optimizer):
         OWL-QN).  None when the flag is off or X is already statistics."""
         if not self.streamed_stats or isinstance(X, GramData):
             return None
+        if self.mesh is not None:
+            _not_ported("set_streamed_stats on a mesh (the meshed streamed "
+                        "totals, build_streamed_total_stats)", "A5")
         g = _streamed_gram(self, X, y)
         orig, self.gradient = self.gradient, g
         try:
@@ -435,6 +555,9 @@ class LBFGS(Optimizer):
             raise ValueError(
                 "GramData input already runs from its statistics beyond "
                 "the card; drop set_host_streaming")
+        if self.mesh is not None:
+            _not_ported("set_host_streaming on a mesh (StreamedCostFun's "
+                        "meshed grid)", "A5")
         if is_sparse(X):
             raise NotImplementedError(
                 "host streaming needs dense rows; sparse features are "
@@ -503,23 +626,26 @@ class LBFGS(Optimizer):
         arrays, w = self._resident(data, initial_weights)
         if arrays is None:
             return w, self._loss_history
-        X, y, Xt = arrays
-        gradient, X = self._substitute_gram(self.gradient, X, y)
+        gradient, X, y, Xt, valid, mesh = arrays
         reg_value, reg_grad = _reg_terms(self.updater, self.reg_param)
-        cost1 = _build_cost(gradient, reg_value, reg_grad, X, y, Xt)
+        cost1 = _build_cost(gradient, reg_value, reg_grad, X, y, Xt, valid,
+                            mesh)
         if hasattr(gradient, "loss_sweep"):
-            sweep1 = _build_loss_sweep(gradient, reg_value, X, y)
-            return self._qn_loop(w, cost1, sweep1, None)
+            sweep1 = _build_loss_sweep(gradient, reg_value, X, y, valid,
+                                       mesh)
+            return self._qn_loop(w, cost1, sweep1, None, mesh)
         # exotic gradients without a sweep rule: sequential trials
         _warn_sequential_line_search(gradient, self._LS_TRIALS)
-        loss1 = _build_loss_only(gradient, reg_value, X, y, Xt)
-        return self._qn_loop(w, cost1, None, loss1)
+        loss1 = _build_loss_only(gradient, reg_value, X, y, Xt, valid, mesh)
+        return self._qn_loop(w, cost1, None, loss1, mesh)
 
-    def _qn_loop(self, w, cost1, sweep1, loss1):
+    def _qn_loop(self, w, cost1, sweep1, loss1, mesh=None):
         """The L-BFGS iteration loop over full-batch evaluators:
         ``cost1(w) -> (f, g)``, ``sweep1(W_trials) -> (T,)`` trial
         objectives (None for gradients without a sweep rule), ``loss1(w)
-        -> f`` (the sequential fallback)."""
+        -> f`` (the sequential fallback).  On a ``mesh`` the ranks check
+        that they agree on the host scalars before each decision to stop
+        (:func:`agree_on_host`)."""
         n_ls = self._LS_TRIALS
         # trial step sizes, largest first
         ladder_h = (0.5 ** np.arange(n_ls)).astype(np.float32)
@@ -561,6 +687,7 @@ class LBFGS(Optimizer):
                         accepted = True
                         break
                     t *= 0.5
+            agree_on_host(mesh, (g_dot_d, accepted), w.device)
             if not accepted:
                 break  # cannot make progress
             f_new, g_new = cost1(w_new)  # gradient at the accepted point
@@ -572,6 +699,7 @@ class LBFGS(Optimizer):
                     s_stack, y_stack, rho, k, m, s, yv, sy)
             w, f, g = w_new, f_new, g_new
             losses.append(float(f))
+            agree_on_host(mesh, (sy, losses[-1]), w.device)
             rel = abs(losses[-2] - losses[-1]) / max(
                 abs(losses[-2]), abs(losses[-1]), 1.0
             )
@@ -596,7 +724,7 @@ def run_lbfgs(
 ):
     """Functional entry point, signature parity with the reference's
     ``object LBFGS.runLBFGS``: same argument order, returns ``(weights,
-    loss_history)``.  ``mesh`` raises (ROADMAP A5)."""
+    loss_history)``.  ``mesh``: a data mesh (``LBFGS.set_mesh``)."""
     opt = LBFGS(
         gradient,
         updater,

@@ -30,7 +30,11 @@ budget; that is the planner, ROADMAP A11): the default is resident, and
 data too large for the card fails where it is moved there; it never
 moves to the CPU.
 
-Not ported yet: the mesh (ROADMAP A5).
+On a data mesh (``set_mesh``) each rank passes its own rows and runs the
+same one pass over them; the ranks' f64 ``(XᵀX, Xᵀy, yᵀy, n)`` are
+combined in rank order (``parallel.mesh.combine``) and every rank then
+solves the same system, so all hold the same weights, bitwise.  The
+streamed totals on a mesh are ROADMAP A5's next slice and raise.
 """
 
 from __future__ import annotations
@@ -63,8 +67,17 @@ def _gram_sums(X: Tensor, y: Tensor):
     """One pass: ``(XᵀX, Xᵀy, yᵀy, n)`` at the accumulation dtype (f32 for
     bf16 X, whose products run in bf16 with f32 outputs), each block's
     products added in f64."""
+    acc = acc_dtype(matmul_dtype(X))
+    A, b, yty = _gram_sums_wide(X, y)
+    return (A.to(acc), b.to(acc), yty.to(acc),
+            torch.tensor(float(X.shape[0]), dtype=torch.float32,
+                         device=X.device))
+
+
+def _gram_sums_wide(X: Tensor, y: Tensor):
+    """``(XᵀX, Xᵀy, yᵀy)`` in f64, the sums :func:`_gram_sums` rounds: a
+    rank's share on a mesh, combined before the rounding."""
     mm = matmul_dtype(X)
-    acc = acc_dtype(mm)
     n, d = X.shape
     wide = torch.float64
     A = torch.zeros((d, d), dtype=wide, device=X.device)
@@ -88,9 +101,7 @@ def _gram_sums(X: Tensor, y: Tensor):
                 A += mm_acc(Xr.T, Xr).to(wide)
                 b += mm_acc(Xr.T, yc[s + nb * B:e, None])[:, 0].to(wide)
     yy = y.to(wide)
-    yty = torch.dot(yy, yy)
-    return (A.to(acc), b.to(acc), yty.to(acc),
-            torch.tensor(float(n), dtype=torch.float32, device=X.device))
+    return A, b, torch.dot(yy, yy)
 
 
 def _dot_hi(a: Tensor, b: Tensor, dtype) -> Tensor:
@@ -139,6 +150,8 @@ class NormalEquations(Optimizer):
         self.stream_batch_rows = None
         self.stream_resume_dir = None
         self._loss = None
+        #: the data mesh of ``set_mesh`` (None: one device)
+        self.mesh = None
 
     def set_reg_param(self, r: float):
         self.reg_param = float(r)
@@ -167,7 +180,14 @@ class NormalEquations(Optimizer):
         return self
 
     def set_mesh(self, mesh):
-        _not_ported("set_mesh (data parallelism)", "A5")
+        """Accumulate the Gram by rows over a 1-D data mesh: each rank
+        passes its own rows, the ranks combine their f64 sums in rank
+        order, and every rank solves the same system.  A 2-D mesh raises
+        ``ValueError``."""
+        from tpu_sgd_torch.optimize.lbfgs import check_data_mesh
+
+        self.mesh = check_data_mesh(mesh, "NormalEquations")
+        return self
 
     @property
     def loss_history(self):
@@ -184,6 +204,9 @@ class NormalEquations(Optimizer):
                 "GradientDescent/LBFGS/OWLQN instead"
             )
         dev = resolve_device(self.device)
+        if self.host_streaming and self.mesh is not None:
+            _not_ported("set_host_streaming on a mesh (the meshed streamed "
+                        "totals, build_streamed_total_stats)", "A5")
         if self.host_streaming:
             # before any device conversion: X never lives on the card whole
             if np.shape(initial_weights)[-1] != X.shape[1]:
@@ -204,8 +227,29 @@ class NormalEquations(Optimizer):
                 f"initial_weights has length {width} but the data has "
                 f"{X.shape[1]} features"
             )
-        w, loss = _solve(*_gram_sums(X.contiguous(), y), self.reg_param)
+        if self.mesh is None:
+            sums = _gram_sums(X.contiguous(), y)
+        else:
+            sums = self._meshed_gram_sums(X.contiguous(), y, dev)
+        w, loss = _solve(*sums, self.reg_param)
         return self._finish(w, loss)
+
+    def _meshed_gram_sums(self, X, y, dev):
+        """``(XᵀX, Xᵀy, yᵀy, n)`` of every rank's rows: this rank's f64
+        sums and its row count combined in rank order, then rounded as
+        :func:`_gram_sums` rounds one device's."""
+        from tpu_sgd_torch.parallel.mesh import as_data_mesh, combine
+
+        mesh = as_data_mesh(self.mesh)
+        if mesh.backend == "nccl" and dev.type != "cuda":
+            raise ValueError(
+                f"an NCCL mesh combines on the card; this optimizer runs "
+                f"on {dev} (use a gloo group for CPU ranks)")
+        acc = acc_dtype(matmul_dtype(X))
+        n = torch.full((), float(X.shape[0]), dtype=torch.float64,
+                       device=dev)
+        A, b, yty, n = combine(mesh, *_gram_sums_wide(X, y), n)
+        return A.to(acc), b.to(acc), yty.to(acc), n.to(torch.float32)
 
     def _optimize_host_streamed(self, X, y, dev):
         """The exact solve from host-streamed Gram totals (see

@@ -17,7 +17,10 @@ statistics for Lasso least squares under ``set_sufficient_stats``).  Host syncs 
 iteration: the directional derivative, the sweep (its objectives and
 predicted decreases in one read) and ``s . y``.  Host rows beyond the card
 take L-BFGS's two schedules (``set_host_streaming``,
-``set_streamed_stats``), inherited.
+``set_streamed_stats``), inherited, and so does the data mesh
+(``set_mesh``): the rank-order combine of the smooth sums and of the
+sweep's loss sums, with the L1 term added after the combine, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from tpu_sgd_torch.optimize.lbfgs import (
     _push_correction,
     _two_loop,
     _warn_sequential_line_search,
+    agree_on_host,
 )
 from tpu_sgd_torch.optimize.optimizer import Dataset
 
@@ -167,8 +171,7 @@ class OWLQN(LBFGS):
         arrays, w = self._resident(data, initial_weights)
         if arrays is None:
             return w, self._loss_history
-        X, y, Xt = arrays
-        gradient, X = self._substitute_gram(self.gradient, X, y)
+        gradient, X, y, Xt, valid, mesh = arrays
         reg = self._reg_vector(w)  # per-coordinate, broadcast through
 
         def l1_value(wv):
@@ -179,20 +182,25 @@ class OWLQN(LBFGS):
                                device=wv.device)
 
         # the smooth cost; the L1 part is added where the algorithm needs
-        # the FULL objective
-        smooth_cost1 = _build_cost(gradient, zero, torch.zeros_like, X, y, Xt)
+        # the FULL objective (after a mesh's combine)
+        smooth_cost1 = _build_cost(gradient, zero, torch.zeros_like, X, y, Xt,
+                                   valid, mesh)
         if hasattr(gradient, "loss_sweep"):
-            sweep1 = _build_loss_sweep(gradient, l1_value, X, y)
-            return self._owlqn_loop(w, reg, smooth_cost1, sweep1, None)
+            sweep1 = _build_loss_sweep(gradient, l1_value, X, y, valid, mesh)
+            return self._owlqn_loop(w, reg, smooth_cost1, sweep1, None, mesh)
         _warn_sequential_line_search(gradient, self._LS_TRIALS)
-        full_loss1 = _build_loss_only(gradient, l1_value, X, y, Xt)
-        return self._owlqn_loop(w, reg, smooth_cost1, None, full_loss1)
+        full_loss1 = _build_loss_only(gradient, l1_value, X, y, Xt, valid,
+                                      mesh)
+        return self._owlqn_loop(w, reg, smooth_cost1, None, full_loss1, mesh)
 
-    def _owlqn_loop(self, w, reg, smooth_cost1, sweep1, full_loss1):
+    def _owlqn_loop(self, w, reg, smooth_cost1, sweep1, full_loss1,
+                    mesh=None):
         """The orthant-wise iteration loop over full-batch evaluators:
         ``smooth_cost1(w) -> (f_smooth, g_smooth)``, ``sweep1(W_trials)
         -> (T,)`` FULL objectives (None for gradients without a sweep
-        rule), ``full_loss1(w) -> F`` (the sequential fallback)."""
+        rule), ``full_loss1(w) -> F`` (the sequential fallback).  On a
+        ``mesh`` the ranks check that they agree on the host scalars
+        before each decision to stop (``lbfgs.agree_on_host``)."""
         penalized = reg > 0
         any_penalty = self.reg_param > 0
         n_ls = self._LS_TRIALS
@@ -218,9 +226,11 @@ class OWLQN(LBFGS):
                 direction = _project_orthant(direction, torch.sign(-pg),
                                              penalized)
             dir_deriv = float(torch.dot(pg, direction))
+            agree_on_host(mesh, (dir_deriv,), w.device)
             if dir_deriv >= 0:
                 direction = -pg
                 dir_deriv = float(torch.dot(pg, direction))
+                agree_on_host(mesh, (dir_deriv,), w.device)
                 if dir_deriv >= 0:  # pg == 0: stationary point
                     break
             # orthant for the trial points: sign(w), or sign(-pg) at zeros
@@ -254,6 +264,7 @@ class OWLQN(LBFGS):
                         accepted = True
                         break
                     t *= 0.5
+            agree_on_host(mesh, (accepted,), w.device)
             if not accepted:
                 break
             _, g_new = smooth_cost1(w_new)
@@ -266,6 +277,7 @@ class OWLQN(LBFGS):
             w, g = w_new, g_new
             F = F_new
             losses.append(F)
+            agree_on_host(mesh, (sy, F), w.device)
             rel = abs(losses[-2] - losses[-1]) / max(
                 abs(losses[-2]), abs(losses[-1]), 1.0
             )

@@ -7,12 +7,15 @@ multi-host rule is the only rule: a mesh is a ``torch.distributed``
 process group, each rank holds its own rows, and the ranks combine their
 sums with a collective.
 
-:class:`Mesh` is a thin description: its axes' sizes and the data group
-(``None``: the default group).  ``torch.distributed``'s ``DeviceMesh``
-would need a live process group even to describe a shape, and builds one
-subgroup per axis collectively; the port needs only the data group, and
-a mesh with a sharded ``model`` axis is described but never run (every
-route on it raises naming ROADMAP A5).
+:class:`Mesh` is a thin description: its axes' sizes, the data group
+(``None``: the default group) and, on a 2-D mesh, the model group.
+``torch.distributed``'s ``DeviceMesh`` would need a live process group
+even to describe a shape; a mesh here is built collectively only where
+it runs (:func:`make_mesh`).  Ranks lie row-major over ``(data,
+model)``: rank ``= data_index * n_model + model_index``.  The data group
+of a rank is its model column (the ranks of one model index), the model
+group its data row (the ranks of one data index): every rank calls
+``dist.new_group`` for every column and every row in the same order.
 
 The combine (:func:`combine_sums`, the counterpart of the ``psum`` of
 ``(grad_sum, loss_sum, count)``) all-gathers every rank's sums and adds
@@ -23,7 +26,10 @@ independent of the backend, of NCCL's algorithm and of the ring layout,
 and equals a one-process rank-order sum of the same shards.  NCCL gathers
 on the card (and may be captured in a CUDA graph); gloo gathers host
 tensors only, so a card's vector goes through the host, and the adds run
-there in the same order, with the same bits.
+there in the same order, with the same bits.  :func:`combine_model`
+is the same gather and the same adds over the model group: the
+counterpart of the JAX package's ``psum`` over its ``model`` axis (the
+partial margins, the reg value, the convergence norms).
 """
 
 from __future__ import annotations
@@ -40,10 +46,12 @@ MODEL_AXIS = "model"
 class Mesh:
     """A ``(data[, model])`` mesh of ranks: ``shape`` maps each axis name
     to its size, ``group`` is the process group of the data axis (``None``:
-    the default group).  Ranks lie row-major over ``(data, model)``, as
-    the JAX package's ``make_mesh`` lays out its devices."""
+    the default group) and ``model_group`` that of the model axis (a 2-D
+    mesh with ``n_model > 1``; :func:`make_mesh` builds both).  Ranks lie
+    row-major over ``(data, model)``, as the JAX package's ``make_mesh``
+    lays out its devices."""
 
-    def __init__(self, shape: dict, group=None):
+    def __init__(self, shape: dict, group=None, model_group=None):
         if DATA_AXIS not in shape:
             raise ValueError(f"a mesh needs a '{DATA_AXIS}' axis, got "
                              f"{tuple(shape)}")
@@ -52,6 +60,7 @@ class Mesh:
                 raise ValueError(f"bad mesh axis {name}={size}")
         self.shape = {k: int(v) for k, v in shape.items()}
         self.group = group
+        self.model_group = model_group
         self._backend = None
 
     @property
@@ -60,9 +69,23 @@ class Mesh:
         return self.shape[DATA_AXIS]
 
     @property
+    def n_model(self) -> int:
+        """Ranks on the model axis (1 on a data mesh)."""
+        return self.shape.get(MODEL_AXIS, 1)
+
+    @property
     def rank(self) -> int:
-        """This process's index on the data axis: its shard."""
+        """This process's index on the data axis: its shard of rows (the
+        model ranks of one data row share it, and so their sample)."""
         return dist.get_rank(self.group)
+
+    @property
+    def model_index(self) -> int:
+        """This process's index on the model axis: its block of
+        features."""
+        if self.model_group is None:
+            return 0
+        return dist.get_rank(self.model_group)
 
     @property
     def backend(self) -> str:
@@ -88,7 +111,10 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     """A ``(data, model)`` mesh over the ranks of ``group`` (default: all
     ranks), ``n_data`` defaulting to ``world // n_model``.  One process
     drives one device, so the mesh covers the group exactly: a rank
-    outside it would idle."""
+    outside it would idle.  With ``n_model > 1`` this is collective: every
+    rank of ``group`` builds the ``n_model`` column groups (the data
+    groups) and then the ``n_data`` row groups (the model groups), in that
+    order, and keeps its own two."""
     world = _world(group)
     if n_data is None:
         n_data = world // n_model
@@ -97,7 +123,22 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
         raise ValueError(
             f"mesh {n_data}x{n_model} needs {n} ranks, the group has "
             f"{world}")
-    return Mesh({DATA_AXIS: n_data, MODEL_AXIS: n_model}, group)
+    shape = {DATA_AXIS: n_data, MODEL_AXIS: n_model}
+    if n_model == 1:
+        return Mesh(shape, group)
+    ranks = (dist.get_process_group_ranks(group) if group is not None
+             else list(range(world)))
+    me = ranks.index(dist.get_rank())
+    data_group = model_group = None
+    for m in range(n_model):
+        g = dist.new_group([ranks[d * n_model + m] for d in range(n_data)])
+        if me % n_model == m:
+            data_group = g
+    for d in range(n_data):
+        g = dist.new_group([ranks[d * n_model + m] for m in range(n_model)])
+        if me // n_model == d:
+            model_group = g
+    return Mesh(shape, data_group, model_group)
 
 
 def data_mesh(group=None) -> Mesh:
@@ -115,15 +156,13 @@ def has_model_axis(mesh) -> bool:
 def as_data_mesh(mesh):
     """The 1-D data view of a mesh: a data-only mesh passes through, a
     trivial (size-1) 'model' axis is flattened away, and a sharded one
-    raises ``NotImplementedError`` naming ROADMAP A5."""
+    raises ``NotImplementedError`` (the data-only builders)."""
     if mesh is None or set(mesh.shape) == {DATA_AXIS}:
         return mesh
     if has_model_axis(mesh):
         raise NotImplementedError(
-            f"this operation composes with a 1-D '{DATA_AXIS}' mesh; got "
-            f"axes {mesh.shape}: feature-axis ('{MODEL_AXIS}') sharding is "
-            "not ported to tpu_sgd_torch yet (ROADMAP A5); use the JAX "
-            "package tpu_sgd for it")
+            f"this operation composes with a 1-D '{DATA_AXIS}' mesh; "
+            f"got axes {tuple(mesh.shape)}")
     return Mesh({DATA_AXIS: mesh.size}, mesh.group)
 
 
@@ -133,18 +172,22 @@ _gather_into = (getattr(dist, "all_gather_single", None)
                 or dist.all_gather_into_tensor)
 
 
-def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """Every rank's 1-D ``t`` stacked in rank order, ``(ranks, len(t))``,
-    by one collective into one buffer.  NCCL gathers on the card; gloo
-    gathers host tensors, so a card's tensor goes through the host and
-    the result stays there."""
-    if mesh.backend != "nccl" and t.is_cuda:
+def _gather(group, size: int, backend: str, t: torch.Tensor
+            ) -> torch.Tensor:
+    if backend != "nccl" and t.is_cuda:
         t = t.cpu()
     t = t.contiguous()
-    out = torch.empty((mesh.size * t.numel(),), dtype=t.dtype,
-                      device=t.device)
-    _gather_into(out, t, group=mesh.group)
-    return out.view(mesh.size, t.numel())
+    out = torch.empty((size * t.numel(),), dtype=t.dtype, device=t.device)
+    _gather_into(out, t, group=group)
+    return out.view(size, t.numel())
+
+
+def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every data rank's 1-D ``t`` stacked in rank order, ``(ranks,
+    len(t))``, by one collective into one buffer.  NCCL gathers on the
+    card; gloo gathers host tensors, so a card's tensor goes through the
+    host and the result stays there."""
+    return _gather(mesh.group, mesh.size, mesh.backend, t)
 
 
 def rank_order_sum(parts) -> torch.Tensor:
@@ -156,19 +199,48 @@ def rank_order_sum(parts) -> torch.Tensor:
     return total
 
 
+def combine(mesh: Mesh, *parts, axis: str = DATA_AXIS):
+    """The rank-order sum of each of ``parts`` over the ranks of ``axis``:
+    one gather of the flattened parts at their common dtype, then
+    :func:`rank_order_sum`; the same sums, bitwise, on every rank of the
+    axis, back at each part's shape, dtype and device."""
+    dt = parts[0].dtype
+    for p in parts[1:]:
+        dt = torch.promote_types(dt, p.dtype)
+    flat = torch.cat([p.reshape(-1).to(dt) for p in parts])
+    if axis == DATA_AXIS:
+        got = all_gather(mesh, flat)
+    else:
+        got = _gather(mesh.model_group, mesh.n_model, mesh.backend, flat)
+    total = rank_order_sum(got.unbind(0)).to(parts[0].device)
+    out, k = [], 0
+    for p in parts:
+        out.append(total[k:k + p.numel()].reshape(p.shape).to(p.dtype))
+        k += p.numel()
+    return tuple(out)
+
+
 def combine_sums(mesh: Mesh, g, l, c):
     """The data-axis combine of one rank's ``(grad_sum, loss_sum, count)``
-    (the JAX package's ``lax.psum``): one gather of the ``(numel(g) + 2)``
-    vector, then :func:`rank_order_sum`; the same sums, bitwise, on every
-    rank.  Shape-generic (matrix weights too)."""
-    dt = torch.promote_types(torch.promote_types(g.dtype, l.dtype), c.dtype)
-    flat = torch.cat([g.reshape(-1).to(dt), l.reshape(1).to(dt),
-                      c.reshape(1).to(dt)])
-    total = rank_order_sum(all_gather(mesh, flat).unbind(0)).to(g.device)
-    k = g.numel()
-    return (total[:k].reshape(g.shape).to(g.dtype),
-            total[k].reshape(l.shape).to(l.dtype),
-            total[k + 1].reshape(c.shape).to(c.dtype))
+    (the JAX package's ``lax.psum``): :func:`combine` of the three, one
+    gather of the ``(numel(g) + 2)`` vector.  Shape-generic (matrix
+    weights too)."""
+    return combine(mesh, g, l, c)
+
+
+def gather_model(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every model rank's 1-D ``t`` stacked in model-rank order,
+    ``(n_model, len(t))``, on ``t``'s device (a 2-D mesh's weight blocks
+    put back together)."""
+    return _gather(mesh.model_group, mesh.n_model, mesh.backend,
+                   t).to(t.device)
+
+
+def combine_model(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """The model-axis combine of ``t`` (partial margins, a reg value, a
+    squared norm): the JAX package's ``psum`` over ``model``, in
+    model-rank order."""
+    return combine(mesh, t, axis=MODEL_AXIS)[0]
 
 
 def any_rank(mesh: Mesh, flag: bool, device) -> bool:

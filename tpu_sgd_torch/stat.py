@@ -108,13 +108,74 @@ def _checked(X) -> Tensor:
     return X
 
 
-def column_mean_variance(X):
+def column_mean_variance(X, mesh=None):
     """``(mean, sample variance)`` per column, dense or sparse, as f32
     tensors on X's device (the CPU for a numpy array): the summarizer
-    that ``StandardScaler.fit`` and :func:`col_stats` share."""
+    that ``StandardScaler.fit`` and :func:`col_stats` share.  On a data
+    ``mesh`` X is this rank's rows and the statistics are those of every
+    rank's rows (:func:`_meshed_mean_variance`)."""
+    if mesh is not None:
+        return _meshed_mean_variance(_as_matrix(X), mesh)
     X = _checked(X)
     stats = _csr_col_stats(X) if is_sparse(X) else _dense_col_stats(X)
     return stats[0], stats[1]
+
+
+#: f64 elements of one row chunk of the meshed dense variance pass
+_MESH_CHUNK_ELEMS = 1 << 24
+
+
+def _meshed_mean_variance(X: Tensor, mesh):
+    """Column ``(mean, sample variance)`` of every rank's rows, the same
+    bits on every rank: the count and the column sums, in f64, combined
+    in rank order (``parallel.mesh.combine``), then the mean; dense rows
+    then sum their squared deviations from it, combined the same way.  A
+    CSR X combines its columns' sums and sums of squares in one round
+    (its variance is ``(Σx² − n·mean²) / (n − 1)``, as one device's)."""
+    from tpu_sgd_torch.parallel.mesh import combine as _combine
+
+    home = X.device
+    # NCCL combines card tensors: host rows' sums go there and back
+    coll = (torch.device("cuda", torch.cuda.current_device())
+            if mesh.backend == "nccl" else home)
+
+    def combine(mesh, *parts):
+        got = _combine(mesh, *(p.to(coll) for p in parts))
+        return tuple(t.to(home) for t in got)
+
+    wide = torch.float64
+    n_local = torch.full((), float(X.shape[0]), dtype=wide, device=X.device)
+    if is_sparse(X):
+        d = X.shape[1]
+        cols = X.col_indices().to(torch.int64)
+        vals = X.values().to(wide)
+        s1 = torch.zeros((d,), dtype=wide, device=X.device).index_add_(
+            0, cols, vals)
+        s2 = torch.zeros((d,), dtype=wide, device=X.device).index_add_(
+            0, cols, vals * vals)
+        s1, s2, n = combine(mesh, s1, s2, n_local)
+        _check_rows(n)
+        mean = s1 / n
+        var = torch.clamp((s2 - n * mean * mean) / torch.clamp(n - 1, min=1),
+                          min=0.0)
+        return mean.to(torch.float32), var.to(torch.float32)
+    if X.dim() != 2:
+        raise ValueError(f"expected a 2-D matrix, got {tuple(X.shape)}")
+    rows = max(1, _MESH_CHUNK_ELEMS // max(X.shape[1], 1))
+    s1, n = combine(mesh, torch.sum(X, dim=0, dtype=wide), n_local)
+    _check_rows(n)
+    mean = s1 / n
+    sq = torch.zeros_like(mean)
+    for s in range(0, X.shape[0], rows):
+        sq = sq + torch.sum((X[s:s + rows].to(wide) - mean) ** 2, dim=0)
+    (sq,) = combine(mesh, sq)
+    var = sq / torch.clamp(n - 1, min=1)
+    return mean.to(torch.float32), var.to(torch.float32)
+
+
+def _check_rows(n: Tensor) -> None:
+    if float(n) == 0:
+        raise ValueError("empty input")
 
 
 def col_stats(X) -> MultivariateStatisticalSummary:
