@@ -116,9 +116,9 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    i = 1 .. 10^6 must equal the host's rounding; each sampler's draw is
    timed.
 10. streamed — host-streamed SGD (``set_host_streaming``), right after
-   phase 9: phase 4's matrix copied to the host once (the phase fails,
-   naming the shortfall, when the host lacks the room for it and the
-   staging ring).  (a) 3 full-batch iterations streamed against the
+   phase 9: phase 4's matrix copied to the host once, into a memfd that
+   phase 12's ranks map too (the phase fails, naming the shortfall, when
+   the host lacks the room for it and the staging ring).  (a) 3 full-batch iterations streamed against the
    resident run on the same X (B1 masked by the batch's valid mask
    against B1 unmasked): loss rtol 2e-4, weights at the gradient tier;
    (b) Bernoulli, indexed and sliced at frac 0.1, 20 iterations each at
@@ -185,7 +185,23 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    normal equations; (h) the meshed statistics (each rank's prefix stack,
    sliced exact and aligned, L-BFGS from the meshed totals); (i)
    ``set_residency`` and feature scaling on a mesh, OWL-QN on the 8 CSR
-   blocks.
+   blocks.  Then host-streamed training on the mesh, each rank mapping
+   phase 10's 20 GB of host rows (one memfd) and passing them whole: (j)
+   SGD, Bernoulli and sliced at 0.1 over the 10M rows (wall ms a rank),
+   and on a 1M-row prefix every mode bitwise the one-process rank-order
+   sum of the same shares, repeated, at prefetch depth 0, at K = 8, a
+   stop at 13 and its resume, against one device's streamed run (full
+   batch history rtol 3e-3 and objective within 1e-4, sampled <= 1.01x);
+   (k) the ``topk:0.01`` wire (bitwise its reference, K = 8, the EF
+   resume, 600 full-batch iterations within 1.01x the dense wire's
+   objective, the bytes gathered); (l) L-BFGS and OWL-QN through the
+   streamed CostFun against phase 11's (a) and (b) (rtol 2e-4), twice
+   bitwise, B1 launches = chunks x cost evaluations a rank; (m) the
+   streamed statistics (each rank's stack bitwise its resident build,
+   the virtual run bitwise its rank-order reference, a resumed build),
+   the totals' dense and compressed merges, L-BFGS from them and the
+   streamed normal equations within 1e-5 of phase 11's; each rank's
+   resident host memory grows by less than half the rows' bytes.
 13. serve — the serving plane (``tpu_sgd_torch.serve``, ``.tenant``),
    after phase 12: through ``Server``, 20,000 single-row requests a model
    from 8 client threads (4,000 closed loop, one in flight a client: p50
@@ -222,7 +238,9 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    streamed line, the streamed_qn line, the mesh line, the serve line,
    the corr line, the observed line, the kernel table (B1-B3, B1 at the
    streamed chunk shape and its tail, the CSR kernel, B1, B2 and the CSR
-   kernel at a mesh rank's shapes, the CSR kernel at the serving shapes
+   kernel at a mesh rank's shapes, B1 at a streamed rank's shares (a
+   Bernoulli share, a window share, a CostFun chunk's share and an empty
+   one), the CSR kernel at the serving shapes
    and at a correlation block), then
    the card's name and power limit, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -236,6 +254,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import mmap
 import os
 import re
 import subprocess
@@ -3089,7 +3108,9 @@ def streamed_predict(torch, tst, Xh, X):
 
 def phase_streamed_dense(torch, tst, ck, X, y):
     """Phase ``streamed``, dense rows: phase ``full``'s X copied to the host
-    once, then legs (a)-(d)."""
+    once, into a memfd that phase ``mesh``'s ranks map too
+    (``shared_host_rows``), then legs (a)-(d).  Returns ``(record, Xh, yh,
+    fd)``."""
     n, d = X.shape
     x_bytes = n * d * X.element_size()
     ring_bytes = 2 * 2 * (round(FRAC * n) + 8 * int(math.sqrt(n))) * d * 2
@@ -3100,10 +3121,11 @@ def phase_streamed_dense(torch, tst, ck, X, y):
           f"{ring_bytes}, slack {HOST_SLACK_BYTES}); {avail} are "
           f"available, {need - avail} short")
     t = time.perf_counter()
-    Xh = X.cpu()
+    Xh, fd = shared_host_rows(torch, X)
     yh = y.cpu()
     copy_s = time.perf_counter() - t
     out = {"host_copy_seconds": copy_s, "host_bytes": x_bytes,
+           "host_map": "memfd, shared with phase mesh's ranks",
            "mem_available_before": avail}
     t = time.perf_counter()
     legs = (("a_full_batch", lambda: streamed_full_batch(
@@ -3119,7 +3141,7 @@ def phase_streamed_dense(torch, tst, ck, X, y):
         out["leg_seconds"][name] = time.perf_counter() - t_leg
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t
-    return out, Xh, yh
+    return out, Xh, yh, fd
 
 
 # -- phase streamed_qn --------------------------------------------------------
@@ -3302,6 +3324,7 @@ def streamed_qn_owlqn(torch, tst, X, y, Xh, yh):
     check(len(hist) == len(h_ref) == STREAMED_OWLQN_ITERS + 1
           and rel <= 2e-4, f"(b): history {hist} against {h_ref}")
     return {"rows": rows, "iterations": len(hist) - 1,
+            "history": [float(v) for v in hist],
             "history_max_rel_vs_resident": rel, "seconds": secs,
             "exact_zeros": int((w == 0).sum())}
 
@@ -3390,7 +3413,7 @@ def streamed_qn_statistics(torch, tst, ck, X, y_ls, Xh, yh_ls, gram,
             "sgd_loss_last": float(got[1][-1]),
             "lbfgs_seconds_with_build": lb_s,
             "lbfgs_iterations": len(h_lb) - 1, "lbfgs_objective": L,
-            "gram_e_objective": L_e}
+            "gram_e_objective": L_e, "refs": {"c_lbfgs_w": w_lb}}
 
 
 def streamed_qn_resume(torch, tst, Xh, yh):
@@ -3500,14 +3523,17 @@ def streamed_qn_normal(torch, tst, X, y_ls, Xh, yh_ls, qn_b, h2d_gb_s):
             "objective_bf16_weights": full_objective(
                 tst.LeastSquaresGradient(), X, y_ls, runs[0][0]),
             "resident_objective_bf16_weights": qn_b["objective"],
-            "bitwise_repeat": True}
+            "bitwise_repeat": True, "refs": {"e_normal_w": runs[0][0]}}
 
 
 def phase_streamed_qn(torch, tst, ck, X, y, w_true, Xh, qn_b, gram,
                       streamed):
     """Phase ``streamed_qn``, right after phase ``streamed`` on its host
     copy of the 10M x 1000 bf16 rows: legs (a)-(e).  Returns the phase's
-    record and B1's rows at the streamed chunk shape."""
+    record, B1's rows at the streamed chunk shape, and what phase
+    ``mesh`` (l), (m) meet: the labels on the host, (a)'s and (b)'s
+    histories, (c)'s L-BFGS weights and (e)'s normal solution (host
+    numpy)."""
     t0 = time.perf_counter()
     h2d = max(r["ingest"]["h2d_gb_per_s"]
               for r in streamed["b_sampled"].values())
@@ -3526,17 +3552,22 @@ def phase_streamed_qn(torch, tst, ck, X, y, w_true, Xh, qn_b, gram,
             ("e_normal", lambda: streamed_qn_normal(
                 torch, tst, X, y_ls, Xh, yh_ls, qn_b, h2d)))
     b1_rows = []
+    refs = {"yh_ls": yh_ls, "yh_log": yh_log}
     for name, leg in legs:
         t = time.perf_counter()
         rec = leg()
         if name == "a_lbfgs":
             rec, b1_rows = rec
+        refs.update({k: v.cpu().numpy() for k, v in
+                     rec.pop("refs", {}).items()})
         out[name] = rec
         out["leg_seconds"][name] = time.perf_counter() - t
         emit({"phase": "streamed_qn", "leg": name, **rec})
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
-    return out, b1_rows
+    refs["a_history"] = np.asarray(out["a_lbfgs"]["history"], np.float32)
+    refs["b_history"] = np.asarray(out["b_owlqn"]["history"], np.float32)
+    return out, b1_rows, refs
 
 
 def staged_sparse_batch(torch, tst, Xh, cfg):
@@ -3985,7 +4016,8 @@ def mesh_rank_runs(torch, tst, ck, par, mesh, out_dir):
     (``mesh_rank_dense``); the block freed, (e) on the 4 x 2 mesh
     (``mesh_rank_2d``); then hinge + L1 on its CSR row block
     (``sparse<rank>.npz``) at frac 1.0 and ``FRAC``, and OWL-QN on it
-    (``mesh_rank_sparse_owlqn``).  Returns ``(report, arrays)``."""
+    (``mesh_rank_sparse_owlqn``); then (j)-(m) over phase ``streamed``'s
+    host rows (``mesh_rank_streamed``).  Returns ``(report, arrays)``."""
     rank, dev = mesh.rank, "cuda"
     rows = FULL_ROWS // mesh.size
     X = torch.empty((rows, FULL_D), dtype=torch.bfloat16, device=dev)
@@ -4053,6 +4085,11 @@ def mesh_rank_runs(torch, tst, ck, par, mesh, out_dir):
     res["i_sparse"], sp_arrays = mesh_rank_sparse_owlqn(torch, tst, ck, mesh,
                                                         Xs, ys)
     arrays.update(sp_arrays)
+    del Xs, ys
+    torch.cuda.empty_cache()
+    res["streamed"], st_arrays = mesh_rank_streamed(torch, tst, ck, par, mesh,
+                                                    out_dir)
+    arrays.update(st_arrays)
     return res, arrays
 
 
@@ -4089,14 +4126,15 @@ def mesh_child(rank, world, port, out_dir) -> int:
 
 
 def mesh_spawn(world, out_dir, timeout=MESH_TIMEOUT, script=None,
-               flag="--mesh-rank"):
+               flag="--mesh-rank", pass_fds=()):
     """Start ``world`` ranks, ``python3 SCRIPT FLAG RANK WORLD PORT DIR``
     (by default this script's ``mesh_child``), on a free port and wait
     for all; a rank that exits non-zero, or a job that outlives
     ``timeout``, fails the phase, every rank stopped first.  Only a port
     taken between the probe and the bind starts the job again, on another
-    port.  Each rank's output goes to ``rank<r>.log``.  Returns the job's
-    seconds."""
+    port.  Each rank's output goes to ``rank<r>.log``; ``pass_fds`` stay
+    open in every rank (the memfd of the shared host rows).  Returns the
+    job's seconds."""
     script = script or os.path.abspath(__file__)
     logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(world)]
     for attempt in range(3):
@@ -4109,7 +4147,8 @@ def mesh_spawn(world, out_dir, timeout=MESH_TIMEOUT, script=None,
                     procs.append(subprocess.Popen(
                         [sys.executable, script, flag, str(r), str(world),
                          str(port), out_dir],
-                        stdout=log, stderr=subprocess.STDOUT))
+                        stdout=log, stderr=subprocess.STDOUT,
+                        pass_fds=tuple(pass_fds)))
             while any(p.poll() is None for p in procs):
                 if any(p.poll() not in (None, 0) for p in procs):
                     break  # the others would wait for it in a collective
@@ -4962,7 +5001,653 @@ def mesh_resident_checks(torch, tst, ck, X, y, blocks, reports, arrays,
     return out
 
 
-def phase_mesh(torch, tst, ck, X_sp, y_sp, profile, sparse_owlqn_w):
+# -- phase mesh, parts (j)-(m): host-streamed training on a mesh -------------
+
+MESH_STREAM_PREFIX = 1_000_000  # host rows of the bitwise contracts
+MESH_STREAM_ITERS = 10          # a timing run, a bitwise run
+MESH_STREAM_STOP_ITERS = 20     # the stop-and-resume runs (stop at 13)
+MESH_TOPK = "topk:0.01"
+# full batch on the prefix: error feedback at 1% of the coordinates meets
+# the dense wire's objective within 1.01x after about 500 iterations (a
+# numpy model of the run at 16,000 x 1000 read 1.011x at 500)
+MESH_TOPK_ITERS = 600
+MESH_TOPK_RATIO = 1.01
+# a rank's resident host memory grows by the pages of the shared rows it
+# reads (its share, about 1/8) and by its rings, never by the 20 GB
+MESH_HOST_GROWTH_LIMIT = 10e9
+MESH_TOTALS_RTOL = 1e-6         # the compressed merge against the dense
+MESH_STREAMED_QN_RTOL = 1e-5    # (m) against the single-device results
+
+
+def _proc_status() -> dict:
+    """The process's resident host memory, bytes: ``VmRSS`` and, where the
+    kernel reports them, ``RssAnon`` / ``RssFile`` / ``RssShmem``
+    (``/proc/self/status``), and ``statm``'s resident and shared pages
+    (their difference: the private pages, where ``RssAnon`` is not
+    reported)."""
+    keys = {"VmRSS": "rss", "RssAnon": "anon", "RssFile": "file",
+            "RssShmem": "shmem"}
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            k = line.split(":")[0]
+            if k in keys:
+                out[keys[k]] = int(line.split()[1]) * 1024
+    try:
+        with open("/proc/self/statm") as f:
+            _, resident, shared = (int(v) for v in f.read().split()[:3])
+        page = os.sysconf("SC_PAGE_SIZE")
+        out["statm_resident"] = resident * page
+        out["statm_private"] = (resident - shared) * page
+    except (OSError, ValueError):
+        pass
+    return out
+
+
+def _private_bytes(status: dict):
+    """Private resident bytes: ``RssAnon``, else ``statm``'s resident less
+    shared, else None."""
+    return status.get("anon", status.get("statm_private"))
+
+
+def shared_host_rows(torch, X, chunk=500_000):
+    """``X`` copied from the card into host memory that other processes
+    map: a ``memfd``, written chunk by chunk from a pinned staging buffer
+    (``os.pwrite``: no page fault a page), then mapped shared and
+    populated.  The mesh ranks of phase ``mesh`` map the same pages
+    (``torch.from_file`` of ``/proc/self/fd/<fd>``, the fd passed to
+    them; lazily, so a rank's resident memory shows what it reads), and
+    eight ranks read one copy of the 20 GB.  Returns ``(Xh, fd)``."""
+    n, d = X.shape
+    row = d * X.element_size()
+    fd = os.memfd_create("chip_smoke_rows")
+    os.ftruncate(fd, n * row)
+    stage = torch.empty((min(chunk, n), d), dtype=X.dtype,
+                        pin_memory=X.is_cuda)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        stage[:e - s].copy_(X[s:e])
+        buf = memoryview(stage[:e - s].view(torch.uint8).numpy()).cast("B")
+        done = 0
+        while done < len(buf):
+            done += os.pwrite(fd, buf[done:], s * row + done)
+    del stage
+    # this process maps it populated: it reads every row in phase
+    # streamed, and faulting the pages in one at a time took 20 s over
+    # the 20 GB on the card's host
+    mm = mmap.mmap(fd, n * row, flags=mmap.MAP_SHARED | getattr(
+        mmap, "MAP_POPULATE", 0))
+    return torch.frombuffer(mm, dtype=X.dtype).view(n, d), fd
+
+
+def _stream_mesh_opt(tst, mesh, mode, frac, iters, k=1, depth=2, wc=None):
+    """Phase ``streamed``'s least-squares run (step 0.5) streamed from the
+    host rows on ``mesh`` (None: one device)."""
+    opt = (tst.GradientDescent().set_step_size(0.5).set_num_iterations(iters)
+           .set_mini_batch_fraction(frac)
+           .set_sampling("bernoulli" if mode == "full" else mode)
+           .set_convergence_tol(0.0).set_host_streaming(True)
+           .set_superstep(k).set_ingest_options(prefetch_depth=depth,
+                                                wire_compress=wc))
+    return opt.set_mesh(mesh) if mesh is not None else opt
+
+
+def _mode_frac(mode):
+    return 1.0 if mode == "full" else FRAC
+
+
+def _stream_stop_resume(torch, tst, mesh, X, y, w0, ckdir, wc=None):
+    """A Bernoulli run on ``X`` stopped by the last rank's signal alone at
+    ``MESH_OBS_STOP_AT`` (every rank stops there: the poll is agreed), then
+    resumed from rank 0's checkpoint: against the uninterrupted run."""
+    from tpu_sgd_torch.reliability import TrainingPreempted
+    from tpu_sgd_torch.utils import CollectingListener
+    from tpu_sgd_torch.utils.checkpoint import CheckpointManager
+
+    seen = {"i": 0}
+
+    class Seen(CollectingListener):
+        def on_iteration(self, ev):
+            seen["i"] = ev.iteration
+
+    last = mesh.rank == mesh.size - 1
+
+    def opt():
+        return _stream_mesh_opt(tst, mesh, "bernoulli", FRAC,
+                                MESH_STREAM_STOP_ITERS, wc=wc)
+
+    ref = opt().optimize_with_history((X, y), w0)
+    stopping = (opt().set_listener(Seen())
+                .set_checkpoint(CheckpointManager(ckdir), every=5)
+                .set_stop_signal(lambda: last
+                                 and seen["i"] >= MESH_OBS_STOP_AT))
+    try:
+        stopping.optimize_with_history((X, y), w0)
+        at = None
+    except TrainingPreempted as e:
+        at = e.iteration
+    got = opt().set_checkpoint(CheckpointManager(ckdir),
+                               every=5).optimize_with_history((X, y), w0)
+    return {"stopped_at": at, "resumed_bitwise": _same_run(torch, ref, got)}
+
+
+def _part_start(torch):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), _proc_status(), time.perf_counter()
+
+
+def _part_end(torch, start) -> dict:
+    base, host0, t = start
+    torch.cuda.synchronize()
+    host = _proc_status()
+    p0, p1 = _private_bytes(host0), _private_bytes(host)
+    return {"seconds": time.perf_counter() - t,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "peak_device_extra_bytes": torch.cuda.max_memory_allocated()
+            - base,
+            "host_bytes": host,
+            "host_rss_growth_bytes": host["rss"] - host0["rss"],
+            "host_private_growth_bytes": (None if p0 is None or p1 is None
+                                          else p1 - p0)}
+
+
+def mesh_rank_streamed(torch, tst, ck, par, mesh, out_dir):
+    """A rank's (j)-(m) over phase ``streamed``'s 10M x 1000 bf16 host
+    rows, mapped from the parent's memfd (``streamed.json`` names it): the
+    rank passes the WHOLE host dataset and streams its share.  (j) SGD:
+    Bernoulli and sliced at ``FRAC`` over the 10M rows, timed; on the
+    first ``MESH_STREAM_PREFIX`` rows every mode's run, again, at
+    prefetch depth 0 and at K = 8, and a stop at 13 with its resume.  (k)
+    The compressed wire: a prefix run, K = 8, the stop and its EF resume,
+    full batch on the prefix on both wires for the matched objective, the
+    compressed combine timed.  (l) L-BFGS and OWL-QN through the streamed
+    CostFun, as phase ``streamed_qn`` (a) and (b), L-BFGS twice.  (m) The
+    streamed statistics (the build against this rank's resident build of
+    its slice; the virtual run twice; a resumed prefix build), the totals
+    dense and compressed, L-BFGS from them, the streamed normal
+    equations.  Returns ``(report, arrays)``."""
+    from tpu_sgd_torch.io.sparse_wire import topk_nnz
+    from tpu_sgd_torch.io.wire import host_tensor
+    from tpu_sgd_torch.parallel.mesh import combine_topk
+    from tpu_sgd_torch.reliability import failpoints as fp
+
+    with open(os.path.join(out_dir, "streamed.json")) as f:
+        spec = json.load(f)
+    n, d = spec["shape"]
+    Xh = torch.from_file(f"/proc/self/fd/{spec['fd']}", shared=True,
+                         size=n * d, dtype=torch.bfloat16).view(n, d)
+    ys = {k: host_tensor(np.load(os.path.join(out_dir, f"{k}.npy"),
+                                 mmap_mode="r"))
+          for k in ("y", "y_ls", "y_log")}
+    rank, world = mesh.rank, mesh.size
+    w0 = torch.zeros(d, device="cuda")
+    res, arrays = {"host_at_start": _proc_status()}, {}
+    P = MESH_STREAM_PREFIX
+    Xp, yp = Xh[:P], ys["y"][:P]
+
+    # (j) streamed SGD
+    start = _part_start(torch)
+    j = {"timing": {}, "prefix": {}}
+    for mode in ("bernoulli", "sliced"):
+        opt = _stream_mesh_opt(tst, mesh, mode, FRAC, MESH_STREAM_ITERS)
+        ck.reset_launch_counts()
+        (w, h), secs = _timed(torch, lambda: opt.optimize_with_history(
+            (Xh, ys["y"]), w0))
+        j["timing"][mode] = {
+            "ms_per_iteration": 1e3 * secs / MESH_STREAM_ITERS,
+            "launches": ck.launch_counts(),
+            "routes": ck.gradient_route_counts(),
+            "loss_first": float(h[0]), "loss_last": float(h[-1])}
+    j["combine_ms"] = _combine_ms(torch, par, mesh, reps=20)
+    for mode in ("bernoulli", "indexed", "sliced", "full"):
+        runs = {}
+        for key, kw in (("first", {}), ("again", {}), ("depth0", {"depth": 0}),
+                        ("k8", {"k": 8})):
+            runs[key] = _stream_mesh_opt(
+                tst, mesh, mode, _mode_frac(mode), MESH_STREAM_ITERS,
+                **kw).optimize_with_history((Xp, yp), w0)
+        j["prefix"][mode] = {key: _same_run(torch, runs["first"], runs[key])
+                             for key in ("again", "depth0", "k8")}
+        arrays[f"j_{mode}_w"] = runs["first"][0].cpu().numpy()
+        arrays[f"j_{mode}_h"] = runs["first"][1]
+    j["stop"] = _stream_stop_resume(torch, tst, mesh, Xp, yp, w0,
+                                    os.path.join(out_dir, "ck_j"))
+    res["j"] = {**j, **_part_end(torch, start)}
+
+    # (k) the compressed wire
+    start = _part_start(torch)
+    kp = {}
+    first = _stream_mesh_opt(tst, mesh, "bernoulli", FRAC, MESH_STREAM_ITERS,
+                             wc=MESH_TOPK).optimize_with_history((Xp, yp),
+                                                                 w0)
+    k8 = _stream_mesh_opt(tst, mesh, "bernoulli", FRAC, MESH_STREAM_ITERS,
+                          k=8, wc=MESH_TOPK).optimize_with_history((Xp, yp),
+                                                                   w0)
+    kp["k8_bitwise"] = _same_run(torch, first, k8)
+    arrays["k_w"], arrays["k_h"] = first[0].cpu().numpy(), first[1]
+    kp["stop"] = _stream_stop_resume(torch, tst, mesh, Xp, yp, w0,
+                                     os.path.join(out_dir, "ck_k"),
+                                     wc=MESH_TOPK)
+    for wire, wc in (("dense", None), ("topk", MESH_TOPK)):
+        opt = _stream_mesh_opt(tst, mesh, "full", 1.0, MESH_TOPK_ITERS, k=8,
+                               wc=wc)
+        (w, h), secs = _timed(torch, lambda: opt.optimize_with_history(
+            (Xp, yp), w0))
+        kp[f"full_{wire}_ms_per_iteration"] = 1e3 * secs / MESH_TOPK_ITERS
+        arrays[f"k_full_{wire}_w"] = w.cpu().numpy()
+        arrays[f"k_full_{wire}_h"] = h
+    kk = topk_nnz(d, float(MESH_TOPK.split(":")[1]))
+    kp["k"] = kk
+    # each rank's bytes on the wire an iteration: the loss and count (two
+    # f32) and its segment (k f32 values, k int32 indices), beside the
+    # dense combine's d + 2 f32
+    kp["gathered_bytes_per_rank_iteration"] = {
+        "topk": 8 + 8 * kk, "dense": 4 * (d + 2)}
+    gen = torch.Generator(device="cuda").manual_seed(41 + rank)
+    vals = torch.randn(kk, generator=gen, device="cuda")
+    idx = torch.randperm(d, generator=gen, device="cuda")[:kk]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        combine_topk(mesh, vals, idx, d)
+    torch.cuda.synchronize()
+    kp["combine_topk_ms"] = 1e3 * (time.perf_counter() - t) / 20
+    res["k"] = {**kp, **_part_end(torch, start)}
+
+    # (l) L-BFGS and OWL-QN through the streamed CostFun
+    start = _part_start(torch)
+    lp = {"runs": []}
+    for _ in range(2):
+        opt = tst.LBFGS(tst.LogisticGradient(), tst.SquaredL2Updater(),
+                        reg_param=1e-4, convergence_tol=0.0,
+                        max_num_iterations=STREAMED_QN_ITERS) \
+            .set_mesh(mesh).set_host_streaming(True)
+        ck.reset_launch_counts()
+        (w, h), secs = _timed(torch, lambda: opt.optimize_with_history(
+            (Xh, ys["y_log"]), w0))
+        scf = opt._stream_costfun_entry[2]
+        partial = sum(1 for s, e in map(scf._span, range(scf.n_chunks))
+                      if e - s < scf.share)
+        lp["runs"].append({
+            "seconds": secs, "cost_evaluations": len(h),
+            "ms_per_iteration": 1e3 * secs / max(1, len(h) - 1),
+            "launches": ck.launch_counts(),
+            "routes": ck.gradient_route_counts(),
+            "chunks": scf.n_chunks, "cap": scf.cap, "share": scf.share,
+            "partial_shares": partial, "pinned_bytes": scf._ring.pinned_bytes})
+        if len(lp["runs"]) == 1:
+            first = (w, h)
+        opt.release_sufficient_stats()
+        del opt, scf
+    lp["repeat_bitwise"] = _same_run(torch, first, (w, h))
+    arrays["l_w"], arrays["l_h"] = first[0].cpu().numpy(), first[1]
+    rows = STREAMED_OWLQN_ROWS
+    (w, h), secs = _timed(torch, lambda: tst.OWLQN(
+        tst.LogisticGradient(), reg_param=1e-4, convergence_tol=0.0,
+        max_num_iterations=STREAMED_OWLQN_ITERS).set_mesh(mesh)
+        .set_host_streaming(True).optimize_with_history(
+            (Xh[:rows], ys["y_log"][:rows]), w0))
+    lp["owlqn_seconds"] = secs
+    arrays["l_owlqn_w"], arrays["l_owlqn_h"] = w.cpu().numpy(), h
+    res["l"] = {**lp, **_part_end(torch, start)}
+
+    # (m) streamed statistics and totals
+    start = _part_start(torch)
+    mp = {}
+    B = GRAM_BLOCK
+    y_ls = ys["y_ls"]
+
+    def gd():
+        return (tst.GradientDescent().set_step_size(0.5)
+                .set_num_iterations(MESH_ITERS).set_mini_batch_fraction(FRAC)
+                .set_sampling("sliced").set_convergence_tol(0.0)
+                .set_mesh(mesh).set_streamed_stats(True, block_rows=B))
+
+    opt = gd()
+    ck.reset_launch_counts()
+    first, secs = _timed(torch, lambda: opt.optimize_with_history(
+        (Xh, y_ls), w0))
+    again, secs2 = _timed(torch, lambda: opt.optimize_with_history(
+        (Xh, y_ls), w0))
+    data, B_used, n_used, _ = opt._streamed_gram_dp_entry[3]
+    mp.update(run_with_build_seconds=secs, run_seconds=secs2,
+              build_seconds=secs - secs2, block_rows=B_used, rows=n_used,
+              launches=ck.launch_counts(),
+              repeat_bitwise=_same_run(torch, first, again),
+              stack_bytes=data.PG.numel() * data.PG.element_size(),
+              peak_device_extra_bytes_with_build=(
+                  torch.cuda.max_memory_allocated() - start[0]))
+    arrays["m_w"], arrays["m_h"] = first[0].cpu().numpy(), first[1]
+    s = rank * (n // world)
+    Xr = Xh[s:s + n_used].to("cuda")
+    yr = y_ls[s:s + n_used].to("cuda")
+    g_r = tst.GramLeastSquaresGradient.build(Xr, yr, block_rows=B)
+    mp["stack_equals_resident_bitwise"] = all(
+        torch.equal(getattr(data, leaf), getattr(g_r.data, leaf))
+        for leaf in ("PG", "Pb", "Pyy", "G_tot", "b_tot", "yy_tot"))
+    del Xr, yr, g_r, data
+    opt.release_sufficient_stats()
+    del opt
+    torch.cuda.empty_cache()
+    # a resumed prefix build: each rank stopped in its feed
+    yp_ls = y_ls[:P]
+    kw = dict(block_rows=B, batch_rows=2 * B)
+    ref, _, _ = par.build_streamed_sharded_gram_stats(mesh, Xp, yp_ls, **kw)
+    rd = os.path.join(out_dir, "m_resume")
+    with fp.inject_faults({"io.prefetch.produce": fp.fail_nth(3)}):
+        try:
+            par.build_streamed_sharded_gram_stats(mesh, Xp, yp_ls,
+                                                  resume_dir=rd, **kw)
+            mp["resume_stopped"] = False
+        except fp.FaultInjected:
+            mp["resume_stopped"] = True
+    got, _, _ = par.build_streamed_sharded_gram_stats(mesh, Xp, yp_ls,
+                                                      resume_dir=rd, **kw)
+    mp["resumed_bitwise"] = all(
+        torch.equal(getattr(got, leaf), getattr(ref, leaf))
+        for leaf in ("PG", "Pb", "Pyy", "G_tot", "b_tot", "yy_tot"))
+    del ref, got
+    # L-BFGS from the meshed totals (their dense merge), then the
+    # compressed merge beside it, then the normal equations
+    lb = tst.LBFGS(tst.LeastSquaresGradient(), tst.SquaredL2Updater(),
+                   max_num_iterations=QN_ITERS, convergence_tol=0.0) \
+        .set_mesh(mesh).set_streamed_stats(True)
+    (w, h), secs = _timed(torch, lambda: lb.optimize_with_history(
+        (Xh, y_ls), w0))
+    dense = lb._streamed_gram_entry[2].data
+    mp["lbfgs_seconds_with_build"] = secs
+    arrays["m_lbfgs_w"], arrays["m_lbfgs_h"] = w.cpu().numpy(), h
+    arrays["m_G"] = dense.G_tot.cpu().numpy()
+    arrays["m_b"] = dense.b_tot.cpu().numpy()
+    arrays["m_yy"] = dense.yy_tot.reshape(1).cpu().numpy()
+    comp, secs = _timed(torch, lambda: par.build_streamed_total_stats(
+        mesh, Xh, y_ls, wire_compress=MESH_TOPK))
+    mp["compressed_totals_seconds"] = secs
+    scale = max(float(dense.G_tot.double().abs().max()),
+                float(dense.b_tot.abs().max()), float(dense.yy_tot.abs()))
+    mp["compressed_max_abs_over_scale"] = max(
+        float((comp.G_tot.double() - dense.G_tot.double()).abs().max()),
+        float((comp.b_tot - dense.b_tot).abs().max()),
+        float((comp.yy_tot - dense.yy_tot).abs())) / scale
+    lb.release_sufficient_stats()
+    del lb, dense, comp
+    w, secs = _timed(torch, lambda: tst.NormalEquations().set_mesh(mesh)
+                     .set_host_streaming(True).optimize((Xh, y_ls), w0))
+    mp["normal_seconds"] = secs
+    arrays["m_normal_w"] = w.cpu().numpy()
+    res["m"] = {**mp, **_part_end(torch, start)}
+    return res, arrays
+
+
+def streamed_rank_order_reference(torch, tst, Xh, yh, cfg, k, topk=None):
+    """The meshed streamed run's arithmetic in one process on the card:
+    iteration ``i``'s global sample (``HostSampler``), each rank's share
+    staged as the ranks stage it (padding rows zero, or row 0 for a
+    gather, never valid) and summed by B1 with its valid mask, the sums
+    (or the loss and count, then each rank's top-k segment of its
+    error-feedback accumulator) added in rank order, then the update
+    (least squares, simple updater)."""
+    from tpu_sgd_torch.io.sparse_wire import topk_indices, topk_nnz
+    from tpu_sgd_torch.optimize.streamed import HostSampler
+
+    g, u = tst.LeastSquaresGradient(), tst.SimpleUpdater()
+    dev = "cuda"
+    n, d = Xh.shape
+    sm = HostSampler(cfg, n, 0, k)
+    share = sm.share
+    w = torch.zeros(d, device=dev)
+    _, reg0 = u.compute(w, torch.zeros_like(w), 0.0, 1, cfg.reg_param)
+    reg = torch.full((), float(reg0), device=dev)
+    efs = [torch.zeros(d, device=dev) for _ in range(k)]
+    hist = []
+    for i in range(1, cfg.num_iterations + 1):
+        draw = sm.draw(i)
+        sums = []
+        for r in range(k):
+            lo = r * share
+            Xs = torch.zeros((share, d), dtype=Xh.dtype, device=dev)
+            ysh = torch.zeros((share,), device=dev)
+            if draw[0] in ("full", "window"):
+                count, s0 = ((n, 0) if draw[0] == "full"
+                             else (sm.m, draw[1]))
+                a, b = min(lo, count), min(lo + share, count)
+                Xs[:b - a] = Xh[s0 + a:s0 + b].to(dev)
+                ysh[:b - a] = yh[s0 + a:s0 + b].to(dev)
+                v = b - a
+            else:
+                idx = torch.from_numpy(draw[1][lo:lo + share])
+                Xs.copy_(torch.index_select(Xh, 0, idx))
+                ysh.copy_(torch.index_select(yh, 0, idx))
+                v = min(max(draw[2] - lo, 0), share)
+            mask = torch.arange(share, device=dev) < v
+            sums.append(g.batch_sums(Xs, ysh, w, mask))
+        it = torch.full((1,), i, dtype=torch.int64, device=dev)
+        if topk is None:
+            parts = [torch.cat([gs, ls.reshape(1), cs.reshape(1)])
+                     for gs, ls, cs in sums]
+        else:
+            parts = [torch.cat([ls.reshape(1), cs.reshape(1)])
+                     for _, ls, cs in sums]
+        tot = parts[0]
+        for p in parts[1:]:
+            tot = tot + p
+        c = tot[-1]
+        safe = torch.clamp(c, min=1.0)
+        loss = tot[-2] / safe + reg
+        if topk is None:
+            step = tot[:d] / safe
+        else:
+            step = torch.zeros(d, device=dev)
+            new_efs = []
+            for (gs, _, _), ef in zip(sums, efs):
+                acc = ef + gs / safe
+                top = topk_indices(acc, topk_nnz(d, topk))
+                step.index_put_((top,), step.index_select(0, top)
+                                + acc.index_select(0, top))
+                new_efs.append(acc.index_fill(0, top, 0.0))
+        new_w, new_reg = u.compute(w, step, cfg.step_size, it, cfg.reg_param)
+        if bool(c > 0):
+            hist.append(float(loss))
+            w, reg = new_w, new_reg
+            if topk is not None:
+                efs = new_efs
+    return w, np.asarray(hist, np.float32)
+
+
+def _totals_objective(G, b, yy, n, w) -> float:
+    """The least-squares objective of ``w`` from total statistics, in
+    f64: ``(wᵀGw - 2bᵀw + yy) / 2n``."""
+    G = np.asarray(G, np.float64)
+    w = np.asarray(w, np.float64)
+    return float((w @ G @ w - 2 * np.asarray(b, np.float64) @ w
+                  + float(np.asarray(yy).reshape(-1)[0])) / (2 * n))
+
+
+def mesh_streamed_checks(torch, tst, ck, Xh, yh, yh_ls, reports, arrays,
+                         qn_refs):
+    """The parent's side of (j)-(m), after the job: the one-process
+    rank-order references on the card (bitwise), the single-device
+    streamed runs on the same prefix, phase ``streamed_qn``'s results, the
+    launches, the rank's host memory; then B1 at the new per-rank shapes
+    for the kernel table.  Returns ``(record, kernel rows)``."""
+    from tpu_sgd_torch.optimize.streamed import HostSampler
+
+    world = len(reports)
+    a0, r0 = arrays[0], reports[0]["streamed"]
+    n, d = Xh.shape
+    P = MESH_STREAM_PREFIX
+    Xp, yp = Xh[:P], yh[:P]
+    Xpc, ypc = Xp.to("cuda"), yp.to("cuda")
+    out = {"ranks": world}
+    for rep in reports:
+        s = rep["streamed"]
+        for part in ("j", "k", "l", "m"):
+            grew = s[part]["host_rss_growth_bytes"]
+            check(grew < MESH_HOST_GROWTH_LIMIT,
+                  f"mesh ({part}) rank {rep['rank']}: resident host memory "
+                  f"grew by {grew} bytes")
+        for mode, t in s["j"]["timing"].items():
+            check(t["launches"]["fused_gradient_sums"] == MESH_STREAM_ITERS
+                  and t["routes"]["fused_sums"] == 0,
+                  f"mesh (j) rank {rep['rank']} {mode}: {t['launches']} "
+                  f"{t['routes']}")
+        for mode, flags in s["j"]["prefix"].items():
+            check(all(flags.values()), f"mesh (j) rank {rep['rank']} "
+                  f"{mode}: {flags}")
+        for part in ("j", "k"):
+            st = s[part]["stop"]
+            check(st["stopped_at"] == MESH_OBS_STOP_AT
+                  and st["resumed_bitwise"],
+                  f"mesh ({part}) rank {rep['rank']}: stop {st}")
+        check(s["k"]["k8_bitwise"], f"mesh (k) rank {rep['rank']}: K = 8")
+        for run in s["l"]["runs"]:
+            evals, chunks = run["cost_evaluations"], run["chunks"]
+            masked = run["partial_shares"] * evals
+            check(run["launches"]["fused_gradient_sums"] == chunks * evals
+                  and run["routes"]["window"] == chunks * evals - masked
+                  and run["routes"]["gather"] == masked
+                  and run["routes"]["fused_sums"] == 0,
+                  f"mesh (l) rank {rep['rank']}: {run}")
+        check(s["l"]["repeat_bitwise"], f"mesh (l) rank {rep['rank']}: two "
+              "runs differ")
+        m = s["m"]
+        check(m["stack_equals_resident_bitwise"] and m["repeat_bitwise"]
+              and m["resume_stopped"] and m["resumed_bitwise"]
+              and not any(m["launches"].values()),
+              f"mesh (m) rank {rep['rank']}: {m}")
+        check(m["compressed_max_abs_over_scale"] <= MESH_TOTALS_RTOL,
+              f"mesh (m) rank {rep['rank']}: the compressed merge is "
+              f"{m['compressed_max_abs_over_scale']} from the dense")
+    # (j) against the one-process rank-order sum and one device
+    j = {"rank_order_bitwise": {}, "vs_single_device": {}}
+    for mode in ("bernoulli", "indexed", "sliced", "full"):
+        cfg = _stream_mesh_opt(tst, None, mode, _mode_frac(mode),
+                               MESH_STREAM_ITERS).config
+        w, h = streamed_rank_order_reference(torch, tst, Xp, yp, cfg, world)
+        same = (np.array_equal(a0[f"j_{mode}_w"], w.cpu().numpy())
+                and np.array_equal(a0[f"j_{mode}_h"], h))
+        check(same, f"mesh (j) {mode}: not the one-process rank-order sum")
+        j["rank_order_bitwise"][mode] = same
+        w1, h1 = _stream_mesh_opt(tst, None, mode, _mode_frac(mode),
+                                  MESH_STREAM_ITERS).optimize_with_history(
+            (Xp, yp), torch.zeros(d, device="cuda"))
+        ratio = (ls_objective_exact(torch, Xpc, ypc, torch.as_tensor(
+            a0[f"j_{mode}_w"], device="cuda"))
+            / ls_objective_exact(torch, Xpc, ypc, w1))
+        rel = _rel_max(a0[f"j_{mode}_h"], h1)
+        j["vs_single_device"][mode] = {"objective_ratio": ratio,
+                                       "history_max_rel": rel}
+        if mode == "full":
+            check(rel <= MESH_FULL_HISTORY_RTOL
+                  and abs(ratio - 1) <= MESH_FULL_OBJECTIVE_TOL,
+                  f"mesh (j) full batch against one device: {rel} {ratio}")
+        else:
+            check(ratio <= MESH_OBJECTIVE_RATIO,
+                  f"mesh (j) {mode} against one device: {ratio}")
+    out["j"] = j
+    # (k) the compressed wire
+    cfg = _stream_mesh_opt(tst, None, "bernoulli", FRAC,
+                           MESH_STREAM_ITERS).config
+    w, h = streamed_rank_order_reference(
+        torch, tst, Xp, yp, cfg, world,
+        topk=float(MESH_TOPK.split(":")[1]))
+    k_same = (np.array_equal(a0["k_w"], w.cpu().numpy())
+              and np.array_equal(a0["k_h"], h))
+    check(k_same, "mesh (k): not the one-process rank-order sum")
+    obj = {wire: ls_objective_exact(torch, Xpc, ypc, torch.as_tensor(
+        a0[f"k_full_{wire}_w"], device="cuda")) for wire in ("dense", "topk")}
+    k_ratio = obj["topk"] / obj["dense"]
+    check(k_ratio <= MESH_TOPK_RATIO, f"mesh (k): the compressed wire's "
+          f"objective {obj['topk']} is {k_ratio}x the dense wire's")
+    out["k"] = {"rank_order_bitwise": k_same, "objective": obj,
+                "objective_ratio": k_ratio}
+    # (l) against phase streamed_qn (a) and (b)
+    l_rel = _rel_max(a0["l_h"], qn_refs["a_history"])
+    check(len(a0["l_h"]) == len(qn_refs["a_history"])
+          and l_rel <= MESH_HISTORY_RTOL,
+          f"mesh (l) L-BFGS: history {l_rel} from streamed_qn (a)")
+    o_rel = _rel_max(a0["l_owlqn_h"], qn_refs["b_history"])
+    check(len(a0["l_owlqn_h"]) == len(qn_refs["b_history"])
+          and o_rel <= MESH_HISTORY_RTOL,
+          f"mesh (l) OWL-QN: history {o_rel} from streamed_qn (b)")
+    out["l"] = {"lbfgs_history_max_rel": l_rel,
+                "owlqn_history_max_rel": o_rel}
+    # (m) the virtual run against its rank-order reference, the results
+    # against one device's streamed ones
+    n_local = n // world
+    n_used = (n_local // GRAM_BLOCK) * GRAM_BLOCK
+    grams = [tst.GramLeastSquaresGradient.build_streamed(
+        Xh[r * n_local:r * n_local + n_used],
+        yh_ls[r * n_local:r * n_local + n_used], block_rows=GRAM_BLOCK)
+        for r in range(world)]
+    w, h = rank_order_reference(
+        torch, tst, [(g.data, yh_ls[r * n_local:r * n_local + n_used]
+                      .to("cuda")) for r, g in enumerate(grams)],
+        "sliced", grads=grams)
+    m_same = (np.array_equal(a0["m_w"], w.cpu().numpy())
+              and np.array_equal(a0["m_h"], h))
+    check(m_same, "mesh (m): the virtual run is not the rank-order sum")
+    del grams
+    torch.cuda.empty_cache()
+    L = {key: _totals_objective(a0["m_G"], a0["m_b"], a0["m_yy"], n, wv)
+         for key, wv in (("mesh", a0["m_lbfgs_w"]),
+                         ("one_device", qn_refs["c_lbfgs_w"]))}
+    lb_ratio = L["mesh"] / L["one_device"]
+    check(abs(lb_ratio - 1) <= MESH_STREAMED_QN_RTOL,
+          f"mesh (m) L-BFGS from the totals: {lb_ratio} of one device's")
+    w1 = qn_refs["e_normal_w"]
+    ne_rel = float(np.abs(a0["m_normal_w"] - w1).max() / np.abs(w1).max())
+    check(ne_rel <= MESH_STREAMED_QN_RTOL,
+          f"mesh (m) normal equations: {ne_rel} from one device")
+    out["m"] = {"rank_order_bitwise": m_same, "lbfgs_objective": L,
+                "lbfgs_objective_ratio": lb_ratio,
+                "normal_max_abs_over_scale": ne_rel}
+    # B1 at the new per-rank shapes
+    pw = tst.LeastSquaresGradient().pointwise
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    w = torch.randn(d, generator=gen, device="cuda") / math.sqrt(d)
+    sm = HostSampler(_stream_mesh_opt(tst, None, "bernoulli", FRAC,
+                                      1).config, n, 0, world)
+    live = sm.draw(1)[2] - (world - 1) * sm.share
+    share = sm.share
+    costfun = reports[0]["streamed"]["l"]["runs"][0]
+    cs = costfun["share"]
+    rows = []
+    for X_, mask, path, launches, run in (
+            (Xpc[:share], torch.arange(share, device="cuda") < live,
+             f"mesh streamed (a rank's share of a 10% Bernoulli batch: "
+             f"{share:,} rows, {live:,} live on the last rank)",
+             r0["j"]["timing"]["bernoulli"]["launches"][
+                 "fused_gradient_sums"],
+             "rank 0's streamed Bernoulli run over the 10M host rows (j)"),
+            (Xpc[:sm.m // world], torch.ones(sm.m // world, dtype=torch.bool,
+                                              device="cuda"),
+             f"mesh streamed (a rank's share of a sliced window: "
+             f"{sm.m // world:,} rows, all valid)",
+             r0["j"]["timing"]["sliced"]["launches"]["fused_gradient_sums"],
+             "rank 0's streamed sliced run over the 10M host rows (j)"),
+            (Xpc[:cs], None,
+             f"mesh streamed_costfun (a rank's share of a chunk: {cs:,} "
+             "rows)", costfun["routes"]["window"],
+             "rank 0's meshed streamed L-BFGS run (l): its window route"),
+            (Xpc[:cs], torch.zeros(cs, dtype=torch.bool, device="cuda"),
+             f"mesh streamed_costfun (an empty share past the last row: "
+             f"{cs:,} rows, none live)",
+             reports[-1]["streamed"]["l"]["runs"][0]["routes"]["gather"],
+             "the last rank's meshed streamed L-BFGS run (l): its gather "
+             "route")):
+        row = b1_row(torch, ck, pw, X_, ypc[:X_.shape[0]], w, mask, path, 50)
+        row["launches"], row["launches_from"] = launches, run
+        check(launches > 0, f"B1 ({path}): no launch")
+        rows.append(row)
+    del Xpc, ypc
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+def phase_mesh(torch, tst, ck, X_sp, y_sp, profile, sparse_owlqn_w,
+               host_rows, qn_refs):
     """Phase ``mesh``: data parallelism at config 4's shape, after config
     4's matrix of phase ``full`` was freed.  The data: 10M x 1000 bf16
     least squares as 8 row blocks, each made from ``(seed, block)``
@@ -4999,9 +5684,17 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile, sparse_owlqn_w):
     the meshed totals against one device; (i) ``set_residency`` (warns,
     bitwise the superstep run), feature scaling on the 1M-row prefix
     against one device, OWL-QN hinge + L1 on the 8 CSR blocks against leg
-    (d)."""
+    (d).  (j)-(m) Host-streamed training on the mesh, in the same job after
+    (i) (``mesh_rank_streamed``), checked after it
+    (``mesh_streamed_checks``): every rank maps phase ``streamed``'s 10M x
+    1000 bf16 host rows (``host_rows``: the tensor, its memfd, the labels)
+    and streams its share; (j) SGD, (k) the compressed wire ``topk:0.01``,
+    (l) L-BFGS and OWL-QN through the streamed CostFun, (m) the streamed
+    statistics and totals, L-BFGS from them and the normal equations
+    (``qn_refs``: phase ``streamed_qn``'s results to meet)."""
     t0 = time.perf_counter()
     world, n, d, dev = MESH_RANKS, FULL_ROWS, FULL_D, "cuda"
+    Xh, fd, y_host, yh_ls, yh_log = host_rows
     rows = n // world
     X = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
     y = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -5047,7 +5740,11 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile, sparse_owlqn_w):
                      val=val[a:b], y=yh[lo:hi],
                      shape=np.array([hi - lo, X_sp.shape[1]]))
         del crow, col, val
-        job_s = mesh_spawn(world, tmp)
+        with open(os.path.join(tmp, "streamed.json"), "w") as f:
+            json.dump({"fd": fd, "shape": list(Xh.shape)}, f)
+        for name, t in (("y", y_host), ("y_ls", yh_ls), ("y_log", yh_log)):
+            np.save(os.path.join(tmp, f"{name}.npy"), t.numpy())
+        job_s = mesh_spawn(world, tmp, pass_fds=(fd,))
         reports, arrays = [], []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -5113,6 +5810,11 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile, sparse_owlqn_w):
     emit({"phase": "mesh", "part": "e_i_resident", **resident})
     del X, y, blocks
     torch.cuda.empty_cache()
+    streamed, streamed_rows = mesh_streamed_checks(
+        torch, tst, ck, Xh, y_host, yh_ls, reports, arrays, qn_refs)
+    kernel_rows.extend(streamed_rows)
+    streamed["by_rank"] = [rep["streamed"] for rep in reports]
+    emit({"phase": "mesh", "part": "j_m_streamed", **streamed})
     sparse_rel = _rel_max(a0["sparse_1.0_h"], sparse_single[1.0][1])
     check(sparse_rel <= MESH_HISTORY_RTOL,
           f"mesh sparse full batch: history {sparse_rel} from one device")
@@ -5171,7 +5873,8 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile, sparse_owlqn_w):
                     for rep in reports] for f in r0["sparse"]}},
         "seconds": time.perf_counter() - t0}
     emit({"phase": "mesh", "part": "b_c_ranks", **out})
-    return {"world1": world1, "resident": resident, **out}, kernel_rows
+    return {"world1": world1, "resident": resident, "streamed": streamed,
+            **out}, kernel_rows
 
 
 # -- phase serve ---------------------------------------------------------------
@@ -6019,12 +6722,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     observed = phase_observed(torch, tst, ck, X, y)
     torch.cuda.empty_cache()
-    streamed, Xh, _ = phase_streamed_dense(torch, tst, ck, X, y)
+    streamed, Xh, yh, fd = phase_streamed_dense(torch, tst, ck, X, y)
     emit({"phase": "streamed", "dense": streamed})
-    streamed_qn, b1_chunk = phase_streamed_qn(torch, tst, ck, X, y, w_true,
-                                              Xh, qn["b"], gram, streamed)
+    streamed_qn, b1_chunk, qn_refs = phase_streamed_qn(
+        torch, tst, ck, X, y, w_true, Xh, qn["b"], gram, streamed)
     rows.extend(b1_chunk)
-    del X, y, sliced_ref, Xh
+    # the host rows stay for phase mesh's (j)-(m)
+    host_rows = (Xh, fd, yh, qn_refs.pop("yh_ls"), qn_refs.pop("yh_log"))
+    del X, y, sliced_ref, Xh, yh
     torch.cuda.empty_cache()
     qn["c"] = leg_multinomial(torch, tst)
     torch.cuda.empty_cache()
@@ -6041,8 +6746,10 @@ def main() -> int:
     del batch
     torch.cuda.empty_cache()
     mesh, mesh_rows = phase_mesh(torch, tst, ck, X_sp, y_sp, profile,
-                                 qn["d"]["weights"])
+                                 qn["d"]["weights"], host_rows, qn_refs)
     rows.extend(mesh_rows)
+    del host_rows
+    os.close(fd)
     del X_sp, y_sp
     torch.cuda.empty_cache()
     serve, serve_rows = phase_serve(torch, tst, ck)
@@ -6120,7 +6827,8 @@ def main() -> int:
         "world1", "b", "combine_ms_by_rank", "prefix_bitwise_rank_order_sum",
         "full_batch_bitwise_rank_order_sum", "full_batch_first_loss_rel",
         "full_batch_history_max_rel", "sampled_objective_ratio", "c_sparse",
-        "resident", "job_seconds", "seconds")}})
+        "resident", "job_seconds", "seconds")} | {"streamed": {
+            k: v for k, v in mesh["streamed"].items() if k != "by_rank"}}})
     emit({"serve": serve})
     emit({"corr": corr})
     emit({"observed": {

@@ -21,8 +21,18 @@ checkpoint every 5 iterations that rank 0 writes slowly (1 s a save): a
 stop raised by the last rank alone at iteration 13 stops every rank at
 the same iteration (13; 16, the block boundary, at K = 8), and the
 resume from rank 0's checkpoint is bitwise the unobserved run on every
-rank.  Each rank reports the replayed run's wall and device ms an iteration and
-one NCCL combine's ms.  Prints one JSON line per rank and a summary line;
+rank.  Then host streaming on the mesh (``chip_smoke.py`` phase ``mesh``
+(j), (k)): the parent makes config 4's first ``STREAM_ROWS`` rows in a
+memfd (``chip_smoke.shared_host_rows``) that every rank maps; per mode
+(Bernoulli and sliced at frac 0.1, full batch) and on the top-k wire
+(``topk:0.01``, Bernoulli), ``STREAM_ITERS`` iterations at K = 1 and at
+K = 8 (whose per-slot blocks capture the NCCL gather and replay it),
+bitwise equal, every rank bitwise equal and, after the ranks exit, equal
+to the one-process rank-order sum of the same shares
+(``chip_smoke.streamed_rank_order_reference``); a stop raised by the
+last rank at 13 and its resume, dense and compressed.  Each rank reports
+the replayed run's wall and device ms an iteration and one NCCL combine's
+ms.  Prints one JSON line per rank and a summary line;
 exits non-zero when a check fails or a rank fails or hangs (a rank dumps
 its stacks to its log first).
 """
@@ -42,7 +52,9 @@ import numpy as np  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 MODES = ("bernoulli", "sliced", "full")
-TIMEOUT = 240               # seconds for the ranks (about 45 s on 4 cards)
+TIMEOUT = 300               # seconds for the ranks
+STREAM_ROWS = 1_000_000     # host rows of the streamed runs
+STREAM_ITERS = 40           # K = 8: per slot a warm-up, a capture, replays
 SLOW_SAVE_S = 1.0           # rank 0's delay before each checkpoint write
 
 
@@ -98,6 +110,41 @@ def stop_and_resume(torch, tst, mesh, X, y, out_dir) -> dict:
         del o
         gc.collect()
     return out
+
+
+def streamed_runs(torch, tst, mesh, out_dir):
+    """Host streaming on the mesh over the parent's memfd rows: each mode
+    at K = 1 and K = 8 (bitwise), the top-k wire the same, and the stop
+    and resume, dense and compressed.  Returns ``(report, arrays)``."""
+    from tpu_sgd_torch.io.wire import host_tensor
+
+    with open(os.path.join(out_dir, "streamed.json")) as f:
+        spec = json.load(f)
+    n, d = spec["shape"]
+    Xh = torch.from_file(f"/proc/self/fd/{spec['fd']}", shared=True,
+                         size=n * d, dtype=torch.bfloat16).view(n, d)
+    yh = host_tensor(np.load(os.path.join(out_dir, "y.npy"), mmap_mode="r"))
+    w0 = torch.zeros(d, device="cuda")
+    report, arrays = {}, {}
+    for key, mode, wc in [(m, m, None) for m in MODES] + [
+            ("topk", "bernoulli", cs.MESH_TOPK)]:
+        frac = cs._mode_frac(mode)
+        k1 = cs._stream_mesh_opt(tst, mesh, mode, frac, STREAM_ITERS,
+                                 wc=wc).optimize_with_history((Xh, yh), w0)
+        k8 = cs._stream_mesh_opt(tst, mesh, mode, frac, STREAM_ITERS, k=8,
+                                 wc=wc).optimize_with_history((Xh, yh), w0)
+        same = cs._same_run(torch, k1, k8)
+        cs.check(same, f"rank {mesh.rank} streamed {key}: K = 8 differs")
+        report[key] = {"k8_bitwise": same}
+        arrays[f"stream_{key}_w"] = k1[0].cpu().numpy()
+        arrays[f"stream_{key}_h"] = k1[1]
+    for key, wc in (("stop", None), ("stop_topk", cs.MESH_TOPK)):
+        st = cs._stream_stop_resume(torch, tst, mesh, Xh, yh, w0,
+                                    os.path.join(out_dir, "ck_" + key), wc)
+        cs.check(st["stopped_at"] == cs.MESH_OBS_STOP_AT
+                 and st["resumed_bitwise"], f"rank {mesh.rank} {key}: {st}")
+        report[key] = st
+    return report, arrays
 
 
 def rank_main(rank: int, world: int, port: int, out_dir: str) -> int:
@@ -164,6 +211,10 @@ def rank_main(rank: int, world: int, port: int, out_dir: str) -> int:
     report["observed"] = stop_and_resume(torch, tst, mesh, X, y, out_dir)
     print(f"rank {rank}: observed done", flush=True)
     report["combine_ms"] = cs._combine_ms(torch, par, mesh)["combine_ms"]
+    report["streamed"], st_arrays = streamed_runs(torch, tst, mesh, out_dir)
+    arrays.update(st_arrays)
+    print(f"rank {rank}: streamed done", flush=True)
+    gc.collect()
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
@@ -194,9 +245,17 @@ def main() -> int:
              f"{world} ranks on {torch.cuda.device_count()} cards")
     print(cs.nvidia_smi_line(), flush=True)
     _build.build_all()
+    X, y, _ = cs.make_full_data(torch, STREAM_ROWS, cs.FULL_D)
+    Xh, fd = cs.shared_host_rows(torch, X)
+    yh = y.cpu()
+    del X, y
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "streamed.json"), "w") as f:
+            json.dump({"fd": fd, "shape": list(Xh.shape)}, f)
+        np.save(os.path.join(tmp, "y.npy"), yh.numpy())
         job_s = cs.mesh_spawn(world, tmp, TIMEOUT, os.path.abspath(__file__),
-                              "--rank")
+                              "--rank", pass_fds=(fd,))
         reports, arrays = [], []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -208,14 +267,15 @@ def main() -> int:
         cs.check(rep["backend"] == "nccl" and rep["card"] == rep["rank"],
                  f"rank {rep['rank']}: {rep['backend']} on card "
                  f"{rep['card']}")
-    summary = check_reference(torch, tst, reports, arrays)
+    summary = check_reference(torch, tst, reports, arrays, Xh, yh)
     cs.emit({"job_seconds": job_s, **summary})
     return 0
 
 
-def check_reference(torch, tst, reports, arrays) -> dict:
+def check_reference(torch, tst, reports, arrays, Xh, yh) -> dict:
     """Every rank's runs bitwise equal, and equal to the one-process
-    rank-order sum of the same blocks on card 0."""
+    rank-order sum of the same blocks (the same streamed shares) on card
+    0."""
     world = len(reports)
     for k in arrays[0]:
         cs.check(all(np.array_equal(a[k], arrays[0][k]) for a in arrays),
@@ -235,6 +295,20 @@ def check_reference(torch, tst, reports, arrays) -> dict:
                                         w.cpu().numpy())
                          and np.array_equal(arrays[0][mode + "_h"], h))
         cs.check(bitwise[mode], f"{mode}: not the one-process rank-order sum")
+    del X, y, blocks
+    torch.cuda.empty_cache()
+    for key, mode, topk in [(m, m, None) for m in MODES] + [
+            ("topk", "bernoulli", float(cs.MESH_TOPK.split(":")[1]))]:
+        cfg = cs._stream_mesh_opt(tst, None, mode, cs._mode_frac(mode),
+                                  STREAM_ITERS).config
+        w, h = cs.streamed_rank_order_reference(torch, tst, Xh, yh, cfg,
+                                                world, topk=topk)
+        key = "streamed_" + key
+        bitwise[key] = (np.array_equal(arrays[0][key.replace(
+            "streamed_", "stream_") + "_w"], w.cpu().numpy())
+            and np.array_equal(arrays[0][key.replace(
+                "streamed_", "stream_") + "_h"], h))
+        cs.check(bitwise[key], f"{key}: not the one-process rank-order sum")
     return {"ranks": world, "rows_per_rank": rows,
              "bitwise_rank_order_sum": bitwise, "ranks_bitwise_equal": True,
              "wall_ms_per_iteration": {
@@ -244,7 +318,8 @@ def check_reference(torch, tst, reports, arrays) -> dict:
                  m: [rep["modes"][m]["device_ms_per_iteration"]
                      for rep in reports] for m in MODES},
              "combine_ms": [rep["combine_ms"] for rep in reports],
-             "observed_stop_and_resume": reports[0]["observed"]}
+             "observed_stop_and_resume": reports[0]["observed"],
+             "streamed": reports[0]["streamed"]}
 
 
 if __name__ == "__main__":

@@ -9,8 +9,9 @@ both sides.
 Within the port each cell either trains BITWISE against its recorded
 twin, or is matched-loss (<= 1.01x) and says so (compressed cells change
 the update rule), or is a LOUD recorded fallback whose warning says
-which driver runs instead.  The meshed and replica cells wait for ROADMAP
-A5 and A11.
+which driver runs instead.  The meshed cells are twinned in
+``tests/test_torch_mesh_streamed.py``; the replica cells wait for ROADMAP
+A11.
 """
 
 import warnings

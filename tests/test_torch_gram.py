@@ -12,9 +12,9 @@ carries the whole prefix's rounding), loss rtol 1e-3; trajectories rtol
 driver rtol 1e-5 / atol 1e-6.
 
 The streamed builds, their checkpoints and ``set_streamed_stats`` are
-twinned in ``tests/test_torch_streamed_gram.py``.  Not twinned: the mesh
-cases (ROADMAP A5), the listener / checkpoint cases and the planner's
-ownership of the gram knobs (A11).
+twinned in ``tests/test_torch_streamed_gram.py``, their mesh cases in
+``tests/test_torch_mesh_streamed.py``.  Not twinned: the listener /
+checkpoint cases and the planner's ownership of the gram knobs (A11).
 """
 
 import json

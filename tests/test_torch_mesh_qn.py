@@ -412,12 +412,14 @@ def test_quasi_newton_set_mesh_takes_a_data_mesh_only():
     .set_host_streaming(True).optimize((X, y), np.zeros(3)),
 ], ids=["lbfgs_streamed_stats", "lbfgs_host", "owlqn_host", "normal_host"])
 def test_the_streamed_routes_on_a_mesh_still_raise_naming_a5(call):
-    """The streamed half is the next slice: each raises before anything
-    is sent to another rank."""
+    """The streamed routes on a data mesh are ported (their runs:
+    ``tests/test_torch_mesh_streamed.py``), so none raises naming A5 any
+    more: without a process group each goes as far as its first
+    collective (the gather of the ranks' hosts), which needs one."""
     X, y, _ = linear_data(40, 3, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5") as e:
+    with pytest.raises(ValueError, match="process group") as e:
         call(np.asarray(X), np.asarray(y), par.Mesh({par.DATA_AXIS: 2}))
-    assert "on a mesh" in str(e.value)
+    assert "A5" not in str(e.value)
 
 
 def test_gramdata_input_on_a_mesh_raises_the_reference_message():

@@ -610,18 +610,19 @@ def test_set_mesh_takes_a_mesh_and_the_others_still_raise():
     lambda o: o.set_superstep(4).set_residency(2).set_streamed_stats(True),
 ])
 def test_schedules_of_the_second_part_raise_on_a_mesh(knob):
-    """One message each, raised before anything is sent to another rank
-    (so no process group is needed here).  Host streaming and streamed
-    statistics are the streamed half, not ported yet: they raise with or
-    without the resident knobs (sufficient statistics, residency), which
-    run on a mesh (``tests/test_torch_mesh_resident.py``)."""
+    """Host streaming and streamed statistics on a data mesh are ported
+    (their runs: ``tests/test_torch_mesh_streamed.py``), with or without
+    the resident knobs (sufficient statistics, residency), so none raises
+    naming A5 any more: without a process group each goes as far as its
+    first collective (the gather of the ranks' hosts), which needs
+    one."""
     X, y = _linear(40, 3, 1)
     opt = tst.GradientDescent(device="cpu").set_mesh(
         par.Mesh({par.DATA_AXIS: 2}))
     knob(opt)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5") as e:
+    with pytest.raises(ValueError, match="process group") as e:
         opt.optimize((X, y), np.zeros(3, np.float32))
-    assert "on a mesh" in str(e.value)
+    assert "A5" not in str(e.value)
 
 
 def test_feature_scaling_on_a_mesh_raises():

@@ -193,19 +193,41 @@ def test_every_kernel_source_is_built_and_none_at_import():
     assert "atomicAdd" not in src  # the CSR kernel adds in a fixed order
 
 
-def test_streamed_path_on_a_mesh_raises_naming_a5():
-    from tpu_sgd_torch.optimize.streamed import optimize_host_streamed
+#: the modules of the streamed routes on a mesh (ROADMAP A5's last part)
+_STREAMED_MESH_MODULES = (
+    "parallel/mesh.py", "parallel/data_parallel.py",
+    "parallel/gram_parallel.py", "parallel/__init__.py",
+    "optimize/streamed.py", "optimize/streamed_costfun.py",
+    "optimize/gradient_descent.py", "optimize/lbfgs.py",
+    "optimize/owlqn.py", "optimize/normal.py", "io/sparse_wire.py")
 
+
+def test_streamed_path_on_a_mesh_raises_naming_a5():
+    """No A5 raise is left: no module of the streamed routes names ROADMAP
+    A5 or calls ``_not_ported``; ``mesh=`` takes a ``Mesh`` (a
+    ``TypeError`` otherwise), and a mesh declared over two hosts raises
+    the JAX package's single-host message before any collective."""
+    from tpu_sgd_torch.optimize.streamed import optimize_host_streamed
+    from tpu_sgd_torch.parallel import DATA_AXIS, Mesh
+
+    pkg = os.path.join(ROOT, "tpu_sgd_torch")
+    for rel in _STREAMED_MESH_MODULES:
+        with open(os.path.join(pkg, rel)) as f:
+            src = f.read()
+        assert "A5" not in src and "_not_ported(" not in src, rel
     X, y, _ = tst.linear_data(20, 3, seed=0)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(TypeError, match="Mesh"):
         optimize_host_streamed(tst.LeastSquaresGradient(),
                                tst.SimpleUpdater(), tst.SGDConfig(), X, y,
                                np.zeros(3), device="cpu", mesh=object())
-    from tpu_sgd_torch.parallel import DATA_AXIS, Mesh
-
-    with pytest.raises(NotImplementedError, match="A5"):
+    split = Mesh({DATA_AXIS: 2}, hosts=("a", "b"))
+    with pytest.raises(NotImplementedError, match="build single-host"):
         tst.GradientDescent(device="cpu").set_host_streaming(True) \
-            .set_mesh(Mesh({DATA_AXIS: 2})).optimize((X, y), np.zeros(3))
+            .set_mesh(split).optimize((X, y), np.zeros(3))
+    with pytest.raises(NotImplementedError, match="build single-host"):
+        optimize_host_streamed(tst.LeastSquaresGradient(),
+                               tst.SimpleUpdater(), tst.SGDConfig(), X, y,
+                               np.zeros(3), device="cpu", mesh=split)
 
 
 def test_streamed_default_device_raises_without_cuda():

@@ -563,10 +563,13 @@ def _host_streaming_runs(opt):
 
 
 def _ingest_options(opt):
-    """The wire knobs apply; the compressed merge of meshed totals is A5."""
+    """The wire knobs apply, the compressed merge of meshed totals too
+    (its runs: ``tests/test_torch_mesh_streamed.py``)."""
     assert opt.set_ingest_options(wire_dtype="bfloat16") is opt
-    with pytest.raises(NotImplementedError, match="A5"):
-        opt.set_ingest_options(wire_compress="topk:0.1")
+    assert opt.set_ingest_options(wire_compress="topk:0.1") is opt
+    assert opt.ingest_wire_compress == "topk:0.1"
+    assert opt.set_ingest_options(wire_compress=False) \
+        .ingest_wire_compress is None
 
 
 @pytest.mark.parametrize("case", [

@@ -414,3 +414,54 @@ def test_csr_kernel_shape_rule_takes_the_main_paths_operands():
                                           torch.ones(20, dtype=torch.bool))
     assert T == 1 and rhs.dtype == torch.float32
     assert ck._csr_operands(X, torch.ones(30, 25), None)[4] == 25
+
+
+# ---- the SparCML merge (tests/test_store_shard.py:123, :145) ----------------
+
+@pytest.mark.parametrize("crossover", [0.0, 0.05, 0.25, 1.0])
+def test_merge_sparse_segments_matches_dense_reference(crossover):
+    """An exact sparse sum at every density crossover (the crossover
+    changes where the sum densifies, never the result): against the
+    float64 sum at the reference test's bound, and bitwise the JAX
+    package's merge of the same segments (the same host numpy)."""
+    rng = np.random.default_rng(0)
+    dim = 200
+    segs = []
+    for _ in range(7):
+        k = int(rng.integers(1, 40))
+        idx = rng.choice(dim, size=k, replace=False).astype(np.int32)
+        segs.append((idx, rng.normal(size=k).astype(np.float32)))
+    ref = np.zeros(dim, np.float64)
+    for i, v in segs:
+        np.add.at(ref, i, v.astype(np.float64))
+    out = tsw.merge_sparse_segments(segs, dim, crossover)
+    assert out.dtype == np.float32 and out.shape == (dim,)
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(
+        out, jsw.merge_sparse_segments(segs, dim, crossover))
+
+
+def test_merge_sparse_segments_dedups_and_handles_empties():
+    """Duplicate coordinates within and across segments add; no segment
+    gives zeros; an empty segment drops out."""
+    out = tsw.merge_sparse_segments(
+        [(np.asarray([3, 3, 1], np.int32),
+          np.asarray([1.0, 2.0, 4.0], np.float32)),
+         (np.asarray([3], np.int32), np.asarray([8.0], np.float32))],
+        dim=5, density_crossover=0.25)
+    np.testing.assert_array_equal(out, np.asarray([0, 4, 0, 11, 0],
+                                                  np.float32))
+    np.testing.assert_array_equal(
+        tsw.merge_sparse_segments([], dim=3, density_crossover=0.25),
+        np.zeros(3, np.float32))
+    out = tsw.merge_sparse_segments(
+        [(np.asarray([], np.int32), np.asarray([], np.float32)),
+         (np.asarray([2], np.int32), np.asarray([5.0], np.float32))],
+        dim=3, density_crossover=1.0)
+    np.testing.assert_array_equal(out, np.asarray([0, 0, 5.0], np.float32))
+    # the pair merge is the JAX package's, bitwise
+    a = (np.asarray([4, 1, 4], np.int64), np.asarray([0.1, 0.2, 0.3],
+                                                     np.float32))
+    b = (np.asarray([1, 9], np.int64), np.asarray([0.4, 0.5], np.float32))
+    for got, want in zip(tsw._merge_pair(a, b), jsw._merge_pair(a, b)):
+        np.testing.assert_array_equal(got, want)

@@ -517,7 +517,7 @@ def test_the_feed_reports_its_cost_only_when_traced(rng, k):
 
 def test_streamed_guards(rng):
     X, y = _data(rng, n=100)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(TypeError, match="Mesh"):
         tst_.optimize_host_streamed(LeastSquaresGradient(), SimpleUpdater(),
                                     SGDConfig(), X, y, np.zeros(8),
                                     device=CPU, mesh=object())

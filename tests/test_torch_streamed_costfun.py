@@ -16,7 +16,8 @@ Tolerances:
   * within the port, bitwise: two evaluations of the same weights, and the
     chunk grid's integers.
 
-The meshed cases (``mesh=``, ROADMAP A5) raise.
+The meshed cases (``mesh=``) are twinned in
+``tests/test_torch_mesh_streamed.py``.
 """
 
 import jax.numpy as jnp
@@ -121,7 +122,7 @@ def test_tail_takes_the_masked_launch_and_full_chunks_do_not(rng,
                                                             monkeypatch):
     """The chunk rule: full chunks call ``batch_sums`` unmasked, the
     zero-padded tail with its valid mask; the tail's host buffers are made
-    once."""
+    once (kept by its host row span)."""
     X, y = _binary_data(rng, n=500, d=4)
     g = tg.LogisticGradient()
     seen = []
@@ -136,9 +137,9 @@ def test_tail_takes_the_masked_launch_and_full_chunks_do_not(rng,
     sc = tscf.StreamedCostFun(g, X, y, batch_rows=128, device=CPU)
     sc.cost_sums(np.zeros(4, np.float32))
     assert seen == [((128, 4), None)] * 3 + [((128, 4), 116)]
-    tail = sc._tail
+    tail = sc._pads[(384, 500)]
     sc.cost_sums(np.zeros(4, np.float32))
-    assert sc._tail is tail
+    assert sc._pads == {(384, 500): tail}
     assert bool(torch.all(tail[0][116:] == 0))
 
 
@@ -264,7 +265,7 @@ def test_host_streaming_guards(rng):
             .set_sufficient_stats(True).optimize_with_history((X, y), w0)
     with pytest.raises(ValueError, match="batch_rows must be positive"):
         tl.LBFGS(device=CPU).set_host_streaming(True, batch_rows=0)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(TypeError, match="Mesh"):
         tscf.StreamedCostFun(tg.LogisticGradient(), X, y, mesh=object(),
                              device=CPU)
     with pytest.raises(ValueError, match="non-empty"):

@@ -23,7 +23,8 @@ Tolerances:
     normal solve rtol 1e-4 / atol 1e-5, as the JAX file holds its
     streamed solve to its resident one.
 
-The meshed and compressed cases are ROADMAP A5.
+The meshed and compressed cases are twinned in
+``tests/test_torch_mesh_streamed.py``.
 """
 
 import json
@@ -545,8 +546,12 @@ def test_streamed_stats_guards(rng):
             .set_mini_batch_fraction(0.5).optimize_with_history((X, y), w0)
     with pytest.raises(ValueError, match="block_rows must be positive"):
         tst.GradientDescent(device=CPU).set_streamed_stats(True, block_rows=0)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tst.LBFGS(device=CPU).set_ingest_options(wire_compress="topk:0.1")
+    # the compressed merge of meshed totals (tests/test_torch_mesh_streamed
+    # .py runs it): the knob is kept, and a bad spec raises
+    assert tst.LBFGS(device=CPU).set_ingest_options(
+        wire_compress="topk:0.1").ingest_wire_compress == "topk:0.1"
+    with pytest.raises(ValueError, match="topk"):
+        tst.LBFGS(device=CPU).set_ingest_options(wire_compress="gzip:9")
     opt = tst.LBFGS(device=CPU).set_ingest_options(
         wire_dtype="bfloat16", prefetch_depth=0, pipeline=False)
     assert (opt.ingest_wire_dtype, opt.ingest_prefetch_depth,

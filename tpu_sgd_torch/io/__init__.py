@@ -19,6 +19,7 @@ from tpu_sgd_torch.io.chunking import (Chunk, ChunkPlan, pad_rows,
                                        plan_chunks, stack_superchunk)
 from tpu_sgd_torch.io.prefetch import PinnedRing, Prefetcher, ring_slots
 from tpu_sgd_torch.io.sparse_wire import (ErrorFeedback,
+                                          merge_sparse_segments,
                                           parse_wire_compress,
                                           plan_sparse_batches,
                                           stage_sparse_batch, topk_nnz,
@@ -30,7 +31,8 @@ DEFAULT_PREFETCH_DEPTH = 2
 
 __all__ = [
     "Chunk", "ChunkPlan", "DEFAULT_PREFETCH_DEPTH", "ErrorFeedback",
-    "PinnedRing", "Prefetcher", "pad_rows", "parse_wire_compress",
+    "PinnedRing", "Prefetcher", "merge_sparse_segments", "pad_rows",
+    "parse_wire_compress",
     "plan_chunks", "plan_sparse_batches", "resolve_wire_dtype",
     "ring_slots", "stack_superchunk", "stage_sparse_batch", "topk_nnz",
     "topk_select", "wire_cast",

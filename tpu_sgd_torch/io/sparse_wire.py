@@ -98,12 +98,15 @@ class ErrorFeedback:
         self.k = topk_nnz(self.dim, self.frac)
         self.acc = np.zeros((self.dim,), dtype)
 
-    def compress(self, update: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    def compress(self, update: np.ndarray, record: bool = True
+                 ) -> Tuple[np.ndarray, np.ndarray]:
         """``(indices int32, values)`` of the top-k of accumulator +
         update; the selected coordinates are zeroed in the accumulator.
         Passes the ``io.sparse_wire`` failpoint and ships the segment as a
         checksummed frame through the ``io.segment`` corrupting failpoint;
-        nothing mutates until every check passes."""
+        nothing mutates until every check passes.  ``record=False``
+        counts no wire bytes: the caller moved the update another way
+        (``parallel.gram_parallel``'s merge of gathered carries)."""
         failpoint("io.sparse_wire")
         update = np.asarray(update).reshape(-1)
         if update.shape[0] != self.dim:
@@ -119,8 +122,9 @@ class ErrorFeedback:
         verify("io.segment", ck, idx, vals)
         self.acc = folded
         self.acc[idx] = 0.0
-        record_wire("topk", logical_nbytes=int(update.nbytes),
-                    physical_nbytes=int(vals.nbytes + idx.nbytes))
+        if record:
+            record_wire("topk", logical_nbytes=int(update.nbytes),
+                        physical_nbytes=int(vals.nbytes + idx.nbytes))
         return idx, vals
 
     def residual(self) -> np.ndarray:
@@ -137,6 +141,61 @@ class ErrorFeedback:
                 f"checkpointed accumulator has {acc.shape[0]} entries, "
                 f"this wire needs {self.dim}")
         self.acc = acc.astype(self.acc.dtype, copy=True)
+
+
+# -- SparCML stream aggregation (arXiv:1802.08021) ---------------------------
+
+def _merge_pair(a, b):
+    """Two sparse ``(indices, values)`` segments merged into one without
+    duplicates: concatenated, stably sorted by index, and each run of
+    equal indices summed by ``np.add.reduceat`` in concatenation order,
+    so the merge is a deterministic function of its inputs."""
+    idx = np.concatenate([a[0], b[0]])
+    vals = np.concatenate([a[1], b[1]])
+    order = np.argsort(idx, kind="stable")
+    idx = idx[order]
+    vals = vals[order]
+    starts = np.flatnonzero(np.r_[True, idx[1:] != idx[:-1]])
+    return idx[starts], np.add.reduceat(vals, starts)
+
+
+def merge_sparse_segments(segments, dim: int,
+                          density_crossover: float = 0.25) -> np.ndarray:
+    """SparCML stream aggregation of top-k ``(indices, values)``
+    contributions, host numpy: the segments merge pairwise up a tree
+    (each round halves their count while the merged segments stay
+    sparse) until any merged segment's density ``nnz / dim`` passes
+    ``density_crossover``; then the remaining segments are added into a
+    dense accumulator in list order.  Returns the dense f32 ``(dim,)``
+    sum.  Deterministic in the segment ORDER (callers pass them in shard
+    order), which keeps a primary and its standby bitwise alike.
+    Segments may be empty; duplicate indices within a segment add."""
+    dim = int(dim)
+    segs = []
+    for si, sv in segments:
+        si = np.asarray(si, np.int64).reshape(-1)
+        sv = np.asarray(sv, np.float32).reshape(-1)
+        if si.size:
+            segs.append((si, sv))
+    if not segs:
+        return np.zeros((dim,), np.float32)
+    nnz_cap = max(1, int(np.ceil(float(density_crossover) * dim)))
+    while len(segs) > 1:
+        merged = [_merge_pair(segs[j], segs[j + 1])
+                  for j in range(0, len(segs) - 1, 2)]
+        if len(segs) % 2:
+            merged.append(segs[-1])
+        segs = merged
+        if any(si.size > nnz_cap for si, _ in segs):
+            # the density crossover: finish in one dense accumulator
+            out = np.zeros((dim,), np.float32)
+            for si, sv in segs:
+                np.add.at(out, si, sv)
+            return out
+    out = np.zeros((dim,), np.float32)
+    si, sv = segs[0]
+    np.add.at(out, si, sv)
+    return out
 
 
 # -- fixed-shape sparse batches ----------------------------------------------

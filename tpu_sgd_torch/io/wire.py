@@ -19,6 +19,7 @@ dtype).
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -55,9 +56,12 @@ def resolve_wire_dtype(wire_dtype, data_dtype) -> Optional[torch.dtype]:
 
 
 def host_tensor(a) -> torch.Tensor:
-    """A host array (numpy array or CPU tensor) as a CPU tensor, without a
-    copy where one is not needed (a read-only numpy array is copied:
-    torch cannot wrap it)."""
+    """A host array (numpy array, ``np.memmap`` or CPU tensor, a
+    ``torch.from_file`` map included) as a CPU tensor, never copied: the
+    ranks of a mesh on one host map ONE file, and a copy per rank would
+    multiply the host memory.  A read-only array (``np.load(...,
+    mmap_mode="r")``) is wrapped as it is: the streamed paths only read
+    their host rows."""
     if isinstance(a, torch.Tensor):
         if a.is_cuda:
             raise ValueError(
@@ -66,7 +70,11 @@ def host_tensor(a) -> torch.Tensor:
         return a
     a = np.asarray(a)
     if not a.flags.writeable:
-        a = a.copy()
+        with warnings.catch_warnings():
+            # torch warns that it cannot protect a read-only buffer;
+            # nothing here writes to it
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.from_numpy(a)
     return torch.from_numpy(a)
 
 

@@ -727,7 +727,8 @@ class GramLeastSquaresGradient(LeastSquaresGradient):
     @classmethod
     def _streamed_totals(cls, Xh, yh, B, sd, chunk, device=None,
                          resume_dir=None, checkpoint_every: int = 4,
-                         wire_dtype=None, prefetch_depth=2, pipeline=True):
+                         wire_dtype=None, prefetch_depth=2, pipeline=True,
+                         finalize: bool = True, wide: bool = False):
         """TOTAL statistics ``(G, b, yy)`` of host rows ``(Xh, yh)``,
         streamed chunk by chunk with a ``SUM_DTYPE`` carry and no prefix
         stack (the normal equations read only totals).  Every row counts,
@@ -739,7 +740,10 @@ class GramLeastSquaresGradient(LeastSquaresGradient):
         ``resume_dir``: the carry is saved every ``checkpoint_every``
         chunks and at the end (each save reads the carry back to the
         host), so a pass stopped part way resumes from its last save,
-        bitwise."""
+        bitwise; ``finalize=False`` keeps the directory after the pass
+        (a mesh removes its shards' once every shard is done).
+        ``wide=True`` returns ``G`` unrounded, at ``SUM_DTYPE`` (a mesh
+        combines the ranks' carries before it rounds)."""
         dev = resolve_device(device)
         Xh, yh = _host_rows(Xh, yh)
         n, d = Xh.shape
@@ -776,10 +780,10 @@ class GramLeastSquaresGradient(LeastSquaresGradient):
         elif not pipeline:
             for _, stop, Xc, yc in _sync_chunks(Xh, yh, n, chunk, s, dev):
                 one(stop, Xc, yc)
-        if ckpt is not None:
+        if ckpt is not None and finalize:
             ckpt.finalize()
         G, b, yy = carry
-        return G.to(sd), b, yy
+        return (G if wide else G.to(sd)), b, yy
 
     @staticmethod
     def _resolve_stats_dtype(data_dtype, stats_dtype) -> torch.dtype:

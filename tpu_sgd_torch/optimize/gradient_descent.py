@@ -112,6 +112,7 @@ from tpu_sgd_torch.parallel.mesh import (
     combine_model,
     combine_sums,
     has_model_axis,
+    require_single_host,
 )
 
 Tensor = torch.Tensor
@@ -347,32 +348,50 @@ def _make_update(gradient, updater, cfg, mesh=None):
     return update
 
 
-def _make_compressed_update(gradient, updater, cfg, topk_frac: float):
+def _make_compressed_update(gradient, updater, cfg, topk_frac: float,
+                            mesh=None):
     """:func:`_make_update` over the COMPRESSED wire (top-k with error
-    feedback, the JAX package's single-device ``make_compressed_step``):
-    ``update(weights, ef, X, y, i, reg_val, sample, valid, Xt) -> (new_w,
-    new_ef, loss_i, new_reg, count)``.  The normalized gradient is folded
-    into the accumulator ``ef``; the ``k = topk_nnz(d, frac)`` entries of
-    largest magnitude (``io.sparse_wire.topk_indices``: the lower index
-    wins a tie, every run alike) are the applied update and leave the
+    feedback, the JAX package's ``make_compressed_step``): ``update(weights,
+    ef, X, y, i, reg_val, sample, valid, Xt) -> (new_w, new_ef, loss_i,
+    new_reg, count)``.  The normalized gradient is folded into the
+    accumulator ``ef``; the ``k = topk_nnz(d, frac)`` entries of largest
+    magnitude (``io.sparse_wire.topk_indices``: the lower index wins a
+    tie, every run alike) are the applied update and leave the
     accumulator, the rest stays in it.  An empty sampled batch leaves the
-    weights AND the accumulator untouched."""
+    weights AND the accumulator untouched.
+
+    On a data ``mesh`` the loss and the count combine densely
+    (``parallel.mesh.combine``), each rank folds ITS local gradient sum
+    over the global count into ITS accumulator, and the ranks' top-k
+    segments are the wire (``parallel.mesh.combine_topk``: one gather of
+    ``2·k`` entries a rank, added in rank order): the applied update is
+    their sum, the same on every rank."""
     from tpu_sgd_torch.io.sparse_wire import topk_indices, topk_nnz
+    from tpu_sgd_torch.parallel.mesh import combine, combine_topk
 
     local_sums = _make_local_sums(gradient, cfg)
 
     def update(weights, ef, X, y, i, reg_val, sample, valid=None, Xt=None):
         g, l, c = local_sums(weights, X, y, sample, valid, Xt)
+        if mesh is not None:
+            l, c = combine(mesh, l, c)
         has_batch = c > 0
         safe_c = torch.clamp(c, min=1.0)
         loss_i = l / safe_c + reg_val
         acc = ef + (g / safe_c).to(ef.dtype)
         k = topk_nnz(acc.shape[-1], topk_frac)  # fixed: one shape a run
-        sel = torch.zeros(acc.shape, dtype=torch.bool, device=acc.device)
-        sel.index_fill_(0, topk_indices(acc, k), True)
-        zero = torch.zeros((), dtype=acc.dtype, device=acc.device)
-        ghat = torch.where(sel, acc, zero)
-        new_ef = torch.where(sel, zero, acc)
+        top = topk_indices(acc, k)
+        if mesh is None:
+            sel = torch.zeros(acc.shape, dtype=torch.bool,
+                              device=acc.device)
+            sel.index_fill_(0, top, True)
+            zero = torch.zeros((), dtype=acc.dtype, device=acc.device)
+            ghat = torch.where(sel, acc, zero)
+            new_ef = torch.where(sel, zero, acc)
+        else:
+            ghat = combine_topk(mesh, acc.index_select(0, top), top,
+                                acc.shape[-1])
+            new_ef = acc.index_fill(0, top, 0.0)
         new_w, new_reg = updater.compute(
             weights, ghat.to(weights.dtype), cfg.step_size, i, cfg.reg_param)
         new_w = torch.where(has_batch, new_w, weights)
@@ -384,23 +403,26 @@ def _make_compressed_update(gradient, updater, cfg, topk_frac: float):
 
 
 def make_compressed_step(gradient: Gradient, updater: Updater,
-                         config: SGDConfig, topk_frac: float):
-    """One SGD iteration over the compressed wire, single device:
-    ``step(weights, ef, X, y, i, reg_val, valid, Xt) -> (new_w, new_ef,
-    loss_i, new_reg_val, count)``.  Sampling and the batch sums are
-    :func:`make_step`'s; the applied update is the top-k of the
-    error-feedback accumulator ``ef`` plus the normalized gradient (see
-    :func:`_make_compressed_update`).  ``ef`` is optimizer state: the
-    caller carries it, checkpoints it (``extras={"ef": ...}``) and restores
-    it on resume."""
+                         config: SGDConfig, topk_frac: float, mesh=None):
+    """One SGD iteration over the compressed wire: ``step(weights, ef, X,
+    y, i, reg_val, valid, Xt) -> (new_w, new_ef, loss_i, new_reg_val,
+    count)``.  Sampling and the batch sums are :func:`make_step`'s; the
+    applied update is the top-k of the error-feedback accumulator ``ef``
+    plus the normalized gradient (see :func:`_make_compressed_update`).
+    ``ef`` is optimizer state: the caller carries it, checkpoints it
+    (``extras={"ef": ...}``) and restores it on resume.  On a 1-D data
+    ``mesh`` ``ef`` is this rank's accumulator (the JAX package's row of
+    its ``(n_shards, d)`` state) and the segments combine over the
+    ranks."""
     cfg = config
-    update = _make_compressed_update(gradient, updater, cfg, topk_frac)
+    update = _make_compressed_update(gradient, updater, cfg, topk_frac,
+                                     mesh)
     samplers = {}
 
     def step(weights, ef, X, y, i, reg_val, valid=None, Xt=None):
         key = (X.shape[0], str(X.device))
         if key not in samplers:
-            samplers[key] = _make_sampler(cfg, X)
+            samplers[key] = _make_sampler(cfg, X, _shard_of(mesh))
         sampler = samplers[key]
         if not isinstance(i, Tensor):
             if sampler is not None:
@@ -558,14 +580,15 @@ def _make_block(gradient, updater, cfg, *, history: bool,
     ``topk_frac`` runs the compressed-wire update, its error-feedback
     accumulator carried in ``state.extra`` and written into each ys
     row.  ``mesh``: the data mesh whose ranks combine each step's sums
-    (dense or sparse data, not with ``stacked`` or ``topk_frac``), or a
-    2-D mesh (dense data, ``history=True``: the JAX package's observed
-    driver refuses it)."""
+    (dense or sparse data; with ``topk_frac`` the segments, each rank's
+    accumulator its own), or a 2-D mesh (dense data, ``history=True``:
+    the JAX package's observed driver refuses it)."""
     model = _model_combiner(mesh)
     if topk_frac is None:
         update = _make_update(gradient, updater, cfg, mesh)
     else:
-        cupdate = _make_compressed_update(gradient, updater, cfg, topk_frac)
+        cupdate = _make_compressed_update(gradient, updater, cfg, topk_frac,
+                                          mesh)
     tol = cfg.convergence_tol
 
     def block(st: _RunState, data, sampler, steps: int) -> None:
@@ -1034,6 +1057,20 @@ def _replay_fused_steps(
     return t_last, reg_val, converged
 
 
+def agreed_stop(mesh, signal, dev):
+    """A stop poll every rank of ``mesh`` answers alike: ``signal`` itself
+    on one device (``mesh`` None); on a mesh, every rank's answer
+    gathered so that all stop together (:func:`parallel.mesh.any_rank`),
+    polled by every rank when any rank has a signal (agreed once here,
+    collectively, so the ranks' collectives pair).  ``None``: nothing to
+    poll."""
+    if mesh is None:
+        return signal
+    if not any_rank(mesh, signal is not None, dev):
+        return None
+    return lambda: any_rank(mesh, signal is not None and signal(), dev)
+
+
 def _fetch_rows(src: Tensor, rows: int, host: Optional[Tensor]):
     """The first ``rows`` rows of a device ys buffer as a host numpy copy:
     one copy into pinned memory on the card (``host``), then a wait for
@@ -1052,13 +1089,6 @@ def _pinned_like(t: Tensor) -> Optional[Tensor]:
     if not t.is_cuda:
         return None
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to tpu_sgd_torch yet (ROADMAP {item}); use "
-        "the JAX package tpu_sgd for it"
-    )
 
 
 #: the gram knobs of ``set_gram_options``: name -> (optimizer attribute,
@@ -1131,12 +1161,9 @@ def _apply_ingest_options(optimizer, wire_dtype=None, prefetch_depth=None,
         setattr(optimizer, attr, val)
 
 
-def _streamed_gram(optimizer, X, y) -> GramLeastSquaresGradient:
-    """``set_streamed_stats``'s guards (dense least squares, and not with
-    host streaming) and its build from host rows with the optimizer's gram
-    and ingest knobs, cached by ``(X, y)`` identity and knobs in
-    ``optimizer._streamed_gram_entry``; shared by ``GradientDescent`` and
-    ``LBFGS``."""
+def _streamed_stats_guards(optimizer, X) -> None:
+    """``set_streamed_stats``'s guards: dense least squares, and not with
+    host streaming (one device and a mesh alike)."""
     if optimizer.host_streaming:
         raise ValueError(
             "set_streamed_stats and set_host_streaming are alternative "
@@ -1150,6 +1177,15 @@ def _streamed_gram(optimizer, X, y) -> GramLeastSquaresGradient:
             "streamed statistics exist for least squares only (the "
             f"quadratic loss); got {type(optimizer.gradient).__name__}: "
             "use set_host_streaming")
+
+
+def _streamed_gram(optimizer, X, y) -> GramLeastSquaresGradient:
+    """``set_streamed_stats``'s guards (:func:`_streamed_stats_guards`)
+    and its build from host rows with the optimizer's gram and ingest
+    knobs, cached by ``(X, y)`` identity and knobs in
+    ``optimizer._streamed_gram_entry``; shared by ``GradientDescent`` and
+    ``LBFGS``."""
+    _streamed_stats_guards(optimizer, X)
     opts = (optimizer.gram_block_rows, optimizer.gram_batch_rows,
             optimizer.ingest_wire_dtype, optimizer.ingest_prefetch_depth,
             optimizer.ingest_pipeline, resolve_device(optimizer.device))
@@ -1202,6 +1238,9 @@ class GradientDescent(Optimizer):
         #: the last per-rank statistics build on a data mesh, ``(X, y,
         #: mesh, gradient, block_rows, aligned)``
         self._gram_dp_entry = None
+        #: the last meshed streamed statistics build, ``(X, y, mesh,
+        #: (data, block_rows, rows, y), knobs)``
+        self._streamed_gram_dp_entry = None
         # the observed (listener / checkpoint) planes
         self.listener = None
         self.checkpoint_manager = None
@@ -1294,8 +1333,10 @@ class GradientDescent(Optimizer):
         rank still passes its rows and the whole ``initial_weights``; it
         trains its block of the features (``parallel/model_parallel.py``)
         and returns the whole vector.  Host streaming and streamed
-        statistics on a mesh raise ``NotImplementedError`` naming ROADMAP
-        A5 when the run starts.
+        statistics on a 1-D mesh take another rule: every rank passes the
+        SAME whole host dataset (a file every rank maps, never a private
+        copy) and streams its share (``optimize/streamed.py``,
+        ``parallel/gram_parallel.py``); on a 2-D mesh they raise.
 
         Teardown: on NCCL the cached CUDA graphs hold the captured
         gather, so call :meth:`release_graphs` (or drop the optimizer)
@@ -1364,6 +1405,7 @@ class GradientDescent(Optimizer):
         self._gram_entry = None
         self._gram_dp_entry = None
         self._streamed_gram_entry = None
+        self._streamed_gram_dp_entry = None
         return self.release_graphs()
 
     def release_graphs(self):
@@ -1525,6 +1567,13 @@ class GradientDescent(Optimizer):
                     "streamed statistics support sliced sampling or full "
                     f"batch (got sampling={cfg.sampling!r}); use "
                     "set_host_streaming for bernoulli or indexed sampling")
+            if mesh is not None:
+                _streamed_stats_guards(self, X)
+                # this route returns before _run_meshed's warning would
+                # fire: the dropped chunk_iters must not go silent
+                self._warn_chunk_iters_with_mesh(stacklevel=3)
+                return self._optimize_streamed_stats_mesh(
+                    X, y, initial_weights, dev, mesh)
             gram = _streamed_gram(self, X, y)
             orig, self.gradient = self.gradient, gram
             try:
@@ -1534,7 +1583,8 @@ class GradientDescent(Optimizer):
                 self.gradient = orig
         if self.host_streaming:
             # before any device conversion: X never lives on the card whole
-            return self._optimize_host_streamed(X, y, initial_weights, dev)
+            return self._optimize_host_streamed(X, y, initial_weights, dev,
+                                                mesh)
         X = as_tensor(X, dev)
         sparse_X = is_sparse(X)
         if sparse_X:
@@ -1575,8 +1625,8 @@ class GradientDescent(Optimizer):
     def _data_mesh(self, X, dev):
         """The mesh of this run (a data mesh, or a 2-D ``(data, model)``
         mesh), or None.  Raises where the JAX package refuses a mesh,
-        with its message, and names ROADMAP A5 for the streamed routes on
-        a data mesh, which are not ported yet."""
+        with its message: the streamed routes on a 2-D mesh, and sparse
+        host streaming on any mesh."""
         if self.mesh is None:
             return None
         two_d = has_model_axis(self.mesh)
@@ -1585,14 +1635,11 @@ class GradientDescent(Optimizer):
                 "GramData input supports the single-device resident path "
                 "(stats are already on device); drop set_mesh/"
                 "set_host_streaming")
-        if self.streamed_stats:
-            if two_d:
-                raise NotImplementedError(
-                    "streamed statistics compose with a 1-D 'data' mesh; "
-                    "feature-axis ('model') sharding needs resident column "
-                    "blocks")
-            _not_ported("set_streamed_stats on a mesh (the meshed streamed "
-                        "totals)", "A5")
+        if self.streamed_stats and two_d:
+            raise NotImplementedError(
+                "streamed statistics compose with a 1-D 'data' mesh; "
+                "feature-axis ('model') sharding needs resident column "
+                "blocks")
         if self.host_streaming:
             if two_d:
                 raise NotImplementedError(
@@ -1602,9 +1649,11 @@ class GradientDescent(Optimizer):
                 raise NotImplementedError(
                     "host-streamed sparse training is single-device (shard "
                     "the resident sparse path with set_mesh instead)")
-            _not_ported("set_host_streaming on a mesh (meshed host "
-                        "streaming)", "A5")
         mesh = self.mesh if two_d else as_data_mesh(self.mesh)
+        if self.host_streaming or self.streamed_stats:
+            require_single_host(mesh, "streamed SGD batches"
+                                if self.host_streaming
+                                else "streamed statistics")
         if mesh.backend == "nccl" and dev.type != "cuda":
             raise ValueError(
                 f"an NCCL mesh combines on the card; this optimizer runs "
@@ -1729,12 +1778,15 @@ class GradientDescent(Optimizer):
             _raise_if_nonfinite(self._loss_history)
         return w, self._loss_history
 
-    def _optimize_host_streamed(self, X, y, initial_weights, dev):
+    def _optimize_host_streamed(self, X, y, initial_weights, dev,
+                                mesh=None):
         """``set_host_streaming``: the dense streamed driver
-        (``optimize/streamed.py``) or, for sparse X, the sparse one
-        (``optimize/streamed_sparse.py``), with this optimizer's knobs.
-        ``pipeline=False`` is the plain feed: no lookahead, no wire cast,
-        no compression (the bitwise A/B reference)."""
+        (``optimize/streamed.py``, on ``mesh`` too: every rank passes the
+        same whole host dataset and streams its share of each batch) or,
+        for sparse X, the sparse one (``optimize/streamed_sparse.py``, one
+        device), with this optimizer's knobs.  ``pipeline=False`` is the
+        plain feed: no lookahead, no wire cast, no compression (the
+        bitwise A/B reference)."""
         from tpu_sgd_torch.optimize.streamed import optimize_host_streamed
 
         knobs = dict(
@@ -1771,7 +1823,7 @@ class GradientDescent(Optimizer):
         else:
             w, hist = optimize_host_streamed(
                 self.gradient, self.updater, self.config, X, y,
-                initial_weights, device=dev,
+                initial_weights, device=dev, mesh=mesh,
                 resident_rows=self.streaming_resident_rows,
                 wire_dtype=(self.ingest_wire_dtype
                             if self.ingest_pipeline else None), **knobs)
@@ -1779,6 +1831,68 @@ class GradientDescent(Optimizer):
         if self.check_numerics:
             _raise_if_nonfinite(hist)
         return w, hist
+
+    def _optimize_streamed_stats_mesh(self, X, y, initial_weights, dev,
+                                      mesh):
+        """Meshed ``set_streamed_stats`` (``parallel/gram_parallel.py``):
+        every rank passes the same whole host dataset, streams its slice
+        of rows into its own virtual block-prefix statistics, and runs the
+        meshed loop over them (``dp_virtual_gram_run_fn``), so no row
+        lives on a card.  The build is cached by ``(X, y, mesh)`` identity
+        and the gram and ingest knobs; a listener or a checkpoint manager
+        is not applied here (warned), as in the JAX package."""
+        from tpu_sgd_torch.parallel.gram_parallel import (
+            build_streamed_sharded_gram_stats,
+            dp_virtual_gram_run_fn,
+        )
+
+        if self.listener is not None or self.checkpoint_manager is not None:
+            warnings.warn(
+                "listener/checkpoint callbacks are not applied on the "
+                "meshed streamed-statistics path (the virtual loop has no "
+                "per-iteration host hop); detach them or run single-device "
+                "to combine",
+                RuntimeWarning, stacklevel=3,
+            )
+        opts = (self.gram_block_rows, self.gram_batch_rows,
+                self.ingest_wire_dtype, self.ingest_prefetch_depth,
+                self.ingest_pipeline, dev)
+        entry = self._streamed_gram_dp_entry
+        if (entry is not None and entry[0] is X and entry[1] is y
+                and entry[2] is self.mesh and entry[4] == opts):
+            data, B, n_used, yd = entry[3]
+        else:
+            self._streamed_gram_dp_entry = None  # free the old stack first
+            data, B, n_used = build_streamed_sharded_gram_stats(
+                mesh, X, y, block_rows=self.gram_block_rows,
+                batch_rows=self.gram_batch_rows,
+                wire_dtype=self.ingest_wire_dtype,
+                prefetch_depth=self.ingest_prefetch_depth,
+                pipeline=self.ingest_pipeline, device=dev)
+            # the labels ride for shape only: the virtual windows never
+            # read them
+            s = mesh.rank * (X.shape[0] // mesh.size)
+            yd = as_tensor(y, torch.device("cpu"), torch.float32)[
+                s:s + n_used].to(dev)
+            self._streamed_gram_dp_entry = (X, y, self.mesh,
+                                            (data, B, n_used, yd), opts)
+        d = data.shape[1]
+        w0 = _coerce_w0(self.gradient, initial_weights, d, dev)
+        key = ("virtual_gram_dp_run", self.updater, self.config, self.mesh,
+               B, n_used, d, str(data.dtype))
+        entry = self._run_cache
+        if entry is not None and entry[0] == key:
+            run = entry[1]
+        else:
+            self._run_cache = None
+            run = dp_virtual_gram_run_fn(self.updater, self.config, mesh, B,
+                                         n_used, d, str(data.dtype))
+            self._run_cache = (key, run)
+        w, losses, n_rec = run(w0, yd, data)
+        self._loss_history = losses[:int(n_rec)].cpu().numpy()
+        if self.check_numerics:
+            _raise_if_nonfinite(self._loss_history)
+        return w, self._loss_history
 
     def _optimize_gram_data(self, X: GramData, y, initial_weights, dev):
         """Statistics-first input (``GramLeastSquaresGradient.build`` or
@@ -2049,12 +2163,7 @@ class GradientDescent(Optimizer):
         all stop together (:func:`parallel.mesh.any_rank`), polled by
         every rank when any rank has a signal (agreed once here, so the
         ranks' collectives pair).  ``None``: nothing to poll."""
-        signal = self._stop_signal
-        if mesh is None:
-            return signal
-        if not any_rank(mesh, signal is not None, dev):
-            return None
-        return lambda: any_rank(mesh, signal is not None and signal(), dev)
+        return agreed_stop(mesh, self._stop_signal, dev)
 
     def _observed_route(self, gradient, runner, data, w0, start_iter, losses,
                         reg_val, save_cb, fused_k, resident_c, stop):

@@ -40,8 +40,15 @@ bitwise, and takes the same host decisions; the loop checks that they
 agree (``_agree``) before each decision to stop.  Least squares with
 ``set_sufficient_stats`` builds the total statistics of every rank's rows
 once (``parallel.gram_parallel.build_sharded_total_stats``) and then runs
-unmeshed from them.  The streamed schedules on a mesh are ROADMAP A5's
-next slice and raise.
+unmeshed from them.  The streamed schedules take the mesh too: on one
+host every rank passes the same whole host dataset (a file every rank
+maps), ``set_host_streaming`` streams the rank's share of each chunk
+(``optimize/streamed_costfun.py``; on several hosts, its local rows) and
+combines the ranks' sums once an evaluation, and ``set_streamed_stats``
+streams its slice into total statistics merged over the ranks
+(``parallel.gram_parallel.build_streamed_total_stats``, the merge
+compressed with ``set_ingest_options(wire_compress=)``), then runs
+unmeshed from them.
 """
 
 from __future__ import annotations
@@ -69,7 +76,6 @@ from tpu_sgd_torch.ops.updaters import (
 from tpu_sgd_torch.optimize.gradient_descent import (
     _apply_gram_knobs,
     _apply_ingest_options,
-    _not_ported,
     _streamed_gram,
 )
 from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
@@ -217,6 +223,15 @@ def check_data_mesh(mesh, who: str):
     return mesh
 
 
+def _streams_local_rows(mesh) -> bool:
+    """Whether the streamed CostFun on ``mesh`` takes each rank's LOCAL
+    rows (a mesh over several hosts), where a rank with no rows still
+    joins every combine."""
+    from tpu_sgd_torch.parallel.mesh import mesh_spans_processes
+
+    return mesh is not None and mesh_spans_processes(mesh)
+
+
 def agree_on_host(mesh, values, device) -> None:
     """Raise on every rank unless every rank of the data ``mesh`` holds
     the same host ``values`` (the scalars a quasi-Newton loop decides
@@ -319,6 +334,7 @@ class LBFGS(Optimizer):
         self.ingest_prefetch_depth = 2
         self.ingest_pipeline = True
         self.ingest_retry_policy = None
+        self.ingest_wire_compress = None
         #: the last streamed CostFun, ``(X, y, StreamedCostFun, knobs)``,
         #: and the last streamed statistics build, ``(X, y, gradient,
         #: knobs)``, kept by identity
@@ -430,14 +446,12 @@ class LBFGS(Optimizer):
         (``set_streamed_stats``), as ``GradientDescent.set_ingest_options``
         validates them: ``wire_dtype``, ``prefetch_depth``, ``pipeline``;
         ``retry`` is kept for the same contract, and the quasi-Newton feeds
-        do not retry.  ``wire_compress`` compresses the merge of meshed
-        streamed totals, which is not ported (ROADMAP A5)."""
-        if wire_compress is not None and wire_compress is not False:
-            _not_ported("set_ingest_options(wire_compress=...), the "
-                        "compressed merge of the meshed streamed totals,",
-                        "A5")
+        do not retry.  ``wire_compress="topk:<frac>"`` merges the meshed
+        streamed totals through the JAX package's compressed merge
+        (``parallel.gram_parallel.build_streamed_total_stats``); ``False``
+        clears it."""
         _apply_ingest_options(self, wire_dtype, prefetch_depth, pipeline,
-                              retry)
+                              retry, wire_compress)
         return self
 
     @property
@@ -534,16 +548,56 @@ class LBFGS(Optimizer):
         OWL-QN).  None when the flag is off or X is already statistics."""
         if not self.streamed_stats or isinstance(X, GramData):
             return None
-        if self.mesh is not None:
-            _not_ported("set_streamed_stats on a mesh (the meshed streamed "
-                        "totals, build_streamed_total_stats)", "A5")
-        g = _streamed_gram(self, X, y)
+        g = (_streamed_gram(self, X, y) if self.mesh is None
+             else self._streamed_total_gram(X, y))
         orig, self.gradient = self.gradient, g
+        # the statistics are the same on every rank: the run goes
+        # unmeshed from them (the mesh's work, dividing the rows, is done)
+        orig_mesh, self.mesh = self.mesh, None
         try:
             return self.optimize_with_history(
                 (g.data, y[:g.data.shape[0]]), initial_weights)
         finally:
             self.gradient = orig
+            self.mesh = orig_mesh
+
+    def _streamed_total_gram(self, X, y):
+        """Meshed ``set_streamed_stats``: every rank passes the same whole
+        host dataset and streams its slice into the total statistics,
+        merged over the ranks (densely, or through the compressed merge of
+        ``set_ingest_options(wire_compress=)``), the same bits on every
+        rank (``parallel.gram_parallel.build_streamed_total_stats``); no
+        row is dropped.  Cached by ``(X, y)`` identity, the mesh and the
+        knobs."""
+        from tpu_sgd_torch.optimize.gradient_descent import (
+            _streamed_stats_guards,
+        )
+        from tpu_sgd_torch.parallel.gram_parallel import (
+            build_streamed_total_stats,
+        )
+
+        _streamed_stats_guards(self, X)
+        dev = resolve_device(self.device)
+        opts = (self.gram_block_rows, self.gram_batch_rows, self.mesh,
+                self.ingest_wire_dtype, self.ingest_prefetch_depth,
+                self.ingest_pipeline, self.ingest_wire_compress, dev)
+        entry = self._streamed_gram_entry
+        if (entry is not None and entry[0] is X and entry[1] is y
+                and entry[3] == opts):
+            return entry[2]
+        self._streamed_gram_entry = None  # free the superseded build
+        data = build_streamed_total_stats(
+            self.mesh, X, y, block_rows=self.gram_block_rows,
+            batch_rows=self.gram_batch_rows,
+            wire_dtype=self.ingest_wire_dtype,
+            prefetch_depth=self.ingest_prefetch_depth,
+            pipeline=self.ingest_pipeline,
+            wire_compress=(self.ingest_wire_compress
+                           if self.ingest_pipeline else None),
+            device=dev)
+        g = GramLeastSquaresGradient(data)
+        self._streamed_gram_entry = (X, y, g, opts)
+        return g
 
     def _host_streamed_costfun(self, X, y):
         """The guards of ``set_host_streaming`` and its
@@ -555,9 +609,6 @@ class LBFGS(Optimizer):
             raise ValueError(
                 "GramData input already runs from its statistics beyond "
                 "the card; drop set_host_streaming")
-        if self.mesh is not None:
-            _not_ported("set_host_streaming on a mesh (StreamedCostFun's "
-                        "meshed grid)", "A5")
         if is_sparse(X):
             raise NotImplementedError(
                 "host streaming needs dense rows; sparse features are "
@@ -570,7 +621,8 @@ class LBFGS(Optimizer):
             raise ValueError(
                 "set_sufficient_stats needs device-resident data; it "
                 "cannot combine with set_host_streaming")
-        opts = (self.stream_batch_rows, resolve_device(self.device))
+        opts = (self.stream_batch_rows, resolve_device(self.device),
+                self.mesh)
         entry = self._stream_costfun_entry
         if (entry is not None and entry[0] is X and entry[1] is y
                 and entry[3] == opts and entry[2].gradient is self.gradient):
@@ -578,7 +630,7 @@ class LBFGS(Optimizer):
         self._stream_costfun_entry = None  # free the old staging first
         scf = StreamedCostFun(self.gradient, X, y,
                               batch_rows=self.stream_batch_rows,
-                              device=opts[1])
+                              mesh=self.mesh, device=opts[1])
         self._stream_costfun_entry = (X, y, scf, opts)
         return scf
 
@@ -586,7 +638,7 @@ class LBFGS(Optimizer):
         """``(w0, cost1, sweep1, loss1)`` over the streamed CostFun, as
         :meth:`_qn_loop` takes them; None for empty input (the resident
         path's early return covers it)."""
-        if X.shape[0] == 0:
+        if X.shape[0] == 0 and not _streams_local_rows(self.mesh):
             return None
         scf = self._host_streamed_costfun(X, y)
         w = as_tensor(initial_weights, scf.device, torch.float32)
@@ -622,7 +674,7 @@ class LBFGS(Optimizer):
             # before _coerce_inputs, which would move X to the card whole
             ev = self._host_streamed_evaluators(X, y, initial_weights)
             if ev is not None:
-                return self._qn_loop(*ev)
+                return self._qn_loop(*ev, self.mesh)
         arrays, w = self._resident(data, initial_weights)
         if arrays is None:
             return w, self._loss_history

@@ -33,8 +33,13 @@ moves to the CPU.
 On a data mesh (``set_mesh``) each rank passes its own rows and runs the
 same one pass over them; the ranks' f64 ``(XᵀX, Xᵀy, yᵀy, n)`` are
 combined in rank order (``parallel.mesh.combine``) and every rank then
-solves the same system, so all hold the same weights, bitwise.  The
-streamed totals on a mesh are ROADMAP A5's next slice and raise.
+solves the same system, so all hold the same weights, bitwise.  With
+``set_host_streaming`` on a mesh every rank passes the same whole host
+dataset (a file every rank maps) and streams its slice into an f64
+carry; the carries merge in rank order
+(``parallel.gram_parallel.build_streamed_total_stats``) and every rank
+solves the same system.  A mesh whose ranks lie on more than one host
+raises the JAX package's message.
 """
 
 from __future__ import annotations
@@ -51,7 +56,6 @@ from tpu_sgd_torch.ops.gram import (
 )
 from tpu_sgd_torch.ops.gradients import acc_dtype, matmul_dtype, mm_acc
 from tpu_sgd_torch.ops.sparse import is_sparse
-from tpu_sgd_torch.optimize.gradient_descent import _not_ported
 from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
 
 Tensor = torch.Tensor
@@ -204,9 +208,6 @@ class NormalEquations(Optimizer):
                 "GradientDescent/LBFGS/OWLQN instead"
             )
         dev = resolve_device(self.device)
-        if self.host_streaming and self.mesh is not None:
-            _not_ported("set_host_streaming on a mesh (the meshed streamed "
-                        "totals, build_streamed_total_stats)", "A5")
         if self.host_streaming:
             # before any device conversion: X never lives on the card whole
             if np.shape(initial_weights)[-1] != X.shape[1]:
@@ -256,14 +257,30 @@ class NormalEquations(Optimizer):
         ``set_host_streaming``)."""
         Xh = host_tensor(X)
         n = Xh.shape[0]
-        B, chunk = streamed_totals_chunking(n, DEFAULT_BLOCK_ROWS,
-                                            self.stream_batch_rows)
         # the resident path's f32 (f64 rows train in f32, as the JAX
         # package computes with x64 off); the carry is f64 either way
         sd = torch.float32
-        G, b, yy = GramLeastSquaresGradient._streamed_totals(
-            Xh, y, B, sd, chunk, device=dev,
-            resume_dir=self.stream_resume_dir)
+        if self.mesh is not None:
+            from tpu_sgd_torch.parallel.gram_parallel import (
+                build_streamed_total_stats,
+            )
+            from tpu_sgd_torch.parallel.mesh import (
+                as_data_mesh,
+                require_single_host,
+            )
+
+            require_single_host(as_data_mesh(self.mesh),
+                                "streamed normal totals")
+            data = build_streamed_total_stats(
+                self.mesh, Xh, y, batch_rows=self.stream_batch_rows,
+                resume_dir=self.stream_resume_dir, device=dev)
+            G, b, yy = data.G_tot.to(sd), data.b_tot, data.yy_tot
+        else:
+            B, chunk = streamed_totals_chunking(n, DEFAULT_BLOCK_ROWS,
+                                                self.stream_batch_rows)
+            G, b, yy = GramLeastSquaresGradient._streamed_totals(
+                Xh, y, B, sd, chunk, device=dev,
+                resume_dir=self.stream_resume_dir)
         w, loss = _solve(G, b.to(sd), yy.to(sd),
                          torch.full((), float(n), dtype=sd, device=dev),
                          self.reg_param)

@@ -38,6 +38,7 @@ from tpu_sgd_torch.optimize.lbfgs import (
     _build_loss_only,
     _build_loss_sweep,
     _push_correction,
+    _streams_local_rows,
     _two_loop,
     _warn_sequential_line_search,
     agree_on_host,
@@ -131,7 +132,7 @@ class OWLQN(LBFGS):
         sweep1, full_loss1)``, the smooth part from the cost and the FULL
         objective (smooth + L1) from the sweep and the loss, as
         :meth:`_owlqn_loop` takes them; None for empty input."""
-        if X.shape[0] == 0:
+        if X.shape[0] == 0 and not _streams_local_rows(self.mesh):
             return None
         scf = self._host_streamed_costfun(X, y)
         w = as_tensor(initial_weights, scf.device, torch.float32)
@@ -167,7 +168,7 @@ class OWLQN(LBFGS):
             # before _coerce_inputs, which would move X to the card whole
             ev = self._host_streamed_evaluators(X, y, initial_weights)
             if ev is not None:
-                return self._owlqn_loop(*ev)
+                return self._owlqn_loop(*ev, self.mesh)
         arrays, w = self._resident(data, initial_weights)
         if arrays is None:
             return w, self._loss_history

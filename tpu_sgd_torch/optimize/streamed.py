@@ -1,5 +1,6 @@
 """Host-streamed SGD for datasets that do not fit, or do not stay, on the
-card: the port of ``tpu_sgd/optimize/streamed.py`` (single device).
+card: the port of ``tpu_sgd/optimize/streamed.py`` (one device, or the
+ranks of one host on a data mesh).
 
 The dataset stays in host memory (a numpy array, or a CPU tensor of any
 float dtype, bf16 included).  Each iteration's mini-batch is drawn on the
@@ -61,7 +62,34 @@ frame's checksum an ``ingest.checksum`` span, and the ring reports its
 pinned bytes and each copy's bytes and card time (``ingest.ring``,
 ``ingest.h2d``; ``io/prefetch.py``).
 
-Not ported: data parallelism (``mesh``, ROADMAP A5).
+Data parallelism (``mesh``, a 1-D data mesh of ``k`` ranks): the JAX
+package streams on a mesh from ONE process, whose host sampler draws
+one global batch that is then row-sharded over the devices.  Here a
+rank is a process, and the rule that decides is: ranks on one host act
+as that one process.  Every rank passes the SAME whole host dataset
+and draws the same global sample (the sampler is not folded with the
+shard: the streamed batch is one global sample); the cap is padded up
+to a multiple of ``k`` (padding rows invalid), and rank ``r`` stages
+and sends only rows ``[r·cap/k, (r+1)·cap/k)`` of each global batch (of
+the dataset itself at full batch; of each batch of a K-batch
+superchunk), so its pinned ring holds its share alone.  The rank's sums
+then combine in rank order (``parallel.mesh.combine_sums``), or its
+top-k segment on the compressed wire (``parallel.mesh.combine_topk``,
+each rank's error-feedback accumulator its own), and the trajectory is
+the JAX package's ``k``-device mesh's.  The host rows must be SHARED by
+the ranks, never copied per rank: pass a host tensor that maps a file
+every rank maps (``torch.from_file(path, shared=True, size=n * d,
+dtype=torch.bfloat16).view(n, d)``, or a ``np.memmap``), which
+``host_tensor`` wraps without a copy.  A mesh whose ranks lie on more
+than one host raises (``parallel.mesh.require_single_host``, the JAX
+package's message), as does ``resident_rows`` on a mesh;
+``resident_cadence`` warns and runs the superstep driver.  The
+compressed wire's checkpoint keeps the JAX package's layout,
+``extras={"ef": (n_shards, d)}``: rank 0 writes every rank's row
+(gathered), a resume gives each rank its row back, and either package
+restores the other's.  Stop polls are agreed by every rank
+(``gradient_descent.agreed_stop``); rank 0 saves, then every rank
+passes a barrier.
 """
 
 from __future__ import annotations
@@ -84,6 +112,7 @@ from tpu_sgd_torch.obs.counters import record_wire
 from tpu_sgd_torch.obs.spans import span
 from tpu_sgd_torch.ops.gradients import Gradient
 from tpu_sgd_torch.ops.updaters import Updater
+from tpu_sgd_torch.parallel.mesh import barrier
 from tpu_sgd_torch.reliability.failpoints import corruptpoint, failpoint
 
 Tensor = torch.Tensor
@@ -124,9 +153,14 @@ class HostSampler:
     * ``("rows", idx, count)``: ``idx`` the ``(cap,)`` int64 row ids, the
       first ``count`` sampled and the rest 0 (padding rows, not valid);
     * ``("full",)``: every row (``frac >= 1``).
+
+    On a data mesh of ``shards`` ranks the cap is padded up to a multiple
+    of ``shards`` (padding rows invalid) and ``share = cap // shards`` is
+    one rank's rows of each batch; the draws are the same on every rank.
     """
 
-    def __init__(self, cfg: SGDConfig, n: int, resident_rows: int = 0):
+    def __init__(self, cfg: SGDConfig, n: int, resident_rows: int = 0,
+                 shards: int = 1):
         self.cfg = cfg
         self.n = int(n)
         self.frac = cfg.mini_batch_fraction
@@ -138,6 +172,8 @@ class HostSampler:
             self.cap = bernoulli_cap(self.n, self.frac)
         else:  # indexed / sliced: the resident path's batch size
             self.cap = self.m
+        self.cap += (-self.cap) % int(shards)  # even shares
+        self.share = self.cap // int(shards)
 
     def sample_rows(self, i: int) -> np.ndarray:
         """Iteration ``i``'s row ids (the Bernoulli or indexed draw, or all
@@ -274,13 +310,12 @@ def optimize_host_streamed(
     convergence is tested from the second iteration on.  See the module
     docstring for the feed, ``resident_rows``, ``superstep_k``,
     ``resident_cadence``, ``wire_compress`` and the reliability hooks."""
-    from tpu_sgd_torch.optimize.gradient_descent import _coerce_w0
+    from tpu_sgd_torch.optimize.gradient_descent import (
+        _coerce_w0,
+        agreed_stop,
+    )
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "host streaming over a mesh (data parallelism) is not ported "
-            "to tpu_sgd_torch yet (ROADMAP A5); use the JAX package "
-            "tpu_sgd for it")
+    mesh = _streamed_mesh(mesh)
     cfg = config
     dev = resolve_device(device)
     Xh = host_tensor(X)
@@ -304,6 +339,11 @@ def optimize_host_streamed(
     m_fixed = sliced_window_rows(n, frac)
     R = 0
     if resident_rows:
+        if mesh is not None:
+            raise NotImplementedError(
+                "resident_rows composes with a single device; a mesh "
+                "shards the resident slab with its own layout — use the "
+                "fully-resident mesh path or plain streaming")
         if cfg.sampling != "sliced" or frac >= 1.0:
             raise NotImplementedError(
                 "resident_rows requires sampling='sliced' with "
@@ -324,9 +364,10 @@ def optimize_host_streamed(
             "device residency rides the fused superstep executor; pass "
             "superstep_k >= 2 to engage it", RuntimeWarning, stacklevel=3)
         C = 0
-    if C >= 2 and not (full_batch or fully_resident):
+    if C >= 2 and (mesh is not None
+                   or not (full_batch or fully_resident)):
         warnings.warn(
-            "device residency applies to the full-batch and "
+            "device residency applies to the single-device full-batch and "
             "fully-resident-slab feeds (a host-sampled feed's host hop IS "
             "the data feed); running the superstep driver",
             RuntimeWarning, stacklevel=3)
@@ -338,10 +379,39 @@ def optimize_host_streamed(
             "feed=slab-partial x compressed); a fully resident slab "
             "carries the error feedback", RuntimeWarning, stacklevel=3)
         comp_frac = None
-    run = _DenseRun(gradient, updater, cfg, dev, HostSampler(cfg, n, R), K,
-                    C, comp_frac, prefetch_depth, retry_policy, listener, checkpoint_every, stop_signal, check_numerics,
-                    Xh=Xh, yh=yh, xdt=xdt)
+    shards = 1 if mesh is None else mesh.size
+    run = _DenseRun(gradient, updater, cfg, dev,
+                    HostSampler(cfg, n, R, shards), K, C, comp_frac,
+                    prefetch_depth, retry_policy, listener, checkpoint_every,
+                    agreed_stop(mesh, stop_signal, dev), check_numerics,
+                    mesh=mesh, Xh=Xh, yh=yh, xdt=xdt)
     return execute(run, w0, checkpoint_manager)
+
+
+def _streamed_mesh(mesh):
+    """The data mesh of a host-streamed run (None: one device): a
+    ``parallel.Mesh``, its trivial model axis flattened; a 2-D mesh
+    raises, and so does one whose ranks lie on more than one host."""
+    if mesh is None:
+        return None
+    from tpu_sgd_torch.parallel.mesh import (
+        Mesh,
+        as_data_mesh,
+        has_model_axis,
+        require_single_host,
+    )
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(
+            "mesh takes a tpu_sgd_torch.parallel.Mesh (data_mesh, "
+            f"make_mesh), got {type(mesh).__name__}")
+    if has_model_axis(mesh):
+        raise NotImplementedError(
+            "host streaming supports 1-D data meshes; feature-axis "
+            "('model') sharding needs the resident path")
+    mesh = as_data_mesh(mesh)
+    require_single_host(mesh, "streamed SGD batches")
+    return mesh
 
 
 def execute(run: "_StreamedRun", w0: Tensor, checkpoint_manager=None):
@@ -352,6 +422,7 @@ def execute(run: "_StreamedRun", w0: Tensor, checkpoint_manager=None):
     callback whose extras carry the accumulator of the saved iteration.
     Returns ``(weights, loss_history)``."""
     cfg, gradient, updater, dev = run.cfg, run.gradient, run.updater, run.dev
+    mesh = run.mesh
     _, reg0 = updater.compute(w0, torch.zeros_like(w0), 0.0, 1,
                               cfg.reg_param)
     reg_val = float(reg0)
@@ -377,7 +448,10 @@ def execute(run: "_StreamedRun", w0: Tensor, checkpoint_manager=None):
     if run.comp_frac is not None:
         ef0 = np.zeros((w.numel(),), np.float32)
         if ef_resume is not None:
-            ef0 = np.asarray(ef_resume, np.float32).reshape(ef0.shape)
+            ef_resume = np.asarray(ef_resume, np.float32)
+            if mesh is not None:  # the JAX layout: a row per shard
+                ef_resume = ef_resume.reshape(mesh.size, -1)[run.rank]
+            ef0 = ef_resume.reshape(ef0.shape)
         elif start_iter > 1:
             warnings.warn(
                 "resuming a compressed run from a checkpoint without EF "
@@ -394,12 +468,17 @@ def execute(run: "_StreamedRun", w0: Tensor, checkpoint_manager=None):
         extras = None
         if run.comp_frac is not None:
             efs = run.ef_window["efs"]
-            extras = {"ef": (efs[ii - run.ef_window["i0"]]
-                             if efs is not None
-                             else run.ef_live.detach().cpu().numpy())}
-        checkpoint_manager.save(ii, np.asarray(w_np), rv,
-                                np.asarray(losses), config_key,
-                                extras=extras)
+            ef_row = (efs[ii - run.ef_window["i0"]] if efs is not None
+                      else run.ef_live.detach().cpu().numpy())
+            if mesh is not None:
+                ef_row = _gather_rows(mesh, ef_row)
+            extras = {"ef": ef_row}
+        if mesh is None or run.rank == 0:
+            checkpoint_manager.save(ii, np.asarray(w_np), rv,
+                                    np.asarray(losses), config_key,
+                                    extras=extras)
+        if mesh is not None:
+            barrier(mesh, dev)
 
     run.save_cb = _save if checkpoint_manager is not None else None
     t_run = time.perf_counter()
@@ -420,6 +499,15 @@ def execute(run: "_StreamedRun", w0: Tensor, checkpoint_manager=None):
     return w, np.asarray(losses, np.float32)
 
 
+def _gather_rows(mesh, row) -> np.ndarray:
+    """Every rank's host ``row`` stacked in rank order, ``(ranks,
+    len(row))`` (collective)."""
+    from tpu_sgd_torch.parallel.mesh import all_gather, collective_device
+
+    t = torch.as_tensor(np.asarray(row, np.float32)).reshape(-1)
+    return all_gather(mesh, t.to(collective_device(mesh))).cpu().numpy()
+
+
 class _StreamedRun:
     """One streamed run's loops over a feed: the per-step driver (K = 1),
     the block driver (K > 1) and the window driver (K > 1, C >= 2).  A
@@ -430,8 +518,11 @@ class _StreamedRun:
 
     def __init__(self, gradient, updater, cfg, dev, sampler, K, C,
                  comp_frac, depth, retry_policy, listener,
-                 save_every, stop_signal, check_numerics):
+                 save_every, stop_signal, check_numerics, mesh=None):
         self.gradient, self.updater = gradient, updater
+        #: the data mesh (None: one device) and this rank's index on it
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.rank
         self.cfg = cfg
         self.step_cfg = cfg.replace(mini_batch_fraction=1.0)
         self.dev = dev
@@ -482,11 +573,12 @@ class _StreamedRun:
             return self._per_step(w, reg_val, ef, i0, data)
         block = gd._make_block(self.gradient, self.updater, self.step_cfg,
                                history=False, stacked=not full_batch,
-                               topk_frac=self.comp_frac)
+                               topk_frac=self.comp_frac, mesh=self.mesh)
         state = gd._RunState(w, self.cfg.num_iterations, ys_rows=self.K,
                              extra=ef)
         state.reset(w, reg_val, i0, ef)
-        capture = gd._captures(self.gradient, self.step_cfg, self.dev)
+        capture = gd._captures(self.gradient, self.step_cfg, self.dev,
+                               self.mesh)
         N = self.cfg.num_iterations
         if full_batch:
             runner = gd._BlockRunner(block, state, data, None, self.K,
@@ -513,10 +605,12 @@ class _StreamedRun:
 
         cfg, N = self.cfg, self.cfg.num_iterations
         if self.comp_frac is None:
-            step = gd.make_step(self.gradient, self.updater, self.step_cfg)
+            step = gd.make_step(self.gradient, self.updater, self.step_cfg,
+                                self.mesh)
         else:
             step = gd.make_compressed_step(self.gradient, self.updater,
-                                           self.step_cfg, self.comp_frac)
+                                           self.step_cfg, self.comp_frac,
+                                           self.mesh)
         ring = None
         if data is None:
             ring = self._ring_feed(i, N)
@@ -643,27 +737,44 @@ class _DenseRun(_StreamedRun):
     """The dense feed: rows gathered (or a window copied) into pinned
     ``(K, cap, d)`` slots, resident-prefix windows copied on the card."""
 
-    def __init__(self, *args, Xh, yh, xdt):
-        super().__init__(*args)
+    def __init__(self, *args, mesh=None, Xh, yh, xdt):
+        super().__init__(*args, mesh=mesh)
         self.Xh, self.yh, self.xdt = Xh, yh, xdt
         self.Xres = self.yres = None
 
-    def _device_rows(self, rows: int):
-        """The first ``rows`` host rows on the card (the full batch or the
-        resident prefix), sent once through a pinned ring."""
-        Xd = torch.empty((rows, self.Xh.shape[1]), dtype=self.xdt,
-                         device=self.dev)
-        transfer_rows(self.Xh[:rows], Xd, self.retry_policy, self.depth,
-                      fmt=self._wire_fmt())
-        yd = self.yh[:rows].to(self.dev)
+    def _device_rows(self, lo: int, hi: int, rows: int):
+        """Host rows ``[lo, hi)`` on the card in a ``rows``-row tensor
+        (the full batch, a rank's share of it, or the resident prefix),
+        sent once through a pinned ring; rows past ``hi - lo`` are
+        zero."""
+        d = self.Xh.shape[1]
+        v = hi - lo
+        make = torch.empty if v == rows else torch.zeros
+        Xd = make((rows, d), dtype=self.xdt, device=self.dev)
+        transfer_rows(self.Xh[lo:hi], Xd[:v], self.retry_policy,
+                      self.depth, fmt=self._wire_fmt())
+        yd = make((rows,), dtype=torch.float32, device=self.dev)
+        yd[:v].copy_(self.yh[lo:hi])
         return Xd, yd
 
     def _wire_fmt(self) -> str:
         return "bf16" if self.xdt == torch.bfloat16 else "dense-f32"
 
+    def _share_rows(self, count: int) -> Tuple[int, int]:
+        """``[a, b)``: the positions of this rank's share that hold real
+        rows in a global batch of ``count`` rows."""
+        share = self.sampler.share
+        a = min(self.rank * share, count)
+        return a, min(a + share, count)
+
     def _full_data(self):
-        Xd, yd = self._device_rows(self.sampler.n)
-        vd = torch.ones((self.sampler.n,), dtype=torch.bool, device=self.dev)
+        a, b = self._share_rows(self.sampler.n)
+        share = self.sampler.share
+        Xd, yd = self._device_rows(a, b, share)
+        if b - a == share:
+            vd = torch.ones((share,), dtype=torch.bool, device=self.dev)
+        else:
+            vd = torch.arange(share, device=self.dev) < b - a
         return Xd, yd, vd, None
 
     def _slot_data(self, slot: int):
@@ -671,13 +782,14 @@ class _DenseRun(_StreamedRun):
         return dv["X"], dv["y"], dv["v"], None
 
     def _ring_feed(self, i0: int, N: int) -> PinnedRing:
-        K, cap, d = self.K, self.sampler.cap, self.Xh.shape[1]
+        K, cap, d = self.K, self.sampler.share, self.Xh.shape[1]
         slots = ring_slots(self.depth)
         self.ring = ring = PinnedRing(
             {"X": ((K, cap, d), self.xdt), "y": ((K, cap), torch.float32),
              "v": ((K, cap), torch.bool)}, slots, self.dev)
         if self.sampler.R:
-            self.Xres, self.yres = self._device_rows(self.sampler.R)
+            R = self.sampler.R
+            self.Xres, self.yres = self._device_rows(0, R, R)
         wire_fmt = self._wire_fmt()
 
         def produce(base: int):
@@ -730,21 +842,28 @@ class _DenseRun(_StreamedRun):
         return ring
 
     def _assemble(self, draw, Xb: Tensor, yb: Tensor, vb: Tensor) -> None:
-        """One host batch into its slot rows (a gather or a window copy,
-        the wire cast in the same pass)."""
+        """This rank's share of one host batch into its slot rows (a
+        gather or a window copy, the wire cast in the same pass); on one
+        device the share is the whole batch."""
         Xh, yh = self.Xh, self.yh
         if draw[0] == "window":
-            s, m = draw[1], self.sampler.m
-            Xb[:m].copy_(Xh[s:s + m])
-            yb[:m].copy_(yh[s:s + m])
-            vb[:m].fill_(True)
-            vb[m:].fill_(False)
+            s = draw[1]
+            a, b = self._share_rows(self.sampler.m)
+            v = b - a
+            Xb[:v].copy_(Xh[s + a:s + b])
+            yb[:v].copy_(yh[s + a:s + b])
+            vb[:v].fill_(True)
+            vb[v:].fill_(False)
+            if v < Xb.shape[0]:  # a mesh's padding rows
+                Xb[v:].zero_()
+                yb[v:].zero_()
             return
-        idx = torch.from_numpy(draw[1])
+        lo, share = self.rank * self.sampler.share, self.sampler.share
+        idx = torch.from_numpy(draw[1][lo:lo + share])
         if Xb.dtype == Xh.dtype:
             torch.index_select(Xh, 0, idx, out=Xb)
         else:
             Xb.copy_(torch.index_select(Xh, 0, idx))
         torch.index_select(yh, 0, idx, out=yb)
         vb.fill_(False)
-        vb[:draw[2]] = True
+        vb[:min(max(draw[2] - lo, 0), share)] = True

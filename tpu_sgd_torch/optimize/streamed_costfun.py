@@ -1,5 +1,6 @@
 """Host-streamed full-batch cost evaluation for the quasi-Newton optimizers:
-the port of ``tpu_sgd/optimize/streamed_costfun.py`` (one device).
+the port of ``tpu_sgd/optimize/streamed_costfun.py`` (one device, or a
+data mesh).
 
 The reference's L-BFGS ``CostFun`` takes the full-batch ``(loss,
 gradient)`` in one ``treeAggregate`` over data of any size, for any
@@ -28,7 +29,26 @@ Cost: every evaluation re-reads the whole dataset over the host feed (an
 L-BFGS iteration is one cost evaluation and one sweep), so this is the
 schedule of last resort, for losses without fixed-size statistics.
 
-Not ported: the meshed and multi-host chunk grids (``mesh``, ROADMAP A5).
+On a data mesh (``mesh``, ``k`` ranks) the JAX package's two chunk grids:
+
+* the ranks lie on one host (the JAX package's one process): every rank
+  passes the SAME whole host dataset (a file every rank maps, never a
+  private copy), the chunk cap is padded up to a multiple of ``k``, and
+  rank ``r`` takes rows ``[r·cap/k, (r+1)·cap/k)`` of each chunk: full
+  shares B1 unmasked, a partial or empty share (past the last row)
+  zero-padded and masked;
+* the ranks lie on several hosts (``parallel.mesh.mesh_spans_processes``;
+  a CPU test may declare the split, ``data_mesh(hosts=...)``): each rank
+  passes its LOCAL rows and streams ``cap/k`` of them a chunk, on a grid
+  agreed by one gather of the row counts (the longest rank's chunks); a
+  rank whose rows have run out, or that has none, feeds all-invalid
+  chunks, so every rank runs the same number of combines and none waits
+  for ever.
+
+Either way each rank adds its chunks' sums on its card and the ranks'
+sums combine ONCE an evaluation, in rank order
+(``parallel.mesh.combine``): the same bits on every rank, equal to a
+one-process rank-order sum of the ranks' accumulated sums.
 """
 
 from __future__ import annotations
@@ -39,6 +59,13 @@ from typing import Optional
 import torch
 
 from tpu_sgd_torch.device import resolve_device
+from tpu_sgd_torch.parallel.mesh import (
+    Mesh,
+    as_data_mesh,
+    collective_device,
+    combine,
+    mesh_spans_processes,
+)
 from tpu_sgd_torch.io import DEFAULT_PREFETCH_DEPTH
 from tpu_sgd_torch.io.prefetch import PinnedRing, Prefetcher, ring_slots
 from tpu_sgd_torch.io.wire import host_tensor
@@ -62,21 +89,28 @@ class StreamedCostFun:
 
     Returns RAW SUMS on the card, ``(grad_sum, loss_sum, count)`` and
     ``(loss_sums, count)``, as ``Gradient.batch_sums`` and ``loss_sweep``
-    do; callers normalize and add their regularization.  One instance
-    binds ``(gradient, X, y, batch_rows)`` and keeps its staging ring and
-    padded tail; ``device=None`` is the card."""
+    do (on a mesh, every rank's, combined); callers normalize and add
+    their regularization.  One instance binds ``(gradient, X, y,
+    batch_rows, mesh)`` and keeps its staging ring and padded shares;
+    ``device=None`` is the card.  ``cap`` is the rows of one chunk (on
+    several hosts, of one rank's part of it), ``share`` this rank's rows
+    of each chunk."""
 
     def __init__(self, gradient, X, y, batch_rows: Optional[int] = None,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the streamed CostFun over a mesh (data parallelism) is not "
-                "ported to tpu_sgd_torch yet (ROADMAP A5); use the JAX "
-                "package tpu_sgd for it")
         self.gradient = gradient
         self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(
+                "mesh takes a tpu_sgd_torch.parallel.Mesh (data_mesh), got "
+                f"{type(mesh).__name__}")
+        self.mesh = None if mesh is None else as_data_mesh(mesh)
+        self.multihost = (self.mesh is not None
+                          and mesh_spans_processes(self.mesh))
         Xh = host_tensor(X)
-        if Xh.dim() != 2 or Xh.shape[0] == 0:
+        if Xh.dim() != 2 or (Xh.shape[0] == 0 and not self.multihost):
+            # a rank of a multi-host mesh may hold no rows: it still
+            # joins every combine, with all-invalid chunks
             raise ValueError(
                 f"need a non-empty (n, d) matrix, got {tuple(Xh.shape)}")
         self.X = Xh.contiguous()
@@ -89,56 +123,79 @@ class StreamedCostFun:
         self.n = n
         if batch_rows is None:
             batch_rows = default_stream_batch_rows(d, xdt.itemsize)
-        self.cap = int(min(max(1, int(batch_rows)), n))
-        self.n_chunks = math.ceil(n / self.cap)
+        k = 1 if self.mesh is None else self.mesh.size
+        if self.multihost:
+            from tpu_sgd_torch.parallel.data_parallel import agree
+
+            # the grid from batch_rows alone (a cap clamped to the local
+            # row count would differ between ranks) and the longest
+            # rank's rows, agreed by one gather
+            cap = max(1, int(batch_rows))
+            cap += (-cap) % k
+            self.cap = self.share = cap // k
+            counts = agree(self.mesh, [n], collective_device(self.mesh))
+            self.n_chunks = math.ceil(int(counts.max()) / self.share)
+            self._stride, self._offset = self.share, 0
+        else:
+            cap = int(min(max(1, int(batch_rows)), n))
+            cap += (-cap) % k  # equal shares; padding rows are invalid
+            self.cap, self.share = cap, cap // k
+            self.n_chunks = math.ceil(n / cap)
+            self._stride = cap
+            self._offset = 0 if self.mesh is None else (
+                self.mesh.rank * self.share)
         self._slots = ring_slots(DEFAULT_PREFETCH_DEPTH)
-        self._ring = PinnedRing({"x": ((self.cap, d), xdt),
-                                 "y": ((self.cap,), torch.float32)},
+        self._ring = PinnedRing({"x": ((self.share, d), xdt),
+                                 "y": ((self.share,), torch.float32)},
                                 self._slots, self.device)
-        self._tail = None  # (pinned X, pinned y, valid mask on the card)
+        #: zero-padded shares by host row span: (pinned X, pinned y,
+        #: valid mask on the card), built once each
+        self._pads = {}
 
     # -- chunk feed --------------------------------------------------------
-    def _tail_chunk(self):
-        """The last chunk zero-padded to ``cap`` rows in host buffers
-        (pinned on the card's host), with its valid mask on the card;
-        built once."""
-        if self._tail is None:
-            ring = self._ring
-            s = (self.n_chunks - 1) * self.cap
-            v = self.n - s
-            spec = ring.host[0]
-            pin = ring.cuda
+    def _span(self, i: int):
+        """``[s, e)``: this rank's host rows of chunk ``i`` (empty past its
+        last row)."""
+        s = min(i * self._stride + self._offset, self.n)
+        return s, min(s + self.share, self.n)
+
+    def _padded(self, s: int, e: int):
+        """Host rows ``[s, e)`` zero-padded to ``share`` rows in pinned
+        buffers, with their valid mask on the card; built once a span."""
+        hit = self._pads.get((s, e))
+        if hit is None:
+            spec = self._ring.host[0]
+            pin = self._ring.cuda
             Xp = torch.zeros(spec["x"].shape, dtype=spec["x"].dtype,
                              pin_memory=pin)
             yp = torch.zeros(spec["y"].shape, dtype=torch.float32,
                              pin_memory=pin)
-            Xp[:v].copy_(self.X[s:])
-            yp[:v].copy_(self.y[s:])
-            valid = torch.zeros((self.cap,), dtype=torch.bool)
-            valid[:v] = True
-            self._tail = (Xp, yp, valid.to(self.device))
-        return self._tail
+            Xp[:e - s].copy_(self.X[s:e])
+            yp[:e - s].copy_(self.y[s:e])
+            valid = torch.zeros((self.share,), dtype=torch.bool)
+            valid[:e - s] = True
+            hit = self._pads[(s, e)] = (Xp, yp, valid.to(self.device))
+        return hit
 
     def _stream(self, fn):
-        """``fn(Xc, yc, mask)`` on every chunk in order, its outputs added
-        into accumulators on the card (the first chunk's, copied); returns
-        the accumulators."""
+        """``fn(Xc, yc, mask)`` on this rank's share of every chunk in
+        order, its outputs added into accumulators on the card (the first
+        chunk's, copied); on a mesh the ranks' accumulators then combine
+        in rank order.  Returns the accumulators."""
         ring = self._ring
         slots = self._slots
-        last = self.n_chunks - 1
-        ragged = self.n % self.cap != 0
 
         def produce(i):
             slot = i % slots
             host = ring.claim(slot)
             dev = ring.dev[slot]
-            if i == last and ragged:
-                Xp, yp, _ = self._tail_chunk()
+            s, e = self._span(i)
+            if e - s < self.share:
+                Xp, yp, _ = self._padded(s, e)
                 ring.send(slot, [(dev["x"], Xp), (dev["y"], yp)])
             else:
-                s = i * self.cap
-                host["x"].copy_(self.X[s:s + self.cap])
-                host["y"].copy_(self.y[s:s + self.cap])
+                host["x"].copy_(self.X[s:e])
+                host["y"].copy_(self.y[s:e])
                 ring.send(slot, [(dev["x"], host["x"]),
                                  (dev["y"], host["y"])])
             return i, slot
@@ -148,7 +205,8 @@ class StreamedCostFun:
                         depth=DEFAULT_PREFETCH_DEPTH) as feed:
             for i, slot in feed:
                 dev = ring.take(slot)
-                mask = self._tail_chunk()[2] if i == last and ragged \
+                s, e = self._span(i)
+                mask = self._padded(s, e)[2] if e - s < self.share \
                     else None
                 out = fn(dev["x"], dev["y"], mask)
                 if accs is None:
@@ -158,6 +216,8 @@ class StreamedCostFun:
                         a += t
                 ring.release(slot)
         ring.drain()
+        if self.mesh is not None:
+            accs = combine(self.mesh, *accs)
         return tuple(accs)
 
     # -- public sums -------------------------------------------------------

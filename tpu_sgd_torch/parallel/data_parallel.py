@@ -136,6 +136,79 @@ def dp_shared_superstep_fn(gradient: Gradient, updater: Updater,
     return superstep
 
 
+def dp_compressed_step_fn(gradient: Gradient, updater: Updater,
+                          config: SGDConfig, topk_frac: float, mesh: Mesh):
+    """One meshed iteration over the COMPRESSED wire:
+    ``make_compressed_step`` with the mesh, ``step(w, ef, X, y, i, reg_val,
+    valid=None, Xt=None) -> (new_w, new_ef, loss, new_reg, count)`` on the
+    rank's local rows; ``ef`` is this rank's ``(d,)`` accumulator (row
+    ``rank`` of the JAX package's ``(n_shards, d)`` state)."""
+    from tpu_sgd_torch.optimize.gradient_descent import make_compressed_step
+
+    return make_compressed_step(gradient, updater, config, topk_frac,
+                                as_data_mesh(mesh))
+
+
+def _compressed_superstep(gradient, updater, config, topk_frac, k, mesh,
+                          stacked: bool):
+    """The compressed K-step block bound to the mesh (see the two
+    builders below)."""
+    from tpu_sgd_torch.optimize.gradient_descent import (
+        _make_block,
+        _make_sampler,
+        _RunState,
+    )
+
+    mesh = as_data_mesh(mesh)
+    block = _make_block(gradient, updater, config, history=False,
+                        stacked=stacked, topk_frac=topk_frac, mesh=mesh)
+    samplers = {}
+
+    def superstep(w, ef, reg_val, i0, X, y, valid=None, Xt=None):
+        steps = int(X.shape[0]) if stacked else int(k)
+        sampler = None
+        if not stacked:
+            key = (X.shape[0], str(X.device))
+            if key not in samplers:
+                samplers[key] = _make_sampler(config, X, mesh.rank)
+            sampler = samplers[key]
+            if sampler is not None:
+                sampler.seek(int(i0))
+        st = _RunState(w, config.num_iterations, ys_rows=steps, extra=ef)
+        st.reset(w, reg_val, int(i0), ef)
+        block(st, (X, y, valid, Xt), sampler, steps)
+        return st.w.clone(), st.extra.clone(), st.ys_leaves(
+            st.ys.cpu().numpy())
+
+    return superstep
+
+
+def dp_compressed_superstep_fn(gradient: Gradient, updater: Updater,
+                               config: SGDConfig, topk_frac: float,
+                               mesh: Mesh):
+    """K meshed compressed steps over PER-STEP batches, the host-streamed
+    superchunk: ``superstep(w, ef, reg_val, i0, Xs, ys, valids) -> (w,
+    ef, ys_leaves)`` with ``Xs`` the rank's ``(K, rows, d)`` share, the
+    accumulator carried through the K steps, and ``ys_leaves`` the six
+    host leaves of ``pack_step_ys`` plus a seventh, this rank's ``(K,
+    d)`` post-update accumulators (the JAX package's leaf is every
+    shard's, ``(K, n_shards, d)``: gather the rows where a checkpoint
+    needs them)."""
+    return _compressed_superstep(gradient, updater, config, topk_frac, 0,
+                                 mesh, stacked=True)
+
+
+def dp_compressed_shared_superstep_fn(gradient: Gradient, updater: Updater,
+                                      config: SGDConfig, topk_frac: float,
+                                      k: int, mesh: Mesh):
+    """K meshed compressed steps over ONE shared batch (the rank's rows,
+    sampled as :func:`dp_shared_superstep_fn` samples them):
+    ``superstep(w, ef, reg_val, i0, X, y, valid=None, Xt=None) -> (w, ef,
+    ys_leaves)``, the leaves as :func:`dp_compressed_superstep_fn`'s."""
+    return _compressed_superstep(gradient, updater, config, topk_frac, k,
+                                 mesh, stacked=False)
+
+
 def dp_run_fn(gradient: Gradient, updater: Updater, config: SGDConfig,
               mesh: Mesh):
     """The whole meshed loop: ``make_run`` with the mesh's combine,

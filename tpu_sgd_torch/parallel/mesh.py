@@ -30,11 +30,26 @@ there in the same order, with the same bits.  :func:`combine_model`
 is the same gather and the same adds over the model group: the
 counterpart of the JAX package's ``psum`` over its ``model`` axis (the
 partial margins, the reg value, the convergence norms).
+
+The compressed combine (:func:`combine_topk`, the JAX package's
+all-gather of top-k ``(values, indices)`` segments and scatter-add) is
+one gather of ``2·k`` 32-bit entries a rank, then each rank's segment
+added into a dense zero vector in rank order.  Indices are unique
+within a segment, so each add is a gather, an add and a store
+(``index_put_`` without accumulation), never a float atomic.
+
+Hosts: ranks on one host stand for the JAX package's one process, whose
+streamed routes read one host dataset; :func:`mesh_spans_processes`
+tells a mesh whose ranks lie on more than one host (the JAX package's
+multi-process regime).  A mesh learns its ranks' hosts from one gather
+of each rank's host name, or takes them declared (``hosts=``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import socket
+import zlib
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -49,9 +64,12 @@ class Mesh:
     the default group) and ``model_group`` that of the model axis (a 2-D
     mesh with ``n_model > 1``; :func:`make_mesh` builds both).  Ranks lie
     row-major over ``(data, model)``, as the JAX package's ``make_mesh``
-    lays out its devices."""
+    lays out its devices.  ``hosts``: each data rank's host, in rank
+    order (any hashable labels), when the caller declares them; else the
+    first :func:`mesh_spans_processes` gathers them."""
 
-    def __init__(self, shape: dict, group=None, model_group=None):
+    def __init__(self, shape: dict, group=None, model_group=None,
+                 hosts: Optional[Sequence] = None):
         if DATA_AXIS not in shape:
             raise ValueError(f"a mesh needs a '{DATA_AXIS}' axis, got "
                              f"{tuple(shape)}")
@@ -62,6 +80,11 @@ class Mesh:
         self.group = group
         self.model_group = model_group
         self._backend = None
+        if hosts is not None and len(hosts) != self.shape[DATA_AXIS]:
+            raise ValueError(
+                f"hosts names {len(hosts)} ranks, the data axis has "
+                f"{self.shape[DATA_AXIS]}")
+        self.hosts = None if hosts is None else tuple(hosts)
 
     @property
     def size(self) -> int:
@@ -141,10 +164,10 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     return Mesh(shape, data_group, model_group)
 
 
-def data_mesh(group=None) -> Mesh:
+def data_mesh(group=None, hosts: Optional[Sequence] = None) -> Mesh:
     """1-D mesh over every rank of ``group`` (default: all ranks) on the
-    'data' axis."""
-    return Mesh({DATA_AXIS: _world(group)}, group)
+    'data' axis; ``hosts`` declares each rank's host (see :class:`Mesh`)."""
+    return Mesh({DATA_AXIS: _world(group)}, group, hosts=hosts)
 
 
 def has_model_axis(mesh) -> bool:
@@ -163,7 +186,7 @@ def as_data_mesh(mesh):
         raise NotImplementedError(
             f"this operation composes with a 1-D '{DATA_AXIS}' mesh; "
             f"got axes {tuple(mesh.shape)}")
-    return Mesh({DATA_AXIS: mesh.size}, mesh.group)
+    return Mesh({DATA_AXIS: mesh.size}, mesh.group, hosts=mesh.hosts)
 
 
 #: the one-buffer gather: ``all_gather_single`` where torch has it (the
@@ -256,3 +279,61 @@ def any_rank(mesh: Mesh, flag: bool, device) -> bool:
 def barrier(mesh: Mesh, device) -> None:
     """Return once every rank of the mesh has reached it, on the host."""
     any_rank(mesh, False, device)
+
+
+def collective_device(mesh: Mesh) -> torch.device:
+    """Where this mesh's collectives take their tensors: the card under
+    NCCL, the host under gloo."""
+    if mesh.backend == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _host_label() -> int:
+    return zlib.crc32(socket.gethostname().encode())
+
+
+def mesh_spans_processes(mesh: Mesh) -> bool:
+    """True when the data ranks of ``mesh`` lie on more than one host:
+    the JAX package's multi-process regime, where each rank streams its
+    own local rows.  Ranks on one host act as the JAX package's one
+    process (they read one host dataset).  The hosts are the mesh's
+    declared ones, else gathered once (collective: every rank of the
+    mesh calls it at the same point) and kept on the mesh."""
+    if mesh.hosts is None:
+        got = all_gather(mesh, torch.tensor(
+            [_host_label()], dtype=torch.int64,
+            device=collective_device(mesh)))
+        mesh.hosts = tuple(int(v) for v in got[:, 0].cpu())
+    return len(set(mesh.hosts)) > 1
+
+
+def require_single_host(mesh: Mesh, what: str) -> None:
+    """Raise the JAX package's message when ``mesh`` spans hosts: the
+    streamed routes that read one host dataset (``what``: their name,
+    plural) run on the ranks of one host."""
+    if mesh_spans_processes(mesh):
+        raise NotImplementedError(
+            f"{what} build single-host; on a multi-host job run the "
+            "resident meshed path, or stream on a mesh of this process's "
+            "devices")
+
+
+def combine_topk(mesh: Mesh, vals: torch.Tensor, idx: torch.Tensor,
+                 dim: int) -> torch.Tensor:
+    """The compressed combine: every data rank's top-k segment (``vals``
+    f32 and ``idx``, both ``(k,)``, the indices unique) gathered in one
+    collective of ``2·k`` 32-bit entries a rank, then added into a dense
+    f32 ``(dim,)`` zero vector one rank at a time, in rank order, each
+    add a gather, an add and a store at the segment's indices.  The same
+    bits on every rank, on ``vals``' device."""
+    k = vals.numel()
+    seg = torch.cat([vals.to(torch.float32).reshape(-1).view(torch.int32),
+                     idx.to(torch.int32).reshape(-1)])
+    got = all_gather(mesh, seg).to(vals.device)
+    total = torch.zeros((int(dim),), dtype=torch.float32, device=vals.device)
+    for r in range(got.shape[0]):
+        v = got[r, :k].view(torch.float32)
+        i = got[r, k:].to(torch.int64)
+        total.index_put_((i,), total.index_select(0, i) + v)
+    return total
