@@ -115,6 +115,23 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    also under ``TrainingSupervisor``.  The updater's device step for
    i = 1 .. 10^6 must equal the host's rounding; each sampler's draw is
    timed.
+9b. replica — async replicated training (``tpu_sgd_torch.replica``) on
+   phase 4's matrix, right after phase 9: 8 replica workers as threads on
+   the card, each on a view of its row block, through ``ReplicaDriver``
+   at its default devices.  (a) τ=0 on the 1M-row prefix, Bernoulli and
+   sliced, 20 rounds: bitwise the one-process rank-order sum of the same
+   8 shards, launches exactly 8 x 20, 160 pushes accepted at staleness 0.
+   (b) τ=0 over all 10M rows: launches exact, the objective within 1.01x
+   of phase ``profile``'s single-device run, wall and device ms a round
+   and the host's share; then 200 rounds.  (c) τ=2 for 200 applied steps:
+   every accepted push within the bound (traced), one launch per push
+   attempt, the objective within 1.01x of (b)'s 200 rounds, steps/s and
+   the staleness histogram.  (d) the ``topk:0.01`` wire on the prefix at
+   τ=0 and τ=2 against the dense objective, wire bytes ~2·frac.  (e) a
+   standby bitwise the primary at every version, ``kill_primary()`` from
+   a timer and the sharded store at S = 4, each bitwise the fault-free
+   run.  (f) a stop at round 13 and its resume, bitwise.  B1 timed at a
+   worker's shard under 8 threads' concurrent launches.
 10. streamed — host-streamed SGD (``set_host_streaming``), right after
    phase 9: phase 4's matrix copied to the host once, into a memfd that
    phase 12's ranks map too (the phase fails, naming the shortfall, when
@@ -236,7 +253,9 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    kernel table.
 15. summary — the sparse line, the quasi_newton line, the gram line, the
    streamed line, the streamed_qn line, the mesh line, the serve line,
-   the corr line, the observed line, the kernel table (B1-B3, B1 at the
+   the corr line, the replica line, the observed line, the kernel table
+   (B1-B3, B1 at a replica worker's shard under concurrent launches, B1 at
+   the
    streamed chunk shape and its tail, the CSR kernel, B1, B2 and the CSR
    kernel at a mesh rank's shapes, B1 at a streamed rank's shares (a
    Bernoulli share, a window share, a CostFun chunk's share and an empty
@@ -960,7 +979,7 @@ def phase_profile(torch, tst, ck, X, y, iters=20):
         torch.cuda.synchronize()
         ck.reset_launch_counts()
         t = time.perf_counter()
-        alg.run((X, y))
+        model = alg.run((X, y))
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t) / iters
         wrapper = ("fused_gradient_sums" if mode == "bernoulli"
@@ -983,6 +1002,10 @@ def phase_profile(torch, tst, ck, X, y, iters=20):
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
         out[mode] = {"wall_ms_per_iteration": wall, "launches": launches,
+                     # the weights after ``iters`` iterations, for phase
+                     # replica (b)'s matched objective
+                     "objective": ls_objective_exact(torch, X, y,
+                                                     model.weights),
                      "traced_wall_ms_per_iteration": traced,
                      "device_ms_per_iteration": busy,
                      "idle_share": max(0.0, 1 - busy / wall),
@@ -2735,18 +2758,559 @@ def phase_observed(torch, tst, ck, X, y):
     return out
 
 
+# -- phase replica: async replicated training on phase full's matrix ---------
+
+REPLICA_WORKERS = 8
+REPLICA_PREFIX_ROWS = 1_000_000  # (a), (d)-(f): 8 shards of 125,000 rows
+REPLICA_ROUNDS = 20         # (a), (b), (e): phase profile's iterations
+REPLICA_TAU = 2             # (c), (d)
+REPLICA_STEPS = 200         # (c)'s applied steps, and (b)'s long τ=0 run
+REPLICA_TOPK = "topk:0.01"  # (d)
+# (d): the compressed wire's rounds and steps.  A τ=0 round adds 8
+# segments of k = 10 coordinates; a τ=2 step applies one, from one of 8
+# error-feedback accumulators, so a coordinate leaves a worker's
+# accumulator about once in 100 of its pushes and the τ=2 run needs
+# thousands of steps to meet the dense objective (the ratio each run
+# reads is in the phase's line)
+REPLICA_TOPK_ROUNDS = 500
+REPLICA_TOPK_STEPS = 4000
+REPLICA_STOP_ROUNDS, REPLICA_STOP_AT = 40, 13  # (f)
+REPLICA_OBJECTIVE_RATIO = 1.01
+# (e): the kill timer's delay as shares of the fault-free HA run's wall;
+# the next share is tried only when a kill landed after the run ended
+REPLICA_KILL_SHARES = (0.4, 0.25, 0.6)
+
+
+def _replica_driver(tst, mode, rounds, tau=0):
+    """Phase ``full``'s problem (least squares, step 0.5, frac 0.1) over
+    ``REPLICA_WORKERS`` replica workers at staleness ``tau``, on the
+    default devices (every visible card: here the one)."""
+    from tpu_sgd_torch.replica import ReplicaDriver
+
+    return (ReplicaDriver(tst.LeastSquaresGradient(), tst.SimpleUpdater())
+            .set_step_size(0.5).set_num_iterations(rounds)
+            .set_mini_batch_fraction(FRAC).set_convergence_tol(0.0)
+            .set_sampling(mode).set_workers(REPLICA_WORKERS)
+            .set_staleness(tau))
+
+
+def _replica_run(torch, ck, drv, X, y, rounds) -> dict:
+    """One driver run: weights, history, launches by wrapper and by source
+    (set to 0 just before and read just after), the store's snapshot, wall
+    ms a round."""
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    w, h = drv.optimize_with_history(
+        (X, y), torch.zeros(X.shape[1], device=X.device))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return {"w": w, "h": np.asarray(h), "launches": ck.launch_counts(),
+            "by_source": ck.kernel_launch_counts(),
+            "snap": drv.last_store_snapshot, "wall_s": wall,
+            "ms_per_round": 1e3 * wall / rounds}
+
+
+def _replica_launches(run, mode, n, what) -> None:
+    """Exactly ``n`` launches of the mode's wrapper, all in
+    ``window_sums.cu``, and none of another wrapper."""
+    wrapper = ("fused_gradient_sums" if mode == "bernoulli"
+               else "fused_window_sums")
+    want = {k: (n if k == wrapper else 0) for k in run["launches"]}
+    check(run["launches"] == want
+          and run["by_source"] == {"fused_sums": 0, "window_sums": n},
+          f"replica {what}: launches {run['launches']} {run['by_source']}, "
+          f"want {n} of {wrapper}")
+
+
+def _prefix_shards(X, y):
+    rows = REPLICA_PREFIX_ROWS // REPLICA_WORKERS
+    return [(X[s * rows:(s + 1) * rows], y[s * rows:(s + 1) * rows])
+            for s in range(REPLICA_WORKERS)]
+
+
+class _PushTrace:
+    """A trace sink that keeps the ``replica.push`` events' verdicts
+    (emitted from every worker thread)."""
+
+    def __init__(self):
+        self.pushes = []
+
+    def emit(self, kind, payload):
+        if kind == "trace_event" and payload.get("name") == "replica.push":
+            self.pushes.append((bool(payload.get("accepted")),
+                                int(payload.get("staleness", 0))))
+
+
+def replica_prefix(torch, tst, ck, X, y):
+    """(a): τ=0 on the 1M-row prefix, Bernoulli and sliced, bitwise the
+    one-process rank-order sum of the same 8 shards
+    (``rank_order_reference``, phase ``mesh`` (b)'s), with exact launches
+    and store counts.  Returns the report and the references."""
+    Xp, yp = X[:REPLICA_PREFIX_ROWS], y[:REPLICA_PREFIX_ROWS]
+    refs, out = {}, {}
+    for mode in ("bernoulli", "sliced"):
+        refs[mode] = rank_order_reference(torch, tst, _prefix_shards(X, y),
+                                          mode, iters=REPLICA_ROUNDS)
+        run = _replica_run(torch, ck, _replica_driver(tst, mode,
+                                                      REPLICA_ROUNDS),
+                           Xp, yp, REPLICA_ROUNDS)
+        same = (torch.equal(run["w"], refs[mode][0])
+                and np.array_equal(run["h"], refs[mode][1]))
+        check(same, f"replica (a) {mode}: not the rank-order sum")
+        _replica_launches(run, mode, REPLICA_WORKERS * REPLICA_ROUNDS,
+                          f"(a) {mode}")
+        snap = run["snap"]
+        check(snap["version"] == REPLICA_ROUNDS
+              and snap["pushes_accepted"] == REPLICA_WORKERS
+              * REPLICA_ROUNDS and snap["max_accepted_staleness"] == 0,
+              f"replica (a) {mode}: store {snap}")
+        out[mode] = {"bitwise_rank_order_sum": same,
+                     "launches": run["launches"],
+                     "pushes_accepted": snap["pushes_accepted"],
+                     "max_accepted_staleness":
+                         snap["max_accepted_staleness"],
+                     "ms_per_round": run["ms_per_round"]}
+    return out, refs
+
+
+def replica_full(torch, tst, ck, X, y, profile):
+    """(b): τ=0 over all 10M rows (8 x 1.25M, views of X), Bernoulli and
+    sliced: launches exact, the objective within 1.01x of phase
+    ``profile``'s single-device run at the same iterations, wall ms a
+    round, device ms a round (``torch.profiler``: the kernels of all 8
+    threads on the card) and the host's share; then the τ=0 Bernoulli run
+    of ``REPLICA_STEPS`` rounds that (c) is held to."""
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    out = {}
+    for mode in ("bernoulli", "sliced"):
+        drv = _replica_driver(tst, mode, REPLICA_ROUNDS)
+        run = _replica_run(torch, ck, drv, X, y, REPLICA_ROUNDS)
+        _replica_launches(run, mode, REPLICA_WORKERS * REPLICA_ROUNDS,
+                          f"(b) {mode}")
+        obj = ls_objective_exact(torch, X, y, run["w"])
+        ratio = obj / profile[mode]["objective"]
+        check(ratio <= REPLICA_OBJECTIVE_RATIO,
+              f"replica (b) {mode}: objective {ratio}x the single "
+              "device's")
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            traced = _replica_run(torch, ck, drv, X, y, REPLICA_ROUNDS)
+        kernels = {k: v / REPLICA_ROUNDS
+                   for k, v in device_ms_by_kernel(torch, prof).items()}
+        busy = sum(kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+        out[mode] = {
+            "launches": run["launches"], "objective": obj,
+            "single_device_objective": profile[mode]["objective"],
+            "objective_ratio": ratio,
+            "ms_per_round": run["ms_per_round"],
+            "traced_ms_per_round": traced["ms_per_round"],
+            "device_ms_per_round": busy if busy > 0 else None,
+            "host_share": (1 - busy / run["ms_per_round"]) if busy > 0
+            else None,
+            "single_device_ms_per_iteration":
+                profile[mode]["wall_ms_per_iteration"],
+            "top_device_ms": dict(top)}
+    long = _replica_run(torch, ck, _replica_driver(tst, "bernoulli",
+                                                   REPLICA_STEPS),
+                        X, y, REPLICA_STEPS)
+    _replica_launches(long, "bernoulli", REPLICA_WORKERS * REPLICA_STEPS,
+                      "(b) long")
+    out["long"] = {"rounds": REPLICA_STEPS,
+                   "objective": ls_objective_exact(torch, X, y, long["w"]),
+                   "ms_per_round": long["ms_per_round"]}
+    return out
+
+
+def replica_async(torch, tst, ck, X, y, tau0):
+    """(c): τ=2 over all rows, Bernoulli, ``REPLICA_STEPS`` applied steps,
+    traced: every accepted push within the bound, every rejected one
+    beyond it, one launch per push attempt (accepted, rejected, or answered
+    ``done``), the objective within 1.01x of (b)'s τ=0 run at the same
+    count; applied steps/s and the staleness histogram."""
+    from tpu_sgd_torch.obs import spans
+
+    sink = _PushTrace()
+    spans.enable_tracing(sink)
+    try:
+        run = _replica_run(torch, ck, _replica_driver(
+            tst, "bernoulli", REPLICA_STEPS, tau=REPLICA_TAU), X, y,
+            REPLICA_STEPS)
+    finally:
+        spans.disable_tracing()
+    snap = run["snap"]
+    accepted = [st for ok, st in sink.pushes if ok]
+    rejected = [st for ok, st in sink.pushes if not ok]
+    check(len(accepted) == snap["pushes_accepted"] == REPLICA_STEPS
+          and snap["version"] == REPLICA_STEPS,
+          f"replica (c): {len(accepted)} accepted pushes traced, {snap}")
+    check(max(accepted) <= REPLICA_TAU
+          and snap["max_accepted_staleness"] <= REPLICA_TAU
+          and all(st > REPLICA_TAU for st in rejected),
+          f"replica (c): staleness {sorted(set(accepted))} accepted, "
+          f"{sorted(set(rejected))} rejected")
+    attempts = (snap["pushes_accepted"] + snap["pushes_rejected"]
+                + snap["pushes_after_done"] + snap["pushes_fenced"]
+                + snap["pushes_poisoned"])
+    launched = run["launches"]["fused_gradient_sums"]
+    check(launched == attempts and run["by_source"]["window_sums"] == launched,
+          f"replica (c): {launched} launches for {attempts} push attempts "
+          f"({snap})")
+    obj = ls_objective_exact(torch, X, y, run["w"])
+    ratio = obj / tau0["objective"]
+    check(ratio <= REPLICA_OBJECTIVE_RATIO,
+          f"replica (c): objective {ratio}x the τ=0 run's")
+    hist = {}
+    for st in accepted:
+        hist[st] = hist.get(st, 0) + 1
+    return {"tau": REPLICA_TAU, "applied_steps": REPLICA_STEPS,
+            "applied_steps_per_s": REPLICA_STEPS / run["wall_s"],
+            "launches": launched, "push_attempts": attempts,
+            "pushes_rejected": snap["pushes_rejected"],
+            "pushes_after_done": snap["pushes_after_done"],
+            "accepted_staleness_histogram": {str(k): v for k, v in
+                                             sorted(hist.items())},
+            "objective": obj, "tau0_objective": tau0["objective"],
+            "objective_ratio": ratio}
+
+
+def replica_compressed(torch, tst, ck, X, y):
+    """(d): the top-k wire (``REPLICA_TOPK``) on the prefix at τ=0
+    (``REPLICA_TOPK_ROUNDS`` rounds) and τ=2 (``REPLICA_TOPK_STEPS``
+    applied steps), each at most 1.01x the objective of the synchronous
+    dense run on the prefix at ``REPLICA_TOPK_ROUNDS`` iterations (the JAX
+    package's matched-objective rule; the single-device run, whose
+    batches are the τ=0 round's 8 x 10% of 125,000 rows in size); the
+    wire's physical bytes 2k/d of its logical bytes (about 2·frac), by
+    ``record_wire``."""
+    from tpu_sgd_torch.io.sparse_wire import parse_wire_compress, topk_nnz
+    from tpu_sgd_torch.obs import counters, spans
+
+    frac = parse_wire_compress(REPLICA_TOPK)
+    Xp, yp = X[:REPLICA_PREFIX_ROWS], y[:REPLICA_PREFIX_ROWS]
+    alg = tst.LinearRegressionWithSGD(0.5, REPLICA_TOPK_ROUNDS, None, FRAC)
+    alg.optimizer.set_convergence_tol(0.0)
+    ref = ls_objective_exact(torch, Xp, yp, alg.run((Xp, yp)).weights)
+    out = {"dense_iterations": REPLICA_TOPK_ROUNDS, "dense_objective": ref}
+    for tau, n in ((0, REPLICA_TOPK_ROUNDS), (REPLICA_TAU,
+                                             REPLICA_TOPK_STEPS)):
+        drv = _replica_driver(tst, "bernoulli", n, tau=tau) \
+            .set_wire_compress(REPLICA_TOPK)
+        spans.enable_tracing(_PushTrace())
+        counters.enable()
+        counters.reset()
+        try:
+            run = _replica_run(torch, ck, drv, Xp, yp, n)
+            wire = counters.wire_ratios(counters.snapshot())
+        finally:
+            counters.disable()
+            spans.disable_tracing()
+        topk = wire.get("replica.wire.topk")
+        check(topk is not None, f"replica (d) τ={tau}: no topk wire {wire}")
+        # each push ships k int32 indices and k f32 values for d f32
+        share = topk["physical_bytes"] / topk["logical_bytes"]
+        want = 2 * topk_nnz(X.shape[1], frac) / X.shape[1]
+        check(share == want, f"replica (d) τ={tau}: wire share {share}, "
+              f"want {want} (2·frac = {2 * frac})")
+        obj = ls_objective_exact(torch, Xp, yp, run["w"])
+        check(obj <= REPLICA_OBJECTIVE_RATIO * ref,
+              f"replica (d) τ={tau}: objective {obj / ref}x the dense "
+              "run's")
+        out[f"tau{tau}"] = {
+            "applied": n, "objective": obj, "objective_ratio": obj / ref,
+            "wire_physical_over_logical": share,
+            "pushes": topk["n"],
+            "ms_per_applied": run["ms_per_round"],
+            "max_accepted_staleness":
+                run["snap"]["max_accepted_staleness"]}
+    return out
+
+
+def replica_ha(torch, tst, ck, X, y, refs):
+    """(e) on the prefix at τ=0, Bernoulli, each against (a)'s rank-order
+    reference: a primary and a standby built directly (listeners on
+    both), the standby bitwise the primary at every version; through the
+    driver with ``set_standbys(1)``, fault-free and with
+    ``kill_primary()`` fired mid-run from a ``threading.Timer``, both
+    bitwise; the sharded store at S = 4, bitwise (so S = 1)."""
+    import threading
+
+    from tpu_sgd_torch.replica import (ParameterStore, ReplicaWorker,
+                                       StoreSupervisor)
+    from tpu_sgd_torch.utils.events import CollectingListener
+
+    Xp, yp = X[:REPLICA_PREFIX_ROWS], y[:REPLICA_PREFIX_ROWS]
+    w_ref, h_ref = refs["bernoulli"]
+
+    def same(run):
+        return (torch.equal(run["w"], w_ref)
+                and np.array_equal(run["h"], h_ref))
+
+    cfg = tst.SGDConfig(step_size=0.5, num_iterations=REPLICA_ROUNDS,
+                        mini_batch_fraction=FRAC, convergence_tol=0.0)
+    lis = [CollectingListener(), CollectingListener()]
+    registry = {}
+    stores = [ParameterStore(tst.SimpleUpdater(), cfg,
+                             torch.zeros(X.shape[1], device=X.device),
+                             listener=lis[k], ef_registry=registry,
+                             name=f"s{k}")
+              for k in range(2)]
+    sup = StoreSupervisor(stores)
+    client = sup.client()
+    workers = [ReplicaWorker(f"w{s}", s, client, tst.LeastSquaresGradient(),
+                             cfg, Xs, ys)
+               for s, (Xs, ys) in enumerate(_prefix_shards(X, y))]
+    for s in range(REPLICA_WORKERS):
+        client.register_worker(f"w{s}", s)
+    threads = [threading.Thread(target=w.run) for w in workers]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    check(not any(t.is_alive() for t in threads), "replica (e): a hung "
+          "worker")
+    sup.stop()
+    events = [[(e.iteration, e.loss, e.weight_delta_norm)
+               for e in li.iterations] for li in lis]
+    standby_same = (events[0] == events[1]
+                    and len(events[0]) == REPLICA_ROUNDS
+                    and torch.equal(stores[0].weights, stores[1].weights)
+                    and torch.equal(stores[0].weights, w_ref))
+    check(standby_same, "replica (e): the standby is not the primary at "
+          "every version")
+    out = {"standby_bitwise_every_version": standby_same}
+
+    free = _replica_run(torch, ck, _replica_driver(
+        tst, "bernoulli", REPLICA_ROUNDS).set_standbys(1), Xp, yp,
+        REPLICA_ROUNDS)
+    check(same(free), "replica (e): the fault-free HA run is not the "
+          "single store's")
+    out["fault_free_bitwise"] = True
+    out["fault_free_ms_per_round"] = free["ms_per_round"]
+    kill = None
+    for share in REPLICA_KILL_SHARES:
+        drv = _replica_driver(tst, "bernoulli", REPLICA_ROUNDS) \
+            .set_standbys(1)
+        timer = threading.Timer(share * free["wall_s"], drv.kill_primary)
+        timer.start()
+        try:
+            run = _replica_run(torch, ck, drv, Xp, yp, REPLICA_ROUNDS)
+        finally:
+            timer.cancel()
+        fo = drv.last_failover_snapshot
+        if fo["failovers"]:
+            kill = (share, run, fo)
+            break
+    check(kill is not None, "replica (e): no timer landed inside the run")
+    share, run, fo = kill
+    rec = fo["records"][0]
+    check(fo["failovers"] == 1 and not rec["cold_recovery"]
+          and same(run), f"replica (e): the killed run {fo} is not the "
+          "fault-free run")
+    out["kill_primary"] = {"bitwise": True, "timer_share": share,
+                           "old_version": rec["old_version"],
+                           "gap_replayed": rec["gap_replayed"],
+                           "epoch": run["snap"]["epoch"]}
+    sharded = _replica_run(torch, ck, _replica_driver(
+        tst, "bernoulli", REPLICA_ROUNDS).set_store_shards(4), Xp, yp,
+        REPLICA_ROUNDS)
+    check(same(sharded) and sharded["snap"]["store_shards"] == 4,
+          "replica (e): the sharded store at S = 4 is not S = 1")
+    _replica_launches(sharded, "bernoulli",
+                      REPLICA_WORKERS * REPLICA_ROUNDS, "(e) sharded")
+    out["sharded_s4_bitwise_s1"] = True
+    return out
+
+
+def replica_supervised(torch, tst, ck, X, y):
+    """(f): a stop requested by the event of round ``REPLICA_STOP_AT``
+    through ``TrainingSupervisor``, then the resume from its checkpoint,
+    bitwise the uninterrupted run of ``REPLICA_STOP_ROUNDS`` rounds."""
+    from tpu_sgd_torch.reliability import TrainingSupervisor
+    from tpu_sgd_torch.utils.checkpoint import CheckpointManager
+
+    Xp, yp = X[:REPLICA_PREFIX_ROWS], y[:REPLICA_PREFIX_ROWS]
+    whole = _replica_run(torch, ck, _replica_driver(
+        tst, "bernoulli", REPLICA_STOP_ROUNDS), Xp, yp, REPLICA_STOP_ROUNDS)
+    w0 = torch.zeros(X.shape[1], device=X.device)
+    with tempfile.TemporaryDirectory() as tmp:
+        drv = _replica_driver(tst, "bernoulli", REPLICA_STOP_ROUNDS)
+        sup = TrainingSupervisor(drv, checkpoint_manager=CheckpointManager(
+            tmp), checkpoint_every=5, install_signal_handlers=False)
+        drv.set_listener(_stop_listener(at=REPLICA_STOP_AT,
+                                        on_stop=sup.request_preempt))
+        first = sup.run((Xp, yp), w0)
+        drv.set_listener(None)
+        saved = CheckpointManager(tmp).latest_version()
+        second = sup.run((Xp, yp), w0)
+    stopped = first.preempted_at
+    same = (second.completed
+            and torch.equal(second.weights, whole["w"])
+            and np.array_equal(second.loss_history, whole["h"]))
+    check(first.status == "preempted" and stopped is not None
+          and REPLICA_STOP_AT <= stopped < REPLICA_STOP_ROUNDS
+          and saved == stopped and same,
+          f"replica (f): stopped at {stopped} ({first.status}), saved "
+          f"{saved}, resume bitwise {same}")
+    return {"rounds": REPLICA_STOP_ROUNDS, "stop_requested_at":
+            REPLICA_STOP_AT, "stopped_at": stopped,
+            "resume_bitwise": same}
+
+
+def replica_b1_row(torch, ck, tst, X, y, reps=50):
+    """B1 at a worker's shard (1.25M rows of X, a 10% mask) launched by
+    ``REPLICA_WORKERS`` threads at once, each on its own shard, as the
+    replica workers launch it.  ``ms`` is the card's busy time a launch
+    (``torch.profiler``'s device time of every kernel in one such turn,
+    over its launches): the kernel's own time.  ``concurrent_wall_ms`` is
+    the CUDA events' time around all the threads' launches, a launch,
+    which also holds the gaps where the threads do not keep the card fed.
+    Beside them the same launches from one thread, the plain version, the
+    library yardstick (``index_select`` of the live rows and two matmuls)
+    and the bound."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    pw = tst.LeastSquaresGradient().pointwise
+    n, d = X.shape
+    rows = n // REPLICA_WORKERS
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    w = torch.randn(d, generator=gen, device="cuda") / math.sqrt(d)
+    shards = [(X[s * rows:(s + 1) * rows], y[s * rows:(s + 1) * rows],
+               torch.rand(rows, generator=gen, device="cuda") < FRAC)
+              for s in range(REPLICA_WORKERS)]
+    worst, scale = 0.0, 0.0
+    for Xs, ys, m in shards:
+        ok, err, sc = _close(torch, ck.fused_gradient_sums(pw, Xs, ys, w, m),
+                             ck.fused_gradient_sums_plain(pw, Xs, ys, w, m),
+                             True)
+        check(ok, f"replica B1 shard: max|dg|={err} of {sc}")
+        worst, scale = max(worst, err), max(scale, sc)
+
+    def concurrent():
+        barrier = threading.Barrier(REPLICA_WORKERS + 1)
+
+        def launch(Xs, ys, m):
+            barrier.wait()
+            for _ in range(reps):
+                ck.fused_gradient_sums(pw, Xs, ys, w, m)
+
+        threads = [threading.Thread(target=launch, args=sh)
+                   for sh in shards]
+        for t in threads:
+            t.start()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        barrier.wait()
+        for t in threads:
+            t.join(timeout=120)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (reps * REPLICA_WORKERS)
+
+    def serial():
+        for Xs, ys, m in shards:
+            ck.fused_gradient_sums(pw, Xs, ys, w, m)
+
+    concurrent()  # warm: each thread's first call
+    turns = [concurrent(), concurrent()]
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        concurrent()
+    busy = (sum(device_ms_by_kernel(torch, prof).values())
+            / (reps * REPLICA_WORKERS))
+    check(busy > 0, "replica B1 row: the trace holds no device time")
+    Xs, ys, m = shards[0]
+    sel = int(m.sum())
+    idx = torch.nonzero(m).squeeze(1)
+    wb = w.to(X.dtype)
+    coeff = torch.randn(sel, device="cuda").to(X.dtype)
+
+    def library():
+        Xl = Xs.index_select(0, idx)
+        return Xl @ wb, coeff @ Xl
+
+    bound, by = _bound_ms(sel, d, X.element_size(), rows)
+    return {"name": "fused_gradient_sums",
+            "path": f"replica (a worker's {rows:,}-row shard, 10% mask, "
+                    f"{REPLICA_WORKERS} threads launching at once)",
+            "source": WINDOW_SOURCE,
+            "route": ck.gradient_sums_route(Xs, True), "shape": [rows, d],
+            "selected_rows": sel, "max_abs_err": worst, "grad_scale": scale,
+            "ms": busy, "ms_from": "torch.profiler device time a launch",
+            "concurrent_wall_ms": sum(turns) / len(turns),
+            "concurrent_wall_turns_ms": turns,
+            "one_thread_ms": time_ms(torch, serial, reps) / REPLICA_WORKERS,
+            "plain_ms": time_ms(torch, lambda: ck.fused_gradient_sums_plain(
+                pw, Xs, ys, w, m), 2),
+            "library_ms": time_ms(torch, library, reps),
+            "library_includes": ("index_select of the live rows, then two "
+                                 "matmuls over them"),
+            "bound_ms": bound, "bound_by": by, "share_of_bound": bound / busy}
+
+
+def phase_replica(torch, tst, ck, X, y, profile):
+    """Phase ``replica``: async replicated training (``tpu_sgd_torch.
+    replica``) at config 4's width on phase ``full``'s resident 10M x 1000
+    bf16 matrix (no copy: each worker's rows are a view of X), 8 workers
+    as threads on the one card, each launching B1 (Bernoulli) or B2
+    (sliced) once a push: (a) ``replica_prefix``, (b) ``replica_full``,
+    (c) ``replica_async``, (d) ``replica_compressed``, (e) ``replica_ha``,
+    (f) ``replica_supervised``; then B1 timed under 8 threads' concurrent
+    launches (``replica_b1_row``).  Returns the report and that row, its
+    launches those of (b)'s Bernoulli run."""
+    t0 = time.perf_counter()
+    out = {"workers": REPLICA_WORKERS, "rows": X.shape[0],
+           "prefix_rows": REPLICA_PREFIX_ROWS}
+    parts = {}
+    t = time.perf_counter()
+    out["a_prefix"], refs = replica_prefix(torch, tst, ck, X, y)
+    parts["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["b_full"] = replica_full(torch, tst, ck, X, y, profile)
+    parts["b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["c_async"] = replica_async(torch, tst, ck, X, y,
+                                   out["b_full"]["long"])
+    parts["c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["d_compressed"] = replica_compressed(torch, tst, ck, X, y)
+    parts["d"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["e_ha"] = replica_ha(torch, tst, ck, X, y, refs)
+    parts["e"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["f_supervised"] = replica_supervised(torch, tst, ck, X, y)
+    parts["f"] = time.perf_counter() - t
+    row = replica_b1_row(torch, ck, tst, X, y)
+    row["launches"] = out["b_full"]["bernoulli"]["launches"][
+        "fused_gradient_sums"]
+    row["launches_from"] = "phase replica (b), Bernoulli"
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "replica", **out, "b1_row": row})
+    return out, row
+
+
 # -- phase 10: host-streamed SGD ---------------------------------------------
 
 #: rows of the prefix that the bitwise contracts of leg (c) run on
 STREAM_PREFIX_ROWS = 1_000_000
 STREAM_ITERS = 20
+# leg (b)'s timing runs, a mode each: cut in depth for the script's time
+STREAM_SAMPLED_ITERS = 10
 STREAMED_QN_ITERS = 5       # leg (a) of phase streamed_qn
 # leg (b): OWL-QN over the first 2M host rows, cut in depth for time
 STREAMED_OWLQN_ROWS, STREAMED_OWLQN_ITERS = 2_000_000, 3
 # leg (d): the resumed builds over the first 1M rows in 8-block chunks
 RESUME_ROWS, RESUME_BATCH_ROWS = 1_000_000, 8 * 8192
 STREAM_STOP_AT = 13
-SPARSE_STREAM_ITERS = 60
+SPARSE_STREAM_ITERS = 30    # cut from 60 in depth for the script's time
 #: host bytes kept free beside the host copy of X and the staging ring
 HOST_SLACK_BYTES = 8 << 30
 
@@ -2931,18 +3495,20 @@ def streamed_full_batch(torch, tst, ck, Xh, yh, X, y):
 
 
 def streamed_sampled(torch, tst, ck, Xh, yh):
-    """Leg (b): Bernoulli, indexed and sliced at frac 0.1, 20 iterations
-    each at the full rows, then a 5-iteration traced run of each."""
+    """Leg (b): Bernoulli, indexed and sliced at frac 0.1,
+    ``STREAM_SAMPLED_ITERS`` iterations each at the full rows, then a
+    5-iteration traced run of each."""
     w0 = torch.zeros(Xh.shape[1], device="cuda")
     out = {}
     for mode in ("bernoulli", "indexed", "sliced"):
         r = _streamed_run(torch, ck, _stream_opt(tst, mode, FRAC,
-                                                 STREAM_ITERS),
-                          Xh, yh, w0, STREAM_ITERS, profile_iters=5)
+                                                 STREAM_SAMPLED_ITERS),
+                          Xh, yh, w0, STREAM_SAMPLED_ITERS, profile_iters=5)
         h = r["history"]
-        check(len(h) == STREAM_ITERS and bool(np.all(np.isfinite(h)))
-              and h[-1] < h[0], f"(b) {mode}: history {h}")
-        check(r["launches"]["fused_gradient_sums"] == STREAM_ITERS,
+        check(len(h) == STREAM_SAMPLED_ITERS
+              and bool(np.all(np.isfinite(h))) and h[-1] < h[0],
+              f"(b) {mode}: history {h}")
+        check(r["launches"]["fused_gradient_sums"] == STREAM_SAMPLED_ITERS,
               f"(b) {mode}: B1 launches {r['launches']}")
         out[mode] = _report(r) | _rss_bytes() | {
             "loss_first": float(h[0]), "loss_last": float(h[-1])}
@@ -3813,7 +4379,7 @@ def captured_call(torch, ck, fn):
 def phase_streamed_sparse(torch, tst, ck, X, y):
     """Phase ``streamed``, sparse rows: the RCV1-scale CSR of phase
     ``sparse`` held as host CSR arrays, Bernoulli at frac 0.1 and full
-    batch, 60 iterations (hinge + L1).  Returns the report and the
+    batch, ``SPARSE_STREAM_ITERS`` iterations (hinge + L1).  Returns the report and the
     Bernoulli run's first staged batch on the card (for ``csr_rows``)."""
     t = time.perf_counter()
     Xh = X.cpu()
@@ -5004,7 +5570,8 @@ def mesh_resident_checks(torch, tst, ck, X, y, blocks, reports, arrays,
 # -- phase mesh, parts (j)-(m): host-streamed training on a mesh -------------
 
 MESH_STREAM_PREFIX = 1_000_000  # host rows of the bitwise contracts
-MESH_STREAM_ITERS = 10          # a timing run, a bitwise run
+MESH_STREAM_ITERS = 10          # a bitwise run
+MESH_STREAM_TIMING_ITERS = 5    # (j)'s timing runs, cut in depth for time
 MESH_STREAM_STOP_ITERS = 20     # the stop-and-resume runs (stop at 13)
 MESH_TOPK = "topk:0.01"
 # full batch on the prefix: error feedback at 1% of the coordinates meets
@@ -5190,12 +5757,13 @@ def mesh_rank_streamed(torch, tst, ck, par, mesh, out_dir):
     start = _part_start(torch)
     j = {"timing": {}, "prefix": {}}
     for mode in ("bernoulli", "sliced"):
-        opt = _stream_mesh_opt(tst, mesh, mode, FRAC, MESH_STREAM_ITERS)
+        opt = _stream_mesh_opt(tst, mesh, mode, FRAC,
+                               MESH_STREAM_TIMING_ITERS)
         ck.reset_launch_counts()
         (w, h), secs = _timed(torch, lambda: opt.optimize_with_history(
             (Xh, ys["y"]), w0))
         j["timing"][mode] = {
-            "ms_per_iteration": 1e3 * secs / MESH_STREAM_ITERS,
+            "ms_per_iteration": 1e3 * secs / MESH_STREAM_TIMING_ITERS,
             "launches": ck.launch_counts(),
             "routes": ck.gradient_route_counts(),
             "loss_first": float(h[0]), "loss_last": float(h[-1])}
@@ -5488,7 +6056,8 @@ def mesh_streamed_checks(torch, tst, ck, Xh, yh, yh_ls, reports, arrays,
                   f"mesh ({part}) rank {rep['rank']}: resident host memory "
                   f"grew by {grew} bytes")
         for mode, t in s["j"]["timing"].items():
-            check(t["launches"]["fused_gradient_sums"] == MESH_STREAM_ITERS
+            check(t["launches"]["fused_gradient_sums"]
+                  == MESH_STREAM_TIMING_ITERS
                   and t["routes"]["fused_sums"] == 0,
                   f"mesh (j) rank {rep['rank']} {mode}: {t['launches']} "
                   f"{t['routes']}")
@@ -6722,6 +7291,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     observed = phase_observed(torch, tst, ck, X, y)
     torch.cuda.empty_cache()
+    replica, replica_row = phase_replica(torch, tst, ck, X, y, profile)
+    rows.append(replica_row)
+    torch.cuda.empty_cache()
     streamed, Xh, yh, fd = phase_streamed_dense(torch, tst, ck, X, y)
     emit({"phase": "streamed", "dense": streamed})
     streamed_qn, b1_chunk, qn_refs = phase_streamed_qn(
@@ -6831,6 +7403,19 @@ def main() -> int:
             k: v for k, v in mesh["streamed"].items() if k != "by_rank"}}})
     emit({"serve": serve})
     emit({"corr": corr})
+    emit({"replica": {
+        "a_prefix": replica["a_prefix"],
+        "b_full": {m: {k: r[k] for k in (
+            "objective_ratio", "ms_per_round", "device_ms_per_round",
+            "host_share", "single_device_ms_per_iteration")}
+            for m, r in replica["b_full"].items() if m != "long"},
+        "c_async": {k: replica["c_async"][k] for k in (
+            "applied_steps_per_s", "accepted_staleness_histogram",
+            "launches", "push_attempts", "objective_ratio")},
+        "d_compressed": replica["d_compressed"],
+        "e_ha": replica["e_ha"], "f_supervised": replica["f_supervised"],
+        "part_seconds": replica["part_seconds"],
+        "seconds": replica["seconds"]}})
     emit({"observed": {
         "rows": {row: {"bitwise_equal": r["bitwise_equal"],
                        "capture_ms": r["capture_ms"],

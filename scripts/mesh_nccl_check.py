@@ -35,6 +35,15 @@ the replayed run's wall and device ms an iteration and one NCCL combine's
 ms.  Prints one JSON line per rank and a summary line;
 exits non-zero when a check fails or a rank fails or hangs (a rank dumps
 its stacks to its log first).
+
+Not checked here yet, each to run on a host with several cards (ROADMAP
+A, item 1): the 2-D ``(data, model)`` mesh and meshed L-BFGS over NCCL;
+the streamed CostFun and statistics on the mesh; replica workers across
+cards (``tpu_sgd_torch.replica.ReplicaDriver`` with one card a worker:
+each worker's payload hops to the store's card, the pulled weights to
+the worker's, and a τ=0 run must stay bitwise the one-card run); and
+``set_resident_rounds(k)`` with one card a worker, which raises until
+then.
 """
 
 from __future__ import annotations

@@ -333,3 +333,113 @@ def test_cpu_serving_launches_no_kernel(tmp_path):
                                   "fused_window_sums_vpu": 0}
     assert ck.csr_launch_counts() == {"csr_margins": 0, "csr_grad_sum": 0}
     assert ck.kernel_launch_counts() == {"fused_sums": 0, "window_sums": 0}
+
+
+# -- the replicas (ROADMAP A11's replica part) ------------------------------------
+
+_REPLICA_MODULES = (
+    "tpu_sgd_torch.replica", "tpu_sgd_torch.replica.staleness",
+    "tpu_sgd_torch.replica.membership", "tpu_sgd_torch.replica.store",
+    "tpu_sgd_torch.replica.worker", "tpu_sgd_torch.replica.ha",
+    "tpu_sgd_torch.replica.shard", "tpu_sgd_torch.replica.driver",
+    "tpu_sgd_torch.obs", "tpu_sgd_torch.obs.flightrec",
+)
+
+
+def test_replica_imports_pull_in_no_jax_and_build_nothing():
+    """A fresh process imports the replica package and the flight
+    recorder: no JAX, no JAX package, no compiler, no library, no
+    thread."""
+    out = _python(
+        "import subprocess, sys, threading\n"
+        "def refuse(*a, **k): raise AssertionError('started %r' % (a,))\n"
+        "subprocess.Popen = refuse\n"
+        f"import importlib\nfor m in {_REPLICA_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from tpu_sgd_torch.ops import _build\n"
+        "bad = sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
+        "print(bad, len(_build._loaded), threading.active_count())")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] 0 1"
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    """Every module of ``tpu_sgd_torch``, read as source: no import of
+    ``jax``, ``jaxlib`` or ``tpu_sgd``, at any depth of the file."""
+    import ast
+
+    bad = []
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "tpu_sgd_torch")):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    roots = [a.name.split(".")[0] for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    roots = [(node.module or "").split(".")[0]]
+                else:
+                    continue
+                bad += [(os.path.relpath(path, ROOT), r) for r in roots
+                        if r in ("jax", "jaxlib", "tpu_sgd")]
+    assert bad == []
+
+
+def test_every_declared_site_is_called_in_its_module():
+    """Each hook site of ``failpoints.HOOK_SITES`` has its
+    ``failpoint("<name>")`` call, and each of ``CORRUPT_SITES`` its
+    ``corruptpoint("<name>"`` call, in the module the registry names; the
+    replica sites are the JAX package's."""
+    from tpu_sgd.reliability.failpoints import HOOK_SITES as JAX_SITES
+    from tpu_sgd_torch.reliability import failpoints as fp
+
+    for table, call in ((fp.HOOK_SITES, "failpoint"),
+                        (fp.CORRUPT_SITES, "corruptpoint")):
+        for site, path in table.items():
+            assert path.startswith("tpu_sgd_torch/"), (site, path)
+            with open(os.path.join(ROOT, path)) as f:
+                assert f'{call}("{site}"' in f.read(), (site, path)
+    replica = {s for s in JAX_SITES if s.startswith("replica.")}
+    assert replica == {s for s in {**fp.HOOK_SITES, **fp.CORRUPT_SITES}
+                       if s.startswith("replica.")}
+    for site in replica:
+        port = {**fp.HOOK_SITES, **fp.CORRUPT_SITES}[site]
+        assert port == JAX_SITES[site].replace("tpu_sgd/", "tpu_sgd_torch/")
+
+
+def test_the_lock_rules_are_clean_on_the_replica_modules():
+    """The JAX package's lexical, framework-free lock rules
+    (lock-discipline, lock-order, cond-discipline, failpoint-coverage)
+    over the replica package and the flight recorder."""
+    env = dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "tpu_sgd.analysis.lint", "--disable",
+         "shape-trap,donation-safety,eager-in-loop,host-sync,"
+         "callback-discipline,carry-stability,memo-key,obs-discipline,"
+         "contract-drift", "tpu_sgd_torch/replica",
+         "tpu_sgd_torch/obs/flightrec.py"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    said = out.stdout + out.stderr  # the summary goes to stderr
+    assert out.returncode == 0, said
+    assert "clean" in said and "9 file(s), 4 rule(s)" in said, said
+
+
+def test_replica_driver_runs_on_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the rule is for hosts "
+                    "without one")
+    from tpu_sgd_torch.replica import ParameterStore, ReplicaDriver
+
+    X = np.ones((8, 3), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicaDriver().optimize_with_history((X, X[:, 0]), np.zeros(3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParameterStore(tst.SimpleUpdater(), tst.SGDConfig(), np.zeros(3))
+    assert ReplicaDriver(device="cpu").resolved_devices() == [
+        torch.device("cpu")]
+    assert ReplicaDriver().set_devices(["cpu"]).resolved_devices() == [
+        torch.device("cpu")]

@@ -127,6 +127,17 @@ class ErrorFeedback:
                         physical_nbytes=int(vals.nbytes + idx.nbytes))
         return idx, vals
 
+    def restore_segment(self, idx: np.ndarray, vals: np.ndarray) -> None:
+        """Fold an extracted-but-NOT-delivered segment back into the
+        accumulator — the rejected-push path of the bounded-staleness
+        wire (``tpu_sgd_torch/replica``): a stale push is discarded whole,
+        and discarding must return the selected mass to the accumulator or
+        the rejection silently drops gradient.  Scatter-ADD, not set:
+        later updates may have deposited new mass on the same coordinates
+        since the extraction."""
+        np.add.at(self.acc, np.asarray(idx, np.int64),
+                  np.asarray(vals, self.acc.dtype))
+
     def residual(self) -> np.ndarray:
         """Copy of the still-unsent mass."""
         return self.acc.copy()

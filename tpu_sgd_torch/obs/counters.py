@@ -91,20 +91,26 @@ def inc(name: str, n: int = 1, nbytes: int = 0) -> None:
     _GLOBAL.inc(name, n, nbytes)
 
 
-def record_wire(fmt: str, logical_nbytes: int, physical_nbytes: int) -> None:
+def record_wire(fmt: str, logical_nbytes: int, physical_nbytes: int,
+                tag: Optional[str] = None) -> None:
     """Tag one wire transfer by FORMAT (``dense-f32`` / ``bf16`` / ``csr``
     / ``topk``): ``physical`` is what actually crosses the link, ``logical``
     the dense-f32-equivalent payload it represents.  Counter names:
     ``<subsystem>.wire.<fmt>`` carries the physical bytes,
     ``<subsystem>.wire.<fmt>.logical`` the logical bytes, both with one
     ``n`` per transfer (``<subsystem>`` is the calling thread's span tag,
-    ``obs.spans.current_subsystem``).  Same disabled-mode cost contract as
+    ``obs.spans.current_subsystem``).  ``tag`` fans the format out per
+    instance with the span fan-outs' bracket syntax
+    (``<subsystem>.wire.<fmt>[<tag>]``: the sharded store's per-shard
+    wires tag ``s0..s{S-1}``).  Same disabled-mode cost contract as
     :func:`inc`."""
     if not _ENABLED:
         return
     from tpu_sgd_torch.obs.spans import current_subsystem
 
     base = f"{current_subsystem()}.wire.{fmt}"
+    if tag is not None:
+        base = f"{base}[{tag}]"
     _GLOBAL.inc(base, nbytes=int(physical_nbytes))
     _GLOBAL.inc(base + ".logical", nbytes=int(logical_nbytes))
 

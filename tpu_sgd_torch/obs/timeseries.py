@@ -84,15 +84,20 @@ GRAFTLINT_LOCKS = {
     },
 }
 
-#: span names fanned out into per-actor sub-series by an attribute
-#: (the JAX package fans its replica workers' ``replica.step`` spans
-#: here; the replicas are not ported, ROADMAP A11)
-SPAN_FANOUT: Dict[str, str] = {}
+#: span names fanned out into per-actor sub-series by an attribute:
+#: ``replica.step`` spans carry ``worker=``, so each replica worker gets
+#: its own ``replica.step[w0]`` series, the per-worker progress signal
+SPAN_FANOUT: Dict[str, str] = {
+    "replica.step": "worker",
+}
 
 #: instant-event value extraction: ``{event name: ((attr, only_if),
 #: ...)}`` — the named attr becomes the ``<event>.<attr>`` value
 #: series, gated on a truthy ``only_if`` attr when given.
 EVENT_VALUES: Dict[str, tuple] = {
+    # an accepted push's staleness is the store's live version gap
+    # (rejected pushes are left out: their gap was refused, not served)
+    "replica.push": (("staleness", "accepted"),),
     # each tenant touched by a predict batch reports how stale its slab
     # row is — the per-tenant freshness feed (tenant.predict.
     # staleness_s value series; tenant/engine.py emits it)
@@ -104,6 +109,17 @@ EVENT_VALUES: Dict[str, tuple] = {
 #: carrying a truthy ``error`` attr lands in the ``<name>.error[actor]``
 #: twin instead.
 EVENT_FANOUT: Dict[str, str] = {
+    # replica membership transitions (replica/membership.py), fanned by
+    # worker: ``replica.join[w0]`` / ``replica.rejoin[w0]`` /
+    # ``replica.leave[w0]`` (a death-leave lands in the ``.error`` twin)
+    "replica.join": "worker",
+    "replica.rejoin": "worker",
+    "replica.leave": "worker",
+    # a store failover, fanned by the promoted store
+    "replica.failover": "new_primary",
+    # the sharded store (replica/shard.py): one event per touched shard
+    # per push, ``replica.shard.push[s0]``
+    "replica.shard.push": "shard",
     # the tenant slab's residency transitions (tenant/store.py),
     # fanned by tenant id: ``tenant.admit[7]`` / ``tenant.evict[7]`` /
     # ``tenant.swap[7]`` count series are the per-tenant surface, and

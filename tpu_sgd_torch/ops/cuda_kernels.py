@@ -53,6 +53,11 @@ it, and :func:`add_replayed_launches` adds it on each replay, so the
 counts stay one per kernel the card runs.  Nothing a wrapper does needs
 the host during a capture: starts stay device tensors, and a capture
 gets its own window scratch.
+
+Threads may launch at once (the replica workers do): every count changes
+under one lock (:func:`count_launch`), and a window call holds it from
+taking the stream's shared scratch until both of its kernels are queued,
+since the C entry queues them with the interpreter lock released.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -78,6 +84,12 @@ from tpu_sgd_torch.ops.gradients import (
 from tpu_sgd_torch.ops.sparse import is_sparse
 
 Tensor = torch.Tensor
+
+#: guards every launch count and the window scratch cache: a ``+=`` on a
+#: dict entry or an attribute is a read-modify-write that loses updates
+#: when threads launch at once.  Re-entrant, so a window call can hold it
+#: across its scratch lookup and its launch.
+_COUNTS_LOCK = threading.RLock()
 
 #: the pointwise rules the kernel compiles in (csrc/fused_sums.cu Family)
 FAMILIES = {"least_squares": 0, "logistic": 1, "hinge": 2}
@@ -325,7 +337,7 @@ def _launch(pointwise, X, y, w, mask, start, start_scale, rows):
         raise RuntimeError(
             "fused_sums kernel launch failed: "
             f"{lib.tsgd_error_string(rc).decode()} (cudaError {rc})")
-    KERNEL_LAUNCHES["fused_sums"] += 1
+    count_launch(source="fused_sums")
     return grad, loss, cnt
 
 
@@ -350,10 +362,11 @@ def _window_scratch(index: int, d: int, parts: int, stream: int):
     if torch.cuda.is_current_stream_capturing():
         return fresh()
     key = (index, d, stream)
-    scratch = _WINDOW_SCRATCH.get(key)
-    if scratch is None or scratch[0].shape[0] < parts:
-        scratch = _WINDOW_SCRATCH[key] = fresh()
-    return scratch
+    with _COUNTS_LOCK:
+        scratch = _WINDOW_SCRATCH.get(key)
+        if scratch is None or scratch[0].shape[0] < parts:
+            scratch = _WINDOW_SCRATCH[key] = fresh()
+        return scratch
 
 
 def _launch_window(pointwise, X, y, w, valid, start, start_scale, rows,
@@ -375,33 +388,40 @@ def _launch_window(pointwise, X, y, w, valid, start, start_scale, rows,
     out = torch.empty((d + 2,), dtype=torch.float32, device=dev)
     grad, loss, cnt = out[:d], out[d], out[d + 1]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    part_grad, part_loss, part_cnt = _window_scratch(index, d, parts, stream)
-    sums = (part_grad.data_ptr(), part_loss.data_ptr(), part_cnt.data_ptr(),
-            out.data_ptr(), out.data_ptr() + 4 * d,
-            out.data_ptr() + 4 * d + 4, stream)
-    if gather:
-        fn = lib.tsgd_gather_sums
-        args = (family, _DTYPES[X.dtype], index, X.data_ptr(), y.data_ptr(),
-                w.data_ptr(), valid.data_ptr(), n, d, plan.stage_rows,
-                plan.stages, plan.cluster, parts, *sums)
-    else:
-        fn = lib.tsgd_window_sums
-        args = (family, _DTYPES[X.dtype], index, X.data_ptr(), y.data_ptr(),
-                w.data_ptr(), None if valid is None else valid.data_ptr(),
-                None if start is None else start.data_ptr(), start_scale, n,
-                rows, d, plan.stage_rows, plan.stages, plan.cluster, parts,
-                *sums)
-    # the kernels launch on the current device: make it X's
-    if torch.cuda.current_device() == index:
-        rc = fn(*args)
-    else:
-        with torch.cuda.device(dev):
+    # held from the scratch lookup until both kernels are queued: every
+    # call on this stream shares the scratch, and another thread's call
+    # queued between this call's two kernels would overwrite its partials
+    with _COUNTS_LOCK:
+        part_grad, part_loss, part_cnt = _window_scratch(index, d, parts,
+                                                         stream)
+        sums = (part_grad.data_ptr(), part_loss.data_ptr(),
+                part_cnt.data_ptr(), out.data_ptr(), out.data_ptr() + 4 * d,
+                out.data_ptr() + 4 * d + 4, stream)
+        if gather:
+            fn = lib.tsgd_gather_sums
+            args = (family, _DTYPES[X.dtype], index, X.data_ptr(),
+                    y.data_ptr(), w.data_ptr(), valid.data_ptr(), n, d,
+                    plan.stage_rows, plan.stages, plan.cluster, parts, *sums)
+        else:
+            fn = lib.tsgd_window_sums
+            args = (family, _DTYPES[X.dtype], index, X.data_ptr(),
+                    y.data_ptr(), w.data_ptr(),
+                    None if valid is None else valid.data_ptr(),
+                    None if start is None else start.data_ptr(), start_scale,
+                    n, rows, d, plan.stage_rows, plan.stages, plan.cluster,
+                    parts, *sums)
+        # the kernels launch on the current device: make it X's
+        if torch.cuda.current_device() == index:
             rc = fn(*args)
+        else:
+            with torch.cuda.device(dev):
+                rc = fn(*args)
+        if rc == 0:
+            count_launch(source="window_sums")
     if rc != 0:
         raise RuntimeError(
             "window_sums kernel launch failed: "
             f"{lib.tsgd_window_error_string(rc).decode()} (cudaError {rc})")
-    KERNEL_LAUNCHES["window_sums"] += 1
     return grad, loss, cnt
 
 
@@ -498,8 +518,7 @@ def fused_gradient_sums(
     else:
         out = _launch_window(pointwise, X, y, w, mask, None, 1, n,
                              window_plan_for(X), gather=route == "gather")
-    fused_gradient_sums.launches += 1
-    GRADIENT_ROUTE_LAUNCHES[route] += 1
+    count_launch(fused_gradient_sums, route=route)
     return out
 
 
@@ -537,7 +556,7 @@ def _window(counter, pointwise, X, y, w, start_tile, num_tiles, tile_m,
                              plan)
     else:
         out = _launch(pointwise, X, y, w, valid, start, tile_m, rows)
-    counter.launches += 1
+    count_launch(counter)
     return out
 
 
@@ -952,9 +971,8 @@ def csr_grad_sum(Xt: Tensor, coeff: Tensor) -> Tensor:
 def _count_csr(fn, rhs: Tensor) -> None:
     """One launch of a CSR wrapper, counted in all and by its right-hand
     column count."""
-    fn.launches += 1
-    key = f"{fn.__name__}/{1 if rhs.dim() == 1 else rhs.shape[1]}"
-    CSR_COLUMN_LAUNCHES[key] = CSR_COLUMN_LAUNCHES.get(key, 0) + 1
+    count_launch(fn, csr_columns=f"{fn.__name__}/"
+                 f"{1 if rhs.dim() == 1 else rhs.shape[1]}")
 
 
 fused_gradient_sums.launches = 0
@@ -980,8 +998,28 @@ CSR_COLUMN_LAUNCHES = {}
 MODEL_AXIS_PRODUCTS = {"products": 0}
 
 
+def count_launch(wrapper=None, source: Optional[str] = None,
+                 route: Optional[str] = None,
+                 csr_columns: Optional[str] = None) -> None:
+    """Add one launch to a wrapper's ``launches``, to a CUDA source's
+    count, to a :func:`fused_gradient_sums` route's and to a CSR
+    wrapper's ``"<wrapper>/<T>"`` count, each given one, under the one
+    lock of the counts."""
+    with _COUNTS_LOCK:
+        if wrapper is not None:
+            wrapper.launches += 1
+        if source is not None:
+            KERNEL_LAUNCHES[source] += 1
+        if route is not None:
+            GRADIENT_ROUTE_LAUNCHES[route] += 1
+        if csr_columns is not None:
+            CSR_COLUMN_LAUNCHES[csr_columns] = (
+                CSR_COLUMN_LAUNCHES.get(csr_columns, 0) + 1)
+
+
 def count_model_axis_products(n: int) -> None:
-    MODEL_AXIS_PRODUCTS["products"] += int(n)
+    with _COUNTS_LOCK:
+        MODEL_AXIS_PRODUCTS["products"] += int(n)
 
 
 def model_axis_product_counts() -> int:
@@ -990,39 +1028,44 @@ def model_axis_product_counts() -> int:
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS + CSR_WRAPPERS:
-        fn.launches = 0
-    for counts in (KERNEL_LAUNCHES, GRADIENT_ROUTE_LAUNCHES,
-                   MODEL_AXIS_PRODUCTS):
-        for name in counts:
-            counts[name] = 0
-    CSR_COLUMN_LAUNCHES.clear()
+    with _COUNTS_LOCK:
+        for fn in WRAPPERS + CSR_WRAPPERS:
+            fn.launches = 0
+        for counts in (KERNEL_LAUNCHES, GRADIENT_ROUTE_LAUNCHES,
+                       MODEL_AXIS_PRODUCTS):
+            for name in counts:
+                counts[name] = 0
+        CSR_COLUMN_LAUNCHES.clear()
 
 
 def launch_counts() -> dict:
     """Launches of the dense kernels' wrappers since the last reset."""
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    with _COUNTS_LOCK:
+        return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
 def csr_launch_counts(by_columns: bool = False) -> dict:
     """Launches of the CSR kernel's wrappers since the last reset; by
     wrapper and right-hand column count with ``by_columns``."""
-    if by_columns:
-        return dict(CSR_COLUMN_LAUNCHES)
-    return {fn.__name__: fn.launches for fn in CSR_WRAPPERS}
+    with _COUNTS_LOCK:
+        if by_columns:
+            return dict(CSR_COLUMN_LAUNCHES)
+        return {fn.__name__: fn.launches for fn in CSR_WRAPPERS}
 
 
 def kernel_launch_counts() -> dict:
     """Launches of the dense sources since the last reset: which kernel
     ran (the CSR source's are :func:`csr_launch_counts`)."""
-    return dict(KERNEL_LAUNCHES)
+    with _COUNTS_LOCK:
+        return dict(KERNEL_LAUNCHES)
 
 
 def gradient_route_counts() -> dict:
     """:func:`fused_gradient_sums`'s launches since the last reset, by the
     route each took: the gather or window entry of ``window_sums.cu``, or
     ``fused_sums.cu``."""
-    return dict(GRADIENT_ROUTE_LAUNCHES)
+    with _COUNTS_LOCK:
+        return dict(GRADIENT_ROUTE_LAUNCHES)
 
 
 @contextlib.contextmanager
@@ -1035,9 +1078,11 @@ def captured_launches():
     (:func:`add_replayed_launches`).  So a count stays one per kernel the
     card runs."""
     def counts():
-        return ({fn.__name__: fn.launches for fn in WRAPPERS + CSR_WRAPPERS},
-                kernel_launch_counts(), dict(CSR_COLUMN_LAUNCHES),
-                gradient_route_counts(), dict(MODEL_AXIS_PRODUCTS))
+        with _COUNTS_LOCK:
+            return ({fn.__name__: fn.launches
+                     for fn in WRAPPERS + CSR_WRAPPERS},
+                    kernel_launch_counts(), dict(CSR_COLUMN_LAUNCHES),
+                    gradient_route_counts(), dict(MODEL_AXIS_PRODUCTS))
 
     before = counts()
     record = {}
@@ -1055,28 +1100,30 @@ def captured_launches():
         record["csr_columns"] = {k: n - before[2].get(k, 0)
                                  for k, n in after[2].items()
                                  if n != before[2].get(k, 0)}
-        for fn in WRAPPERS + CSR_WRAPPERS:
-            fn.launches = before[0][fn.__name__]
-        KERNEL_LAUNCHES.update(before[1])
-        GRADIENT_ROUTE_LAUNCHES.update(before[3])
-        MODEL_AXIS_PRODUCTS.update(before[4])
-        CSR_COLUMN_LAUNCHES.clear()
-        CSR_COLUMN_LAUNCHES.update(before[2])
+        with _COUNTS_LOCK:
+            for fn in WRAPPERS + CSR_WRAPPERS:
+                fn.launches = before[0][fn.__name__]
+            KERNEL_LAUNCHES.update(before[1])
+            GRADIENT_ROUTE_LAUNCHES.update(before[3])
+            MODEL_AXIS_PRODUCTS.update(before[4])
+            CSR_COLUMN_LAUNCHES.clear()
+            CSR_COLUMN_LAUNCHES.update(before[2])
 
 
 def add_replayed_launches(record: dict) -> None:
     """One replay of a graph whose capture recorded ``record``: the
     kernels it launches, counted by wrapper, by source and by route."""
-    for fn in WRAPPERS + CSR_WRAPPERS:
-        fn.launches += record["wrappers"][fn.__name__]
-    for name, n in record["sources"].items():
-        KERNEL_LAUNCHES[name] += n
-    for name, n in record["routes"].items():
-        GRADIENT_ROUTE_LAUNCHES[name] += n
-    for name, n in record["model_axis"].items():
-        MODEL_AXIS_PRODUCTS[name] += n
-    for key, n in record["csr_columns"].items():
-        CSR_COLUMN_LAUNCHES[key] = CSR_COLUMN_LAUNCHES.get(key, 0) + n
+    with _COUNTS_LOCK:
+        for fn in WRAPPERS + CSR_WRAPPERS:
+            fn.launches += record["wrappers"][fn.__name__]
+        for name, n in record["sources"].items():
+            KERNEL_LAUNCHES[name] += n
+        for name, n in record["routes"].items():
+            GRADIENT_ROUTE_LAUNCHES[name] += n
+        for name, n in record["model_axis"].items():
+            MODEL_AXIS_PRODUCTS[name] += n
+        for key, n in record["csr_columns"].items():
+            CSR_COLUMN_LAUNCHES[key] = CSR_COLUMN_LAUNCHES.get(key, 0) + n
 
 
 class FusedGradient(Gradient):

@@ -332,20 +332,38 @@ def _make_update(gradient, updater, cfg, mesh=None):
         g, l, c = local_sums(weights, X, y, sample, valid, Xt)
         if mesh is not None:
             g, l, c = combine_sums(mesh, g, l, c)
-        has_batch = c > 0
-        safe_c = torch.clamp(c, min=1.0)
-        loss_i = l / safe_c + reg_val
-        new_w, new_reg = updater.compute(
-            weights, g / safe_c, cfg.step_size, i, cfg.reg_param
-        )
-        if model is not None:
-            new_reg = model(new_reg)
-        # Reference behavior on an empty sampled batch: skip the update.
-        new_w = torch.where(has_batch, new_w, weights)
-        new_reg = torch.where(has_batch, new_reg, reg_val)
+        new_w, loss_i, new_reg = apply_sums(updater, cfg, weights, g, l, c,
+                                            i, reg_val, model=model)
         return new_w, loss_i, new_reg, c
 
     return update
+
+
+def apply_sums(updater, cfg, weights, g, l, c, i, reg_val, *, denom=None,
+               model=None):
+    """The iteration's math after its sums are combined: ``(new_w, loss_i,
+    new_reg)`` from the combined ``(grad_sum g, loss_sum l, count c)``.
+    ``loss_i = l / max(c, 1) + reg_val``, the updater steps on ``g /
+    max(c, 1)`` (or on ``g / denom``: the replica store's compressed wire,
+    whose ``g`` is already a sum of batch-mean gradients), and an empty
+    batch (``c == 0``) leaves the weights and the reg value as they were.
+    ``model``: a 2-D mesh's model-axis combine of the reg value.  The one
+    definition shared by :func:`_make_update` and the replica store's
+    apply (``replica/store.py``), so a τ=0 replica run is the synchronous
+    run by construction."""
+    has_batch = c > 0
+    safe_c = torch.clamp(c, min=1.0)
+    loss_i = l / safe_c + reg_val
+    new_w, new_reg = updater.compute(
+        weights, g / (safe_c if denom is None else denom), cfg.step_size, i,
+        cfg.reg_param
+    )
+    if model is not None:
+        new_reg = model(new_reg)
+    # Reference behavior on an empty sampled batch: skip the update.
+    new_w = torch.where(has_batch, new_w, weights)
+    new_reg = torch.where(has_batch, new_reg, reg_val)
+    return new_w, loss_i, new_reg
 
 
 def _make_compressed_update(gradient, updater, cfg, topk_frac: float,

@@ -222,25 +222,38 @@ def rank_order_sum(parts) -> torch.Tensor:
     return total
 
 
-def combine(mesh: Mesh, *parts, axis: str = DATA_AXIS):
-    """The rank-order sum of each of ``parts`` over the ranks of ``axis``:
-    one gather of the flattened parts at their common dtype, then
-    :func:`rank_order_sum`; the same sums, bitwise, on every rank of the
-    axis, back at each part's shape, dtype and device."""
+def flatten_parts(*parts) -> torch.Tensor:
+    """``parts`` flattened into one vector at their common (promoted)
+    dtype: what one rank contributes to :func:`combine`."""
     dt = parts[0].dtype
     for p in parts[1:]:
         dt = torch.promote_types(dt, p.dtype)
-    flat = torch.cat([p.reshape(-1).to(dt) for p in parts])
-    if axis == DATA_AXIS:
-        got = all_gather(mesh, flat)
-    else:
-        got = _gather(mesh.model_group, mesh.n_model, mesh.backend, flat)
-    total = rank_order_sum(got.unbind(0)).to(parts[0].device)
+    return torch.cat([p.reshape(-1).to(dt) for p in parts])
+
+
+def split_parts(total: torch.Tensor, parts) -> tuple:
+    """The inverse of :func:`flatten_parts`: ``total`` cut back into
+    ``parts``' shapes and dtypes, on ``parts[0]``'s device."""
+    total = total.to(parts[0].device)
     out, k = [], 0
     for p in parts:
         out.append(total[k:k + p.numel()].reshape(p.shape).to(p.dtype))
         k += p.numel()
     return tuple(out)
+
+
+def combine(mesh: Mesh, *parts, axis: str = DATA_AXIS):
+    """The rank-order sum of each of ``parts`` over the ranks of ``axis``:
+    one gather of the flattened parts at their common dtype, then
+    :func:`rank_order_sum`; the same sums, bitwise, on every rank of the
+    axis, back at each part's shape, dtype and device.  (The replica
+    store's τ=0 round adds its workers' flattened parts the same way.)"""
+    flat = flatten_parts(*parts)
+    if axis == DATA_AXIS:
+        got = all_gather(mesh, flat)
+    else:
+        got = _gather(mesh.model_group, mesh.n_model, mesh.backend, flat)
+    return split_parts(rank_order_sum(got.unbind(0)), parts)
 
 
 def combine_sums(mesh: Mesh, g, l, c):

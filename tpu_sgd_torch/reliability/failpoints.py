@@ -250,8 +250,8 @@ def _corrupt_payload(payload, kind: str, rng: random.Random):
 # -- hook-site registry -----------------------------------------------------
 
 #: every compiled-in hook site of this package and the module that holds
-#: its ``failpoint("<name>")`` call (the JAX package's other sites sit in
-#: modules that are not ported yet)
+#: its ``failpoint("<name>")`` call: the JAX package's sites, each in the
+#: port's module of the same name
 HOOK_SITES = {
     "io.resident_callback": "tpu_sgd_torch/optimize/resident_driver.py",
     "io.prefetch.produce": "tpu_sgd_torch/io/prefetch.py",
@@ -264,6 +264,17 @@ HOOK_SITES = {
     "serve.registry.reload": "tpu_sgd_torch/serve/registry.py",
     "serve.batcher.enqueue": "tpu_sgd_torch/serve/batcher.py",
     "serve.admit": "tpu_sgd_torch/serve/batcher.py",
+    "replica.pull": "tpu_sgd_torch/replica/store.py",
+    "replica.push": "tpu_sgd_torch/replica/store.py",
+    # fires on every routed store access of the HA client, before the
+    # store is touched: armed with exc=StoreFailed it is the primary kill
+    # switch (the client reports the failure and the supervisor
+    # promotes); with the default FaultInjected a transient network blip
+    # that the worker's own RetryPolicy heals
+    "replica.store_fail": "tpu_sgd_torch/replica/ha.py",
+    # fires at the top of the promotion (inside the replica.failover
+    # span): latency here stretches a failover
+    "replica.failover": "tpu_sgd_torch/replica/ha.py",
 }
 
 #: the corrupting sites and the module that holds each one's
@@ -275,6 +286,8 @@ CORRUPT_SITES = {
     "io.chunk": "tpu_sgd_torch/optimize/streamed.py",
     "io.sparse_chunk": "tpu_sgd_torch/optimize/streamed_sparse.py",
     "io.segment": "tpu_sgd_torch/io/sparse_wire.py",
+    "replica.push.wire": "tpu_sgd_torch/replica/store.py",
+    "replica.log.record": "tpu_sgd_torch/replica/ha.py",
 }
 
 # -- arming registry --------------------------------------------------------
