@@ -138,9 +138,9 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    the host lacks the room for it and the staging ring).  (a) 3 full-batch iterations streamed against the
    resident run on the same X (B1 masked by the batch's valid mask
    against B1 unmasked): loss rtol 2e-4, weights at the gradient tier;
-   (b) Bernoulli, indexed and sliced at frac 0.1, 20 iterations each at
+   (b) Bernoulli, indexed and sliced at frac 0.1, 6 iterations each at
    the full 10M rows: wall, device (kernels, copies) and idle share from
-   a 5-iteration traced run, the worker's assembly and checksum ms a
+   a 2-iteration traced run, the worker's assembly and checksum ms a
    batch, H2D GB/s, logical and physical wire bytes, pinned, peak device
    and host bytes; (c) on a 1M-row prefix, bitwise: the pinned ring's
    slot reuse under a slow step, prefetch depth 2 against 0, K = 1
@@ -178,6 +178,27 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    the first 1M rows stopped by a fault in the feed and resumed, bitwise;
    (e) the normal equations from streamed totals over the 10M rows: leg
    (b) of phase 7's objective within 1 + 1e-5, two runs bitwise.
+11b. plan — the execution planner (``tpu_sgd_torch/plan.py``), right
+   after phase 11 (phase 4's rows on the card, phase 10's on the host):
+   (a) ``CostModel.calibrate()`` on the card, both probes accepted, the
+   rates beside the defaults; (b) ``device_budget()`` equal to (free +
+   reserved - allocated) × ``hbm_safety`` from torch's readings; (c) a
+   zero-flag ``LogisticRegressionWithSGD.train`` on the 10M x 1000 bf16
+   rows at frac 0.1 plans ``resident_stock``, exactly one B1 launch an
+   iteration, bitwise the ``set_schedule("off")`` run; (d) zero-flag least
+   squares, sliced at 0.1 on a 5M-row prefix, with enough iterations that
+   the build amortizes, plans ``resident_gram``, no fused launch, bitwise
+   the run with the statistics and the plan's block size set by hand; (e)
+   ``plan_for`` on phase 10's 20 GB of host rows under an ``hbm_safety``
+   that puts the budget at half their bytes names a streaming schedule,
+   and its applied run is bitwise the hand-set one (phase 10 (b)'s
+   Bernoulli run, whose knobs match); (f, in phase 5) ``NormalEquations``
+   on config 1's host data places itself resident and logs nothing, and
+   config 1 trains zero-flag and prints its plan line.  Then each
+   schedule's estimate beside the wall this run measured on its route,
+   and, after phase 12, the measured ``CostModel`` fields beside the
+   defaults.  Every other phase that measures a named route pins it
+   (``set_schedule("off")`` or its explicit flags).
 12. mesh — data parallelism (``tpu_sgd_torch.parallel``), after the
    sparse phases, on its own 10M x 1000 bf16 matrix made as 8 row blocks
    from ``(seed, block)``: (a) this process as a mesh of one rank over
@@ -252,7 +273,7 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    the dense copy on the card; the kernel at a block's shape joins the
    kernel table.
 15. summary — the sparse line, the quasi_newton line, the gram line, the
-   streamed line, the streamed_qn line, the mesh line, the serve line,
+   streamed line, the streamed_qn line, the plan line, the mesh line, the serve line,
    the corr line, the replica line, the observed line, the kernel table
    (B1-B3, B1 at a replica worker's shard under concurrent launches, B1 at
    the
@@ -880,6 +901,7 @@ def phase_full(torch, tst, ck):
     ck.reset_launch_counts()
     for mode in ("bernoulli", "sliced", "sliced_vpu"):
         alg = tst.LinearRegressionWithSGD(0.5, ITERS, None, FRAC)
+        alg.set_schedule("off")  # a named route: no planner
         alg.optimizer.set_convergence_tol(0.0)
         inner = tst.LeastSquaresGradient()
         if mode == "sliced_vpu":
@@ -973,6 +995,7 @@ def phase_profile(torch, tst, ck, X, y, iters=20):
     out = {}
     for mode in ("bernoulli", "sliced"):
         alg = tst.LinearRegressionWithSGD(0.5, iters, None, FRAC)
+        alg.set_schedule("off")  # a named route: no planner
         alg.optimizer.set_convergence_tol(0.0).set_sampling(mode)
         for _ in range(2):  # warm: allocator, generator and the capture
             alg.run((X, y))  # (a repeated run captures its block)
@@ -1327,25 +1350,42 @@ def config5(torch, tst):
 
 
 def phase_configs(torch, tst):
+    """Configs 1-3 and 5; returns phase plan's (f): config 1's host data
+    through ``NormalEquations``' AUTO placement."""
     out = {}
-    # config 1: least squares, 100k x 100, within 1% of the exact optimum
+    # config 1: least squares, 100k x 100, within 1% of the exact optimum,
+    # zero-flag as users call it (its plan line printed)
     X, y, _ = tst.linear_data(100_000, 100, eps=0.1, seed=0)
-    model = tst.LinearRegressionWithSGD.train((X, y), 100, 1.0)
+    with plan_log() as lines:
+        model = tst.LinearRegressionWithSGD.train((X, y), 100, 1.0)
+    plan_line = lines[0] if lines else None
+    check(plan_line is not None and plan_line.startswith("plan: "),
+          f"config 1: no plan line ({lines})")
     w = model.weights.double().cpu().numpy()
     w_star = np.linalg.lstsq(X.astype(np.float64), y.astype(np.float64),
                              rcond=None)[0]
     L = 0.5 * float(np.mean((X @ w - y) ** 2))
     L_star = 0.5 * float(np.mean((X @ w_star - y) ** 2))
-    w_ne = tst.LinearRegressionWithNormal.train((X, y)).weights
+    # phase plan (f): the host data fits, so AUTO places it resident and
+    # logs nothing
+    with plan_log() as lines:
+        ne = tst.LinearRegressionWithNormal()
+        w_ne = ne.run((X, y)).weights
     check(w_ne.is_cuda, f"config 1 normal: weights on {w_ne.device}")
+    check(ne.optimizer.host_streaming is None and not lines,
+          f"plan (f): NormalEquations placement logged {lines}")
+    placement = {"placed": "resident", "host_streaming": None,
+                 "log_lines": lines, "data_bytes": X.nbytes + y.nbytes}
     L_ne = 0.5 * float(np.mean((X @ w_ne.double().cpu().numpy() - y) ** 2))
     # ... and from sufficient statistics, sliced windows at frac 0.5
     gs = tst.LinearRegressionWithSGD(1.0, 100, None, CONFIG1_GRAM_FRAC)
     gs.optimizer.set_sampling("sliced").set_sufficient_stats(True)
+    gs.set_schedule("off")
     w_gs = gs.run((X, y)).weights
     check(w_gs.is_cuda, f"config 1 statistics: weights on {w_gs.device}")
     L_gs = 0.5 * float(np.mean((X @ w_gs.double().cpu().numpy() - y) ** 2))
-    out["config1"] = {"objective": L, "oracle": L_star,
+    out["config1"] = {"plan_line": plan_line,
+                      "objective": L, "oracle": L_star,
                       "gap": (L - L_star) / L_star,
                       "normal_objective": L_ne,
                       "normal_gap": (L_ne - L_star) / L_star,
@@ -1400,6 +1440,7 @@ def phase_configs(torch, tst):
     out["config3_sparse"] = config3_sparse(torch, tst, CONFIG3_SPARSE_ROWS)
     out["config5"] = config5(torch, tst)
     emit({"phase": "configs", **out})
+    return placement
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -1647,6 +1688,7 @@ def leg_binary_lbfgs(torch, tst, ck, X, w_true):
     y = logistic_labels(torch, X, w_true)
     alg = tst.LogisticRegressionWithLBFGS(max_num_iterations=QN_ITERS,
                                           reg_param=reg)
+    alg.set_schedule("off")  # a named route: no planner
     torch.cuda.synchronize()
     ck.reset_launch_counts()
     t = time.perf_counter()
@@ -1664,6 +1706,7 @@ def leg_binary_lbfgs(torch, tst, ck, X, w_true):
                        "fused_window_sums": 0, "fused_window_sums_vpu": 0},
           f"(a): launches {launches} for {len(hist)} cost evaluations")
     sgd = tst.LogisticRegressionWithSGD(1.0, QN_ITERS, reg, 1.0)
+    sgd.set_schedule("off")  # a named route: no planner
     sgd.optimizer.set_convergence_tol(0.0)
     w_sgd = sgd.run((X, y)).weights
     g = tst.LogisticGradient()
@@ -1716,6 +1759,7 @@ def leg_normal_equations(torch, tst, X, y, w_true):
     torch.cuda.synchronize()
     ne_s = time.perf_counter() - t
     lb = tst.LinearRegressionWithLBFGS(max_num_iterations=QN_ITERS)
+    lb.set_schedule("off")  # a named route: no planner
     t = time.perf_counter()
     w_lb = lb.run((X, y_ls)).weights
     torch.cuda.synchronize()
@@ -1778,7 +1822,7 @@ def leg_multinomial(torch, tst):
                                              MNIST8M_K)
     gen_s = time.perf_counter() - t
     alg = tst.LogisticRegressionWithLBFGS(max_num_iterations=QN_ITERS)
-    alg.set_num_classes(MNIST8M_K)
+    alg.set_num_classes(MNIST8M_K).set_schedule("off")
     torch.cuda.synchronize()
     t = time.perf_counter()
     model = alg.run((X, y))
@@ -1919,6 +1963,7 @@ def _sgd_alg(tst, gradient=None, sufficient_stats=False):
     """Phase ``full``'s sliced run (seed, step, fraction, iterations), so
     every run below samples the same windows."""
     alg = tst.LinearRegressionWithSGD(0.5, ITERS, None, FRAC)
+    alg.set_schedule("off")  # a named route: no planner
     alg.optimizer.set_convergence_tol(0.0).set_sampling("sliced")
     if gradient is not None:
         alg.optimizer.set_gradient(gradient)
@@ -2118,6 +2163,7 @@ def gram_lbfgs(torch, tst, ck, X, y, qn_b):
 
     y_ls = y.to(torch.bfloat16).to(torch.float32)
     alg = tst.LinearRegressionWithLBFGS(max_num_iterations=QN_ITERS)
+    alg.set_schedule("off")  # a named route: no planner
     alg.optimizer.set_convergence_tol(0.0).set_sufficient_stats(True)
     ck.reset_launch_counts()
     torch.cuda.synchronize()
@@ -2991,6 +3037,7 @@ def replica_compressed(torch, tst, ck, X, y):
     frac = parse_wire_compress(REPLICA_TOPK)
     Xp, yp = X[:REPLICA_PREFIX_ROWS], y[:REPLICA_PREFIX_ROWS]
     alg = tst.LinearRegressionWithSGD(0.5, REPLICA_TOPK_ROUNDS, None, FRAC)
+    alg.set_schedule("off")  # a named route: no planner
     alg.optimizer.set_convergence_tol(0.0)
     ref = ls_objective_exact(torch, Xp, yp, alg.run((Xp, yp)).weights)
     out = {"dense_iterations": REPLICA_TOPK_ROUNDS, "dense_objective": ref}
@@ -3302,8 +3349,10 @@ def phase_replica(torch, tst, ck, X, y, profile):
 #: rows of the prefix that the bitwise contracts of leg (c) run on
 STREAM_PREFIX_ROWS = 1_000_000
 STREAM_ITERS = 20
-# leg (b)'s timing runs, a mode each: cut in depth for the script's time
-STREAM_SAMPLED_ITERS = 10
+# leg (b)'s timing runs, a mode each (and phase plan (e)'s run): cut in
+# depth for the script's time
+STREAM_SAMPLED_ITERS = 6
+STREAM_TRACED_ITERS = 2     # leg (b)'s traced runs, cut in depth for time
 STREAMED_QN_ITERS = 5       # leg (a) of phase streamed_qn
 # leg (b): OWL-QN over the first 2M host rows, cut in depth for time
 STREAMED_OWLQN_ROWS, STREAMED_OWLQN_ITERS = 2_000_000, 3
@@ -3494,16 +3543,21 @@ def streamed_full_batch(torch, tst, ck, Xh, yh, X, y):
             float(dw.max()), "weights_scale": scale}
 
 
+#: phase streamed (b)'s Bernoulli run, for phase plan (e)
+LEG_B_RUNS = {}
+
+
 def streamed_sampled(torch, tst, ck, Xh, yh):
     """Leg (b): Bernoulli, indexed and sliced at frac 0.1,
     ``STREAM_SAMPLED_ITERS`` iterations each at the full rows, then a
-    5-iteration traced run of each."""
+    ``STREAM_TRACED_ITERS``-iteration traced run of each."""
     w0 = torch.zeros(Xh.shape[1], device="cuda")
     out = {}
     for mode in ("bernoulli", "indexed", "sliced"):
         r = _streamed_run(torch, ck, _stream_opt(tst, mode, FRAC,
                                                  STREAM_SAMPLED_ITERS),
-                          Xh, yh, w0, STREAM_SAMPLED_ITERS, profile_iters=5)
+                          Xh, yh, w0, STREAM_SAMPLED_ITERS,
+                          profile_iters=STREAM_TRACED_ITERS)
         h = r["history"]
         check(len(h) == STREAM_SAMPLED_ITERS
               and bool(np.all(np.isfinite(h))) and h[-1] < h[0],
@@ -3512,6 +3566,10 @@ def streamed_sampled(torch, tst, ck, Xh, yh):
               f"(b) {mode}: B1 launches {r['launches']}")
         out[mode] = _report(r) | _rss_bytes() | {
             "loss_first": float(h[0]), "loss_last": float(h[-1])}
+        if mode == "bernoulli":
+            # phase plan (e) meets this run's weights and history
+            LEG_B_RUNS["bernoulli"] = {"weights": r["weights"],
+                                       "history": h}
     return out
 
 
@@ -4136,6 +4194,401 @@ def phase_streamed_qn(torch, tst, ck, X, y, w_true, Xh, qn_b, gram,
     return out, b1_rows, refs
 
 
+# -- phase plan ------------------------------------------------------------------
+
+PLAN_LS_ROWS = 5_000_000    # (d): the prefix of phase full's rows it trains on
+PLAN_MAX_ITERS = 5_000      # (d): the statistics build must amortize within
+PLAN_BUILD_ROWS = 65_536    # the small build that reads the build's fixed cost
+#: the streamed driver's dispatch tax: a full-batch feed of this prefix of
+#: the host rows (one transfer, then iterations at the card's rate)
+PLAN_DISPATCH_ROWS, PLAN_DISPATCH_ITERS = 65_536, 64
+#: the schedules' stand-ins on config 4's shape (10M x 1000 bf16, frac 0.1)
+#: for the estimate-against-measured line: a budget that holds the rows
+#: and a B = 8,192 stack but not a B = 4,096 one (phase gram's block), and
+#: a 12 GB one beyond them
+PLAN_FIT_FREE = FULL_ROWS * (FULL_D * 2 + 4) + 6e9
+PLAN_BEYOND_FREE = 12e9
+
+
+@contextlib.contextmanager
+def plan_log():
+    """The messages of the planner's logger (``tpu_sgd_torch.plan``) while
+    the block runs."""
+    import logging
+
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    lg = logging.getLogger("tpu_sgd_torch.plan")
+    handler, level = Lines(), lg.level
+    lg.addHandler(handler)
+    lg.setLevel(logging.INFO)
+    try:
+        yield lines
+    finally:
+        lg.removeHandler(handler)
+        lg.setLevel(level)
+
+
+def plan_calibration(torch):
+    """(a) ``CostModel.calibrate()`` on the card: both probes accepted."""
+    from tpu_sgd_torch.plan import CostModel
+
+    t = time.perf_counter()
+    with plan_log() as lines:
+        cm = CostModel.calibrate()
+    rep = cm.calibration_report
+    check(not rep["hbm_fell_back"] and not rep["feed_fell_back"],
+          f"plan (a): a calibration probe fell back: {rep} {lines}")
+    default = CostModel()
+    return cm, {"hbm_gb_s": cm.hbm_gb_s,
+                "host_feed_raw_gb_s": cm.host_feed_gb_s, "report": rep,
+                "defaults": {"hbm_gb_s": default.hbm_gb_s,
+                             "host_feed_gb_s": default.host_feed_gb_s},
+                "nvidia_smi": nvidia_smi_line(),
+                "seconds": time.perf_counter() - t}
+
+
+def plan_budget(torch):
+    """(b) ``device_budget()`` against torch's own readings at that moment:
+    ``(free + reserved - allocated) × hbm_safety``."""
+    from tpu_sgd_torch.plan import DEFAULT_COST_MODEL, device_budget
+
+    def read():
+        free, total = torch.cuda.mem_get_info()
+        return (free, torch.cuda.memory_reserved(),
+                torch.cuda.memory_allocated(), total)
+
+    torch.cuda.synchronize()
+    before = read()
+    got, source = device_budget()
+    after = read()
+    want = [max(0.0, (f + r - a) * DEFAULT_COST_MODEL.hbm_safety)
+            for f, r, a, _ in (before, after)]
+    check(source == "memory_stats" and got in want,
+          f"plan (b): budget {got} ({source}), torch's readings give "
+          f"{want}")
+    return {"budget_bytes": got, "source": source, "free_bytes": before[0],
+            "reserved_bytes": before[1], "allocated_bytes": before[2],
+            "total_bytes": before[3],
+            "hbm_safety": DEFAULT_COST_MODEL.hbm_safety}
+
+
+def plan_zero_flag_sgd(torch, tst, ck, X, w_true):
+    """(c) A zero-flag ``LogisticRegressionWithSGD.train`` on the 10M x
+    1000 bf16 rows at frac 0.1 plans ``resident_stock`` and runs exactly
+    one B1 launch an iteration; the zero-flag run is bitwise the
+    ``set_schedule("off")`` run (weights and history)."""
+    y_log = logistic_labels(torch, X, w_true)
+    with plan_log() as lines:
+        ck.reset_launch_counts()
+        model = tst.LogisticRegressionWithSGD.train((X, y_log), ITERS, 1.0,
+                                                    FRAC)
+        torch.cuda.synchronize()
+        launches = {"wrappers": ck.launch_counts(),
+                    "sources": ck.kernel_launch_counts()}
+    check(launches["wrappers"] == {"fused_gradient_sums": ITERS,
+                                   "fused_window_sums": 0,
+                                   "fused_window_sums_vpu": 0}
+          and launches["sources"] == {"fused_sums": 0, "window_sums": ITERS},
+          f"plan (c): launches {launches}")
+    runs = {}
+    for mode in ("auto", "off"):
+        alg = tst.LogisticRegressionWithSGD(1.0, ITERS, 0.0, FRAC)
+        alg.set_schedule(mode)
+        runs[mode] = (alg.run((X, y_log)).weights,
+                      alg.optimizer.loss_history, alg.optimizer.last_plan)
+    p = runs["auto"][2]
+    check(p is not None and p.schedule == "resident_stock"
+          and runs["off"][2] is None, f"plan (c): plans {p}")
+    check(bool(torch.equal(model.weights, runs["off"][0])
+               and torch.equal(runs["auto"][0], runs["off"][0])
+               and np.array_equal(runs["auto"][1], runs["off"][1])),
+          "plan (c): the zero-flag run differs from schedule='off'")
+    del y_log
+    return {"plan_line": lines[0] if lines else None, "schedule": p.schedule,
+            "launches": launches, "bitwise_schedule_off": True,
+            "loss_last": float(runs["auto"][1][-1])}
+
+
+def plan_zero_flag_gram(torch, tst, ck, X, y):
+    """(d) Zero-flag least squares, sliced at frac 0.1, on the first
+    ``PLAN_LS_ROWS`` rows at the full 1,000 columns, with enough
+    iterations that the statistics build amortizes: the plan is
+    ``resident_gram``, no fused launch, and the weights and history are
+    bitwise those of the run that sets the statistics and the plan's block
+    size by hand."""
+    from tpu_sgd_torch.plan import plan_for
+
+    Xp, yp = X[:PLAN_LS_ROWS], y[:PLAN_LS_ROWS]
+
+    def alg(iters):
+        a = tst.LinearRegressionWithSGD(0.5, iters, None, FRAC)
+        a.optimizer.set_sampling("sliced").set_convergence_tol(0.0)
+        return a
+
+    probe = plan_for(alg(1).optimizer, Xp, yp)
+    amortize = probe.estimates.get("build_amortize_iters", math.inf)
+    check(amortize < PLAN_MAX_ITERS,
+          f"plan (d): the build amortizes in {amortize} iterations")
+    iters = max(ITERS, math.ceil(1.25 * amortize))
+    a = alg(iters)
+    with plan_log() as lines:
+        ck.reset_launch_counts()
+        t = time.perf_counter()
+        w_auto = a.run((Xp, yp)).weights
+        torch.cuda.synchronize()
+        auto_s = time.perf_counter() - t
+        launches = {"wrappers": ck.launch_counts(),
+                    "sources": ck.kernel_launch_counts()}
+    p = a.optimizer.last_plan
+    h_auto = a.optimizer.loss_history
+    a.optimizer.release_sufficient_stats()
+    check(p is not None and p.schedule == "resident_gram",
+          f"plan (d): planned {p and p.describe()}")
+    check(sum(launches["wrappers"].values()) == 0
+          and sum(launches["sources"].values()) == 0,
+          f"plan (d): fused launches on statistics {launches}")
+    b = alg(iters)
+    b.set_schedule("off")
+    b.optimizer.set_sufficient_stats(True).set_gram_options(
+        block_rows=p.block_rows)
+    w_hand = b.run((Xp, yp)).weights
+    h_hand = b.optimizer.loss_history
+    b.optimizer.release_sufficient_stats()
+    check(bool(torch.equal(w_auto, w_hand)
+               and np.array_equal(h_auto, h_hand)),
+          "plan (d): the planned run differs from the hand-set statistics")
+    return {"rows": PLAN_LS_ROWS, "iterations": iters,
+            "build_amortize_iters": amortize, "plan_line": lines[0],
+            "block_rows": p.block_rows, "launches": launches,
+            "seconds_with_build": auto_s, "bitwise_hand_set": True}
+
+
+def plan_build_overhead(torch, tst, X, y):
+    """The statistics build's fixed cost: a ``PLAN_BUILD_ROWS``-row build
+    (phase gram's block), warm."""
+    Xs, ys = X[:PLAN_BUILD_ROWS], y[:PLAN_BUILD_ROWS]
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g = tst.GramLeastSquaresGradient.build(Xs, ys, block_rows=GRAM_BLOCK)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        del g
+    return {"rows": PLAN_BUILD_ROWS, "block_rows": GRAM_BLOCK,
+            "warm_s": min(secs[1:])}
+
+
+def plan_dispatch_tax(torch, tst, Xh, yh):
+    """The streamed driver's fixed host cost an iteration, which K fused
+    steps divide: the full-batch feed of a ``PLAN_DISPATCH_ROWS``-row
+    prefix (sent once, then iterating at the card's rate) at K = 1 and K =
+    8, in turns (1, 8, 8, 1), the faster of each pair; the tax is
+    (wall(K=1) - wall(K=8)) · 8/7."""
+    Xp, yp = Xh[:PLAN_DISPATCH_ROWS], yh[:PLAN_DISPATCH_ROWS]
+    w0 = torch.zeros(Xh.shape[1], device="cuda")
+    walls = {1: [], 8: []}
+    for k in (1, 8, 8, 1):
+        opt = _stream_opt(tst, "bernoulli", 1.0, PLAN_DISPATCH_ITERS, k=k)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        opt.optimize_with_history((Xp, yp), w0)
+        torch.cuda.synchronize()
+        walls[k].append(1e3 * (time.perf_counter() - t) / PLAN_DISPATCH_ITERS)
+    w1, w8 = min(walls[1]), min(walls[8])
+    return {"rows": PLAN_DISPATCH_ROWS, "iterations": PLAN_DISPATCH_ITERS,
+            "walls_ms_per_iteration": {str(k): v for k, v in walls.items()},
+            "dispatch_overhead_s": (w1 - w8) * 8 / 7 / 1e3}
+
+
+def plan_beyond_budget(torch, tst, ck, Xh, yh, leg_b):
+    """(e) Phase streamed's 20 GB of host rows under a cost model whose
+    ``hbm_safety`` puts the budget at half their bytes: ``plan_for`` names
+    a streaming schedule, and its applied run is bitwise the run with the
+    same knobs set by hand (phase streamed (b)'s Bernoulli run, whose
+    knobs match, else a run here)."""
+    from tpu_sgd_torch.plan import CostModel, device_budget, plan_for
+
+    n, d = Xh.shape
+    iters = STREAM_SAMPLED_ITERS
+
+    def base():
+        return (tst.GradientDescent().set_num_iterations(iters)
+                .set_step_size(0.5).set_mini_batch_fraction(FRAC)
+                .set_sampling("bernoulli").set_convergence_tol(0.0))
+
+    data_bytes = n * d * Xh.element_size() + 4.0 * n
+    free, _ = device_budget(cost_model=CostModel(hbm_safety=1.0))
+    safety = 0.5 * data_bytes / free
+    opt = base()
+    p = plan_for(opt, Xh, yh, cost_model=CostModel(hbm_safety=safety))
+    check(p.schedule in ("partial_residency", "host_streamed",
+                         "streamed_virtual_gram"),
+          f"plan (e): {p.describe()}")
+    p.apply(opt)
+    w0 = torch.zeros(d, device="cuda")
+    got = _streamed_run(torch, ck, opt, Xh, yh, w0, iters)
+    matches_b = (p.schedule == "host_streamed" and p.superstep == 1
+                 and p.residency == 0 and p.wire_compress is None
+                 and p.prefetch_depth == 2 and p.wire_dtype is None)
+    if matches_b:
+        ref = leg_b
+    else:
+        hand = base().set_host_streaming(
+            p.schedule != "streamed_virtual_gram",
+            resident_rows=p.resident_rows).set_superstep(p.superstep) \
+            .set_ingest_options(prefetch_depth=p.prefetch_depth)
+        if p.residency:
+            hand.set_residency(p.residency)
+        if p.schedule == "streamed_virtual_gram":
+            hand.set_streamed_stats(True).set_gram_options(
+                block_rows=p.block_rows, batch_rows=p.batch_rows,
+                aligned=True)
+        ref = _streamed_run(torch, ck, hand, Xh, yh, w0, iters)
+    check(_same(got, ref), "plan (e): the planned run differs from the "
+          "hand-set knobs")
+    return {"hbm_safety": safety, "budget_bytes": free * safety,
+            "data_bytes": data_bytes, "plan_line": p.describe(),
+            "schedule": p.schedule, "superstep": p.superstep,
+            "reused_phase_streamed_b": matches_b, "iterations": iters,
+            "wall_ms_per_iteration": got["wall_ms_per_iteration"],
+            "bitwise_hand_set": True}
+
+
+def plan_estimates(profile, gram, streamed, streamed_qn):
+    """Each candidate schedule's estimate on config 4's shape (the default
+    cost model) beside the wall an iteration this run measured on its
+    route."""
+    from tpu_sgd_torch.plan import plan
+
+    kw = dict(itemsize=2, mini_batch_fraction=FRAC, num_iterations=10 ** 6)
+    fit = plan(FULL_ROWS, FULL_D, gram_able=True, sampling="sliced",
+               free_hbm=PLAN_FIT_FREE, **kw).estimates
+    virt = plan(FULL_ROWS, FULL_D, gram_able=True, sampling="sliced",
+                free_hbm=PLAN_BEYOND_FREE, **kw).estimates
+    part = plan(FULL_ROWS, FULL_D, sampling="sliced",
+                free_hbm=PLAN_BEYOND_FREE, **kw)
+    host = plan(FULL_ROWS, FULL_D, sampling="bernoulli",
+                free_hbm=PLAN_BEYOND_FREE, **kw).estimates
+    walls = {m: r["wall_ms_per_iteration"]
+             for m, r in streamed["b_sampled"].items()}
+
+    def row(est_s, measured_ms, what):
+        return {"estimate_ms": 1e3 * est_s, "measured_ms": measured_ms,
+                "measured_over_estimate": measured_ms / (1e3 * est_s),
+                "measured": what}
+
+    c = streamed_qn["c_statistics"]
+    return {
+        "resident_stock": row(fit["stock_iter_s"],
+                              profile["sliced"]["wall_ms_per_iteration"],
+                              "phase profile, sliced (Bernoulli "
+                              f"{profile['bernoulli']['wall_ms_per_iteration']}"
+                              " ms)"),
+        "resident_gram": row(fit["gram_iter_s"],
+                             gram["c_sgd_exact"]["wall_ms_per_iteration"],
+                             f"phase gram (c), exact, B={fit['block_rows']}"),
+        "streamed_virtual_gram": row(
+            virt["gram_iter_s"],
+            gram["d_sgd_aligned"]["aligned"]["wall_ms_per_iteration"],
+            "phase gram (d), aligned") | {
+            "build_estimate_s": virt["gram_build_s"],
+            "build_measured_s": c["build_s"],
+            "build_measured": "phase streamed_qn (c), build_streamed"},
+        "host_streamed": row(host["streamed_iter_s"], walls["bernoulli"],
+                             "phase streamed (b), Bernoulli") | {
+            "measured_ms_by_sampler": walls},
+        "partial_residency": {
+            "estimate_ms": None, "measured_ms": None,
+            "resident_rows": part.resident_rows,
+            "resident_window_p": part.estimates["resident_window_p"],
+            "measured": "none: the planner estimates the transfer-free "
+                        "share of windows, not a wall; phase streamed (c) "
+                        "counts that share on its prefix"}}
+
+
+def phase_plan(torch, tst, ck, X, y, w_true, Xh, yh, profile, gram,
+               streamed, streamed_qn, leg_b):
+    """Phase ``plan``, right after phase streamed_qn (phase full's rows
+    still on the card, phase streamed's on the host): (a)-(e), the small
+    build, and the estimates beside this run's walls.  (f) runs in phase
+    configs.  Returns the record and the calibrated cost model."""
+    t0 = time.perf_counter()
+    out = {}
+    cm, out["a_calibration"] = plan_calibration(torch)
+    out["b_budget"] = plan_budget(torch)
+    out["c_zero_flag_sgd"] = plan_zero_flag_sgd(torch, tst, ck, X, w_true)
+    torch.cuda.empty_cache()
+    out["d_zero_flag_gram"] = plan_zero_flag_gram(torch, tst, ck, X, y)
+    torch.cuda.empty_cache()
+    out["build_overhead"] = plan_build_overhead(torch, tst, X, y)
+    out["dispatch_tax"] = plan_dispatch_tax(torch, tst, Xh, yh)
+    out["e_beyond_budget"] = plan_beyond_budget(torch, tst, ck, Xh, yh,
+                                                leg_b)
+    out["estimates"] = plan_estimates(profile, gram, streamed, streamed_qn)
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "plan", **out})
+    return out, cm
+
+
+def plan_constants(torch, cm, plan_rec, gram, streamed, mesh):
+    """The measured ``CostModel`` fields from this run's phases, beside
+    the defaults: what ``tpu_sgd_torch/plan.py``'s defaults come from."""
+    from tpu_sgd_torch.plan import CostModel
+
+    hbm = cm.hbm_gb_s * 1e9
+    b = gram["a_build"]
+    small = plan_rec["build_overhead"]
+    # seconds a row of the build, then its fixed cost
+    per_row = (b["warm_s"] - small["warm_s"]) / (FULL_ROWS - small["rows"])
+    overhead = small["warm_s"] - per_row * small["rows"]
+    flops = 2.0 * FULL_D * FULL_D / (per_row - FULL_D * 2 / hbm)
+    exact_ms = gram["c_sgd_exact"]["wall_ms_per_iteration"]
+    exact_bytes = 2.0 * GRAM_BLOCK * FULL_D * 2 + 2.0 * (FULL_D ** 2
+                                                         + FULL_D) * 4
+    bern = streamed["b_sampled"]["bernoulli"]
+    feed = (bern["ingest"]["h2d_bytes"] / STREAM_SAMPLED_ITERS
+            / (bern["wall_ms_per_iteration"] / 1e3))
+    combine = mesh["combine_ms_by_rank"]["combine_ms"]
+    combine_ms = sum(combine) / len(combine)
+    k = [rep["k"] for rep in mesh["streamed"]["by_rank"]]
+    compress = sum(r["full_topk_ms_per_iteration"]
+                   - r["full_dense_ms_per_iteration"] for r in k) / len(k)
+    measured = {
+        "hbm_gb_s": cm.hbm_gb_s,
+        "mxu_f32_flops": flops,
+        "build_overhead_s": overhead,
+        "gram_iter_overhead_s": exact_ms / 1e3 - exact_bytes / hbm,
+        "host_feed_gb_s": feed / 1e9,
+        "hbm_bytes": float(torch.cuda.get_device_properties(0).total_memory),
+        # a slope at or below 0: K = 8 is no faster, fusion divides nothing
+        "dispatch_overhead_s": max(
+            0.0, plan_rec["dispatch_tax"]["dispatch_overhead_s"]),
+        "allreduce_gb_s": (FULL_D + 2) * 4 / (combine_ms / 1e3) / 1e9,
+        "compress_overhead_s": compress / 1e3}
+    default = CostModel()
+    out = {"measured": measured,
+           "defaults": {k: getattr(default, k) for k in measured},
+           "host_feed_raw_probe_gb_s": cm.host_feed_gb_s,
+           "from": {"hbm_gb_s": "plan (a)",
+                    "mxu_f32_flops": "gram (a) and plan's small build",
+                    "build_overhead_s": "the same two builds",
+                    "gram_iter_overhead_s": "gram (c)",
+                    "host_feed_gb_s": "streamed (b), Bernoulli",
+                    "hbm_bytes": "total_memory",
+                    "dispatch_overhead_s": "plan: full-batch feed, K=1/8",
+                    "allreduce_gb_s": "mesh (b) combine",
+                    "compress_overhead_s": "mesh (k)"},
+           "nvidia_smi": nvidia_smi_line()}
+    emit({"phase": "plan", "part": "constants", **out})
+    return out
+
+
 def staged_sparse_batch(torch, tst, Xh, cfg):
     """Iteration 1's batch of the streamed sparse run with config
     ``cfg``, staged as the driver stages it (``(row_cap, nse_cap)`` CSR
@@ -4515,6 +4968,7 @@ def _mesh_alg(tst, mode, frac, mesh=None):
     """Phase ``full``'s least-squares run (step, seed, iterations) at
     ``frac`` with ``mode`` sampling, on ``mesh`` when one is given."""
     alg = tst.LinearRegressionWithSGD(0.5, MESH_ITERS, None, frac)
+    alg.set_schedule("off")  # a named route: no planner
     alg.optimizer.set_convergence_tol(0.0).set_sampling(
         "bernoulli" if mode == "full" else mode)
     if mesh is not None:
@@ -5115,7 +5569,7 @@ def mesh_rank_dense(torch, tst, ck, par, mesh, X, y):
         "residency_events": events,
         "residency_bitwise_superstep": _same_run(torch, (rw, rh), (sw, sh))}
     alg = tst.LinearRegressionWithSGD(0.5, MESH_ITERS, None, 1.0)
-    alg.set_feature_scaling(True)
+    alg.set_feature_scaling(True).set_schedule("off")
     alg.optimizer.set_convergence_tol(0.0).set_mesh(mesh)
     model = alg.run((Xp, yp))
     arrays["i_scaled_w"] = model.weights.cpu().numpy()
@@ -5533,7 +5987,7 @@ def mesh_resident_checks(torch, tst, ck, X, y, blocks, reports, arrays,
     Xp = torch.cat([Xb[:MESH_PREFIX_ROWS] for Xb, _ in blocks])
     yp = torch.cat([yb[:MESH_PREFIX_ROWS] for _, yb in blocks])
     alg = tst.LinearRegressionWithSGD(0.5, MESH_ITERS, None, 1.0)
-    alg.set_feature_scaling(True)
+    alg.set_feature_scaling(True).set_schedule("off")
     alg.optimizer.set_convergence_tol(0.0)
     w_sc = alg.run((Xp, yp)).weights
     i_out = {"residency_bitwise_superstep": True,
@@ -5571,7 +6025,7 @@ def mesh_resident_checks(torch, tst, ck, X, y, blocks, reports, arrays,
 
 MESH_STREAM_PREFIX = 1_000_000  # host rows of the bitwise contracts
 MESH_STREAM_ITERS = 10          # a bitwise run
-MESH_STREAM_TIMING_ITERS = 5    # (j)'s timing runs, cut in depth for time
+MESH_STREAM_TIMING_ITERS = 3    # (j)'s timing runs, cut in depth for time
 MESH_STREAM_STOP_ITERS = 20     # the stop-and-resume runs (stop at 13)
 MESH_TOPK = "topk:0.01"
 # full batch on the prefix: error feedback at 1% of the coordinates meets
@@ -7299,6 +7753,10 @@ def main() -> int:
     streamed_qn, b1_chunk, qn_refs = phase_streamed_qn(
         torch, tst, ck, X, y, w_true, Xh, qn["b"], gram, streamed)
     rows.extend(b1_chunk)
+    torch.cuda.empty_cache()
+    plan_rec, cm = phase_plan(torch, tst, ck, X, y, w_true, Xh, yh, profile,
+                              gram, streamed, streamed_qn,
+                              LEG_B_RUNS.pop("bernoulli"))
     # the host rows stay for phase mesh's (j)-(m)
     host_rows = (Xh, fd, yh, qn_refs.pop("yh_ls"), qn_refs.pop("yh_log"))
     del X, y, sliced_ref, Xh, yh
@@ -7306,7 +7764,7 @@ def main() -> int:
     qn["c"] = leg_multinomial(torch, tst)
     torch.cuda.empty_cache()
 
-    phase_configs(torch, tst)
+    plan_rec["f_normal_placement"] = phase_configs(torch, tst)
     sparse, X_sp, y_sp, w_sgd = phase_sparse(torch, tst, ck)
     qn["d"] = leg_sparse_owlqn(torch, tst, ck, X_sp, y_sp, w_sgd)
     torch.cuda.empty_cache()
@@ -7320,6 +7778,8 @@ def main() -> int:
     mesh, mesh_rows = phase_mesh(torch, tst, ck, X_sp, y_sp, profile,
                                  qn["d"]["weights"], host_rows, qn_refs)
     rows.extend(mesh_rows)
+    plan_rec["constants"] = plan_constants(torch, cm, plan_rec, gram,
+                                           streamed, mesh)
     del host_rows
     os.close(fd)
     del X_sp, y_sp
@@ -7395,6 +7855,10 @@ def main() -> int:
             "c_contracts", "d_predict", "leg_seconds", "seconds")},
         "sparse": streamed["sparse"]}})
     emit({"streamed_qn": streamed_qn})
+    emit({"plan": {k: plan_rec[k] for k in (
+        "a_calibration", "b_budget", "c_zero_flag_sgd", "d_zero_flag_gram",
+        "e_beyond_budget", "f_normal_placement", "dispatch_tax", "estimates",
+        "constants", "seconds")}})
     emit({"mesh": {k: mesh[k] for k in (
         "world1", "b", "combine_ms_by_rank", "prefix_bitwise_rank_order_sum",
         "full_batch_bitwise_rank_order_sum", "full_batch_first_loss_rel",

@@ -161,7 +161,7 @@ class TestGLMFeatureScaling:
             .astype(np.float32)
         y = (X @ w_true + 0.01 * rng.normal(size=(800,))).astype(np.float32)
         scaled = tst.LinearRegressionWithLBFGS(device=CPU) \
-            .set_feature_scaling(True).run((X, y))
+            .set_feature_scaling(True).set_schedule("off").run((X, y))
         np.testing.assert_allclose(scaled.weights.numpy(), w_true, rtol=0.05,
                                    atol=1e-3)
         np.testing.assert_allclose(scaled.predict(X[:50]).numpy(), y[:50],
@@ -200,7 +200,7 @@ class TestGLMFeatureScaling:
             return a.set_num_classes(K).set_intercept(intercept) \
                 .set_feature_scaling(True)
 
-        model = alg(tst, device=CPU).run((X, y))
+        model = alg(tst, device=CPU).set_schedule("off").run((X, y))
         acc = float(np.mean(model.predict(X).numpy() == y))
         assert acc > (0.9 if intercept else 0.85)
         jm = alg(jcls).set_schedule("off").run((X, y))

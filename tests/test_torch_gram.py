@@ -13,8 +13,9 @@ driver rtol 1e-5 / atol 1e-6.
 
 The streamed builds, their checkpoints and ``set_streamed_stats`` are
 twinned in ``tests/test_torch_streamed_gram.py``, their mesh cases in
-``tests/test_torch_mesh_streamed.py``.  Not twinned: the listener /
-checkpoint cases and the planner's ownership of the gram knobs (A11).
+``tests/test_torch_mesh_streamed.py``, the planner's ownership of the
+gram knobs in ``tests/test_torch_plan.py``.  Not twinned: the listener /
+checkpoint cases.
 """
 
 import json

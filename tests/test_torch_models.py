@@ -1,6 +1,7 @@
 """Parity of the port's model families (``tpu_sgd_torch.models``) with the
-JAX package on the CPU, the JAX side with ``schedule="off"`` (the port has
-no planner yet and always runs as configured).
+JAX package on the CPU, both sides with ``schedule="off"`` (the optimizer
+runs exactly as configured; the planner's twins are
+``tests/test_torch_plan.py``).
 
 Tolerances: full-batch training, so the trajectories are the same
 arithmetic — weights and intercept rtol 1e-4 (atol 1e-5), margins and
@@ -39,7 +40,8 @@ def test_linear_regression_matches_jax(intercept):
     kw = dict(intercept=intercept)
     j = jm.LinearRegressionWithSGD.train((X, y), 40, 0.5, schedule="off",
                                          **kw)
-    t = tm.LinearRegressionWithSGD.train((X, y), 40, 0.5, device="cpu", **kw)
+    t = tm.LinearRegressionWithSGD.train((X, y), 40, 0.5, device="cpu",
+                                         schedule="off", **kw)
     _close_models(t, j, X)
     np.testing.assert_allclose(t.predict(X).numpy(), np.asarray(j.predict(X)),
                                rtol=1e-4, atol=1e-4)
@@ -53,7 +55,8 @@ def test_regularized_regression_matches_jax(family):
     jcls = {"lasso": jm.LassoWithSGD, "ridge": jm.RidgeRegressionWithSGD}
     tcls = {"lasso": tm.LassoWithSGD, "ridge": tm.RidgeRegressionWithSGD}
     j = jcls[family].train((X, y), 30, 0.5, 0.05, schedule="off")
-    t = tcls[family].train((X, y), 30, 0.5, 0.05, device="cpu")
+    t = tcls[family].train((X, y), 30, 0.5, 0.05, device="cpu",
+                           schedule="off")
     _close_models(t, j, X)
 
 
@@ -62,7 +65,7 @@ def test_logistic_regression_matches_jax():
     j = jm.LogisticRegressionWithSGD.train((X, y), 60, 2.0, schedule="off",
                                            intercept=True)
     t = tm.LogisticRegressionWithSGD.train((X, y), 60, 2.0, device="cpu",
-                                           intercept=True)
+                                           intercept=True, schedule="off")
     _close_models(t, j, X)
     np.testing.assert_array_equal(t.predict(X).numpy(),
                                   np.asarray(j.predict(X)))
@@ -77,7 +80,7 @@ def test_svm_with_l1_matches_jax():
     j = jm.SVMWithSGD.train((X, y), 50, 1.0, 0.01, updater=JL1Updater(),
                             schedule="off")
     t = tm.SVMWithSGD.train((X, y), 50, 1.0, 0.01, updater=L1Updater(),
-                            device="cpu")
+                            device="cpu", schedule="off")
     _close_models(t, j, X)
     np.testing.assert_array_equal(t.predict(X).numpy(),
                                   np.asarray(j.predict(X)))
@@ -112,7 +115,7 @@ def test_static_train_signatures_match_reference():
     logistic statics, and the logistic static trains unregularized."""
     X, y, _ = logistic_data(400, 4, seed=16)
     t = tm.LogisticRegressionWithSGD.train((X, y), 20, 1.0, 1.0,
-                                           device="cpu")
+                                           device="cpu", schedule="off")
     j = jm.LogisticRegressionWithSGD.train((X, y), 20, 1.0, 1.0,
                                            schedule="off")
     _close_models(t, j, X)
@@ -123,6 +126,7 @@ def test_static_train_signatures_match_reference():
 def test_run_warm_carries_weights_and_intercept():
     X, y, _ = linear_data(600, 4, intercept=0.3, seed=17)
     alg = tm.LinearRegressionWithSGD(0.5, 20, device="cpu").set_intercept(True)
+    alg.set_schedule("off")
     m1 = alg.run((X, y))
     m2 = alg.run_warm((X, y), m1)
     jalg = jm.LinearRegressionWithSGD(0.5, 20).set_intercept(True)
@@ -175,12 +179,16 @@ def test_later_slice_options_raise():
     X, y, _ = linear_data(50, 3, seed=20)
     alg = tm.LinearRegressionWithSGD(device="cpu")
     # feature scaling arrived with feature.py, host streaming with the
-    # ingest slice; the planner and data parallelism are later work
+    # ingest slice, the planner with plan.py: "auto" is the default, and
+    # every schedule name is accepted
     assert alg.set_feature_scaling(True) is alg
     assert alg.optimizer.set_host_streaming(True) is alg.optimizer
     assert alg.optimizer.host_streaming
-    with pytest.raises(NotImplementedError, match="A11"):
-        alg.set_schedule("auto")
+    assert alg.schedule == "auto"
+    assert alg.set_schedule("auto") is alg and alg.schedule == "auto"
+    assert alg.set_schedule("resident_gram").schedule == "resident_gram"
+    with pytest.raises(ValueError, match="schedule must be one of"):
+        alg.set_schedule("warp_drive")
     from tpu_sgd_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
 
     # a data mesh trains (test_torch_parallel.py), and so does a 2-D one

@@ -51,7 +51,7 @@ def test_import_pulls_in_no_jax_and_no_tpu_sgd():
         "tpu_sgd_torch.utils.native, tpu_sgd_torch.parallel, "
         "tpu_sgd_torch.parallel.mesh, tpu_sgd_torch.parallel.distributed, "
         "tpu_sgd_torch.parallel.data_parallel, "
-        "tpu_sgd_torch.parallel.sparse_parallel\n"
+        "tpu_sgd_torch.parallel.sparse_parallel, tpu_sgd_torch.plan\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
         "print(bad)")
@@ -124,6 +124,30 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tst.glm_model_from_numpy(tst.LinearRegressionModel, np.zeros(3), 0.0)
     assert tst.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_planner_budget_raises_without_cuda():
+    """The planner budgets the card: ``device_budget()``, ``plan()``
+    without ``free_hbm`` and the models' zero-flag planning raise without
+    one, and never budget the CPU in its place; ``device="cpu"`` is the
+    cost model's fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the rule is for hosts "
+                    "without one")
+    from tpu_sgd_torch import plan as tplan
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tplan.device_budget()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tplan.plan(1000, 10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tst.LogisticRegressionWithLBFGS.train(
+            (np.zeros((4, 2), np.float32), np.zeros(4, np.float32)))
+    assert tplan.device_budget("cpu") == (
+        tplan.DEFAULT_COST_MODEL.hbm_bytes
+        * tplan.DEFAULT_COST_MODEL.hbm_safety, "fallback")
+    assert tplan.plan(1000, 10, free_hbm=1e9).estimates[
+        "budget_source"] == "caller"
 
 
 @pytest.mark.parametrize("make", [

@@ -314,7 +314,8 @@ def test_hinge_l1_runs_reach_jax_objective():
     jm = jcls.SVMWithSGD.train((jX, jy), 200, 5.0, reg,
                                updater=ju.L1Updater(), schedule="off")
     tm = tst.SVMWithSGD.train((tX, ty), 200, 5.0, reg,
-                              updater=tu.L1Updater(), device="cpu")
+                              updater=tu.L1Updater(), device="cpu",
+                              schedule="off")
     Xd = tX.to_dense().numpy()
     L_t = _hinge_l1_objective(Xd, ty, tm.weights.numpy(), reg)
     L_j = _hinge_l1_objective(Xd, ty, np.asarray(jm.weights), reg)
@@ -352,7 +353,7 @@ def test_svm_with_intercept_on_sparse_matches_jax():
     jm = jcls.SVMWithSGD.train((jX, jy), 40, 1.0, 0.01, intercept=True,
                                schedule="off")
     tm = tst.SVMWithSGD.train((tX, ty), 40, 1.0, 0.01, intercept=True,
-                              device="cpu")
+                              device="cpu", schedule="off")
     np.testing.assert_allclose(tm.weights.numpy(), np.asarray(jm.weights),
                                rtol=2e-4, atol=2e-3)
     assert tm.intercept == pytest.approx(jm.intercept, rel=2e-4, abs=2e-3)
@@ -372,7 +373,8 @@ def test_linear_regression_on_sparse_matches_jax():
     tX, ty, _ = ts.sparse_data(600, 40, nnz_per_row=8, seed=25)
     jm = jreg.LinearRegressionWithSGD.train((jX, jy), 30, 0.5,
                                             schedule="off")
-    tm = tst.LinearRegressionWithSGD.train((tX, ty), 30, 0.5, device="cpu")
+    tm = tst.LinearRegressionWithSGD.train((tX, ty), 30, 0.5, device="cpu",
+                                           schedule="off")
     np.testing.assert_allclose(tm.weights.numpy(), np.asarray(jm.weights),
                                rtol=2e-4, atol=2e-3)
     np.testing.assert_allclose(tm.predict(tX).numpy(),

@@ -34,7 +34,6 @@ from tpu_sgd_torch.replica import (ReplicaDriver, ReplicaWorker,
                                    ShardedParameterStore, ShardPipeline,
                                    StoreFailed, StoreSupervisor,
                                    shard_offsets, shard_rows)
-from tpu_sgd_torch.replica import shard as shard_mod
 from tpu_sgd_torch.utils.events import CollectingListener
 
 
@@ -96,7 +95,9 @@ def test_the_merge_density_is_the_reference_default():
                                   np.zeros(8, np.float32), n_shards=2,
                                   device="cpu")
     try:
-        assert shard_mod.DEFAULT_MERGE_DENSITY == 0.25
+        from tpu_sgd_torch.plan import DEFAULT_COST_MODEL
+
+        assert DEFAULT_COST_MODEL.sparse_merge_density == 0.25
         assert store._merge_density == 0.25
     finally:
         store.stop()

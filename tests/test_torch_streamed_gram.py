@@ -42,7 +42,6 @@ from tpu_sgd.optimize import normal as jn
 import tpu_sgd_torch as tst
 from tpu_sgd_torch.io import plan_chunks
 from tpu_sgd_torch.ops import gram as tgram
-from tpu_sgd_torch.optimize import gradient_descent as tgd
 from tpu_sgd_torch.optimize import normal as tn
 from tpu_sgd_torch.reliability import failpoints as fp
 
@@ -373,7 +372,7 @@ def test_normal_host_streaming_batch_rows_validation(rng):
     with pytest.raises(ValueError, match="initial_weights has length"):
         tn.NormalEquations(device=CPU).set_host_streaming(True).optimize(
             (X, y), np.zeros(4, np.float32))
-    # None is the resident path: no AUTO placement before the planner
+    # None is AUTO placement: these few rows fit the budget, so resident
     opt = tn.NormalEquations(device=CPU).set_host_streaming(None)
     assert opt.host_streaming is None
     np.testing.assert_allclose(
@@ -560,7 +559,9 @@ def test_streamed_stats_guards(rng):
         opt.set_ingest_options(prefetch_depth=-1)
     with pytest.raises(TypeError, match="RetryPolicy"):
         opt.set_ingest_options(retry="yes")
-    assert tgd._GRAM_KNOBS["batch_rows"] == ("gram_batch_rows", True)
+    from tpu_sgd_torch import plan as tplan
+
+    assert tplan._GRAM_KNOBS["batch_rows"] == ("gram_batch_rows", True)
 
 
 def test_a_stopped_build_frees_its_stack_at_once(rng, monkeypatch):

@@ -1,6 +1,6 @@
 """Parity of the port's streaming SGD (``tpu_sgd_torch/models/streaming.py``)
-with the JAX package's on the CPU, the JAX side with ``schedule="off"``
-(the port has no planner and always runs as configured).
+with the JAX package's on the CPU, both sides with ``schedule="off"`` (the
+optimizer runs exactly as configured).
 
 Tolerances: every micro-batch runs at frac 1.0, so both sides do the same
 arithmetic on the same numpy batches — weights after each batch rtol 2e-4
@@ -26,7 +26,9 @@ def _pair(family, **kw):
             "logistic": tst.StreamingLogisticRegressionWithSGD}[family]
     j = jcls(**kw)
     j.algorithm.set_schedule("off")
-    return j, tcls(device="cpu", **kw)
+    t = tcls(device="cpu", **kw)
+    t.algorithm.set_schedule("off")
+    return j, t
 
 
 def _close(t, j):
@@ -134,6 +136,7 @@ def test_train_on_skip_and_listeners():
         t.add_model_update_listener(3)
     # skipping the first two batches is training on the rest
     r = tst.StreamingLinearRegressionWithSGD(0.3, 25, device="cpu")
+    r.algorithm.set_schedule("off")
     r.set_initial_weights(np.zeros(d, np.float32))
     for X, y in batches[2:]:
         r.train_on_batch(X, y)

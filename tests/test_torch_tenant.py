@@ -1,7 +1,8 @@
 """Multi-tenant plane of the PyTorch port (``tpu_sgd_torch/tenant``) on
-the CPU: the twins of ``tests/test_tenant.py`` (its scenario cases and
-``test_choose_slab_capacity`` belong to the planner and the scenario
-harness, not ported), and parity with the JAX package (``tpu_sgd/tenant``).
+the CPU: the twins of ``tests/test_tenant.py`` (its scenario cases belong
+to the scenario harness, not ported; ``test_choose_slab_capacity`` is
+twinned in ``tests/test_torch_plan.py``), and parity with the JAX package
+(``tpu_sgd/tenant``).
 
 The pins: an M=1 (and any uniform) slab batch is BITWISE the single-model
 ``PredictEngine`` path; the ops and padded shapes a mixed batch runs are

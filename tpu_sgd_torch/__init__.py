@@ -9,6 +9,8 @@ training supervisor (``reliability``), span tracing and the windowed
 time series (``obs``), and serving (``serve``: micro-batched endpoints
 with admission control and hot reload; ``tenant``: many tenants' models
 on one weight slab).
+``train()`` plans its schedule (``plan``: resident, from statistics, or
+streamed from host memory) unless told ``schedule="off"``.
 SGD runs K iterations a host call, as one CUDA graph replay on the card,
 on one device or data-parallel over a ``torch.distributed`` mesh
 (``parallel``).
@@ -53,6 +55,15 @@ from tpu_sgd_torch.optimize import (
     run_mini_batch_sgd,
 )
 from tpu_sgd_torch.parallel import data_mesh, make_mesh
+# the bare `plan` FUNCTION is not exported: the package attribute
+# `tpu_sgd_torch.plan` must keep naming the MODULE
+from tpu_sgd_torch.plan import (
+    CostModel,
+    Plan,
+    device_budget,
+    plan_for,
+    plan_quasi_newton,
+)
 from tpu_sgd_torch.stat import MultivariateStatisticalSummary, col_stats, corr
 from tpu_sgd_torch.utils.mlutils import (
     a9a_like_data,
@@ -67,6 +78,7 @@ __all__ = (
      "multinomial_model_from_numpy", "sgd_config_from_dict", "Vectors",
      "DenseVector", "SparseVector", "BLAS", "GradientDescent", "LBFGS",
      "NormalEquations", "OWLQN", "Optimizer", "run_mini_batch_sgd",
+     "CostModel", "Plan", "device_budget", "plan_for", "plan_quasi_newton",
      "run_lbfgs", "Normalizer", "StandardScaler", "StandardScalerModel",
      "RegressionMetrics", "BinaryClassificationMetrics",
      "MulticlassMetrics", "col_stats", "corr",

@@ -373,6 +373,9 @@ class LogisticRegressionWithLBFGS(GeneralizedLinearAlgorithm):
         w0 = np.asarray(w0, np.float32).reshape(-1)
         if self.validate_data:
             self.validators(X, y)
+        # the schedule contract holds on this branch too: zero-flag runs
+        # plan, and set_schedule forces or raises, as in the harness
+        self._auto_plan(X, y)
         weights = self.optimizer.optimize((X, y), w0)
         if scaler is not None:
             W = weights.reshape(K - 1, d + 1).clone()

@@ -5,9 +5,9 @@ discovery, the intercept (a bias column appended LAST, as
 ``MLUtils.appendBias``, sparse for sparse features), calling
 ``optimizer.optimize``, splitting the
 intercept back out, the opt-in feature-scaling pass, and ``create_model``.
-There is no execution planner in the port yet (ROADMAP A11), so every run
-behaves as the JAX package's ``set_schedule("off")``: the optimizer runs
-exactly as configured.
+Before the optimizer runs, the execution planner (``tpu_sgd_torch/plan.py``)
+picks its schedule unless ``set_schedule("off")`` or a manual schedule
+flag says otherwise (``GeneralizedLinearAlgorithm._auto_plan``).
 """
 
 from __future__ import annotations
@@ -228,6 +228,7 @@ class GeneralizedLinearAlgorithm:
         self.validate_data = True
         self.num_features = -1
         self.use_feature_scaling = False
+        self.schedule = "auto"
 
     # -- fluent config, parity with the reference's setters ----------------
     def set_intercept(self, flag: bool):
@@ -251,15 +252,84 @@ class GeneralizedLinearAlgorithm:
         return self
 
     def set_schedule(self, mode: str):
-        """Only ``"off"`` exists until the planner is ported (ROADMAP
-        A11): the optimizer always runs exactly as configured."""
-        if mode != "off":
-            raise NotImplementedError(
-                f"schedule {mode!r} needs the execution planner "
-                "(tpu_sgd/plan.py), not ported yet (ROADMAP A11); the port "
-                "runs as schedule='off'"
+        """Execution-schedule policy (``tpu_sgd_torch/plan.py``).
+        ``"auto"`` (default): when no manual schedule flag is set on the
+        optimizer, ``run`` probes (shape, dtype, gradient family,
+        sampling, free device memory), picks a schedule and logs one
+        ``plan: ...`` line on the ``tpu_sgd_torch.plan`` logger.  A
+        schedule name (``resident_stock`` / ``resident_gram`` /
+        ``partial_residency`` / ``host_streamed`` /
+        ``streamed_virtual_gram``) forces it, with a warning when the
+        estimate says it loses.  ``"off"``: never plan; the optimizer runs
+        exactly as configured.  Manual optimizer flags
+        (``set_host_streaming``, ``set_sufficient_stats``,
+        ``set_streamed_stats``) always win over ``"auto"``."""
+        from tpu_sgd_torch.plan import SCHEDULES
+
+        valid = ("auto", "off")
+        if mode not in valid + SCHEDULES:
+            raise ValueError(
+                f"schedule must be one of {valid + SCHEDULES}, got {mode!r}"
             )
+        self.schedule = mode
         return self
+
+    def _auto_plan(self, X, y) -> None:
+        """Apply the planner per ``set_schedule``, on the exact matrix the
+        optimizer will see (after scaling and the bias column)."""
+        if self.schedule == "off":
+            return
+        opt = self.optimizer
+        manual = bool(
+            getattr(opt, "host_streaming", False)
+            or getattr(opt, "sufficient_stats", False)
+            or getattr(opt, "streamed_stats", False)
+        )
+        # flags a PREVIOUS plan set (last_plan is not None) are the
+        # planner's own and must not block planning for a new dataset;
+        # the manual setters clear last_plan, so user-set flags win
+        if (self.schedule == "auto" and manual
+                and getattr(opt, "last_plan", None) is None):
+            return  # explicit optimizer flags win
+        from tpu_sgd_torch.optimize.lbfgs import LBFGS
+        from tpu_sgd_torch.plan import logger, plan_for, plan_quasi_newton
+
+        force = None if self.schedule == "auto" else self.schedule
+        # identically shaped repeat runs (the streaming model's
+        # micro-batches) skip the probe, the plan and the log
+        key = (tuple(X.shape), str(getattr(X, "dtype", "")),
+               bool(getattr(X, "is_cuda", False)), force,
+               getattr(opt, "config", None), getattr(opt, "mesh", None),
+               getattr(opt, "max_num_iterations", None))
+        if (getattr(opt, "last_plan", None) is not None
+                and getattr(opt, "_plan_key", None) == key):
+            return
+        if isinstance(opt, LBFGS):
+            p = plan_quasi_newton(opt, X, y, force=force)
+            if p is not None:
+                p.apply_quasi_newton(opt)
+        else:
+            p = plan_for(opt, X, y, force=force)
+            if p is not None:
+                p.apply(opt)
+        if p is not None:
+            opt._plan_key = key
+            logger.info(p.describe())
+        elif getattr(opt, "last_plan", None) is not None:
+            # an input the planner leaves alone (sparse, GramData, a model
+            # axis) after a planned run: the previous plan's flags and
+            # knobs must not leak onto this dataset
+            opt._clear_planned_schedule()
+            opt.last_plan = None
+            opt._plan_key = None
+        if p is None and force is not None:
+            raise ValueError(
+                f"schedule={force!r} cannot be applied here: this "
+                "optimizer/input is not planned (sparse/BCOO or GramData "
+                "input, a 2-D data x model mesh, or an optimizer without "
+                "schedules) — configure it directly with the optimizer "
+                "setters instead"
+            )
 
     # -- hooks -------------------------------------------------------------
     def create_model(self, weights, intercept) -> GeneralizedLinearModel:
@@ -306,10 +376,12 @@ class GeneralizedLinearAlgorithm:
             Xb = append_bias_auto(X)
             w0 = torch.cat([w0, torch.tensor([initial_intercept],
                                              dtype=torch.float32)])
+            self._auto_plan(Xb, y)
             weights = self.optimizer.optimize((Xb, y), w0)
             intercept = float(weights[-1])
             weights = weights[:-1]
         else:
+            self._auto_plan(X, y)
             weights = self.optimizer.optimize((X, y), w0)
             intercept = 0.0
         if scaler is not None:

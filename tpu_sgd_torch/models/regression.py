@@ -49,9 +49,10 @@ class RidgeRegressionModel(LinearRegressionModel):
 def apply_train_options(alg, mesh=None, sampling=None,
                         host_streaming=False, sufficient_stats=False,
                         schedule=None):
-    """The static ``train`` options shared by every SGD family; those of
-    later slices raise ``NotImplementedError`` through their setters, or
-    when the run starts (a mesh with host streaming)."""
+    """The static ``train`` options shared by every SGD family (a mesh
+    with host streaming on a 2-D mesh raises when the run starts).
+    ``schedule``: the planner's policy (``set_schedule``; None keeps
+    ``"auto"``)."""
     if mesh is not None:
         alg.optimizer.set_mesh(mesh)
     if sampling is not None:
@@ -113,10 +114,12 @@ class _RegressionWithSGD(GeneralizedLinearAlgorithm):
         """Static train() parity with the reference's object methods.
         ``sampling`` picks the mini-batch sampler (``SGDConfig.sampling``);
         ``device=None`` trains on the card.  ``mesh`` (a
-        ``parallel.Mesh``, 1-D or 2-D) trains on this rank's rows; a
-        ``schedule`` other than ``"off"`` belongs to a later slice and
-        raises ``NotImplementedError``, and so does ``mesh`` with
-        ``host_streaming``."""
+        ``parallel.Mesh``, 1-D or 2-D) trains on this rank's rows.  With
+        no schedule-related argument the execution planner
+        (``tpu_sgd_torch/plan.py``) picks the schedule and logs one
+        ``plan: ...`` line; ``schedule=`` forces a named schedule or turns
+        planning off (``"off"``).  Manual flags always win over the
+        planner."""
         alg = cls(step_size, num_iterations, reg_param, mini_batch_fraction,
                   device=device)
         alg.set_intercept(intercept)

@@ -1109,76 +1109,6 @@ def _pinned_like(t: Tensor) -> Optional[Tensor]:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
 
 
-#: the gram knobs of ``set_gram_options``: name -> (optimizer attribute,
-#: requires a positive int)
-_GRAM_KNOBS = {
-    "block_rows": ("gram_block_rows", True),
-    "aligned": ("gram_aligned", False),
-    "chunk_iters": ("gram_chunk_iters", True),
-    "batch_rows": ("gram_batch_rows", True),
-}
-
-
-def _apply_gram_knobs(optimizer, **knobs) -> None:
-    """Validate every knob, then apply them all, so a bad later argument
-    leaves the earlier ones untouched (the JAX package's
-    ``apply_user_gram_knobs``, without the planner's bookkeeping)."""
-    provided = {}
-    for name, val in knobs.items():
-        if val is None:
-            continue
-        attr, positive = _GRAM_KNOBS[name]
-        if positive:
-            if int(val) < 1:
-                raise ValueError(f"{name} must be positive, got {val}")
-            val = int(val)
-        else:
-            val = bool(val)
-        provided[name] = (attr, val)
-    for attr, val in provided.values():
-        setattr(optimizer, attr, val)
-
-
-def _apply_ingest_options(optimizer, wire_dtype=None, prefetch_depth=None,
-                          pipeline=None, retry=None,
-                          wire_compress=None) -> None:
-    """The body of ``set_ingest_options``, shared by ``GradientDescent``
-    and ``LBFGS``: every argument is validated before any is applied, and
-    ``None`` leaves a knob as it is."""
-    from tpu_sgd_torch.io.sparse_wire import parse_wire_compress
-    from tpu_sgd_torch.io.wire import resolve_wire_dtype
-    from tpu_sgd_torch.reliability.retry import RetryPolicy
-
-    provided = {}
-    if wire_compress is not None:
-        if wire_compress is False:
-            provided["ingest_wire_compress"] = None
-        else:
-            parse_wire_compress(wire_compress)
-            provided["ingest_wire_compress"] = str(wire_compress)
-    if retry is not None:
-        if retry is False:
-            provided["ingest_retry_policy"] = None
-        elif not isinstance(retry, RetryPolicy):
-            raise TypeError(
-                f"retry must be a RetryPolicy or False, got "
-                f"{type(retry).__name__}")
-        else:
-            provided["ingest_retry_policy"] = retry
-    if wire_dtype is not None:
-        resolve_wire_dtype(wire_dtype, "float32")  # validate the name
-        provided["ingest_wire_dtype"] = str(wire_dtype)
-    if prefetch_depth is not None:
-        if int(prefetch_depth) < 0:
-            raise ValueError(
-                f"prefetch_depth must be >= 0, got {prefetch_depth}")
-        provided["ingest_prefetch_depth"] = int(prefetch_depth)
-    if pipeline is not None:
-        provided["ingest_pipeline"] = bool(pipeline)
-    for attr, val in provided.items():
-        setattr(optimizer, attr, val)
-
-
 def _streamed_stats_guards(optimizer, X) -> None:
     """``set_streamed_stats``'s guards: dense least squares, and not with
     host streaming (one device and a mesh alike)."""
@@ -1284,6 +1214,12 @@ class GradientDescent(Optimizer):
         self._observed_entry = None
         #: the device mesh of ``set_mesh`` (None: one device)
         self.mesh = None
+        #: the planner's bookkeeping (``tpu_sgd_torch/plan.py``): the knobs
+        #: the USER set (a plan keeps them), the plan of the last planned
+        #: run and its repeat-run key
+        self._user_gram_opts = frozenset()
+        self.last_plan = None
+        self._plan_key = None
 
     # -- fluent config (returns self, like the reference's setters) --------
     def set_gradient(self, g: Gradient):
@@ -1379,9 +1315,32 @@ class GradientDescent(Optimizer):
         instead of over PCIe (sliced sampling only); the window sequence,
         and so the result, is unchanged.  Knobs: ``set_ingest_options``,
         ``set_superstep``, ``set_residency``."""
+        self._clear_planned_schedule()
         self.host_streaming = bool(flag)
         self.streaming_resident_rows = int(resident_rows)
+        self._mark_manual_schedule()
         return self
+
+    def _clear_planned_schedule(self):
+        """A manual schedule setter taking over after a planned run: the
+        previous plan's schedule flags and sizing knobs are the planner's,
+        not the user's, so they go back to their defaults (user-set flags
+        always come with ``last_plan is None``; user-set knobs stay)."""
+        if self.last_plan is not None:
+            self.host_streaming = False
+            self.streaming_resident_rows = 0
+            self.sufficient_stats = False
+            self.streamed_stats = False
+            from tpu_sgd_torch.plan import reset_plan_owned_gram_knobs
+
+            reset_plan_owned_gram_knobs(self)
+
+    def _mark_manual_schedule(self):
+        """A schedule setter the user called: the planner's "manual flags
+        win" rule keys on ``last_plan is None`` (``models/glm.py``), so
+        clear it and the repeat-run key."""
+        self.last_plan = None
+        self._plan_key = None
 
     def set_sufficient_stats(self, flag: bool = True):
         """Run least squares from precomputed block-prefix Gram statistics
@@ -1397,7 +1356,9 @@ class GradientDescent(Optimizer):
         keeps the dataset and the prefix stack on the device until another
         dataset is passed, the optimizer is dropped, or
         :meth:`release_sufficient_stats` is called."""
+        self._clear_planned_schedule()
         self.sufficient_stats = bool(flag)
+        self._mark_manual_schedule()
         return self
 
     def set_gram_options(self, block_rows: int = None, aligned: bool = None,
@@ -1411,9 +1372,14 @@ class GradientDescent(Optimizer):
         the chunked-gather driver (``optimize/gram_driver.py``), K windows
         gathered per outer step, with the same per-iteration contract.
         ``batch_rows`` caps the host->device chunk of the streamed build
-        (``set_streamed_stats``; default 64 blocks)."""
-        _apply_gram_knobs(self, block_rows=block_rows, aligned=aligned,
-                          chunk_iters=chunk_iters, batch_rows=batch_rows)
+        (``set_streamed_stats``; default 64 blocks).  The planner sets
+        ``block_rows`` and ``batch_rows`` itself; a knob set here is the
+        user's and every plan keeps it."""
+        from tpu_sgd_torch.plan import apply_user_gram_knobs
+
+        apply_user_gram_knobs(self, block_rows=block_rows, aligned=aligned,
+                              batch_rows=batch_rows,
+                              chunk_iters=chunk_iters)
         return self
 
     def release_sufficient_stats(self):
@@ -1448,9 +1414,14 @@ class GradientDescent(Optimizer):
         exact windows).  Applies to exactly ``LeastSquaresGradient`` on
         dense data with sliced or full-batch sampling, and raises
         otherwise; the build is cached per ``(X, y)`` identity."""
-        if block_rows is not None:
-            _apply_gram_knobs(self, block_rows=block_rows)
+        if block_rows is not None and int(block_rows) < 1:
+            raise ValueError(f"block_rows must be positive, got {block_rows}")
+        self._clear_planned_schedule()
         self.streamed_stats = bool(flag)
+        if block_rows is not None:
+            self.gram_block_rows = int(block_rows)
+            self._user_gram_opts = self._user_gram_opts | {"block_rows"}
+        self._mark_manual_schedule()
         return self
 
     def set_ingest_options(self, wire_dtype=None, prefetch_depth=None,
@@ -1472,9 +1443,14 @@ class GradientDescent(Optimizer):
         (its accumulator is optimizer state, checkpointed as
         ``extras={"ef": ...}``); ``False`` clears it.  ``wire_dtype``,
         ``prefetch_depth`` and ``pipeline`` also drive the streamed build
-        of ``set_streamed_stats``."""
-        _apply_ingest_options(self, wire_dtype, prefetch_depth, pipeline,
-                              retry, wire_compress)
+        of ``set_streamed_stats``.  A knob set here is the user's and
+        every plan keeps it."""
+        from tpu_sgd_torch.plan import apply_user_ingest_options
+
+        apply_user_ingest_options(self, wire_dtype=wire_dtype,
+                                  prefetch_depth=prefetch_depth,
+                                  pipeline=pipeline, retry=retry,
+                                  wire_compress=wire_compress)
         return self
 
     def set_superstep(self, k: int):
@@ -1497,6 +1473,8 @@ class GradientDescent(Optimizer):
         if int(k) < 1:
             raise ValueError(f"superstep must be >= 1, got {k}")
         self.superstep = int(k)
+        self._user_gram_opts = self._user_gram_opts | {"superstep"}
+        self._plan_key = None
         return self
 
     def set_residency(self, cadence: int = 8):
@@ -1522,6 +1500,8 @@ class GradientDescent(Optimizer):
         if c < 0:
             raise ValueError(f"cadence must be >= 0, got {cadence}")
         self.resident_cadence = c
+        self._user_gram_opts = self._user_gram_opts | {"residency"}
+        self._plan_key = None
         return self
 
     def set_listener(self, listener):

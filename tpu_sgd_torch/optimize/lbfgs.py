@@ -73,11 +73,7 @@ from tpu_sgd_torch.ops.updaters import (
     SquaredL2Updater,
     Updater,
 )
-from tpu_sgd_torch.optimize.gradient_descent import (
-    _apply_gram_knobs,
-    _apply_ingest_options,
-    _streamed_gram,
-)
+from tpu_sgd_torch.optimize.gradient_descent import _streamed_gram
 from tpu_sgd_torch.optimize.optimizer import Dataset, Optimizer
 from tpu_sgd_torch.parallel.mesh import (
     Mesh,
@@ -342,6 +338,10 @@ class LBFGS(Optimizer):
         self._streamed_gram_entry = None
         #: the data mesh of ``set_mesh`` (None: one device)
         self.mesh = None
+        #: the planner's bookkeeping (see ``GradientDescent``)
+        self._user_gram_opts = frozenset()
+        self.last_plan = None
+        self._plan_key = None
 
     # fluent setters, reference parity
     def set_gradient(self, g):
@@ -388,8 +388,28 @@ class LBFGS(Optimizer):
         ``LeastSquaresGradient`` on dense data; otherwise a no-op.  The
         last build is retained by ``(X, y)`` identity; call
         :meth:`release_sufficient_stats` to free it."""
+        self._clear_planned_schedule()
         self.sufficient_stats = bool(flag)
+        self._mark_manual_schedule()
         return self
+
+    def _clear_planned_schedule(self):
+        """A manual schedule setter taking over after a planned run: the
+        plan's schedule flags and sizing knobs go back to their defaults
+        (user-set ones stay; see ``GradientDescent``)."""
+        if self.last_plan is not None:
+            self.host_streaming = False
+            self.sufficient_stats = False
+            self.streamed_stats = False
+            from tpu_sgd_torch.plan import reset_plan_owned_gram_knobs
+
+            reset_plan_owned_gram_knobs(self)
+
+    def _mark_manual_schedule(self):
+        """A schedule setter the user called invalidates any plan
+        (``models/glm.py``'s "manual flags win" rule)."""
+        self.last_plan = None
+        self._plan_key = None
 
     def release_sufficient_stats(self):
         """Drop the cached statistics bundles (resident and streamed) and
@@ -404,8 +424,13 @@ class LBFGS(Optimizer):
                          batch_rows: int = None):
         """``block_rows`` sizes the statistics' prefix stack;
         ``batch_rows`` caps the host->device chunk of the streamed build
-        (``set_streamed_stats``; default 64 blocks)."""
-        _apply_gram_knobs(self, block_rows=block_rows, batch_rows=batch_rows)
+        (``set_streamed_stats``; default 64 blocks).  The planner sets
+        them itself; a knob set here is the user's and every plan keeps
+        it."""
+        from tpu_sgd_torch.plan import apply_user_gram_knobs
+
+        apply_user_gram_knobs(self, block_rows=block_rows,
+                              batch_rows=batch_rows)
         return self
 
     def set_streamed_stats(self, flag: bool = True, block_rows: int = None):
@@ -418,9 +443,14 @@ class LBFGS(Optimizer):
         tail rows.  Applies to exactly ``LeastSquaresGradient`` on dense
         data and raises otherwise; the build is cached per ``(X, y)``
         identity."""
-        if block_rows is not None:
-            _apply_gram_knobs(self, block_rows=block_rows)
+        if block_rows is not None and int(block_rows) < 1:
+            raise ValueError(f"block_rows must be positive, got {block_rows}")
+        self._clear_planned_schedule()
         self.streamed_stats = bool(flag)
+        if block_rows is not None:
+            self.gram_block_rows = int(block_rows)
+            self._user_gram_opts = self._user_gram_opts | {"block_rows"}
+        self._mark_manual_schedule()
         return self
 
     def set_host_streaming(self, flag: bool = True, batch_rows: int = None):
@@ -431,13 +461,18 @@ class LBFGS(Optimizer):
         re-reading the data on each evaluation.  ``batch_rows`` caps the
         chunk (default ~256 MB of rows).  The CostFun keeps its own feed:
         ``set_ingest_options`` applies to ``set_streamed_stats``'s
-        build."""
+        build.  The planner sizes ``batch_rows`` itself
+        (``plan.plan_quasi_newton``); a cap set here is the user's."""
+        self._clear_planned_schedule()
+        self.host_streaming = bool(flag)
         if batch_rows is not None:
             if int(batch_rows) < 1:
                 raise ValueError(
                     f"batch_rows must be positive, got {batch_rows}")
             self.stream_batch_rows = int(batch_rows)
-        self.host_streaming = bool(flag)
+            self._user_gram_opts = (
+                self._user_gram_opts | {"stream_batch_rows"})
+        self._mark_manual_schedule()
         return self
 
     def set_ingest_options(self, wire_dtype=None, prefetch_depth=None,
@@ -450,8 +485,12 @@ class LBFGS(Optimizer):
         streamed totals through the JAX package's compressed merge
         (``parallel.gram_parallel.build_streamed_total_stats``); ``False``
         clears it."""
-        _apply_ingest_options(self, wire_dtype, prefetch_depth, pipeline,
-                              retry, wire_compress)
+        from tpu_sgd_torch.plan import apply_user_ingest_options
+
+        apply_user_ingest_options(self, wire_dtype=wire_dtype,
+                                  prefetch_depth=prefetch_depth,
+                                  pipeline=pipeline, retry=retry,
+                                  wire_compress=wire_compress)
         return self
 
     @property

@@ -24,11 +24,12 @@ Host rows too large for the card (a numpy array or a CPU tensor) take
 ``set_host_streaming``: the totals accumulate from streamed chunks with an
 f64 carry (``GramLeastSquaresGradient._streamed_totals``, resumable with
 ``resume_dir``), every row counted, then the same solve.  Those totals are
-at least as precise as the resident Gram's.  There is no AUTO placement
-yet (the JAX package streams when the data exceed the probed device
-budget; that is the planner, ROADMAP A11): the default is resident, and
-data too large for the card fails where it is moved there; it never
-moves to the CPU.
+at least as precise as the resident Gram's.  The default
+(``host_streaming=None``) is AUTO placement, the JAX package's: host data
+whose bytes exceed the planner's device budget (``plan.device_budget``;
+on a mesh ``plan.mesh_budget`` times the data ranks) stream their totals
+and log one ``plan: normal host_streamed`` line; everything else, and
+every CUDA tensor, runs resident.  Nothing moves to the CPU.
 
 On a data mesh (``set_mesh``) each rank passes its own rows and runs the
 same one pass over them; the ranks' f64 ``(XᵀX, Xᵀy, yᵀy, n)`` are
@@ -148,8 +149,8 @@ class NormalEquations(Optimizer):
     def __init__(self, reg_param: float = 0.0, device=None):
         self.reg_param = float(reg_param)
         self.device = device
-        #: None and False: resident (no AUTO placement before the planner,
-        #: ROADMAP A11); True: the host-streamed totals
+        #: None = AUTO: stream when host data exceed the device budget;
+        #: True / False force the streamed totals / the resident pass
         self.host_streaming = None
         self.stream_batch_rows = None
         self.stream_resume_dir = None
@@ -170,9 +171,8 @@ class NormalEquations(Optimizer):
         rows; the block shrinks to a smaller cap).  ``resume_dir`` makes
         the pass resumable: the carry is saved every few chunks, and a
         pass stopped part way resumes to the same bits; like
-        ``batch_rows`` it stays set.  ``flag=None`` or ``False`` runs
-        resident: the port has no AUTO placement until the planner
-        (ROADMAP A11)."""
+        ``batch_rows`` it stays set.  ``flag=None`` restores AUTO
+        placement; ``False`` forces the resident pass."""
         if batch_rows is not None:
             if int(batch_rows) < 1:
                 raise ValueError(
@@ -208,7 +208,11 @@ class NormalEquations(Optimizer):
                 "GradientDescent/LBFGS/OWLQN instead"
             )
         dev = resolve_device(self.device)
-        if self.host_streaming:
+        stream = self.host_streaming
+        if stream is None and not (isinstance(X, torch.Tensor)
+                                   and X.is_cuda):
+            stream = self._auto_streams(X)
+        if stream:
             # before any device conversion: X never lives on the card whole
             if np.shape(initial_weights)[-1] != X.shape[1]:
                 raise ValueError(
@@ -234,6 +238,57 @@ class NormalEquations(Optimizer):
             sums = self._meshed_gram_sums(X.contiguous(), y, dev)
         w, loss = _solve(*sums, self.reg_param)
         return self._finish(w, loss)
+
+    def _auto_streams(self, X) -> bool:
+        """AUTO placement (the JAX package's rule): stream the totals when
+        the host data's bytes exceed the device budget.  On a mesh of one
+        host every rank passes the whole dataset, so the budget is the
+        ranks'; on several hosts each process holds its own rows on its
+        one card, and the streamed totals are single-host, so AUTO warns
+        and runs resident."""
+        from tpu_sgd_torch.plan import device_budget, logger, mesh_budget
+
+        n, d = X.shape
+        dt = getattr(X, "dtype", np.float32)
+        itemsize = (dt.itemsize if isinstance(dt, torch.dtype)
+                    else np.dtype(dt).itemsize)
+        data_bytes = n * d * itemsize + n * 4.0
+        multihost = False
+        if self.mesh is None:
+            budget, _src = device_budget(self.device)
+        else:
+            from tpu_sgd_torch.parallel.mesh import (
+                as_data_mesh,
+                mesh_spans_processes,
+            )
+
+            mesh = as_data_mesh(self.mesh)
+            budget, _src = mesh_budget()
+            multihost = mesh_spans_processes(mesh)
+            if not multihost:
+                budget *= mesh.size
+        stream = data_bytes > budget
+        if stream and multihost:
+            import warnings
+
+            warnings.warn(
+                f"data ({data_bytes / 1e9:.2f} GB/process) exceeds "
+                f"the local-device budget ({budget / 1e9:.2f} GB) "
+                "but the streamed totals build is single-host; "
+                "committing resident and it may exhaust device "
+                "memory — shrink the per-process rows or stream on "
+                "a local mesh",
+                RuntimeWarning, stacklevel=4,
+            )
+            stream = False
+        if stream:
+            logger.info(
+                "plan: normal host_streamed — data "
+                f"({data_bytes / 1e9:.2f} GB) exceeds the device "
+                f"budget ({budget / 1e9:.2f} GB); Gram totals "
+                "accumulate from host-streamed chunks (exact)"
+            )
+        return stream
 
     def _meshed_gram_sums(self, X, y, dev):
         """``(XᵀX, Xᵀy, yᵀy, n)`` of every rank's rows: this rank's f64

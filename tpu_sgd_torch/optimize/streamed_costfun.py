@@ -77,7 +77,9 @@ _DEFAULT_CHUNK_BYTES = 256e6
 def default_stream_batch_rows(d: int, itemsize: int,
                               chunk_bytes: Optional[float] = None) -> int:
     """Rows per streamed chunk at a byte budget (default ~256 MB): the JAX
-    package's chunk-sizing policy."""
+    package's chunk-sizing policy, shared with ``plan.plan_quasi_newton``,
+    which sizes a planned run's chunk from the device budget (an unplanned
+    run takes the 256 MB default)."""
     if chunk_bytes is None:
         chunk_bytes = _DEFAULT_CHUNK_BYTES
     return max(1024, int(chunk_bytes // max(1, d * itemsize)))

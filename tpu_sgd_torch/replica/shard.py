@@ -72,11 +72,6 @@ from tpu_sgd_torch.optimize.gradient_descent import _host
 from tpu_sgd_torch.reliability.failpoints import corruptpoint, failpoint
 from tpu_sgd_torch.replica.store import ParameterStore, PushResult
 
-#: the compressed combine's density crossover: the JAX package's default
-#: (its ``plan.DEFAULT_COST_MODEL.sparse_merge_density``), kept as it is
-#: until the port's planner lands.  Not an H100 calibration.
-DEFAULT_MERGE_DENSITY = 0.25
-
 #: lock-discipline declaration (the JAX package's analyzer reads these):
 #: one condition per pipeline guards its job slot and counters; the
 #: worker thread executes jobs OUTSIDE the lock (numpy releases the GIL
@@ -273,14 +268,17 @@ class ShardedParameterStore(ParameterStore):
     is the plain store.
 
     ``merge_density``: the compressed combine's density crossover
-    (``None`` = :data:`DEFAULT_MERGE_DENSITY`)."""
+    (``None`` = ``plan.DEFAULT_COST_MODEL.sparse_merge_density``, a
+    policy fraction the port keeps from the JAX package)."""
 
     def __init__(self, updater, config, initial_weights, *,
                  n_shards: int = 1,
                  merge_density: Optional[float] = None, **kwargs):
         super().__init__(updater, config, initial_weights, **kwargs)
         if merge_density is None:
-            merge_density = DEFAULT_MERGE_DENSITY
+            from tpu_sgd_torch.plan import DEFAULT_COST_MODEL
+
+            merge_density = DEFAULT_COST_MODEL.sparse_merge_density
         self._merge_density = float(merge_density)
         self._offsets = shard_offsets(self._dim, n_shards)
         self._pipes = [
