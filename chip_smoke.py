@@ -132,6 +132,23 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    a timer and the sharded store at S = 4, each bitwise the fault-free
    run.  (f) a stop at round 13 and its resume, bitwise.  B1 timed at a
    worker's shard under 8 threads' concurrent launches.
+9c. obs — the observability layer (``tpu_sgd_torch.obs``) on runs that
+   already happen.  (a) at the end of phase 9: the observed driver's
+   sliced run (72 iterations, K = 8, a listener), warmed, with the layer
+   off under torch's sync detector and on under ``obs.enable(trace)``:
+   ``train.dispatch`` equals the run's graph replays plus its launches
+   outside a capture, ``compile`` is 0, ``host_sync`` equals the sync
+   detector's count, the run is bitwise the one with the layer off; the
+   wall an iteration off and on (not gated).  (b) in phase 9b (e): the
+   fault-free HA run and the killed one each under ``obs.enable(trace,
+   detect=True, flightrec=...)``: the fault-free run trips nothing and
+   dumps nothing, the killed run (still bitwise the fault-free one)
+   trips ``failover`` once per failover and the flight recorder's dump
+   names ``alert:failover``.  (c) on the killed run's trace, three
+   subprocesses at once: ``python -m tpu_sgd_torch.obs.report`` exits 0
+   on an SLO document the run meets (writing a Chrome trace that loads)
+   and 1 on one it violates, its alerts section names ``failover``, and
+   ``python -m tpu_sgd_torch.obs.watch --once`` renders.
 10. streamed — host-streamed SGD (``set_host_streaming``), right after
    phase 9: phase 4's matrix copied to the host once, into a memfd that
    phase 12's ranks map too (the phase fails, naming the shortfall, when
@@ -274,7 +291,8 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    kernel table.
 15. summary — the sparse line, the quasi_newton line, the gram line, the
    streamed line, the streamed_qn line, the plan line, the mesh line, the serve line,
-   the corr line, the replica line, the observed line, the kernel table
+   the corr line, the replica line, the observed line, the obs line, the
+   kernel table
    (B1-B3, B1 at a replica worker's shard under concurrent launches, B1 at
    the
    streamed chunk shape and its tail, the CSR kernel, B1, B2 and the CSR
@@ -2790,7 +2808,8 @@ def sampler_ms(torch, tst, X, draws=20, replays=10):
 
 
 def phase_observed(torch, tst, ck, X, y):
-    """Phase ``observed`` on phase ``full``'s matrix."""
+    """Phase ``observed`` on phase ``full``'s matrix, then phase ``obs``
+    (a) on the same matrix (``obs_counters_on_card``)."""
     t = time.perf_counter()
     rows = observed_rows(torch, tst, ck, X, y)
     driver = observed_driver(torch, tst, X, y)
@@ -2801,6 +2820,209 @@ def phase_observed(torch, tst, ck, X, y):
     emit({"phase": "observed", "driver": driver,
           "device_step_equals_host": out["device_step_equals_host"],
           "sampler_ms": out["sampler_ms"], "seconds": out["seconds"]})
+    t = time.perf_counter()
+    out["obs_counters"] = obs_counters_on_card(torch, tst, ck, X, y)
+    out["obs_counters"]["seconds"] = time.perf_counter() - t
+    return out
+
+
+# -- phase obs: the observability layer on the card ---------------------------
+
+#: the time series' window width of phase ``obs`` (b): the HA runs take
+#: 0.5-1 s, so each spans several windows
+OBS_WINDOW_S = 0.1
+
+
+def obs_counters_on_card(torch, tst, ck, X, y):
+    """Phase ``obs`` (a): the observed driver's sliced run of phase
+    ``observed`` (``OBS_ITERS`` iterations at K = ``OBS_K``, a listener),
+    warmed (its first run captures the block; every later run on the same
+    tensors replays all its blocks).  Run with the layer off under torch's
+    sync detector (the witness), then under ``obs.enable(trace)``:
+    ``train.dispatch`` equals the run's graph replays plus the kernel
+    launches it made outside a capture (``_BlockRunner.replays``, and
+    ``cuda_kernels.kernel_launch_counts()`` less what the replays added),
+    ``compile`` is 0, ``host_sync`` equals the witness, and the run is
+    bitwise the one with the layer off.  Then off, on, on, off for the
+    walls (not gated; an "on" wall is taken with the layer on)."""
+    from tpu_sgd_torch import obs
+    from tpu_sgd_torch.obs import counters
+
+    d = X.shape[1]
+    w0 = torch.zeros(d, device="cuda")
+    opt = (tst.GradientDescent(device="cuda").set_step_size(0.5)
+           .set_num_iterations(OBS_ITERS).set_mini_batch_fraction(FRAC)
+           .set_sampling("sliced").set_convergence_tol(0.0)
+           .set_superstep(OBS_K).set_listener(_stop_listener()))
+
+    def runner():  # the observed driver's cached block runner
+        return opt._observed_entry[1] if opt._observed_entry else None
+
+    opt.optimize_with_history((X, y), w0)  # warms up, captures, replays
+
+    def run(trace=None):
+        r0 = runner()
+        replays0 = r0.replays if r0 is not None else 0
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        if trace is not None:
+            obs.enable(trace)
+            counters.reset()
+        try:
+            t = time.perf_counter()
+            w, h = opt.optimize_with_history((X, y), w0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            snap = counters.snapshot() if trace is not None else None
+        finally:
+            if trace is not None:
+                obs.disable()
+        r1 = runner()
+        replays = r1.replays - (replays0 if r1 is r0 else 0)
+        per_replay = sum(r1.launches["sources"].values())
+        eager = sum(ck.kernel_launch_counts().values()) - replays * per_replay
+        return {"w": w, "h": np.asarray(h), "snap": snap, "replays": replays,
+                "eager_launches": eager,
+                "ms_per_iteration": 1e3 * wall / OBS_ITERS}
+
+    def total(snap, kind):
+        return sum(v["n"] for k, v in snap.items() if k.endswith("." + kind))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with _SyncCounter(torch) as syncs:
+            off = run()
+        on = run(os.path.join(tmp, "counted.jsonl"))
+        snap = on["snap"]
+        structural = off["replays"] + off["eager_launches"]
+        out = {"iterations": OBS_ITERS, "k": OBS_K,
+               "graph_replays": off["replays"],
+               "eager_launches": off["eager_launches"],
+               "train_dispatch": snap.get("train.dispatch", {"n": 0})["n"],
+               "dispatch": total(snap, "dispatch"),
+               "compile": total(snap, "compile"),
+               "host_sync": total(snap, "host_sync"),
+               "host_sync_witness": syncs.n,
+               "h2d": total(snap, "h2d")}
+        check(on["replays"] == off["replays"] == OBS_ITERS // OBS_K
+              and on["eager_launches"] == off["eager_launches"],
+              f"obs (a): the runs differ in structure {out}")
+        check(out["train_dispatch"] == out["dispatch"] == structural,
+              f"obs (a): dispatch {out}, want replays + eager launches "
+              f"{structural}")
+        check(out["compile"] == 0, f"obs (a): compiles {out}")
+        check(out["host_sync"] == syncs.n > 0,
+              f"obs (a): host syncs {out}, the sync detector saw {syncs.n}")
+        check(bool(torch.equal(on["w"], off["w"]))
+              and np.array_equal(on["h"], off["h"]),
+              "obs (a): the run with the layer on differs from the run "
+              "with it off")
+        walls = {"off": [], "on": []}
+        for mode in ("off", "on", "on", "off"):
+            r = run(os.path.join(tmp, f"wall_{len(walls['on'])}.jsonl")
+                    if mode == "on" else None)
+            walls[mode].append(r["ms_per_iteration"])
+    out["wall_ms_per_iteration_off"] = walls["off"]
+    out["wall_ms_per_iteration_on"] = walls["on"]
+    return out
+
+
+@contextlib.contextmanager
+def armed_obs(tmp, name):
+    """One run under ``obs.enable(trace, detect=True, flightrec=...)``:
+    yields the paths, and after the run the detectors' trip counts (the
+    trailing window evaluated first)."""
+    from tpu_sgd_torch import obs
+
+    rec = {"trace": os.path.join(tmp, f"{name}.jsonl"),
+           "flightrec": os.path.join(tmp, f"{name}_flightrec.jsonl")}
+    t = time.perf_counter()
+    obs.enable(rec["trace"], detect=True, window_s=OBS_WINDOW_S,
+               flightrec=rec["flightrec"])
+    rec["overhead_s"] = time.perf_counter() - t
+    try:
+        yield rec
+        t = time.perf_counter()
+        obs.flush_windows()
+        rec["trips"] = obs.detector_engine().trip_counts()
+    finally:
+        obs.disable()
+        rec["overhead_s"] += time.perf_counter() - t
+
+
+def obs_clis(trace, tmp):
+    """Phase ``obs`` (c): the report and watch CLIs on the killed HA run's
+    trace, as subprocesses started together: the report exits 0 on an SLO
+    document the run meets (with a Chrome trace written) and 1 on one it
+    violates, its alerts section names ``failover``, the Chrome JSON
+    loads, and the watcher renders once."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    docs = {"meets": {"slos": [
+        {"name": "one-failover-alert", "metric": "alert_count",
+         "rule": "failover", "min": 1, "max": 1},
+        {"name": "promotion-span", "metric": "span_count",
+         "span": "replica.failover", "min": 1},
+        {"name": "no-straggler", "metric": "alert_count",
+         "rule": "replica-straggler", "max": 0}]},
+        "violates": {"slos": [
+            {"name": "no-failover", "metric": "alert_count",
+             "rule": "failover", "max": 0}]}}
+    paths = {}
+    for name, doc in docs.items():
+        paths[name] = os.path.join(tmp, f"slo_{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(doc, f)
+    chrome = os.path.join(tmp, "chrome.json")
+    report = [sys.executable, "-m", "tpu_sgd_torch.obs.report", trace]
+    cmds = {"meets": report + ["--slo", paths["meets"], "--chrome", chrome],
+            "violates": report + ["--slo", paths["violates"]],
+            "watch": [sys.executable, "-m", "tpu_sgd_torch.obs.watch", trace,
+                      "--once", "--window", str(OBS_WINDOW_S)]}
+    t = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=root, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, c in cmds.items()}
+    said = {}
+    try:
+        for k, p in procs.items():
+            said[k] = p.communicate(timeout=120) + (p.returncode,)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = {k: v[2] for k, v in said.items()}
+    check(codes == {"meets": 0, "violates": 1, "watch": 0},
+          f"obs (c): exit codes {codes}: "
+          + " | ".join(f"{k}: {v[1][-400:]}" for k, v in said.items()))
+    alerts = said["meets"][0].split("alerts (", 1)
+    check(len(alerts) == 2 and "[failover]" in alerts[1],
+          f"obs (c): the report names no failover alert: "
+          f"{said['meets'][0][-600:]}")
+    check("SLO FAIL: no-failover" in said["violates"][0],
+          f"obs (c): {said['violates'][0][-300:]}")
+    with open(chrome) as f:
+        events = json.load(f)["traceEvents"]
+    check(len(events) > 0, "obs (c): an empty Chrome trace")
+    check("ACTIVE ALERTS" in said["watch"][0] or "window" in said["watch"][0],
+          f"obs (c): the watcher rendered {said['watch'][0][-300:]}")
+    return {"exit_codes": codes, "chrome_events": len(events),
+            "alerts_section_names_failover": True,
+            "watch_lines": said["watch"][0].count("\n"),
+            "seconds": time.perf_counter() - t}
+
+
+def phase_obs(observed, replica) -> dict:
+    """Phase ``obs``'s line: (a) from phase ``observed``'s end, (b) and (c)
+    from phase ``replica`` (e)."""
+    ha = replica["e_ha"]
+    out = {"a_counters": observed["obs_counters"],
+           "b_detectors": ha["obs"], "c_clis": ha["obs"].pop("clis")}
+    out["seconds"] = (out["a_counters"]["seconds"]
+                      + out["b_detectors"]["added_seconds"]
+                      + out["c_clis"]["seconds"])
+    emit({"phase": "obs", **out})
     return out
 
 
@@ -3081,7 +3303,9 @@ def replica_ha(torch, tst, ck, X, y, refs):
     both), the standby bitwise the primary at every version; through the
     driver with ``set_standbys(1)``, fault-free and with
     ``kill_primary()`` fired mid-run from a ``threading.Timer``, both
-    bitwise; the sharded store at S = 4, bitwise (so S = 1)."""
+    bitwise, each under the armed detectors (phase ``obs`` (b), then (c)
+    on the killed run's trace); the sharded store at S = 4, bitwise (so
+    S = 1)."""
     import threading
 
     from tpu_sgd_torch.replica import (ParameterStore, ReplicaWorker,
@@ -3129,37 +3353,69 @@ def replica_ha(torch, tst, ck, X, y, refs):
           "every version")
     out = {"standby_bitwise_every_version": standby_same}
 
-    free = _replica_run(torch, ck, _replica_driver(
-        tst, "bernoulli", REPLICA_ROUNDS).set_standbys(1), Xp, yp,
-        REPLICA_ROUNDS)
-    check(same(free), "replica (e): the fault-free HA run is not the "
-          "single store's")
-    out["fault_free_bitwise"] = True
-    out["fault_free_ms_per_round"] = free["ms_per_round"]
-    kill = None
-    for share in REPLICA_KILL_SHARES:
-        drv = _replica_driver(tst, "bernoulli", REPLICA_ROUNDS) \
-            .set_standbys(1)
-        timer = threading.Timer(share * free["wall_s"], drv.kill_primary)
-        timer.start()
-        try:
-            run = _replica_run(torch, ck, drv, Xp, yp, REPLICA_ROUNDS)
-        finally:
-            timer.cancel()
-        fo = drv.last_failover_snapshot
-        if fo["failovers"]:
-            kill = (share, run, fo)
-            break
-    check(kill is not None, "replica (e): no timer landed inside the run")
-    share, run, fo = kill
-    rec = fo["records"][0]
-    check(fo["failovers"] == 1 and not rec["cold_recovery"]
-          and same(run), f"replica (e): the killed run {fo} is not the "
-          "fault-free run")
-    out["kill_primary"] = {"bitwise": True, "timer_share": share,
-                           "old_version": rec["old_version"],
-                           "gap_replayed": rec["gap_replayed"],
-                           "epoch": run["snap"]["epoch"]}
+    # phase obs (b): the fault-free and the killed HA runs each under the
+    # armed detectors and the flight recorder; (c) reads the killed run's
+    # trace with the CLIs
+    with tempfile.TemporaryDirectory() as tmp:
+        armed = {}
+        with armed_obs(tmp, "free") as armed["free"]:
+            free = _replica_run(torch, ck, _replica_driver(
+                tst, "bernoulli", REPLICA_ROUNDS).set_standbys(1), Xp, yp,
+                REPLICA_ROUNDS)
+        check(same(free), "replica (e): the fault-free HA run is not the "
+              "single store's")
+        check(armed["free"]["trips"] == {}
+              and not os.path.exists(armed["free"]["flightrec"]),
+              f"obs (b): the fault-free HA run tripped "
+              f"{armed['free']['trips']}")
+        out["fault_free_bitwise"] = True
+        out["fault_free_ms_per_round"] = free["ms_per_round"]
+        kill = None
+        for i, share in enumerate(REPLICA_KILL_SHARES):
+            drv = _replica_driver(tst, "bernoulli", REPLICA_ROUNDS) \
+                .set_standbys(1)
+            timer = threading.Timer(share * free["wall_s"], drv.kill_primary)
+            with armed_obs(tmp, f"kill{i}") as armed[f"kill{i}"]:
+                timer.start()
+                try:
+                    run = _replica_run(torch, ck, drv, Xp, yp, REPLICA_ROUNDS)
+                finally:
+                    timer.cancel()
+            fo = drv.last_failover_snapshot
+            if fo["failovers"]:
+                kill = (share, run, fo)
+                armed["kill"] = armed[f"kill{i}"]
+                break
+        check(kill is not None, "replica (e): no timer landed inside the run")
+        share, run, fo = kill
+        rec = fo["records"][0]
+        check(fo["failovers"] == 1 and not rec["cold_recovery"]
+              and same(run), f"replica (e): the killed run {fo} is not the "
+              "fault-free run")
+        out["kill_primary"] = {"bitwise": True, "timer_share": share,
+                               "old_version": rec["old_version"],
+                               "gap_replayed": rec["gap_replayed"],
+                               "epoch": run["snap"]["epoch"]}
+        trips = armed["kill"]["trips"]
+        check(trips.get("failover") == fo["failovers"],
+              f"obs (b): trips {trips} for {fo['failovers']} failover(s)")
+        check(os.path.exists(armed["kill"]["flightrec"]),
+              "obs (b): no flight-recorder dump")
+        with open(armed["kill"]["flightrec"]) as f:
+            meta = json.loads(f.readline())
+        check(meta.get("kind") == "flightrec_meta"
+              and meta.get("reason") == "alert:failover",
+              f"obs (b): the flight recorder's trigger is {meta}")
+        out["obs"] = {
+            "window_s": OBS_WINDOW_S,
+            "fault_free_trips": armed["free"]["trips"],
+            "kill_trips": trips, "failovers": fo["failovers"],
+            "flightrec_trigger": meta["reason"],
+            "flightrec_detail": meta.get("detail"),
+            "runs_timed_with_the_layer_on": ["fault_free_ms_per_round"],
+            "added_seconds": sum(a["overhead_s"] for k, a in armed.items()
+                                 if k != "kill")}
+        out["obs"]["clis"] = obs_clis(armed["kill"]["trace"], tmp)
     sharded = _replica_run(torch, ck, _replica_driver(
         tst, "bernoulli", REPLICA_ROUNDS).set_store_shards(4), Xp, yp,
         REPLICA_ROUNDS)
@@ -7747,6 +8003,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     replica, replica_row = phase_replica(torch, tst, ck, X, y, profile)
     rows.append(replica_row)
+    obs_rec = phase_obs(observed, replica)
     torch.cuda.empty_cache()
     streamed, Xh, yh, fd = phase_streamed_dense(torch, tst, ck, X, y)
     emit({"phase": "streamed", "dense": streamed})
@@ -7895,6 +8152,14 @@ def main() -> int:
         "device_step_equals_host": observed["device_step_equals_host"],
         "sampler_ms": observed["sampler_ms"],
         "seconds": observed["seconds"]}})
+    emit({"obs": {
+        "a_counters": obs_rec["a_counters"],
+        "b_detectors": {k: obs_rec["b_detectors"][k] for k in (
+            "fault_free_trips", "kill_trips", "failovers",
+            "flightrec_trigger")},
+        "c_clis": {k: obs_rec["c_clis"][k] for k in (
+            "exit_codes", "chrome_events", "alerts_section_names_failover")},
+        "seconds": obs_rec["seconds"]}})
     # the kernel table last but for the card's line: the end of the output
     # is what a reader of a long run sees
     emit({"kernels": [{

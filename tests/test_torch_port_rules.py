@@ -438,18 +438,101 @@ def test_every_declared_site_is_called_in_its_module():
 def test_the_lock_rules_are_clean_on_the_replica_modules():
     """The JAX package's lexical, framework-free lock rules
     (lock-discipline, lock-order, cond-discipline, failpoint-coverage)
-    over the replica package and the flight recorder."""
+    over the whole port: the replica package, the flight recorder, the
+    detectors, the facade and every other module."""
     env = dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu")
     out = subprocess.run(
         [sys.executable, "-m", "tpu_sgd.analysis.lint", "--disable",
          "shape-trap,donation-safety,eager-in-loop,host-sync,"
          "callback-discipline,carry-stability,memo-key,obs-discipline,"
-         "contract-drift", "tpu_sgd_torch/replica",
-         "tpu_sgd_torch/obs/flightrec.py"],
+         "contract-drift", "tpu_sgd_torch"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     said = out.stdout + out.stderr  # the summary goes to stderr
     assert out.returncode == 0, said
-    assert "clean" in said and "9 file(s), 4 rule(s)" in said, said
+    n_files = sum(f.endswith(".py") for _, _, fs in os.walk(
+        os.path.join(ROOT, "tpu_sgd_torch")) for f in fs)
+    assert n_files == 85, n_files
+    assert "clean" in said and f"{n_files} file(s), 4 rule(s)" in said, said
+
+
+_OBS_MODULES = (
+    "tpu_sgd_torch.obs", "tpu_sgd_torch.obs.counters",
+    "tpu_sgd_torch.obs.detect", "tpu_sgd_torch.obs.flightrec",
+    "tpu_sgd_torch.obs.report", "tpu_sgd_torch.obs.spans",
+    "tpu_sgd_torch.obs.timeseries", "tpu_sgd_torch.obs.watch",
+)
+
+
+def test_obs_imports_pull_in_no_jax_and_build_nothing():
+    """A fresh process imports the observability layer and each of its
+    modules: no JAX, no JAX package, no compiler, no library, no thread,
+    and no counting hook installed."""
+    out = _python(
+        "import subprocess, sys, threading\n"
+        "def refuse(*a, **k): raise AssertionError('started %r' % (a,))\n"
+        "subprocess.Popen = refuse\n"
+        f"import importlib\nfor m in {_OBS_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "from tpu_sgd_torch.obs import counters\n"
+        "from tpu_sgd_torch.ops import _build\n"
+        "bad = sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
+        "hooked = [n for n in counters.SYNC_METHODS "
+        "if hasattr(getattr(torch.Tensor, n), '__wrapped__')]\n"
+        "print(bad, len(_build._loaded), threading.active_count(), "
+        "hooked, counters._PATCHES)")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] 0 1 [] None"
+
+
+@pytest.mark.parametrize("cli", ["report", "watch"])
+def test_obs_clis_answer_help_without_a_card(cli):
+    out = subprocess.run(
+        [sys.executable, "-m", f"tpu_sgd_torch.obs.{cli}", "--help"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert f"python -m tpu_sgd_torch.obs.{cli}" in out.stdout
+    assert "jax" not in out.stderr.lower()
+
+
+def test_obs_enable_disable_leaves_every_patched_attribute_as_it_was():
+    """``obs.enable()`` hooks ``torch.Tensor``'s read methods and the
+    port's funnels; ``obs.disable()`` puts back exactly what was there
+    (an inherited method is inherited again, not copied onto the
+    class), twice over and with the layer's twins stacked in between."""
+    from tpu_sgd_torch import obs
+    from tpu_sgd_torch.io.prefetch import PinnedRing
+    from tpu_sgd_torch.obs import counters
+    from tpu_sgd_torch.ops import _build, bucketed
+    from tpu_sgd_torch.optimize import gradient_descent
+
+    owners = {"Tensor": torch.Tensor, "ck": ck, "_build": _build,
+              "bucketed": bucketed, "PinnedRing": PinnedRing,
+              "gd": gradient_descent}
+    names = {"Tensor": counters.SYNC_METHODS, "gd": ("_fetch_rows",),
+             "ck": ("count_launch", "add_replayed_launches",
+                    "captured_launches"),
+             "_build": ("_start",), "bucketed": ("_padded",),
+             "PinnedRing": ("send",)}
+
+    def state():
+        return {(o, n): (getattr(owners[o], n), n in vars(owners[o]))
+                for o in owners for n in names[o]}
+
+    before = state()
+    for _ in range(2):
+        obs.enable()
+        during = state()
+        assert all(during[k][0] is not before[k][0] for k in before)
+        assert len(counters._PATCHES) == len(before)
+        obs.disable()
+        after = state()
+        assert all(after[k][0] is before[k][0] and after[k][1] == before[k][1]
+                   for k in before), [k for k in before
+                                      if after[k] != before[k]]
+    assert counters._PATCHES is None and not counters.is_enabled()
 
 
 def test_replica_driver_runs_on_the_card_by_default():

@@ -261,6 +261,31 @@ def test_circuit_breaker_lifecycle():
     assert br.snapshot()["total_opens"] == 2
 
 
+@pytest.mark.parametrize("depth", [0, 2])
+def test_prefetcher_heartbeat_ticks_per_chunk(depth):
+    """The JAX package's hook: one beat per produced item, after the
+    producer returns, on the serial and the threaded path alike."""
+    from tpu_sgd.io import Prefetcher as JPrefetcher
+    from tpu_sgd.reliability.health import Heartbeat as JHeartbeat
+    from tpu_sgd_torch.io import Prefetcher
+    from tpu_sgd_torch.reliability.health import Heartbeat
+
+    hb, jhb = Heartbeat("ingest"), JHeartbeat("ingest")
+    with Prefetcher(lambda i: i, range(5), depth=depth, heartbeat=hb) as pf:
+        got = list(pf)
+    with JPrefetcher(lambda i: i, range(5), depth=depth,
+                     heartbeat=jhb) as pf:
+        want = list(pf)
+    assert got == want == list(range(5))
+    assert hb.count == jhb.count == 5
+    assert hb.age_s() is not None
+    with pytest.raises(FaultInjected):
+        with inject_faults({"io.prefetch.produce": fail_nth(3)}):
+            list(Prefetcher(lambda i: i, range(5), depth=depth,
+                            heartbeat=(hb2 := Heartbeat("wedged"))))
+    assert hb2.count == 2  # a failed produce never beats
+
+
 # -- checkpoints ------------------------------------------------------------------
 
 def test_checkpoint_save_fault_leaves_no_partial_files(tmp_path):

@@ -691,6 +691,37 @@ def test_a_worker_on_host_rows_stages_them_once():
     assert kept._X is Xt
 
 
+def test_store_lock_discipline_validated_at_runtime():
+    """The ParameterStore lock declaration, validated dynamically on a
+    live two-worker run with the JAX package's runtime instrumentation
+    (the runtime twin of the lexical rule)."""
+    from tpu_sgd.analysis.runtime import instrument_object
+    from tpu_sgd_torch.replica import store as store_mod
+
+    X, y, w0 = data(n=64, d=6)
+    cfg = tst.SGDConfig(step_size=0.2, num_iterations=10,
+                        mini_batch_fraction=0.5, convergence_tol=0.0,
+                        reg_param=0.01)
+    store = ParameterStore(tst.SquaredL2Updater(), cfg, w0, staleness=1,
+                           device="cpu")
+    recorder = instrument_object(
+        store, store_mod.GRAFTLINT_LOCKS["ParameterStore"])
+    shards = shard_rows(X, y, 2)
+    workers = [ReplicaWorker(f"w{s}", s, store, tst.LeastSquaresGradient(),
+                             cfg, *shards[s], device="cpu")
+               for s in range(2)]
+    for s in range(2):
+        store.register_worker(f"w{s}", s)
+    threads = [threading.Thread(target=w.run) for w in workers]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert store.version == 10
+    assert recorder.checked_accesses > 0
+    assert recorder.violations == []
+
+
 def test_launch_counts_are_exact_under_concurrent_increments():
     """8 threads x 10,000 increments through the counting helper, with a
     short switch interval: no increment is lost."""

@@ -910,3 +910,190 @@ def test_flight_recorder_module_switch(tmp_path):
     assert not flightrec.is_enabled()
     with pytest.raises(ValueError):
         flightrec.FlightRecorder(str(tmp_path / "x"), capacity=0)
+
+
+# -- lock discipline (the JAX package's runtime instrumentation, with the
+# port's declarations) --------------------------------------------------------
+
+
+def test_failover_lock_discipline_and_order_validated_at_runtime():
+    """A kill-primary failover under FULL lock instrumentation
+    (supervisor + both stores + delta log + client, one shared
+    recorder): no unguarded access, no Eraser race, and the observed
+    acquisition order -- including the ``set_replication(log.append)``
+    callback edge -- replays clean against the committed order."""
+    from tpu_sgd.analysis.runtime import (LocksetRecorder, assert_lock_order,
+                                          instrument_object)
+    from tpu_sgd_torch.replica import ha as ha_mod
+    from tpu_sgd_torch.replica import store as store_mod
+
+    _, _, w0 = data(n=32, d=8)
+    primary, standby, sup = _store_pair(_cfg(num_iterations=200), w0, tau=2)
+    # quiesce the standby applier while its locks are swapped
+    sup._standbys[1].halt()
+    rec = LocksetRecorder()
+    instrument_object(sup._log, ha_mod.GRAFTLINT_LOCKS["DeltaLog"], rec)
+    for st in (primary, standby):
+        instrument_object(
+            st, store_mod.GRAFTLINT_LOCKS["ParameterStore"], rec,
+            owner="ParameterStore")
+    sup._standbys[1].start()
+    # the supervisor LAST: the restart above reads sup._standbys
+    instrument_object(sup, ha_mod.GRAFTLINT_LOCKS["StoreSupervisor"], rec)
+    client = sup.client()
+    instrument_object(client, ha_mod.GRAFTLINT_LOCKS["StoreClient"], rec)
+    client.register_worker("w0", 0)
+    client.register_worker("w1", 1)
+
+    ok = [0, 0]
+
+    def pusher(i):
+        for _ in range(30):
+            try:
+                pulled = client.pull(f"w{i}")
+                res = client.push(f"w{i}", pulled.version, *_ones(),
+                                  basis_epoch=pulled.epoch)
+                ok[i] += bool(res.accepted)
+            except Exception:
+                pass  # transient mid-promotion refusals are protocol
+            time.sleep(0.001)
+
+    threads = [threading.Thread(target=pusher, args=(i,), name=f"push{i}")
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    time.sleep(0.02)
+    assert sup.kill_primary()  # the failover, mid-traffic
+    for t in threads:
+        t.join(timeout=60)
+    sup.stop()
+    assert sup.epoch == 1
+    assert sum(ok) > 0
+    assert rec.checked_accesses > 0
+    assert rec.violations == []
+    assert rec.races() == []
+    assert ("ParameterStore._cond", "DeltaLog._cond") in rec.order_pairs
+    assert_lock_order(rec)
+
+
+def test_supervisor_lock_discipline_validated_at_runtime():
+    """The StoreSupervisor declaration, validated dynamically on a live
+    run with a mid-run failover."""
+    from tpu_sgd.analysis.runtime import instrument_object
+    from tpu_sgd_torch.replica import ha as ha_mod
+
+    X, y, w0 = data(n=64, d=6)
+    cfg = _cfg(num_iterations=30, step_size=0.2, mini_batch_fraction=0.5)
+    primary, standby, sup = _store_pair(cfg, w0, tau=1)
+    recorder = instrument_object(
+        sup, ha_mod.GRAFTLINT_LOCKS["StoreSupervisor"])
+    client = sup.client()
+    shards = shard_rows(X, y, 2)
+    workers = [ReplicaWorker(f"w{s}", s, client, tst.LeastSquaresGradient(),
+                             cfg, *shards[s], device="cpu")
+               for s in range(2)]
+    for s in range(2):
+        client.register_worker(f"w{s}", s)
+    killer = threading.Timer(0.1, sup.kill_primary)
+    killer.start()
+    _run_threads(workers)
+    killer.cancel()
+    sup.stop()
+    assert sup.primary().version == 30
+    assert recorder.checked_accesses > 0
+    assert recorder.violations == []
+
+
+# -- the detectors on failover windows (obs/detect.py) -------------------------
+
+
+def _win(idx, series):
+    return {"index": idx, "t_start": float(idx),
+            "t_end": float(idx) + 1.0, "series": series}
+
+
+def _cnt(n):
+    return {"count": n, "sum": 0.0, "mean": 0.0, "max": None, "bytes": 0}
+
+
+def test_failover_detector_trips_on_failover_window_only():
+    from tpu_sgd_torch.obs.detect import (DetectorEngine, FailoverDetector,
+                                          default_detectors)
+
+    assert "failover" in {d.rule for d in default_detectors()}
+    eng = DetectorEngine([FailoverDetector()])
+    eng.on_window_close(_win(0, {"replica.step[w0]": _cnt(5)}))
+    assert eng.trip_counts() == {}
+    eng.on_window_close(_win(1, {"replica.failover": _cnt(1)}))
+    assert eng.trip_counts() == {"failover": 1}
+    # stays-tripped dedup + re-arm after a clean window
+    eng.on_window_close(_win(2, {"replica.failover": _cnt(1)}))
+    assert eng.trip_counts() == {"failover": 1}
+    eng.on_window_close(_win(3, {}))
+    eng.on_window_close(_win(4, {"replica.failover": _cnt(1)}))
+    assert eng.trip_counts() == {"failover": 2}
+
+
+def test_straggler_roster_survives_failover_window():
+    """The failover window resets the straggler deficits, so the healed
+    fleet never false-trips, while a worker still silent AFTER the
+    failover keeps accumulating and trips."""
+    from tpu_sgd_torch.obs.detect import DetectorEngine, StragglerDetector
+
+    eng = DetectorEngine([StragglerDetector(min_fleet_steps=6)])
+    eng.on_window_close(_win(0, {"replica.step[w0]": _cnt(3),
+                                 "replica.step[w1]": _cnt(3)}))
+    eng.on_window_close(_win(1, {"replica.step[w0]": _cnt(4)}))
+    assert eng.trip_counts() == {}
+    eng.on_window_close(_win(2, {"replica.failover": _cnt(1),
+                                 "replica.step[w0]": _cnt(4)}))
+    assert eng.trip_counts() == {}
+    eng.on_window_close(_win(3, {"replica.step[w0]": _cnt(4)}))
+    assert eng.trip_counts() == {"replica-straggler": 1}
+
+
+def test_failover_under_the_armed_detectors_trips_once_and_dumps(tmp_path):
+    """The HA driver killed mid-run under ``obs.enable(detect=True,
+    flightrec=...)``: bitwise the fault-free run, exactly one ``failover``
+    trip per failover, and the flight recorder's dump names it; the
+    fault-free run under the same enable trips nothing."""
+    from tpu_sgd_torch import obs
+    from tpu_sgd_torch.obs import report
+
+    X, y, w0 = data(n=512, d=10, seed=8)
+    kw = dict(tau=0, iters=200, frac=0.5, step=0.2, reg=0.01, workers=2,
+              standbys=1)
+    trace, fr = str(tmp_path / "t.jsonl"), str(tmp_path / "fr.jsonl")
+    obs.enable(str(tmp_path / "clean.jsonl"), detect=True, window_s=0.05,
+               flightrec=str(tmp_path / "clean_fr.jsonl"))
+    try:
+        free_w, free_h = _driver(**kw).optimize_with_history((X, y), w0)
+        obs.flush_windows()
+        assert obs.detector_engine().trip_counts() == {}
+    finally:
+        obs.disable()
+    assert not os.path.exists(tmp_path / "clean_fr.jsonl")
+    obs.enable(trace, detect=True, window_s=0.05, flightrec=fr)
+    try:
+        drv = _driver(**kw)
+        # the kill waits until the run is live and past version 5 (a
+        # loaded host may start the run late); 200 rounds are its runway
+        t = threading.Thread(target=lambda: (
+            _wait_live(drv, 5) and drv.kill_primary()))
+        t.start()
+        w, h = drv.optimize_with_history((X, y), w0)
+        t.join(timeout=60)
+        obs.flush_windows()
+        trips = obs.detector_engine().trip_counts()
+    finally:
+        obs.disable()
+    fo = drv.last_failover_snapshot
+    assert fo["failovers"] == 1
+    assert trips.get("failover") == fo["failovers"]
+    np.testing.assert_array_equal(w.numpy(), free_w.numpy())
+    np.testing.assert_array_equal(h, free_h)
+    meta = JsonLinesEventLog.read(fr)[0]
+    assert meta["kind"] == "flightrec_meta"
+    assert meta["reason"] == "alert:failover"
+    stats = report.alert_stats(report.load_trace(trace))
+    assert stats["by_rule"].get("failover") == 1

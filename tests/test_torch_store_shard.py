@@ -428,3 +428,78 @@ def test_sharded_pushes_emit_per_shard_events():
     shards = [p["shard"] for k, p in sink.records
               if k == "trace_event" and p["name"] == "replica.shard.push"]
     assert shards == ["s0", "s1", "s0"]
+
+
+# -- lock discipline and the shard-balance detector ------------------------------
+
+
+def test_sharded_store_lock_discipline_validated_at_runtime():
+    """The store's and every pipeline's lock declarations, validated
+    dynamically on a live sharded run with the JAX package's runtime
+    instrumentation: the two-level discipline (store ``_cond`` ->
+    pipeline ``_cond``, never the reverse) holds under real worker
+    concurrency, and the observed order replays clean."""
+    from tpu_sgd.analysis.runtime import (LocksetRecorder, assert_lock_order,
+                                          instrument_object)
+    from tpu_sgd_torch.replica import shard as shard_mod
+    from tpu_sgd_torch.replica import store as store_mod
+
+    X, y, w0 = data(n=64, d=6)
+    cfg = _cfg(num_iterations=20, step_size=0.2, mini_batch_fraction=0.5)
+    store = ShardedParameterStore(tst.SquaredL2Updater(), cfg, w0,
+                                  n_shards=2, staleness=1, device="cpu")
+    rec = LocksetRecorder()
+    instrument_object(store, store_mod.GRAFTLINT_LOCKS["ParameterStore"],
+                      rec, owner="ParameterStore")
+    for p in store._pipes:
+        instrument_object(p, shard_mod.GRAFTLINT_LOCKS["ShardPipeline"],
+                          rec, owner="ShardPipeline")
+    shards = shard_rows(X, y, 2)
+    workers = [ReplicaWorker(f"w{s}", s, store, tst.LeastSquaresGradient(),
+                             cfg, *shards[s], device="cpu")
+               for s in range(2)]
+    for s in range(2):
+        store.register_worker(f"w{s}", s)
+    threads = [threading.Thread(target=w.run) for w in workers]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    store.stop()
+    assert store.version == 20
+    assert rec.checked_accesses > 0
+    assert rec.violations == []
+    assert rec.races() == []
+    assert ("ParameterStore._cond",
+            "ShardPipeline._cond") in rec.order_pairs
+    assert_lock_order(rec)
+
+
+def test_shard_imbalance_detector_trips_on_lagging_shard_only():
+    from tpu_sgd_torch.obs.detect import (DetectorEngine,
+                                          ShardImbalanceDetector,
+                                          default_detectors)
+
+    assert "shard-imbalance" not in {d.rule for d in default_detectors()}
+
+    def _win(idx, series):
+        return {"index": idx, "t_start": float(idx),
+                "t_end": float(idx) + 1.0, "series": series}
+
+    def _cnt(n):
+        return {"count": n, "sum": 0.0, "mean": 0.0, "max": None,
+                "bytes": 0}
+
+    eng = DetectorEngine([ShardImbalanceDetector()])
+    eng.on_window_close(_win(0, {"replica.shard.push[s0]": _cnt(20),
+                                 "replica.shard.push[s1]": _cnt(18)}))
+    assert eng.trip_counts() == {}
+    eng.on_window_close(_win(1, {"replica.shard.push[s0]": _cnt(20),
+                                 "replica.shard.push[s1]": _cnt(2)}))
+    assert eng.trip_counts() == {"shard-imbalance": 1}
+    eng2 = DetectorEngine([ShardImbalanceDetector()])
+    eng2.on_window_close(_win(0, {"replica.shard.push[s0]": _cnt(4),
+                                  "replica.shard.push[s1]": _cnt(0)}))
+    assert eng2.trip_counts() == {}
+    eng2.on_window_close(_win(1, {"replica.shard.push[s0]": _cnt(50)}))
+    assert eng2.trip_counts() == {}

@@ -573,3 +573,44 @@ def test_predict_streamed_equals_predict(rng):
     assert m.predict_streamed(X[:0]).shape == (0,)
     with pytest.raises(ValueError, match="batch_rows"):
         m.predict_streamed(X, 0)
+
+
+def test_integrity_zero_added_runtime_events(rng, monkeypatch):
+    """Checksums are pure host work: the warmed streamed superstep driver
+    counts the same dispatches, compiles, host syncs and staged h2d bytes
+    whether the integrity plane is on or off (counted by the
+    port's hooks, the CPU tensors' reads and copies counted as the
+    card's), and the two runs are bitwise equal."""
+    from tpu_sgd_torch import obs
+    from tpu_sgd_torch.io.integrity import set_integrity
+
+    monkeypatch.setattr(counters, "_card", lambda x: True)
+    X, y = _data(rng, n=400)
+    o = _opt("sliced", iters=24, frac=0.5, k=4)
+    _run(o, X, y)  # warm
+
+    def counted():
+        obs.enable()
+        try:
+            counters.reset()
+            out = _run(o, X, y)
+            return out, {k.split(".", 1)[1]: v
+                         for k, v in counters.snapshot().items()
+                         if k.endswith(("dispatch", "compile", "host_sync",
+                                        "h2d"))}
+        finally:
+            obs.disable()
+            counters.reset()
+
+    on, c_on = counted()
+    set_integrity(False)
+    try:
+        off, c_off = counted()
+    finally:
+        set_integrity(True)
+    assert c_on == c_off
+    assert c_on["host_sync"]["n"] > 0
+    # on the CPU the ring's slots are the step's buffers: no copy, no
+    # launch, no capture (the card's counts are chip_smoke.py's)
+    assert set(c_on) == {"host_sync"}
+    _eq(on, off)

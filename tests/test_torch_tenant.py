@@ -292,10 +292,10 @@ def test_per_tenant_obs_series(tmp_path, rng):
 
 
 def test_slab_thrash_detector_reads_the_ports_windows(tmp_path, rng):
-    """The slab-thrash rule is the JAX package's (its detectors wait for
-    ROADMAP A11): the port's windows carry the series it reads, in its
-    layout — a churning slab trips it, a fitting one does not."""
-    from tpu_sgd.obs.detect import SlabThrashDetector
+    """The port's slab-thrash rule (``obs/detect.py``) on the port's
+    windows, which carry the series it reads in its layout: a churning
+    slab trips it, a fitting one does not."""
+    from tpu_sgd_torch.obs.detect import SlabThrashDetector
     from tpu_sgd_torch.obs import counters, spans, timeseries
 
     det = SlabThrashDetector(max_evict_frac=0.5, min_admits=16)
@@ -320,8 +320,34 @@ def test_slab_thrash_detector_reads_the_ports_windows(tmp_path, rng):
         assert len(det.evaluate(window, [])) == trips, (capacity, window)
 
 
+def _thrash_window(series: dict) -> dict:
+    return {"index": 0, "t_start": 0.0, "t_end": 1.0,
+            "series": {k: {"count": v} for k, v in series.items()}}
+
+
+def test_slab_thrash_detector_fixtures():
+    from tpu_sgd.obs.detect import SlabThrashDetector as JSlabThrash
+    from tpu_sgd_torch.obs.detect import SlabThrashDetector
+
+    det = SlabThrashDetector(max_evict_frac=0.5, min_admits=16)
+    jdet = JSlabThrash(max_evict_frac=0.5, min_admits=16)
+    for series in ({"tenant.admit": 40, "tenant.evict": 10},  # healthy
+                   {"tenant.admit": 64},                      # cold fill
+                   {"tenant.admit": 8, "tenant.evict": 8}):   # low volume
+        assert det.evaluate(_thrash_window(series), []) == []
+    w = _thrash_window({"tenant.admit": 32, "tenant.evict": 30})
+    alerts = det.evaluate(w, [])
+    assert len(alerts) == 1
+    a = alerts[0]
+    assert a.rule == "slab-thrash" and a.series == "tenant.evict"
+    assert a.value == 30.0 and a.bound == 16.0
+    j, = jdet.evaluate(w, [])
+    assert (a.rule, a.series, a.value, a.bound, a.detail) == (
+        j.rule, j.series, j.value, j.bound, j.detail)
+
+
 def test_slab_thrash_detector_is_opt_in():
-    from tpu_sgd.obs.detect import default_detectors
+    from tpu_sgd_torch.obs.detect import default_detectors
 
     assert "slab-thrash" not in {d.rule for d in default_detectors()}
 

@@ -353,3 +353,93 @@ def test_server_flush_heartbeat_ticks_per_batch(rng):
             server.predict(rng.normal(size=4).astype(np.float32), timeout=30)
     assert hb.count == server.batcher.batch_count >= 1
     assert hb.age_s() is not None
+
+
+# -- the integrity and heartbeat-stall detectors (the twins of
+# tests/test_integrity.py's cases, on the port's obs/detect.py) ------------
+
+def _window(index, series):
+    return {"index": index, "t_start": float(index),
+            "t_end": float(index + 1),
+            "series": {k: ({"count": v, "mean": 0.0, "max": None,
+                            "bytes": 0} if isinstance(v, int) else v)
+                       for k, v in series.items()}}
+
+
+def test_integrity_detector_trip_no_trip_and_rearm():
+    from tpu_sgd_torch.obs.detect import DetectorEngine, IntegrityDetector
+
+    alerts = []
+    eng = DetectorEngine(detectors=[IntegrityDetector()],
+                         on_alert=alerts.append)
+    eng.on_window_close(_window(0, {"train.loss": 4}))
+    assert alerts == []
+    eng.on_window_close(_window(1, {"integrity.corrupt.io.chunk": 2}))
+    assert len(alerts) == 1
+    assert alerts[0].rule == "integrity"
+    assert alerts[0].series == "integrity.corrupt.io.chunk"
+    assert alerts[0].value == 2.0
+    eng.on_window_close(_window(2, {"integrity.corrupt.io.chunk": 1}))
+    assert len(alerts) == 1  # stays tripped: one incident
+    eng.on_window_close(_window(3, {}))
+    eng.on_window_close(_window(4, {"integrity.corrupt.io.chunk": 1}))
+    assert len(alerts) == 2
+
+
+def test_heartbeat_stall_detector_membership_and_fleet_silence():
+    from tpu_sgd_torch.obs.detect import (DetectorEngine,
+                                          HeartbeatStallDetector)
+
+    def engine(alerts):
+        return DetectorEngine(
+            detectors=[HeartbeatStallDetector(stall_windows=2)],
+            on_alert=alerts.append)
+
+    alerts = []
+    eng = engine(alerts)
+    watch = {"reliability.hb.watch[feed]": 1,
+             "reliability.hb.watch[batcher]": 1}
+    both = {**watch, "reliability.heartbeat[feed]": 3,
+            "reliability.heartbeat[batcher]": 2}
+    eng.on_window_close(_window(0, both))
+    assert alerts == []
+    one = {"reliability.heartbeat[feed]": 3}
+    eng.on_window_close(_window(1, one))
+    assert alerts == []
+    eng.on_window_close(_window(2, one))
+    assert len(alerts) == 1
+    assert "batcher" in alerts[0].series
+    # fleet-wide silence (an idle or finished process) never trips
+    alerts.clear()
+    eng2 = engine(alerts)
+    eng2.on_window_close(_window(0, both))
+    for i in range(1, 6):
+        eng2.on_window_close(_window(i, {}))
+    assert alerts == []
+    # a retired (unwatched) component cannot trip
+    eng3 = engine(alerts)
+    eng3.on_window_close(_window(0, both))
+    eng3.on_window_close(
+        _window(1, {"reliability.hb.unwatch[batcher]": 1,
+                    "reliability.heartbeat[feed]": 1}))
+    for i in range(2, 6):
+        eng3.on_window_close(
+            _window(i, {"reliability.heartbeat[feed]": 1}))
+    assert alerts == []
+
+
+def test_unwatched_heartbeat_never_joins_roster():
+    from tpu_sgd_torch.obs.detect import (DetectorEngine,
+                                          HeartbeatStallDetector)
+
+    alerts = []
+    eng = DetectorEngine(
+        detectors=[HeartbeatStallDetector(stall_windows=1)],
+        on_alert=alerts.append)
+    eng.on_window_close(
+        _window(0, {"reliability.heartbeat[feed]": 2,
+                    "reliability.heartbeat[idle]": 1}))
+    for i in range(1, 5):
+        eng.on_window_close(
+            _window(i, {"reliability.heartbeat[feed]": 2}))
+    assert alerts == []

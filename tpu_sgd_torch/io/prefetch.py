@@ -17,8 +17,10 @@ gather, pad, wire cast, checksum) and its host->device copy overlap item
 
 Every producer call passes the ``io.prefetch.produce`` failpoint inside
 the optional ``retry_policy``'s scope, so a transient fault heals in
-place.  (The JAX package's ``heartbeat`` hook waits for the health
-monitors, ROADMAP A11.)
+place.  An optional ``heartbeat`` (``reliability.health.Heartbeat``)
+beats once per produced item, after the producer returns: a wedged feed
+stops beating, which the heartbeat-stall detector (``obs/detect.py``)
+sees while its peers beat on.
 
 :class:`PinnedRing` holds the staging memory of such a stream: ``depth``
 slots of host buffers, page-locked on the card's host (never the whole
@@ -76,11 +78,12 @@ class Prefetcher:
     ``with`` block) to cancel outstanding work on early exit."""
 
     def __init__(self, producer: Callable[[T], R], items: Iterable[T],
-                 depth: int = 2, *, retry_policy=None):
+                 depth: int = 2, *, retry_policy=None, heartbeat=None):
         if int(depth) < 0:
             raise ValueError(f"depth must be >= 0, got {depth}")
         self._producer = producer
         self._retry_policy = retry_policy
+        self._heartbeat = heartbeat
         self._items = iter(items)
         self._depth = int(depth)
         self._pending = collections.deque()
@@ -93,7 +96,8 @@ class Prefetcher:
 
     def _run_producer(self, item: T) -> R:
         """One produce, through the failpoint (inside the retry scope, so
-        an injected one-shot fault is healed by the retry)."""
+        an injected one-shot fault is healed by the retry), then one beat
+        of the heartbeat."""
         def attempt():
             failpoint("io.prefetch.produce")
             return self._producer(item)
@@ -103,6 +107,8 @@ class Prefetcher:
                 out = self._retry_policy.call(attempt)
             else:
                 out = attempt()
+        if self._heartbeat is not None:
+            self._heartbeat.beat()
         return out
 
     def _fill(self) -> None:

@@ -18,11 +18,12 @@ trace's tail), and on any **trigger** writes a standalone
   (``tpu_sgd_torch.obs.timeseries``) — the windowed tables a
   post-mortem renders without replaying the full trace.
 
-Triggers: every span that closes with an error (the tee sees ``error``
-on the ``trace_span`` record), and explicit :func:`trigger` calls (the
-replica rollback fires one; the JAX package's detector-alert wiring and
-harnesses wait for the port's ``obs/detect.py`` and ``scenario/``).
-Install one with :func:`enable`, and route the trace sink through a
+Triggers: every detector alert transition (wired by the
+``tpu_sgd_torch.obs.enable`` facade), every span that closes with an
+error (the tee sees ``error`` on the ``trace_span`` record), and
+explicit :func:`trigger` calls (the replica rollback fires one).
+``obs.enable(trace, flightrec=path)`` installs one and tees the trace
+sink through it; by hand, :func:`enable` it and route the sink through a
 :class:`TeeSink` (``obs.spans.enable_tracing(TeeSink(sink, rec))``).  Each dump REPLACES the file via an
 atomic rename — the newest incident wins, and a reader never sees a
 half-written dump.

@@ -40,7 +40,7 @@ import time
 __all__ = ["span", "event", "enable_tracing", "disable_tracing",
            "is_enabled", "current_subsystem"]
 
-logger = logging.getLogger("tpu_sgd_torch_torch.obs")
+logger = logging.getLogger("tpu_sgd_torch.obs")
 
 #: lock-discipline declaration (the JAX package's analyzer reads these): EMPTY on
 #: purpose, and load-bearing as documentation.  All mutable tracing

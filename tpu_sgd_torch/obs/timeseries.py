@@ -40,8 +40,9 @@ inc fired while its caller holds a hot-path lock (the serve batcher's
 ``_cond`` during an admission decision).  The observer only enqueues the
 closed window; :func:`flush` closes the open window AND waits for the
 dispatch queue to drain.  A raising listener is dropped, never kills
-anything.  The JAX package's detectors, which listen here, are not ported
-(ROADMAP A11); the window dicts have the JAX package's layout.
+anything.  The detectors (``obs/detect.py``) listen here, registered by
+the ``obs.enable`` facade; the window dicts have the JAX package's
+layout, so either package's detectors read them.
 """
 
 from __future__ import annotations

@@ -18,10 +18,10 @@ the driver's bookkeeping for that churn:
 * store **failover** records (:meth:`ReplicaMembership.failover` —
   old primary, new primary, epoch, log gap replayed) alongside the
   worker churn, emitted as ``replica.failover`` events fanned through
-  ``timeseries.EVENT_FANOUT`` — the JAX package's straggler detector
-  reads the failover window as a deficit reset, so a promotion's
-  fleet-wide stall never false-trips a worker that was merely
-  re-routing (the port's detectors wait for ``obs/detect.py``);
+  ``timeseries.EVENT_FANOUT`` — the straggler detector
+  (``obs/detect.py``) reads the failover window as a deficit reset, so
+  a promotion's fleet-wide stall never false-trips a worker that was
+  merely re-routing, and the failover detector trips on it;
 * :meth:`stragglers` — workers whose heartbeat age exceeds a stall
   bound (observation only: eviction policy belongs to the caller, the
   same observe-don't-kill split as ``reliability/health.py``).
