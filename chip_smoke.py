@@ -258,7 +258,7 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    streamed normal equations within 1e-5 of phase 11's; each rank's
    resident host memory grows by less than half the rows' bytes.
 13. serve — the serving plane (``tpu_sgd_torch.serve``, ``.tenant``),
-   after phase 12: through ``Server``, 20,000 single-row requests a model
+   after phase 12: through ``Server``, 12,000 single-row requests a model
    from 8 client threads (4,000 closed loop, one in flight a client: p50
    / p99 latency; the rest open loop: rows/s at saturation) for config
    4's width (1,000; served from a ``ModelRegistry`` whose checkpoint
@@ -289,10 +289,30 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    for the column means, counted), two calls bitwise equal, against a float64 correlation of
    the dense copy on the card; the kernel at a block's shape joins the
    kernel table.
+14b. scenario — the production scenarios (``tpu_sgd_torch.scenario``) in
+   their ``"full"`` mode, each with every launch count set to 0 just
+   before and read just after: (a) ``run_scenario(seed=0, smoke=False)``
+   (a replica fleet of 3 workers retraining on a drifting stream at the
+   JAX package's width 16 — B1 a push — while a dense, a sparse (the CSR
+   kernel) and a multinomial endpoint serve an open-loop burst; a worker
+   killed and rejoined, the primary store killed and its standby
+   promoted under delta-log corruption): exit code 0 (every SLO: p99 <=
+   1.0 s, interactive shed <= 0.5, failover <= 10 s, zero dropped, ...),
+   a flight record with its meta header, >= 1 failover, >= 1 rejoin, >= 2
+   hot reloads, corruption detected and none unhealed, the ledger
+   conserved, B1 (by route) and ``csr_margins`` launched; (b)
+   ``run_tenant_scenario(seed=0, smoke=False)`` (4,000 tenants, width 32,
+   a 256-row slab): exit code 0, ``tenant.swap`` and ``tenant.evict``
+   above 0, a ``slab-thrash`` alert; after each run ``torch.Tensor``'s
+   read methods are torch's own again.  Per lane p50 / p99, rows/s, the
+   failover span, alerts and walls are printed.  B1 at a worker's shard
+   and the CSR kernel at the sparse endpoint's batch join the kernel
+   table with the scenario's launches, while (c) ``python -m
+   tpu_sgd_torch.analysis.lint`` must exit 0 with its five rules.
 15. summary — the sparse line, the quasi_newton line, the gram line, the
    streamed line, the streamed_qn line, the plan line, the mesh line, the serve line,
-   the corr line, the replica line, the observed line, the obs line, the
-   kernel table
+   the corr line, the scenario line, the replica line, the observed line,
+   the obs line, the kernel table
    (B1-B3, B1 at a replica worker's shard under concurrent launches, B1 at
    the
    streamed chunk shape and its tail, the CSR kernel, B1, B2 and the CSR
@@ -309,6 +329,7 @@ nothing of JAX or of the JAX package ``tpu_sgd``.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
@@ -7158,7 +7179,8 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile, sparse_owlqn_w,
 
 # -- phase serve ---------------------------------------------------------------
 
-SERVE_REQUESTS = 20_000     # single-row requests per model, in all
+SERVE_REQUESTS = 12_000     # single-row requests per model, in all: 8,000
+#                             open loop (cut from 20,000 for the script's time)
 SERVE_CLIENTS = 8           # client threads
 SERVE_CLOSED_LOOP = 4_000   # of them closed loop (the latency run)
 SERVE_SINGLE = 16           # of those, sent by one client first
@@ -7932,6 +7954,280 @@ def phase_corr(torch, tst, ck):
     return out, row
 
 
+# -- phase 14b: the production scenarios ---------------------------------------
+
+SCENARIO_SEED = 0
+#: the flagship scenario's replica fleet: 512 drifting rows of width 16
+#: over 3 workers (the JAX package's knobs), so a worker's shard is
+SCENARIO_SHARD = (171, 16)
+#: the sparse endpoint's batches: at most 32 rows of width 16, ~5 entries
+SCENARIO_SPARSE = (32, 16)
+
+
+def _tensor_methods(torch):
+    """``torch.Tensor``'s read methods that ``obs`` hooks while enabled,
+    as they stand (the identity and whether the class itself holds it)."""
+    from tpu_sgd_torch.obs import counters
+
+    return {n: (getattr(torch.Tensor, n), n in vars(torch.Tensor))
+            for n in counters.SYNC_METHODS}
+
+
+def _scenario_run(torch, ck, run, name, out_dir):
+    """One scenario on the card with every launch count set to 0 just
+    before and read just after; the trace's numbers as the phase prints
+    them.  The counting hooks must be torch's own again after the run."""
+    from tpu_sgd_torch.obs import counters
+    from tpu_sgd_torch.obs import report as obs_report
+
+    methods = _tensor_methods(torch)
+    # the run's trace carries one cumulative counter snapshot: counts
+    # start at 0 here, so one scenario's gate never reads another's
+    counters.reset()
+    ck.reset_launch_counts()
+    t = time.perf_counter()
+    rc = run(seed=SCENARIO_SEED, smoke=False, out_dir=out_dir,
+             verbose=False)
+    wall = time.perf_counter() - t
+    launches = {"wrappers": ck.launch_counts(),
+                "csr": ck.csr_launch_counts(),
+                "b1_routes": ck.gradient_route_counts(),
+                "sources": ck.kernel_launch_counts()}
+    check(_tensor_methods(torch) == methods and counters._PATCHES is None
+          and not counters.is_enabled(),
+          f"scenario {name}: obs left a hook on torch.Tensor")
+    records = obs_report.load_trace(os.path.join(out_dir,
+                                                 f"{name}_trace.jsonl"))
+    with open(os.path.join(out_dir, f"{name}_summary.json")) as f:
+        summary = json.load(f)
+    with open(os.path.join(out_dir, f"{name}_slo.json")) as f:
+        slo_doc = json.load(f)
+    deltas = obs_report.counter_deltas(records)
+    verdicts = obs_report.evaluate_slos(records, slo_doc)
+    spans = obs_report.span_stats(records)
+    t_ = summary["totals"]
+    check(t_["submitted"] == sum(t_[k] for k in (
+        "answered", "rejected", "displaced", "errored", "dropped")),
+        f"scenario {name}: ledger does not conserve: {t_}")
+    failing = [v["name"] for v in verdicts if not v["ok"]]
+    check(rc == 0 and not failing,
+          f"scenario {name}: exit code {rc}, SLOs failing {failing}")
+    return {
+        "exit_code": rc, "wall_s": wall, "traffic_wall_s": summary["wall_s"],
+        "totals": t_,
+        "answered_rows_per_s": t_["answered"] / summary["wall_s"],
+        "classes": {c: {k: v[k] for k in ("submitted", "answered",
+                                          "p50_s", "p99_s")}
+                    for c, v in summary["classes"].items()},
+        "lanes_server": {lane: {k: v[k] for k in ("requests", "p50_s",
+                                                  "p99_s")}
+                         for lane, v in obs_report.lane_latency_stats(
+                             records).items()},
+        "alerts": obs_report.alert_stats(records)["by_rule"],
+        "slos": {v["name"]: v["value"] for v in verdicts},
+        "counters": {k: v["n"] for k, v in deltas.items()
+                     if k.split(".")[0] in ("integrity", "tenant",
+                                            "scenario")},
+        "spans_max_s": {k: spans[k]["max_s"] for k in (
+            "replica.failover", "serve.batch", "tenant.batch")
+            if k in spans},
+        "launches": launches}, summary
+
+
+def scenario_flagship(torch, ck, tmp):
+    """(a) ``run_scenario(seed=0, smoke=False)`` on the card: the replica
+    fleet retraining (B1 a push), three endpoints under the burst (the
+    CSR kernel on the sparse one), a worker killed and rejoined, the
+    primary store killed and its standby promoted under delta-log
+    corruption, every SLO of the production document."""
+    from tpu_sgd_torch.scenario import run_scenario
+    from tpu_sgd_torch.utils.events import JsonLinesEventLog
+
+    out_dir = os.path.join(tmp, "flagship")
+    rec, summary = _scenario_run(torch, ck, run_scenario, "scenario",
+                                 out_dir)
+    frec = JsonLinesEventLog.read(os.path.join(out_dir, "flightrec.jsonl"))
+    check(frec and frec[0]["kind"] == "flightrec_meta",
+          "scenario: flight record without its meta header")
+    counters = rec["counters"]
+    check(summary["failovers"] >= 1 and summary["rejoins"] >= 1
+          and summary["hot_reloads"] >= 2,
+          f"scenario: failovers {summary['failovers']}, rejoins "
+          f"{summary['rejoins']}, hot reloads {summary['hot_reloads']}")
+    check(counters.get("integrity.corrupt", 0) >= 1
+          and counters.get("integrity.unhealed", 0) == 0,
+          f"scenario: integrity counters {counters}")
+    routes = rec["launches"]["b1_routes"]
+    check(rec["launches"]["wrappers"]["fused_gradient_sums"] > 0
+          and sum(routes.values())
+          == rec["launches"]["wrappers"]["fused_gradient_sums"],
+          f"scenario: B1 launches {rec['launches']}")
+    check(rec["launches"]["csr"]["csr_margins"] > 0,
+          f"scenario: no csr_margins launch {rec['launches']['csr']}")
+    rec.update({k: summary[k] for k in ("hot_reloads", "rejoins",
+                                        "failovers", "corruptions_healed")})
+    rec["flightrec_records"] = len(frec)
+    return rec
+
+
+def scenario_tenant(torch, ck, tmp):
+    """(b) ``run_tenant_scenario(seed=0, smoke=False)`` on the card: 4,000
+    tenants at width 32 over a 256-row slab, Zipf traffic, the retraining
+    trickle and the eviction and reload storms."""
+    from tpu_sgd_torch.scenario import run_tenant_scenario
+
+    rec, summary = _scenario_run(torch, ck, run_tenant_scenario, "tenant",
+                                 os.path.join(tmp, "tenant"))
+    counters = rec["counters"]
+    check(counters.get("tenant.swap", 0) > 0
+          and counters.get("tenant.evict", 0) > 0
+          and rec["alerts"].get("slab-thrash", 0) >= 1,
+          f"tenant scenario: counters {counters}, alerts {rec['alerts']}")
+    check((summary["n_tenants"], summary["capacity"]) == (4000, 256),
+          f"tenant scenario: {summary['n_tenants']} tenants, "
+          f"capacity {summary['capacity']}")
+    rec.update({"slab": summary["slab"], "chaos": summary["chaos"]})
+    return rec
+
+
+def scenario_b1_row(torch, ck, tst, launches, route_counts):
+    """B1 at a replica worker's shard of the flagship scenario (171 x 16
+    f32) under its Bernoulli mask at frac 1.0 (every row live, as the
+    workers draw it), against its plain version, the library's
+    ``index_select`` and two products, and its bound."""
+    pw = tst.LeastSquaresGradient().pointwise
+    n, d = SCENARIO_SHARD
+    gen = torch.Generator(device="cuda").manual_seed(SCENARIO_SEED + 51)
+    X = torch.randn(n, d, generator=gen, device="cuda")
+    y = torch.randn(n, generator=gen, device="cuda")
+    w = torch.randn(d, generator=gen, device="cuda")
+    m = torch.ones(n, dtype=torch.bool, device="cuda")
+    ok, err, scale = _close(torch, ck.fused_gradient_sums(pw, X, y, w, m),
+                            ck.fused_gradient_sums_plain(pw, X, y, w, m),
+                            False)
+    check(ok, f"scenario B1: max|dg|={err} of {scale}")
+    route = ck.gradient_sums_route(X, True)
+    check(route_counts.get(route, 0) == launches,
+          f"scenario B1: {launches} launches, by route {route_counts}, "
+          f"this shape and mask take {route}")
+    idx = torch.nonzero(m).squeeze(1)
+    coeff = torch.randn(n, generator=gen, device="cuda")
+
+    def library():
+        Xl = X.index_select(0, idx)
+        return Xl @ w, coeff @ Xl
+
+    bound, by = _bound_ms(n, d, 4, n)
+    ms = time_ms(torch, lambda: ck.fused_gradient_sums(pw, X, y, w, m), 200)
+    return {"name": "fused_gradient_sums",
+            "path": f"scenario (a replica worker's {n}-row shard, d = {d}, "
+                    "its frac-1.0 Bernoulli mask: all rows live)",
+            "source": WINDOW_SOURCE if route != "fused_sums" else SOURCE,
+            "route": route, "shape": [n, d], "max_abs_err": err,
+            "grad_scale": scale, "ms": ms,
+            "plain_ms": time_ms(torch, lambda: ck.fused_gradient_sums_plain(
+                pw, X, y, w, m), 200),
+            "library_ms": time_ms(torch, library, 200),
+            "library_includes": ("index_select of the live rows, then two "
+                                 "matmuls over them"),
+            "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms,
+            "launches": launches, "launches_by_route": route_counts,
+            "launches_from": "phase scenario (a), the replica workers' "
+                             "pushes (rounds 0-3)"}
+
+
+def scenario_csr_row(torch, ck, launches):
+    """The CSR kernel at the sparse endpoint's largest batch (32 rows of
+    width 16, column 0 and ~a quarter of the rest set, as the harness
+    makes them), against its plain twin and cuSPARSE."""
+    from tpu_sgd_torch.scenario.harness import _sparse_row
+    from tpu_sgd_torch.serve import stack_rows
+
+    n, d = SCENARIO_SPARSE
+    rng = np.random.default_rng(SCENARIO_SEED + 52)
+    rows = []
+    for _ in range(n):
+        row = np.where(rng.random(d) < 0.25, rng.normal(size=d),
+                       0.0).astype(np.float32)
+        row[0] = 1.0
+        rows.append(_sparse_row(row))
+    X = stack_rows(rows).cuda()
+    w = torch.from_numpy(rng.normal(size=d).astype(np.float32)).cuda()
+    got, ref = ck.csr_margins(X, w), ck.csr_matmul_plain(X, w)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(err <= 1e-4 * scale + 1e-6, f"scenario csr: max|d| {err}")
+    # a row whose one entry is column 0 goes through the kernel too
+    only0 = np.zeros(d, np.float32)
+    only0[0] = 1.0
+    X0 = stack_rows([_sparse_row(only0)]).cuda()
+    before = ck.csr_launch_counts()["csr_margins"]
+    one = float(ck.csr_margins(X0, w)[0])
+    check(ck.csr_launch_counts()["csr_margins"] == before + 1
+          and one == float(w[0]), "scenario csr: the column-0 row")
+    nnz, idx = X._nnz(), X.col_indices().element_size()
+    bytes_ = nnz * (4 + idx) + (n + 1) * idx + 4 * n + 4 * d
+    t_bytes = 1e3 * bytes_ / HBM_BYTES_PER_S
+    t_ops = 1e3 * 2.0 * nnz / F32_FLOPS
+    bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                 else (t_ops, "operations"))
+    ms = time_ms(torch, lambda: ck.csr_margins(X, w), 200)
+    return {"name": "csr_margins", "path": f"scenario ({n} sparse rows, "
+                                           f"d = {d})",
+            "source": CSR_SOURCE, "shape": [n, d], "columns": 1,
+            "nnz": nnz, "max_abs_err": err, "grad_scale": scale, "ms": ms,
+            "plain_ms": time_ms(torch, lambda: ck.csr_matmul_plain(X, w),
+                                200),
+            "library_ms": time_ms(torch, lambda: X @ w, 200),
+            "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms,
+            "launches": launches,
+            "launches_from": "phase scenario (a), the sparse endpoint's "
+                             "batches (1-32 rows, not padded)"}
+
+
+def scenario_lint():
+    """(c) the port's graftlint over its defaults, in a subprocess started
+    beside the kernels' build (it reads sources only); phase ``scenario``
+    reads its exit code and summary line."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "tpu_sgd_torch.analysis.lint"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__))),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_scenario(torch, tst, ck, lint):
+    """Phase ``scenario``: (a) the flagship scenario and (b) the tenant
+    scenario in their production mode on the card, each gated by its own
+    SLO document, then the scenarios' kernels (B1 at a worker's shard, the
+    CSR kernel at the sparse endpoint's batch) against their plain
+    versions, and (c) the port's graftlint: ``lint`` is its process
+    (:func:`scenario_lint`), started with the script and read here.
+    Returns the phase's report and the two kernel rows."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="scenario_") as tmp:
+        out["a_flagship"] = scenario_flagship(torch, ck, tmp)
+        out["b_tenant"] = scenario_tenant(torch, ck, tmp)
+    launches = out["a_flagship"]["launches"]
+    rows = [scenario_b1_row(torch, ck, tst,
+                            launches["wrappers"]["fused_gradient_sums"],
+                            launches["b1_routes"]),
+            scenario_csr_row(torch, ck, launches["csr"]["csr_margins"])]
+    stdout, stderr = lint.communicate(timeout=600)
+    summary = [ln for ln in stderr.splitlines()
+               if ln.startswith("graftlint:")]
+    check(lint.returncode == 0 and summary and "5 rule(s)" in summary[-1],
+          f"scenario: the port's lint exited {lint.returncode}: "
+          f"{stdout[-2000:]} {stderr[-2000:]}")
+    out["c_lint"] = {"exit_code": lint.returncode, "summary": summary[-1]}
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "scenario", **out})
+    return out, rows
+
+
 def bernoulli_rows(n: int) -> int:
     """The Bernoulli row cap of the streamed drivers at ``FRAC``."""
     from tpu_sgd_torch.optimize.streamed import bernoulli_cap
@@ -7970,6 +8266,11 @@ def main() -> int:
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    # phase scenario's lint reads the sources only: it runs beside the
+    # build and the phases, and the phase collects it (or, when a check
+    # fails first, the exit stops it)
+    lint = scenario_lint()
+    atexit.register(lambda: lint.poll() is None and lint.kill())
     t = time.perf_counter()
     report = _build.build_all()
     sources = {k: {"seconds": v["seconds"], **ptxas_report(v["log"]),
@@ -8045,6 +8346,9 @@ def main() -> int:
     rows.extend(serve_rows)
     corr, corr_row = phase_corr(torch, tst, ck)
     rows.append(corr_row)
+    torch.cuda.empty_cache()
+    scenario, scenario_rows = phase_scenario(torch, tst, ck, lint)
+    rows.extend(scenario_rows)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_sgd"))
@@ -8124,6 +8428,10 @@ def main() -> int:
             k: v for k, v in mesh["streamed"].items() if k != "by_rank"}}})
     emit({"serve": serve})
     emit({"corr": corr})
+    emit({"scenario": {part: {k: v for k, v in rec.items()
+                              if k not in ("classes", "counters", "slos")}
+                       if isinstance(rec, dict) else rec
+                       for part, rec in scenario.items()}})
     emit({"replica": {
         "a_prefix": replica["a_prefix"],
         "b_full": {m: {k: r[k] for k in (
@@ -8175,6 +8483,7 @@ def main() -> int:
                            "library_graph_ms", "one_line_graph_ms",
                            "cuda_launches_per_call", "launches_from",
                            "route", "library_all_rows_ms",
+                           "launches_by_route",
                            "library_includes")
          if k in r}
         for r in rows]})

@@ -415,24 +415,25 @@ def test_no_port_module_imports_jax_or_the_jax_package():
 
 def test_every_declared_site_is_called_in_its_module():
     """Each hook site of ``failpoints.HOOK_SITES`` has its
-    ``failpoint("<name>")`` call, and each of ``CORRUPT_SITES`` its
+    ``failpoint("<name>")`` call, or for one of ``CORRUPT_SITES`` its
     ``corruptpoint("<name>"`` call, in the module the registry names; the
-    replica sites are the JAX package's."""
+    table holds both kinds (as the JAX package's does, and as the
+    failpoint-coverage rule reads it), and its replica sites are the JAX
+    package's."""
     from tpu_sgd.reliability.failpoints import HOOK_SITES as JAX_SITES
     from tpu_sgd_torch.reliability import failpoints as fp
 
-    for table, call in ((fp.HOOK_SITES, "failpoint"),
-                        (fp.CORRUPT_SITES, "corruptpoint")):
-        for site, path in table.items():
-            assert path.startswith("tpu_sgd_torch/"), (site, path)
-            with open(os.path.join(ROOT, path)) as f:
-                assert f'{call}("{site}"' in f.read(), (site, path)
+    assert set(fp.CORRUPT_SITES) <= set(fp.HOOK_SITES)
+    for site, path in fp.HOOK_SITES.items():
+        call = "corruptpoint" if site in fp.CORRUPT_SITES else "failpoint"
+        assert path.startswith("tpu_sgd_torch/"), (site, path)
+        with open(os.path.join(ROOT, path)) as f:
+            assert f'{call}("{site}"' in f.read(), (site, path)
     replica = {s for s in JAX_SITES if s.startswith("replica.")}
-    assert replica == {s for s in {**fp.HOOK_SITES, **fp.CORRUPT_SITES}
-                       if s.startswith("replica.")}
+    assert replica == {s for s in fp.HOOK_SITES if s.startswith("replica.")}
     for site in replica:
-        port = {**fp.HOOK_SITES, **fp.CORRUPT_SITES}[site]
-        assert port == JAX_SITES[site].replace("tpu_sgd/", "tpu_sgd_torch/")
+        assert fp.HOOK_SITES[site] == JAX_SITES[site].replace(
+            "tpu_sgd/", "tpu_sgd_torch/")
 
 
 def test_the_lock_rules_are_clean_on_the_replica_modules():
@@ -451,8 +452,79 @@ def test_the_lock_rules_are_clean_on_the_replica_modules():
     assert out.returncode == 0, said
     n_files = sum(f.endswith(".py") for _, _, fs in os.walk(
         os.path.join(ROOT, "tpu_sgd_torch")) for f in fs)
-    assert n_files == 85, n_files
+    assert n_files == 100, n_files
     assert "clean" in said and f"{n_files} file(s), 4 rule(s)" in said, said
+
+
+def test_the_port_lints_clean_with_its_own_graftlint():
+    """``python -m tpu_sgd_torch.analysis.lint`` over its defaults (the
+    package and ``chip_smoke.py``): exit 0, the five ported rules,
+    ``contract-drift`` among them, every suppression with a reason."""
+    out = subprocess.run(
+        [sys.executable, "-m", "tpu_sgd_torch.analysis.lint"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=300)
+    said = out.stdout + out.stderr  # the summary goes to stderr
+    assert out.returncode == 0, said
+    n_files = sum(f.endswith(".py") for _, _, fs in os.walk(
+        os.path.join(ROOT, "tpu_sgd_torch")) for f in fs) + 1
+    assert "clean" in said and f"{n_files} file(s), 5 rule(s)" in said, said
+    from tpu_sgd_torch.analysis.core import default_rules
+
+    assert "contract-drift" in [r.name for r in default_rules()]
+
+
+_SCENARIO_ANALYSIS_MODULES = (
+    "tpu_sgd_torch.scenario", "tpu_sgd_torch.scenario.loadgen",
+    "tpu_sgd_torch.scenario.harness", "tpu_sgd_torch.scenario.tenant_stress",
+    "tpu_sgd_torch.analysis", "tpu_sgd_torch.analysis.core",
+    "tpu_sgd_torch.analysis.tracing", "tpu_sgd_torch.analysis.dataflow",
+    "tpu_sgd_torch.analysis.rules_lock", "tpu_sgd_torch.analysis.rules_order",
+    "tpu_sgd_torch.analysis.rules_cond",
+    "tpu_sgd_torch.analysis.rules_failpoint",
+    "tpu_sgd_torch.analysis.rules_contract",
+    "tpu_sgd_torch.analysis.runtime", "tpu_sgd_torch.analysis.lint",
+)
+
+
+def test_scenario_and_analysis_imports_pull_in_no_jax_and_build_nothing():
+    """A fresh process imports the scenario harnesses and graftlint: no
+    JAX, no JAX package, no compiler, no library, no thread."""
+    out = _python(
+        "import subprocess, sys, threading\n"
+        "def refuse(*a, **k): raise AssertionError('started %r' % (a,))\n"
+        "subprocess.Popen = refuse\n"
+        f"import importlib\nfor m in {_SCENARIO_ANALYSIS_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from tpu_sgd_torch.ops import _build\n"
+        "bad = sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_sgd'))\n"
+        "print(bad, len(_build._loaded), threading.active_count())")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] 0 1"
+    listed = {m for m in _SCENARIO_ANALYSIS_MODULES}
+    for pkg in ("scenario", "analysis"):
+        for name in os.listdir(os.path.join(ROOT, "tpu_sgd_torch", pkg)):
+            if name.endswith(".py"):
+                mod = f"tpu_sgd_torch.{pkg}" + (
+                    "" if name == "__init__.py" else f".{name[:-3]}")
+                assert mod in listed, mod
+
+
+def test_chip_smoke_runs_phase_scenario():
+    """``chip_smoke.py`` lists phase ``scenario`` and its ``main`` runs
+    it, after phase ``corr`` and before the kernel table."""
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    doc = ast.get_docstring(tree)
+    assert "scenario" in doc.split("summary")[0]
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    line = {n.func.id: n.lineno for n in ast.walk(main)
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    assert line["phase_corr"] < line["phase_scenario"]
 
 
 _OBS_MODULES = (

@@ -168,7 +168,11 @@ def test_hook_sites_exist_in_their_modules():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for site, path in fp.HOOK_SITES.items():
         with open(os.path.join(root, path)) as f:
-            assert f'failpoint("{site}")' in f.read(), (site, path)
+            src = f.read()
+        if site in fp.CORRUPT_SITES:
+            assert f'corruptpoint("{site}",' in src, (site, path)
+        else:
+            assert f'failpoint("{site}")' in src, (site, path)
 
 
 # -- retry / deadline / breaker ---------------------------------------------------
@@ -629,6 +633,60 @@ def test_checkpoint_files_have_the_jax_package_entries(tmp_path):
         for k in t.files:
             np.testing.assert_array_equal(t[k], j[k])
             assert t[k].dtype == j[k].dtype
+
+
+def test_checkpoint_members_read_as_numpy_reads_them(tmp_path):
+    """A restore parses each ``.npz`` member once from one read of the
+    file (``checkpoint._npz_arrays``): every member equals what
+    ``np.load(allow_pickle=False)`` gives, in value, dtype, shape and
+    layout, and comes back writable; both packages' files restore to the
+    same state, and a member that is not an ``.npy`` stays its bytes."""
+    import io
+    import zipfile
+
+    from tpu_sgd.utils.checkpoint import CheckpointManager as JCM
+    from tpu_sgd_torch.utils.checkpoint import _npz_arrays
+
+    zoo = {"f32": np.arange(6, dtype=np.float32).reshape(2, 3),
+           "fortran": np.asfortranarray(np.arange(6.0).reshape(2, 3)),
+           "text": np.array("config"), "scalar": np.int64(7),
+           "empty": np.zeros((0, 3)), "unicode": np.array(["ab", "c"]),
+           "bf": np.arange(4, dtype=np.float16)}
+    buf = io.BytesIO()
+    np.savez(buf, **zoo)
+    with zipfile.ZipFile(buf, "a") as zf:
+        zf.writestr("notes.txt", b"raw")
+    got = _npz_arrays(buf.getvalue())
+    with np.load(io.BytesIO(buf.getvalue()), allow_pickle=False) as ref:
+        assert list(got) == ref.files
+        for k in ref.files:
+            if k == "notes.txt":
+                assert got[k] == ref[k] == b"raw"
+                continue
+            assert got[k].dtype == ref[k].dtype and got[k].shape == \
+                ref[k].shape, k
+            np.testing.assert_array_equal(got[k], ref[k])
+            assert got[k].flags.writeable and got[k].flags.f_contiguous == \
+                ref[k].flags.f_contiguous, k
+    obj = io.BytesIO()
+    np.savez(obj, o=np.array([{}], dtype=object))
+    with pytest.raises(ValueError, match="allow_pickle"):
+        _npz_arrays(obj.getvalue())
+    for mgr, sub in ((CheckpointManager, "t"), (JCM, "j")):
+        mgr(str(tmp_path / sub)).save(
+            4, np.arange(3, dtype=np.float32), 0.5, np.ones(4), "key",
+            extras={"intercept": np.asarray(0.25)})
+    t = CheckpointManager(str(tmp_path / "t")).restore_version(4)
+    j = CheckpointManager(str(tmp_path / "j")).restore_version(4)
+    ref = JCM(str(tmp_path / "t")).restore_version(4)
+    for state in (t, j):
+        assert sorted(state) == sorted(ref)
+        for k in ("iteration", "epoch", "reg_val", "config_key"):
+            assert state[k] == ref[k]
+        for k in ("weights", "loss_history"):
+            np.testing.assert_array_equal(state[k], ref[k])
+            assert state[k].dtype == ref[k].dtype
+        assert float(state["extras"]["intercept"]) == 0.25
 
 
 def test_sgd_config_repr_is_the_jax_packages():

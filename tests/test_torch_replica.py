@@ -696,6 +696,18 @@ def test_store_lock_discipline_validated_at_runtime():
     live two-worker run with the JAX package's runtime instrumentation
     (the runtime twin of the lexical rule)."""
     from tpu_sgd.analysis.runtime import instrument_object
+
+    _store_lock_run(instrument_object)
+
+
+def test_store_lock_discipline_validated_by_the_port_runtime():
+    """The same run under the port's own ``instrument_object``."""
+    from tpu_sgd_torch.analysis.runtime import instrument_object
+
+    _store_lock_run(instrument_object)
+
+
+def _store_lock_run(instrument_object):
     from tpu_sgd_torch.replica import store as store_mod
 
     X, y, w0 = data(n=64, d=6)

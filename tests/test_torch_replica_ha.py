@@ -922,8 +922,23 @@ def test_failover_lock_discipline_and_order_validated_at_runtime():
     recorder): no unguarded access, no Eraser race, and the observed
     acquisition order -- including the ``set_replication(log.append)``
     callback edge -- replays clean against the committed order."""
-    from tpu_sgd.analysis.runtime import (LocksetRecorder, assert_lock_order,
-                                          instrument_object)
+    from tpu_sgd.analysis import runtime
+
+    _failover_lock_run(runtime)
+
+
+def test_failover_lock_discipline_and_order_validated_by_the_port_runtime():
+    """The same failover under the port's own runtime checkers, replayed
+    against the port's committed lock order."""
+    from tpu_sgd_torch.analysis import runtime
+
+    _failover_lock_run(runtime)
+
+
+def _failover_lock_run(runtime):
+    LocksetRecorder = runtime.LocksetRecorder
+    assert_lock_order = runtime.assert_lock_order
+    instrument_object = runtime.instrument_object
     from tpu_sgd_torch.replica import ha as ha_mod
     from tpu_sgd_torch.replica import store as store_mod
 
@@ -980,6 +995,17 @@ def test_supervisor_lock_discipline_validated_at_runtime():
     """The StoreSupervisor declaration, validated dynamically on a live
     run with a mid-run failover."""
     from tpu_sgd.analysis.runtime import instrument_object
+
+    _supervisor_lock_run(instrument_object)
+
+
+def test_supervisor_lock_discipline_validated_by_the_port_runtime():
+    from tpu_sgd_torch.analysis.runtime import instrument_object
+
+    _supervisor_lock_run(instrument_object)
+
+
+def _supervisor_lock_run(instrument_object):
     from tpu_sgd_torch.replica import ha as ha_mod
 
     X, y, w0 = data(n=64, d=6)

@@ -439,8 +439,23 @@ def test_sharded_store_lock_discipline_validated_at_runtime():
     instrumentation: the two-level discipline (store ``_cond`` ->
     pipeline ``_cond``, never the reverse) holds under real worker
     concurrency, and the observed order replays clean."""
-    from tpu_sgd.analysis.runtime import (LocksetRecorder, assert_lock_order,
-                                          instrument_object)
+    from tpu_sgd.analysis import runtime
+
+    _sharded_store_lock_run(runtime)
+
+
+def test_sharded_store_lock_discipline_validated_by_the_port_runtime():
+    """The same run under the port's own runtime checkers, replayed
+    against the port's committed lock order."""
+    from tpu_sgd_torch.analysis import runtime
+
+    _sharded_store_lock_run(runtime)
+
+
+def _sharded_store_lock_run(runtime):
+    LocksetRecorder = runtime.LocksetRecorder
+    assert_lock_order = runtime.assert_lock_order
+    instrument_object = runtime.instrument_object
     from tpu_sgd_torch.replica import shard as shard_mod
     from tpu_sgd_torch.replica import store as store_mod
 

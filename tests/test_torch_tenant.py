@@ -472,10 +472,26 @@ def test_publish_storm_lock_discipline_validated_at_runtime(tmp_path, rng):
     order replays clean against the committed order — and the per-tenant
     publish lock keeps the slab row and the latest checkpoint version in
     lockstep."""
+    from tpu_sgd.analysis import runtime
+
+    _publish_storm_lock_run(tmp_path, rng, runtime)
+
+
+def test_publish_storm_lock_discipline_validated_by_the_port_runtime(
+        tmp_path, rng):
+    """The same storm under the port's own runtime checkers, replayed
+    against the port's committed lock order."""
+    from tpu_sgd_torch.analysis import runtime
+
+    _publish_storm_lock_run(tmp_path, rng, runtime)
+
+
+def _publish_storm_lock_run(tmp_path, rng, runtime):
     import threading
 
-    from tpu_sgd.analysis.runtime import (LocksetRecorder, assert_lock_order,
-                                          instrument_object)
+    LocksetRecorder = runtime.LocksetRecorder
+    assert_lock_order = runtime.assert_lock_order
+    instrument_object = runtime.instrument_object
     from tpu_sgd_torch.tenant import slab as slab_mod
     from tpu_sgd_torch.tenant import store as tenant_store_mod
 
@@ -537,6 +553,37 @@ def test_slab_lru_ledger_and_eviction_order_equal_the_jax_package(rng):
     want = _drive_slab(jtenant.WeightSlab(3, D), w)
     assert got == want
     assert got[2], "the script evicts"
+
+
+def test_slab_put_then_resolve_equals_the_jax_package_puts_and_snapshot(rng):
+    """One lock round of admissions and a resolve (the store's batch
+    admission) gives what the JAX package's puts one by one and its
+    ``snapshot_for`` give: the puts, the slots, a miss, the ledger and
+    the eviction log."""
+    w = rng.normal(size=(6, D)).astype(np.float32)
+    got, want = WeightSlab(3, D, device=CPU), jtenant.WeightSlab(3, D)
+    for slab in (got, want):
+        slab.put(20, w[5], 0.5, version=1)
+    for rows, resolve in (([(10, w[0], 0.1, 3), (11, w[1], 0.2, 4)],
+                           [10, 11, 10, 20]),
+                          ([(12, w[2], 0.3, 5)], [12, 20, 10]),
+                          ([(13, w[3], 0.4, 6), (10, w[4], 0.6, 7)], None)):
+        puts, snap, missing = got.put_then_resolve(rows, resolve)
+        assert puts == [tuple(want.put(*r[:3], version=r[3])) for r in rows]
+        if resolve is None:
+            assert snap is None and missing is None
+            continue
+        try:
+            slots, _, _ = want.snapshot_for(resolve)
+        except KeyError as e:
+            assert snap is None and missing == e.args[0]
+        else:
+            assert missing is None
+            np.testing.assert_array_equal(snap[0], slots)
+    assert got.resident() == want.resident()
+    assert got.evictions == want.evictions
+    assert got.ledger_snapshot() == want.ledger_snapshot()
+    assert got.ledger_snapshot()["misses"] == 1  # 10, evicted by 12
 
 
 def test_store_admission_and_thrash_guard_equal_the_jax_package(tmp_path,

@@ -250,8 +250,13 @@ def _corrupt_payload(payload, kind: str, rng: random.Random):
 # -- hook-site registry -----------------------------------------------------
 
 #: every compiled-in hook site of this package and the module that holds
-#: its ``failpoint("<name>")`` call: the JAX package's sites, each in the
-#: port's module of the same name
+#: its ``failpoint("<name>")`` call — or, for the corrupting sites
+#: (:data:`CORRUPT_SITES`), its ``corruptpoint("<name>", ...)`` call: the
+#: JAX package's sites, each in the port's module of the same name.  One
+#: literal table for both kinds, as in the JAX package, because the
+#: failpoint-coverage lint rule (``tpu_sgd_torch/analysis``) reads it
+#: from the AST: a hook deleted from its module, or a call whose site is
+#: missing here, fails lint
 HOOK_SITES = {
     "io.resident_callback": "tpu_sgd_torch/optimize/resident_driver.py",
     "io.prefetch.produce": "tpu_sgd_torch/io/prefetch.py",
@@ -275,20 +280,20 @@ HOOK_SITES = {
     # fires at the top of the promotion (inside the replica.failover
     # span): latency here stretches a failover
     "replica.failover": "tpu_sgd_torch/replica/ha.py",
-}
-
-#: the corrupting sites and the module that holds each one's
-#: ``corruptpoint("<name>", ...)`` call: each passes a host-bytes frame
-#: between its ``seal()`` and its consume-site ``verify()``
-#: (``io/integrity.py``), so an armed corrupting spec models silent wire
-#: damage exactly where the checksum must catch it
-CORRUPT_SITES = {
+    # -- the corrupting sites: each passes a host-bytes frame between its
+    # seal() and its consume-site verify() (io/integrity.py), so an armed
+    # corrupting spec models silent wire damage exactly where the
+    # checksum must catch it
     "io.chunk": "tpu_sgd_torch/optimize/streamed.py",
     "io.sparse_chunk": "tpu_sgd_torch/optimize/streamed_sparse.py",
     "io.segment": "tpu_sgd_torch/io/sparse_wire.py",
     "replica.push.wire": "tpu_sgd_torch/replica/store.py",
     "replica.log.record": "tpu_sgd_torch/replica/ha.py",
 }
+
+#: the sites of :data:`HOOK_SITES` that are ``corruptpoint`` calls
+CORRUPT_SITES = ("io.chunk", "io.sparse_chunk", "io.segment",
+                 "replica.push.wire", "replica.log.record")
 
 # -- arming registry --------------------------------------------------------
 

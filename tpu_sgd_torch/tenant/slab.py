@@ -147,38 +147,58 @@ class WeightSlab:
         when already resident — hot-swap its row: a copy-on-write of the
         slab with the one row written, neighbours' rows untouched.
         Returns ``(slot, evicted_tenant_or_None, "admitted"|"swapped")``."""
+        with self._lock:
+            return self._put_locked(tenant_id, weights, intercept, version)
+
+    def put_then_resolve(self, rows, tenant_ids=None):
+        """:meth:`put` each of ``rows`` (``(tenant_id, weights, intercept,
+        version)``, in order) and then resolve ``tenant_ids`` as
+        :meth:`snapshot_for` does, under ONE lock round: no other thread's
+        admission can evict a row of this batch between its admission and
+        the batch's resolve.  Returns ``(puts, snapshot, missing)``: each
+        put's ``(slot, evicted, kind)``, then the snapshot, or ``None`` and
+        the non-resident tenants (``tenant_ids=None``: puts only)."""
+        with self._lock:
+            puts = [self._put_locked(*row) for row in rows]
+            if tenant_ids is None:
+                return puts, None, None
+            try:
+                return puts, self._snapshot_locked(tenant_ids), None
+            except KeyError as e:
+                return puts, None, e.args[0]
+
+    def _put_locked(self, tenant_id, weights, intercept, version):
         tid = int(tenant_id)
         row = np.asarray(weights, self.dtype).reshape(self.d)
         bi = np.float32(intercept)
-        with self._lock:
-            evicted: Optional[int] = None
-            slot = self._lru.get(tid)
-            if slot is not None:
-                kind = "swapped"
-                self._lru.move_to_end(tid)
-                self.ledger["swapped"] += 1
+        evicted: Optional[int] = None
+        slot = self._lru.get(tid)
+        if slot is not None:
+            kind = "swapped"
+            self._lru.move_to_end(tid)
+            self.ledger["swapped"] += 1
+        else:
+            kind = "admitted"
+            if self._free:
+                slot = self._free.pop()
             else:
-                kind = "admitted"
-                if self._free:
-                    slot = self._free.pop()
-                else:
-                    evicted, slot = self._lru.popitem(last=False)
-                    self._versions.pop(evicted, None)
-                    self._published_at.pop(evicted, None)
-                    self.ledger["evicted"] += 1
-                    self.evictions.append((evicted, slot, tid))
-                self._lru[tid] = slot
-                self.ledger["admitted"] += 1
-            self._host_w[slot] = row
-            self._host_b[slot] = bi
-            _ROW_SET_SHAPES.add((self.capacity, self.d, str(self.dtype)))
-            # copy-on-write: the published tensors are never written
-            W, b = self._dev_w.clone(), self._dev_b.clone()
-            W[slot].copy_(torch.from_numpy(self._host_w[slot]))
-            b[slot] = float(bi)
-            self._dev_w, self._dev_b = W, b
-            self._versions[tid] = int(version)
-            self._published_at[tid] = time.time()
+                evicted, slot = self._lru.popitem(last=False)
+                self._versions.pop(evicted, None)
+                self._published_at.pop(evicted, None)
+                self.ledger["evicted"] += 1
+                self.evictions.append((evicted, slot, tid))
+            self._lru[tid] = slot
+            self.ledger["admitted"] += 1
+        self._host_w[slot] = row
+        self._host_b[slot] = bi
+        _ROW_SET_SHAPES.add((self.capacity, self.d, str(self.dtype)))
+        # copy-on-write: the published tensors are never written
+        W, b = self._dev_w.clone(), self._dev_b.clone()
+        W[slot].copy_(torch.from_numpy(self._host_w[slot]))
+        b[slot] = float(bi)
+        self._dev_w, self._dev_b = W, b
+        self._versions[tid] = int(version)
+        self._published_at[tid] = time.time()
         return slot, evicted, kind
 
     # -- serving reads -----------------------------------------------------
@@ -190,21 +210,24 @@ class WeightSlab:
         Touches LRU recency for every distinct tenant.  Raises
         ``KeyError`` carrying the set of non-resident tenants (the
         store's admission-on-miss hook)."""
+        with self._lock:
+            return self._snapshot_locked(tenant_ids)
+
+    def _snapshot_locked(self, tenant_ids):
         tids = np.asarray(tenant_ids).astype(np.int64, copy=False)
         uniq = {int(t) for t in np.unique(tids)}
-        with self._lock:
-            missing = {t for t in uniq if t not in self._lru}
-            if missing:
-                self.ledger["misses"] += len(missing)
-                self.ledger["hits"] += len(uniq) - len(missing)
-                raise KeyError(missing)
-            self.ledger["hits"] += len(uniq)
-            for t in uniq:
-                self._lru.move_to_end(t)
-            lru = self._lru
-            slots = np.fromiter((lru[int(t)] for t in tids), np.int32,
-                                count=len(tids))
-            return slots, self._dev_w, self._dev_b
+        missing = {t for t in uniq if t not in self._lru}
+        if missing:
+            self.ledger["misses"] += len(missing)
+            self.ledger["hits"] += len(uniq) - len(missing)
+            raise KeyError(missing)
+        self.ledger["hits"] += len(uniq)
+        for t in uniq:
+            self._lru.move_to_end(t)
+        lru = self._lru
+        slots = np.fromiter((lru[int(t)] for t in tids), np.int32,
+                            count=len(tids))
+        return slots, self._dev_w, self._dev_b
 
     def host_row(self, tenant_id: int) -> Tuple[np.ndarray, float]:
         """One tenant's ``(weights, intercept)`` from the host mirror —

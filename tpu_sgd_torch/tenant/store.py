@@ -31,6 +31,7 @@ every residency transition.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -139,41 +140,60 @@ class TenantModelStore:
         when the tenant has no checkpoints; a corrupt newest checkpoint
         raises whatever ``CheckpointManager.restore_version`` raises
         (incl. ``IntegrityError``) — residency never swallows it."""
-        tid = int(tenant_id)
-        m = self._manager(tid)
-        # the whole scan-restore-put under the tenant's publish lock: a
-        # concurrent publish(tid) bumps the checkpoint AND the slab row
-        # between an unserialized load's restore and its put, and the
-        # load would then overwrite the newer slab row with the older
-        # checkpoint — a silent version regression served until the
-        # next swap.  Loads of DIFFERENT tenants stay fully concurrent.
-        with self._publish_lock(tid):
-            last_err: Optional[BaseException] = None
-            for _ in range(3):
-                latest = m.latest_version()
-                if latest is None:
-                    raise TenantMissingError(
-                        f"tenant {tid}: no published checkpoint under "
-                        f"{self.directory!r}")
-                try:
-                    ck = m.restore_version(latest)
-                    break
-                except Exception as e:
-                    # a concurrent publish can prune `latest` between
-                    # the version scan and the read (keep=N retention);
-                    # re-scan and retry — a persistent failure (e.g. a
-                    # corrupt newest checkpoint) still raises after the
-                    # bounded retries, never silently served
-                    last_err = e
-            else:
-                raise last_err
-            _, evicted, kind = self.slab.put(
-                tid, ck["weights"],
-                float(ck["extras"].get("intercept", 0.0)), version=latest)
-            self._emit("swap" if kind == "swapped" else "admit", tid)
-            if evicted is not None:
-                self._emit("evict", evicted)
+        _, _, (latest,) = self._admit([tenant_id], None)
         return latest
+
+    def _restore_latest(self, m: CheckpointManager, tid: int):
+        """``(checkpoint, version)`` of the tenant's newest checkpoint
+        (the caller holds its publish lock)."""
+        last_err: Optional[BaseException] = None
+        for _ in range(3):
+            latest = m.latest_version()
+            if latest is None:
+                raise TenantMissingError(
+                    f"tenant {tid}: no published checkpoint under "
+                    f"{self.directory!r}")
+            try:
+                return m.restore_version(latest), latest
+            except Exception as e:
+                # a concurrent publish can prune `latest` between the
+                # version scan and the read (keep=N retention); re-scan
+                # and retry — a persistent failure (e.g. a corrupt newest
+                # checkpoint) still raises after the bounded retries,
+                # never silently served
+                last_err = e
+        raise last_err
+
+    def _admit(self, tenant_ids, resolve):
+        """Admit (or refresh) each of ``tenant_ids`` from its newest
+        checkpoint, in sorted order, and resolve the batch ``resolve``
+        (``None``: none) in the same slab lock round as the admissions
+        (``WeightSlab.put_then_resolve``): a concurrent admission cannot
+        evict this batch's rows before it resolves.  Returns ``(snapshot,
+        missing, versions)``.
+
+        Each tenant's scan-restore-put runs under its publish lock (taken
+        in sorted order): a concurrent publish(tid) bumps the checkpoint
+        AND the slab row between an unserialized load's restore and its
+        put, and the load would then overwrite the newer slab row with the
+        older checkpoint — a silent version regression served until the
+        next swap.  Loads of DIFFERENT tenants stay fully concurrent."""
+        tids = sorted(int(t) for t in tenant_ids)
+        with contextlib.ExitStack() as held:
+            for tid in tids:
+                held.enter_context(self._publish_lock(tid))
+            rows = []
+            for tid in tids:
+                ck, latest = self._restore_latest(self._manager(tid), tid)
+                rows.append((tid, ck["weights"],
+                             float(ck["extras"].get("intercept", 0.0)),
+                             latest))
+            puts, snap, missing = self.slab.put_then_resolve(rows, resolve)
+            for tid, (_, evicted, kind) in zip(tids, puts):
+                self._emit("swap" if kind == "swapped" else "admit", tid)
+                if evicted is not None:
+                    self._emit("evict", evicted)
+        return snap, missing, [row[3] for row in rows]
 
     # alias: the hot-reload spelling (reload tenant i; neighbors untouched)
     reload = load
@@ -183,14 +203,21 @@ class TenantModelStore:
         admitting non-resident tenants from disk on miss.  Bounded
         retries guard against admission thrash (a burst whose distinct
         tenant count exceeds capacity cannot be scored in one batch —
-        :class:`SlabFullError` instead of livelock)."""
+        :class:`SlabFullError` instead of livelock).  Five resolves and
+        five admission rounds, as the JAX package's loop; each round's
+        admissions and the next resolve share one slab lock round."""
+        missing = None
         for _ in range(5):
-            try:
-                return self.slab.snapshot_for(tenant_ids)
-            except KeyError as e:
-                (missing,) = e.args
-                for tid in sorted(missing):
-                    self.load(tid)
+            if missing is None:
+                try:
+                    return self.slab.snapshot_for(tenant_ids)
+                except KeyError as e:
+                    (missing,) = e.args
+                continue
+            snap, missing, _ = self._admit(missing, tenant_ids)
+            if snap is not None:
+                return snap
+        self._admit(missing, None)
         raise SlabFullError(
             f"slab thrash: {self.slab.capacity} slots cannot hold this "
             "batch's distinct tenants; raise capacity "
