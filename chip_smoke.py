@@ -149,6 +149,19 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    on an SLO document the run meets (writing a Chrome trace that loads)
    and 1 on one it violates, its alerts section names ``failover``, and
    ``python -m tpu_sgd_torch.obs.watch --once`` renders.
+9d. analysis — graftlint's runtime checkers (``tpu_sgd_torch.analysis``)
+   on phase 4's matrix, right after phase 9c (a).  (a) A 20-iteration
+   Bernoulli SGD run at K = 10 (``make_run``), run until both blocks
+   replay from the graph: around that run ``count_dispatches()`` equals
+   the block runner's replays plus its launches outside a capture, and
+   is above 0; around a second identical run ``assert_compile_count(0)``
+   holds (the ``_run_cache`` hit captures and builds nothing).  (b)
+   ``count_host_syncs()`` around phase 9c (a)'s observed run equals
+   torch's sync detector's count on the same run, above 0; the replayed
+   run of (a) reads the card only at its end (``assert_no_host_sync``
+   with the run's two boundary reads allowed, and those two exactly).
+   (c) Binary L-BFGS of leg (a) at one and at two iterations: the host
+   reads one iteration adds.
 10. streamed — host-streamed SGD (``set_host_streaming``), right after
    phase 9: phase 4's matrix copied to the host once, into a memfd that
    phase 12's ranks map too (the phase fails, naming the shortfall, when
@@ -308,7 +321,7 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    failover span, alerts and walls are printed.  B1 at a worker's shard
    and the CSR kernel at the sparse endpoint's batch join the kernel
    table with the scenario's launches, while (c) ``python -m
-   tpu_sgd_torch.analysis.lint`` must exit 0 with its five rules.
+   tpu_sgd_torch.analysis.lint`` must exit 0 with all thirteen rules.
 15. summary — the sparse line, the quasi_newton line, the gram line, the
    streamed line, the streamed_qn line, the plan line, the mesh line, the serve line,
    the corr line, the scenario line, the replica line, the observed line,
@@ -630,7 +643,9 @@ def csr_long_row_cases(torch, ck):
                            device="cuda").reshape(1, T)
         got = ck.csr_margins(X, rhs[:, 0] if T == 1 else rhs)
         want = (sums[:, None] * rhs).reshape(got.shape)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         check(bool(torch.equal(got, want)),
+              # graftlint: disable=host-sync -- chip check: reads each case back to compare it
               f"csr long row T={T}: {got.tolist()} != {want.tolist()}")
     del X, col, val
     torch.cuda.empty_cache()
@@ -682,11 +697,14 @@ def csr_walk_cases(torch, ck, worst):
                             X, arg[:, 0] if T == 1 else arg, mask)
                     finally:
                         ck.CSR_MASKED_MIN_BLOCKS = min_blocks
+                    # graftlint: disable=host-sync -- chip check: reads each case back to compare it
                     got = got.reshape(rows, T).cpu().numpy()
                     share = (ck.CSR_MASKED_BLOCK_ITEMS if wide
                              else ck.CSR_BLOCK_ITEMS)
                     walk = ck.csr_walk(crow, col, val, rhs, mask_np, share)
+                    # graftlint: disable=host-sync -- chip check: reads each case back to compare it
                     ref = ck.csr_matmul_plain(X, arg, mask).cpu().numpy()
+                    # graftlint: disable=host-sync -- chip check: reads each case back to compare it
                     err = float(np.abs(got - ref).max()) if got.size else 0.0
                     scale = float(np.abs(ref).max()) if got.size else 0.0
                     what = (f"csr kernel {shape} {idt} T={T} "
@@ -844,6 +862,7 @@ def gather_route_cases(torch, ck, grads, gen, worst):
                     ok, err, scale = _close(torch, got, ref, bf16)
                     what = f"B1 {name} {dt} d={d} mask {mname}"
                     check(ok, f"{what}: max|dg|={err} of {scale}, count "
+                          # graftlint: disable=host-sync -- chip check: reads each case back to compare it
                           f"{float(got[2])} vs {float(ref[2])}")
                     check(all(torch.equal(a, b) for a, b in zip(got, again)),
                           f"{what}: a second call differs")
@@ -852,7 +871,9 @@ def gather_route_cases(torch, ck, grads, gen, worst):
                                   for a, b in zip(got, unmasked)),
                               f"{what}: not bitwise the unmasked call")
                     if mname == "zero":
+                        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
                         check(float(got[2]) == 0.0 and float(got[1]) == 0.0
+                              # graftlint: disable=host-sync -- chip check: reads each case back to compare it
                               and not bool(got[0].any()),
                               f"{what}: {got[1]}, {got[2]}")
                     key = "b1_ring" if ring else "b1_fused_sums"
@@ -2096,20 +2117,29 @@ def gram_windows(torch, tst, ck, gram, X, y, w_true):
     out = {}
     for name, s0 in starts.items():
         s = torch.tensor([s0], device="cuda")
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         g, l, c = gram.window_sums(gram.data, y, w, s, m)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         gk, lk, ck_ = ck.fused_window_sums(gram.pointwise, X, y, w, s, m,
                                            tile_m=1)
         ge, le, _ = exact.window_sums(X, y, w, s, m)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         scale = float(gk.abs().max())
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         err = float((g - gk).abs().max())
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         rel_l = abs(float(l) - float(lk)) / abs(float(lk))
         out[name] = {
             "start": s0, "grad_scale": scale, "max_abs_err": err,
             "max_abs_err_over_scale": err / scale, "loss_rel_err": rel_l,
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             "exact_max_abs_err": float((g - ge).abs().max()),
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             "exact_loss_rel_err": abs(float(l) - float(le)) / float(le),
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             "kernel_exact_max_abs_err": float((gk - ge).abs().max())}
         check(err <= 1e-3 * scale and rel_l <= 1e-3
+              # graftlint: disable=host-sync -- chip check: reads each case back to compare it
               and float(c) == float(ck_) == m,
               f"(b) {name}: statistics vs B2 {out[name]}")
     return out
@@ -2178,6 +2208,7 @@ def gram_sgd(torch, tst, ck, X, y, sliced_ref):
         launches = ck.launch_counts()
         check(all(v == 0 for v in launches.values()),
               f"(d) {name}: fused launches {launches}")
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         runs[name] = (w, np.asarray(h), _run_profile(
             torch, lambda: opt.optimize_with_history(
                 (X, y), torch.zeros(d, device="cuda")), ITERS))
@@ -2314,15 +2345,24 @@ def _chunked_along_stock(torch, tst, chunked, alg, X, y, sliced_ref,
         gc, lc, cc = chunked.window_sums(X, y, w, start, m)
         if seams is None:
             gb, lb, _ = stock.window_sums(X, y, w, start, m - blocks)
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             seams = {"loss": abs(float(lb) - float(lsum)) / abs(float(lsum)),
+                     # graftlint: disable=host-sync -- chip check: reads each case back to compare it
                      "grad": float((gb - gs).abs().max())
+                     # graftlint: disable=host-sync -- chip check: reads each case back to compare it
                      / float(gs.abs().max())}
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         check(float(cc) == float(c), f"(f): count {float(cc)} at {i}")
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         worst_l = max(worst_l, abs(float(lc) - float(lsum))
+                      # graftlint: disable=host-sync -- chip check: reads each case back to compare it
                       / abs(float(lsum)))
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         worst_g = max(worst_g, float((gc - gs).abs().max())
+                      # graftlint: disable=host-sync -- chip check: reads each case back to compare it
                       / float(gs.abs().max()))
         w, loss_i, reg, _ = step(w, X, y, i, reg)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         replay.append(float(loss_i))
     check(np.array_equal(np.asarray(replay, np.float32), sliced_ref[0]),
           "(f): the step-by-step replay is not phase full's sliced run")
@@ -2710,21 +2750,25 @@ def observed_driver(torch, tst, X, y):
             path = os.path.join(tmp, name)
             opt.set_checkpoint(CheckpointManager(path, keep=100),
                                every=OBS_CKPT_EVERY)
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             w, h = opt.optimize_with_history((X, y), w0)
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             torch.cuda.synchronize()
             secs = time.perf_counter() - t
             peak = torch.cuda.max_memory_allocated() - base
             events = [(e.iteration, e.loss, e.weight_delta_norm,
                        e.mini_batch_size) for e in lis.iterations]
             ckpts = _ckpt_contents(path)
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             run = {"w": w, "h": np.asarray(h), "events": events,
                    "ckpts": ckpts}
             if ref is None:
                 ref = run
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             same = (bool(torch.equal(w, ref["w"]))
                     and np.array_equal(run["h"], ref["h"])
                     and events == ref["events"]
@@ -2747,16 +2791,20 @@ def observed_driver(torch, tst, X, y):
             check(stopped_at is not None, f"{name}: the stop was ignored")
             opt2.set_stop_signal(None)
             w2, h2 = opt2.optimize_with_history((X, y), w0)
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             resumed = (bool(torch.equal(w2, ref["w"]))
+                       # graftlint: disable=host-sync -- chip check: reads each case back to compare it
                        and np.array_equal(np.asarray(h2), ref["h"]))
             check(resumed, f"{name}: stop at {stopped_at} and resume "
                   "differs from the uninterrupted run")
             # the warm pace: a listener only, the second of two runs
             warm = optimizer(k, c).set_listener(_stop_listener())
             warm.optimize_with_history((X, y), w0)
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             torch.cuda.synchronize()
             t = time.perf_counter()
             warm.optimize_with_history((X, y), w0)
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             torch.cuda.synchronize()
             warm_ms = 1e3 * (time.perf_counter() - t) / OBS_ITERS
             out[name] = {"first_run_ms_per_iteration": 1e3 * secs / OBS_ITERS,
@@ -2808,12 +2856,16 @@ def sampler_ms(torch, tst, X, draws=20, replays=10):
     for mode in ("bernoulli", "sliced", "indexed"):
         cfg = tst.SGDConfig(mini_batch_fraction=FRAC, sampling=mode)
         s = gd._make_sampler(cfg, X)
+        # graftlint: disable=eager-in-loop -- one capture per sampler mode, each timed alone
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(s.gen)
+        # graftlint: disable=eager-in-loop -- one capture per sampler mode, each timed alone
         with torch.cuda.graph(graph):
             for _ in range(draws):
+                # graftlint: disable=callback-discipline -- draw's host side only moves the registered offset
                 s.draw()
         graph.replay()
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -2821,6 +2873,7 @@ def sampler_ms(torch, tst, X, draws=20, replays=10):
         for _ in range(replays):
             graph.replay()
         end.record()
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         end.synchronize()
         out[mode] = {"ms": start.elapsed_time(end) / (draws * replays),
                      "offset_stride": s.stride}
@@ -2944,6 +2997,98 @@ def obs_counters_on_card(torch, tst, ck, X, y):
             walls[mode].append(r["ms_per_iteration"])
     out["wall_ms_per_iteration_off"] = walls["off"]
     out["wall_ms_per_iteration_on"] = walls["on"]
+    return out
+
+
+def phase_analysis(torch, tst, ck, X, y):
+    """Phase ``analysis``: graftlint's runtime checkers on real card
+    tensors (module docstring, 9d).  Each count must be above 0 where the
+    card must count, or the checker read nothing."""
+    from tpu_sgd_torch.analysis import runtime as rt
+
+    t0 = time.perf_counter()
+    out = {}
+    d = X.shape[1]
+    w0 = torch.zeros(d, device="cuda")
+    # (a) dispatches and compiles around the unobserved captured run
+    opt = (tst.GradientDescent(device="cuda").set_step_size(0.5)
+           .set_num_iterations(20).set_mini_batch_fraction(FRAC)
+           .set_sampling("bernoulli").set_convergence_tol(0.0))
+    opt.optimize_with_history((X, y), w0)  # a first run: eager
+    opt.optimize_with_history((X, y), w0)  # warms block 1, captures 2
+    runner = opt._run_cache[1].cache["runner"]
+    check(runner.graph is not None, "analysis (a): no block was captured")
+    replays0 = runner.replays
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    with rt.count_dispatches() as disp:
+        w_a, h_a = opt.optimize_with_history((X, y), w0)
+    torch.cuda.synchronize()
+    replays = runner.replays - replays0
+    per_replay = sum(runner.launches["sources"].values())
+    eager = sum(ck.kernel_launch_counts().values()) - replays * per_replay
+    out["a"] = {"iterations": 20, "k": runner.k, "dispatches": disp["n"],
+                "graph_replays": replays, "eager_launches": eager,
+                "launches_per_replay": per_replay}
+    check(disp["n"] == replays + eager and disp["n"] > 0 and replays == 2,
+          f"analysis (a): dispatches {out['a']}")
+    with rt.count_host_syncs() as reads:
+        with rt.assert_compile_count(0):
+            w_b, h_b = opt.optimize_with_history((X, y), w0)
+    check(bool(torch.equal(w_a, w_b)) and np.array_equal(h_a, h_b),
+          "analysis (a): the repeated run differs")
+    out["a"]["repeat_compiles"] = 0
+    # (b) host syncs: the replayed run reads only its end (the record
+    # count and the history), and the observed run's reads equal torch's
+    # sync detector's
+    with rt.assert_no_host_sync(allow=2):
+        opt.optimize_with_history((X, y), w0)
+    out["b"] = {"replayed_run_reads": reads["n"],
+                "replayed_run_read_shapes": [list(s) + [dt] for s, dt
+                                             in reads["shapes"]]}
+    check(reads["n"] == 2, f"analysis (b): the replayed run read "
+          f"{reads['shapes']}, want its two boundary reads")
+    obs_opt = (tst.GradientDescent(device="cuda").set_step_size(0.5)
+               .set_num_iterations(OBS_ITERS).set_mini_batch_fraction(FRAC)
+               .set_sampling("sliced").set_convergence_tol(0.0)
+               .set_superstep(OBS_K).set_listener(_stop_listener()))
+    obs_opt.optimize_with_history((X, y), w0)  # warms up and captures
+    # the detector's first switch-on in a process reports one synchronizing
+    # call of its own (``set_sync_debug_mode``, torch/cuda/__init__.py:
+    # one more than the counters when this phase runs first in a process):
+    # switch it on once before the witnessed run
+    with _SyncCounter(torch):
+        pass
+    with _SyncCounter(torch) as witness:
+        obs_opt.optimize_with_history((X, y), w0)
+    with rt.count_host_syncs() as syncs:
+        obs_opt.optimize_with_history((X, y), w0)
+    out["b"].update({"observed_iterations": OBS_ITERS, "observed_k": OBS_K,
+                     "observed_reads": syncs["n"],
+                     "sync_detector": witness.n})
+    check(syncs["n"] == witness.n > 0,
+          f"analysis (b): count_host_syncs {syncs['n']}, the sync "
+          f"detector {witness.n}")
+    # (c) the host reads one L-BFGS iteration adds (leg (a)'s problem)
+    y_log = logistic_labels(torch, X, X.new_ones(d).float())
+    per_run = {}
+    for iters in (1, 2):
+        alg = tst.LogisticRegressionWithLBFGS(max_num_iterations=iters,
+                                              reg_param=1e-4)
+        alg.set_schedule("off")  # a named route: no planner
+        alg.optimizer.set_convergence_tol(0.0)
+        with rt.count_host_syncs() as c:
+            alg.run((X, y_log))
+        per_run[iters] = {"reads": c["n"], "cost_evaluations":
+                          len(alg.optimizer.loss_history)}
+    out["c"] = {"one_iteration": per_run[1], "two_iterations": per_run[2],
+                "reads_per_iteration": per_run[2]["reads"]
+                - per_run[1]["reads"]}
+    check(out["c"]["reads_per_iteration"] > 0,
+          f"analysis (c): an L-BFGS iteration read nothing {out['c']}")
+    del y_log
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "analysis", **out})
     return out
 
 
@@ -3837,11 +3982,13 @@ def streamed_sampled(torch, tst, ck, Xh, yh):
                           profile_iters=STREAM_TRACED_ITERS)
         h = r["history"]
         check(len(h) == STREAM_SAMPLED_ITERS
+              # graftlint: disable=host-sync -- chip check: reads each case back to compare it
               and bool(np.all(np.isfinite(h))) and h[-1] < h[0],
               f"(b) {mode}: history {h}")
         check(r["launches"]["fused_gradient_sums"] == STREAM_SAMPLED_ITERS,
               f"(b) {mode}: B1 launches {r['launches']}")
         out[mode] = _report(r) | _rss_bytes() | {
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             "loss_first": float(h[0]), "loss_last": float(h[-1])}
         if mode == "bernoulli":
             # phase plan (e) meets this run's weights and history
@@ -4404,10 +4551,12 @@ def streamed_qn_normal(torch, tst, X, y_ls, Xh, yh_ls, qn_b, h2d_gb_s):
     w0 = torch.zeros(d, device="cuda")
     runs = []
     for _ in range(2):
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         torch.cuda.synchronize()
         t = time.perf_counter()
         w = tst.NormalEquations().set_host_streaming(True).optimize(
             (Xh, yh_ls), w0)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         torch.cuda.synchronize()
         runs.append((w, time.perf_counter() - t))
     check(torch.equal(runs[0][0], runs[1][0]),
@@ -4672,9 +4821,11 @@ def plan_dispatch_tax(torch, tst, Xh, yh):
     walls = {1: [], 8: []}
     for k in (1, 8, 8, 1):
         opt = _stream_opt(tst, "bernoulli", 1.0, PLAN_DISPATCH_ITERS, k=k)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         torch.cuda.synchronize()
         t = time.perf_counter()
         opt.optimize_with_history((Xp, yp), w0)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         torch.cuda.synchronize()
         walls[k].append(1e3 * (time.perf_counter() - t) / PLAN_DISPATCH_ITERS)
     w1, w8 = min(walls[1]), min(walls[8])
@@ -4984,6 +5135,7 @@ def csr_rows(torch, ck, X, sparse, owlqn, streamed, batch):
          source_run) in cases:
         got, ref = kern(), plain()
         again = kern()
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
@@ -5342,6 +5494,7 @@ def mesh_rank_runs(torch, tst, ck, par, mesh, out_dir):
     for mode in ("bernoulli", "sliced"):
         r = _mesh_run(torch, ck, _mesh_alg(tst, mode, FRAC, mesh),
                       X[:MESH_PREFIX_ROWS], y[:MESH_PREFIX_ROWS])
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         arrays[f"prefix_{mode}_w"] = r["w"].cpu().numpy()
         arrays[f"prefix_{mode}_h"] = r["h"]
     res["combine_ms"] = _combine_ms(torch, par, mesh)
@@ -5363,16 +5516,19 @@ def mesh_rank_runs(torch, tst, ck, par, mesh, out_dir):
     for frac in (1.0, FRAC):
         alg = _sparse_alg(tst, MESH_ITERS, frac)
         alg.optimizer.set_mesh(mesh)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ck.reset_launch_counts()
         t = time.perf_counter()
         model = alg.run((Xs, ys))
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         torch.cuda.synchronize()
         h = np.asarray(alg.optimizer.loss_history)
         res["sparse"][str(frac)] = {
             "ms_per_iteration": 1e3 * (time.perf_counter() - t) / MESH_ITERS,
             "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             "rows": int(Xs.shape[0]), "nnz": int(Xs._nnz()),
             "csr_launches": ck.csr_launch_counts(),
             "dense_launches": ck.launch_counts(),
@@ -5546,6 +5702,7 @@ def mesh_observed(torch, tst, X, y, mesh):
     for k in (1, MESH_OBS_K):
         lis = _stop_listener()
         w, h = opt(k).set_listener(lis).optimize_with_history((X, y), w0)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         same = bool(torch.equal(w, ref_w)) and np.array_equal(h, ref_h)
         check(same and len(lis.iterations) == MESH_ITERS,
               f"mesh observed K={k}: not the unobserved run")
@@ -5801,6 +5958,7 @@ def mesh_rank_dense(torch, tst, ck, par, mesh, X, y):
     res["h"] = {}
     for aligned in (False, True):
         opt = _mesh_stats_opt(tst, mesh, aligned)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -5876,6 +6034,7 @@ def mesh_rank_2d(torch, tst, ck, par):
         r = _mesh_run(torch, ck, _mesh_alg(tst, mode, frac, m2), Xp, yp)
         res["prefix"][mode] = {"launches": r["launches"],
                                "products": r["products"], "ms": r["ms"]}
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         arrays[f"e_prefix_{mode}_w"] = r["w"].cpu().numpy()
         arrays[f"e_prefix_{mode}_h"] = r["h"]
     del Xp, yp
@@ -5907,10 +6066,12 @@ def mesh_rank_2d(torch, tst, ck, par):
     for name, length in (("full_batch", rows), ("window", round(FRAC * rows))):
         margins = torch.ones(length, device="cuda")
         par.combine_model(m2, margins)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(20):
             par.combine_model(m2, margins)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         torch.cuda.synchronize()
         combine[name] = {"ms": 1e3 * (time.perf_counter() - t) / 20,
                          "bytes_per_rank": 4 * length}
@@ -6747,6 +6908,7 @@ def streamed_rank_order_reference(torch, tst, Xh, yh, cfg, k, topk=None):
                 new_efs.append(acc.index_fill(0, top, 0.0))
         new_w, new_reg = u.compute(w, step, cfg.step_size, it, cfg.reg_param)
         if bool(c > 0):
+            # graftlint: disable=host-sync -- chip check: reads each case back to compare it
             hist.append(float(loss))
             w, reg = new_w, new_reg
             if topk is not None:
@@ -6825,6 +6987,7 @@ def mesh_streamed_checks(torch, tst, ck, Xh, yh, yh_ls, reports, arrays,
         cfg = _stream_mesh_opt(tst, None, mode, _mode_frac(mode),
                                MESH_STREAM_ITERS).config
         w, h = streamed_rank_order_reference(torch, tst, Xp, yp, cfg, world)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         same = (np.array_equal(a0[f"j_{mode}_w"], w.cpu().numpy())
                 and np.array_equal(a0[f"j_{mode}_h"], h))
         check(same, f"mesh (j) {mode}: not the one-process rank-order sum")
@@ -6835,6 +6998,7 @@ def mesh_streamed_checks(torch, tst, ck, Xh, yh, yh_ls, reports, arrays,
         ratio = (ls_objective_exact(torch, Xpc, ypc, torch.as_tensor(
             a0[f"j_{mode}_w"], device="cuda"))
             / ls_objective_exact(torch, Xpc, ypc, w1))
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         rel = _rel_max(a0[f"j_{mode}_h"], h1)
         j["vs_single_device"][mode] = {"objective_ratio": ratio,
                                        "history_max_rel": rel}
@@ -7419,6 +7583,7 @@ def _event_ms(torch, fn, reps=30) -> float:
         start.record()
         fn()
         end.record()
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
@@ -7509,9 +7674,13 @@ def serve_csr_rows(torch, ck, d, log, rng):
         X = stack_rows(_serve_rows("rcv1", n, d, rng)).cuda()
         got, ref = ck.csr_margins(X, w), ck.csr_matmul_plain(X, w)
         again = ck.csr_margins(X, w)
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         torch.cuda.synchronize()
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         err = float((got - ref).abs().max())
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         scale = float(ref.abs().max())
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         check(bool(torch.equal(got, again)), f"serve csr ({n}) not bitwise")
         check(err <= 1e-4 * scale + 1e-6,
               f"serve csr ({n}): max |d| {err} of {scale}")
@@ -7519,6 +7688,7 @@ def serve_csr_rows(torch, ck, d, log, rng):
                                          lambda: ck.csr_margins(X, w))
         check(1 <= sum(per_call.values()) <= 2,
               f"serve csr ({n}): {per_call} CUDA launches a call")
+        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         check(bool(torch.equal(replay, got)), f"serve csr ({n}): replay")
         nnz = X._nnz()
         idx = X.col_indices().element_size()
@@ -8219,7 +8389,7 @@ def phase_scenario(torch, tst, ck, lint):
     stdout, stderr = lint.communicate(timeout=600)
     summary = [ln for ln in stderr.splitlines()
                if ln.startswith("graftlint:")]
-    check(lint.returncode == 0 and summary and "5 rule(s)" in summary[-1],
+    check(lint.returncode == 0 and summary and "13 rule(s)" in summary[-1],
           f"scenario: the port's lint exited {lint.returncode}: "
           f"{stdout[-2000:]} {stderr[-2000:]}")
     out["c_lint"] = {"exit_code": lint.returncode, "summary": summary[-1]}
@@ -8301,6 +8471,8 @@ def main() -> int:
     rows.append(chunked_row)
     torch.cuda.empty_cache()
     observed = phase_observed(torch, tst, ck, X, y)
+    torch.cuda.empty_cache()
+    phase_analysis(torch, tst, ck, X, y)
     torch.cuda.empty_cache()
     replica, replica_row = phase_replica(torch, tst, ck, X, y, profile)
     rows.append(replica_row)

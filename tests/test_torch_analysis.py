@@ -3,18 +3,27 @@ against the JAX package's ``tpu_sgd/analysis`` and its tests
 (``tests/test_analysis.py``).
 
 * lint parity -- every test of ``tests/test_analysis.py`` that lints with
-  one of the five ported rules (lock-discipline, failpoint-coverage,
-  lock-order, cond-discipline, contract-drift) is run once more with its
-  ``lint`` / ``run_lint`` recording: each fixture it lints goes through
-  the port's rule too, and the findings must agree exactly (rule, path,
-  line, column, message with the package names normalized).  The same
-  for each rule over the source trees ``tpu_sgd/`` and
-  ``tpu_sgd_torch/`` (with ``chip_smoke.py``), before suppressions;
+  one of the five framework-free rules (lock-discipline,
+  failpoint-coverage, lock-order, cond-discipline, contract-drift) is run
+  once more with its ``lint`` / ``run_lint`` recording: each fixture it
+  lints goes through the port's rule too, and the findings must agree
+  exactly (rule, path, line, column, message with the package names
+  normalized).  The same for each of those rules over the source trees
+  ``tpu_sgd/`` and ``tpu_sgd_torch/`` (with ``chip_smoke.py``), before
+  suppressions, and for memo-key on its framework-neutral cases
+  (declaration drift, malformed or missing declarations, the mutation of
+  a real module's declaration).  The other JAX-only rules are held on
+  torch spellings of their fixtures in
+  ``tests/test_torch_analysis_jax_rules.py``;
 * twins of the suppression, stale-suppression, CLI and lock-order
   declaration tests, on the port's runner and CLI;
-* the runtime lock checkers: the JAX package's runtime tests run with the
+* the runtime checkers: the JAX package's runtime tests run with the
   port's ``InstrumentedLock`` / ``LocksetRecorder`` /
-  ``instrument_object`` / ``assert_lock_order`` in place of its own.
+  ``instrument_object`` / ``assert_lock_order`` in place of its own, and
+  its framework-neutral compile-count and callback-buffer tests with the
+  port's ``assert_compile_count`` / ``assert_bounded_callback_buffer``;
+  the port's dispatch, host-sync and compile counting on the CPU, CPU
+  tensors counted as the card's.
 """
 
 import ast
@@ -33,6 +42,7 @@ from tpu_sgd.analysis import rules_cond as jcond
 from tpu_sgd.analysis import rules_contract as jcontract
 from tpu_sgd.analysis import rules_failpoint as jfailpoint
 from tpu_sgd.analysis import rules_lock as jlock
+from tpu_sgd.analysis import rules_memo as jmemo
 from tpu_sgd.analysis import rules_order as jorder
 from tpu_sgd_torch import analysis as panalysis
 from tpu_sgd_torch.analysis import core as pcore
@@ -40,6 +50,7 @@ from tpu_sgd_torch.analysis import rules_cond as pcond
 from tpu_sgd_torch.analysis import rules_contract as pcontract
 from tpu_sgd_torch.analysis import rules_failpoint as pfailpoint
 from tpu_sgd_torch.analysis import rules_lock as plock
+from tpu_sgd_torch.analysis import rules_memo as pmemo
 from tpu_sgd_torch.analysis import rules_order as porder
 from tpu_sgd_torch.analysis import runtime as pruntime
 
@@ -55,6 +66,10 @@ RULES = {
     "contract-drift": (jcontract.ContractDriftRule,
                        pcontract.ContractDriftRule),
 }
+#: the JAX-only rule whose declaration checks are framework-neutral: held
+#: finding for finding on ``NEUTRAL_CASES`` only (its undeclared-cache and
+#: factory checks read programs, which differ by framework)
+NEUTRAL_RULES = {"memo-key": (jmemo.MemoKeyRule, pmemo.MemoKeyRule)}
 POLICY = ("bare-suppression", "unknown-rule", "parse-error")
 
 #: the tests of ``tests/test_analysis.py`` that lint with a ported rule
@@ -90,6 +105,38 @@ PARITY_CASES = (
     "test_mutation_unlocked_slab_access_fails_lint",
 )
 
+#: the JAX package's memo-key tests whose checks are framework-neutral
+NEUTRAL_CASES = (
+    "test_memo_declaration_drift_both_directions",
+    "test_memo_missing_cache_and_malformed_declaration",
+    "test_mutation_deleted_memo_key_field_fails_lint",
+)
+
+#: the JAX package's tests of the rules and checkers that are neither
+#: parity, neutral, twin nor runtime cases, each with why
+UNTWINNED = {
+    "test_repo_lints_clean": "the JAX package's own tree; the port's is "
+    "tests/test_torch_port_rules.py::"
+    "test_the_port_lints_clean_with_its_own_graftlint",
+    "test_mutation_item_in_resident_loop_body_fails_lint": "mutates the "
+    "JAX package's streamed loop; the port's twin mutates its own "
+    "(test_torch_analysis_jax_rules.py::"
+    "test_mutation_item_in_the_ports_observed_loop_fails_lint)",
+    "test_mutation_unguarded_resident_callback_fails_lint": "the JAX "
+    "package's io_callback handler; the port's twin puts a host effect "
+    "in _BlockRunner's capture (test_torch_analysis_jax_rules.py::"
+    "test_mutation_host_effect_in_the_ports_capture_fails_lint)",
+    "test_assert_compile_count_on_real_jit": "jax.jit's cache; the port's "
+    "compile count is its captures and builds (test_torch_analysis.py::"
+    "test_compile_count_counts_captures_and_builds)",
+    "test_count_host_syncs_counts_coercions_not_cache_hits": "jax.Array's "
+    "host-value cache (the reference test fails on the CPU backend); the "
+    "port's reads hold their own semantics (test_torch_analysis.py::"
+    "test_count_host_syncs_counts_each_read_once)",
+    "test_assert_no_host_sync_raises_and_allows": "jax arrays; twin: "
+    "test_torch_analysis.py::test_assert_no_host_sync_raises_and_allows",
+}
+
 #: the JAX package's runtime lock tests, run with the port's checkers
 RUNTIME_CASES = (
     "test_instrumented_lock_tracks_holding_thread",
@@ -101,6 +148,9 @@ RUNTIME_CASES = (
     "test_mutation_unlocked_slab_write_flagged_by_eraser",
     "test_eraser_clean_on_consistently_locked_slab_workload",
     "test_batcher_burst_eraser_clean_and_counters_consistent",
+    "test_assert_compile_count_exact_and_at_most",
+    "test_assert_compile_count_sums_mixed_sources",
+    "test_assert_bounded_callback_buffer",
 )
 
 
@@ -128,7 +178,7 @@ def _port_config(cfg):
 
 
 def _port_rule(rule):
-    cls = RULES[rule.name][1]
+    cls = {**RULES, **NEUTRAL_RULES}[rule.name][1]
     if rule.name == "failpoint-coverage":
         return cls(registry=rule._registry_override,
                    registry_path=rule._registry_path_override)
@@ -140,16 +190,16 @@ def _key(f):
     return (f.rule, norm(f.path), f.line, f.col, norm(f.message))
 
 
-def _compared(result, all_ported):
-    """The findings both packages must agree on: the ported rules', the
-    runner's policy checks, and stale suppressions of a ported rule (a
+def _compared(result, all_ported, rules=RULES):
+    """The findings both packages must agree on: the compared rules', the
+    runner's policy checks, and stale suppressions of a compared rule (a
     stale finding about another rule needs that rule to have run)."""
     out = []
     for f in result.findings:
-        if f.rule in RULES or f.rule in POLICY:
+        if f.rule in rules or f.rule in POLICY:
             out.append(_key(f))
         elif f.rule == "stale-suppression" and (
-                all_ported or any(f"{r!r}" in f.message for r in RULES)):
+                all_ported or any(f"{r!r}" in f.message for r in rules)):
             out.append(_key(f))
     return sorted(out)
 
@@ -159,8 +209,9 @@ class _Recorder:
     lints the same modules with the port's rules and keeps both
     results."""
 
-    def __init__(self, module):
+    def __init__(self, module, rules=RULES):
         self.pairs = []
+        self.rules = rules
         self._lint = module.lint
         self._run_lint = module.run_lint
 
@@ -182,7 +233,7 @@ class _Recorder:
         return res
 
     def _port(self, res, mods, rules, cfg):
-        ported = [r for r in rules if r.name in RULES]
+        ported = [r for r in rules if r.name in self.rules]
         if not ported:
             return
         pres = pcore.run_lint(config=_port_config(cfg),
@@ -211,13 +262,48 @@ def test_ported_rules_agree_with_the_jax_package_on_its_fixtures(
             assert pres.files == jres.files
 
 
+@pytest.mark.parametrize("case", NEUTRAL_CASES)
+def test_memo_key_agrees_with_the_jax_package_on_its_neutral_cases(
+        reference_tests, monkeypatch, case):
+    """The declaration checks of memo-key read no program: on these JAX
+    fixtures (and the JAX package's own ``optimize/streamed.py``, intact
+    and with a key field deleted) the port's rule gives the JAX rule's
+    findings exactly."""
+    rec = _Recorder(reference_tests, NEUTRAL_RULES)
+    monkeypatch.setattr(reference_tests, "lint", rec.lint)
+    monkeypatch.setattr(reference_tests, "run_lint", rec.run_lint)
+    getattr(reference_tests, case)()
+    assert rec.pairs
+    for jres, pres, all_ported in rec.pairs:
+        assert _compared(pres, all_ported, NEUTRAL_RULES) == _compared(
+            jres, all_ported, NEUTRAL_RULES)
+
+
 def test_every_parity_case_is_listed():
-    """Every test of ``tests/test_analysis.py`` that names a ported rule
-    (or the whole default set) is a parity case."""
+    """Every test of ``tests/test_analysis.py`` that lints with a rule, or
+    runs a runtime checker, is listed here: a parity case (the five
+    framework-free rules), a neutral memo-key case, a torch twin
+    (``tests/test_torch_analysis_jax_rules.py``), a runtime case, a twin
+    of the same name in this file, or an untwinned test with its
+    reason."""
+    from test_torch_analysis_jax_rules import TWINS
+
     tree = ast.parse(open(os.path.join(ROOT, "tests",
                                        "test_analysis.py")).read())
     classes = {cls.__name__ for pair in RULES.values() for cls in pair}
-    found = set()
+    all_classes = set(classes)
+    from tpu_sgd.analysis import (rules_callback, rules_carry,
+                                  rules_donation, rules_shape, rules_sync)
+    for m in (rules_callback, rules_carry, rules_donation, rules_shape,
+              rules_sync, jmemo):
+        all_classes |= {n for n in dir(m) if n.endswith("Rule")
+                        and n != "Rule"}
+    checkers = {"assert_compile_count", "count_host_syncs",
+                "assert_no_host_sync", "assert_bounded_callback_buffer",
+                "count_dispatches", "assert_dispatch_count",
+                "InstrumentedLock", "LocksetRecorder", "instrument_object",
+                "assert_lock_order"}
+    found, parity = set(), set()
     for fn in tree.body:
         if not (isinstance(fn, ast.FunctionDef)
                 and fn.name.startswith("test_")):
@@ -225,10 +311,19 @@ def test_every_parity_case_is_listed():
         names = {n.id for n in ast.walk(fn) if isinstance(n, ast.Name)}
         calls = {n.func.id for n in ast.walk(fn)
                  if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
-        if (names & classes or "default_rules" in ast.dump(fn)) and (
-                calls & {"lint", "run_lint"}):
+        lints = bool(calls & {"lint", "run_lint"})
+        if (names & classes or "default_rules" in ast.dump(fn)) and lints:
+            parity.add(fn.name)
+        if ((names & all_classes or "default_rules" in ast.dump(fn))
+                and lints) or names & checkers or (
+                    ast.dump(fn).count("analysis.runtime")):
             found.add(fn.name)
-    assert found == set(PARITY_CASES)
+    assert parity == set(PARITY_CASES)
+    same_name = {n for n in globals() if n.startswith("test_")}
+    listed = (set(PARITY_CASES) | set(NEUTRAL_CASES) | set(TWINS)
+              | set(RUNTIME_CASES) | set(UNTWINNED) | same_name)
+    assert found <= listed, sorted(found - listed)
+    assert not (set(UNTWINNED) & (set(TWINS) | set(NEUTRAL_CASES)))
 
 
 # -- parity over the source trees ---------------------------------------------
@@ -389,9 +484,9 @@ def test_live_suppression_is_not_stale():
 
 def test_stale_not_reported_for_rules_that_did_not_run():
     """Staleness is only provable when the rule had its chance to fire: a
-    host-sync suppression is NOT stale under the port's rules (host-sync
-    is a known rule name the port does not run yet), nor a lock-order one
-    under a lock-discipline-only run."""
+    host-sync or lock-order suppression is NOT stale under a
+    lock-discipline-only run.  Under the default rules all thirteen run,
+    so the same host-sync suppression on a clean line IS stale."""
     for rule in ("host-sync", "lock-order"):
         res = _lint(_mod(f"""
             def clean(x):
@@ -403,26 +498,33 @@ def test_stale_not_reported_for_rules_that_did_not_run():
             return x + 1  # graftlint: disable=host-sync -- not checked
     """), pcore.default_rules())
     # (a fixture root holds no failpoint registry: that rule says so)
-    assert {f.rule for f in res.findings} == {"failpoint-coverage"}
+    assert sorted(f.rule for f in res.findings) == [
+        "failpoint-coverage", "stale-suppression"]
 
 
 def test_stale_all_wildcard_needs_every_rule_to_have_run():
     """A ``disable=all`` wildcard is provably stale only when EVERY known
-    rule ran: the port runs five of the thirteen, so a clean line's
-    wildcard is never reported under its default rules."""
-    res = _lint(_mod("""
+    rule ran: under the default rules (all thirteen) a clean line's
+    wildcard is reported; under a subset it is not."""
+    src = """
         def clean(x):
             return x + 1  # graftlint: disable=all -- nothing here
-    """), pcore.default_rules())
+    """
+    res = _lint(_mod(src), pcore.default_rules())
+    assert len(_by_rule(res, "stale-suppression")) == 1
+    res = _lint(_mod(src), pcore.default_rules()[:12])
     assert _by_rule(res, "stale-suppression") == []
 
 
 def test_known_rules_are_the_contract_and_default_rules_the_ported_five():
+    """The port's ``default_rules()`` runs all thirteen names of the
+    shared ``KNOWN_RULES``, in its order (the name is kept from step 1,
+    when it pinned the five framework-free rules)."""
     assert pcore.KNOWN_RULES == jcore.KNOWN_RULES
     assert pcore.POLICY_CHECKS == jcore.POLICY_CHECKS
     names = [r.name for r in pcore.default_rules()]
-    assert names == [r for r in pcore.KNOWN_RULES if r in RULES]
-    assert set(names) == set(RULES)
+    assert names == list(pcore.KNOWN_RULES)
+    assert set(RULES) < set(names)
 
 
 def test_config_reads_the_shared_table_but_keeps_the_port_paths(tmp_path):
@@ -572,9 +674,15 @@ def test_port_lock_order_equals_its_lock_graph():
 @pytest.mark.parametrize("case", RUNTIME_CASES)
 def test_port_runtime_passes_the_jax_package_runtime_tests(
         reference_tests, monkeypatch, case):
+    from tpu_sgd.analysis import runtime as jruntime
+
     for name in ("InstrumentedLock", "LocksetRecorder", "instrument_object",
-                 "assert_lock_order", "LockOrderError"):
+                 "assert_lock_order", "LockOrderError",
+                 "assert_compile_count", "CompileCountError"):
         monkeypatch.setattr(reference_tests, name, getattr(pruntime, name))
+    # the callback-buffer test imports its checker inside its body
+    for name in ("assert_bounded_callback_buffer", "CallbackBufferError"):
+        monkeypatch.setattr(jruntime, name, getattr(pruntime, name))
     getattr(reference_tests, case)()
 
 
@@ -592,3 +700,201 @@ def test_port_runtime_replays_against_the_port_order_by_default():
     with pytest.raises(pruntime.LockOrderError,
                        match="tpu_sgd_torch/analysis/__init__.py"):
         pruntime.assert_lock_order(rec)
+
+
+def test_real_eventlog_declaration_validates_at_runtime(tmp_path):
+    """The twin of the JAX package's test of the same name: the port's
+    ``JsonLinesEventLog`` under its ``GRAFTLINT_LOCKS`` declaration, three
+    writer threads, no unguarded access and no torn line."""
+    import threading
+
+    from tpu_sgd_torch.utils.events import (GRAFTLINT_LOCKS, IterationEvent,
+                                            JsonLinesEventLog)
+
+    log = JsonLinesEventLog(str(tmp_path / "ev.jsonl"))
+    rec = pruntime.instrument_object(log, GRAFTLINT_LOCKS["JsonLinesEventLog"])
+
+    def writer(i):
+        for j in range(20):
+            log.on_iteration(IterationEvent(
+                iteration=i * 100 + j, loss=0.0, weight_delta_norm=0.0,
+                mini_batch_size=1, wall_time_s=0.0))
+
+    threads = [threading.Thread(target=writer, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    log.close()
+    assert rec.violations == []
+    assert len(JsonLinesEventLog.read(str(tmp_path / "ev.jsonl"))) == 60
+
+
+def test_flightrec_concurrent_triggers_rate_limited_once(tmp_path):
+    """The twin of the JAX package's test of the same name on the port's
+    ``FlightRecorder``: four concurrent debounced triggers make exactly one
+    dump, every ``_last_dump_t`` access under the declared lock."""
+    import threading
+
+    from tpu_sgd_torch.obs.flightrec import FlightRecorder, GRAFTLINT_LOCKS
+
+    fr = FlightRecorder(str(tmp_path / "fr.jsonl"), capacity=8)
+    fr.record("probe", {"i": 0})
+    rec = pruntime.instrument_object(fr, GRAFTLINT_LOCKS["FlightRecorder"])
+    results = []
+    threads = [threading.Thread(
+        target=lambda: results.append(
+            fr.trigger("race", min_interval_s=60.0)))
+        for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert fr.dumps == 1
+    assert sum(r is not None for r in results) == 1
+    assert rec.violations == []
+    assert rec.races() == []
+
+
+# -- the runtime checkers' mechanics on the CPU --------------------------------
+# (CPU tensors count as the card's here, as in tests/test_torch_obs.py; on
+# real card tensors they run in chip_smoke.py phase ``analysis``)
+
+@pytest.fixture
+def card_reads(monkeypatch):
+    from tpu_sgd_torch.obs import counters
+
+    monkeypatch.setattr(counters, "_card", lambda x: True)
+    return counters
+
+
+def _replay_record():
+    from tpu_sgd_torch.ops import cuda_kernels as ck
+
+    return {"wrappers": {f.__name__: 0 for f in ck.WRAPPERS
+                         + ck.CSR_WRAPPERS},
+            "sources": {}, "routes": {}, "model_axis": {},
+            "csr_columns": {}}
+
+
+def test_count_host_syncs_counts_each_read_once(card_reads):
+    """One count per read with its ``(shape, dtype)``, however the funnels
+    call each other (``float`` of a 0-d tensor, ``.numpy()``); a region
+    nested in another counts in both; the hooks come off when the last
+    region closes (the counters stay disabled)."""
+    import torch
+
+    t = torch.arange(4.0)
+    with pruntime.count_host_syncs() as outer:
+        float(t[0])
+        t.numpy()
+        with pruntime.count_host_syncs() as inner:
+            t.tolist()
+            bool(t[1])
+        t.cpu()
+    assert outer["n"] == 5 and inner["n"] == 2
+    assert outer["shapes"] == [((), "torch.float32"), ((4,), "torch.float32"),
+                               ((4,), "torch.float32"), ((), "torch.float32"),
+                               ((4,), "torch.float32")]
+    assert card_reads._PATCHES is None and not card_reads.is_enabled()
+    with pruntime.count_host_syncs() as none:
+        t + 1  # no read
+    assert none["n"] == 0
+
+
+def test_count_host_syncs_skips_cpu_tensors():
+    import torch
+
+    with pruntime.count_host_syncs() as c:
+        float(torch.ones(()))
+    assert c["n"] == 0
+
+
+def test_assert_no_host_sync_raises_and_allows(card_reads):
+    """The twin of the JAX package's test of the same name: a read raises
+    ``HostSyncError`` naming what it read, ``allow=`` admits the
+    boundary's reads, and the call-through form returns the result."""
+    import torch
+
+    t = torch.arange(4.0)
+    with pytest.raises(pruntime.HostSyncError) as ei:
+        with pruntime.assert_no_host_sync():
+            t[0].item()
+    assert "device->host transfer" in str(ei.value)
+    with pruntime.assert_no_host_sync(allow=1):
+        float(t[1])
+    out = pruntime.assert_no_host_sync(lambda: t * 2)
+    assert out.shape == (4,)
+
+
+def test_count_dispatches_counts_launches_outside_captures_and_replays():
+    """A hand-written kernel's launch outside a capture counts one, the
+    same launch inside ``ck.captured_launches()`` none (the capture
+    launches nothing), each replay of the captured block one; exact and
+    ``at_most`` contracts."""
+    from tpu_sgd_torch.ops import cuda_kernels as ck
+
+    with pruntime.count_dispatches() as d:
+        ck.count_launch(source="fused_sums")
+        with ck.captured_launches():
+            ck.count_launch(source="window_sums")
+        ck.add_replayed_launches(_replay_record())
+        ck.add_replayed_launches(_replay_record())
+        ck.count_launch(csr_columns="csr_margins/1")
+        ck.count_launch()  # a wrapper's count alone launches nothing
+    assert d["n"] == 4
+    with pruntime.assert_dispatch_count(2):
+        ck.add_replayed_launches(_replay_record())
+        ck.count_launch(source="fused_sums")
+    with pruntime.assert_dispatch_count(3, at_most=True):
+        ck.count_launch(source="fused_sums")
+    with pytest.raises(pruntime.DispatchCountError, match="exactly 0"):
+        with pruntime.assert_dispatch_count(0):
+            ck.count_launch(source="fused_sums")
+    with pytest.raises(ValueError):
+        pruntime.assert_dispatch_count(-1).__enter__()
+    ck.reset_launch_counts()
+
+
+def test_compile_count_counts_captures_and_builds(monkeypatch):
+    """``assert_compile_count`` with no ``of=`` counts the card's compiles:
+    one per capture bracket and one per ``nvcc`` build started
+    (``_build._start`` returning a job); a library already built counts
+    none."""
+    from tpu_sgd_torch.ops import _build
+    from tpu_sgd_torch.ops import cuda_kernels as ck
+
+    jobs = iter([("proc", "tmp", "out"), None])
+    monkeypatch.setattr(_build, "_start", lambda name: next(jobs))
+    with pruntime.assert_compile_count(2):
+        with ck.captured_launches():
+            pass
+        _build._start("fused_sums")
+    with pruntime.assert_compile_count(0):
+        _build._start("fused_sums")  # built already: no job
+    with pytest.raises(pruntime.CompileCountError, match="exactly 0"):
+        with pruntime.assert_compile_count(0):
+            with ck.captured_launches():
+                pass
+
+
+def test_counting_regions_leave_the_counters_as_they_were(card_reads):
+    """A region counts while the counters are enabled too, and both see
+    the same read; the counters stay enabled after it and their hooks
+    stay installed."""
+    import torch
+
+    card_reads.reset()
+    card_reads.enable()
+    try:
+        with pruntime.count_host_syncs() as c:
+            torch.ones(3).tolist()
+        assert c["n"] == 1
+        assert card_reads.is_enabled() and card_reads._PATCHES is not None
+        snap = card_reads.snapshot()
+        assert sum(v["n"] for k, v in snap.items()
+                   if k.endswith(".host_sync")) == 1
+    finally:
+        card_reads.disable()
+        card_reads.reset()
+    assert card_reads._PATCHES is None

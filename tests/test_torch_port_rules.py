@@ -452,14 +452,15 @@ def test_the_lock_rules_are_clean_on_the_replica_modules():
     assert out.returncode == 0, said
     n_files = sum(f.endswith(".py") for _, _, fs in os.walk(
         os.path.join(ROOT, "tpu_sgd_torch")) for f in fs)
-    assert n_files == 100, n_files
+    assert n_files == 106, n_files
     assert "clean" in said and f"{n_files} file(s), 4 rule(s)" in said, said
 
 
 def test_the_port_lints_clean_with_its_own_graftlint():
     """``python -m tpu_sgd_torch.analysis.lint`` over its defaults (the
-    package and ``chip_smoke.py``): exit 0, the five ported rules,
-    ``contract-drift`` among them, every suppression with a reason."""
+    package and ``chip_smoke.py``): exit 0, all thirteen rules,
+    ``contract-drift`` and ``host-sync`` among them, every suppression
+    with a reason."""
     out = subprocess.run(
         [sys.executable, "-m", "tpu_sgd_torch.analysis.lint"],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
@@ -468,10 +469,11 @@ def test_the_port_lints_clean_with_its_own_graftlint():
     assert out.returncode == 0, said
     n_files = sum(f.endswith(".py") for _, _, fs in os.walk(
         os.path.join(ROOT, "tpu_sgd_torch")) for f in fs) + 1
-    assert "clean" in said and f"{n_files} file(s), 5 rule(s)" in said, said
+    assert "clean" in said and f"{n_files} file(s), 13 rule(s)" in said, said
     from tpu_sgd_torch.analysis.core import default_rules
 
-    assert "contract-drift" in [r.name for r in default_rules()]
+    names = [r.name for r in default_rules()]
+    assert "contract-drift" in names and "host-sync" in names
 
 
 _SCENARIO_ANALYSIS_MODULES = (
@@ -483,6 +485,11 @@ _SCENARIO_ANALYSIS_MODULES = (
     "tpu_sgd_torch.analysis.rules_cond",
     "tpu_sgd_torch.analysis.rules_failpoint",
     "tpu_sgd_torch.analysis.rules_contract",
+    "tpu_sgd_torch.analysis.rules_sync", "tpu_sgd_torch.analysis.rules_memo",
+    "tpu_sgd_torch.analysis.rules_shape",
+    "tpu_sgd_torch.analysis.rules_donation",
+    "tpu_sgd_torch.analysis.rules_carry",
+    "tpu_sgd_torch.analysis.rules_callback",
     "tpu_sgd_torch.analysis.runtime", "tpu_sgd_torch.analysis.lint",
 )
 

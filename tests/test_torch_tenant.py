@@ -558,8 +558,11 @@ def test_slab_lru_ledger_and_eviction_order_equal_the_jax_package(rng):
 def test_slab_put_then_resolve_equals_the_jax_package_puts_and_snapshot(rng):
     """One lock round of admissions and a resolve (the store's batch
     admission) gives what the JAX package's puts one by one and its
-    ``snapshot_for`` give: the puts, the slots, a miss, the ledger and
-    the eviction log."""
+    ``snapshot_for`` give once the batch's resident rows are made the
+    hottest first: the puts, the slots, the ledger and the eviction log.
+    (The JAX package puts first, so its second round evicts tenant 10,
+    a resident row of the batch being admitted, and misses it: the
+    fault the port's round no longer has.)"""
     w = rng.normal(size=(6, D)).astype(np.float32)
     got, want = WeightSlab(3, D, device=CPU), jtenant.WeightSlab(3, D)
     for slab in (got, want):
@@ -569,32 +572,94 @@ def test_slab_put_then_resolve_equals_the_jax_package_puts_and_snapshot(rng):
                           ([(12, w[2], 0.3, 5)], [12, 20, 10]),
                           ([(13, w[3], 0.4, 6), (10, w[4], 0.6, 7)], None)):
         puts, snap, missing = got.put_then_resolve(rows, resolve)
+        for tid in dict.fromkeys(resolve or ()):
+            if tid in want._lru:
+                want._lru.move_to_end(tid)
         assert puts == [tuple(want.put(*r[:3], version=r[3])) for r in rows]
         if resolve is None:
             assert snap is None and missing is None
             continue
-        try:
-            slots, _, _ = want.snapshot_for(resolve)
-        except KeyError as e:
-            assert snap is None and missing == e.args[0]
-        else:
-            assert missing is None
-            np.testing.assert_array_equal(snap[0], slots)
+        slots, _, _ = want.snapshot_for(resolve)
+        assert missing is None
+        np.testing.assert_array_equal(snap[0], slots)
     assert got.resident() == want.resident()
     assert got.evictions == want.evictions
     assert got.ledger_snapshot() == want.ledger_snapshot()
-    assert got.ledger_snapshot()["misses"] == 1  # 10, evicted by 12
+    assert got.ledger_snapshot()["misses"] == 0
+    assert got.evictions[0] == (11, 2, 12)  # 11 is not in the batch
+
+
+def test_slab_admission_never_evicts_its_own_batch():
+    """The eviction order behind the tenant-stress scenario's spurious
+    SlabFullError, with no threads: a full slab whose coldest rows belong
+    to the batch being admitted.  The batch's puts evict only rows outside
+    it, so a batch that fits resolves in one round; one whose distinct
+    tenants exceed the capacity still cannot."""
+    slab = WeightSlab(4, D, device=CPU)
+    row = np.zeros(D, np.float32)
+    for tid in (1, 2, 3, 4):  # 1 is the coldest, then 2
+        slab.put(tid, row)
+    puts, snap, missing = slab.put_then_resolve(
+        [(5, row, 0.0, 0), (6, row, 0.0, 0)], [1, 5, 2, 6, 1])
+    assert missing is None and snap is not None
+    assert [p[1] for p in puts] == [3, 4]  # never 1 or 2
+    assert slab.resident() == (1, 2, 5, 6)
+    assert slab.ledger_snapshot()["misses"] == 0
+    _, snap, missing = slab.put_then_resolve(
+        [(t, row, 0.0, 0) for t in (7, 8, 9)], [1, 2, 5, 6, 7, 8, 9])
+    assert snap is None and missing  # 7 distinct tenants, 4 slots
+
+
+def test_store_resolves_a_batch_that_fits_in_one_admission_round(tmp_path,
+                                                                  rng):
+    """The store's resolve over a full slab whose coldest rows are the
+    batch's: one miss, one admission round, and no SlabFullError however
+    the storm reorders the slab between batches; a batch wider than the
+    slab still raises."""
+    store, _ = _store(tmp_path, rng, n_tenants=8, capacity=4)
+    store.slots_for([0, 1, 2, 3])
+    for batch in ([0, 1, 4, 5], [2, 3, 6, 7], [4, 0, 7, 1]):
+        cold = list(store.slab.resident())
+        for tid in reversed(cold):  # the batch's rows become the coldest
+            if tid not in batch:
+                store.slab.snapshot_for([tid])
+        before = store.slab.ledger_snapshot()["misses"]
+        slots, _, _ = store.slots_for(batch)
+        assert len(slots) == len(batch)
+        missing = {t for t in batch if t not in cold}
+        assert store.slab.ledger_snapshot()["misses"] - before == len(
+            missing)
+        assert set(batch) <= set(store.slab.resident())
+    with pytest.raises(SlabFullError):
+        store.slots_for(np.arange(6))
 
 
 def test_store_admission_and_thrash_guard_equal_the_jax_package(tmp_path,
                                                                 rng):
     """The same publishes and resolves against both stores: residency,
     the eviction log and the ledger after each step, the thrash guard's
-    SlabFullError, and the mixed-batch scores (tight)."""
+    SlabFullError, and the mixed-batch scores (tight).  The JAX package's
+    store admits a batch's missing tenants while the batch's resident
+    rows may be the coldest, so it can evict its own batch (tenant 9 of
+    ``[5, 5, 1, 0, 9, 9]``) and need another round; the port makes those
+    rows the hottest first.  The JAX store here does the same, through a
+    miss hook on its slab, so the two walk the same eviction log."""
     ws = rng.normal(size=(10, D)).astype(np.float32)
     tstore = TenantModelStore(str(tmp_path / "t"), capacity=4, d=D,
                               device=CPU)
     jstore = jtenant.TenantModelStore(str(tmp_path / "j"), capacity=4, d=D)
+    jslab, jsnapshot = jstore.slab, jstore.slab.snapshot_for
+
+    def snapshot_touching_on_miss(tenant_ids):
+        try:
+            return jsnapshot(tenant_ids)
+        except KeyError:
+            for tid in dict.fromkeys(np.asarray(tenant_ids).tolist()):
+                if tid in jslab._lru:
+                    jslab._lru.move_to_end(tid)
+            raise
+
+    jslab.snapshot_for = snapshot_touching_on_miss
     for s in (tstore, jstore):
         for t in range(10):
             s.publish(t, ws[t], intercept=0.25 * t)

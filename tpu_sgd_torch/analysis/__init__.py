@@ -1,16 +1,19 @@
 """graftlint for the port — project-native static analysis + runtime
-checkers (the framework-free half of ``tpu_sgd/analysis``).
+checkers: the port of ``tpu_sgd/analysis``.
 
-The port's threaded planes (replicas, serving, tenants, observability)
-carry the same invariants as the JAX package's — lock-guarded shared
-state, one project-wide lock order, condition-variable and thread
-lifecycle discipline, failpoints compiled into every hot path, and every
-counter, span and alert rule an SLO document or detector default names
-emitted somewhere — checked here as lint rules over the AST, plus the
-runtime lock twins tests use to validate the declarations themselves.
-The rules are the JAX package's, finding for finding; the rules about
-JAX tracing (shape-trap, host-sync, memo-key, ...) wait for ROADMAP A12
-step 2.
+The port's hazards on the card — a host read of a card tensor in a hot
+loop, a cached CUDA graph or built library whose key lost a field, a
+capture per new size or per iteration, a capture that bakes in a Python
+number the loop changes or a host side effect that never replays, a
+static output read through an alias after a later replay — and its
+threaded planes' invariants (lock-guarded shared state, one project-wide
+lock order, condition-variable and thread lifecycle discipline,
+failpoints compiled into every hot path, every counter, span and alert
+rule an SLO document or detector default names emitted somewhere) are
+checked here as the JAX package's thirteen lint rules over the AST, each
+read for PyTorch, plus the runtime checkers that count what a region
+really did on the card (dispatches, host syncs, captures and builds)
+and the runtime lock twins.
 
 CLI: ``python -m tpu_sgd_torch.analysis.lint``.  Suppress one line with
 ``# graftlint: disable=<rule> -- <reason>``.  See README "Static analysis
@@ -20,10 +23,19 @@ in the port".
 from tpu_sgd_torch.analysis.core import (Finding, KNOWN_RULES, LintResult,
                                          ModuleFile, Rule, load_config,
                                          run_lint)
-from tpu_sgd_torch.analysis.runtime import (InstrumentedLock,
+from tpu_sgd_torch.analysis.runtime import (CallbackBufferError,
+                                            CompileCountError,
+                                            DispatchCountError,
+                                            HostSyncError, InstrumentedLock,
                                             LockOrderError,
                                             LocksetRecorder,
+                                            assert_bounded_callback_buffer,
+                                            assert_compile_count,
+                                            assert_dispatch_count,
                                             assert_lock_order,
+                                            assert_no_host_sync,
+                                            count_dispatches,
+                                            count_host_syncs,
                                             instrument_object)
 
 #: THE port's lock order — every (outer, inner) acquisition nesting the
@@ -56,6 +68,10 @@ GRAFTLINT_LOCK_ORDER = (
 __all__ = [
     "Finding", "GRAFTLINT_LOCK_ORDER", "KNOWN_RULES", "LintResult",
     "ModuleFile", "Rule", "load_config", "run_lint",
-    "InstrumentedLock", "LockOrderError", "LocksetRecorder",
-    "assert_lock_order", "instrument_object",
+    "CallbackBufferError", "CompileCountError", "DispatchCountError",
+    "HostSyncError", "InstrumentedLock", "LockOrderError",
+    "LocksetRecorder", "assert_bounded_callback_buffer",
+    "assert_compile_count", "assert_dispatch_count", "assert_lock_order",
+    "assert_no_host_sync", "count_dispatches", "count_host_syncs",
+    "instrument_object",
 ]

@@ -1,7 +1,10 @@
 """graftlint core (the port of ``tpu_sgd/analysis/core.py``): findings,
 suppressions, config, and the rule runner.
 
-graftlint turns the port's tribal invariants — lock-guarded shared
+graftlint turns the port's tribal invariants — no host read of a card
+tensor in a hot loop, complete keys on cached CUDA graphs and built
+libraries, no per-shape or per-iteration captures, no capture that bakes
+in a changing Python number or a host side effect, lock-guarded shared
 state, one project-wide lock order, condition-variable and thread
 lifecycle discipline, failpoints compiled into every hot path, and every
 observability name a detector or SLO gate consumes actually emitted —
@@ -12,13 +15,12 @@ CLI pays the ``tpu_sgd_torch`` package import (torch, no JAX).
 
 Vocabulary:
 
-* A **rule** is a named checker (``lock-discipline``, ``lock-order``,
-  ``cond-discipline``, ``failpoint-coverage``, ``contract-drift``) run
-  over every linted module's AST; it yields :class:`Finding`\\ s.
-  Rule names are a contract shared with the JAX package:
-  :data:`KNOWN_RULES` keeps its full tuple, and :func:`default_rules`
-  runs the rules ported so far (the JAX-only ones wait for ROADMAP A12
-  step 2).
+* A **rule** is a named checker (``host-sync``, ``memo-key``,
+  ``lock-discipline``, ...) run over every linted module's AST; it
+  yields :class:`Finding`\\ s.  Rule names are a contract shared with
+  the JAX package: :data:`KNOWN_RULES` is its tuple, and
+  :func:`default_rules` runs all thirteen, each read for PyTorch and
+  CUDA graphs (README "Static analysis in the port").
 * A **suppression** is a per-line comment ``# graftlint:
   disable=<rule>[,<rule>...] -- <reason>`` — on the offending line, or
   standalone on the line above.  The reason string is mandatory by
@@ -303,17 +305,28 @@ def load_modules(cfg: Config,
 # -- runner -----------------------------------------------------------------
 
 def default_rules() -> List[Rule]:
-    """The rules ported so far, in :data:`KNOWN_RULES` order."""
+    """Every rule, in :data:`KNOWN_RULES` order."""
     # imported here, not at module top: core must stay import-cycle-free
     # for the rule modules that import it
+    from tpu_sgd_torch.analysis.rules_callback import CallbackDisciplineRule
+    from tpu_sgd_torch.analysis.rules_carry import CarryStabilityRule
     from tpu_sgd_torch.analysis.rules_cond import CondDisciplineRule
     from tpu_sgd_torch.analysis.rules_contract import ContractDriftRule
+    from tpu_sgd_torch.analysis.rules_donation import DonationSafetyRule
     from tpu_sgd_torch.analysis.rules_failpoint import FailpointCoverageRule
     from tpu_sgd_torch.analysis.rules_lock import LockDisciplineRule
+    from tpu_sgd_torch.analysis.rules_memo import MemoKeyRule
     from tpu_sgd_torch.analysis.rules_order import LockOrderRule
+    from tpu_sgd_torch.analysis.rules_shape import (EagerInLoopRule,
+                                                    ShapeTrapRule)
+    from tpu_sgd_torch.analysis.rules_sync import (HostSyncRule,
+                                                   ObsDisciplineRule)
 
-    return [LockDisciplineRule(), FailpointCoverageRule(), LockOrderRule(),
-            CondDisciplineRule(), ContractDriftRule()]
+    return [ShapeTrapRule(), LockDisciplineRule(), DonationSafetyRule(),
+            FailpointCoverageRule(), EagerInLoopRule(), HostSyncRule(),
+            CallbackDisciplineRule(), CarryStabilityRule(), MemoKeyRule(),
+            ObsDisciplineRule(), LockOrderRule(), CondDisciplineRule(),
+            ContractDriftRule()]
 
 
 def _policy_findings(modules: Sequence[ModuleFile],

@@ -9,7 +9,7 @@ tooling; ``--format github`` emits GitHub Actions workflow commands
 (``::error file=...,line=...``) so CI findings surface as inline PR
 annotations instead of a raw log grep.  With no paths, the port's
 include set is linted (``tpu_sgd_torch`` and ``chip_smoke.py``; see
-``core.PORT_INCLUDE``) with the rules ported so far
+``core.PORT_INCLUDE``) with all thirteen rules
 (``core.default_rules``); ``--list-rules`` prints every rule name of the
 shared contract.
 """

@@ -1,5 +1,33 @@
-"""Runtime counterparts of the static lock rules: the lock half of
+"""Runtime counterparts of the static rules: the port of
 ``tpu_sgd/analysis/runtime.py``.
+
+:func:`count_dispatches` / :func:`assert_dispatch_count`,
+:func:`count_host_syncs` / :func:`assert_no_host_sync` and
+:func:`assert_compile_count` count what a region really did on the card,
+through the port's own funnels (``obs.counters``' hooks, installed for
+the region by ``obs.counters.listen``; no new hook):
+
+* a **dispatch** is one CUDA-graph replay of a captured block
+  (``cuda_kernels.add_replayed_launches``) or one launch of a
+  hand-written kernel made outside a capture (``cuda_kernels.
+  count_launch``); library ops (``torch.matmul``, eager elementwise
+  ops, cuSPARSE) pass no funnel and are not counted;
+* a **host sync** is one read of a CUDA tensor through ``item``,
+  ``tolist``, ``cpu``, ``numpy``, ``__bool__``, ``__float__``,
+  ``__int__`` or ``__array__``, or one fetch of the observed drivers' ys
+  rows (``gradient_descent._fetch_rows``), counted once however the
+  funnels call each other, with its ``(shape, dtype)``; CPU tensors
+  never count, nor does a wait that reads nothing
+  (``torch.cuda.synchronize``);
+* a **compile** is one CUDA-graph capture (``cuda_kernels.
+  captured_launches``) or one ``nvcc`` build (``ops/_build.py``): what
+  :func:`assert_compile_count` counts when given no ``of=``.
+
+These are the static ``shape-trap``, ``host-sync`` and ``eager-in-loop``
+rules' runtime twins: the rules catch the pattern in source, the
+checkers the effect on a live run.  Events of every thread count (keep
+the region single-actor), and regions nest.
+:func:`assert_bounded_callback_buffer` is the JAX package's, as is.
 
 :class:`InstrumentedLock` + :class:`LocksetRecorder` +
 :func:`instrument_object` are the lock-discipline rule's runtime twin:
@@ -15,26 +43,212 @@ lock passes here, because the lock really is held).
 against the committed ``GRAFTLINT_LOCK_ORDER`` — the lock-order rule's
 runtime twin.
 
-The JAX package's module also counts compiles, dispatches and host
-syncs and bounds callback buffers (``assert_compile_count``,
-``count_dispatches``, ``count_host_syncs``, ...).  Their torch
-counterparts (captures and builds, launches, reads of CUDA tensors)
-wait for ROADMAP A12 step 2.
-
-This module is stdlib-only.
+The module imports nothing but the standard library until a counting
+region opens (then ``tpu_sgd_torch.obs.counters``, and torch with it).
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import threading
-from typing import Dict, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Union
 
 __all__ = [
-    "InstrumentedLock", "LocksetRecorder", "LockOrderError",
-    "LockViolation", "RaceReport", "assert_lock_order",
-    "instrument_object",
+    "CompileCountError", "DispatchCountError", "HostSyncError",
+    "CallbackBufferError", "LockOrderError",
+    "assert_compile_count", "assert_dispatch_count", "count_dispatches",
+    "assert_no_host_sync", "count_host_syncs",
+    "assert_bounded_callback_buffer",
+    "InstrumentedLock", "LocksetRecorder", "LockViolation",
+    "RaceReport", "instrument_object", "assert_lock_order",
 ]
+
+
+@contextlib.contextmanager
+def _counting(kind: str):
+    """A region's count of the hooks' ``kind`` events: yields ``{"n":
+    ..., "shapes": [...]}`` (``shapes``: each event's detail, for a
+    ``host_sync`` its ``(shape, dtype)``)."""
+    from tpu_sgd_torch.obs import counters
+
+    counter = {"n": 0, "shapes": []}
+    lock = threading.Lock()
+
+    def listener(k, detail):
+        if k != kind:
+            return
+        with lock:
+            counter["n"] += 1
+            if detail is not None:
+                counter["shapes"].append(detail)
+
+    with counters.listen(listener):
+        yield counter
+
+
+# -- compile counting -------------------------------------------------------
+
+class CompileCountError(AssertionError):
+    """The wrapped region compiled a different number of programs than
+    the contract allows."""
+
+
+CacheSource = Union[Callable[[], int], object]
+
+
+def _cache_size(of: CacheSource) -> int:
+    """Current count behind ``of``: an object with ``_cache_size()``, a
+    zero-arg int callable (``ops.bucketed.program_cache_size``,
+    ``lambda: engine.compile_count``), or an iterable of either
+    (summed)."""
+    size_fn = getattr(of, "_cache_size", None)
+    if callable(size_fn):
+        return int(size_fn())
+    if callable(of):
+        return int(of())
+    if isinstance(of, Iterable):
+        return sum(_cache_size(o) for o in of)
+    raise TypeError(
+        f"cannot read a compile-cache size from {of!r}: pass an object "
+        "with _cache_size(), a zero-arg callable returning an int, or an "
+        "iterable of those")
+
+
+@contextlib.contextmanager
+def assert_compile_count(expected: int, *, of: Optional[CacheSource] = None,
+                         at_most: bool = False):
+    """Assert the region compiles exactly ``expected`` new programs.
+
+    ``of=None`` counts the card's compiles: CUDA-graph captures and
+    ``nvcc`` builds (module docstring).  ``of`` names another measure: a
+    zero-arg size callable (``ops.bucketed.program_cache_size``, the
+    padded shapes scored), an object with ``_cache_size()``, or an
+    iterable mixing them, deltas summed.  ``at_most=True`` relaxes
+    equality to an upper bound (warm-loop guards: "no growth" is
+    ``expected=0``)."""
+    if expected < 0:
+        raise ValueError(f"expected must be >= 0, got {expected}")
+    if of is None:
+        with _counting("compile") as counter:
+            yield
+        delta = counter["n"]
+    else:
+        start = _cache_size(of)
+        yield
+        delta = _cache_size(of) - start
+    if (delta > expected) if at_most else (delta != expected):
+        bound = "at most" if at_most else "exactly"
+        raise CompileCountError(
+            f"region compiled {delta} new program(s); the contract "
+            f"allows {bound} {expected}.  A growing count on a hot path "
+            "usually means a capture per new size or a graph rebuilt in a "
+            "loop — pad to a bucket and memoize the capture (see the "
+            "shape-trap and eager-in-loop rules, tpu_sgd_torch/analysis)")
+
+
+# -- dispatch counting ------------------------------------------------------
+
+class DispatchCountError(AssertionError):
+    """The wrapped region launched a different number of programs than
+    the contract allows."""
+
+
+def count_dispatches():
+    """Count the region's dispatches: yields a dict whose ``"n"`` entry
+    is the number of CUDA-graph replays plus hand-written-kernel launches
+    made outside a capture so far inside the region (module docstring).
+    A captured block counts once per replay however many kernels it
+    holds, as the JAX package counts a ``while_loop`` program once."""
+    return _counting("dispatch")
+
+
+@contextlib.contextmanager
+def assert_dispatch_count(expected: int, *, at_most: bool = False):
+    """Assert the region dispatches exactly ``expected`` programs (see
+    :func:`count_dispatches`); ``at_most=True`` relaxes to an upper
+    bound."""
+    if expected < 0:
+        raise ValueError(f"expected must be >= 0, got {expected}")
+    with count_dispatches() as counter:
+        yield counter
+    if (counter["n"] > expected) if at_most else (counter["n"] != expected):
+        bound = "at most" if at_most else "exactly"
+        raise DispatchCountError(
+            f"region launched {counter['n']} program(s); the contract "
+            f"allows {bound} {expected}.  Extra launches on a captured "
+            "path usually mean a block that ran eagerly instead of "
+            "replaying its graph (see optimize/gradient_descent.py)")
+
+
+# -- host-sync counting -----------------------------------------------------
+
+class HostSyncError(AssertionError):
+    """The wrapped region forced more device→host transfers than the
+    contract allows."""
+
+
+def count_host_syncs():
+    """Count the region's reads of CUDA tensors: yields a dict whose
+    ``"n"`` entry is the number of device-to-host reads so far inside the
+    region and whose ``"shapes"`` lists ``(shape, dtype)`` per read (the
+    breadcrumb: WHICH fetch fired).  One read counts once, however the
+    funnels call each other (``.numpy()`` through ``__array__``)."""
+    return _counting("host_sync")
+
+
+def assert_no_host_sync(fn: Optional[Callable] = None, *, allow: int = 0):
+    """Assert a region (or ``fn()``) reads no CUDA tensor back; ``allow``
+    admits the documented boundary fetches.  Use as a context manager
+    (``with assert_no_host_sync(): ...``) or call-through (``result =
+    assert_no_host_sync(lambda: runner.run(i0, k))``)."""
+    if fn is not None:
+        with _no_host_sync_region(allow):
+            return fn()
+    return _no_host_sync_region(allow)
+
+
+@contextlib.contextmanager
+def _no_host_sync_region(allow: int):
+    with count_host_syncs() as counter:
+        yield counter
+    if counter["n"] > allow:
+        shown = ", ".join(
+            f"{s}:{d}" for s, d in counter["shapes"][:8])
+        raise HostSyncError(
+            f"region forced {counter['n']} device->host transfer(s); "
+            f"the contract allows {allow}.  Transfers seen (first 8): "
+            f"[{shown}].  A sync on a hot path usually means an "
+            ".item()/float()/.cpu() on a card tensor — fetch at the "
+            "cadence boundary instead (see the host-sync rule, "
+            "tpu_sgd_torch/analysis)")
+
+
+# -- callback buffer bounds -------------------------------------------------
+
+class CallbackBufferError(AssertionError):
+    """A callback-carried host buffer grew beyond its declared bound."""
+
+
+@contextlib.contextmanager
+def assert_bounded_callback_buffer(buf, *, max_len: Optional[int] = None):
+    """Assert a host buffer a callback feeds stays bounded across the
+    region — the runtime twin of ``callback-discipline``'s bounded-buffer
+    check.  ``buf`` is the buffer itself or a zero-arg callable returning
+    it (anything sized: list, deque, ndarray ring).  ``max_len`` defaults
+    to the ENTRY length — the no-growth contract a preallocated ring
+    satisfies and an append-per-firing history violates."""
+    get = buf if callable(buf) else (lambda: buf)
+    start = len(get())
+    bound = start if max_len is None else max_len
+    yield
+    end = len(get())
+    if end > bound:
+        raise CallbackBufferError(
+            f"callback buffer grew to {end} element(s); the bound is "
+            f"{bound} (entry length {start}).  An unbounded host buffer "
+            "fed once per block accumulates for the whole run — hand "
+            "windows to a bookkeeper with a documented bound instead")
 
 
 # -- lock instrumentation ---------------------------------------------------

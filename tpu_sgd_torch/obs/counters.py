@@ -42,8 +42,14 @@ The kinds keep the JAX package's names, so its rules (the detectors'
   funnels: the pinned ring's send (``io.prefetch.PinnedRing.send``) and
   the one copy of a padded serving batch (``ops/bucketed.py``).
 
+The same hooks feed the runtime checkers of ``tpu_sgd_torch.analysis.
+runtime`` (``count_dispatches``, ``count_host_syncs``,
+``assert_compile_count``): :func:`listen` installs them while a region
+listens, whether or not the counters are enabled, and hands each counted
+event to the region, with its ``(shape, dtype)`` for a ``host_sync``.
+
 Cost contract: DISABLED is one module-global load and a falsy branch per
-``inc()`` call, and no hook is installed at all.  ENABLED costs host
+``inc()`` call, and no hook is installed at all while nothing listens.  ENABLED costs host
 time only: the hooks are Python wrappers around the funnels; they add no
 launch, capture or sync of their own.  Counter values survive
 :func:`disable`, and :func:`reset` clears them.
@@ -57,7 +63,8 @@ import threading
 from typing import Dict, Optional
 
 __all__ = ["RuntimeCounters", "inc", "record_wire", "wire_ratios",
-           "enable", "disable", "is_enabled", "snapshot", "reset", "deltas"]
+           "enable", "disable", "is_enabled", "snapshot", "reset", "deltas",
+           "listen"]
 
 logger = logging.getLogger("tpu_sgd_torch.obs")
 
@@ -201,7 +208,7 @@ class deltas:
 
 # -- runtime hooks -----------------------------------------------------------
 
-#: the originals the hooks replaced, in install order, while enabled:
+#: the originals the hooks replaced, in install order, while installed:
 #: ``(owner, name, original, owned)``; ``owned`` says whether the name was
 #: in the owner's own ``__dict__`` (else the hook is deleted on restore,
 #: and the inherited attribute shows through again)
@@ -212,6 +219,19 @@ SYNC_METHODS = ("item", "tolist", "cpu", "numpy", "__bool__", "__float__",
                 "__int__", "__array__")
 
 _TLS = threading.local()  # .capturing / .reading: per-thread depths
+
+#: the regions listening to the hooks (``listen``): each is called with
+#: ``(kind, detail)`` per counted event; replaced, never mutated, so a
+#: hook reads it without a lock
+_LISTENERS: tuple = ()
+#: serializes installing and removing the hooks
+_INSTALL_LOCK = threading.Lock()
+
+
+def _notify(kind: str, detail=None) -> None:
+    """One event of a hook, to every listening region."""
+    for listener in _LISTENERS:
+        listener(kind, detail)
 
 
 def _tagged(kind: str) -> str:
@@ -234,10 +254,11 @@ def _nbytes(t) -> int:
     return int(t.numel()) * int(t.element_size())
 
 
-def _read_hook(orig, nbytes):
+def _read_hook(orig, nbytes, what):
     """A device-to-host read, counted once when its first argument is on
     the card (a read inside it counts nothing), with ``nbytes(arg,
-    result)`` bytes."""
+    result)`` bytes and ``what(arg, result)``, the ``(shape, dtype)``
+    read."""
     def counted(t, *args, **kwargs):
         if _depth("reading") or not _card(t):
             return orig(t, *args, **kwargs)
@@ -246,7 +267,9 @@ def _read_hook(orig, nbytes):
             out = orig(t, *args, **kwargs)
         finally:
             _TLS.reading = 0
-        _GLOBAL.inc(_tagged("host_sync"), nbytes=nbytes(t, out))
+        if _ENABLED:
+            _GLOBAL.inc(_tagged("host_sync"), nbytes=nbytes(t, out))
+        _notify("host_sync", what(t, out))
         return out
 
     counted.__wrapped__ = orig
@@ -254,18 +277,22 @@ def _read_hook(orig, nbytes):
 
 
 def _sync_hook(orig):
-    return _read_hook(orig, lambda t, out: _nbytes(t))
+    return _read_hook(orig, lambda t, out: _nbytes(t),
+                      lambda t, out: (tuple(t.shape), str(t.dtype)))
 
 
 def _fetch_hook(orig):
-    return _read_hook(orig, lambda src, out: int(out.nbytes))
+    return _read_hook(orig, lambda src, out: int(out.nbytes),
+                      lambda src, out: (tuple(out.shape), str(out.dtype)))
 
 
 def _launch_hook(orig):
     def counted(wrapper=None, source=None, route=None, csr_columns=None):
         if (source is not None or csr_columns is not None) \
                 and not _depth("capturing"):
-            _GLOBAL.inc(_tagged("dispatch"))
+            if _ENABLED:
+                _GLOBAL.inc(_tagged("dispatch"))
+            _notify("dispatch")
         return orig(wrapper, source=source, route=route,
                     csr_columns=csr_columns)
 
@@ -275,7 +302,9 @@ def _launch_hook(orig):
 
 def _replay_hook(orig):
     def counted(record):
-        _GLOBAL.inc(_tagged("dispatch"))
+        if _ENABLED:
+            _GLOBAL.inc(_tagged("dispatch"))
+        _notify("dispatch")
         return orig(record)
 
     counted.__wrapped__ = orig
@@ -285,7 +314,9 @@ def _replay_hook(orig):
 def _capture_hook(orig):
     @contextlib.contextmanager
     def counted():
-        _GLOBAL.inc(_tagged("compile"))
+        if _ENABLED:
+            _GLOBAL.inc(_tagged("compile"))
+        _notify("compile")
         _TLS.capturing = _depth("capturing") + 1
         try:
             with orig() as record:
@@ -301,7 +332,9 @@ def _build_hook(orig):
     def counted(name):
         job = orig(name)
         if job is not None:  # nvcc started: a build, not a cache hit
-            _GLOBAL.inc(_tagged("compile"))
+            if _ENABLED:
+                _GLOBAL.inc(_tagged("compile"))
+            _notify("compile")
         return job
 
     counted.__wrapped__ = orig
@@ -314,7 +347,9 @@ def _send_hook(orig):
         nbytes = sum(_nbytes(src) for dst, src in copies
                      if _card(dst) and dst.data_ptr() != src.data_ptr())
         if nbytes:
-            _GLOBAL.inc(_tagged("h2d"), nbytes=nbytes)
+            if _ENABLED:
+                _GLOBAL.inc(_tagged("h2d"), nbytes=nbytes)
+            _notify("h2d")
         return orig(self, slot, copies, after)
 
     counted.__wrapped__ = orig
@@ -325,7 +360,9 @@ def _padded_hook(orig):
     def counted(X, rows, dev):
         out = orig(X, rows, dev)
         if _card(dev) and not _card(X):
-            _GLOBAL.inc(_tagged("h2d"), nbytes=_nbytes(out))
+            if _ENABLED:
+                _GLOBAL.inc(_tagged("h2d"), nbytes=_nbytes(out))
+            _notify("h2d")
         return out
 
     counted.__wrapped__ = orig
@@ -351,12 +388,10 @@ def _hooks():
                (bucketed, "_padded", _padded_hook)])
 
 
-def enable() -> None:
-    """Install the counting hooks and open the ``inc`` gate.  Idempotent.
-    Prefer the ``tpu_sgd_torch.obs.enable`` facade, which also wires
-    tracing and flushes counters into the trace on disable."""
-    global _ENABLED, _PATCHES
-    if _ENABLED:
+def _install() -> None:
+    """Install every hook (the caller holds ``_INSTALL_LOCK``)."""
+    global _PATCHES
+    if _PATCHES is not None:
         return
     saved = []
     try:
@@ -369,7 +404,28 @@ def enable() -> None:
         _restore(saved)
         raise
     _PATCHES = saved
-    _ENABLED = True
+
+
+def _uninstall() -> None:
+    """Remove the hooks when neither the counters nor a region need them
+    (the caller holds ``_INSTALL_LOCK``)."""
+    global _PATCHES
+    if _ENABLED or _LISTENERS or _PATCHES is None:
+        return
+    saved, _PATCHES = _PATCHES, None
+    _restore(saved)
+
+
+def enable() -> None:
+    """Install the counting hooks and open the ``inc`` gate.  Idempotent.
+    Prefer the ``tpu_sgd_torch.obs.enable`` facade, which also wires
+    tracing and flushes counters into the trace on disable."""
+    global _ENABLED
+    with _INSTALL_LOCK:
+        if _ENABLED:
+            return
+        _install()
+        _ENABLED = True
 
 
 def _restore(saved: list) -> None:
@@ -382,15 +438,36 @@ def _restore(saved: list) -> None:
 
 
 def disable() -> None:
-    """Remove every hook and close the gate.  Idempotent; counter VALUES
-    survive (scrape after disable is fine); ``reset()`` clears."""
-    global _ENABLED, _PATCHES
-    if not _ENABLED:
-        return
-    _ENABLED = False
-    saved, _PATCHES = _PATCHES, None
-    if saved is not None:
-        _restore(saved)
+    """Remove every hook (unless a region listens) and close the gate.
+    Idempotent; counter VALUES survive (scrape after disable is fine);
+    ``reset()`` clears."""
+    global _ENABLED
+    with _INSTALL_LOCK:
+        if not _ENABLED:
+            return
+        _ENABLED = False
+        _uninstall()
+
+
+@contextlib.contextmanager
+def listen(listener):
+    """Hand every event of the hooks to ``listener(kind, detail)`` inside
+    the region (``kind``: ``dispatch``, ``compile``, ``host_sync`` or
+    ``h2d``; ``detail``: a read's ``(shape, dtype)``, else None), the
+    hooks installed for it when the counters are off.  Regions nest; the
+    events of every thread reach every region."""
+    global _LISTENERS
+    with _INSTALL_LOCK:
+        _install()
+        _LISTENERS = _LISTENERS + (listener,)
+    try:
+        yield listener
+    finally:
+        with _INSTALL_LOCK:
+            rest = list(_LISTENERS)
+            rest.remove(listener)
+            _LISTENERS = tuple(rest)
+            _uninstall()
 
 
 def is_enabled() -> bool:

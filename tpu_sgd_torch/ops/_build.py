@@ -32,6 +32,11 @@ INCLUDE = Path(__file__).with_name("csrc")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
+#: memo-key declaration (tpu_sgd_torch/analysis): the loaded libraries are
+#: keyed by source name; the library path hashes the source, the shared
+#: headers and the flags, so a changed source builds a new library file
+GRAFTLINT_MEMO = {"_loaded": ("name",)}
+
 
 def nvcc_path() -> str:
     """``nvcc`` from ``PATH``, else from ``$CUDA_HOME/bin``."""

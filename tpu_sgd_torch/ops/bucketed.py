@@ -54,6 +54,14 @@ _MATVEC_SHAPES: set = set()
 #: serves 1 or 10k tenants at the same shapes
 _SLAB_SHAPES: set = set()
 
+#: memo-key declaration (tpu_sgd_torch/analysis): the shape-key sets are
+#: the port's count of the JAX package's bucket programs; a key is all a
+#: set holds, so the rule checks that each key's roots are declared
+GRAFTLINT_MEMO = {
+    "_MATVEC_SHAPES": ("X", "buckets", "w", "activation"),
+    "_SLAB_SHAPES": ("X", "buckets", "slab", "activation"),
+}
+
 
 def program_cache_size() -> int:
     """Distinct padded margin shapes scored (the JAX package's count of

@@ -645,8 +645,10 @@ class _StreamedRun:
                     if i < N:
                         nxt = next(self.feed)
                 if new_w.is_cuda:
+                    # graftlint: disable=host-sync -- observed driver: a per-step barrier is its contract
                     torch.cuda.synchronize(new_w.device)
             dt = time.perf_counter() - t0
+            # graftlint: disable=host-sync -- observed driver: a per-step barrier is its contract
             w, reg_val, converged = gd.observed_loop_tail(
                 i, w, new_w, loss_i.to(torch.float32), new_reg, c,
                 self.losses, reg_val, cfg, listener=self.listener,
@@ -700,6 +702,7 @@ class _StreamedRun:
 
                 boundary = i0 + steps - 1
                 if self.save_cb is not None:
+                    # graftlint: disable=host-sync -- runs once: the stop's save, then the loop raises
                     self.save_cb(boundary, gd._host(w), reg_val)
                 raise TrainingPreempted(boundary)
             i0 += steps

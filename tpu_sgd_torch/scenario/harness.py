@@ -516,7 +516,9 @@ def run_scenario(
 
         summary = {"seed": seed, "mode": mode, "device": str(dev),
                    "wall_s": wall_s,
-                   "totals": totals, "lanes": load_report["lanes"],
+                   "totals": totals,
+                   "errors_by_class": load_report["error_classes"],
+                   "lanes": load_report["lanes"],
                    "classes": load_report["classes"],
                    "phases": load_report["phases"],
                    "hot_reloads": hot_reloads, "rejoins": rejoins,

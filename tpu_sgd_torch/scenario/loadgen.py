@@ -20,7 +20,9 @@ ledger the scenario SLO gate audits:
   raised at submit (queue_full / deadline / shed);
 * ``displaced``  — admitted, then evicted for a higher-priority arrival
   (the future resolved with a typed ``Overloaded``);
-* ``errored``    — the future resolved with any OTHER exception;
+* ``errored``    — the future resolved with (or ``submit`` raised) any
+  OTHER exception; the report counts these by exception class too
+  (``error_classes``), so a failure names itself;
 * ``dropped``    — the future never resolved within the drain timeout:
   the one bucket that must stay at ZERO.
 """
@@ -45,6 +47,13 @@ GRAFTLINT_LOCKS = {
         "_tallies": "_lock",
     },
 }
+
+
+def _count_error(tally: dict, err: BaseException) -> None:
+    """One ``errored`` outcome, counted under its exception class too."""
+    tally["errored"] += 1
+    cls = type(err).__name__
+    tally["error_classes"][cls] = tally["error_classes"].get(cls, 0) + 1
 
 
 class TrafficSpec(NamedTuple):
@@ -105,7 +114,7 @@ class OpenLoopLoadGen:
             t = self._tallies[name] = {
                 "submitted": 0, "answered": 0, "rejected": 0,
                 "displaced": 0, "errored": 0, "dropped": 0,
-                "latencies": [],
+                "latencies": [], "error_classes": {},
             }
         return t
 
@@ -120,7 +129,7 @@ class OpenLoopLoadGen:
             elif isinstance(err, Overloaded):
                 t["displaced"] += 1  # admitted, then typed-evicted
             else:
-                t["errored"] += 1
+                _count_error(t, err)
 
     # -- the open loop -----------------------------------------------------
     def run(self) -> dict:
@@ -158,10 +167,11 @@ class OpenLoopLoadGen:
                         with self._lock:
                             self._tally_locked(spec.name)["submitted"] += 1
                             self._tally_locked(spec.name)["rejected"] += 1
-                    except Exception:
+                    except Exception as err:
                         with self._lock:
-                            self._tally_locked(spec.name)["submitted"] += 1
-                            self._tally_locked(spec.name)["errored"] += 1
+                            t = self._tally_locked(spec.name)
+                            t["submitted"] += 1
+                            _count_error(t, err)
                     else:
                         with self._lock:
                             self._tally_locked(spec.name)["submitted"] += 1
@@ -217,9 +227,11 @@ class OpenLoopLoadGen:
         from tpu_sgd_torch.serve.metrics import nearest_rank
 
         with self._lock:
-            tallies = {k: dict(v) for k, v in self._tallies.items()}
+            tallies = {k: dict(v, error_classes=dict(v["error_classes"]))
+                       for k, v in self._tallies.items()}
         by_lane: Dict[str, dict] = {}
         classes = {}
+        error_classes: Dict[str, int] = {}
         for spec in self.mix:
             t = tallies.get(spec.name)
             if t is None:
@@ -230,6 +242,8 @@ class OpenLoopLoadGen:
             t["p50_s"] = nearest_rank(lats, 50)
             t["p99_s"] = nearest_rank(lats, 99)
             classes[spec.name] = t
+            for cls, n in t["error_classes"].items():
+                error_classes[cls] = error_classes.get(cls, 0) + n
             lane = by_lane.setdefault(
                 spec.lane, {"submitted": 0, "answered": 0, "rejected": 0,
                             "displaced": 0, "errored": 0, "dropped": 0})
@@ -238,4 +252,5 @@ class OpenLoopLoadGen:
         totals = {k: sum(lane[k] for lane in by_lane.values())
                   for k in ("submitted", "answered", "rejected",
                             "displaced", "errored", "dropped")}
-        return {"classes": classes, "lanes": by_lane, "totals": totals}
+        return {"classes": classes, "lanes": by_lane, "totals": totals,
+                "error_classes": error_classes}

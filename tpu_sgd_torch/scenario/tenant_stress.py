@@ -305,7 +305,9 @@ def run_tenant_scenario(
         summary = {"seed": seed, "mode": mode, "device": str(dev),
                    "wall_s": wall_s,
                    "n_tenants": n_tenants, "capacity": capacity,
-                   "totals": totals, "lanes": load_report["lanes"],
+                   "totals": totals,
+                   "errors_by_class": load_report["error_classes"],
+                   "lanes": load_report["lanes"],
                    "classes": load_report["classes"],
                    "phases": load_report["phases"], "slab": ledger,
                    "chaos": tallies, "healthz": healthz}

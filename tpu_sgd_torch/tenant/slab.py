@@ -68,6 +68,9 @@ GRAFTLINT_LOCKS = {
 #: the slot index and the row are data, so ONE shape serves every row of
 #: every tenant forever (the JAX package's row-set program count)
 _ROW_SET_SHAPES: set = set()
+#: memo-key declaration (tpu_sgd_torch/analysis): one row-set shape key
+#: per slab shape, whatever the row or the tenant
+GRAFTLINT_MEMO = {"_ROW_SET_SHAPES": ("capacity", "d", "dtype")}
 
 
 def row_set_program_cache_size() -> int:
@@ -157,8 +160,22 @@ class WeightSlab:
         admission can evict a row of this batch between its admission and
         the batch's resolve.  Returns ``(puts, snapshot, missing)``: each
         put's ``(slot, evicted, kind)``, then the snapshot, or ``None`` and
-        the non-resident tenants (``tenant_ids=None``: puts only)."""
+        the non-resident tenants (``tenant_ids=None``: puts only).
+
+        The batch's resident rows are made the hottest before the puts
+        (no ledger count: the resolve counts the batch's lookups), so the
+        puts evict only rows outside the batch: a batch whose distinct
+        tenants fit the slab resolves in this one round.  Put first, an
+        admission could evict a resident row of its own batch, and under
+        concurrent admissions the store's bounded retries then ended in a
+        spurious ``SlabFullError``."""
         with self._lock:
+            if tenant_ids is not None:
+                for tid in dict.fromkeys(
+                        np.asarray(tenant_ids).astype(np.int64).ravel()
+                        .tolist()):
+                    if tid in self._lru:
+                        self._lru.move_to_end(tid)
             puts = [self._put_locked(*row) for row in rows]
             if tenant_ids is None:
                 return puts, None, None
