@@ -3213,6 +3213,12 @@ REPLICA_OBJECTIVE_RATIO = 1.01
 # (e): the kill timer's delay as shares of the fault-free HA run's wall;
 # the next share is tried only when a kill landed after the run ended
 REPLICA_KILL_SHARES = (0.4, 0.25, 0.6)
+# (g): the resident worker mode.  K = 1 is held bitwise to the per-cycle
+# run; K = 2 by the JAX package's matched-loss rule: over 48 rounds, at
+# most 1.01x the per-cycle run's objective 6 rounds earlier
+REPLICA_RESIDENT_ROUNDS = 20
+REPLICA_RESIDENT_K2_ROUNDS = 48
+REPLICA_RESIDENT_LAG = 6
 
 
 def _replica_driver(tst, mode, rounds, tau=0):
@@ -3358,20 +3364,24 @@ def replica_full(torch, tst, ck, X, y, profile):
     return out
 
 
-def replica_async(torch, tst, ck, X, y, tau0):
+def replica_async(torch, tst, ck, X, y, tau0, workers=REPLICA_WORKERS,
+                  devices=None):
     """(c): τ=2 over all rows, Bernoulli, ``REPLICA_STEPS`` applied steps,
     traced: every accepted push within the bound, every rejected one
     beyond it, one launch per push attempt (accepted, rejected, or answered
     ``done``), the objective within 1.01x of (b)'s τ=0 run at the same
-    count; applied steps/s and the staleness histogram."""
+    count (``tau0``); applied steps/s and the staleness histogram.
+    ``workers`` workers on ``devices`` (default: every visible card)."""
     from tpu_sgd_torch.obs import spans
 
+    drv = _replica_driver(tst, "bernoulli", REPLICA_STEPS,
+                          tau=REPLICA_TAU).set_workers(workers)
+    if devices is not None:
+        drv.set_devices(devices)
     sink = _PushTrace()
     spans.enable_tracing(sink)
     try:
-        run = _replica_run(torch, ck, _replica_driver(
-            tst, "bernoulli", REPLICA_STEPS, tau=REPLICA_TAU), X, y,
-            REPLICA_STEPS)
+        run = _replica_run(torch, ck, drv, X, y, REPLICA_STEPS)
     finally:
         spans.disable_tracing()
     snap = run["snap"]
@@ -3628,7 +3638,7 @@ def replica_supervised(torch, tst, ck, X, y):
             "resume_bitwise": same}
 
 
-def replica_b1_row(torch, ck, tst, X, y, reps=50):
+def replica_b1_row(torch, ck, tst, X, y, reps=20):
     """B1 at a worker's shard (1.25M rows of X, a 10% mask) launched by
     ``REPLICA_WORKERS`` threads at once, each on its own shard, as the
     replica workers launch it.  ``ms`` is the card's busy time a launch
@@ -3723,6 +3733,159 @@ def replica_b1_row(torch, ck, tst, X, y, reps=50):
             "bound_ms": bound, "bound_by": by, "share_of_bound": bound / busy}
 
 
+def _resident_driver(tst, rounds, k, workers=1, devices=None, tau=0):
+    """Phase ``full``'s problem (Bernoulli at ``FRAC``) over ``workers``
+    resident workers folding ``k`` supersteps a round (0: the per-cycle
+    loop), on ``devices`` (default: every visible card)."""
+    drv = (_replica_driver(tst, "bernoulli", rounds, tau=tau)
+           .set_workers(workers).set_resident_rounds(k))
+    return drv.set_devices(devices) if devices is not None else drv
+
+
+def _counted_run(torch, ck, drv, X, y, rounds) -> dict:
+    """:func:`_replica_run` with the port's hooks listening across every
+    thread: ``dispatches`` (graph replays and eager kernel launches) and
+    ``captures`` (CUDA-graph captures) of the run, and the dispatches by
+    worker (``by_worker``: each worker thread's, ``replica-w<s>``, so by
+    card when each worker has its own)."""
+    import threading
+
+    from tpu_sgd_torch.obs import counters
+
+    seen = {"dispatch": 0, "compile": 0}
+    by_worker = {}
+    lock = threading.Lock()
+
+    def listener(kind, detail):
+        if kind in seen:
+            name = threading.current_thread().name
+            with lock:
+                seen[kind] += 1
+                if kind == "dispatch" and name.startswith("replica-w"):
+                    by_worker[name] = by_worker.get(name, 0) + 1
+
+    with counters.listen(listener):
+        run = _replica_run(torch, ck, drv, X, y, rounds)
+    run.update(dispatches=seen["dispatch"], captures=seen["compile"],
+               by_worker=dict(sorted(by_worker.items())))
+    return run
+
+
+def _traced_round_ms(torch, ck, drv, X, y, rounds) -> dict:
+    """A second run under ``torch.profiler``: device ms a round (every
+    kernel on every card), B1's device ms a launch, and the run's wall."""
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        run = _replica_run(torch, ck, drv, X, y, rounds)
+    per = device_ms_by_kernel(torch, prof)
+    b1 = sum(v for k, v in per.items() if k.startswith(B1_KERNELS))
+    launches = run["launches"]["fused_gradient_sums"]
+    busy = sum(per.values())
+    return {"device_ms_per_round": busy / rounds if busy > 0 else None,
+            "b1_ms_per_launch": b1 / launches if b1 > 0 else None,
+            "traced_ms_per_round": run["ms_per_round"],
+            "top_device_ms": dict(sorted(per.items(),
+                                         key=lambda kv: -kv[1])[:4])}
+
+
+def resident_checks(torch, ck, tst, X, y, *, workers, devices, what):
+    """The resident mode against the per-cycle loop, ``workers`` workers on
+    ``devices`` (one each), Bernoulli at ``FRAC``, τ=0: K = 1 over
+    ``REPLICA_RESIDENT_ROUNDS`` rounds bitwise the per-cycle run, one
+    capture a worker and one replay a round a worker, B1 launches =
+    workers x rounds; K = 2 over ``REPLICA_RESIDENT_K2_ROUNDS`` rounds at
+    most 1.01x the per-cycle run's objective ``REPLICA_RESIDENT_LAG``
+    rounds earlier, B1 launches = 2 x workers x rounds.  Wall and device
+    ms a round of the per-cycle run and of each K (device ms from a
+    second, traced run).  Returns the report and the per-cycle run."""
+    R, R2 = REPLICA_RESIDENT_ROUNDS, REPLICA_RESIDENT_K2_ROUNDS
+    W = workers
+    each = {f"replica-w{s}": R for s in range(W)}
+    out = {"workers": W, "devices": [str(d) for d in devices]}
+    drv = _resident_driver(tst, R, 0, W, devices)
+    cycle = _counted_run(torch, ck, drv, X, y, R)
+    _replica_launches(cycle, "bernoulli", W * R, f"{what} per-cycle")
+    check(cycle["by_worker"] == each and cycle["captures"] == 0,
+          f"{what} per-cycle: launches by worker {cycle['by_worker']}, "
+          f"{cycle['captures']} captures")
+    cycle_ms = _traced_round_ms(torch, ck, drv, X, y, R)
+    runs = {}
+    for k, rounds in ((1, R), (2, R2)):
+        drv = _resident_driver(tst, rounds, k, W, devices)
+        run = runs[k] = _counted_run(torch, ck, drv, X, y, rounds)
+        _replica_launches(run, "bernoulli", k * W * rounds, f"{what} K={k}")
+        check(run["by_worker"] == {w: rounds for w in each}
+              and run["dispatches"] == W * rounds and run["captures"] == W,
+              f"{what} K={k}: replays by worker {run['by_worker']}, "
+              f"{run['dispatches']} dispatches and {run['captures']} "
+              f"captures for {W} workers x {rounds} rounds (want one "
+              "replay a round a worker, one capture a worker)")
+        snap = run["snap"]
+        check(snap["version"] == rounds
+              and snap["pushes_accepted"] == W * rounds,
+              f"{what} K={k}: store {snap}")
+        out[f"k{k}"] = {
+            "rounds": rounds, "launches": run["launches"],
+            "dispatches": run["dispatches"], "captures": run["captures"],
+            "replays_by_worker": run["by_worker"],
+            "ms_per_round": run["ms_per_round"],
+            **_traced_round_ms(torch, ck, drv, X, y, rounds)}
+    same = (torch.equal(runs[1]["w"], cycle["w"])
+            and np.array_equal(runs[1]["h"], cycle["h"]))
+    check(same, f"{what} K=1: not bitwise the per-cycle run")
+    early = _replica_run(torch, ck, _resident_driver(
+        tst, R2 - REPLICA_RESIDENT_LAG, 0, W, devices), X, y,
+        R2 - REPLICA_RESIDENT_LAG)
+    obj2 = ls_objective_exact(torch, X, y, runs[2]["w"])
+    obj_early = ls_objective_exact(torch, X, y, early["w"])
+    ratio = obj2 / obj_early
+    check(ratio <= REPLICA_OBJECTIVE_RATIO and np.isfinite(runs[2]["h"]).all(),
+          f"{what} K=2: objective {obj2} is {ratio}x the per-cycle run's "
+          f"{REPLICA_RESIDENT_LAG} rounds earlier")
+    out.update(k1_bitwise_per_cycle=same, per_cycle={
+        "ms_per_round": cycle["ms_per_round"],
+        "launches_by_worker": cycle["by_worker"], **cycle_ms},
+        k2_objective=obj2, per_cycle_objective_lagged=obj_early,
+        k2_objective_ratio=ratio)
+    for key in ("per_cycle", "k1", "k2"):
+        rec = out[key]
+        dev = rec["device_ms_per_round"]
+        rec["host_share"] = (None if dev is None
+                             else 1 - dev / rec["ms_per_round"])
+    return out, cycle
+
+
+def replica_resident(torch, tst, ck, X, y):
+    """(g): the resident worker mode on the one card: one worker on all
+    10M rows (a view of X, no copy), through :func:`resident_checks`;
+    then B1's row inside a resident replay (``ms``: the profiler's device
+    time a launch in the traced K = 1 run; the same call replayed alone,
+    the plain version, the library yardstick and the bound by
+    ``b1_row``).  Returns the report and the row."""
+    dev = X.device
+    out, _ = resident_checks(torch, ck, tst, X, y, workers=1,
+                             devices=[dev], what="replica (g)")
+    pw = tst.LeastSquaresGradient().pointwise
+    gen = torch.Generator(device=dev).manual_seed(35)
+    w = torch.randn(X.shape[1], generator=gen, device=dev) / math.sqrt(
+        X.shape[1])
+    mask = torch.rand(X.shape[0], generator=gen, device=dev) < FRAC
+    row = b1_row(torch, ck, pw, X, y, w, mask,
+                 f"replica resident (one worker's {X.shape[0]:,} rows, 10% "
+                 "mask, inside the replayed round, K = 1)", 10)
+    row["replayed_alone_ms"] = row["ms"]
+    row["ms"] = out["k1"]["b1_ms_per_launch"]
+    check(row["ms"] is not None, "replica (g): the trace holds no B1 time")
+    row["ms_from"] = ("torch.profiler device time a launch in the traced "
+                      "K = 1 run")
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["launches"] = out["k1"]["launches"]["fused_gradient_sums"]
+    row["launches_from"] = "phase replica (g), the K = 1 run"
+    return out, row
+
+
 def phase_replica(torch, tst, ck, X, y, profile):
     """Phase ``replica``: async replicated training (``tpu_sgd_torch.
     replica``) at config 4's width on phase ``full``'s resident 10M x 1000
@@ -3730,9 +3893,11 @@ def phase_replica(torch, tst, ck, X, y, profile):
     as threads on the one card, each launching B1 (Bernoulli) or B2
     (sliced) once a push: (a) ``replica_prefix``, (b) ``replica_full``,
     (c) ``replica_async``, (d) ``replica_compressed``, (e) ``replica_ha``,
-    (f) ``replica_supervised``; then B1 timed under 8 threads' concurrent
-    launches (``replica_b1_row``).  Returns the report and that row, its
-    launches those of (b)'s Bernoulli run."""
+    (f) ``replica_supervised``, (g) ``replica_resident`` (one resident
+    worker: its round captured once and replayed); then B1 timed under 8
+    threads' concurrent launches (``replica_b1_row``).  Returns the report
+    and two rows: that one, its launches those of (b)'s Bernoulli run, and
+    (g)'s B1 inside a resident replay."""
     t0 = time.perf_counter()
     out = {"workers": REPLICA_WORKERS, "rows": X.shape[0],
            "prefix_rows": REPLICA_PREFIX_ROWS}
@@ -3756,14 +3921,18 @@ def phase_replica(torch, tst, ck, X, y, profile):
     t = time.perf_counter()
     out["f_supervised"] = replica_supervised(torch, tst, ck, X, y)
     parts["f"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["g_resident"], resident_row = replica_resident(torch, tst, ck, X, y)
+    parts["g"] = time.perf_counter() - t
     row = replica_b1_row(torch, ck, tst, X, y)
     row["launches"] = out["b_full"]["bernoulli"]["launches"][
         "fused_gradient_sums"]
     row["launches_from"] = "phase replica (b), Bernoulli"
     out["part_seconds"] = parts
     out["seconds"] = time.perf_counter() - t0
-    emit({"phase": "replica", **out, "b1_row": row})
-    return out, row
+    emit({"phase": "replica", **out, "b1_row": row,
+          "resident_row": resident_row})
+    return out, [row, resident_row]
 
 
 # -- phase 10: host-streamed SGD ---------------------------------------------
@@ -3772,9 +3941,9 @@ def phase_replica(torch, tst, ck, X, y, profile):
 STREAM_PREFIX_ROWS = 1_000_000
 STREAM_ITERS = 20
 # leg (b)'s timing runs, a mode each (and phase plan (e)'s run): cut in
-# depth for the script's time
-STREAM_SAMPLED_ITERS = 6
-STREAM_TRACED_ITERS = 2     # leg (b)'s traced runs, cut in depth for time
+# depth for the script's time (10 until PR 15, 6 until PR 21)
+STREAM_SAMPLED_ITERS = 3
+STREAM_TRACED_ITERS = 1     # leg (b)'s traced runs (2 until PR 21)
 STREAMED_QN_ITERS = 5       # leg (a) of phase streamed_qn
 # leg (b): OWL-QN over the first 2M host rows, cut in depth for time
 STREAMED_OWLQN_ROWS, STREAMED_OWLQN_ITERS = 2_000_000, 3
@@ -4256,7 +4425,8 @@ def streamed_qn_lbfgs(torch, tst, ck, X, y, Xh, yh, h2d_gb_s):
     """(a) Binary L-BFGS with logistic + L2, every cost evaluation and sweep
     streamed from the 10M host rows (default chunk), against the resident
     run; a second run bitwise, with the feed's events and the evaluations
-    counted; a traced 2-iteration run; B1 at the chunk shape."""
+    counted; a traced 1-iteration run (2 until PR 21); B1 at the chunk
+    shape."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_sgd_torch.obs import spans
@@ -4308,14 +4478,14 @@ def streamed_qn_lbfgs(torch, tst, ck, X, y, Xh, yh, h2d_gb_s):
     check(_same_run(torch, first, second),
           "(a): a second run is not bitwise the first")
     feed = sink.report()
-    opt.set_max_num_iterations(2)
+    opt.set_max_num_iterations(1)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         opt.optimize_with_history((Xh, yh), w0)
         torch.cuda.synchronize()
-        traced = 1e3 * (time.perf_counter() - t) / 2
-    per = {k: v / 2 for k, v in device_ms_by_kernel(torch, prof).items()}
+        traced = 1e3 * (time.perf_counter() - t)
+    per = device_ms_by_kernel(torch, prof)
     copies = sum(v for k, v in per.items() if k.startswith("Memcpy"))
     kernels = sum(v for k, v in per.items()
                   if not k.startswith(("Memcpy", "Memset")))
@@ -5328,6 +5498,7 @@ MESH_PREFIX_ROWS = 125_000  # a rank's rows of the 1M-row bitwise check
 MESH_WINDOW_START = 500_000  # B2's row: a shard's 125,000-row window
 MESH_TIMEOUT = 720          # seconds for the 8-rank job, start-up included
 MESH_COMBINE_REPS = 100
+MESH_GLOO_COMBINE_REPS = 30  # phase mesh's 8 gloo ranks (100 until PR 21)
 MESH_OBS_K = 8
 MESH_OBS_STOP_AT = 13
 MESH_HISTORY_RTOL = 2e-4    # the gradient tier
@@ -5497,7 +5668,8 @@ def mesh_rank_runs(torch, tst, ck, par, mesh, out_dir):
         # graftlint: disable=host-sync -- chip check: reads each case back to compare it
         arrays[f"prefix_{mode}_w"] = r["w"].cpu().numpy()
         arrays[f"prefix_{mode}_h"] = r["h"]
-    res["combine_ms"] = _combine_ms(torch, par, mesh)
+    res["combine_ms"] = _combine_ms(torch, par, mesh,
+                                    reps=MESH_GLOO_COMBINE_REPS)
     dense, dense_arrays = mesh_rank_dense(torch, tst, ck, par, mesh, X, y)
     res.update(dense)
     arrays.update(dense_arrays)
@@ -5922,6 +6094,44 @@ def _timed(torch, fn):
     return out, time.perf_counter() - t
 
 
+def mesh_rank_lbfgs(torch, tst, ck, mesh, X, y):
+    """A rank's (f) on its block: meshed L-BFGS twice, B1's launches by
+    route, and the host decisions the loop agreed across the ranks
+    (``lbfgs.agree_on_host`` calls, each a gather that raises on every
+    rank at a disagreement).  Returns ``({"f": report}, arrays)``."""
+    from tpu_sgd_torch.optimize import lbfgs
+
+    w0 = torch.zeros(X.shape[1], device="cuda")
+    agreed = {"n": 0}
+    agree = lbfgs.agree_on_host
+
+    def counted(*args, **kwargs):
+        agree(*args, **kwargs)
+        agreed["n"] += 1
+
+    runs = []
+    lbfgs.agree_on_host = counted
+    try:
+        for _ in range(2):
+            ck.reset_launch_counts()
+            (w, h), secs = _timed(torch, lambda: _mesh_lbfgs(
+                tst, mesh).optimize_with_history((X, y), w0))
+            runs.append((w, h, ck.launch_counts(),
+                         ck.gradient_route_counts(), secs))
+    finally:
+        lbfgs.agree_on_host = agree
+    (w, h, launches, routes, secs), again = runs[0], runs[1]
+    res = {"f": {
+        "cost_evaluations": len(h),
+        "b1_launches": launches["fused_gradient_sums"],
+        "launches": launches, "b1_routes": routes,
+        "repeat_bitwise": _same_run(torch, (w, h), again[:2]),
+        "host_decisions_agreed": agreed["n"],
+        "ms_per_iteration": 1e3 * again[4] / max(1, len(h) - 1),
+        "first_run_ms_per_iteration": 1e3 * secs / max(1, len(h) - 1)}}
+    return res, {"f_w": w.cpu().numpy(), "f_h": h}
+
+
 def mesh_rank_dense(torch, tst, ck, par, mesh, X, y):
     """A rank's (f)-(i) on its 1.25M-row block: meshed L-BFGS twice, the
     meshed normal equations, the meshed statistics (sliced exact and
@@ -5934,22 +6144,7 @@ def mesh_rank_dense(torch, tst, ck, par, mesh, X, y):
 
     d = X.shape[1]
     w0 = torch.zeros(d, device="cuda")
-    res, arrays = {}, {}
-    runs = []
-    for _ in range(2):
-        ck.reset_launch_counts()
-        (w, h), secs = _timed(torch, lambda: _mesh_lbfgs(
-            tst, mesh).optimize_with_history((X, y), w0))
-        runs.append((w, h, ck.launch_counts(), ck.gradient_route_counts(),
-                     secs))
-    (w, h, launches, routes, secs), again = runs[0], runs[1]
-    res["f"] = {"cost_evaluations": len(h),
-                "b1_launches": launches["fused_gradient_sums"],
-                "launches": launches, "b1_routes": routes,
-                "repeat_bitwise": _same_run(torch, (w, h), again[:2]),
-                "ms_per_iteration": 1e3 * again[4] / max(1, len(h) - 1),
-                "first_run_ms_per_iteration": 1e3 * secs / max(1, len(h) - 1)}
-    arrays["f_w"], arrays["f_h"] = w.cpu().numpy(), h
+    res, arrays = mesh_rank_lbfgs(torch, tst, ck, mesh, X, y)
     y_ls = y.to(torch.bfloat16).to(torch.float32)
     w, secs = _timed(torch, lambda: tst.NormalEquations().set_mesh(
         mesh).optimize((X, y_ls), w0))
@@ -6012,15 +6207,24 @@ def mesh_rank_dense(torch, tst, ck, par, mesh, X, y):
     return res, arrays
 
 
-def mesh_rank_2d(torch, tst, ck, par):
-    """A rank's (e) on the 4 x 2 mesh: the rows of its data block (fill
-    blocks ``2 di`` and ``2 di + 1``, 2.5M rows) and the columns of its
-    model block (500).  Full batch, Bernoulli and sliced at 0.1 through
-    ``GradientDescent`` on the first ``MESH2D_PREFIX_ROWS`` rows of the
-    data block with every column (the rank keeps its block), then through
-    ``dp_mp_run_fn`` on its 2.5M x 500 block, the whole vector gathered;
-    launches and library products counted; the margin combine timed."""
-    n_data, n_model = MESH2D
+def mesh_rank_2d(torch, tst, ck, par, shape=MESH2D, capture_check=False):
+    """A rank's (e) on the ``shape`` (data, model) mesh (4 x 2 in phase
+    ``mesh``): the rows of its data block (fill blocks ``per * di`` to
+    ``per * di + per - 1``, ``per = MESH_RANKS // n_data``: 2.5M rows at 4
+    x 2) and the columns of its model block (``FULL_D // n_model``).
+    Full batch, Bernoulli and sliced at 0.1 through ``GradientDescent`` on
+    the first ``MESH2D_PREFIX_ROWS`` rows of the data block with every
+    column (the rank keeps its block), then through ``dp_mp_run_fn`` on
+    its block, the whole vector gathered; launches and library products
+    counted; the margin combine timed.  ``capture_check`` (an NCCL mesh,
+    where a block's graph holds both axes' gathers): each block run is
+    first run eagerly (``gradient_descent.CUDA_GRAPHS = False``), then
+    three times on the same tensors (the second captures its second
+    block, the third replays both), all bitwise equal, 3 replays."""
+    from tpu_sgd_torch.optimize import gradient_descent as tgd
+
+    n_data, n_model = shape
+    per = MESH_RANKS // n_data
     m2 = par.make_mesh(n_data=n_data, n_model=n_model)
     di, mi = m2.rank, m2.model_index
     res = {"data_index": di, "model_index": mi, "prefix": {}, "full": {}}
@@ -6028,7 +6232,7 @@ def mesh_rank_2d(torch, tst, ck, par):
     Xp = torch.empty((MESH2D_PREFIX_ROWS, FULL_D), dtype=torch.bfloat16,
                      device="cuda")
     yp = torch.empty((MESH2D_PREFIX_ROWS,), device="cuda")
-    fill_mesh_block(torch, Xp, yp, 2 * di)
+    fill_mesh_block(torch, Xp, yp, per * di)
     for mode in ("full", "bernoulli", "sliced"):
         frac = 1.0 if mode == "full" else FRAC
         r = _mesh_run(torch, ck, _mesh_alg(tst, mode, frac, m2), Xp, yp)
@@ -6042,25 +6246,53 @@ def mesh_rank_2d(torch, tst, ck, par):
     cols = slice(mi * b, (mi + 1) * b)
     Xb = torch.empty((rows, b), dtype=torch.bfloat16, device="cuda")
     yb = torch.empty((rows,), device="cuda")
-    half = rows // 2
-    fill_mesh_block(torch, Xb[:half], yb[:half], 2 * di, cols=cols)
-    fill_mesh_block(torch, Xb[half:], yb[half:], 2 * di + 1, cols=cols)
+    sub = rows // per
+    for j in range(per):
+        fill_mesh_block(torch, Xb[j * sub:(j + 1) * sub],
+                        yb[j * sub:(j + 1) * sub], per * di + j, cols=cols)
     g, u = tst.LeastSquaresGradient(), tst.SimpleUpdater()
     for mode in ("full", "bernoulli", "sliced"):
         frac = 1.0 if mode == "full" else FRAC
         cfg = tst.SGDConfig(step_size=0.5, num_iterations=MESH_ITERS,
                             mini_batch_fraction=frac, convergence_tol=0.0,
                             sampling="bernoulli" if mode == "full" else mode)
+
+        def one(run):
+            ck.reset_launch_counts()
+            (wb, h, n), secs = _timed(torch, lambda: run(
+                torch.zeros(b, device="cuda"), Xb, yb, None))
+            return wb, h[:int(n)], secs
+
+        eager = None
+        if capture_check:
+            tgd.CUDA_GRAPHS = False
+            try:
+                eager = one(par.dp_mp_run_fn(g, u, cfg, m2))
+            finally:
+                tgd.CUDA_GRAPHS = True
         run = par.dp_mp_run_fn(g, u, cfg, m2)
-        ck.reset_launch_counts()
-        (wb, h, n), secs = _timed(torch, lambda: run(
-            torch.zeros(b, device="cuda"), Xb, yb, None))
+        wb, h, secs = one(run)
         w = par.gather_model(m2, wb).reshape(-1)
         res["full"][mode] = {"launches": ck.launch_counts(),
                              "products": ck.model_axis_product_counts(),
                              "ms_per_iteration": 1e3 * secs / MESH_ITERS}
+        if capture_check:
+            again = [one(run) for _ in range(2)]
+            runner = run.cache["runner"]
+            same = all(torch.equal(r[0], eager[0]) and torch.equal(r[1],
+                                                                   eager[1])
+                       for r in [(wb, h)] + again)
+            res["full"][mode].update(
+                captured_equals_eager_bitwise=same,
+                replays=runner.replays, capture=runner.capture,
+                eager_ms_per_iteration=1e3 * eager[2] / MESH_ITERS,
+                replayed_ms_per_iteration=1e3 * again[-1][2] / MESH_ITERS,
+                replayed_launches=ck.launch_counts(),
+                replayed_products=ck.model_axis_product_counts())
+            # no graph holding a collective outlives its mode
+            run.cache.clear()
         arrays[f"e_full_{mode}_w"] = w.cpu().numpy()
-        arrays[f"e_full_{mode}_h"] = h[:int(n)].cpu().numpy()
+        arrays[f"e_full_{mode}_h"] = h.cpu().numpy()
         arrays[f"e_block_{mode}_w"] = wb.cpu().numpy()
     combine = {}
     for name, length in (("full_batch", rows), ("window", round(FRAC * rows))):
@@ -6220,6 +6452,94 @@ def lbfgs_rank_order_reference(torch, tst, blocks, stats=False):
     return opt._qn_loop(w0, cost1, sweep1, None)
 
 
+def mesh_2d_checks(torch, tst, X, y, reports, arrays, shape=MESH2D) -> dict:
+    """(e)'s bitwise half in the parent, after the ranks of the ``shape``
+    mesh ran ``mesh_rank_2d`` (``reports``: their ``"e"`` reports,
+    ``arrays``: their arrays, rank order): per rank no fused-kernel launch
+    and two library products an iteration (and, where the ranks checked
+    it, captured = eager with 3 replays); every rank's whole weights equal
+    to its data row's first rank's and its block to its model column's;
+    rank 0's runs on the prefix and on the whole blocks bitwise the
+    one-process 2-D rank-order sum of the same rows of ``X``, ``y`` (the
+    10M rows as phase ``mesh`` makes them).  Returns the report."""
+    a0 = arrays[0]
+    n_data, n_model = shape
+    rows2 = FULL_ROWS // n_data
+    for r, e in enumerate(reports):
+        for where in ("prefix", "full"):
+            for mode, run in e[where].items():
+                check(not any(run["launches"].values())
+                      and run["products"] == 2 * MESH_ITERS,
+                      f"mesh 2-D {where} {mode} rank {r}: launches "
+                      f"{run['launches']}, {run['products']} products")
+                if "captured_equals_eager_bitwise" in run:
+                    check(run["captured_equals_eager_bitwise"]
+                          and run["replays"] == (3 if run["capture"] else 0),
+                          f"mesh 2-D {mode} rank {r}: captured "
+                          f"{run['captured_equals_eager_bitwise']}, "
+                          f"{run['replays']} replays")
+    for r, a in enumerate(arrays):
+        peer = arrays[r - r % n_model]  # the first rank of its data row
+        for mode in ("full", "bernoulli", "sliced"):
+            col = arrays[r % n_model][f"e_block_{mode}_w"]
+            check(np.array_equal(a[f"e_block_{mode}_w"], col),
+                  f"mesh 2-D {mode}: rank {r}'s block differs from its "
+                  "model column's")
+            check(np.array_equal(a[f"e_full_{mode}_w"],
+                                 peer[f"e_full_{mode}_w"]),
+                  f"mesh 2-D {mode}: rank {r}'s weights differ")
+    e_out = {"mesh": list(shape), "prefix_bitwise_rank_order_sum": {},
+             "full_bitwise_rank_order_sum": {}}
+    prefix = [(X[s * rows2:s * rows2 + MESH2D_PREFIX_ROWS],
+               y[s * rows2:s * rows2 + MESH2D_PREFIX_ROWS])
+              for s in range(n_data)]
+    full = [(X[s * rows2:(s + 1) * rows2], y[s * rows2:(s + 1) * rows2])
+            for s in range(n_data)]
+    for mode in ("full", "bernoulli", "sliced"):
+        for key, shards in (("prefix", prefix), ("full", full)):
+            w, h = rank_order_reference_2d(torch, tst, shards, mode,
+                                           n_model=n_model)
+            same = (np.array_equal(a0[f"e_{key}_{mode}_w"], w.cpu().numpy())
+                    and np.array_equal(a0[f"e_{key}_{mode}_h"], h))
+            check(same, f"mesh 2-D {key} {mode}: not the one-process "
+                  "rank-order sum")
+            e_out[f"{key}_bitwise_rank_order_sum"][mode] = same
+            del w
+        torch.cuda.empty_cache()
+    r0 = reports[0]
+    e_out.update(
+        ms_per_iteration_by_rank={mode: [e["full"][mode][
+            "ms_per_iteration"] for e in reports] for mode in r0["full"]},
+        prefix_ms_per_iteration_rank0={
+            mode: r0["prefix"][mode]["ms"] for mode in r0["prefix"]},
+        margin_combine_by_rank={k: [e["margin_combine"][k]["ms"]
+                                    for e in reports]
+                                for k in r0["margin_combine"]},
+        margin_combine_bytes_per_rank={
+            k: v["bytes_per_rank"] for k, v in r0["margin_combine"].items()},
+        launches_dense=0, products_per_iteration=2)
+    return e_out
+
+
+def mesh_lbfgs_checks(torch, tst, reports, a0, blocks) -> bool:
+    """(f)'s bitwise half in the parent: per rank (``reports``: the ranks'
+    ``"f"`` reports) two runs bitwise and one B1 launch a cost evaluation
+    by the window route; rank 0's run (``a0``) bitwise the one-process
+    rank-order reference over ``blocks``, the ranks' rows."""
+    for r, f in enumerate(reports):
+        check(f["repeat_bitwise"], f"mesh L-BFGS rank {r}: two runs differ")
+        check(f["b1_launches"] == f["cost_evaluations"]
+              and f["b1_routes"]["window"] == f["cost_evaluations"],
+              f"mesh L-BFGS rank {r}: {f['b1_launches']} B1 launches "
+              f"({f['b1_routes']}) for {f['cost_evaluations']} cost "
+              "evaluations")
+    w, h = lbfgs_rank_order_reference(torch, tst, blocks)
+    same = (np.array_equal(a0["f_w"], w.cpu().numpy())
+            and np.array_equal(a0["f_h"], h))
+    check(same, "mesh L-BFGS: not the one-process rank-order sum")
+    return same
+
+
 def mesh_resident_checks(torch, tst, ck, X, y, blocks, reports, arrays,
                          single, objective, sparse_owlqn):
     """The parent's side of (e)-(i), after the rank job (the ranks' memory
@@ -6232,45 +6552,12 @@ def mesh_resident_checks(torch, tst, ck, X, y, blocks, reports, arrays,
     from tpu_sgd_torch.optimize import normal
 
     a0, out = arrays[0], {}
-    n_data, n_model = MESH2D
-    rows2 = FULL_ROWS // n_data
     dev = "cuda"
     # (e) the 2-D mesh
-    for rep in reports:
-        e = rep["e"]
-        for where in ("prefix", "full"):
-            for mode, r in e[where].items():
-                check(not any(r["launches"].values())
-                      and r["products"] == 2 * MESH_ITERS,
-                      f"mesh 2-D {where} {mode} rank {rep['rank']}: "
-                      f"launches {r['launches']}, {r['products']} products")
-    for r, a in enumerate(arrays):
-        peer = arrays[r - r % n_model]  # the first rank of its data row
-        for mode in ("full", "bernoulli", "sliced"):
-            col = arrays[r % n_model][f"e_block_{mode}_w"]
-            check(np.array_equal(a[f"e_block_{mode}_w"], col),
-                  f"mesh 2-D {mode}: rank {r}'s block differs from its "
-                  "model column's")
-            check(np.array_equal(a[f"e_full_{mode}_w"],
-                                 peer[f"e_full_{mode}_w"]),
-                  f"mesh 2-D {mode}: rank {r}'s weights differ")
-    e_out = {"prefix_bitwise_rank_order_sum": {},
-             "full_bitwise_rank_order_sum": {}, "objective_ratio": {}}
-    prefix = [(X[s * rows2:s * rows2 + MESH2D_PREFIX_ROWS],
-               y[s * rows2:s * rows2 + MESH2D_PREFIX_ROWS])
-              for s in range(n_data)]
-    full = [(X[s * rows2:(s + 1) * rows2], y[s * rows2:(s + 1) * rows2])
-            for s in range(n_data)]
+    e_out = mesh_2d_checks(torch, tst, X, y, [rep["e"] for rep in reports],
+                           arrays)
+    e_out["objective_ratio"] = {}
     for mode in ("full", "bernoulli", "sliced"):
-        for key, shards in (("prefix", prefix), ("full", full)):
-            w, h = rank_order_reference_2d(torch, tst, shards, mode)
-            same = (np.array_equal(a0[f"e_{key}_{mode}_w"], w.cpu().numpy())
-                    and np.array_equal(a0[f"e_{key}_{mode}_h"], h))
-            check(same, f"mesh 2-D {key} {mode}: not the one-process "
-                  "rank-order sum")
-            e_out[f"{key}_bitwise_rank_order_sum"][mode] = same
-            del w
-        torch.cuda.empty_cache()
         ours = ls_objective_exact(torch, X, y, torch.as_tensor(
             a0[f"e_full_{mode}_w"], device=dev))
         ref = objective["full" if mode == "full" else mode]
@@ -6283,33 +6570,10 @@ def mesh_resident_checks(torch, tst, ck, X, y, blocks, reports, arrays,
     check(e_out["full_batch_first_loss_rel"] <= MESH_HISTORY_RTOL
           and e_out["full_batch_history_max_rel"] <= MESH_FULL_HISTORY_RTOL,
           f"mesh 2-D full batch against one device: {e_out}")
-    r0 = reports[0]["e"]
-    e_out.update(
-        ms_per_iteration_by_rank={mode: [rep["e"]["full"][mode][
-            "ms_per_iteration"] for rep in reports] for mode in r0["full"]},
-        prefix_ms_per_iteration_rank0={
-            mode: r0["prefix"][mode]["ms"] for mode in r0["prefix"]},
-        margin_combine_by_rank={k: [rep["e"]["margin_combine"][k]["ms"]
-                                    for rep in reports]
-                                for k in r0["margin_combine"]},
-        margin_combine_bytes_per_rank={
-            k: v["bytes_per_rank"] for k, v in r0["margin_combine"].items()},
-        launches_dense=0, products_per_iteration=2)
     out["e"] = e_out
     # (f) meshed L-BFGS
-    for rep in reports:
-        f = rep["f"]
-        check(f["repeat_bitwise"], f"mesh L-BFGS rank {rep['rank']}: two "
-              "runs differ")
-        check(f["b1_launches"] == f["cost_evaluations"]
-              and f["b1_routes"]["window"] == f["cost_evaluations"],
-              f"mesh L-BFGS rank {rep['rank']}: {f['b1_launches']} B1 "
-              f"launches ({f['b1_routes']}) for {f['cost_evaluations']} "
-              "cost evaluations")
-    w, h = lbfgs_rank_order_reference(torch, tst, blocks)
-    f_same = (np.array_equal(a0["f_w"], w.cpu().numpy())
-              and np.array_equal(a0["f_h"], h))
-    check(f_same, "mesh L-BFGS: not the one-process rank-order sum")
+    f_same = mesh_lbfgs_checks(torch, tst, [rep["f"] for rep in reports],
+                               a0, blocks)
     ws, hs = _mesh_lbfgs(tst).optimize_with_history(
         (X, y), torch.zeros(FULL_D, device=dev))
     check(len(hs) == len(a0["f_h"]), f"mesh L-BFGS: {len(a0['f_h'])} "
@@ -6463,7 +6727,7 @@ def mesh_resident_checks(torch, tst, ck, X, y, blocks, reports, arrays,
 
 MESH_STREAM_PREFIX = 1_000_000  # host rows of the bitwise contracts
 MESH_STREAM_ITERS = 10          # a bitwise run
-MESH_STREAM_TIMING_ITERS = 3    # (j)'s timing runs, cut in depth for time
+MESH_STREAM_TIMING_ITERS = 2    # (j)'s timing runs (3 until PR 21)
 MESH_STREAM_STOP_ITERS = 20     # the stop-and-resume runs (stop at 13)
 MESH_TOPK = "topk:0.01"
 # full batch on the prefix: error feedback at 1% of the coordinates meets
@@ -6611,111 +6875,11 @@ def _part_end(torch, start) -> dict:
                                           else p1 - p0)}
 
 
-def mesh_rank_streamed(torch, tst, ck, par, mesh, out_dir):
-    """A rank's (j)-(m) over phase ``streamed``'s 10M x 1000 bf16 host
-    rows, mapped from the parent's memfd (``streamed.json`` names it): the
-    rank passes the WHOLE host dataset and streams its share.  (j) SGD:
-    Bernoulli and sliced at ``FRAC`` over the 10M rows, timed; on the
-    first ``MESH_STREAM_PREFIX`` rows every mode's run, again, at
-    prefetch depth 0 and at K = 8, and a stop at 13 with its resume.  (k)
-    The compressed wire: a prefix run, K = 8, the stop and its EF resume,
-    full batch on the prefix on both wires for the matched objective, the
-    compressed combine timed.  (l) L-BFGS and OWL-QN through the streamed
-    CostFun, as phase ``streamed_qn`` (a) and (b), L-BFGS twice.  (m) The
-    streamed statistics (the build against this rank's resident build of
-    its slice; the virtual run twice; a resumed prefix build), the totals
-    dense and compressed, L-BFGS from them, the streamed normal
-    equations.  Returns ``(report, arrays)``."""
-    from tpu_sgd_torch.io.sparse_wire import topk_nnz
-    from tpu_sgd_torch.io.wire import host_tensor
-    from tpu_sgd_torch.parallel.mesh import combine_topk
-    from tpu_sgd_torch.reliability import failpoints as fp
-
-    with open(os.path.join(out_dir, "streamed.json")) as f:
-        spec = json.load(f)
-    n, d = spec["shape"]
-    Xh = torch.from_file(f"/proc/self/fd/{spec['fd']}", shared=True,
-                         size=n * d, dtype=torch.bfloat16).view(n, d)
-    ys = {k: host_tensor(np.load(os.path.join(out_dir, f"{k}.npy"),
-                                 mmap_mode="r"))
-          for k in ("y", "y_ls", "y_log")}
-    rank, world = mesh.rank, mesh.size
-    w0 = torch.zeros(d, device="cuda")
-    res, arrays = {"host_at_start": _proc_status()}, {}
-    P = MESH_STREAM_PREFIX
-    Xp, yp = Xh[:P], ys["y"][:P]
-
-    # (j) streamed SGD
-    start = _part_start(torch)
-    j = {"timing": {}, "prefix": {}}
-    for mode in ("bernoulli", "sliced"):
-        opt = _stream_mesh_opt(tst, mesh, mode, FRAC,
-                               MESH_STREAM_TIMING_ITERS)
-        ck.reset_launch_counts()
-        (w, h), secs = _timed(torch, lambda: opt.optimize_with_history(
-            (Xh, ys["y"]), w0))
-        j["timing"][mode] = {
-            "ms_per_iteration": 1e3 * secs / MESH_STREAM_TIMING_ITERS,
-            "launches": ck.launch_counts(),
-            "routes": ck.gradient_route_counts(),
-            "loss_first": float(h[0]), "loss_last": float(h[-1])}
-    j["combine_ms"] = _combine_ms(torch, par, mesh, reps=20)
-    for mode in ("bernoulli", "indexed", "sliced", "full"):
-        runs = {}
-        for key, kw in (("first", {}), ("again", {}), ("depth0", {"depth": 0}),
-                        ("k8", {"k": 8})):
-            runs[key] = _stream_mesh_opt(
-                tst, mesh, mode, _mode_frac(mode), MESH_STREAM_ITERS,
-                **kw).optimize_with_history((Xp, yp), w0)
-        j["prefix"][mode] = {key: _same_run(torch, runs["first"], runs[key])
-                             for key in ("again", "depth0", "k8")}
-        arrays[f"j_{mode}_w"] = runs["first"][0].cpu().numpy()
-        arrays[f"j_{mode}_h"] = runs["first"][1]
-    j["stop"] = _stream_stop_resume(torch, tst, mesh, Xp, yp, w0,
-                                    os.path.join(out_dir, "ck_j"))
-    res["j"] = {**j, **_part_end(torch, start)}
-
-    # (k) the compressed wire
-    start = _part_start(torch)
-    kp = {}
-    first = _stream_mesh_opt(tst, mesh, "bernoulli", FRAC, MESH_STREAM_ITERS,
-                             wc=MESH_TOPK).optimize_with_history((Xp, yp),
-                                                                 w0)
-    k8 = _stream_mesh_opt(tst, mesh, "bernoulli", FRAC, MESH_STREAM_ITERS,
-                          k=8, wc=MESH_TOPK).optimize_with_history((Xp, yp),
-                                                                   w0)
-    kp["k8_bitwise"] = _same_run(torch, first, k8)
-    arrays["k_w"], arrays["k_h"] = first[0].cpu().numpy(), first[1]
-    kp["stop"] = _stream_stop_resume(torch, tst, mesh, Xp, yp, w0,
-                                     os.path.join(out_dir, "ck_k"),
-                                     wc=MESH_TOPK)
-    for wire, wc in (("dense", None), ("topk", MESH_TOPK)):
-        opt = _stream_mesh_opt(tst, mesh, "full", 1.0, MESH_TOPK_ITERS, k=8,
-                               wc=wc)
-        (w, h), secs = _timed(torch, lambda: opt.optimize_with_history(
-            (Xp, yp), w0))
-        kp[f"full_{wire}_ms_per_iteration"] = 1e3 * secs / MESH_TOPK_ITERS
-        arrays[f"k_full_{wire}_w"] = w.cpu().numpy()
-        arrays[f"k_full_{wire}_h"] = h
-    kk = topk_nnz(d, float(MESH_TOPK.split(":")[1]))
-    kp["k"] = kk
-    # each rank's bytes on the wire an iteration: the loss and count (two
-    # f32) and its segment (k f32 values, k int32 indices), beside the
-    # dense combine's d + 2 f32
-    kp["gathered_bytes_per_rank_iteration"] = {
-        "topk": 8 + 8 * kk, "dense": 4 * (d + 2)}
-    gen = torch.Generator(device="cuda").manual_seed(41 + rank)
-    vals = torch.randn(kk, generator=gen, device="cuda")
-    idx = torch.randperm(d, generator=gen, device="cuda")[:kk]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(20):
-        combine_topk(mesh, vals, idx, d)
-    torch.cuda.synchronize()
-    kp["combine_topk_ms"] = 1e3 * (time.perf_counter() - t) / 20
-    res["k"] = {**kp, **_part_end(torch, start)}
-
-    # (l) L-BFGS and OWL-QN through the streamed CostFun
+def mesh_rank_streamed_qn(torch, tst, ck, mesh, Xh, y_log, w0):
+    """A rank's (l): L-BFGS (twice) and OWL-QN, logistic, through the
+    streamed CostFun over the host rows ``Xh`` (every rank passes them
+    whole and streams its share).  Returns ``(report, arrays)``."""
+    arrays = {}
     start = _part_start(torch)
     lp = {"runs": []}
     for _ in range(2):
@@ -6725,7 +6889,7 @@ def mesh_rank_streamed(torch, tst, ck, par, mesh, out_dir):
             .set_mesh(mesh).set_host_streaming(True)
         ck.reset_launch_counts()
         (w, h), secs = _timed(torch, lambda: opt.optimize_with_history(
-            (Xh, ys["y_log"]), w0))
+            (Xh, y_log), w0))
         scf = opt._stream_costfun_entry[2]
         partial = sum(1 for s, e in map(scf._span, range(scf.n_chunks))
                       if e - s < scf.share)
@@ -6747,16 +6911,28 @@ def mesh_rank_streamed(torch, tst, ck, par, mesh, out_dir):
         tst.LogisticGradient(), reg_param=1e-4, convergence_tol=0.0,
         max_num_iterations=STREAMED_OWLQN_ITERS).set_mesh(mesh)
         .set_host_streaming(True).optimize_with_history(
-            (Xh[:rows], ys["y_log"][:rows]), w0))
+            (Xh[:rows], y_log[:rows]), w0))
     lp["owlqn_seconds"] = secs
     arrays["l_owlqn_w"], arrays["l_owlqn_h"] = w.cpu().numpy(), h
-    res["l"] = {**lp, **_part_end(torch, start)}
+    return {**lp, **_part_end(torch, start)}, arrays
 
-    # (m) streamed statistics and totals
+
+def mesh_rank_streamed_stats(torch, tst, ck, par, mesh, Xh, y_ls, w0,
+                             out_dir, P):
+    """A rank's (m): the streamed statistics over the host rows ``Xh`` (the
+    build against this rank's resident build of its slice; the virtual
+    run twice; a resumed build of the first ``P`` rows), the totals dense
+    and compressed, L-BFGS from them, the streamed normal equations.
+    Returns ``(report, arrays)``."""
+    from tpu_sgd_torch.reliability import failpoints as fp
+
+    rank, world = mesh.rank, mesh.size
+    n = Xh.shape[0]
+    Xp = Xh[:P]
+    arrays = {}
     start = _part_start(torch)
     mp = {}
     B = GRAM_BLOCK
-    y_ls = ys["y_ls"]
 
     def gd():
         return (tst.GradientDescent().set_step_size(0.5)
@@ -6836,7 +7012,120 @@ def mesh_rank_streamed(torch, tst, ck, par, mesh, out_dir):
                      .set_host_streaming(True).optimize((Xh, y_ls), w0))
     mp["normal_seconds"] = secs
     arrays["m_normal_w"] = w.cpu().numpy()
-    res["m"] = {**mp, **_part_end(torch, start)}
+    return {**mp, **_part_end(torch, start)}, arrays
+
+def mesh_rank_streamed(torch, tst, ck, par, mesh, out_dir):
+    """A rank's (j)-(m) over phase ``streamed``'s 10M x 1000 bf16 host
+    rows, mapped from the parent's memfd (``streamed.json`` names it): the
+    rank passes the WHOLE host dataset and streams its share.  (j) SGD:
+    Bernoulli and sliced at ``FRAC`` over the 10M rows, timed; on the
+    first ``MESH_STREAM_PREFIX`` rows every mode's run, again, at
+    prefetch depth 0 and at K = 8, and a stop at 13 with its resume.  (k)
+    The compressed wire: a prefix run, K = 8, the stop and its EF resume,
+    full batch on the prefix on both wires for the matched objective, the
+    compressed combine timed.  (l) L-BFGS and OWL-QN through the streamed
+    CostFun, as phase ``streamed_qn`` (a) and (b), L-BFGS twice.  (m) The
+    streamed statistics (the build against this rank's resident build of
+    its slice; the virtual run twice; a resumed prefix build), the totals
+    dense and compressed, L-BFGS from them, the streamed normal
+    equations.  Returns ``(report, arrays)``."""
+    from tpu_sgd_torch.io.sparse_wire import topk_nnz
+    from tpu_sgd_torch.io.wire import host_tensor
+    from tpu_sgd_torch.parallel.mesh import combine_topk
+
+    with open(os.path.join(out_dir, "streamed.json")) as f:
+        spec = json.load(f)
+    n, d = spec["shape"]
+    Xh = torch.from_file(f"/proc/self/fd/{spec['fd']}", shared=True,
+                         size=n * d, dtype=torch.bfloat16).view(n, d)
+    ys = {k: host_tensor(np.load(os.path.join(out_dir, f"{k}.npy"),
+                                 mmap_mode="r"))
+          for k in ("y", "y_ls", "y_log")}
+    rank = mesh.rank
+    w0 = torch.zeros(d, device="cuda")
+    res, arrays = {"host_at_start": _proc_status()}, {}
+    P = MESH_STREAM_PREFIX
+    Xp, yp = Xh[:P], ys["y"][:P]
+
+    # (j) streamed SGD
+    start = _part_start(torch)
+    j = {"timing": {}, "prefix": {}}
+    for mode in ("bernoulli", "sliced"):
+        opt = _stream_mesh_opt(tst, mesh, mode, FRAC,
+                               MESH_STREAM_TIMING_ITERS)
+        ck.reset_launch_counts()
+        (w, h), secs = _timed(torch, lambda: opt.optimize_with_history(
+            (Xh, ys["y"]), w0))
+        j["timing"][mode] = {
+            "ms_per_iteration": 1e3 * secs / MESH_STREAM_TIMING_ITERS,
+            "launches": ck.launch_counts(),
+            "routes": ck.gradient_route_counts(),
+            "loss_first": float(h[0]), "loss_last": float(h[-1])}
+    j["combine_ms"] = _combine_ms(torch, par, mesh, reps=20)
+    for mode in ("bernoulli", "indexed", "sliced", "full"):
+        runs = {}
+        for key, kw in (("first", {}), ("again", {}), ("depth0", {"depth": 0}),
+                        ("k8", {"k": 8})):
+            runs[key] = _stream_mesh_opt(
+                tst, mesh, mode, _mode_frac(mode), MESH_STREAM_ITERS,
+                **kw).optimize_with_history((Xp, yp), w0)
+        j["prefix"][mode] = {key: _same_run(torch, runs["first"], runs[key])
+                             for key in ("again", "depth0", "k8")}
+        arrays[f"j_{mode}_w"] = runs["first"][0].cpu().numpy()
+        arrays[f"j_{mode}_h"] = runs["first"][1]
+    j["stop"] = _stream_stop_resume(torch, tst, mesh, Xp, yp, w0,
+                                    os.path.join(out_dir, "ck_j"))
+    res["j"] = {**j, **_part_end(torch, start)}
+
+    # (k) the compressed wire
+    start = _part_start(torch)
+    kp = {}
+    first = _stream_mesh_opt(tst, mesh, "bernoulli", FRAC, MESH_STREAM_ITERS,
+                             wc=MESH_TOPK).optimize_with_history((Xp, yp),
+                                                                 w0)
+    k8 = _stream_mesh_opt(tst, mesh, "bernoulli", FRAC, MESH_STREAM_ITERS,
+                          k=8, wc=MESH_TOPK).optimize_with_history((Xp, yp),
+                                                                   w0)
+    kp["k8_bitwise"] = _same_run(torch, first, k8)
+    arrays["k_w"], arrays["k_h"] = first[0].cpu().numpy(), first[1]
+    kp["stop"] = _stream_stop_resume(torch, tst, mesh, Xp, yp, w0,
+                                     os.path.join(out_dir, "ck_k"),
+                                     wc=MESH_TOPK)
+    for wire, wc in (("dense", None), ("topk", MESH_TOPK)):
+        opt = _stream_mesh_opt(tst, mesh, "full", 1.0, MESH_TOPK_ITERS, k=8,
+                               wc=wc)
+        (w, h), secs = _timed(torch, lambda: opt.optimize_with_history(
+            (Xp, yp), w0))
+        kp[f"full_{wire}_ms_per_iteration"] = 1e3 * secs / MESH_TOPK_ITERS
+        arrays[f"k_full_{wire}_w"] = w.cpu().numpy()
+        arrays[f"k_full_{wire}_h"] = h
+    kk = topk_nnz(d, float(MESH_TOPK.split(":")[1]))
+    kp["k"] = kk
+    # each rank's bytes on the wire an iteration: the loss and count (two
+    # f32) and its segment (k f32 values, k int32 indices), beside the
+    # dense combine's d + 2 f32
+    kp["gathered_bytes_per_rank_iteration"] = {
+        "topk": 8 + 8 * kk, "dense": 4 * (d + 2)}
+    gen = torch.Generator(device="cuda").manual_seed(41 + rank)
+    vals = torch.randn(kk, generator=gen, device="cuda")
+    idx = torch.randperm(d, generator=gen, device="cuda")[:kk]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        combine_topk(mesh, vals, idx, d)
+    torch.cuda.synchronize()
+    kp["combine_topk_ms"] = 1e3 * (time.perf_counter() - t) / 20
+    res["k"] = {**kp, **_part_end(torch, start)}
+
+    # (l) L-BFGS and OWL-QN through the streamed CostFun
+    res["l"], l_arrays = mesh_rank_streamed_qn(torch, tst, ck, mesh, Xh,
+                                               ys["y_log"], w0)
+    arrays.update(l_arrays)
+
+    # (m) streamed statistics and totals
+    res["m"], m_arrays = mesh_rank_streamed_stats(
+        torch, tst, ck, par, mesh, Xh, ys["y_ls"], w0, out_dir, P)
+    arrays.update(m_arrays)
     return res, arrays
 
 
@@ -6925,6 +7214,89 @@ def _totals_objective(G, b, yy, n, w) -> float:
                   + float(np.asarray(yy).reshape(-1)[0])) / (2 * n))
 
 
+def mesh_streamed_qn_checks(torch, tst, Xh, yh_ls, reports, arrays,
+                            qn_refs) -> dict:
+    """(l) and (m) in the parent, after the job (``reports``: the ranks'
+    ``"streamed"`` reports, ``arrays``: their arrays): per rank the
+    CostFun's B1 launches (chunks x cost evaluations, by route) and its
+    two runs bitwise, the statistics' stack equal to the rank's resident
+    build, the virtual run twice, the resumed build, no fused launch, the
+    compressed merge within ``MESH_TOTALS_RTOL`` of the dense; L-BFGS and
+    OWL-QN against ``qn_refs``' one-device histories; the virtual run
+    bitwise its one-process rank-order reference; L-BFGS from the totals
+    and the normal equations against ``qn_refs``' one-device results.
+    Returns ``{"l": ..., "m": ...}``."""
+    world = len(reports)
+    a0, out = arrays[0], {}
+    n = Xh.shape[0]
+    for r, s in enumerate(reports):
+        for part in ("l", "m"):
+            grew = s[part]["host_rss_growth_bytes"]
+            check(grew < MESH_HOST_GROWTH_LIMIT,
+                  f"mesh ({part}) rank {r}: resident host memory grew by "
+                  f"{grew} bytes")
+        for run in s["l"]["runs"]:
+            evals, chunks = run["cost_evaluations"], run["chunks"]
+            masked = run["partial_shares"] * evals
+            check(run["launches"]["fused_gradient_sums"] == chunks * evals
+                  and run["routes"]["window"] == chunks * evals - masked
+                  and run["routes"]["gather"] == masked
+                  and run["routes"]["fused_sums"] == 0,
+                  f"mesh (l) rank {r}: {run}")
+        check(s["l"]["repeat_bitwise"], f"mesh (l) rank {r}: two runs "
+              "differ")
+        m = s["m"]
+        check(m["stack_equals_resident_bitwise"] and m["repeat_bitwise"]
+              and m["resume_stopped"] and m["resumed_bitwise"]
+              and not any(m["launches"].values()),
+              f"mesh (m) rank {r}: {m}")
+        check(m["compressed_max_abs_over_scale"] <= MESH_TOTALS_RTOL,
+              f"mesh (m) rank {r}: the compressed merge is "
+              f"{m['compressed_max_abs_over_scale']} from the dense")
+    # (l) against phase streamed_qn (a) and (b)
+    l_rel = _rel_max(a0["l_h"], qn_refs["a_history"])
+    check(len(a0["l_h"]) == len(qn_refs["a_history"])
+          and l_rel <= MESH_HISTORY_RTOL,
+          f"mesh (l) L-BFGS: history {l_rel} from streamed_qn (a)")
+    o_rel = _rel_max(a0["l_owlqn_h"], qn_refs["b_history"])
+    check(len(a0["l_owlqn_h"]) == len(qn_refs["b_history"])
+          and o_rel <= MESH_HISTORY_RTOL,
+          f"mesh (l) OWL-QN: history {o_rel} from streamed_qn (b)")
+    out["l"] = {"lbfgs_history_max_rel": l_rel,
+                "owlqn_history_max_rel": o_rel}
+    # (m) the virtual run against its rank-order reference, the results
+    # against one device's streamed ones
+    n_local = n // world
+    n_used = (n_local // GRAM_BLOCK) * GRAM_BLOCK
+    grams = [tst.GramLeastSquaresGradient.build_streamed(
+        Xh[r * n_local:r * n_local + n_used],
+        yh_ls[r * n_local:r * n_local + n_used], block_rows=GRAM_BLOCK)
+        for r in range(world)]
+    w, h = rank_order_reference(
+        torch, tst, [(g.data, yh_ls[r * n_local:r * n_local + n_used]
+                      .to("cuda")) for r, g in enumerate(grams)],
+        "sliced", grads=grams)
+    m_same = (np.array_equal(a0["m_w"], w.cpu().numpy())
+              and np.array_equal(a0["m_h"], h))
+    check(m_same, "mesh (m): the virtual run is not the rank-order sum")
+    del grams
+    torch.cuda.empty_cache()
+    L = {key: _totals_objective(a0["m_G"], a0["m_b"], a0["m_yy"], n, wv)
+         for key, wv in (("mesh", a0["m_lbfgs_w"]),
+                         ("one_device", qn_refs["c_lbfgs_w"]))}
+    lb_ratio = L["mesh"] / L["one_device"]
+    check(abs(lb_ratio - 1) <= MESH_STREAMED_QN_RTOL,
+          f"mesh (m) L-BFGS from the totals: {lb_ratio} of one device's")
+    w1 = qn_refs["e_normal_w"]
+    ne_rel = float(np.abs(a0["m_normal_w"] - w1).max() / np.abs(w1).max())
+    check(ne_rel <= MESH_STREAMED_QN_RTOL,
+          f"mesh (m) normal equations: {ne_rel} from one device")
+    out["m"] = {"rank_order_bitwise": m_same, "lbfgs_objective": L,
+                "lbfgs_objective_ratio": lb_ratio,
+                "normal_max_abs_over_scale": ne_rel}
+    return out
+
+
 def mesh_streamed_checks(torch, tst, ck, Xh, yh, yh_ls, reports, arrays,
                          qn_refs):
     """The parent's side of (j)-(m), after the job: the one-process
@@ -6943,7 +7315,7 @@ def mesh_streamed_checks(torch, tst, ck, Xh, yh, yh_ls, reports, arrays,
     out = {"ranks": world}
     for rep in reports:
         s = rep["streamed"]
-        for part in ("j", "k", "l", "m"):
+        for part in ("j", "k"):
             grew = s[part]["host_rss_growth_bytes"]
             check(grew < MESH_HOST_GROWTH_LIMIT,
                   f"mesh ({part}) rank {rep['rank']}: resident host memory "
@@ -6963,24 +7335,6 @@ def mesh_streamed_checks(torch, tst, ck, Xh, yh, yh_ls, reports, arrays,
                   and st["resumed_bitwise"],
                   f"mesh ({part}) rank {rep['rank']}: stop {st}")
         check(s["k"]["k8_bitwise"], f"mesh (k) rank {rep['rank']}: K = 8")
-        for run in s["l"]["runs"]:
-            evals, chunks = run["cost_evaluations"], run["chunks"]
-            masked = run["partial_shares"] * evals
-            check(run["launches"]["fused_gradient_sums"] == chunks * evals
-                  and run["routes"]["window"] == chunks * evals - masked
-                  and run["routes"]["gather"] == masked
-                  and run["routes"]["fused_sums"] == 0,
-                  f"mesh (l) rank {rep['rank']}: {run}")
-        check(s["l"]["repeat_bitwise"], f"mesh (l) rank {rep['rank']}: two "
-              "runs differ")
-        m = s["m"]
-        check(m["stack_equals_resident_bitwise"] and m["repeat_bitwise"]
-              and m["resume_stopped"] and m["resumed_bitwise"]
-              and not any(m["launches"].values()),
-              f"mesh (m) rank {rep['rank']}: {m}")
-        check(m["compressed_max_abs_over_scale"] <= MESH_TOTALS_RTOL,
-              f"mesh (m) rank {rep['rank']}: the compressed merge is "
-              f"{m['compressed_max_abs_over_scale']} from the dense")
     # (j) against the one-process rank-order sum and one device
     j = {"rank_order_bitwise": {}, "vs_single_device": {}}
     for mode in ("bernoulli", "indexed", "sliced", "full"):
@@ -7026,47 +7380,9 @@ def mesh_streamed_checks(torch, tst, ck, Xh, yh, yh_ls, reports, arrays,
           f"objective {obj['topk']} is {k_ratio}x the dense wire's")
     out["k"] = {"rank_order_bitwise": k_same, "objective": obj,
                 "objective_ratio": k_ratio}
-    # (l) against phase streamed_qn (a) and (b)
-    l_rel = _rel_max(a0["l_h"], qn_refs["a_history"])
-    check(len(a0["l_h"]) == len(qn_refs["a_history"])
-          and l_rel <= MESH_HISTORY_RTOL,
-          f"mesh (l) L-BFGS: history {l_rel} from streamed_qn (a)")
-    o_rel = _rel_max(a0["l_owlqn_h"], qn_refs["b_history"])
-    check(len(a0["l_owlqn_h"]) == len(qn_refs["b_history"])
-          and o_rel <= MESH_HISTORY_RTOL,
-          f"mesh (l) OWL-QN: history {o_rel} from streamed_qn (b)")
-    out["l"] = {"lbfgs_history_max_rel": l_rel,
-                "owlqn_history_max_rel": o_rel}
-    # (m) the virtual run against its rank-order reference, the results
-    # against one device's streamed ones
-    n_local = n // world
-    n_used = (n_local // GRAM_BLOCK) * GRAM_BLOCK
-    grams = [tst.GramLeastSquaresGradient.build_streamed(
-        Xh[r * n_local:r * n_local + n_used],
-        yh_ls[r * n_local:r * n_local + n_used], block_rows=GRAM_BLOCK)
-        for r in range(world)]
-    w, h = rank_order_reference(
-        torch, tst, [(g.data, yh_ls[r * n_local:r * n_local + n_used]
-                      .to("cuda")) for r, g in enumerate(grams)],
-        "sliced", grads=grams)
-    m_same = (np.array_equal(a0["m_w"], w.cpu().numpy())
-              and np.array_equal(a0["m_h"], h))
-    check(m_same, "mesh (m): the virtual run is not the rank-order sum")
-    del grams
-    torch.cuda.empty_cache()
-    L = {key: _totals_objective(a0["m_G"], a0["m_b"], a0["m_yy"], n, wv)
-         for key, wv in (("mesh", a0["m_lbfgs_w"]),
-                         ("one_device", qn_refs["c_lbfgs_w"]))}
-    lb_ratio = L["mesh"] / L["one_device"]
-    check(abs(lb_ratio - 1) <= MESH_STREAMED_QN_RTOL,
-          f"mesh (m) L-BFGS from the totals: {lb_ratio} of one device's")
-    w1 = qn_refs["e_normal_w"]
-    ne_rel = float(np.abs(a0["m_normal_w"] - w1).max() / np.abs(w1).max())
-    check(ne_rel <= MESH_STREAMED_QN_RTOL,
-          f"mesh (m) normal equations: {ne_rel} from one device")
-    out["m"] = {"rank_order_bitwise": m_same, "lbfgs_objective": L,
-                "lbfgs_objective_ratio": lb_ratio,
-                "normal_max_abs_over_scale": ne_rel}
+    out.update(mesh_streamed_qn_checks(
+        torch, tst, Xh, yh_ls, [rep["streamed"] for rep in reports], arrays,
+        qn_refs))
     # B1 at the new per-rank shapes
     pw = tst.LeastSquaresGradient().pointwise
     gen = torch.Generator(device="cuda").manual_seed(43)
@@ -7346,7 +7662,8 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile, sparse_owlqn_w,
 SERVE_REQUESTS = 12_000     # single-row requests per model, in all: 8,000
 #                             open loop (cut from 20,000 for the script's time)
 SERVE_CLIENTS = 8           # client threads
-SERVE_CLOSED_LOOP = 4_000   # of them closed loop (the latency run)
+SERVE_CLOSED_LOOP = 2_000   # of them closed loop, the latency run (4,000
+#                             until PR 21: cut for the script's time)
 SERVE_SINGLE = 16           # of those, sent by one client first
 SERVE_RELOADS = 4           # registry versions published mid-traffic
 TENANTS, SLAB_ROWS, ZIPF_S = 10_000, 1_024, 1.1
@@ -7807,33 +8124,71 @@ def _serve_model(torch, ck, name, model, kind, d, rng, size, *,
     return out, log
 
 
-def _tenant_leg(torch, tst, ck, rng, tmp, size):
+class TenantPublish:
+    """Phase ``serve``'s tenant store, its ``size["tenants"]`` checkpoints
+    written by a pool of threads in the background (each publish waits on
+    its fsyncs: the disk sets the pace, 48-103 s on the card's hosts).
+    ``main`` starts it before phase ``mesh``, whose parent only waits for
+    its ranks; the tenant leg waits for it (:meth:`wait`, which re-raises a
+    failed publish) and :meth:`close` removes the directory."""
+
+    def __init__(self, size=None):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from tpu_sgd_torch.tenant import TenantModelStore
+
+        size = dict(SERVE_SIZE, **(size or {}))
+        n_ten = size["tenants"]
+        rng = np.random.default_rng(SERVE_SEED + 1)
+        self.W = rng.normal(size=(n_ten, FULL_D)).astype(np.float32)
+        self.b = rng.normal(size=n_ten).astype(np.float32)
+        self._tmp = tempfile.TemporaryDirectory(prefix="tenants_")
+        self.store = TenantModelStore(
+            os.path.join(self._tmp.name, "tenants"), capacity=size["slab"],
+            d=FULL_D, device=size["device"])
+        self._t0 = time.perf_counter()
+        self._pool = ThreadPoolExecutor(64)
+        self._futures = [self._pool.submit(self.store.publish, i, self.W[i],
+                                           float(self.b[i]))
+                         for i in range(n_ten)]
+        self.seconds = None
+
+    def wait(self) -> float:
+        """Seconds from the start to the last publish's end."""
+        if self.seconds is None:
+            for f in self._futures:
+                f.result()
+            self.seconds = time.perf_counter() - self._t0
+            self._pool.shutdown()
+        return self.seconds
+
+    def close(self) -> None:
+        self._pool.shutdown(cancel_futures=True)
+        self._tmp.cleanup()
+
+
+def _tenant_leg(torch, tst, ck, rng, size, tenants):
     """The tenant plane: ``size["tenants"]`` tenants' checkpoints written
-    first, a ``size["slab"]``-row slab at config 4's width, Zipf(``ZIPF_S``)
+    first (``tenants``, a :class:`TenantPublish`, waited for here), a
+    ``size["slab"]``-row slab at config 4's width, Zipf(``ZIPF_S``)
     traffic through ``TenantServer`` (closed loop, then open loop) while
     the hot tenants are republished.  Every uniform batch is bitwise the
     single-model engine on one version of its tenant, every mixed row
     within tight tolerance of one version of its tenant, the rows of one
     tenant in one batch on one version, every answer its batch's."""
     import threading
-    from concurrent.futures import ThreadPoolExecutor
 
     from tpu_sgd_torch.serve import PredictEngine
-    from tpu_sgd_torch.tenant import (TenantModelStore, TenantPredictEngine,
-                                      TenantServer)
+    from tpu_sgd_torch.tenant import TenantPredictEngine, TenantServer
 
     n_all, n_closed, dev = size["requests"], size["closed"], size["device"]
     n_ten, d = size["tenants"], FULL_D
-    W = rng.normal(size=(n_ten, d)).astype(np.float32)
-    b = rng.normal(size=n_ten).astype(np.float32)
-    store = TenantModelStore(os.path.join(tmp, "tenants"),
-                             capacity=size["slab"], d=d, device=dev)
     t = time.perf_counter()
-    with ThreadPoolExecutor(16) as pool:
-        list(pool.map(lambda i: store.publish(i, W[i], float(b[i])),
-                      range(n_ten)))
+    publish_s = tenants.wait()
+    store, W, b = tenants.store, tenants.W, tenants.b
     out = {"tenants": n_ten, "slab_rows": size["slab"], "width": d,
-           "zipf_s": ZIPF_S, "publish_seconds": time.perf_counter() - t}
+           "zipf_s": ZIPF_S, "publish_seconds": publish_s,
+           "publish_wait_seconds": time.perf_counter() - t}
     versions = {i: [(W[i], float(b[i]))] for i in range(n_ten)}
     p = np.arange(1, n_ten + 1, dtype=np.float64) ** -ZIPF_S
     tids = rng.choice(n_ten, size=n_all, p=p / p.sum())
@@ -7967,13 +8322,14 @@ def _gather_batches(torch, ck, engine, store, log, d):
     return buckets, batch
 
 
-def phase_serve(torch, tst, ck, size=None):
+def phase_serve(torch, tst, ck, size=None, tenants=None):
     """Phase ``serve``: the serving plane (module docstring, phase 13).
     ``size`` (default :data:`SERVE_SIZE`) sets the device, the requests
     a model, the closed-loop share, the tenants and the slab rows; on the
     CPU (a rehearsal) the card's timings and the kernel rows are left
-    out.  Returns the phase's report and the CSR kernel's rows at the
-    serving shapes."""
+    out.  ``tenants``: the :class:`TenantPublish` of the same ``size``
+    started earlier (default: one started here).  Returns the phase's
+    report and the CSR kernel's rows at the serving shapes."""
     from tpu_sgd_torch.serve import ModelRegistry, PredictEngine, stack_rows
     from tpu_sgd_torch.utils import CheckpointManager
 
@@ -8041,7 +8397,12 @@ def phase_serve(torch, tst, ck, size=None):
                  report[name]["batch"]) = _dense_batches(
                     torch, ck, engine, model, kind, d, rng)
         t = time.perf_counter()
-        report["tenant"] = _tenant_leg(torch, tst, ck, rng, tmp, size)
+        tenants = tenants or TenantPublish(size)
+        try:
+            report["tenant"] = _tenant_leg(torch, tst, ck, rng, size,
+                                           tenants)
+        finally:
+            tenants.close()
         report["tenant"]["seconds"] = time.perf_counter() - t
         emit({"phase": "serve", "model": "tenant",
               **{k: v for k, v in report["tenant"].items()
@@ -8398,6 +8759,19 @@ def phase_scenario(torch, tst, ck, lint):
     return out, rows
 
 
+class PhaseClock:
+    """Seconds of each phase of the run, from one mark to the next."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self.last
+        self.last = now
+
+
 def bernoulli_rows(n: int) -> int:
     """The Bernoulli row cap of the streamed drivers at ``FRAC``."""
     from tpu_sgd_torch.optimize.streamed import bernoulli_cap
@@ -8431,6 +8805,7 @@ def main() -> int:
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
+    clock = PhaseClock()
     emit({"phase": "device", "kind": kind,
           "visible_count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__,
@@ -8450,6 +8825,7 @@ def main() -> int:
           "sources": sources})
     check(sources["window_sums"]["max_spill_bytes"] in (None, 0),
           f"window_sums.cu spills: {sources['window_sums']}")
+    clock.mark("build")
 
     grads = {"least_squares": tst.LeastSquaresGradient(),
              "logistic": tst.LogisticGradient(),
@@ -8458,10 +8834,14 @@ def main() -> int:
     cases, worst = phase_kernels(torch, ck, grads)
     emit({"phase": "kernels", "cases": cases, "max_abs_err": worst,
           "seconds": time.perf_counter() - t})
+    clock.mark("kernels")
 
     X, y, w_true, launches, sliced_ref = phase_full(torch, tst, ck)
+    clock.mark("full")
     profile = phase_profile(torch, tst, ck, X, y)
+    clock.mark("profile")
     rows = phase_timing(torch, tst, ck, X, y, launches)
+    clock.mark("timing")
     qn = {}
     qn["a"], b1_row = leg_binary_lbfgs(torch, tst, ck, X, w_true)
     rows.append(b1_row)
@@ -8469,35 +8849,44 @@ def main() -> int:
     gram, chunked_row = phase_gram(torch, tst, ck, X, y, w_true, sliced_ref,
                                    qn["b"])
     rows.append(chunked_row)
+    clock.mark("quasi_newton_and_gram")
     torch.cuda.empty_cache()
     observed = phase_observed(torch, tst, ck, X, y)
     torch.cuda.empty_cache()
     phase_analysis(torch, tst, ck, X, y)
     torch.cuda.empty_cache()
-    replica, replica_row = phase_replica(torch, tst, ck, X, y, profile)
-    rows.append(replica_row)
+    clock.mark("observed_and_analysis")
+    replica, replica_rows = phase_replica(torch, tst, ck, X, y, profile)
+    rows.extend(replica_rows)
     obs_rec = phase_obs(observed, replica)
     torch.cuda.empty_cache()
+    clock.mark("replica")
     streamed, Xh, yh, fd = phase_streamed_dense(torch, tst, ck, X, y)
     emit({"phase": "streamed", "dense": streamed})
+    clock.mark("streamed")
     streamed_qn, b1_chunk, qn_refs = phase_streamed_qn(
         torch, tst, ck, X, y, w_true, Xh, qn["b"], gram, streamed)
     rows.extend(b1_chunk)
     torch.cuda.empty_cache()
+    clock.mark("streamed_qn")
     plan_rec, cm = phase_plan(torch, tst, ck, X, y, w_true, Xh, yh, profile,
                               gram, streamed, streamed_qn,
                               LEG_B_RUNS.pop("bernoulli"))
+    clock.mark("plan")
     # the host rows stay for phase mesh's (j)-(m)
     host_rows = (Xh, fd, yh, qn_refs.pop("yh_ls"), qn_refs.pop("yh_log"))
     del X, y, sliced_ref, Xh, yh
     torch.cuda.empty_cache()
     qn["c"] = leg_multinomial(torch, tst)
     torch.cuda.empty_cache()
+    clock.mark("multinomial")
 
     plan_rec["f_normal_placement"] = phase_configs(torch, tst)
+    clock.mark("configs")
     sparse, X_sp, y_sp, w_sgd = phase_sparse(torch, tst, ck)
     qn["d"] = leg_sparse_owlqn(torch, tst, ck, X_sp, y_sp, w_sgd)
     torch.cuda.empty_cache()
+    clock.mark("sparse")
     streamed["sparse"], batch = phase_streamed_sparse(torch, tst, ck, X_sp,
                                                       y_sp)
     emit({"phase": "streamed", "sparse": streamed["sparse"]})
@@ -8505,8 +8894,14 @@ def main() -> int:
                          streamed["sparse"], batch))
     del batch
     torch.cuda.empty_cache()
+    clock.mark("streamed_sparse_and_csr_rows")
+    # phase serve's tenant checkpoints, written while phase mesh's parent
+    # waits for its ranks
+    tenants = TenantPublish()
+    atexit.register(tenants.close)
     mesh, mesh_rows = phase_mesh(torch, tst, ck, X_sp, y_sp, profile,
                                  qn["d"]["weights"], host_rows, qn_refs)
+    clock.mark("mesh")
     rows.extend(mesh_rows)
     plan_rec["constants"] = plan_constants(torch, cm, plan_rec, gram,
                                            streamed, mesh)
@@ -8514,13 +8909,16 @@ def main() -> int:
     os.close(fd)
     del X_sp, y_sp
     torch.cuda.empty_cache()
-    serve, serve_rows = phase_serve(torch, tst, ck)
+    serve, serve_rows = phase_serve(torch, tst, ck, tenants=tenants)
     rows.extend(serve_rows)
+    clock.mark("serve")
     corr, corr_row = phase_corr(torch, tst, ck)
     rows.append(corr_row)
     torch.cuda.empty_cache()
+    clock.mark("corr")
     scenario, scenario_rows = phase_scenario(torch, tst, ck, lint)
     rows.extend(scenario_rows)
+    clock.mark("scenario")
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_sgd"))
@@ -8615,6 +9013,7 @@ def main() -> int:
             "launches", "push_attempts", "objective_ratio")},
         "d_compressed": replica["d_compressed"],
         "e_ha": replica["e_ha"], "f_supervised": replica["f_supervised"],
+        "g_resident": replica["g_resident"],
         "part_seconds": replica["part_seconds"],
         "seconds": replica["seconds"]}})
     emit({"observed": {
@@ -8640,6 +9039,9 @@ def main() -> int:
         "c_clis": {k: obs_rec["c_clis"][k] for k in (
             "exit_codes", "chrome_events", "alerts_section_names_failover")},
         "seconds": obs_rec["seconds"]}})
+    clock.mark("report")
+    emit({"phase_seconds": clock.seconds,
+          "total_seconds": time.perf_counter() - clock.t0})
     # the kernel table last but for the card's line: the end of the output
     # is what a reader of a long run sees
     emit({"kernels": [{

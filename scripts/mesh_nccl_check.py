@@ -36,14 +36,38 @@ ms.  Prints one JSON line per rank and a summary line;
 exits non-zero when a check fails or a rank fails or hangs (a rank dumps
 its stacks to its log first).
 
-Not checked here yet, each to run on a host with several cards (ROADMAP
-A, item 1): the 2-D ``(data, model)`` mesh and meshed L-BFGS over NCCL;
-the streamed CostFun and statistics on the mesh; replica workers across
-cards (``tpu_sgd_torch.replica.ReplicaDriver`` with one card a worker:
-each worker's payload hops to the store's card, the pulled weights to
-the worker's, and a τ=0 run must stay bitwise the one-card run); and
-``set_resident_rounds(k)`` with one card a worker, which raises until
-then.
+Then ROADMAP A1's runs across the cards, each reusing what phase ``mesh``
+and phase ``replica`` run on one card:
+
+(s) The 2-D ``(data, model)`` mesh, 2 x 2 over NCCL
+    (``chip_smoke.mesh_rank_2d``): a block's CUDA graph holds the gathers
+    of both axes' communicators; each block run eager, then captured and
+    replayed, bitwise; every rank's weights equal and its block its model
+    column's; after the ranks exit, bitwise the one-process 2-D
+    rank-order sum (``chip_smoke.mesh_2d_checks``); the margin combine
+    timed.
+(t) Meshed L-BFGS on the 4 data ranks (``chip_smoke.mesh_rank_lbfgs``):
+    twice bitwise, B1 launches = cost evaluations a rank, every host
+    decision agreed across the ranks (``lbfgs.agree_on_host``), bitwise
+    the one-process rank-order reference (``chip_smoke.mesh_lbfgs_checks``).
+(u) The streamed CostFun and the streamed statistics over the memfd rows
+    (``chip_smoke.mesh_rank_streamed_qn`` / ``mesh_rank_streamed_stats``,
+    phase ``mesh`` (l), (m)), held by ``chip_smoke.mesh_streamed_qn_checks``
+    against the one-device streamed runs made here: B1 launches = chunks
+    x cost evaluations a rank, each rank's stack its resident build, the
+    virtual run bitwise its rank-order reference.
+(r) In this process, after the ranks exit: replica workers one card each
+    (``ReplicaDriver.set_devices`` over every card, one worker a card) on
+    config 4's 10M x 1000 bf16 rows on card 0 (each other card gets a
+    copy of its worker's rows): per-cycle τ=0, Bernoulli and sliced, 20
+    rounds, bitwise the same fleet on card 0 alone with one B1 (B2) launch
+    a round on each card; the resident mode (``chip_smoke.resident_checks``:
+    K = 1 bitwise per-cycle with one capture a worker and one replay a
+    round a worker, K = 2 by the matched-loss rule); τ=2 with the bound
+    held in the trace and applied steps/s; B1 on a worker's own card.
+
+Every NCCL group drops its captured graphs (then ``gc.collect()``) before
+``destroy_process_group``.
 """
 
 from __future__ import annotations
@@ -61,10 +85,11 @@ import numpy as np  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 MODES = ("bernoulli", "sliced", "full")
-TIMEOUT = 300               # seconds for the ranks
+TIMEOUT = 480               # seconds for the ranks
 STREAM_ROWS = 1_000_000     # host rows of the streamed runs
 STREAM_ITERS = 40           # K = 8: per slot a warm-up, a capture, replays
 SLOW_SAVE_S = 1.0           # rank 0's delay before each checkpoint write
+MESH_2D = (2, 2)            # (s): (data, model)
 
 
 def stop_and_resume(torch, tst, mesh, X, y, out_dir) -> dict:
@@ -124,7 +149,8 @@ def stop_and_resume(torch, tst, mesh, X, y, out_dir) -> dict:
 def streamed_runs(torch, tst, mesh, out_dir):
     """Host streaming on the mesh over the parent's memfd rows: each mode
     at K = 1 and K = 8 (bitwise), the top-k wire the same, and the stop
-    and resume, dense and compressed.  Returns ``(report, arrays)``."""
+    and resume, dense and compressed.  Returns ``(report, arrays, the
+    mapped host rows)``."""
     from tpu_sgd_torch.io.wire import host_tensor
 
     with open(os.path.join(out_dir, "streamed.json")) as f:
@@ -153,7 +179,7 @@ def streamed_runs(torch, tst, mesh, out_dir):
         cs.check(st["stopped_at"] == cs.MESH_OBS_STOP_AT
                  and st["resumed_bitwise"], f"rank {mesh.rank} {key}: {st}")
         report[key] = st
-    return report, arrays
+    return report, arrays, Xh
 
 
 def rank_main(rank: int, world: int, port: int, out_dir: str) -> int:
@@ -167,6 +193,7 @@ def rank_main(rank: int, world: int, port: int, out_dir: str) -> int:
 
     import tpu_sgd_torch as tst
     from tpu_sgd_torch import parallel as par
+    from tpu_sgd_torch.io.wire import host_tensor
     from tpu_sgd_torch.ops import cuda_kernels as ck
     from tpu_sgd_torch.optimize import gradient_descent as tgd
 
@@ -219,10 +246,36 @@ def rank_main(rank: int, world: int, port: int, out_dir: str) -> int:
         gc.collect()
     report["observed"] = stop_and_resume(torch, tst, mesh, X, y, out_dir)
     print(f"rank {rank}: observed done", flush=True)
+    t_rep, t_arrays = cs.mesh_rank_lbfgs(torch, tst, ck, mesh, X, y)
+    report["t"] = t_rep["f"]
+    arrays.update(t_arrays)
+    print(f"rank {rank}: (t) meshed L-BFGS done", flush=True)
     report["combine_ms"] = cs._combine_ms(torch, par, mesh)["combine_ms"]
-    report["streamed"], st_arrays = streamed_runs(torch, tst, mesh, out_dir)
+    report["streamed"], st_arrays, Xh = streamed_runs(torch, tst, mesh,
+                                                      out_dir)
     arrays.update(st_arrays)
     print(f"rank {rank}: streamed done", flush=True)
+    del X, y
+    torch.cuda.empty_cache()
+    labels = {k: host_tensor(np.load(os.path.join(out_dir, f"{k}.npy"),
+                                     mmap_mode="r"))
+              for k in ("y_ls", "y_log")}
+    w0 = torch.zeros(Xh.shape[1], device="cuda")
+    report["u"] = {}
+    report["u"]["l"], u_arrays = cs.mesh_rank_streamed_qn(
+        torch, tst, ck, mesh, Xh, labels["y_log"], w0)
+    arrays.update(u_arrays)
+    report["u"]["m"], u_arrays = cs.mesh_rank_streamed_stats(
+        torch, tst, ck, par, mesh, Xh, labels["y_ls"], w0, out_dir,
+        Xh.shape[0])
+    arrays.update(u_arrays)
+    print(f"rank {rank}: (u) streamed CostFun and statistics done",
+          flush=True)
+    report["s"], s_arrays = cs.mesh_rank_2d(torch, tst, ck, par,
+                                            shape=MESH_2D, capture_check=True)
+    arrays.update(s_arrays)
+    print(f"rank {rank}: (s) 2-D mesh done", flush=True)
+    # no CUDA graph that holds an NCCL launch outlives the group
     gc.collect()
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -245,24 +298,28 @@ def main() -> int:
         return 1
     import tpu_sgd_torch as tst
     from tpu_sgd_torch.ops import _build
+    from tpu_sgd_torch.ops import cuda_kernels as ck
 
     torch.backends.cuda.matmul.allow_tf32 = False
     world = torch.cuda.device_count()
     if sys.argv[1:2] == ["--ranks"]:
         world = int(sys.argv[2])
-    cs.check(2 <= world <= torch.cuda.device_count(),
-             f"{world} ranks on {torch.cuda.device_count()} cards")
+    cs.check(world == 2 * 2 and world <= torch.cuda.device_count(),
+             f"{world} ranks on {torch.cuda.device_count()} cards: the 2 x 2 "
+             "mesh of (s) needs 4")
     print(cs.nvidia_smi_line(), flush=True)
     _build.build_all()
-    X, y, _ = cs.make_full_data(torch, STREAM_ROWS, cs.FULL_D)
+    X, y, w_true = cs.make_full_data(torch, STREAM_ROWS, cs.FULL_D)
+    labels = {"y": y.cpu(), "y_ls": y.to(torch.bfloat16).float().cpu(),
+              "y_log": cs.logistic_labels(torch, X, w_true).cpu()}
     Xh, fd = cs.shared_host_rows(torch, X)
-    yh = y.cpu()
     del X, y
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "streamed.json"), "w") as f:
             json.dump({"fd": fd, "shape": list(Xh.shape)}, f)
-        np.save(os.path.join(tmp, "y.npy"), yh.numpy())
+        for name, t in labels.items():
+            np.save(os.path.join(tmp, f"{name}.npy"), t.numpy())
         job_s = cs.mesh_spawn(world, tmp, TIMEOUT, os.path.abspath(__file__),
                               "--rank", pass_fds=(fd,))
         reports, arrays = [], []
@@ -276,9 +333,144 @@ def main() -> int:
         cs.check(rep["backend"] == "nccl" and rep["card"] == rep["rank"],
                  f"rank {rep['rank']}: {rep['backend']} on card "
                  f"{rep['card']}")
-    summary = check_reference(torch, tst, reports, arrays, Xh, yh)
-    cs.emit({"job_seconds": job_s, **summary})
+    summary = {"job_seconds": job_s,
+               **check_reference(torch, tst, reports, arrays, Xh,
+                                 labels["y"])}
+    summary["s"] = check_2d(torch, tst, reports, arrays)
+    summary["u"] = check_streamed_qn(torch, tst, reports, arrays, Xh,
+                                     labels)
+    del Xh
+    os.close(fd)
+    torch.cuda.empty_cache()
+    summary["r"] = replica_cards(torch, tst, ck, world)
+    cs.emit(summary)
     return 0
+
+
+def check_2d(torch, tst, reports, arrays) -> dict:
+    """(s) after the ranks exit: the 10M rows as phase ``mesh`` makes them
+    (its 8 fill blocks) on card 0, and ``chip_smoke.mesh_2d_checks``."""
+    n, d = cs.FULL_ROWS, cs.FULL_D
+    rows = n // cs.MESH_RANKS
+    X = torch.empty((n, d), dtype=torch.bfloat16, device="cuda")
+    y = torch.empty((n,), dtype=torch.float32, device="cuda")
+    for b in range(cs.MESH_RANKS):
+        cs.fill_mesh_block(torch, X[b * rows:(b + 1) * rows],
+                           y[b * rows:(b + 1) * rows], b)
+    out = cs.mesh_2d_checks(torch, tst, X, y, [rep["s"] for rep in reports],
+                            arrays, shape=MESH_2D)
+    out["captured_equals_eager_bitwise"] = True
+    out["eager_vs_replayed_ms_per_iteration_rank0"] = {
+        mode: [r["eager_ms_per_iteration"], r["replayed_ms_per_iteration"]]
+        for mode, r in reports[0]["s"]["full"].items()}
+    del X, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_streamed_qn(torch, tst, reports, arrays, Xh, labels) -> dict:
+    """(u) after the ranks exit: the one-device streamed runs on the same
+    host rows (L-BFGS and OWL-QN through the CostFun, L-BFGS from the
+    streamed statistics, the streamed normal equations), then
+    ``chip_smoke.mesh_streamed_qn_checks``."""
+    w0 = torch.zeros(Xh.shape[1], device="cuda")
+    rows = cs.STREAMED_OWLQN_ROWS
+    _, a_h = tst.LBFGS(
+        tst.LogisticGradient(), tst.SquaredL2Updater(), reg_param=1e-4,
+        convergence_tol=0.0, max_num_iterations=cs.STREAMED_QN_ITERS) \
+        .set_host_streaming(True).optimize_with_history(
+            (Xh, labels["y_log"]), w0)
+    _, b_h = tst.OWLQN(
+        tst.LogisticGradient(), reg_param=1e-4, convergence_tol=0.0,
+        max_num_iterations=cs.STREAMED_OWLQN_ITERS) \
+        .set_host_streaming(True).optimize_with_history(
+            (Xh[:rows], labels["y_log"][:rows]), w0)
+    lb = tst.LBFGS(tst.LeastSquaresGradient(), tst.SquaredL2Updater(),
+                   max_num_iterations=cs.QN_ITERS, convergence_tol=0.0) \
+        .set_streamed_stats(True)
+    c_w, _ = lb.optimize_with_history((Xh, labels["y_ls"]), w0)
+    lb.release_sufficient_stats()
+    e_w = tst.NormalEquations().set_host_streaming(True).optimize(
+        (Xh, labels["y_ls"]), w0)
+    refs = {"a_history": np.asarray(a_h, np.float32),
+            "b_history": np.asarray(b_h, np.float32),
+            "c_lbfgs_w": c_w.cpu().numpy(), "e_normal_w": e_w.cpu().numpy()}
+    out = cs.mesh_streamed_qn_checks(
+        torch, tst, Xh, labels["y_ls"], [rep["u"] for rep in reports],
+        arrays, refs)
+    r0 = reports[0]["u"]
+    out["l"].update(
+        cost_evaluations=r0["l"]["runs"][0]["cost_evaluations"],
+        chunks=r0["l"]["runs"][0]["chunks"],
+        b1_launches_rank0=r0["l"]["runs"][0]["launches"][
+            "fused_gradient_sums"],
+        ms_per_iteration_by_rank=[rep["u"]["l"]["runs"][1][
+            "ms_per_iteration"] for rep in reports])
+    out["m"].update(seconds_by_rank=[rep["u"]["m"]["seconds"]
+                                     for rep in reports])
+    return out
+
+
+def replica_cards(torch, tst, ck, world) -> dict:
+    """(r): replica workers one card each on config 4's 10M rows (on card
+    0; each other card gets a copy of its worker's rows): per-cycle τ=0,
+    Bernoulli and sliced, bitwise the same fleet on card 0 alone, one
+    launch a round on each card; the resident mode by
+    ``chip_smoke.resident_checks``; τ=2 by ``chip_smoke.replica_async``;
+    B1 timed on a worker's own card."""
+    devices = [torch.device("cuda", i) for i in range(world)]
+    X, y, _ = cs.make_full_data(torch, cs.FULL_ROWS, cs.FULL_D)
+    R = cs.REPLICA_ROUNDS
+    each = {f"replica-w{s}": R for s in range(world)}
+    out = {"workers": world, "rows": X.shape[0], "per_cycle": {}}
+    for mode in ("bernoulli", "sliced"):
+        def fleet(devs):
+            drv = cs._replica_driver(tst, mode, R).set_workers(world)
+            return cs._counted_run(torch, ck, drv.set_devices(devs), X, y, R)
+
+        cards, one = fleet(devices), fleet(devices[:1])
+        for run, what in ((cards, "cards"), (one, "card 0")):
+            cs._replica_launches(run, mode, world * R, f"(r) {mode} {what}")
+        cs.check(cards["by_worker"] == each,
+                 f"(r) {mode}: launches by worker (card) "
+                 f"{cards['by_worker']}, want {R} each")
+        same = (torch.equal(cards["w"], one["w"])
+                and np.array_equal(cards["h"], one["h"]))
+        cs.check(same, f"(r) {mode}: {world} cards differ from card 0 alone")
+        out["per_cycle"][mode] = {
+            "bitwise_one_card_fleet": same,
+            "launches_by_card": cards["by_worker"],
+            "ms_per_round": cards["ms_per_round"],
+            "one_card_ms_per_round": one["ms_per_round"]}
+    out["resident"], _ = cs.resident_checks(
+        torch, ck, tst, X, y, workers=world, devices=devices,
+        what="(r) resident")
+    tau0 = cs._replica_run(torch, ck, cs._replica_driver(
+        tst, "bernoulli", cs.REPLICA_STEPS).set_workers(world)
+        .set_devices(devices), X, y, cs.REPLICA_STEPS)
+    tau0["objective"] = cs.ls_objective_exact(torch, X, y, tau0["w"])
+    out["tau2"] = cs.replica_async(torch, tst, ck, X, y, tau0,
+                                   workers=world, devices=devices)
+    out["tau2"]["one_card_steps_per_s_pr15"] = 185.0
+    # B1 on card 1, at worker 1's shard (a copy on its card)
+    rows = X.shape[0] // world
+    with torch.cuda.device(1):
+        dev = torch.device("cuda", 1)
+        Xs = X[rows:2 * rows].to(dev)
+        ys = y[rows:2 * rows].to(dev)
+        gen = torch.Generator(device=dev).manual_seed(37)
+        w = torch.randn(Xs.shape[1], generator=gen, device=dev) / 32.0
+        mask = torch.rand(rows, generator=gen, device=dev) < cs.FRAC
+        row = cs.b1_row(torch, ck, tst.LeastSquaresGradient().pointwise, Xs,
+                        ys, w, mask, f"replica worker 1's {rows:,} rows on "
+                        "its own card (cuda:1), 10% mask", 20)
+    row["launches"] = out["per_cycle"]["bernoulli"]["launches_by_card"][
+        "replica-w1"]
+    row["launches_from"] = "(r) the per-cycle Bernoulli run, card 1"
+    out["b1_row_card1"] = {k: v for k, v in row.items() if k != "turns"}
+    del X, y, Xs, ys
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_reference(torch, tst, reports, arrays, Xh, yh) -> dict:
@@ -287,6 +479,8 @@ def check_reference(torch, tst, reports, arrays, Xh, yh) -> dict:
     0."""
     world = len(reports)
     for k in arrays[0]:
+        if k.startswith("e_block_"):
+            continue  # a 2-D rank's weight block: its model column's
         cs.check(all(np.array_equal(a[k], arrays[0][k]) for a in arrays),
                  f"ranks differ in {k}")
     n, d = cs.FULL_ROWS, cs.FULL_D
@@ -304,6 +498,18 @@ def check_reference(torch, tst, reports, arrays, Xh, yh) -> dict:
                                         w.cpu().numpy())
                          and np.array_equal(arrays[0][mode + "_h"], h))
         cs.check(bitwise[mode], f"{mode}: not the one-process rank-order sum")
+    t_same = cs.mesh_lbfgs_checks(torch, tst, [rep["t"] for rep in reports],
+                                  arrays[0], blocks)
+    agreed = [rep["t"]["host_decisions_agreed"] for rep in reports]
+    cs.check(agreed[0] > 0 and len(set(agreed)) == 1,
+             f"(t): host decisions agreed by rank {agreed}")
+    t_out = {"bitwise_rank_order_sum": t_same,
+             "cost_evaluations": reports[0]["t"]["cost_evaluations"],
+             "b1_launches_by_rank": [rep["t"]["b1_launches"]
+                                     for rep in reports],
+             "host_decisions_agreed_by_rank": agreed,
+             "ms_per_iteration_by_rank": [rep["t"]["ms_per_iteration"]
+                                          for rep in reports]}
     del X, y, blocks
     torch.cuda.empty_cache()
     for key, mode, topk in [(m, m, None) for m in MODES] + [
@@ -328,7 +534,7 @@ def check_reference(torch, tst, reports, arrays, Xh, yh) -> dict:
                      for rep in reports] for m in MODES},
              "combine_ms": [rep["combine_ms"] for rep in reports],
              "observed_stop_and_resume": reports[0]["observed"],
-             "streamed": reports[0]["streamed"]}
+             "streamed": reports[0]["streamed"], "t": t_out}
 
 
 if __name__ == "__main__":

@@ -930,10 +930,12 @@ def test_mutation_host_effect_in_the_ports_capture_fails_lint():
     gd = "tpu_sgd_torch/optimize/gradient_descent.py"
     assert _found(_plint([_port_module(gd)],
                          [CallbackDisciplineRule()])) == []
-    anchor = ("            with torch.cuda.graph(graph):\n"
+    anchor = ("            with torch.cuda.graph(graph, capture_error_mode="
+              "\"thread_local\"):\n"
               "                self.block(")
     mutated = _port_module(gd, lambda s: s.replace(
-        anchor, "            with torch.cuda.graph(graph):\n"
+        anchor, "            with torch.cuda.graph(graph, capture_error_mode="
+                "\"thread_local\"):\n"
                 "                print('captured')\n"
                 "                self.block(", 1))
     found = _plint([mutated], [CallbackDisciplineRule()]).findings

@@ -330,9 +330,10 @@ def test_route_counts_move_to_the_replays():
     """``fused_gradient_sums``'s launches by route follow the capture and
     replay rule of the other counts, and a reset zeroes them."""
     ck.reset_launch_counts()
-    ck.GRADIENT_ROUTE_LAUNCHES["gather"] += 1  # an eager launch before
+    ck.count_launch(route="gather")  # an eager launch before
     with ck.captured_launches() as record:
-        ck.GRADIENT_ROUTE_LAUNCHES["window"] += 2
+        for _ in range(2):
+            ck.count_launch(route="window")
     assert ck.gradient_route_counts() == {"gather": 1, "window": 0,
                                           "fused_sums": 0}
     assert record["routes"] == {"gather": 0, "window": 2, "fused_sums": 0}

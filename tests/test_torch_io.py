@@ -161,6 +161,28 @@ def test_prefetcher_runs_producer_off_thread():
     assert all(t == main for t in seen)
 
 
+def test_prefetcher_worker_runs_on_the_consumers_card(monkeypatch):
+    """The worker thread starts on the card current on the consumer's
+    thread (a new thread's own is the first): a producer's tensor on
+    "cuda" lands on the consumer's card.  Without an initialized CUDA (the
+    CPU) the worker sets nothing."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda card: calls.append(
+                            (card, threading.current_thread().name)))
+    assert list(tio.Prefetcher(lambda i: i, range(4), depth=2)) == [0, 1,
+                                                                      2, 3]
+    assert len(calls) == 1 and calls[0][0] == 3
+    assert calls[0][1].startswith("tpu-sgd-torch-ingest")
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    calls.clear()
+    assert list(tio.Prefetcher(lambda i: i, range(4), depth=2)) == [0, 1,
+                                                                      2, 3]
+    assert calls == []
+
+
 def test_prefetcher_exception_propagates_in_order():
     def produce(i):
         if i == 3:

@@ -660,8 +660,10 @@ def test_store_and_workers_on_the_cpu_launch_no_kernel():
 
 def test_resident_rounds_follow_the_reference_rule():
     """A fleet that shares a device warns and runs the per-cycle loop
-    (bitwise the run without resident rounds); one device a worker with
-    ``k >= 2`` names ROADMAP A1."""
+    (bitwise the run without resident rounds); with a device of its own
+    for every worker of the round-robin, ``k >= 1`` runs resident (K = 1
+    and K >= 2 alike: no mode raises), a repeated device in the list
+    still warns; a negative ``k`` raises."""
     X, y, w0 = data(n=64, d=6)
     w_ref, h_ref = _driver(workers=2, iters=6).optimize_with_history(
         (X, y), w0)
@@ -671,9 +673,16 @@ def test_resident_rounds_follow_the_reference_rule():
     np.testing.assert_array_equal(w.numpy(), w_ref.numpy())
     np.testing.assert_array_equal(h, h_ref)
     two = [torch.device("cuda", 0), torch.device("cuda", 1)]
-    with pytest.raises(NotImplementedError, match="A1"):
-        drv._resident_check(two)
-    drv.set_resident_rounds(1)._resident_check(two)  # the per-cycle loop
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert drv._resident_rounds_for(two) == 3
+        assert drv.set_resident_rounds(1)._resident_rounds_for(two) == 1
+        assert drv.set_resident_rounds(0)._resident_rounds_for(two) == 0
+        assert drv.set_workers(1).set_resident_rounds(2) \
+            ._resident_rounds_for([torch.device("cpu")]) == 2
+    drv.set_workers(2)
+    with pytest.warns(RuntimeWarning, match="one device per worker"):
+        assert drv._resident_rounds_for([two[0], two[0], two[1]]) == 0
     with pytest.raises(ValueError):
         drv.set_resident_rounds(-1)
 

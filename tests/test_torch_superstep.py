@@ -306,11 +306,11 @@ def test_captured_launches_move_to_the_replays():
     """The launches a capture records leave the counts and come back with
     each replay, by wrapper and by source."""
     ck.reset_launch_counts()
-    ck.fused_window_sums.launches += 1  # an eager launch before
-    ck.KERNEL_LAUNCHES["window_sums"] += 1
+    # an eager launch before
+    ck.count_launch(ck.fused_window_sums, source="window_sums")
     with ck.captured_launches() as record:
-        ck.fused_window_sums.launches += 3
-        ck.KERNEL_LAUNCHES["window_sums"] += 3
+        for _ in range(3):
+            ck.count_launch(ck.fused_window_sums, source="window_sums")
     assert ck.launch_counts()["fused_window_sums"] == 1
     assert record["wrappers"]["fused_window_sums"] == 3
     assert record["sources"] == {"fused_sums": 0, "window_sums": 3}

@@ -72,6 +72,12 @@ T = TypeVar("T")
 R = TypeVar("R")
 
 
+def _on_card(card: Optional[int]) -> None:
+    """A worker thread's start: make ``card`` its current card."""
+    if card is not None:
+        torch.cuda.set_device(card)
+
+
 class Prefetcher:
     """Iterate ``producer(item) for item in items`` with background
     lookahead.  Use as an iterator; call :meth:`close` (or leave a
@@ -90,8 +96,15 @@ class Prefetcher:
         self._pool = None
         self._exhausted = False
         if self._depth > 1:  # <=1: serial, one item live at a time
+            # the worker runs on the consumer's card: a thread's current
+            # card is its own (the first, unless it sets one), and a
+            # producer that makes a tensor, a pinned buffer or a stream
+            # switch on "cuda" must not land on (or set up) another card
+            card = (torch.cuda.current_device()
+                    if torch.cuda.is_initialized() else None)
             self._pool = ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="tpu-sgd-torch-ingest")
+                max_workers=1, thread_name_prefix="tpu-sgd-torch-ingest",
+                initializer=_on_card, initargs=(card,))
             self._fill()
 
     def _run_producer(self, item: T) -> R:

@@ -57,7 +57,11 @@ gets its own window scratch.
 Threads may launch at once (the replica workers do): every count changes
 under one lock (:func:`count_launch`), and a window call holds it from
 taking the stream's shared scratch until both of its kernels are queued,
-since the C entry queues them with the interpreter lock released.
+since the C entry queues them with the interpreter lock released.  A
+capture's record is its thread's own: while one thread captures, the
+launches other threads count, eagerly or by replays, stay in the counts
+and out of its record (resident replica workers capture on their cards
+while their peers launch).
 """
 
 from __future__ import annotations
@@ -998,14 +1002,38 @@ CSR_COLUMN_LAUNCHES = {}
 MODEL_AXIS_PRODUCTS = {"products": 0}
 
 
+#: the records of the captures open on each thread, innermost last
+#: (:func:`captured_launches`)
+_CAPTURES = threading.local()
+
+
+def _open_record() -> Optional[dict]:
+    """The record of the innermost capture open on this thread, if any."""
+    stack = getattr(_CAPTURES, "stack", None)
+    return stack[-1] if stack else None
+
+
 def count_launch(wrapper=None, source: Optional[str] = None,
                  route: Optional[str] = None,
                  csr_columns: Optional[str] = None) -> None:
     """Add one launch to a wrapper's ``launches``, to a CUDA source's
     count, to a :func:`fused_gradient_sums` route's and to a CSR
     wrapper's ``"<wrapper>/<T>"`` count, each given one, under the one
-    lock of the counts."""
+    lock of the counts; inside a capture on this thread, to the capture's
+    record instead (the capture launches nothing)."""
+    rec = _open_record()
     with _COUNTS_LOCK:
+        if rec is not None:
+            if wrapper is not None:
+                rec["wrappers"][wrapper.__name__] += 1
+            if source is not None:
+                rec["sources"][source] += 1
+            if route is not None:
+                rec["routes"][route] += 1
+            if csr_columns is not None:
+                cols = rec["csr_columns"]
+                cols[csr_columns] = cols.get(csr_columns, 0) + 1
+            return
         if wrapper is not None:
             wrapper.launches += 1
         if source is not None:
@@ -1018,8 +1046,10 @@ def count_launch(wrapper=None, source: Optional[str] = None,
 
 
 def count_model_axis_products(n: int) -> None:
+    rec = _open_record()
     with _COUNTS_LOCK:
-        MODEL_AXIS_PRODUCTS["products"] += int(n)
+        counts = MODEL_AXIS_PRODUCTS if rec is None else rec["model_axis"]
+        counts["products"] += int(n)
 
 
 def model_axis_product_counts() -> int:
@@ -1071,43 +1101,26 @@ def gradient_route_counts() -> dict:
 @contextlib.contextmanager
 def captured_launches():
     """Bracket a CUDA graph capture: the wrappers run and count as they
-    would launch, but a capture launches nothing.  Yields a dict that,
-    on exit, holds the launches the graph recorded (``{"wrappers": {...},
-    "sources": {...}, "routes": {...}, "csr_columns": {...}}``), and takes
-    them back out of the counts; each replay adds them again
-    (:func:`add_replayed_launches`).  So a count stays one per kernel the
-    card runs."""
-    def counts():
-        with _COUNTS_LOCK:
-            return ({fn.__name__: fn.launches
-                     for fn in WRAPPERS + CSR_WRAPPERS},
-                    kernel_launch_counts(), dict(CSR_COLUMN_LAUNCHES),
-                    gradient_route_counts(), dict(MODEL_AXIS_PRODUCTS))
-
-    before = counts()
-    record = {}
+    would launch, but a capture launches nothing.  Yields the capture's
+    record (``{"wrappers": {...}, "sources": {...}, "routes": {...},
+    "model_axis": {...}, "csr_columns": {...}}``): what this thread
+    counts inside the bracket goes there and not into the counts, and
+    each replay adds it (:func:`add_replayed_launches`).  So a count
+    stays one per kernel the card runs, whatever other threads launch
+    meanwhile."""
+    with _COUNTS_LOCK:
+        record = {"wrappers": {fn.__name__: 0
+                               for fn in WRAPPERS + CSR_WRAPPERS},
+                  "sources": dict.fromkeys(KERNEL_LAUNCHES, 0),
+                  "routes": dict.fromkeys(GRADIENT_ROUTE_LAUNCHES, 0),
+                  "model_axis": dict.fromkeys(MODEL_AXIS_PRODUCTS, 0),
+                  "csr_columns": {}}
+    stack = _CAPTURES.__dict__.setdefault("stack", [])
+    stack.append(record)
     try:
         yield record
     finally:
-        after = counts()
-        record["wrappers"] = {k: after[0][k] - before[0][k]
-                              for k in after[0]}
-        record["sources"] = {k: after[1][k] - before[1][k]
-                             for k in after[1]}
-        record["routes"] = {k: after[3][k] - before[3][k] for k in after[3]}
-        record["model_axis"] = {k: after[4][k] - before[4][k]
-                                for k in after[4]}
-        record["csr_columns"] = {k: n - before[2].get(k, 0)
-                                 for k, n in after[2].items()
-                                 if n != before[2].get(k, 0)}
-        with _COUNTS_LOCK:
-            for fn in WRAPPERS + CSR_WRAPPERS:
-                fn.launches = before[0][fn.__name__]
-            KERNEL_LAUNCHES.update(before[1])
-            GRADIENT_ROUTE_LAUNCHES.update(before[3])
-            MODEL_AXIS_PRODUCTS.update(before[4])
-            CSR_COLUMN_LAUNCHES.clear()
-            CSR_COLUMN_LAUNCHES.update(before[2])
+        stack.pop()
 
 
 def add_replayed_launches(record: dict) -> None:

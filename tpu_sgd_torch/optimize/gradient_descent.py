@@ -826,8 +826,10 @@ class _BlockRunner:
         graph = torch.cuda.CUDAGraph()
         if self.sampler is not None:
             graph.register_generator_state(self.sampler.gen)
+        # thread_local: a prefetch worker or a replica peer making CUDA
+        # calls on its own thread meanwhile does not break this capture
         with ck.captured_launches() as record:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self.block(self.state, self.data, self.sampler, steps)
         self.graph, self.launches = graph, record
         self.capture_ms = 1e3 * (time.perf_counter() - t0)

@@ -277,16 +277,19 @@ class ReplicaDriver:
         return self
 
     def set_resident_rounds(self, k):
-        """The JAX package's resident worker mode: ``k`` supersteps of
-        the local sums inside one whole-run device loop per worker, the
-        push and pull staged once a round.  It needs one device per
-        worker.  Here a fleet that shares a device warns loudly and runs
-        the per-cycle loop, as the JAX package does; ``k = 1`` is
-        per-push identical to that loop, which runs it; with one device
-        per worker ``k >= 2`` (K sampled batches folded into one push)
-        raises ``NotImplementedError`` at the run: that mode first runs
-        on a machine with a card a worker (ROADMAP A1).
-        ``0``/``None``/``False`` (default) keeps the per-cycle loop."""
+        """``k >= 1`` runs every worker in RESIDENT mode (the JAX
+        package's): a round is ``k`` supersteps of the shared local sums
+        against one pulled basis, one push and one pull, and on a card the
+        round is one CUDA graph, captured once a worker on its own card and
+        replayed once a round (``replica/worker.py``).  ``k=1`` is per-push
+        bitwise with the per-cycle loop (τ=0 keeps the sync pin); ``k >=
+        2`` folds ``k`` sampled batches into one contribution per protocol
+        round — matched loss, not bitwise.  Needs one device per worker (a
+        resident worker owns its card for its captures and replays); a
+        fleet that shares a device falls back LOUDLY to the per-cycle loop.
+        On the CPU (``device="cpu"``, one device) a one-worker fleet runs
+        the rounds eagerly.  ``0``/``None``/``False`` (default) keeps the
+        per-cycle loop."""
         if k is None or k is False:
             k = 0
         if int(k) < 0:
@@ -414,13 +417,16 @@ class ReplicaDriver:
         w, _ = self.optimize_with_history(data, initial_weights)
         return w
 
-    def _resident_check(self, devices) -> None:
-        """The JAX package's resident worker mode, as far as it applies
-        here (:meth:`set_resident_rounds`)."""
+    def _resident_rounds_for(self, devices) -> int:
+        """The rounds a worker of this run folds
+        (:meth:`set_resident_rounds`): ``k`` when every worker gets a
+        device of its own from the round-robin over ``devices``, else 0
+        with the JAX package's warning (the per-cycle loop)."""
         k = self.resident_rounds
         if k < 1:
-            return
-        if self.n_workers > len(set(devices)):
+            return 0
+        own = {devices[s % len(devices)] for s in range(self.n_workers)}
+        if len(own) < self.n_workers:
             warnings.warn(
                 f"resident replica mode needs one device per worker "
                 f"({self.n_workers} workers, {len(set(devices))} "
@@ -429,13 +435,8 @@ class ReplicaDriver:
                 "deadlock on the τ=0 round barrier) — falling back to "
                 "the per-cycle threaded loop",
                 RuntimeWarning, stacklevel=3)
-        elif k >= 2:
-            raise NotImplementedError(
-                f"set_resident_rounds({k}) with one device per worker "
-                "folds several sampled batches into one push inside a "
-                "whole-run device loop; the port first runs that mode on "
-                "a machine with a card a worker (ROADMAP A1).  "
-                "resident_rounds=0 or 1 runs the per-cycle loop")
+            return 0
+        return k
 
     def optimize_with_history(self, data, initial_weights):
         from tpu_sgd_torch.optimize.gradient_descent import _coerce_w0
@@ -450,7 +451,7 @@ class ReplicaDriver:
                 "GradientDescent")
         cfg = self.config
         devices = self.resolved_devices()
-        self._resident_check(devices)
+        resident_rounds = self._resident_rounds_for(devices)
         store_dev = devices[0]
         w0 = _coerce_w0(self.gradient, initial_weights, X.shape[1],
                         store_dev)
@@ -571,6 +572,7 @@ class ReplicaDriver:
                 device=devices[s % len(devices)],
                 retry_policy=self.retry_policy,
                 heartbeat=rec.heartbeat, wire_frac=frac,
+                resident_rounds=resident_rounds,
             )
 
             def _main():

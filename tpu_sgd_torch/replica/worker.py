@@ -22,10 +22,29 @@ The loop is the async-SGD worker protocol (arXiv:1505.04956):
    rejection (stale beyond the bound) discards the work and re-pulls;
    at τ=0 the push blocks until the barrier round applies.
 
-Every device op runs on the device's current stream (the default
-stream, the same on every thread), so nothing is captured into a CUDA
-graph here: a capture on one thread while others launch on the same
-stream is unsafe.
+Every device op of the per-cycle loop runs on the device's current
+stream (the default stream, the same on every thread), and nothing of it
+is captured.
+
+Resident mode (``resident_rounds = K >= 1``, the JAX package's resident
+worker): a round runs ``K`` supersteps of the same local sums against one
+pulled basis (superstep ``t`` samples iteration ``version + 1 + t``: the
+K-fold batch union), folds ``(G, L, C)`` on the device, and pushes and
+pulls through the very host code of the per-cycle loop
+(:meth:`ReplicaWorker._push_contribution`, :meth:`ReplicaWorker._account`).
+On a card the round is ONE CUDA graph, the counterpart of the JAX
+package's whole-run device loop: captured once, on the worker's own card
+(a worker in this mode owns its card: ``ReplicaDriver`` runs it only with
+a card a worker), on a side stream in ``thread_local`` capture mode, so
+other threads launch and capture on their cards meanwhile; then replayed
+once a round after the pulled weights are copied into its input and the
+shard's sample stream is set to ``version + 1`` (its Philox offset, read
+at replay time).  A capture that fails raises: the round never runs
+eagerly on a card.  On the CPU the same body runs eagerly.  ``K = 1`` is
+per-push bitwise the per-cycle loop on both wires; ``K >= 2`` is
+matched-loss, not bitwise.  The graph goes when the worker's loop ends,
+a death included, so a rejoined worker captures afresh and a long
+elastic run keeps one graph a live worker.
 
 Reliability: the ``replica.pull`` / ``replica.push`` failpoints fire at
 the protocol hops and heal in place under the worker's ``RetryPolicy``;
@@ -67,6 +86,7 @@ import torch
 from tpu_sgd_torch.device import as_tensor, resolve_device
 from tpu_sgd_torch.io.integrity import IntegrityError, integrity_enabled, seal
 from tpu_sgd_torch.obs.spans import span
+from tpu_sgd_torch.ops import cuda_kernels as ck
 from tpu_sgd_torch.optimize.gradient_descent import (_host,
                                                      _make_local_sums,
                                                      _make_sampler)
@@ -141,6 +161,7 @@ class ReplicaWorker:
         retry_policy=None,
         heartbeat=None,
         wire_frac: Optional[float] = None,
+        resident_rounds: int = 0,
     ):
         self.worker_id = worker_id
         self.shard_index = int(shard_index)
@@ -156,6 +177,18 @@ class ReplicaWorker:
         self._local_sums = make_shard_local_sums(
             gradient, config, self.shard_index,
             with_valid=self._valid is not None)
+        self.resident_rounds = max(0, int(resident_rounds))
+        # the resident round's recipe and sample stream (the per-cycle
+        # sums keep their own), and on a card its graph, built on the
+        # first round
+        self._local = _make_local_sums(gradient, config)
+        self._sampler = (_make_sampler(config, self._X,
+                                       shard=self.shard_index)
+                         if self.resident_rounds else None)
+        self._graph = None
+        self._graph_in = None
+        self._graph_out = None
+        self._graph_launches = None
         self.ef = (None if wire_frac is None
                    else store.error_feedback(worker_id, wire_frac))
         # the store's per-shard coordinate layout (None = unsharded):
@@ -328,7 +361,108 @@ class ReplicaWorker:
         self._account(res, pulled.version, pulled.epoch)
         return not res.done
 
+    # -- resident mode: one round a push, a captured graph on a card --------
+
+    def _round_body(self, w):
+        """``K`` supersteps' local sums at basis ``w``, folded in order
+        (the sample stream positioned at the round's first iteration)."""
+        G = L = C = None
+        for _ in range(self.resident_rounds):
+            sample = None if self._sampler is None else self._sampler.draw()
+            g, l, c = self._local(w, self._X, self._y, sample, self._valid)
+            if G is None:
+                G, L, C = g, l, c
+            else:
+                G, L, C = G + g, L + l, C + c
+        return G, L, C
+
+    def _capture_round(self, weights) -> None:
+        """Capture the round once on this worker's card: on a side stream,
+        in ``thread_local`` mode (other threads launch and capture on
+        their cards meanwhile), the sample stream's generator registered.
+        Raises when the capture fails; nothing falls back to the eager
+        body."""
+        dev = self._X.device
+        self._graph_in = torch.empty(weights.shape, dtype=weights.dtype,
+                                     device=dev)
+        self._graph_in.copy_(weights)
+        graph = torch.cuda.CUDAGraph()
+        if self._sampler is not None:
+            graph.register_generator_state(self._sampler.gen)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), ck.captured_launches() as record:
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = self._round_body(self._graph_in)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is broken: the body's error counts
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._graph, self._graph_out = graph, out
+        self._graph_launches = record
+
+    def _release_round(self) -> None:
+        """Let go of the captured round, its pool and its buffers."""
+        self._graph = self._graph_in = self._graph_out = None
+        self._graph_launches = None
+
+    def _round(self, weights, version: int):
+        """One resident round's folded ``(G, L, C)`` at basis ``version``:
+        on the CPU the body eagerly, on a card one replay of the captured
+        round (copies of its outputs: the store may still hold them when
+        the next replay writes)."""
+        if self._X.device.type != "cuda":
+            if self._sampler is not None:
+                self._sampler.seek(version + 1)
+            if weights.device != self._X.device:
+                weights = weights.to(self._X.device)
+            return self._round_body(weights)
+        if self._graph is None:
+            self._capture_round(weights)
+        if self._sampler is not None:
+            self._sampler.seek(version + 1)
+        self._graph_in.copy_(weights)
+        self._graph.replay()
+        ck.add_replayed_launches(self._graph_launches)
+        return tuple(t.clone() for t in self._graph_out)
+
+    def run_round(self) -> bool:
+        """One resident round: pull → ``K`` supersteps → push; False when
+        the run is done.  A rejected push discards the round whole (the
+        compressed wire restores its segment), and the next round re-pulls
+        and replays at the new basis."""
+        pulled = self._call(self.store.pull, self.worker_id)
+        if pulled.done:
+            return False
+        with span("replica.round", worker=self.worker_id,
+                  basis=pulled.version, k=self.resident_rounds):
+            G, L, C = self._round(pulled.weights, pulled.version)
+            res = self._push_contribution(
+                pulled.version, pulled.epoch, G, L, C)
+        self._account(res, pulled.version, pulled.epoch)
+        return not res.done
+
     def run(self) -> None:
-        """The worker main loop (the driver runs this on a thread)."""
-        while self.run_once():
-            pass
+        """The worker main loop (the driver runs this on a thread):
+        ``resident_rounds >= 1`` runs rounds, else pull → compute → push
+        cycles.  A resident worker's graph goes when the loop ends, by
+        death too."""
+        if not self.resident_rounds:
+            while self.run_once():
+                pass
+            return
+        try:
+            if self._X.device.type == "cuda":
+                with torch.cuda.device(self._X.device):
+                    while self.run_round():
+                        pass
+            else:
+                while self.run_round():
+                    pass
+        finally:
+            self._release_round()
