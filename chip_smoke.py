@@ -14,31 +14,43 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    card: three loss families x {f32, bf16} x {mask, no mask}, ragged row
    counts, d in {24, 1000, 47237}; the window kernels at random and
    clamped starts; ``FusedGradient``'s tile-floored windows.  Then the
-   window route by shape: d in {24, 1000, 2048, 4096} and 7,216 bf16
-   (``window_sums.cu``), 7,216 f32 and 47,237 (``fused_sums.cu``, counted
-   by source) x f32/bf16 x the three families, windows of 1, R - 1, R,
-   R + 1 rows (R the planner's stage rows), fewer rows than the grid and
-   65,536 rows, starts random, negative and past the end, ``valid`` on
-   and off, each call repeated bitwise.  Then the CSR kernel bit for bit
+   window route by shape (``ROUTE_WIDTHS``): to ``window_sums.cu`` d in
+   {24, 1000, 2048, 4096} in f32 and bf16 and 7,216 bf16 (rows of whole
+   16-byte units), and rows that are not, each through its aligned
+   superset: 7, 101, 123 and 4,121 f32 (the widest odd f32 row with a
+   plan), 100, 785, 1001, 4,097 and 7,209 bf16 (the widest odd bf16 row);
+   to ``fused_sums.cu`` (no ring fits) 7,216 f32 and 47,237 in both
+   types; counted by source, x the three families, windows of 1, R - 1,
+   R, R + 1 rows (R the planner's stage rows), fewer rows than the grid
+   and 65,536 rows, starts random, negative and past the end, ``valid``
+   on and off, each call repeated bitwise.  Then the CSR kernel bit for bit
    against its numpy walk (``cuda_kernels.csr_walk``) on small matrices
    (empty rows, rows of 1-33 entries, a row longer than three blocks'
    shares, many rows of 1-3 entries), T in {1, 2, 30, 1024}, int32 and
    int64 indices, no mask and a mask at both block shares; and an int64
    CSR whose row holds more than 2^31 entries, at T = 1 and 2.  Then B1 by
-   shape: d in {24, 1000, 2048, 4096, 7216} x f32/bf16 x the three
-   families, unmasked and under masks of no live row, one, 0.1%, 10%, 30%,
-   all, the blocks' share boundaries only and a prefix: against the plain
-   version, a second call bitwise, the all-true mask bitwise the unmasked
-   call, the ring's grid on the card equal to its mirror, the route
-   (``window_sums.cu``'s gather or window entry; ``fused_sums.cu`` for
-   7,216 f32 and a misaligned base) counted by source.
+   shape: the widths of ``ROUTE_WIDTHS`` x the three families, unmasked
+   and under masks of no live row, one, 0.1%, 10%, 30%, all, the blocks'
+   share boundaries only and a prefix: against the plain version, a second
+   call bitwise, the all-true mask bitwise the unmasked call, the ring's
+   grid on the card (the clusters that wrote a partial) equal to its
+   mirror, the route (``window_sums.cu``'s gather or window entry;
+   ``fused_sums.cu`` for 7,216 f32) counted by source; and views one
+   element past a 16-byte aligned base (d = 1000, 1001 bf16; 24, 101
+   f32), B1 and B2 through ``window_sums.cu``.
 4. full    — the main path at config 4's width: 10,000,000 x 1000 bf16
    least squares made on the card from a seed, trained through
    ``LinearRegressionWithSGD`` at ``mini_batch_fraction=0.1``: Bernoulli,
    sliced, and sliced through ``FusedGradient(window_kernel="vpu")``.
    Launch counts (by wrapper and by CUDA source) are set to 0 before and
    read after; each kernel must have run once per iteration, all in
-   ``window_sums.cu`` (B1's Bernoulli batch in its gather entry).  Then a
+   ``window_sums.cu`` (B1's Bernoulli batch in its gather entry).  The
+   intercept leg: the same rows with the bias column (10M x 1001 bf16,
+   2,002-byte rows) trained twice Bernoulli and sliced and once at full
+   batch, every launch in ``window_sums.cu`` and none in
+   ``fused_sums.cu``, the first two steps' sums against the plain version
+   at the gradient tier, the second run bitwise the first, each objective
+   within 1.01x of the run without an intercept.  Then a
    profiler trace splits an iteration's device time by kernel, and each
    kernel is timed at these shapes beside its plain version, one PyTorch
    call of the same work and its bound.  B1 and the window kernel are
@@ -46,14 +58,19 @@ Run from the root of the repository.  Phases, each printing one JSON line:
    new, old), each as device time (launches captured in a CUDA graph, the
    replay timed with events) and as back-to-back calls paced by the host;
    masked B1's library yardstick is an ``index_select`` of the live rows
-   and two matmuls over them.
+   and two matmuls over them.  The same at 10M x 1001 bf16 (B1 at 10% and
+   unmasked, B2 on the 1M-row window, a 128,000-row CostFun chunk), and
+   ``fused_sums.cu`` at the widths it keeps (7,216 and 47,237 f32).
 5. configs — configs 1-3 of BASELINE.md through the user API, each held to
    its pass criterion against a numpy/scipy oracle: config 3 both on dense
    ``svm_data`` and undensified on its RCV1 stand-in after a LIBSVM round
    trip (against the LP oracle and against the dense path on the same
    data; the file must be read by the native parser, built on the card's
    host at first use); then config 5, streaming SGD over ten
-   micro-batches.
+   micro-batches.  Config 1 also trains with its intercept (101 f32,
+   404-byte rows: every B1 launch in ``window_sums.cu``'s window entry,
+   the objective within 1% of the exact optimum with an intercept), and
+   B1 at that shape joins the kernel table.
 6. sparse  — config 3 at full RCV1 scale, 697,641 x 47,236 with 75
    nonzeros a row, made on the card from a seed and trained undensified
    (hinge + L1) at frac 1.0 and 0.1: loss, accuracy, peak memory, dense
@@ -540,9 +557,13 @@ def _problem(torch, gen, n, d, family, dtype):
 
 
 def phase_kernels(torch, ck, grads):
+    """Phase kernels (see the module docstring).  Returns the cases, the
+    largest error by kernel and route, and ``fused_sums.cu``'s launches by
+    ``(d, element type)`` at the widths it keeps."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     cases = 0
     worst = {}
+    fused = {}
     for d, n in ((24, 5003), (1000, 5003), (47237, 1003)):
         for name, g in grads.items():
             for dtype in (torch.float32, torch.bfloat16):
@@ -565,6 +586,9 @@ def phase_kernels(torch, ck, grads):
                     check(all(torch.equal(a, b) for a, b in zip(got, again)),
                           f"fused_gradient_sums {name} {dtype} d={d} is not "
                           "deterministic")
+                    if ck.window_plan_for(X) is None:
+                        key = (d, str(dtype)[6:])
+                        fused[key] = fused.get(key, 0) + 2
     # window kernels: random, negative and past-the-end starts (clamped)
     tile = 256
     n, d = 32 * tile, 1000
@@ -604,12 +628,12 @@ def phase_kernels(torch, ck, grads):
         pass
     else:
         raise RuntimeError("check failed: _check_tile_smem took d=60000")
-    routed = window_route_cases(torch, ck, grads, gen, worst)
-    routed += gather_route_cases(torch, ck, grads, gen, worst)
+    routed = window_route_cases(torch, ck, grads, gen, worst, fused)
+    routed += gather_route_cases(torch, ck, grads, gen, worst, fused)
     walked = csr_walk_cases(torch, ck, worst)
     walked += csr_long_row_cases(torch, ck)
     torch.cuda.synchronize()
-    return cases + routed + walked, worst
+    return cases + routed + walked, worst, fused
 
 
 def csr_long_row_cases(torch, ck):
@@ -722,79 +746,86 @@ def csr_walk_cases(torch, ck, worst):
     return cases + 1
 
 
-def window_route_cases(torch, ck, grads, gen, worst):
-    """Windows routed by shape: d in {24, 1000, 2048, 4096} and 7,216 bf16
-    to ``window_sums.cu`` (1, 2, 4 and 8 column chunks a thread), 7,216 f32
-    and 47,237 to ``fused_sums.cu`` (the launches counted by source), at
-    the stage-boundary lengths, fewer rows than the grid and 65,536 rows,
+#: (d, element type, whether its rows go to window_sums.cu) of the route
+#: sweeps: the ring's widths whose rows are whole 16-byte units (1, 2, 4
+#: and 8 column chunks a thread), the rows that are not (each row through
+#: its aligned superset, up to the widest of each type with a plan: 4,121
+#: f32 and 7,209 bf16), and fused_sums.cu's widths (no ring fits)
+ROUTE_WIDTHS = tuple(
+    [(d, dt, True) for d in (24, 1000, 2048, 4096)
+     for dt in ("float32", "bfloat16")]
+    + [(7216, "bfloat16", True)]
+    + [(d, "float32", True) for d in (7, 101, 123, 4121)]
+    + [(d, "bfloat16", True) for d in (100, 785, 1001, 4097, 7209)]
+    + [(7216, "float32", False)])
+
+
+def window_route_cases(torch, ck, grads, gen, worst, fused):
+    """Windows routed by shape (``ROUTE_WIDTHS``, and 47,237 in both types
+    to ``fused_sums.cu``; the launches counted by source), at the
+    stage-boundary lengths, fewer rows than the grid and 65,536 rows,
     random / negative / past-the-end starts, with and without ``valid``;
-    each call repeated and held bitwise equal."""
+    each call repeated and held bitwise equal.  Adds ``fused_sums.cu``'s
+    launches to ``fused`` by ``(d, element type)``."""
     cases = 0
-    both = (torch.float32, torch.bfloat16)
-    # width -> the element types whose windows go to window_sums.cu
-    routes = {24: both, 1000: both, 2048: both, 4096: both,
-              7216: (torch.bfloat16,), 47237: ()}
-    for d, new_dtypes in routes.items():
+    widths = ROUTE_WIDTHS + ((47237, "float32", False),
+                             (47237, "bfloat16", False))
+    for d, dt, ring in widths:
         wide = d == 47237
         n = 3_000 if wide else CHUNK_ROWS + 1_000
-        for dtype in both:
-            X = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
-            w = torch.randn(d, generator=gen, device="cuda") / math.sqrt(d)
-            y_ls = torch.randn(n, generator=gen, device="cuda")
-            y_01 = (torch.rand(n, generator=gen, device="cuda") < 0.5).float()
-            valid = torch.rand(n, generator=gen, device="cuda") < 0.5
-            plan = ck.window_plan_for(X)
-            check((plan is not None) == (dtype in new_dtypes),
-                  f"route of d={d} {dtype}: plan {plan}")
-            R = plan.stage_rows if plan else 16
-            lengths = [1, R - 1, R, R + 1, 100, 2_048 if wide else CHUNK_ROWS]
-            ck.reset_launch_counts()
-            calls = 0
-            bf16 = dtype == torch.bfloat16
-            for name, g in grads.items():
-                y = y_ls if name == "least_squares" else y_01
-                for i, m in enumerate(lengths):
-                    kernel = (ck.fused_window_sums_vpu if i % 2
-                              else ck.fused_window_sums)
-                    s_rand = int(torch.randint(0, n - m + 1, (1,),
-                                               generator=gen, device="cuda"))
-                    for s0 in (s_rand, -(n // 3), n + 123):
-                        for v in (None, valid):
-                            s = torch.tensor([s0], device="cuda")
-                            got = kernel(g.pointwise, X, y, w, s, m, tile_m=1,
-                                         valid=v)
-                            again = kernel(g.pointwise, X, y, w, s, m,
-                                           tile_m=1, valid=v)
-                            calls += 2
-                            ref = ck.fused_window_sums_plain(
-                                g.pointwise, X, y, w, s0, m, 1, v)
-                            ok, err, scale = _close(torch, got, ref, bf16)
-                            what = (f"{kernel.__name__} {name} {dtype} d={d} "
-                                    f"m={m} start={s0} "
-                                    f"valid={v is not None}")
-                            check(ok, f"{what}: max|dg|={err} of {scale}")
-                            check(all(torch.equal(a, b)
-                                      for a, b in zip(got, again)),
-                                  f"{what}: a second call differs")
-                            key = "window_sums" if plan else "fused_sums"
-                            worst[f"window_route_{key}"] = max(
-                                worst.get(f"window_route_{key}", 0.0), err)
-                            cases += 1
-            counts = ck.kernel_launch_counts()
-            expect = ({"fused_sums": 0, "window_sums": calls} if plan
-                      else {"fused_sums": calls, "window_sums": 0})
-            check(counts == expect,
-                  f"d={d} {dtype}: launches by source {counts} != {expect}")
-            del X
+        dtype = getattr(torch, dt)
+        X = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+        w = torch.randn(d, generator=gen, device="cuda") / math.sqrt(d)
+        y_ls = torch.randn(n, generator=gen, device="cuda")
+        y_01 = (torch.rand(n, generator=gen, device="cuda") < 0.5).float()
+        valid = torch.rand(n, generator=gen, device="cuda") < 0.5
+        plan = ck.window_plan_for(X)
+        check((plan is not None) == ring,
+              f"route of d={d} {dtype}: plan {plan}")
+        R = plan.stage_rows if plan else 16
+        lengths = [1, R - 1, R, R + 1, 100, 2_048 if wide else CHUNK_ROWS]
+        ck.reset_launch_counts()
+        calls = 0
+        bf16 = dtype == torch.bfloat16
+        for name, g in grads.items():
+            y = y_ls if name == "least_squares" else y_01
+            for i, m in enumerate(lengths):
+                kernel = (ck.fused_window_sums_vpu if i % 2
+                          else ck.fused_window_sums)
+                s_rand = int(torch.randint(0, n - m + 1, (1,),
+                                           generator=gen, device="cuda"))
+                for s0 in (s_rand, -(n // 3), n + 123):
+                    for v in (None, valid):
+                        s = torch.tensor([s0], device="cuda")
+                        got = kernel(g.pointwise, X, y, w, s, m, tile_m=1,
+                                     valid=v)
+                        again = kernel(g.pointwise, X, y, w, s, m,
+                                       tile_m=1, valid=v)
+                        calls += 2
+                        ref = ck.fused_window_sums_plain(
+                            g.pointwise, X, y, w, s0, m, 1, v)
+                        ok, err, scale = _close(torch, got, ref, bf16)
+                        what = (f"{kernel.__name__} {name} {dtype} d={d} "
+                                f"m={m} start={s0} "
+                                f"valid={v is not None}")
+                        check(ok, f"{what}: max|dg|={err} of {scale}")
+                        check(all(torch.equal(a, b)
+                                  for a, b in zip(got, again)),
+                              f"{what}: a second call differs")
+                        key = "window_sums" if plan else "fused_sums"
+                        worst[f"window_route_{key}"] = max(
+                            worst.get(f"window_route_{key}", 0.0), err)
+                        cases += 1
+        counts = ck.kernel_launch_counts()
+        expect = ({"fused_sums": 0, "window_sums": calls} if plan
+                  else {"fused_sums": calls, "window_sums": 0})
+        check(counts == expect,
+              f"d={d} {dtype}: launches by source {counts} != {expect}")
+        fused[d, dt] = fused.get((d, dt), 0) + counts["fused_sums"]
+        del X
     return cases
 
 
-#: B1's widths by element type: the ring's (gather and window entries of
-#: window_sums.cu), or fused_sums.cu's (7,216 f32: no ring fits)
-GATHER_ROUTES = ((24, ("float32", "bfloat16")), (1000, ("float32", "bfloat16")),
-                 (2048, ("float32", "bfloat16")),
-                 (4096, ("float32", "bfloat16")),
-                 (7216, ("bfloat16", "float32")))
 GATHER_ROWS = 20_011
 
 
@@ -816,92 +847,144 @@ def _gather_masks(torch, gen, n, blocks):
             "share_edges": edges, "prefix": prefix}
 
 
-def gather_route_cases(torch, ck, grads, gen, worst):
-    """B1 by shape: at d in {24, 1000, 2048, 4096, 7216} in f32 and bf16,
-    the three families, unmasked and under every mask of
-    ``_gather_masks``: the kernel against the plain version (``_close``),
-    a second call bitwise equal, an all-true mask bitwise the unmasked
-    call, a mask with no live row a zero gradient, loss and count, and the
-    route asserted through the launch counts by source (the ring's widths
-    to window_sums.cu, 7,216 f32 and a base one element off alignment to
-    fused_sums.cu)."""
+def ring_blocks_on_card(torch, ck, X, call) -> int:
+    """Blocks of the ring's grid in ``call`` (a ring call on X): the
+    clusters that wrote their partial count into the stream's scratch
+    (every count set to -1 first), times the cluster."""
+    call()  # makes the scratch
+    stream = torch.cuda.current_stream().cuda_stream
+    cnt = ck._WINDOW_SCRATCH[(X.device.index or 0, X.shape[1], stream)][2]
+    cnt.fill_(-1.0)
+    call()
+    return int((cnt != -1.0).sum()) * ck.WINDOW_CLUSTER
+
+
+def _b1_cases(torch, ck, grads, X, y_ls, y_01, w, masks, what, ring):
+    """B1 on X unmasked and under each of ``masks``: the kernel against
+    the plain version, a second call bitwise, the all-true mask bitwise
+    the unmasked call, no live row a zero gradient, loss and count, and
+    the launches counted by source (``ring``: window_sums.cu, else
+    fused_sums.cu).  Returns the cases and the largest error."""
+    bf16 = X.dtype == torch.bfloat16
+    ck.reset_launch_counts()
+    calls = cases = 0
+    worst = 0.0
+    for name, g in grads.items():
+        y = y_ls if name == "least_squares" else y_01
+        unmasked = ck.fused_gradient_sums(g.pointwise, X, y, w)
+        calls += 1
+        ok, err, scale = _close(torch, unmasked, ck.fused_gradient_sums_plain(
+            g.pointwise, X, y, w), bf16)
+        check(ok, f"B1 {name} {what} unmasked: {err} of {scale}")
+        for mname, m in masks.items():
+            got = ck.fused_gradient_sums(g.pointwise, X, y, w, m)
+            again = ck.fused_gradient_sums(g.pointwise, X, y, w, m)
+            calls += 2
+            ref = ck.fused_gradient_sums_plain(g.pointwise, X, y, w, m)
+            ok, err, scale = _close(torch, got, ref, bf16)
+            label = f"B1 {name} {what} mask {mname}"
+            check(ok, f"{label}: max|dg|={err} of {scale}, count "
+                  # graftlint: disable=host-sync -- chip check: reads each case back to compare it
+                  f"{float(got[2])} vs {float(ref[2])}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{label}: a second call differs")
+            if mname == "all":
+                check(all(torch.equal(a, b) for a, b in zip(got, unmasked)),
+                      f"{label}: not bitwise the unmasked call")
+            if mname == "zero":
+                # graftlint: disable=host-sync -- chip check: reads each case back to compare it
+                check(float(got[2]) == 0.0 and float(got[1]) == 0.0
+                      # graftlint: disable=host-sync -- chip check: reads each case back to compare it
+                      and not bool(got[0].any()),
+                      f"{label}: {got[1]}, {got[2]}")
+            worst = max(worst, err)
+            cases += 1
+    counts = ck.kernel_launch_counts()
+    expect = ({"fused_sums": 0, "window_sums": calls} if ring
+              else {"fused_sums": calls, "window_sums": 0})
+    check(counts == expect,
+          f"B1 {what}: launches by source {counts} != {expect}")
+    return cases, worst
+
+
+def gather_route_cases(torch, ck, grads, gen, worst, fused):
+    """B1 by shape: at each width of ``ROUTE_WIDTHS``, the three families,
+    unmasked and under every mask of ``_gather_masks`` (``_b1_cases``),
+    the ring's grid on the card (both entries) equal to its mirror
+    ``ck.ring_grid``.  Then views one element past a 16-byte aligned base
+    (d = 1000 and 1001 bf16, 24 and 101 f32): B1 as above and B2 at a
+    random start, all through window_sums.cu.  Adds ``fused_sums.cu``'s
+    launches to ``fused`` by ``(d, element type)``."""
     cases = 0
     n = GATHER_ROWS
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for d, dtypes in GATHER_ROUTES:
-        for dt in dtypes:
-            dtype = getattr(torch, dt)
-            X = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
-            w = torch.randn(d, generator=gen, device="cuda") / math.sqrt(d)
-            y_ls = torch.randn(n, generator=gen, device="cuda")
-            y_01 = (torch.rand(n, generator=gen, device="cuda") < 0.5).float()
-            plan = ck.window_plan_for(X)
-            ring = plan is not None
-            check(ring == ((d, dt) != (7216, "float32")),
-                  f"B1 route of d={d} {dt}: plan {plan}")
-            # the ring's blocks (its mirror), for masks live at their
-            # shares' edges
-            blocks = ck.ring_grid(n, plan, sms) if ring else 64
-            masks = _gather_masks(torch, gen, n, blocks)
-            bf16 = dtype == torch.bfloat16
-            ck.reset_launch_counts()
-            calls = 0
-            for name, g in grads.items():
-                y = y_ls if name == "least_squares" else y_01
-                unmasked = ck.fused_gradient_sums(g.pointwise, X, y, w)
-                calls += 1
-                ok, err, scale = _close(torch, unmasked,
-                                        ck.fused_gradient_sums_plain(
-                                            g.pointwise, X, y, w), bf16)
-                check(ok, f"B1 {name} {dt} d={d} unmasked: {err} of {scale}")
-                for mname, m in masks.items():
-                    got = ck.fused_gradient_sums(g.pointwise, X, y, w, m)
-                    again = ck.fused_gradient_sums(g.pointwise, X, y, w, m)
-                    calls += 2
-                    ref = ck.fused_gradient_sums_plain(g.pointwise, X, y, w, m)
-                    ok, err, scale = _close(torch, got, ref, bf16)
-                    what = f"B1 {name} {dt} d={d} mask {mname}"
-                    check(ok, f"{what}: max|dg|={err} of {scale}, count "
-                          # graftlint: disable=host-sync -- chip check: reads each case back to compare it
-                          f"{float(got[2])} vs {float(ref[2])}")
-                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                          f"{what}: a second call differs")
-                    if mname == "all":
-                        check(all(torch.equal(a, b)
-                                  for a, b in zip(got, unmasked)),
-                              f"{what}: not bitwise the unmasked call")
-                    if mname == "zero":
-                        # graftlint: disable=host-sync -- chip check: reads each case back to compare it
-                        check(float(got[2]) == 0.0 and float(got[1]) == 0.0
-                              # graftlint: disable=host-sync -- chip check: reads each case back to compare it
-                              and not bool(got[0].any()),
-                              f"{what}: {got[1]}, {got[2]}")
-                    key = "b1_ring" if ring else "b1_fused_sums"
-                    worst[key] = max(worst.get(key, 0.0), err)
-                    cases += 1
-            counts = ck.kernel_launch_counts()
-            expect = ({"fused_sums": 0, "window_sums": calls} if ring
-                      else {"fused_sums": calls, "window_sums": 0})
-            check(counts == expect,
-                  f"B1 d={d} {dt}: launches by source {counts} != {expect}")
-            del X
-    # a base one element past alignment: fused_sums.cu, masked or not
-    X = torch.randn(3 * 1000 + 1, generator=gen, device="cuda").to(
-        torch.bfloat16)[1:].view(3, 1000)
-    y = torch.randn(3, generator=gen, device="cuda")
-    w = torch.randn(1000, generator=gen, device="cuda")
-    m = torch.tensor([True, False, True], device="cuda")
-    ck.reset_launch_counts()
-    for mask in (None, m):
-        g = grads["least_squares"]
-        ok, err, _ = _close(torch, ck.fused_gradient_sums(g.pointwise, X, y,
-                                                          w, mask),
-                            ck.fused_gradient_sums_plain(g.pointwise, X, y,
-                                                         w, mask), True)
-        check(ok, f"B1 on a misaligned base, mask={mask is not None}: {err}")
-        cases += 1
-    check(ck.kernel_launch_counts() == {"fused_sums": 2, "window_sums": 0},
-          f"misaligned base: launches {ck.kernel_launch_counts()}")
+    pw = grads["least_squares"].pointwise
+    for d, dt, ring in ROUTE_WIDTHS:
+        dtype = getattr(torch, dt)
+        X = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+        w = torch.randn(d, generator=gen, device="cuda") / math.sqrt(d)
+        y_ls = torch.randn(n, generator=gen, device="cuda")
+        y_01 = (torch.rand(n, generator=gen, device="cuda") < 0.5).float()
+        plan = ck.window_plan_for(X)
+        check((plan is not None) == ring, f"B1 route of d={d} {dt}: {plan}")
+        # the ring's blocks (its mirror), for masks live at their
+        # shares' edges
+        blocks = ck.ring_grid(n, plan, sms) if ring else 64
+        masks = _gather_masks(torch, gen, n, blocks)
+        if ring:
+            for m in (None, masks["p0.1"]):
+                got = ring_blocks_on_card(
+                    torch, ck, X,
+                    lambda m=m: ck.fused_gradient_sums(pw, X, y_ls, w, m))
+                check(got == blocks, f"B1 d={d} {dt} mask={m is not None}: "
+                      f"{got} blocks on the card, its mirror {blocks}")
+        c, err = _b1_cases(torch, ck, grads, X, y_ls, y_01, w, masks,
+                           f"{dt} d={d}", ring)
+        fused[d, dt] = (fused.get((d, dt), 0)
+                        + ck.kernel_launch_counts()["fused_sums"])
+        key = "b1_ring" if ring else "b1_fused_sums"
+        worst[key] = max(worst.get(key, 0.0), err)
+        cases += c
+        del X
+    # views one element past an aligned base: the ring, masked or not
+    rows = 2_003
+    for d, dt in ((1000, "bfloat16"), (1001, "bfloat16"), (24, "float32"),
+                  (101, "float32")):
+        dtype = getattr(torch, dt)
+        X = torch.randn(rows * d + 1, generator=gen, device="cuda").to(
+            dtype)[1:].view(rows, d)
+        check(X.data_ptr() % 16 != 0, f"d={d} {dt}: the view is aligned")
+        w = torch.randn(d, generator=gen, device="cuda") / math.sqrt(d)
+        y_ls = torch.randn(rows, generator=gen, device="cuda")
+        y_01 = (torch.rand(rows, generator=gen, device="cuda") < 0.5).float()
+        u = torch.rand(rows, generator=gen, device="cuda")
+        masks = {"zero": u < 0, "p0.1": u < 0.1, "all": u >= 0}
+        what = f"{dt} d={d} one element off alignment"
+        c, err = _b1_cases(torch, ck, grads, X, y_ls, y_01, w, masks, what,
+                           True)
+        if d * X.element_size() % 16 == 0:
+            # rows of whole units: the same tiles and order of additions
+            # as an aligned copy's, so the same bits
+            Xa = X.clone()
+            for m in (None, masks["p0.1"]):
+                got = ck.fused_gradient_sums(pw, X, y_ls, w, m)
+                ref = ck.fused_gradient_sums(pw, Xa, y_ls, w, m)
+                check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                      f"B1 {what} mask={m is not None}: not bitwise an "
+                      "aligned copy")
+        s0 = 777
+        ref = ck.fused_window_sums_plain(pw, X, y_ls, w, s0, 1_000, 1)
+        ck.reset_launch_counts()
+        got = ck.fused_window_sums(pw, X, y_ls, w,
+                                   torch.tensor([s0], device="cuda"), 1_000,
+                                   tile_m=1)
+        ok, err_w, scale = _close(torch, got, ref, dtype == torch.bfloat16)
+        check(ok and ck.kernel_launch_counts()["window_sums"] == 1,
+              f"B2 {what}: max|dg|={err_w} of {scale}, launches "
+              f"{ck.kernel_launch_counts()}")
+        worst["b1_ring_misaligned_base"] = max(
+            worst.get("b1_ring_misaligned_base", 0.0), err, err_w)
+        cases += c + 1
     return cases
 
 
@@ -927,12 +1010,15 @@ def make_full_data(torch, n, d, seed=4, chunk=1_000_000):
 
 class CountRecorder:
     """Delegates to a Gradient and keeps each call's count (a device
-    tensor: recording never syncs)."""
+    tensor: recording never syncs), and the first ``keep`` calls' inputs
+    (weights, mask or start cloned) and sums."""
 
-    def __init__(self, inner):
+    def __init__(self, inner, keep=0):
         self.inner = inner
         self.family = inner.family
         self.counts = []
+        self.keep = keep
+        self.first = []
 
     def pointwise(self, margin, label):
         return self.inner.pointwise(margin, label)
@@ -940,14 +1026,21 @@ class CountRecorder:
     def weight_dim(self, num_features):
         return self.inner.weight_dim(num_features)
 
-    def batch_sums(self, *args, **kw):
-        out = self.inner.batch_sums(*args, **kw)
+    def _record(self, kind, X, y, w, extra, out):
         self.counts.append(out[2])
+        if len(self.first) < self.keep:
+            self.first.append((kind, X, y, w.clone(), extra,
+                               tuple(t.clone() for t in out)))
+
+    def batch_sums(self, X, y, w, mask=None, **kw):
+        out = self.inner.batch_sums(X, y, w, mask, **kw)
+        self._record("batch", X, y, w,
+                     None if mask is None else mask.clone(), out)
         return out
 
-    def window_sums(self, *args, **kw):
-        out = self.inner.window_sums(*args, **kw)
-        self.counts.append(out[2])
+    def window_sums(self, X, y, w, start, m, valid=None, **kw):
+        out = self.inner.window_sums(X, y, w, start, m, valid=valid, **kw)
+        self._record("window", X, y, w, (start.clone(), m, valid), out)
         return out
 
 
@@ -957,7 +1050,7 @@ def phase_full(torch, tst, ck):
     gen_s = time.perf_counter() - t0
     n = FULL_ROWS
     m = round(FRAC * n)
-    runs = {}
+    runs, weights = {}, {}
     ck.reset_launch_counts()
     for mode in ("bernoulli", "sliced", "sliced_vpu"):
         alg = tst.LinearRegressionWithSGD(0.5, ITERS, None, FRAC)
@@ -993,6 +1086,7 @@ def phase_full(torch, tst, ck):
             "count_min": float(counts.min()),
             "count_max": float(counts.max()),
         }
+        weights[mode] = model.weights
         if mode == "sliced":
             sliced_ref = (np.asarray(losses), model.weights)
         check(len(losses) == ITERS, f"{mode}: {len(losses)} losses")
@@ -1016,11 +1110,194 @@ def phase_full(torch, tst, ck):
     by_source = ck.kernel_launch_counts()
     check(by_source == {"fused_sums": 0, "window_sums": 3 * ITERS},
           f"main-path launches by source {by_source}")
+    objectives = {mode: ls_objective_exact(torch, X, y, weights[mode])
+                  for mode in ("bernoulli", "sliced")}
+    intercept = full_intercept(torch, tst, ck, X, y, objectives)
     emit({"phase": "full", "rows": n, "d": FULL_D, "dtype": "bfloat16",
           "mini_batch_fraction": FRAC, "iterations": ITERS,
           "data_seconds": gen_s, "launches": counts,
-          "launches_by_source": by_source, "runs": runs})
-    return X, y, w_true, counts, sliced_ref
+          "launches_by_source": by_source, "runs": runs,
+          "objectives": objectives, "intercept": intercept})
+    return X, y, w_true, counts, sliced_ref, intercept
+
+
+#: phase full's intercept leg: full-batch iterations (their launches are
+#: the unmasked B1 row's at 10M x 1001)
+INTERCEPT_FULL_ITERS = 3
+
+
+def _intercept_run(torch, tst, ck, X, y, mode, keep=0):
+    """``LinearRegressionWithSGD`` with ``set_intercept(True)`` (what
+    ``train(..., intercept=True)`` builds) on X, schedule pinned off, at
+    ``FRAC`` (``mode`` "full": frac 1.0, ``INTERCEPT_FULL_ITERS``
+    iterations), its launches counted from 0; returns the run's record, its
+    recorder (the first ``keep`` calls) and the model."""
+    full = mode == "full"
+    iters = INTERCEPT_FULL_ITERS if full else ITERS
+    alg = tst.LinearRegressionWithSGD(0.5, iters, None, 1.0 if full else FRAC)
+    alg.set_intercept(True)
+    alg.set_schedule("off")  # a named route: no planner
+    rec = CountRecorder(tst.LeastSquaresGradient(), keep=keep)
+    alg.optimizer.set_convergence_tol(0.0).set_gradient(rec)
+    alg.optimizer.set_sampling("sliced" if mode == "sliced" else "bernoulli")
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = alg.run((X, y))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    run = {"seconds": secs, "iterations": iters,
+           "losses": np.asarray(alg.optimizer.loss_history),
+           "launches": ck.launch_counts(),
+           "b1_routes": ck.gradient_route_counts(),
+           "launches_by_source": ck.kernel_launch_counts()}
+    return run, rec, model
+
+
+def _flip_slack_check(torch, pw, X, y, w, rows, got, ref, factor=8.0,
+                      chunk=262_144):
+    """Sums of bf16 X (``got``) against the plain version's (``ref``) at
+    the gradient tier, elementwise, widened only by what coefficients one
+    bf16 rounding apart can move.  Both sides round ``coeff =
+    pointwise(margin, y)`` to bf16 from an f32 margin summed in their own
+    order, so a coefficient that close to a bf16 rounding boundary can
+    round either way.  Exact (f64) margins of the summed ``rows`` find
+    those rows: ``tau`` is ``factor`` times the plain margins' largest
+    error, and a row whose coefficient at its exact margin -tau and +tau
+    (the coefficient rises with the margin) rounds to two bf16 values adds
+    their difference times |x_ij| to column j's slack.  Holds |dg_j| <=
+    2e-3 + 2e-4 |g_j| + slack_j, the loss at rtol 2e-4 and the count
+    exact.  Returns ``ok`` and the record: the rows whose coefficient the
+    plain order rounds off the exact one, the boundary rows, tau, the
+    columns beyond the plain tier and the largest slack."""
+    from tpu_sgd_torch.ops.gradients import margins_of
+
+    bf, f64 = torch.bfloat16, torch.float64
+    wr = w.to(bf).to(f64)
+    zero = torch.zeros((), dtype=f64, device=X.device)
+    m64s, ys, plain_flips, err = [], [], zero, zero
+    for s in range(0, rows.numel(), chunk):
+        Xc = X.index_select(0, rows[s:s + chunk])
+        yc = y.index_select(0, rows[s:s + chunk]).to(f64)
+        m32 = margins_of(Xc, w)
+        m64 = Xc.to(f64) @ wr
+        plain_flips = plain_flips + (pw(m32, yc.float())[0].to(bf)
+                                     != pw(m64, yc)[0].float().to(bf)).sum()
+        err = torch.maximum(err, (m32.to(f64) - m64).abs().max())
+        m64s.append(m64)
+        ys.append(yc)
+    tau = factor * err
+    slack = torch.zeros(X.shape[1], dtype=f64, device=X.device)
+    boundary = zero
+    for k, s in enumerate(range(0, rows.numel(), chunk)):
+        lo, hi = (pw(m64s[k] + t, ys[k])[0].float().to(bf).to(f64)
+                  for t in (-tau, tau))
+        delta = hi - lo
+        boundary = boundary + (delta != 0).sum()
+        slack += delta @ X.index_select(0, rows[s:s + chunk]).to(f64).abs()
+    g, l, c = (t.to(f64) for t in got)
+    gr, lr, cr = (t.to(f64) for t in ref)
+    dg = (g - gr).abs()
+    tier = 2e-3 + 2e-4 * gr.abs()
+    ok = (bool(torch.all(dg <= tier + slack))
+          and abs(float(l - lr)) <= 2e-4 * abs(float(lr)) + 1e-9
+          and float(c) == float(cr))
+    return {"ok": ok, "max_abs_err": float(dg.max()),
+            "grad_scale": float(gr.abs().max()), "rows": rows.numel(),
+            "plain_flips": int(plain_flips), "margin_err": float(err),
+            "tau": float(tau), "boundary_rows": int(boundary),
+            "columns_beyond_tier": int((dg > tier).sum()),
+            "max_slack": float(slack.max()),
+            "max_dg_over_tier_plus_slack": float((dg / (tier + slack))
+                                                 .max())}
+
+
+def full_intercept(torch, tst, ck, X, y, objectives):
+    """Phase full's intercept leg: config 4's rows with the bias column
+    (10M x 1001 bf16: 2,002-byte rows, not whole 16-byte units), trained
+    twice each Bernoulli and sliced at ``FRAC`` and once at full batch.
+    Launches exact: B1's every launch in ``window_sums.cu``'s gather entry
+    (Bernoulli) or window entry (full batch), B2's every sliced window in
+    its window entry, none in ``fused_sums.cu``; the first step's sums of
+    each sampled run against the plain version on the same inputs at the
+    gradient tier (``_close``'s f32 bounds: rtol 2e-4 / atol 2e-3, loss
+    rtol 2e-4, count exact: at w = 0 every margin is 0 on both sides), the
+    second step's at that tier plus what coefficients one bf16 rounding
+    apart can move (``_flip_slack_check``: the margins' two orders of
+    additions can round a coefficient near a bf16 boundary either way;
+    step 1's slack is 0); the second run bitwise the first
+    (weights, intercept, history); each objective within 1.01x of phase
+    full's run without an intercept on the same rows.  Each run builds its
+    own 20 GB of X with the bias column and frees it."""
+    out = {}
+    n = X.shape[0]
+    for mode in ("bernoulli", "sliced", "full"):
+        sampled = mode != "full"
+        run, rec, model = _intercept_run(torch, tst, ck, X, y, mode,
+                                         keep=2 if sampled else 0)
+        iters = run["iterations"]
+        src = {"fused_sums": 0, "window_sums": iters}
+        if mode == "sliced":
+            wrappers = {"fused_gradient_sums": 0, "fused_window_sums": iters,
+                        "fused_window_sums_vpu": 0}
+            routes = {"gather": 0, "window": 0, "fused_sums": 0}
+        else:
+            wrappers = {"fused_gradient_sums": iters, "fused_window_sums": 0,
+                        "fused_window_sums_vpu": 0}
+            routes = {"gather": iters if sampled else 0,
+                      "window": 0 if sampled else iters, "fused_sums": 0}
+        check(run["launches"] == wrappers and run["b1_routes"] == routes
+              and run["launches_by_source"] == src,
+              f"intercept {mode}: launches {run}")
+        check(len(run["losses"]) == iters
+              and bool(np.all(np.isfinite(run["losses"]))),
+              f"intercept {mode}: losses {run['losses']}")
+        rec_out = {"seconds": run["seconds"], "launches": run["launches"],
+                   "b1_routes": run["b1_routes"],
+                   "launches_by_source": run["launches_by_source"]}
+        if sampled:
+            steps = []
+            for kind, Xb, yb, w, extra, got in rec.first:
+                check(Xb.shape == (n, FULL_D + 1) and Xb.data_ptr() % 16 == 0,
+                      f"intercept {mode}: X {tuple(Xb.shape)}")
+                pw = rec.inner.pointwise
+                if kind == "batch":
+                    ref = ck.fused_gradient_sums_plain(pw, Xb, yb, w, extra)
+                    rows = torch.nonzero(extra).squeeze(1)
+                else:
+                    start, m, valid = extra
+                    check(valid is None, f"intercept {mode}: a valid mask")
+                    ref = ck.fused_window_sums_plain(pw, Xb, yb, w,
+                                                     int(start), m, 1, valid)
+                    s0 = ck._clamp_start(int(start), n, m)
+                    rows = torch.arange(s0, s0 + m, device="cuda")
+                step = _flip_slack_check(torch, pw, Xb, yb, w, rows, got,
+                                         ref)
+                check(step["ok"] and (steps or step["max_slack"] == 0.0),
+                      f"intercept {mode} step {len(steps) + 1}: {step}")
+                steps.append(step)
+            check(len(steps) == 2, f"intercept {mode}: {len(steps)} steps")
+            del rec, Xb, yb
+            torch.cuda.empty_cache()
+            again, _, model2 = _intercept_run(torch, tst, ck, X, y, mode)
+            bitwise = (torch.equal(model.weights, model2.weights)
+                       and model.intercept == model2.intercept
+                       and np.array_equal(run["losses"], again["losses"]))
+            check(bitwise, f"intercept {mode}: a second run differs")
+            obj = ls_objective_exact(torch, X, y - model.intercept,
+                                     model.weights)
+            ratio = obj / objectives[mode]
+            check(ratio <= 1.01, f"intercept {mode}: objective {obj} is "
+                  f"{ratio}x the run without an intercept")
+            rec_out.update(first_steps=steps, second_run_bitwise=bitwise,
+                           objective=obj, objective_ratio=ratio,
+                           intercept=model.intercept,
+                           loss_first=float(run["losses"][0]),
+                           loss_last=float(run["losses"][-1]))
+        out[mode] = rec_out
+        del model
+        torch.cuda.empty_cache()
+    return out
 
 
 def device_ms_by_kernel(torch, prof) -> dict:
@@ -1158,7 +1435,7 @@ def window_row(torch, ck, kernel, pw, X, y, w, s0, rows, path):
         "bound_ms": bound, "bound_by": by}
 
 
-def b1_row(torch, ck, pw, X, y, w, mask, path, reps):
+def b1_row(torch, ck, pw, X, y, w, mask, path, reps, graph=(20, 10)):
     """B1 at one shape of the main path: max |dg| against the plain version;
     the new route (``gradient_sums_route``: the gather or window entry of
     ``window_sums.cu``) and the old one (``fused_sums.cu``, called
@@ -1167,7 +1444,9 @@ def b1_row(torch, ck, pw, X, y, w, mask, path, reps):
     the library yardstick (two matmuls over the rows the call sums: for a
     mask, after an ``index_select`` of the live rows, which the time
     includes, the indices found beforehand; the old yardstick over all
-    rows beside it); the bound (the mask's bytes included)."""
+    rows beside it); the bound (the mask's bytes included).  ``graph``:
+    the launches a CUDA graph captures and its replays, for each turn's
+    device time."""
     n, d = X.shape
     route = ck.gradient_sums_route(X, mask is not None)
     check(route != "fused_sums", f"B1 at {path} does not take the ring")
@@ -1187,7 +1466,7 @@ def b1_row(torch, ck, pw, X, y, w, mask, path, reps):
     turns = {"old": [], "new": []}
     for which in ("old", "new", "new", "old"):
         fn = old if which == "old" else new
-        turns[which].append({"device_ms": graph_ms(torch, fn),
+        turns[which].append({"device_ms": graph_ms(torch, fn, *graph),
                              "host_paced_ms": time_ms(torch, fn, reps)})
 
     def mean(which, key):
@@ -1248,6 +1527,118 @@ def phase_timing(torch, tst, ck, X, y, launches):
     for r in rows:
         r["launches"] = launches[r["name"]]
     emit({"phase": "timing", "kernels": rows})
+    return rows
+
+
+def fused_row(torch, ck, pw, X, y, w, mask, path, reps):
+    """B1 at a width ``fused_sums.cu`` keeps (no ring plan): max |dg|
+    against the plain version, its device time (graph replays) and
+    host-paced calls, the plain version, the library yardstick (two
+    matmuls over the rows the call sums, a mask's after an
+    ``index_select`` of its live rows) and the bound."""
+    n, d = X.shape
+    route = ck.gradient_sums_route(X, mask is not None)
+    check(route == "fused_sums", f"B1 at {path}: route {route}")
+
+    def fn():
+        return ck.fused_gradient_sums(pw, X, y, w, mask)
+
+    ref = ck.fused_gradient_sums_plain(pw, X, y, w, mask)
+    ok, err, scale = _close(torch, fn(), ref, X.dtype == torch.bfloat16)
+    check(ok, f"B1 at {path}: max|dg|={err} of {scale}")
+    wb = w.to(X.dtype)
+    sel = n if mask is None else int(mask.sum())
+    idx = None if mask is None else torch.nonzero(mask).squeeze(1)
+    coeff = torch.randn(sel, device="cuda").to(X.dtype)
+
+    def library():
+        Xs = X if idx is None else X.index_select(0, idx)
+        return Xs @ wb, coeff @ Xs
+
+    bound, by = _bound_ms(sel, d, X.element_size(),
+                          0 if mask is None else n)
+    ms = graph_ms(torch, fn)
+    return {"name": "fused_gradient_sums", "path": path, "source": SOURCE,
+            "route": route, "shape": [n, d], "selected_rows": sel,
+            "max_abs_err": err, "grad_scale": scale, "ms": ms,
+            "host_paced_ms": time_ms(torch, fn, reps),
+            "plain_ms": time_ms(torch, lambda: ck.fused_gradient_sums_plain(
+                pw, X, y, w, mask), 2),
+            "library_ms": time_ms(torch, library, reps),
+            "library_includes": ("two matmuls" if mask is None else
+                                 "index_select of the live rows, then two "
+                                 "matmuls over them"),
+            "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms}
+
+
+#: the shapes ``fused_sums.cu`` keeps, timed in phase timing: 7,216 f32
+#: (no ring fits) and config 3's RCV1 width with its intercept, densified
+#: (above WINDOW_MAX_D), each at a 10% mask
+FUSED_ROW_SHAPES = ((200_000, 7216), (20_000, 47237))
+
+
+def intercept_rows(torch, tst, ck, X, y, intercept, kernels_launches):
+    """The kernels at the unaligned width of the main path and at the
+    widths ``fused_sums.cu`` keeps, each beside its bound, plain version
+    and library call: B1 at phase full's rows with the bias column (10M x
+    1001 bf16) under phase timing's 10% mask and unmasked, B2 on its
+    1M-row window and B1 on a 128,000-row CostFun chunk of it (``b1_row``
+    and ``window_row``: the ring and ``fused_sums.cu`` in turns); then B1
+    on ``fused_sums.cu`` at ``FUSED_ROW_SHAPES``.  Launches: the intercept
+    leg's (phase full), the chunk's none (no phase streams 1001-wide
+    rows), the fused rows' from phase kernels' route sweeps
+    (``kernels_launches``, by width)."""
+    from tpu_sgd_torch.utils.mlutils import append_bias
+
+    n = X.shape[0]
+    Xb = append_bias(X)
+    pw = tst.LeastSquaresGradient().pointwise
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    w = torch.randn(FULL_D + 1, generator=gen, device="cuda") / math.sqrt(
+        FULL_D + 1)
+    mask = torch.rand(n, generator=torch.Generator(device="cuda")
+                      .manual_seed(6), device="cuda") < FRAC
+    path = "sgd with the intercept (10M x 1001 bf16)"
+    rows = [b1_row(torch, ck, pw, Xb, y, w, mask, path, 10),
+            b1_row(torch, ck, pw, Xb, y, w, None, f"{path}, full batch", 3,
+                   graph=(4, 5)),
+            window_row(torch, ck, ck.fused_window_sums, pw, Xb, y, w,
+                       1234 * WINDOW_TILE, round(FRAC * n), path)]
+    launches = intercept["bernoulli"]["launches"]["fused_gradient_sums"]
+    rows[0]["launches"] = 2 * launches
+    rows[0]["launches_from"] = ("phase full's intercept leg, Bernoulli "
+                                "(2 runs)")
+    rows[1]["launches"] = intercept["full"]["launches"][
+        "fused_gradient_sums"]
+    rows[1]["launches_from"] = "phase full's intercept leg, full batch"
+    rows[2]["launches"] = 2 * intercept["sliced"]["launches"][
+        "fused_window_sums"]
+    rows[2]["launches_from"] = ("phase full's intercept leg, sliced "
+                                "(2 runs)")
+    cap = 128_000
+    chunk = b1_row(torch, ck, tst.LogisticGradient().pointwise, Xb[:cap],
+                   (y[:cap] > 0).float(), w, None,
+                   "a streamed CostFun chunk with the intercept "
+                   "(128,000 x 1001 bf16)", 50)
+    chunk["launches"] = 0
+    chunk["launches_from"] = "none: no phase streams 1001-wide rows"
+    rows.append(chunk)
+    del Xb
+    torch.cuda.empty_cache()
+    for rows_n, d in FUSED_ROW_SHAPES:
+        Xf = torch.randn(rows_n, d, generator=gen, device="cuda")
+        yf = torch.randn(rows_n, generator=gen, device="cuda")
+        wf = torch.randn(d, generator=gen, device="cuda") / math.sqrt(d)
+        mf = torch.rand(rows_n, generator=gen, device="cuda") < FRAC
+        row = fused_row(torch, ck, pw, Xf, yf, wf, mf,
+                        f"fused_sums.cu's width ({rows_n:,} x {d:,} f32, "
+                        "10% mask)", 20)
+        row["launches"] = kernels_launches.get((d, "float32"), 0)
+        row["launches_from"] = "phase kernels' route sweeps at this width"
+        rows.append(row)
+        del Xf
+    torch.cuda.empty_cache()
+    emit({"phase": "timing", "intercept_kernels": rows})
     return rows
 
 
@@ -1409,9 +1800,86 @@ def config5(torch, tst):
     return out
 
 
-def phase_configs(torch, tst):
-    """Configs 1-3 and 5; returns phase plan's (f): config 1's host data
-    through ``NormalEquations``' AUTO placement."""
+CONFIG1_ITERS = 100
+
+
+def config1_intercept(torch, tst, ck, X, y):
+    """Config 1 with its intercept: 100,000 x 101 f32 (404-byte rows, not
+    whole 16-byte units), full batch at config 1's step for
+    ``CONFIG1_ITERS`` iterations, schedule pinned off: every B1 launch in
+    ``window_sums.cu``'s window entry, none in ``fused_sums.cu``; the
+    objective within 1% of the exact optimum with an intercept.  Then B1
+    at that shape (``b1_row``: the ring and ``fused_sums.cu`` in turns),
+    unmasked and under a 10% mask."""
+    from tpu_sgd_torch.utils.mlutils import append_bias
+
+    alg = tst.LinearRegressionWithSGD(1.0, CONFIG1_ITERS, None, 1.0)
+    alg.set_intercept(True)
+    alg.set_schedule("off")
+    alg.optimizer.set_convergence_tol(0.0)
+    ck.reset_launch_counts()
+    model = alg.run((X, y))
+    torch.cuda.synchronize()
+    routes = ck.gradient_route_counts()
+    sources = ck.kernel_launch_counts()
+    check(routes == {"gather": 0, "window": CONFIG1_ITERS, "fused_sums": 0}
+          and sources == {"fused_sums": 0, "window_sums": CONFIG1_ITERS},
+          f"config 1 with its intercept: launches {routes} {sources}")
+    Xb = append_bias(X).astype(np.float64)
+    w_star = np.linalg.lstsq(Xb, y.astype(np.float64), rcond=None)[0]
+    w = np.append(model.weights.double().cpu().numpy(), model.intercept)
+    L = 0.5 * float(np.mean((Xb @ w - y) ** 2))
+    L_star = 0.5 * float(np.mean((Xb @ w_star - y) ** 2))
+    rec = {"objective": L, "oracle": L_star, "gap": (L - L_star) / L_star,
+           "intercept": model.intercept, "b1_routes": routes}
+    check(rec["gap"] < 0.01, f"config 1 with its intercept: {rec}")
+    Xt = torch.from_numpy(append_bias(X)).cuda()
+    yt = torch.from_numpy(y).cuda()
+    w0 = torch.randn(Xt.shape[1], generator=torch.Generator(
+        device="cuda").manual_seed(8), device="cuda") / math.sqrt(Xt.shape[1])
+    pw = tst.LeastSquaresGradient().pointwise
+    path = "config 1 with its intercept (100,000 x 101 f32)"
+    row = b1_row(torch, ck, pw, Xt, yt, w0, None, f"{path}, full batch", 50)
+    row["launches"] = routes["window"]
+    row["launches_from"] = "phase configs, config 1 with its intercept"
+    mask = torch.rand(Xt.shape[0], generator=torch.Generator(
+        device="cuda").manual_seed(9), device="cuda") < FRAC
+    masked = b1_row(torch, ck, pw, Xt, yt, w0, mask, f"{path}, 10% mask",
+                    50)
+    masked["launches"] = 0
+    masked["launches_from"] = "none: config 1 trains at full batch"
+    return rec, [row, masked]
+
+
+def config2_rows(torch, tst, ck, X, y, launches):
+    """B1 at config 2's width (a9a, 123 f32: 492-byte rows, not whole
+    16-byte units), logistic, the ring and ``fused_sums.cu`` in turns
+    (``b1_row``): config 2's own 20,000 rows at full batch (``launches``:
+    its SGD run's window-entry launches), and config 1's 100,000 rows
+    under a 10% mask."""
+    pw = tst.LogisticGradient().pointwise
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    w0 = torch.randn(A9A_D, generator=gen, device="cuda") / math.sqrt(A9A_D)
+    Xt, yt = torch.from_numpy(X).cuda(), torch.from_numpy(y).cuda()
+    row = b1_row(torch, ck, pw, Xt, yt, w0, None,
+                 "config 2 (a9a, 20,000 x 123 f32), full batch", 50)
+    row["launches"] = launches
+    row["launches_from"] = "phase configs, config 2's SGD run"
+    Xt = torch.randn(100_000, A9A_D, generator=gen, device="cuda")
+    yt = (torch.rand(100_000, generator=gen, device="cuda") < 0.5).float()
+    mask = torch.rand(100_000, generator=gen, device="cuda") < FRAC
+    masked = b1_row(torch, ck, pw, Xt, yt, w0, mask,
+                    "a9a's width at config 1's rows (100,000 x 123 f32), "
+                    "10% mask", 50)
+    masked["launches"] = 0
+    masked["launches_from"] = "none: config 2 trains at full batch"
+    return [row, masked]
+
+
+def phase_configs(torch, tst, ck):
+    """Configs 1-3 and 5; returns phase plan's (f) (config 1's host data
+    through ``NormalEquations``' AUTO placement) and B1's rows at config
+    1's width with its intercept and at config 2's width."""
     out = {}
     # config 1: least squares, 100k x 100, within 1% of the exact optimum,
     # zero-flag as users call it (its plan line printed)
@@ -1455,13 +1923,18 @@ def phase_configs(torch, tst):
           and out["config1"]["normal_gap"] < 1e-4
           and out["config1"]["gram_sliced_gap"] < 0.01,
           f"config 1: {out['config1']}")
+    out["config1_intercept"], b1_rows = config1_intercept(torch, tst, ck,
+                                                          X, y)
 
     # config 2: logistic + L2 on the a9a stand-in, within 1% of the optimum
     X, y, _ = tst.a9a_like_data(20_000, seed=1)
     reg = 0.01
     alg = tst.LogisticRegressionWithSGD(2.0, 500, reg, 1.0)
     alg.optimizer.set_convergence_tol(0.0)
+    ck.reset_launch_counts()
     model = alg.run((X, y))
+    torch.cuda.synchronize()
+    sgd_routes = ck.gradient_route_counts()
     w = model.weights.double().cpu().numpy()
     L = _logistic_objective(X, y, w, reg)
     L_star = _logistic_objective(X, y, _logistic_l2_oracle(X, y, reg), reg)
@@ -1474,10 +1947,12 @@ def phase_configs(torch, tst):
                       "lbfgs_objective": L_lb,
                       "lbfgs_gap": (L_lb - L_star) / L_star,
                       "lbfgs_iterations":
-                          len(lb_alg.optimizer.loss_history) - 1}
+                          len(lb_alg.optimizer.loss_history) - 1,
+                      "sgd_b1_routes": sgd_routes}
     check(out["config2"]["gap"] < 0.01
           and out["config2"]["lbfgs_gap"] < 1e-3,
           f"config 2: {out['config2']}")
+    b1_rows += config2_rows(torch, tst, ck, X, y, sgd_routes["window"])
 
     # config 3: hinge + L1 (subgradient descent, O(1/sqrt t)): within 20%
     # of the exact optimum and accuracy within 1 point of it
@@ -1500,7 +1975,7 @@ def phase_configs(torch, tst):
     out["config3_sparse"] = config3_sparse(torch, tst, CONFIG3_SPARSE_ROWS)
     out["config5"] = config5(torch, tst)
     emit({"phase": "configs", **out})
-    return placement
+    return placement, b1_rows
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -3942,7 +4417,7 @@ STREAM_PREFIX_ROWS = 1_000_000
 STREAM_ITERS = 20
 # leg (b)'s timing runs, a mode each (and phase plan (e)'s run): cut in
 # depth for the script's time (10 until PR 15, 6 until PR 21)
-STREAM_SAMPLED_ITERS = 3
+STREAM_SAMPLED_ITERS = 2       # (cut from 3 for the script's time)
 STREAM_TRACED_ITERS = 1     # leg (b)'s traced runs (2 until PR 21)
 STREAMED_QN_ITERS = 5       # leg (a) of phase streamed_qn
 # leg (b): OWL-QN over the first 2M host rows, cut in depth for time
@@ -6727,7 +7202,8 @@ def mesh_resident_checks(torch, tst, ck, X, y, blocks, reports, arrays,
 
 MESH_STREAM_PREFIX = 1_000_000  # host rows of the bitwise contracts
 MESH_STREAM_ITERS = 10          # a bitwise run
-MESH_STREAM_TIMING_ITERS = 2    # (j)'s timing runs (3 until PR 21)
+MESH_STREAM_TIMING_ITERS = 1    # (j)'s timing runs (cut from 3, then 2,
+#                                 for the script's time)
 MESH_STREAM_STOP_ITERS = 20     # the stop-and-resume runs (stop at 13)
 MESH_TOPK = "topk:0.01"
 # full batch on the prefix: error feedback at 1% of the coordinates meets
@@ -7659,8 +8135,9 @@ def phase_mesh(torch, tst, ck, X_sp, y_sp, profile, sparse_owlqn_w,
 
 # -- phase serve ---------------------------------------------------------------
 
-SERVE_REQUESTS = 12_000     # single-row requests per model, in all: 8,000
-#                             open loop (cut from 20,000 for the script's time)
+SERVE_REQUESTS = 8_000      # single-row requests per model, in all: 6,000
+#                             open loop (cut from 20,000, then 12,000, for
+#                             the script's time)
 SERVE_CLIENTS = 8           # client threads
 SERVE_CLOSED_LOOP = 2_000   # of them closed loop, the latency run (4,000
 #                             until PR 21: cut for the script's time)
@@ -8504,6 +8981,25 @@ def _tensor_methods(torch):
             for n in counters.SYNC_METHODS}
 
 
+def _dead_period(records):
+    """The killed worker's dead period as the trace shows it: seconds from
+    its death to its rejoin, and the steps its peers took in between (the
+    straggler rule needs 5 of them), or None when no worker died."""
+    deaths = [r for r in records
+              if r.get("name") == "replica.leave" and r.get("error")]
+    if not deaths:
+        return None
+    t0, victim = deaths[0]["ts"], deaths[0]["worker"]
+    rejoins = [r["ts"] for r in records
+               if r.get("name") == "replica.rejoin" and r["ts"] > t0]
+    t1 = rejoins[0] if rejoins else float("inf")
+    steps = sum(1 for r in records
+                if r.get("kind") == "trace_span"
+                and r.get("name") == "replica.step"
+                and r.get("worker") != victim and t0 < r["ts"] <= t1)
+    return {"dead_s": (t1 - t0) if rejoins else None, "peer_steps": steps}
+
+
 def _scenario_run(torch, ck, run, name, out_dir):
     """One scenario on the card with every launch count set to 0 just
     before and read just after; the trace's numbers as the phase prints
@@ -8541,9 +9037,12 @@ def _scenario_run(torch, ck, run, name, out_dir):
         "answered", "rejected", "displaced", "errored", "dropped")),
         f"scenario {name}: ledger does not conserve: {t_}")
     failing = [v["name"] for v in verdicts if not v["ok"]]
+    dead = _dead_period(records)
     check(rc == 0 and not failing,
-          f"scenario {name}: exit code {rc}, SLOs failing {failing}")
+          f"scenario {name}: exit code {rc}, SLOs failing {failing}, "
+          f"dead period {dead}")
     return {
+        "dead_period": dead,
         "exit_code": rc, "wall_s": wall, "traffic_wall_s": summary["wall_s"],
         "totals": t_,
         "answered_rows_per_s": t_["answered"] / summary["wall_s"],
@@ -8831,16 +9330,20 @@ def main() -> int:
              "logistic": tst.LogisticGradient(),
              "hinge": tst.HingeGradient()}
     t = time.perf_counter()
-    cases, worst = phase_kernels(torch, ck, grads)
+    cases, worst, fused = phase_kernels(torch, ck, grads)
     emit({"phase": "kernels", "cases": cases, "max_abs_err": worst,
+          "fused_sums_launches": {f"{d} {dt}": k
+                                  for (d, dt), k in fused.items()},
           "seconds": time.perf_counter() - t})
     clock.mark("kernels")
 
-    X, y, w_true, launches, sliced_ref = phase_full(torch, tst, ck)
+    X, y, w_true, launches, sliced_ref, intercept = phase_full(torch, tst,
+                                                               ck)
     clock.mark("full")
     profile = phase_profile(torch, tst, ck, X, y)
     clock.mark("profile")
     rows = phase_timing(torch, tst, ck, X, y, launches)
+    rows.extend(intercept_rows(torch, tst, ck, X, y, intercept, fused))
     clock.mark("timing")
     qn = {}
     qn["a"], b1_row = leg_binary_lbfgs(torch, tst, ck, X, w_true)
@@ -8881,7 +9384,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.mark("multinomial")
 
-    plan_rec["f_normal_placement"] = phase_configs(torch, tst)
+    plan_rec["f_normal_placement"], config_rows = phase_configs(torch, tst,
+                                                                 ck)
+    rows.extend(config_rows)
     clock.mark("configs")
     sparse, X_sp, y_sp, w_sgd = phase_sparse(torch, tst, ck)
     qn["d"] = leg_sparse_owlqn(torch, tst, ck, X_sp, y_sp, w_sgd)

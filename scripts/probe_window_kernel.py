@@ -108,7 +108,7 @@ def run() -> None:
     y = torch.randn(n, generator=gen, device="cuda")
     w = torch.randn(d, generator=gen, device="cuda") / d ** 0.5
     pw = tst.LeastSquaresGradient().pointwise
-    plans = {"planned": ck.window_stage_plan(d, 2)}
+    plans = {"planned": ck.window_stage_plan(d, 2, True)}
     for rows, stages, blocks in ((16, 2, 2), (8, 6, 2), (16, 6, 1),
                                  (8, 8, 1)):
         plans[f"R{rows}_S{stages}_{blocks}_an_SM"] = plan(

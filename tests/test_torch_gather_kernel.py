@@ -38,7 +38,9 @@ ROUTES = [
     (24, torch.bfloat16, "gather", "window"),
     (1000, torch.bfloat16, "gather", "window"),   # config 4's width
     (1000, torch.float32, "gather", "window"),
-    (1001, torch.bfloat16, "fused_sums", "fused_sums"),  # 2,002-byte rows
+    # 2,002-byte rows (config 4 with its intercept): each row through its
+    # 16-byte aligned superset
+    (1001, torch.bfloat16, "gather", "window"),
     (2048, torch.bfloat16, "gather", "window"),
     (4096, torch.float32, "gather", "window"),
     (7216, torch.bfloat16, "gather", "window"),
@@ -55,21 +57,24 @@ def test_route_by_width_and_type(d, dtype, gather, window, masked):
     X = torch.empty(2, d, dtype=dtype)
     assert ck.gradient_sums_route(X, masked) == (gather if masked
                                                  else window)
-    has_plan = ck.window_stage_plan(d, X.element_size()) is not None
+    has_plan = ck.window_stage_plan(d, X.element_size(), True) is not None
     assert has_plan == (gather != "fused_sums")
 
 
 @pytest.mark.parametrize("masked", [True, False], ids=["mask", "all"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_misaligned_base_goes_to_fused_sums(dtype, masked):
-    """A view one element past an aligned base: the bulk copies need a
-    16-byte aligned X, so the call goes to csrc/fused_sums.cu."""
+def test_misaligned_base_goes_to_the_ring(dtype, masked):
+    """A view one element past an aligned base: each row lands through its
+    16-byte aligned superset, so the call stays on window_sums.cu, with
+    the plan of rows that are not whole units."""
     base = torch.zeros(3 * 1000 + 1, dtype=dtype)
-    assert ck.gradient_sums_route(base[:3000].view(3, 1000), masked) \
-        == ("gather" if masked else "window")
-    assert ck.gradient_sums_route(base[1:].view(3, 1000), masked) \
-        == "fused_sums"
+    route = "gather" if masked else "window"
+    assert ck.gradient_sums_route(base[:3000].view(3, 1000), masked) == route
+    X = base[1:].view(3, 1000)
+    assert ck.gradient_sums_route(X, masked) == route
+    assert ck.window_plan_for(X) == ck.window_stage_plan(
+        1000, X.element_size(), aligned_base=False)
 
 
 # A numpy mirror of csrc/window_sums.cu's two producers, in the kernel's
@@ -171,9 +176,9 @@ def _gather_tile(rows, copies) -> GatherTile:
 
 
 PLANS = {
-    "1000-bf16": ck.window_stage_plan(1000, 2),   # R = 16
-    "1000-f32": ck.window_stage_plan(1000, 4),    # R = 8
-    "4096-f32": ck.window_stage_plan(4096, 4),    # R = 4
+    "1000-bf16": ck.window_stage_plan(1000, 2, True),   # R = 16
+    "1000-f32": ck.window_stage_plan(1000, 4, True),    # R = 8
+    "4096-f32": ck.window_stage_plan(4096, 4, True),    # R = 4
 }
 
 
@@ -271,6 +276,169 @@ def test_ring_grid_caps(rows):
         assert blocks == max(plan.cluster,
                              -(-tiles // plan.cluster) * plan.cluster)
     assert ck.ring_grid(rows, plan, sms=132, max_clusters=5) <= 10
+
+
+# A numpy mirror of the producers' copies of rows that are not whole
+# 16-byte units (the kernel's ALIGNED = false instances), and of the
+# consumers' reads: each row lands through its 16-byte aligned superset
+# (aligned_span) into its own slot of window_row_pitch bytes.
+
+
+class RowSpan(NamedTuple):
+    """One row's bulk copy: the superset's first address and bytes, the
+    row's lead (its address mod 16: bytes of the superset before it), and
+    the slot's offset in its stage."""
+
+    address: int
+    base: int
+    lead: int
+    nbytes: int
+    slot: int
+
+
+def row_span(address: int, row_bytes: int, slot: int) -> RowSpan:
+    base = address & ~15
+    lead = address - base
+    return RowSpan(address, base, lead, -(-(lead + row_bytes) // 16) * 16,
+                   slot)
+
+
+def window_spans(x0: int, d: int, itemsize: int, rows: int,
+                 plan: ck.StagePlan, blocks: int) -> list:
+    """The window entry's copies, tile by tile (the rows of
+    ``window_tiles``; X's first row at address ``x0``): row k of a tile
+    into slot k."""
+    row, pitch = d * itemsize, plan.stage_bytes // plan.stage_rows
+    return [[row_span(x0 + int(r) * row, row, k * pitch)
+             for k, r in enumerate(tile)]
+            for share in window_tiles(rows, plan, blocks) for tile in share]
+
+
+def gather_spans(x0: int, d: int, itemsize: int, mask,
+                 plan: ck.StagePlan, blocks: int) -> list:
+    """The gather entry's copies, tile by tile: its runs of consecutive
+    live rows (``gather_tiles``) a row at a time, each into its slot."""
+    row, pitch = d * itemsize, plan.stage_bytes // plan.stage_rows
+    out = []
+    for share in gather_tiles(mask, plan, blocks):
+        for tile in share:
+            out.append([row_span(x0 + (first + e) * row, row,
+                                 (slot + e) * pitch)
+                        for first, slot, count in tile.copies
+                        for e in range(count)])
+    return out
+
+
+# (d, itemsize, base offset from a 16-byte unit): rows that are not whole
+# units, the widest of each type with a plan, and whole-unit rows on a
+# base one element off alignment
+UNALIGNED = [(7, 4, 0), (101, 4, 0), (101, 4, 4), (123, 4, 12),
+             (4121, 4, 8), (100, 2, 0), (785, 2, 2), (1001, 2, 0),
+             (1001, 2, 14), (4097, 2, 6), (7209, 2, 10), (1000, 2, 2),
+             (24, 4, 4)]
+
+
+def _check_spans(tiles, d, itemsize, plan, window):
+    """Every copy legal (16-byte aligned, whole units), holding exactly its
+    row's units in its own slot; the window entry's consumers' lead, from
+    the tile's first row's address and the row's index, equal to the
+    producer's (the gather entry's consumers read the lead its producer
+    stores); every read of a stage's last row inside the stage and its
+    label area."""
+    row = d * itemsize
+    pitch = plan.stage_bytes // plan.stage_rows
+    vec = 16 // itemsize
+    nvec = -(-d // vec)
+    nchunk = -(-d // 4)
+    for tile in tiles:
+        assert len(tile) <= plan.stage_rows
+        x0 = tile[0].address if tile else 0
+        for k, sp in enumerate(tile):
+            assert sp.base % 16 == 0 and sp.nbytes % 16 == 0
+            assert 0 <= sp.lead < 16 and sp.lead % itemsize == 0
+            assert sp.lead + row <= sp.nbytes <= pitch
+            # only the units that hold bytes of the row: no page beyond
+            assert sp.base // 16 == sp.address // 16
+            assert (sp.base + sp.nbytes - 1) // 16 \
+                == (sp.address + row - 1) // 16
+            assert sp.slot % 16 == 0 and sp.slot + pitch <= plan.stage_bytes
+            if window:
+                assert (x0 + k * row) % 16 == sp.lead
+        # the margins read units c and c + 1 of a slot for c < nvec, the
+        # column pass 8-byte words j + lead // 8 and the next (bf16) or
+        # units j and j + 1 (f32), j < nchunk: all inside the stage's
+        # rows and labels, whatever the lead
+        last = (plan.stage_rows - 1) * pitch
+        reach = max(16 * (nvec + 1),
+                    8 * (nchunk + 15 // 8 + 1) if itemsize == 2
+                    else 16 * (nchunk + 1))
+        assert last + reach <= plan.stage_bytes + ck.WINDOW_LABEL_BYTES
+    # adjacent rows share at most the unit they meet in
+    flat = sorted((sp for t in tiles for sp in t), key=lambda s: s.address)
+    for a, b in zip(flat, flat[1:]):
+        if b.address == a.address + row:
+            assert b.base >= a.base + a.nbytes - 16
+
+
+@pytest.mark.parametrize("d,itemsize,offset", UNALIGNED,
+                         ids=[f"{d}-{i}-{o}" for d, i, o in UNALIGNED])
+def test_unaligned_pitch_is_the_supersets_bound(d, itemsize, offset):
+    """The planner's slot (``window_row_pitch``) is the least multiple of
+    16 that holds a row's superset at every lead an element-aligned base
+    gives, and the plan's stages are sized with it (``window_stage_plan``,
+    the source's ``row_pitch`` and ``ring_smem``)."""
+    row = d * itemsize
+    aligned = row % 16 == 0 and offset == 0
+    pitch = ck.window_row_pitch(d, itemsize, offset == 0)
+    worst = max(row_span(lead, row, 0).nbytes
+                for lead in range(0, 16, itemsize))
+    assert pitch == (row if aligned else worst)
+    plan = ck.window_stage_plan(d, itemsize, offset == 0)
+    assert plan is not None
+    assert plan.stage_bytes == plan.stage_rows * pitch
+    pd = ck.window_padded_d(d, itemsize)
+    assert pd % (16 // itemsize) == 0 and d <= pd < d + 16 // itemsize
+    assert plan.smem_bytes == plan.stages * (
+        plan.stage_bytes + ck.WINDOW_LABEL_BYTES) + 8 * pd
+    assert plan.blocks_per_sm * (
+        plan.smem_bytes + ck._WINDOW_STATIC_SMEM
+        + ck._SMEM_RESERVED_PER_BLOCK) <= ck.SMEM_PER_SM
+
+
+@pytest.mark.parametrize("d,itemsize,offset", UNALIGNED,
+                         ids=[f"{d}-{i}-{o}" for d, i, o in UNALIGNED])
+def test_window_producer_spans(d, itemsize, offset):
+    """The window entry's copy of every row of its tiles, at rows of any
+    width on an element-aligned base (a 512-byte aligned allocation plus
+    ``offset``)."""
+    plan = ck.window_stage_plan(d, itemsize, offset == 0)
+    n = 1_003
+    blocks = ck.ring_grid(n, plan, sms=4)
+    x0 = 4096 * 512 + offset
+    tiles = window_spans(x0, d, itemsize, n, plan, blocks)
+    assert sum(len(t) for t in tiles) == n
+    assert [sp.address for t in tiles for sp in t] == [
+        x0 + r * d * itemsize for r in range(n)]
+    _check_spans(tiles, d, itemsize, plan, window=True)
+
+
+@pytest.mark.parametrize("kind", ["0.1", "full", "share_edges"])
+@pytest.mark.parametrize("d,itemsize,offset", UNALIGNED,
+                         ids=[f"{d}-{i}-{o}" for d, i, o in UNALIGNED])
+def test_gather_producer_spans(d, itemsize, offset, kind):
+    """The gather entry's copies: every live row once, a row at a time,
+    into the slot it is dealt to, with its lead."""
+    plan = ck.window_stage_plan(d, itemsize, offset == 0)
+    n = 1_003
+    blocks = ck.ring_grid(n, plan, sms=4)
+    mask = _mask(kind, n, blocks, seed=d)
+    x0 = 4096 * 512 + offset
+    tiles = gather_spans(x0, d, itemsize, mask, plan, blocks)
+    got = sorted(sp.address for t in tiles for sp in t)
+    assert got == [x0 + int(r) * d * itemsize for r in np.flatnonzero(mask)]
+    for t in tiles:
+        assert len({sp.slot for sp in t}) == len(t)
+    _check_spans([t for t in tiles if t], d, itemsize, plan, window=False)
 
 
 def _problem(family, n, d, seed, bf16):

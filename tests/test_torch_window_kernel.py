@@ -30,13 +30,14 @@ FAMILIES = {
     "hinge": (jg.HingeGradient, tg.HingeGradient),
 }
 
-# (d, dtype, route): widths whose rows are whole 16-byte units and whose
-# 3 stages of 4 rows fit beside w and the sums go to window_sums.cu
+# (d, dtype, route): widths whose 3 stages of 4 rows fit beside w and the
+# sums go to window_sums.cu, rows of whole 16-byte units back to back in a
+# stage, any other row in a slot of window_row_pitch bytes
 ROUTES = [
     (24, torch.float32, "window_sums"),
     (24, torch.bfloat16, "window_sums"),
     (100, torch.float32, "window_sums"),
-    (100, torch.bfloat16, "fused_sums"),      # 200-byte rows
+    (100, torch.bfloat16, "window_sums"),     # 200-byte rows
     (1000, torch.float32, "window_sums"),
     (1000, torch.bfloat16, "window_sums"),
     (4096, torch.float32, "window_sums"),
@@ -48,7 +49,14 @@ ROUTES = [
     (8192, torch.bfloat16, "fused_sums"),
     (47237, torch.float32, "fused_sums"),     # odd widths
     (47237, torch.bfloat16, "fused_sums"),
-    (7, torch.float32, "fused_sums"),
+    (7, torch.float32, "window_sums"),
+    (101, torch.float32, "window_sums"),      # config 1 with its intercept
+    (123, torch.float32, "window_sums"),      # a9a
+    (1001, torch.bfloat16, "window_sums"),    # config 4 with its intercept
+    (4121, torch.float32, "window_sums"),     # the widest odd f32 row
+    (4122, torch.float32, "fused_sums"),
+    (7209, torch.bfloat16, "window_sums"),    # the widest odd bf16 row
+    (7210, torch.bfloat16, "fused_sums"),
 ]
 
 
@@ -59,18 +67,23 @@ def _itemsize(dtype):
 @pytest.mark.parametrize("d,dtype,route", ROUTES,
                          ids=[f"{d}-{str(t)[6:]}" for d, t, _ in ROUTES])
 def test_stage_planner_fits_and_routes(d, dtype, route):
-    plan = ck.window_stage_plan(d, _itemsize(dtype))
+    plan = ck.window_stage_plan(d, _itemsize(dtype), True)
     assert ck.window_plan_for(torch.empty(0, d, dtype=dtype)) == plan
     if route == "fused_sums":
         assert plan is None
         return
     row = d * _itemsize(dtype)
+    pitch = ck.window_row_pitch(d, _itemsize(dtype), True)
+    # an odd row's slot holds it after a lead of up to 16 - itemsize bytes
+    assert pitch == row if row % 16 == 0 else (
+        row + 16 - _itemsize(dtype) <= pitch < row + 32)
     assert plan.stage_rows >= 4 and plan.stage_rows in ck.WINDOW_STAGE_ROWS
     assert ck.WINDOW_MIN_STAGES <= plan.stages <= ck.WINDOW_MAX_STAGES
-    assert plan.stage_bytes == plan.stage_rows * row
+    assert plan.stage_bytes == plan.stage_rows * pitch
     assert plan.stage_bytes % 16 == 0
     assert plan.smem_bytes == plan.stages * (
-        plan.stage_bytes + ck.WINDOW_LABEL_BYTES) + 8 * d
+        plan.stage_bytes + ck.WINDOW_LABEL_BYTES) + 8 * ck.window_padded_d(
+            d, _itemsize(dtype))
     assert plan.smem_bytes + ck._WINDOW_STATIC_SMEM <= ck.SMEM_PER_BLOCK
     assert plan.blocks_per_sm * (
         plan.smem_bytes + ck._WINDOW_STATIC_SMEM
@@ -83,23 +96,26 @@ def test_stage_planner_sizes_the_ring():
     """d = 1000 bf16 (the main path): two blocks an SM, each with 3 stages
     of 16 rows (96 KB in flight a block); d = 1000 f32 keeps 3 stages with
     8 rows; d = 4096 f32, one block an SM, drops to 4 rows."""
-    plan = ck.window_stage_plan(1000, 2)
+    plan = ck.window_stage_plan(1000, 2, True)
     assert (plan.stage_rows, plan.stages, plan.blocks_per_sm) == (16, 3, 2)
     assert plan.smem_bytes == 3 * (16 * 2000 + 112) + 8000
-    plan = ck.window_stage_plan(1000, 4)
+    plan = ck.window_stage_plan(1000, 4, True)
     assert (plan.stage_rows, plan.stages, plan.blocks_per_sm) == (8, 3, 2)
-    plan = ck.window_stage_plan(4096, 4)
+    plan = ck.window_stage_plan(4096, 4, True)
     assert (plan.stage_rows, plan.stages, plan.blocks_per_sm) == (4, 3, 1)
-    plan = ck.window_stage_plan(24, 4)
+    plan = ck.window_stage_plan(24, 4, True)
     assert (plan.stage_rows, plan.stages, plan.blocks_per_sm) == (16, 8, 2)
 
 
-def test_misaligned_base_goes_to_fused_sums():
+def test_misaligned_base_goes_to_the_ring():
     X = torch.zeros(64, 1000, dtype=torch.bfloat16)
-    assert ck.window_plan_for(X) == ck.window_stage_plan(1000, 2)
-    # a view 4 bytes past an aligned base
-    assert ck.window_plan_for(torch.zeros(65, 24)[1:].view(-1)[1:25]
-                              .reshape(1, 24)) is None
+    assert ck.window_plan_for(X) == ck.window_stage_plan(1000, 2, True)
+    # a view 4 bytes past an aligned base: its rows' supersets, a slot of
+    # 24 * 4 + 16 bytes each
+    view = torch.zeros(65, 24)[1:].view(-1)[1:25].reshape(1, 24)
+    plan = ck.window_plan_for(view)
+    assert plan == ck.window_stage_plan(24, 4, aligned_base=False)
+    assert plan.stage_bytes == plan.stage_rows * (24 * 4 + 16)
     assert ck.window_plan_for(torch.zeros(8, 24, dtype=torch.float64)) is None
 
 

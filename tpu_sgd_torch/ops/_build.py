@@ -25,6 +25,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    # optimize a source's kernels on every core: window_sums.cu's 96
+    # instances build in about half the time, to the same SASS
+    "-split-compile=0",
 )
 SOURCES = ("fused_sums", "window_sums", "csr_products")
 #: the directory of the headers the sources share (on nvcc's include path)

@@ -10,9 +10,12 @@
 // On the TPU the two window kernels differed only in how the gradient
 // reduction used the matrix unit; here both are one dot product per row and
 // one FMA per column, so a single kernel serves all three entries.  It
-// takes the calls that csrc/window_sums.cu does not: rows that are not
-// whole 16-byte units, rings that do not fit in shared memory, bases that
-// are not 16-byte aligned (tpu_sgd_torch/ops/cuda_kernels.py's shape rule).
+// takes the calls that csrc/window_sums.cu does not: widths whose ring of
+// staged rows does not fit in shared memory (f32 above 4,124 columns, bf16
+// above 7,216, any width above 8,192), and bases not aligned to X's
+// element size (tpu_sgd_torch/ops/cuda_kernels.py's shape rule).  Such
+// rows cannot be staged whole; this kernel reads a tile a second time from
+// L2 instead.
 //
 // It computes (grad_sum (d,), loss_sum, count) under the JAX package's
 // mixed-precision contract (tpu_sgd/ops/gradients.py margins_of/grad_sum_of):

@@ -19,8 +19,8 @@
 // grad_sum_of); round_T rounds to X's element type (bf16 or f32).  The
 // start is a device scalar times start_scale, placed as lax.dynamic_slice
 // places it.  csrc/fused_sums.cu computes the same function; this kernel
-// takes the widths whose rows are whole 16-byte units and whose stage ring
-// fits in shared memory, fused_sums.cu the rest.
+// takes every width whose stage ring fits in shared memory, on any base
+// aligned to X's element size, and fused_sums.cu the wider rows.
 //
 // What bounds it: the bytes of the rows summed.  A window's rows are one
 // contiguous range of device memory, a mask's live rows are scattered
@@ -73,6 +73,29 @@
 //     f64.  There are no float atomics, so two calls are bitwise equal.
 // gather_main takes the grid that window_main takes for n rows, so with
 // every row live it deals the window's tiles and gives its bits.
+//
+// Rows of any width (the ALIGNED = false instances).  The layout above
+// (rows back to back in a stage, one bulk copy a tile or a run) is the
+// ALIGNED instance's, taken when a row is whole 16-byte units and X's base
+// is 16-byte aligned, so every row starts on a unit.  Any other width (d =
+// 1001 bf16, 101 f32) or base (a view one element off a unit) lands each
+// row through its 16-byte aligned superset (aligned_span), one bulk copy a
+// row in both entries, into a slot of row_pitch bytes: the superset's bound,
+// the row after a lead of at most 16 - sizeof(T) bytes, rounded up to whole
+// units.  A row's lead is its address mod 16: its bytes sit `lead` bytes
+// into its slot.  window_main's consumers compute it from the row index;
+// gather_main's producer writes it beside the tile's row count.  The
+// consumers read the two aligned units (16 bytes, or 8 in the column pass
+// of bf16) that hold a lane's values and shift them into place with word
+// selects and __funnelshift_r: shared memory has bandwidth to spare (HBM's
+// share of an SM is about 14 B/clk, shared memory's 128).  round_T(w) and
+// the sums take d rounded up to whole 16-byte vectors of T, w zero past d;
+// the margins' last vector zeroes the values past d, and the column pass's
+// last chunk keeps its sums past d out of the output.  A superset reads at
+// most 15 bytes before and after its row: whole 16-byte units that hold
+// bytes of X, so they never cross a page, and adjacent rows share only the
+// unit they meet in.  Each row still crosses HBM once, and the order of
+// additions is the ALIGNED instance's, so two calls give the same bits.
 // Launch state (the shared-memory attribute, the clusters that fit) is
 // computed once per kernel instance, device and ring size, and cached
 // (launch_cache.cuh).
@@ -175,6 +198,80 @@ __device__ __forceinline__ void load_cols(const T* p, float (&out)[kColVec]) {
   } else {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
     const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < kColVec; ++k) out[k] = to_f(e[k]);
+  }
+}
+
+// The bytes of a ring slot for one row of d values of T: the row itself
+// (ALIGNED), else the bound of its 16-byte aligned superset.
+template <typename T, bool ALIGNED>
+__host__ __device__ constexpr int row_pitch(int d) {
+  constexpr int kItem = static_cast<int>(sizeof(T));
+  return ALIGNED ? d * kItem : (d * kItem + 16 - kItem + 15) & ~15;
+}
+
+// Columns of round_T(w) and of the sums in shared memory: d rounded up to
+// whole 16-byte vectors of T (d itself when the rows are whole vectors).
+template <typename T>
+__host__ __device__ constexpr int padded_d(int d) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  return (d + kVec - 1) / kVec * kVec;
+}
+
+// Four 32-bit words that begin `lead` bytes (below 16, a multiple of
+// sizeof(T)) into w[0..7]: selects by whole words, then (bf16) a funnel
+// shift by the 2 bytes left.
+template <typename T>
+__device__ __forceinline__ void shift_words(const uint32_t (&w)[8],
+                                            uint32_t lead,
+                                            uint32_t (&out)[4]) {
+  uint32_t t[6], v[5];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) t[i] = (lead & 8u) ? w[i + 2] : w[i];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) v[i] = (lead & 4u) ? t[i + 1] : t[i];
+  const uint32_t sh = (lead & 3u) * 8u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out[i] = sizeof(T) == 4 ? v[i] : __funnelshift_r(v[i], v[i + 1], sh);
+}
+
+// load16 for a row `lead` bytes into its slot (`slot` 16-byte aligned):
+// its c-th 16 bytes, from the two aligned units that hold them.
+template <typename T>
+__device__ __forceinline__ void load16_at(const unsigned char* slot,
+                                          uint32_t lead, int c,
+                                          float (&out)[16 / sizeof(T)]) {
+  const uint4* u = reinterpret_cast<const uint4*>(slot) + c;
+  const uint4 a = u[0], b = u[1];
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t raw[4];
+  shift_words<T>(w, lead, raw);
+  const T* e = reinterpret_cast<const T*>(raw);
+#pragma unroll
+  for (int k = 0; k < 16 / static_cast<int>(sizeof(T)); ++k) out[k] = to_f(e[k]);
+}
+
+// load_cols for a row `lead` bytes into its slot: its j-th chunk of
+// kColVec values (f32: load16_at; bf16: 8 bytes from two aligned 8-byte
+// words).
+template <typename T>
+__device__ __forceinline__ void load_cols_at(const unsigned char* slot,
+                                             uint32_t lead, int j,
+                                             float (&out)[kColVec]) {
+  if constexpr (sizeof(T) == 4) {
+    load16_at<T>(slot, lead, j, out);
+  } else {
+    const uint2* u = reinterpret_cast<const uint2*>(slot) + j + (lead >> 3);
+    const uint2 a = u[0], b = u[1];
+    const bool odd = lead & 4u;
+    const uint32_t t0 = odd ? a.y : a.x, t1 = odd ? b.x : a.y,
+                   t2 = odd ? b.y : b.x;
+    const uint32_t sh = (lead & 3u) * 8u;
+    const uint32_t raw[2] = {__funnelshift_r(t0, t1, sh),
+                             __funnelshift_r(t1, t2, sh)};
+    const T* e = reinterpret_cast<const T*>(raw);
 #pragma unroll
     for (int k = 0; k < kColVec; ++k) out[k] = to_f(e[k]);
   }
@@ -290,9 +387,14 @@ __device__ __forceinline__ void mbar_track_async(uint64_t* bar) {
 // Where a tile's row count sits in gather_main's ring: the word after the
 // tile's labels (R f32 values from the label area's start).
 constexpr int kGatherCountOffset = kLabelYBytes;
+// Where the leads of a gathered tile's rows sit (ALIGNED = false): a byte
+// a slot, after the row count.
+constexpr int kGatherLeadOffset = kGatherCountOffset + 16;
 static_assert(4 * kMaxStageRows <= kGatherCountOffset &&
-                  kGatherCountOffset + 4 <= kLabelBytes,
-              "a gathered tile's labels and row count fit its label area");
+                  kGatherCountOffset + 4 <= kGatherLeadOffset &&
+                  kGatherLeadOffset + kMaxStageRows <= kLabelBytes,
+              "a gathered tile's labels, row count and leads fit its label "
+              "area");
 
 // Rows of the mask one producer step covers: 16 a lane.
 constexpr int kMaskStepRows = 16 * 32;
@@ -303,13 +405,15 @@ __device__ __forceinline__ int clamp16(long long v) {
 
 // gather_main's producer: the whole warp walks the mask over rows
 // [b_begin, b_end), compacts the live rows in row order and deals them into
-// tiles of stage_rows; see the note at the top.
-template <typename T>
+// tiles of stage_rows; see the note at the top.  ALIGNED = false: a copy of
+// each row's superset into its slot of `pitch` bytes, and its lead.
+template <typename T, bool ALIGNED>
 __device__ __forceinline__ void gather_produce(
     const T* __restrict__ X, const float* __restrict__ y,
     const uint8_t* __restrict__ mask, long long b_begin, long long b_end,
-    int row_bytes, int stage_rows, int stages, int stage_bytes, int x_bytes,
-    unsigned char* ring, uint64_t* full, uint64_t* empty, int lane) {
+    int row_bytes, int pitch, int stage_rows, int stages, int stage_bytes,
+    int x_bytes, unsigned char* ring, uint64_t* full, uint64_t* empty,
+    int lane) {
   const unsigned char* xbytes = reinterpret_cast<const unsigned char*>(X);
   // 16-byte loads from the aligned unit holding the share's first flag
   // (a unit never crosses a page, so the flags it reads around the share
@@ -391,11 +495,23 @@ __device__ __forceinline__ void gather_produce(
         if (len > left) len = left;
         const long long r = r0 + k;
         for (int e = 0; e < len; ++e) copy4_async(s_y + slot + e, y + r + e);
-        const uint32_t nb = static_cast<uint32_t>(len * row_bytes);
-        bulk_load(st + slot * row_bytes,
-                  xbytes + r * static_cast<long long>(row_bytes), nb,
-                  &full[s]);
-        pend += nb;
+        if constexpr (ALIGNED) {
+          const uint32_t nb = static_cast<uint32_t>(len * row_bytes);
+          bulk_load(st + slot * row_bytes,
+                    xbytes + r * static_cast<long long>(row_bytes), nb,
+                    &full[s]);
+          pend += nb;
+        } else {
+          // one copy a row, into the row's own slot
+          const int d = row_bytes / static_cast<int>(sizeof(T));
+          uint8_t* lead = st + x_bytes + kGatherLeadOffset;
+          for (int e = 0; e < len; ++e) {
+            const Span xs = aligned_span(X + (r + e) * d, d, sizeof(T));
+            bulk_load(st + (slot + e) * pitch, xs.base, xs.bytes, &full[s]);
+            lead[slot + e] = static_cast<uint8_t>(xs.lead * sizeof(T));
+            pend += xs.bytes;
+          }
+        }
         m &= ~(((1u << len) - 1u) << k);
         slot += len;
         left -= len;
@@ -414,8 +530,10 @@ __device__ __forceinline__ void gather_produce(
 // The body of both entries.  WINDOW: rows [row0, row0 + rows) of X, the
 // producer one thread.  GATHER: the rows of [0, rows) that `valid` keeps,
 // dealt by gather_produce; tiles carry their row count, and the consumers
-// stop after the first tile of fewer than stage_rows rows.
-template <int F, typename T, int CPT, bool GATHER>
+// stop after the first tile of fewer than stage_rows rows.  ALIGNED: rows
+// back to back in a stage, else a slot of row_pitch bytes a row (see the
+// note at the top).
+template <int F, typename T, int CPT, bool GATHER, bool ALIGNED>
 __device__ __forceinline__ void ring_sums(
     const T* __restrict__ X, const float* __restrict__ y,
     const float* __restrict__ w, const uint8_t* __restrict__ valid,
@@ -434,11 +552,13 @@ __device__ __forceinline__ void ring_sums(
 
   constexpr int kVec16 = 16 / static_cast<int>(sizeof(T));
   const int row_bytes = d * static_cast<int>(sizeof(T));
-  const int x_bytes = stage_rows * row_bytes;
+  const int pitch = row_pitch<T, ALIGNED>(d);  // row_bytes when ALIGNED
+  const int dp = ALIGNED ? d : padded_d<T>(d);
+  const int x_bytes = stage_rows * pitch;
   const int stage_bytes = x_bytes + kLabelBytes;
   unsigned char* ring = smem;
   float* s_w = reinterpret_cast<float*>(smem + stages * stage_bytes);
-  float* s_acc = s_w + d;
+  float* s_acc = s_w + dp;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -472,9 +592,9 @@ __device__ __forceinline__ void ring_sums(
 
   if (warp == kConsumerWarps) {
     if constexpr (GATHER) {
-      gather_produce<T>(X, y, valid, b_begin, b_end, row_bytes, stage_rows,
-                        stages, stage_bytes, x_bytes, ring, full, empty,
-                        lane);
+      gather_produce<T, ALIGNED>(X, y, valid, b_begin, b_end, row_bytes,
+                                 pitch, stage_rows, stages, stage_bytes,
+                                 x_bytes, ring, full, empty, lane);
     } else if (lane == 0) {
       // producer: one thread keeps the ring full
       for (int t = 0; t < ntiles; ++t) {
@@ -491,10 +611,22 @@ __device__ __forceinline__ void ring_sums(
         const Span ys = aligned_span(y + row0 + r0, nr, 4);
         Span vs{nullptr, 0, 0};
         if (valid != nullptr) vs = aligned_span(valid + row0 + r0, nr, 1);
-        mbar_arrive_expect_tx(&full[s], bytes + ys.bytes + vs.bytes);
-        bulk_load(st,
-                  xbytes + (row0 + r0) * static_cast<long long>(row_bytes),
-                  bytes, &full[s]);
+        if constexpr (ALIGNED) {
+          mbar_arrive_expect_tx(&full[s], bytes + ys.bytes + vs.bytes);
+          bulk_load(st,
+                    xbytes + (row0 + r0) * static_cast<long long>(row_bytes),
+                    bytes, &full[s]);
+        } else {
+          // each row's superset into its slot
+          uint32_t landed = 0;
+          for (int k = 0; k < nr; ++k) {
+            const Span xs =
+                aligned_span(X + (row0 + r0 + k) * d, d, sizeof(T));
+            bulk_load(st + k * pitch, xs.base, xs.bytes, &full[s]);
+            landed += xs.bytes;
+          }
+          mbar_arrive_expect_tx(&full[s], landed + ys.bytes + vs.bytes);
+        }
         bulk_load(st + x_bytes, ys.base, ys.bytes, &full[s]);
         if (valid != nullptr)
           bulk_load(st + x_bytes + kLabelYBytes, vs.base, vs.bytes, &full[s]);
@@ -509,11 +641,13 @@ __device__ __forceinline__ void ring_sums(
       for (int e = 0; e < kColVec; ++e) acc[k][e] = 0.0f;
     double loss_acc = 0.0;
     double cnt_acc = 0.0;
-    const int nvec = row_bytes / 16;
+    const int nvec = ALIGNED ? row_bytes / 16 : dp / kVec16;
     // round_T(w) while the producer's first copies are in flight
     for (int j = tid; j < d; j += kConsumers) s_w[j] = round_to<T>(w[j]);
+    if constexpr (!ALIGNED)
+      for (int j = d + tid; j < dp; j += kConsumers) s_w[j] = 0.0f;
     consumer_sync();
-    const int nchunk = d / kColVec;
+    const int nchunk = ALIGNED ? d / kColVec : (d + kColVec - 1) / kColVec;
 
     const int rb = warp * kRowsPerWarp;  // this warp's rows of a tile
 
@@ -525,6 +659,10 @@ __device__ __forceinline__ void ring_sums(
       int nr;
       const float* s_y;
       const uint8_t* s_v;
+      // ALIGNED = false: the tile's first row's address (its low bits
+      // give each row's lead), or the gathered rows' leads
+      uint32_t x0 = 0;
+      const uint8_t* s_lead = st + x_bytes + kGatherLeadOffset;
       if constexpr (GATHER) {
         nr = *reinterpret_cast<const int*>(st + x_bytes + kGatherCountOffset);
         s_y = reinterpret_cast<const float*>(st + x_bytes);
@@ -539,19 +677,29 @@ __device__ __forceinline__ void ring_sums(
                   ? nullptr
                   : st + x_bytes + kLabelYBytes +
                         aligned_span(valid + row0 + r0, nr, 1).lead;
+        if constexpr (!ALIGNED)
+          x0 = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(
+              xbytes + (row0 + r0) * static_cast<long long>(row_bytes)));
       }
+      // the lead of the tile's row r (ALIGNED = false)
+      auto lead_of = [&](int r) -> uint32_t {
+        if constexpr (GATHER) return s_lead[r];
+        return (x0 + static_cast<uint32_t>(r * row_bytes)) & 15u;
+      };
 
       // (a) margins, pointwise rule, rounded coefficients: rows rb, rb + 1
       if (rb < nr) {
         bool in[kRowsPerWarp];
         const T* xr[kRowsPerWarp];
         float dot[kRowsPerWarp];
+        uint32_t lead[kRowsPerWarp];
 #pragma unroll
         for (int k = 0; k < kRowsPerWarp; ++k) {
           in[k] = rb + k < nr;
           xr[k] = reinterpret_cast<const T*>(st + (in[k] ? rb + k : rb) *
-                                                      row_bytes);
+                                                      pitch);
           dot[k] = 0.0f;
+          if constexpr (!ALIGNED) lead[k] = lead_of(in[k] ? rb + k : rb);
         }
         for (int c = lane; c < nvec; c += 32) {
           float wv[kVec16];
@@ -572,7 +720,16 @@ __device__ __forceinline__ void ring_sums(
           for (int k = 0; k < kRowsPerWarp; ++k) {
             if (GATHER || in[k]) {
               float xv[kVec16];
-              load16<T>(xr[k] + c * kVec16, xv);
+              if constexpr (ALIGNED) {
+                load16<T>(xr[k] + c * kVec16, xv);
+              } else {
+                load16_at<T>(reinterpret_cast<const unsigned char*>(xr[k]),
+                             lead[k], c, xv);
+                // the last vector's values past d (w is 0 there)
+#pragma unroll
+                for (int e = 0; e < kVec16; ++e)
+                  if (c * kVec16 + e >= d) xv[e] = 0.0f;
+              }
 #pragma unroll
               for (int e = 0; e < kVec16; ++e)
                 dot[k] = fmaf(xv[e], wv[e], dot[k]);
@@ -607,13 +764,20 @@ __device__ __forceinline__ void ring_sums(
 #pragma unroll 4
       for (int r = 0; r < nr; ++r) {
         const float cf = coeff[r];
-        const T* xr = reinterpret_cast<const T*>(st + r * row_bytes);
+        const T* xr = reinterpret_cast<const T*>(st + r * pitch);
+        const uint32_t lead = ALIGNED ? 0u : lead_of(r);
 #pragma unroll
         for (int k = 0; k < CPT; ++k) {
           const int j = tid + k * kConsumers;
           if (j < nchunk) {
             float xv[kColVec];
-            load_cols<T>(xr + j * kColVec, xv);
+            // (ALIGNED = false: the last chunk's sums past d stay out of
+            // the output, which reads columns below d only)
+            if constexpr (ALIGNED)
+              load_cols<T>(xr + j * kColVec, xv);
+            else
+              load_cols_at<T>(reinterpret_cast<const unsigned char*>(xr),
+                              lead, j, xv);
 #pragma unroll
             for (int e = 0; e < kColVec; ++e)
               acc[k][e] = fmaf(cf, xv[e], acc[k][e]);
@@ -683,7 +847,7 @@ __device__ __forceinline__ void ring_sums(
   cluster_sync();
 }
 
-template <int F, typename T, int CPT>
+template <int F, typename T, int CPT, bool ALIGNED>
 __global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
     window_main(const T* __restrict__ X, const float* __restrict__ y,
                 const float* __restrict__ w,
@@ -693,13 +857,13 @@ __global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
                 int stages, float* __restrict__ part_grad,
                 double* __restrict__ part_loss,
                 double* __restrict__ part_cnt) {
-  ring_sums<F, T, CPT, false>(X, y, w, valid, start, start_scale, n_total,
-                              rows, d, stage_rows, stages, part_grad,
-                              part_loss, part_cnt);
+  ring_sums<F, T, CPT, false, ALIGNED>(X, y, w, valid, start, start_scale,
+                                       n_total, rows, d, stage_rows, stages,
+                                       part_grad, part_loss, part_cnt);
 }
 
 // The rows of [0, n) that `mask` keeps.
-template <int F, typename T, int CPT>
+template <int F, typename T, int CPT, bool ALIGNED>
 __global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
     gather_main(const T* __restrict__ X, const float* __restrict__ y,
                 const float* __restrict__ w,
@@ -707,8 +871,9 @@ __global__ void __launch_bounds__(kThreads, CPT <= 2 ? 2 : 1)
                 int stage_rows, int stages, float* __restrict__ part_grad,
                 double* __restrict__ part_loss,
                 double* __restrict__ part_cnt) {
-  ring_sums<F, T, CPT, true>(X, y, w, mask, nullptr, 1, n, n, d, stage_rows,
-                             stages, part_grad, part_loss, part_cnt);
+  ring_sums<F, T, CPT, true, ALIGNED>(X, y, w, mask, nullptr, 1, n, n, d,
+                                      stage_rows, stages, part_grad,
+                                      part_loss, part_cnt);
 }
 
 // Sums the clusters' partials: block b takes columns [32 b, 32 b + 32),
@@ -810,10 +975,12 @@ cudaError_t max_clusters(K kern, const Args& a, int smem, int* clusters) {
       clusters);
 }
 
-template <typename T>
+// The dynamic shared memory of a ring: its stages (rows, then labels),
+// then round_T(w) and the sums (cuda_kernels.window_stage_plan's twin).
+template <typename T, bool ALIGNED>
 int ring_smem(const Args& a) {
-  const int row_bytes = a.d * static_cast<int>(sizeof(T));
-  return a.stages * (a.stage_rows * row_bytes + kLabelBytes) + 8 * a.d;
+  return a.stages * (a.stage_rows * row_pitch<T, ALIGNED>(a.d) + kLabelBytes) +
+         8 * padded_d<T>(a.d);
 }
 
 // Clusters of the persistent grid over a.rows rows: as many as fit on the
@@ -821,12 +988,13 @@ int ring_smem(const Args& a) {
 // gather entry splits n rows as the window entry does), at most one a
 // scratch row (the wrapper sizes the scratch for the blocks an SM its plan
 // aims at), and no more clusters than the rows have tiles.
-template <int F, typename T, int CPT>
+template <int F, typename T, int CPT, bool ALIGNED>
 cudaError_t grid_clusters(const Args& a, long long* clusters) {
-  const int smem = ring_smem<T>(a);
+  const int smem = ring_smem<T, ALIGNED>(a);
   if (smem > kMaxDynamicSmem) return cudaErrorInvalidValue;
   int fit = 0;
-  cudaError_t e = max_clusters(window_main<F, T, CPT>, a, smem, &fit);
+  cudaError_t e =
+      max_clusters(window_main<F, T, CPT, ALIGNED>, a, smem, &fit);
   if (e != cudaSuccess) return e;
   const long long tiles = (a.rows + a.stage_rows - 1) / a.stage_rows;
   long long c = fit;
@@ -838,12 +1006,12 @@ cudaError_t grid_clusters(const Args& a, long long* clusters) {
   return cudaSuccess;
 }
 
-template <int F, typename T, int CPT>
+template <int F, typename T, int CPT, bool ALIGNED>
 cudaError_t launch(const Args& a) {
   long long clusters = 0;
-  cudaError_t e = grid_clusters<F, T, CPT>(a, &clusters);
+  cudaError_t e = grid_clusters<F, T, CPT, ALIGNED>(a, &clusters);
   if (e != cudaSuccess) return e;
-  const int smem = ring_smem<T>(a);
+  const int smem = ring_smem<T, ALIGNED>(a);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(clusters * a.cluster));
   cfg.blockDim = dim3(kThreads);
@@ -857,7 +1025,7 @@ cudaError_t launch(const Args& a) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if (a.gather) {
-    auto kern = gather_main<F, T, CPT>;
+    auto kern = gather_main<F, T, CPT, ALIGNED>;
     int fit = 0;  // sets the gather entry's shared-memory attribute
     e = max_clusters(kern, a, smem, &fit);
     if (e != cudaSuccess) return e;
@@ -865,7 +1033,7 @@ cudaError_t launch(const Args& a) {
                            a.valid, a.rows, a.d, a.stage_rows, a.stages,
                            a.part_grad, a.part_loss, a.part_cnt);
   } else {
-    e = cudaLaunchKernelEx(&cfg, window_main<F, T, CPT>,
+    e = cudaLaunchKernelEx(&cfg, window_main<F, T, CPT, ALIGNED>,
                            static_cast<const T*>(a.X), a.y, a.w, a.valid,
                            a.start, a.start_scale, a.n_total, a.rows, a.d,
                            a.stage_rows, a.stages, a.part_grad, a.part_loss,
@@ -880,31 +1048,40 @@ cudaError_t launch(const Args& a) {
 }
 
 // chunks: column chunks a consumer thread holds (a power of two)
-template <int F, typename T>
+template <int F, typename T, bool ALIGNED>
 cudaError_t by_chunks(const Args& a) {
-  const int per = (a.d / kColVec + kConsumers - 1) / kConsumers;
-  if (per <= 1) return launch<F, T, 1>(a);
-  if (per <= 2) return launch<F, T, 2>(a);
-  if (per <= 4) return launch<F, T, 4>(a);
-  if (per <= kMaxChunksPerThread) return launch<F, T, 8>(a);
+  const int chunks = (a.d + kColVec - 1) / kColVec;
+  const int per = (chunks + kConsumers - 1) / kConsumers;
+  if (per <= 1) return launch<F, T, 1, ALIGNED>(a);
+  if (per <= 2) return launch<F, T, 2, ALIGNED>(a);
+  if (per <= 4) return launch<F, T, 4, ALIGNED>(a);
+  if (per <= kMaxChunksPerThread) return launch<F, T, 8, ALIGNED>(a);
   return cudaErrorInvalidValue;
+}
+
+// The ALIGNED instance when every row starts on a 16-byte unit: whole
+// units a row, on an aligned base.
+template <int F, typename T>
+cudaError_t by_alignment(const Args& a) {
+  const bool aligned = (a.d * static_cast<int>(sizeof(T))) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(a.X) % 16 == 0;
+  return aligned ? by_chunks<F, T, true>(a) : by_chunks<F, T, false>(a);
 }
 
 template <int F>
 cudaError_t by_dtype(int dtype, const Args& a) {
-  if (dtype == kF32) return by_chunks<F, float>(a);
-  if (dtype == kBF16) return by_chunks<F, __nv_bfloat16>(a);
+  if (dtype == kF32) return by_alignment<F, float>(a);
+  if (dtype == kBF16) return by_alignment<F, __nv_bfloat16>(a);
   return cudaErrorInvalidValue;
 }
 
 int dispatch(int family, int dtype, const Args& a) {
   const int itemsize = dtype == kBF16 ? 2 : 4;
-  if (a.d <= 0 || (a.d * itemsize) % 16 != 0 || a.rows < 0 ||
-      a.rows > a.n_total || a.stage_rows < 1 ||
+  if (a.d <= 0 || a.rows < 0 || a.rows > a.n_total || a.stage_rows < 1 ||
       a.stage_rows > kMaxStageRows || a.stages < 1 ||
       a.stages > kMaxStages || a.cluster < 1 || a.cluster > 8 ||
       a.max_parts < 1 ||
-      reinterpret_cast<uintptr_t>(a.X) % 16 != 0)
+      reinterpret_cast<uintptr_t>(a.X) % itemsize != 0)
     return cudaErrorInvalidValue;
   switch (family) {
     case kLeastSquares: return by_dtype<kLeastSquares>(dtype, a);

@@ -14,17 +14,25 @@ sources (sm_90a) serve the three wrappers:
 
 The shape rule.  A CUDA call goes to ``csrc/window_sums.cu`` (bulk copies
 into a shared-memory ring, a cluster reduction) when
-:func:`window_stage_plan` gives X's width a plan and X's base address is
-16-byte aligned (:func:`window_plan_for`): a window to its ``window_main``,
-an unmasked ``fused_gradient_sums`` to the same entry as a window of ``n``
-rows at start 0, a masked one to its ``gather_main``, which deals the live
-rows into the ring (:func:`gradient_sums_route`).  Every other call goes
-to ``csrc/fused_sums.cu``: rows that are not whole 16-byte units (d =
-1001 bf16, say), widths above ``WINDOW_MAX_D`` up to the
-:func:`_check_tile_smem` limit, rings that do not fit, misaligned bases.
-Wider rows raise.  On the TPU the two window kernels differed in how they
-used the matrix unit; on Hopper both are one dot product and one FMA per
-element, so they launch the same kernel and keep separate launch counts.
+:func:`window_stage_plan` gives X's width a plan for its base
+(:func:`window_plan_for`; any base aligned to X's element size): a window
+to its ``window_main``, an unmasked ``fused_gradient_sums`` to the same
+entry as a window of ``n`` rows at start 0, a masked one to its
+``gather_main``, which deals the live rows into the ring
+(:func:`gradient_sums_route`).  Rows of whole 16-byte units on a 16-byte
+aligned base land back to back in a stage; any other row (d = 1001 bf16,
+101 f32, a view one element off a unit) lands through its 16-byte aligned
+superset into a slot of :func:`window_row_pitch` bytes.  Every other call
+goes to ``csrc/fused_sums.cu``: widths whose ring does not fit beside w
+and the sums (f32 above 4,124 columns, bf16 above 7,216; above 4,121 and
+7,209 when a row is not whole 16-byte units or the base is not 16-byte
+aligned) and widths above ``WINDOW_MAX_D``, up to the
+:func:`_check_tile_smem` limit.  Their rows cannot be staged whole in
+shared memory, and ``fused_sums.cu`` reads a tile a second time from L2
+instead.  Wider rows raise.  On the TPU the two window kernels differed
+in how they used the matrix unit; on Hopper both are one dot product and
+one FMA per element, so they launch the same kernel and keep separate
+launch counts.
 The ring's split of rows among its blocks has a mirror here
 (:func:`ring_grid`).
 
@@ -173,11 +181,13 @@ _SMEM_RESERVED_PER_BLOCK = 1024
 @dataclass(frozen=True)
 class StagePlan:
     """How ``csrc/window_sums.cu`` runs a width: ``stage_rows`` rows of X a
-    ring stage (one bulk copy of ``stage_bytes``, then the rows' labels and
-    valid flags in ``WINDOW_LABEL_BYTES``), ``stages`` stages, ``cluster``
-    blocks a cluster, ``blocks_per_sm`` resident blocks an SM the ring is
-    sized for, and the dynamic shared memory a block uses (the ring, then
-    ``round_T(w)`` and the ``(d,)`` f32 sums)."""
+    ring stage (``stage_bytes``, each row in a slot of
+    :func:`window_row_pitch` bytes, then the rows' labels and valid flags
+    in ``WINDOW_LABEL_BYTES``), ``stages`` stages, ``cluster`` blocks a
+    cluster, ``blocks_per_sm`` resident blocks an SM the ring is sized for,
+    and the dynamic shared memory a block uses (the ring, then
+    ``round_T(w)`` and the f32 sums, each :func:`window_padded_d`
+    columns)."""
 
     stage_rows: int
     stages: int
@@ -187,29 +197,51 @@ class StagePlan:
     smem_bytes: int
 
 
+def window_row_pitch(d: int, itemsize: int, aligned_base: bool) -> int:
+    """Bytes of a ring slot for one row (``row_pitch`` in the source): the
+    row itself when it is whole 16-byte units on a 16-byte aligned base,
+    else the bound of its 16-byte aligned superset, the row after a lead
+    of at most ``16 - itemsize`` bytes rounded up to whole units."""
+    row = d * itemsize
+    if row % 16 == 0 and aligned_base:
+        return row
+    return -(-(row + 16 - itemsize) // 16) * 16
+
+
+def window_padded_d(d: int, itemsize: int) -> int:
+    """Columns of ``round_T(w)`` and of the sums in the kernel's shared
+    memory (``padded_d``): d rounded up to whole 16-byte vectors."""
+    vec = 16 // itemsize
+    return -(-d // vec) * vec
+
+
 @functools.lru_cache(maxsize=None)
-def window_stage_plan(d: int, itemsize: int) -> Optional[StagePlan]:
+def window_stage_plan(d: int, itemsize: int,
+                      aligned_base: bool) -> Optional[StagePlan]:
     """The window kernel's plan for rows of ``d`` elements of ``itemsize``
-    bytes, or ``None`` when the kernel does not take the width: a row must
-    be whole 16-byte units (the bulk copy's unit) and at least
-    ``WINDOW_MIN_STAGES`` stages of at least 4 rows must fit beside ``w``
-    and the sums in one block's shared memory.  Rows of up to
+    bytes on a base that is 16-byte aligned or not (``aligned_base``, as
+    :func:`window_plan_for` reads it from X and the kernel picks its
+    instance), or ``None`` when the kernel does not take the width: at
+    least ``WINDOW_MIN_STAGES`` stages
+    of at least 4 slots of :func:`window_row_pitch` bytes must fit beside
+    ``w`` and the sums in one block's shared memory.  Rows of up to
     ``WINDOW_TWO_BLOCK_MAX_D`` columns get two blocks an SM when their
     ring fits in half of it; then the planner takes the most rows a stage
     (16, 8 or 4) that leave 3 stages, and as many stages as fit, up to 8."""
-    row = d * itemsize
-    if d <= 0 or row % 16 or d > WINDOW_MAX_D:
+    if d <= 0 or d > WINDOW_MAX_D:
         return None
+    pitch = window_row_pitch(d, itemsize, aligned_base)
+    sums = 8 * window_padded_d(d, itemsize)
     for blocks in ((2, 1) if d <= WINDOW_TWO_BLOCK_MAX_D else (1,)):
         block_smem = (SMEM_PER_BLOCK if blocks == 1
                       else SMEM_PER_SM // 2 - _SMEM_RESERVED_PER_BLOCK)
-        budget = block_smem - _WINDOW_STATIC_SMEM - 8 * d
+        budget = block_smem - _WINDOW_STATIC_SMEM - sums
         for rows in WINDOW_STAGE_ROWS:
-            stage = rows * row + WINDOW_LABEL_BYTES
+            stage = rows * pitch + WINDOW_LABEL_BYTES
             stages = min(WINDOW_MAX_STAGES, budget // stage)
             if stages >= WINDOW_MIN_STAGES:
                 return StagePlan(rows, stages, WINDOW_CLUSTER, blocks,
-                                 rows * row, stages * stage + 8 * d)
+                                 rows * pitch, stages * stage + sums)
     return None
 
 
@@ -530,7 +562,7 @@ def gradient_sums_route(X: Tensor, masked: bool) -> str:
     """The kernel a CUDA call of :func:`fused_gradient_sums` on X
     launches: ``"gather"`` (``window_sums.cu``'s gather entry) for a mask
     and ``"window"`` (its window entry over rows ``[0, n)``) without one,
-    when X's width has a ring plan and its base is 16-byte aligned; else
+    when X has a ring plan (:func:`window_plan_for`); else
     ``"fused_sums"`` (``csrc/fused_sums.cu``).  Shapes alone decide."""
     if window_plan_for(X) is None:
         return "fused_sums"
@@ -566,11 +598,16 @@ def _window(counter, pointwise, X, y, w, start_tile, num_tiles, tile_m,
 
 def window_plan_for(X: Tensor) -> Optional[StagePlan]:
     """The window kernel's plan for X, or ``None`` when X's windows go to
-    ``csrc/fused_sums.cu``: X's width has no plan, or its base address is
-    not 16-byte aligned (the bulk copies' alignment)."""
-    if X.dim() != 2 or X.dtype not in _DTYPES or X.data_ptr() % 16:
+    ``csrc/fused_sums.cu``: X's width has no plan on X's base, or the base
+    is not aligned to X's element size.  The base's 16-byte alignment
+    picks the row layout, and with it the plan (:func:`window_row_pitch`),
+    as the kernel picks its instance."""
+    if X.dim() != 2 or X.dtype not in _DTYPES:
         return None
-    return window_stage_plan(X.shape[1], X.element_size())
+    ptr, itemsize = X.data_ptr(), X.element_size()
+    if ptr % itemsize:
+        return None
+    return window_stage_plan(X.shape[1], itemsize, ptr % 16 == 0)
 
 
 def fused_window_sums(

@@ -44,7 +44,9 @@ One run exercises the whole circulatory system at once:
 
 Deterministic by construction: the arrival schedule, traffic mix, data
 drift, and fault schedule all derive from ``seed``.  The widths, rounds,
-phases, rates and SLO bounds are the JAX package's, by mode.
+phases, rates and SLO bounds are the JAX package's, by mode; ``full``
+keeps the killed worker dead longer, with a longer kill round
+(``REJOIN_BACKOFF_S``, ``KILL_BONUS``).
 """
 
 from __future__ import annotations
@@ -75,6 +77,17 @@ P99_BOUND_S = {"smoke": 1.5, "full": 1.0}
 #: production bound of 0.5 stays on the full-size run.
 INTERACTIVE_SHED_MAX = {"smoke": 0.7, "full": 0.5}
 STALENESS_MAX_S = 60.0
+#: the killed worker's dead period, by mode.  The straggler SLO needs the
+#: fleet to take 5 steps in it.  ``smoke`` keeps the JAX package's 0.5 s:
+#: a CPU fleet takes about 190 steps in it.  On the card the fleet takes
+#: about 40 steps a second under the burst, so 0.5 s left a stall of the
+#: whole process of 0.4 s no room; ``full`` (the card's mode) waits
+#: 1.5 s, which leaves it about a second.
+REJOIN_BACKOFF_S = {"smoke": 0.5, "full": 1.5}
+#: the kill round's extra versions, by mode: the round must outlast the
+#: dead period on the fastest host, about 380 versions a second on a
+#: quiet CPU (the budget is sized so ``full`` still rejoins there)
+KILL_BONUS = {"smoke": 400, "full": 800}
 
 
 def build_slos(mode: str = "smoke", violate: Optional[str] = None) -> dict:
@@ -250,8 +263,10 @@ def run_scenario(
     # is cumulative over fleet progress (load-invariant), and at tau=2 x
     # 3 workers the SSP progress bound caps a LIVE worker's lag at
     # ~(workers-1)*tau = 4 peer steps — 5 is the smallest threshold only
-    # a dead worker can reach, which keeps detection inside the 0.5s
-    # rejoin window even when ambient load slows the fleet to a crawl.
+    # a dead worker can reach.  The victim's dead period is wall clock
+    # (the rejoin backoff, REJOIN_BACKOFF_S), so the fleet must take
+    # those 5 steps inside it, after the window of the victim's last
+    # step, even when the whole process stalls for part of it.
     # Flight recorder teed over the same sink, dumping on every alert
     # transition.
     detectors = ([det for det in default_detectors()
@@ -267,12 +282,11 @@ def run_scenario(
         # the budgets monotone) gets extra runway — the rejoin races the
         # surviving workers' remaining work, and a round that ends
         # before the seeded backoff comes due would never rejoin.  The
-        # bonus is sized for the straggler detector: the victim stays
-        # dead for the full 0.5s rejoin backoff, so the survivors need
-        # enough budget to keep stepping PAST it (the cumulative rule
-        # needs 5 fleet steps during the dead period; the rejoin needs
-        # the round still running when the backoff expires)
-        kill_bonus = 200 if smoke else 240
+        # bonus is sized for the fastest host: the victim stays dead for
+        # the full REJOIN_BACKOFF_S, and the round must still be running
+        # when that expires (the survivors take about 380 versions a
+        # second on a quiet CPU, about 40 under the burst on the card)
+        kill_bonus = KILL_BONUS[mode]
 
         def _budget(round_index: int) -> int:
             return (iters_per_round * (round_index + 1)
@@ -291,14 +305,14 @@ def run_scenario(
                     # the store-kill round promotes it live
                     .set_standbys(1)
                     .set_checkpoint(manager, every=ckpt_every)
-                    # jitter=0: the killed worker's dead period is a
-                    # deterministic 0.5s EVERY run, not a lucky draw —
+                    # jitter=0: the killed worker's dead period is the
+                    # same REJOIN_BACKOFF_S EVERY run, not a lucky draw —
                     # the straggler-alert SLO gates on the fleet
                     # accumulating its 5 steps inside that window
-                    .set_rejoin(RetryPolicy(max_attempts=5,
-                                            base_backoff_s=0.5,
-                                            jitter=0.0,
-                                            seed=seed + 43)))
+                    .set_rejoin(RetryPolicy(
+                        max_attempts=5,
+                        base_backoff_s=REJOIN_BACKOFF_S[mode],
+                        jitter=0.0, seed=seed + 43)))
 
         # -- round 0: seed the first servable versions ---------------------
         w0 = np.zeros(d, np.float32)
